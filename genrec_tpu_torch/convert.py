@@ -1,0 +1,66 @@
+"""Weights carried across from the JAX package.
+
+``tiger_params_from_flax`` maps a Flax TIGER param tree (nested dicts of
+numpy arrays, as ``jax.device_get(params)`` gives it) onto the state dict
+of ``genrec_tpu_torch.models.tiger.Tiger``, so both packages compute the
+same function from the same weights. The names follow the Flax module
+names one for one, with three rewrites:
+
+- ``layer_<i>`` (Flax list submodules) -> ``layers.<i>`` (``nn.ModuleList``);
+- ``<dense>/kernel`` (Flax ``nn.Dense``, stored ``(in, out)``) ->
+  ``<dense>.weight`` (``nn.Linear``, stored ``(out, in)``), transposed;
+- every other leaf keeps its name (``rel_bias`` keeps its
+  ``(H * buckets, 1)`` storage).
+"""
+
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+
+def _flatten(tree, prefix=()):
+    for key, val in tree.items():
+        path = (*prefix, str(key))
+        if isinstance(val, dict) or hasattr(val, "items"):
+            yield from _flatten(val, path)
+        else:
+            yield path, val
+
+
+def _torch_name(path: tuple[str, ...]) -> tuple[str, bool]:
+    """(state-dict name, whether the leaf is a transposed Dense kernel)."""
+    parts = [re.sub(r"^layer_(\d+)$", r"layers.\1", p) for p in path]
+    if parts[-1] == "kernel":
+        return ".".join([*parts[:-1], "weight"]), True
+    return ".".join(parts), False
+
+
+def tiger_params_from_flax(params_np, model=None) -> dict[str, torch.Tensor]:
+    """Flax TIGER params -> the port's state dict (CPU float tensors).
+
+    Every Flax leaf is consumed exactly once. With ``model`` given, the
+    result must also fill every parameter of ``model`` at its shape; both
+    are asserted, so a renamed or reshaped parameter fails loudly here
+    instead of loading silently wrong."""
+    out: dict[str, torch.Tensor] = {}
+    for path, leaf in _flatten(params_np):
+        name, is_kernel = _torch_name(path)
+        arr = np.array(leaf)  # a copy: jax buffers are read-only
+        if is_kernel:
+            arr = arr.T
+        if name in out:
+            raise AssertionError(f"two Flax leaves map to {name}")
+        out[name] = torch.from_numpy(np.ascontiguousarray(arr))
+    if model is not None:
+        want = {n: tuple(p.shape) for n, p in model.state_dict().items()}
+        unfilled = sorted(set(want) - set(out))
+        unused = sorted(set(out) - set(want))
+        assert not unfilled, f"port parameters with no Flax leaf: {unfilled}"
+        assert not unused, f"Flax leaves with no port parameter: {unused}"
+        bad = {n: (tuple(t.shape), want[n]) for n, t in out.items()
+               if tuple(t.shape) != want[n]}
+        assert not bad, f"shape mismatches (flax -> port, port): {bad}"
+    return out

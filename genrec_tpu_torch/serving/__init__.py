@@ -1,0 +1,1 @@
+"""serving of the PyTorch/CUDA port (mirrors genrec_tpu/serving)."""

@@ -1,0 +1,158 @@
+"""The port stands alone: genrec_tpu_torch imports neither jax nor the JAX
+package, its entry points default to the card, and chip_smoke.py refuses
+to report anything without one.
+"""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from genrec_tpu_torch.catalog.snapshot import CatalogSnapshot
+from genrec_tpu_torch.catalog.tensor_trie import TensorTrie
+from genrec_tpu_torch.device import resolve_device
+from genrec_tpu_torch.models.embeddings import SemIdEmbedding, UserIdEmbedding
+from genrec_tpu_torch.models.layers import RMSNorm
+from genrec_tpu_torch.models.t5transformer import (
+    T5Attention,
+    T5FeedForward,
+    TransformerBlock,
+    TransformerDecoder,
+    TransformerEncoder,
+    TransformerEncoderDecoder,
+)
+from genrec_tpu_torch.models.tiger import Tiger
+from genrec_tpu_torch.serving.engine import ServingEngine
+from genrec_tpu_torch.serving.heads import TigerGenerativeHead
+from genrec_tpu_torch.serving.kv_pool import KVPagePool, PagedConfig
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "genrec_tpu")
+
+# Runs in a fresh interpreter: jax and friends are poisoned in
+# sys.modules, and a meta-path hook refuses genrec_tpu and genrec_tpu.*
+# (but not genrec_tpu_torch, whose name only shares the prefix).
+_IMPORT_EVERY_MODULE = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+FORBIDDEN = %r
+for name in FORBIDDEN[:-1]:
+    sys.modules[name] = None
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "genrec_tpu" or name.startswith("genrec_tpu."):
+            raise ImportError(f"the port imported {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import genrec_tpu_torch
+
+names = ["genrec_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(genrec_tpu_torch.__path__, "genrec_tpu_torch.")
+]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(
+    n for n, m in sys.modules.items()
+    if m is not None and n.split(".")[0] in FORBIDDEN
+)
+assert not leaked, leaked
+print(len(names))
+""" % (FORBIDDEN,)
+
+
+def test_every_module_imports_without_jax_or_the_jax_package():
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_EVERY_MODULE], cwd=REPO,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    # Every module of the slice was reached (models, ops, kernels, catalog,
+    # serving and their packages).
+    assert int(proc.stdout.split()[-1]) >= 20
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize(
+    "path",
+    [REPO / "chip_smoke.py"] + sorted((REPO / "genrec_tpu_torch").rglob("*.py")),
+    ids=lambda p: str(p.relative_to(REPO)),
+)
+def test_source_names_no_forbidden_import(path):
+    assert not _imported_roots(path) & set(FORBIDDEN)
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    """Entry points behave as on a machine without a CUDA device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_entry_points_raise_without_a_card(no_card):
+    cfg = dict(embedding_dim=8, attn_dim=16, num_heads=2, n_layers=2,
+               num_item_embeddings=4, num_user_embeddings=3, sem_id_dim=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Tiger(**cfg)
+    for build in (
+        lambda: RMSNorm(8),
+        lambda: SemIdEmbedding(4, 2, 8),
+        lambda: UserIdEmbedding(3, 8),
+        lambda: T5Attention(16, 2),
+        lambda: T5FeedForward(16, 32),
+        lambda: TransformerBlock(16, 2, 32, cross_attn=True),
+        lambda: TransformerEncoder(16, 1, 2, 32),
+        lambda: TransformerDecoder(16, 1, 2, 32),
+        lambda: TransformerEncoderDecoder(16, 2, 1, 1, 32),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        KVPagePool(PagedConfig(max_slots=2, page_size=8, pages_per_slot=1), 1, 2, 4)
+    catalog = CatalogSnapshot.build(np.asarray([[0, 1], [2, 3]]), 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        catalog.device_trie()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TensorTrie.build(np.asarray([[0, 1]]), 4).to()
+    head = TigerGenerativeHead(Tiger(device="cpu", **cfg), catalog=catalog)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine([head])
+    # Asked for explicitly, the CPU serves.
+    assert ServingEngine([head], device="cpu").device == torch.device("cpu")
+
+
+def _run_smoke(cwd: Path) -> subprocess.CompletedProcess:
+    return subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True,
+        text=True, timeout=300,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+    )
+
+
+def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
+    """No card: a non-zero exit and no result line. Copied into a
+    directory that holds nothing else of the repo: the same."""
+    alone = tmp_path / "alone"
+    alone.mkdir()
+    shutil.copy(REPO / "chip_smoke.py", alone / "chip_smoke.py")
+    for cwd in (REPO, alone):
+        proc = _run_smoke(cwd)
+        assert proc.returncode != 0, proc.stdout
+        assert '"ok"' not in proc.stdout
