@@ -1,16 +1,17 @@
 """Weights carried across from the JAX package.
 
-``tiger_params_from_flax`` maps a Flax TIGER param tree (nested dicts of
-numpy arrays, as ``jax.device_get(params)`` gives it) onto the state dict
-of ``genrec_tpu_torch.models.tiger.Tiger``, so both packages compute the
-same function from the same weights. The names follow the Flax module
-names one for one, with three rewrites:
+``tiger_params_from_flax`` and ``hstu_params_from_flax`` map a Flax param
+tree (nested dicts of numpy arrays, as ``jax.device_get(params)`` gives
+it) onto the state dict of the port's ``Tiger`` and ``HSTU``, so both
+packages compute the same function from the same weights. The names
+follow the Flax module names one for one, with these rewrites:
 
 - ``layer_<i>`` (Flax list submodules) -> ``layers.<i>`` (``nn.ModuleList``);
 - ``<dense>/kernel`` (Flax ``nn.Dense``, stored ``(in, out)``) ->
   ``<dense>.weight`` (``nn.Linear``, stored ``(out, in)``), transposed;
-- every other leaf keeps its name (``rel_bias`` keeps its
-  ``(H * buckets, 1)`` storage).
+- HSTU only: ``<norm>/scale`` (Flax ``nn.LayerNorm``) -> ``<norm>.weight``;
+- every other leaf keeps its name and storage (TIGER's ``rel_bias`` its
+  ``(H * buckets, 1)``, HSTU's bias tables their ``(buckets, H)``).
 """
 
 from __future__ import annotations
@@ -30,12 +31,12 @@ def _flatten(tree, prefix=()):
             yield path, val
 
 
-def _torch_name(path: tuple[str, ...]) -> tuple[str, bool]:
+def _torch_name(path: tuple[str, ...], renames: dict[str, str]) -> tuple[str, bool]:
     """(state-dict name, whether the leaf is a transposed Dense kernel)."""
     parts = [re.sub(r"^layer_(\d+)$", r"layers.\1", p) for p in path]
     if parts[-1] == "kernel":
         return ".".join([*parts[:-1], "weight"]), True
-    return ".".join(parts), False
+    return ".".join([*parts[:-1], renames.get(parts[-1], parts[-1])]), False
 
 
 def tiger_params_from_flax(params_np, model=None) -> dict[str, torch.Tensor]:
@@ -45,9 +46,20 @@ def tiger_params_from_flax(params_np, model=None) -> dict[str, torch.Tensor]:
     result must also fill every parameter of ``model`` at its shape; both
     are asserted, so a renamed or reshaped parameter fails loudly here
     instead of loading silently wrong."""
+    return _params_from_flax(params_np, model, {})
+
+
+def hstu_params_from_flax(params_np, model=None) -> dict[str, torch.Tensor]:
+    """Flax HSTU params (``HSTU.init(...)["params"]``) -> the port's
+    ``HSTU`` state dict, with the same two checks as
+    ``tiger_params_from_flax``."""
+    return _params_from_flax(params_np, model, {"scale": "weight"})
+
+
+def _params_from_flax(params_np, model, renames) -> dict[str, torch.Tensor]:
     out: dict[str, torch.Tensor] = {}
     for path, leaf in _flatten(params_np):
-        name, is_kernel = _torch_name(path)
+        name, is_kernel = _torch_name(path, renames)
         arr = np.array(leaf)  # a copy: jax buffers are read-only
         if is_kernel:
             arr = arr.T

@@ -1,0 +1,88 @@
+"""The train-step factory (port of genrec_tpu/core/harness.py
+``make_train_step``): microbatch gradient accumulation, an optional
+global-norm clip, the optimizer update, and the non-finite guard, all
+issued without waiting for the device. PyTorch runs eagerly, so there is
+no counterpart of ``jit_train_step``; the step updates the state in place
+and returns it.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+
+from genrec_tpu_torch.core.optim import Adam
+from genrec_tpu_torch.core.state import TrainState
+
+# loss_fn(model, batch, generator) -> (loss, aux_metrics_dict)
+LossFn = Callable[[Any, dict, torch.Generator], tuple[torch.Tensor, dict]]
+
+
+def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every gradient (optax.global_norm)."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+
+
+def make_train_step(
+    loss_fn: LossFn,
+    optimizer: Adam,
+    accum_steps: int = 1,
+    clip_norm: float | None = 1.0,
+):
+    """Build ``step(state, batch) -> (state, metrics)``.
+
+    With ``accum_steps > 1`` the batch's leading dim is split into
+    ``accum_steps`` microbatches run one after another; the optimizer and
+    the clip see the averaged full-batch gradient.
+
+    The non-finite guard (the JAX ``skip_nonfinite`` default, which no
+    trainer turns off): when the batch loss or the pre-clip gradient norm
+    is NaN/Inf, the update is dropped on the device:
+    parameters, optimizer state and ``state.step`` stay unchanged (the
+    generator still advances), ``state.nonfinite_count`` counts the
+    consecutive-skip streak (reset by any finite step), and the metrics
+    gain ``nonfinite`` (0/1) and ``nonfinite_count``. Metric values are
+    device tensors; reading one waits for the device.
+    """
+
+    def grads_of(model, params, batch, gen):
+        loss, aux = loss_fn(model, batch, gen)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
+
+    def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+        model, params = state.model, state.params
+        model.train()
+        if accum_steps == 1:
+            loss, aux, grads = grads_of(model, params, batch, state.generator)
+        else:
+            micro = {k: v.chunk(accum_steps, dim=0) for k, v in batch.items()}
+            loss, aux, grads = None, {}, None
+            for i in range(accum_steps):
+                mb = {k: v[i] for k, v in micro.items()}
+                l_i, a_i, g_i = grads_of(model, params, mb, state.generator)
+                loss = l_i if loss is None else loss + l_i
+                grads = g_i if grads is None else torch._foreach_add(grads, g_i)
+                for k, v in a_i.items():
+                    aux[k] = v if k not in aux else aux[k] + v
+            loss = loss / accum_steps
+            grads = torch._foreach_div(grads, accum_steps)
+            aux = {k: v / accum_steps for k, v in aux.items()}
+
+        gnorm = global_norm(grads)
+        if clip_norm is not None:
+            scale = torch.clamp(clip_norm / gnorm.clamp_min(1e-6), max=1.0)
+            grads = torch._foreach_mul(grads, scale)
+        ok = torch.isfinite(loss) & torch.isfinite(gnorm)
+        optimizer.update(params, grads, state.opt_state, ok)
+        state.step = state.step + ok.to(state.step.dtype)
+        state.nonfinite_count = torch.where(
+            ok, 0, state.nonfinite_count + 1).to(state.nonfinite_count.dtype)
+        metrics = {"loss": loss, "grad_norm": gnorm, **aux,
+                   "nonfinite": (~ok).to(torch.float32),
+                   "nonfinite_count": state.nonfinite_count.to(torch.float32)}
+        return state, metrics
+
+    return step

@@ -13,103 +13,39 @@ The kernel is memory-bound: one call reads ``S*Pm*page*H*hd*2*4`` bytes
 of K/V (12.6 MB at the serving shapes S=64, Pm=4, page=16, H=6, hd=64:
 3.8 us at 3.35 TB/s). The source's header says what its design does.
 
-Build: ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into a
-shared library with a plain C interface under ``<repo>/build/``, at first
-use, loaded with ctypes. The library's file name carries a hash of the
-source, so an edited kernel is rebuilt. Nothing here imports or compiles
-anything when the module is imported.
+Build: ``kernels/build.py`` compiles ``csrc/paged_attention.cu`` with nvcc
+for sm_90a into a ctypes library under ``<repo>/build/`` at first use.
+Nothing here imports or compiles anything when the module is imported.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
-NEG = -1e9
-
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "paged_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "genrec_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+from genrec_tpu_torch.kernels.build import (
+    check_tensor,
+    launch_context,
+    load_library,
+    raise_on_error,
 )
+
+NEG = -1e9
 MAX_BEAMS = 32
 MAX_HEAD_DIM = 128
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError(
-            "nvcc not found (PATH or /usr/local/cuda/bin): the paged-attention "
-            "kernel is built from source with the CUDA toolkit"
-        )
-    return path
-
-
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libpaged_attention-{digest.hexdigest()[:16]}.so"
-
-
-def build_library(verbose: bool = False) -> tuple[Path, float, str]:
-    """Compile the kernel library unless this source's build exists.
-
-    Returns (path, seconds spent compiling — 0.0 when it was already
-    built, the compiler's output). ``verbose`` adds ``-Xptxas -v``
-    (registers, shared memory and spills per kernel). The library is
-    written to a temporary name and renamed, so concurrent builds never
-    load a half-written file."""
-    path = library_path()
-    if path.exists():
-        return path, 0.0, ""
-    path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", str(tmp), str(SOURCE)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, path)
-    return path, seconds, proc.stdout + proc.stderr
-
-
 @functools.cache
 def _library() -> ctypes.CDLL:
-    path, _, _ = build_library()
-    lib = ctypes.CDLL(str(path))
+    lib = load_library("paged_attention")
     fn = lib.paged_attention_stats_f32
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
     ]
     fn.restype = ctypes.c_int
-    lib.paged_attention_error_string.argtypes = [ctypes.c_int]
-    lib.paged_attention_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, device) -> None:
-    if not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, q is on {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def paged_attention_stats_cuda(q, k_pool, v_pool, block_tables, seq_lens):
@@ -124,9 +60,9 @@ def paged_attention_stats_cuda(q, k_pool, v_pool, block_tables, seq_lens):
     """
     dev = q.device
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
-        _check(name, t, torch.float32, dev)
+        check_tensor(name, t, (torch.float32,), dev)
     for name, t in (("block_tables", block_tables), ("seq_lens", seq_lens)):
-        _check(name, t, torch.int32, dev)
+        check_tensor(name, t, (torch.int32,), dev)
     if q.dim() != 4 or k_pool.dim() != 4:
         raise ValueError(f"q {tuple(q.shape)} and pools {tuple(k_pool.shape)} must be 4-D")
     S, K, H, hd = q.shape
@@ -156,11 +92,9 @@ def paged_attention_stats_cuda(q, k_pool, v_pool, block_tables, seq_lens):
         block_tables.data_ptr(), seq_lens.data_ptr(),
         acc.data_ptr(), m.data_ptr(), l.data_ptr(),
         S, K, H, hd, P, page, Pm, float(hd**-0.5),
-        torch.cuda.current_stream(dev).cuda_stream, dev.index,
+        *launch_context(q),
     )
-    if rc != 0:
-        msg = lib.paged_attention_error_string(rc).decode()
-        raise RuntimeError(f"paged_attention_stats kernel launch failed: {msg} ({rc})")
+    raise_on_error(lib, "paged_attention", "paged_attention_stats", rc)
     paged_attention_stats_cuda.launches += 1
     return acc, m, l
 

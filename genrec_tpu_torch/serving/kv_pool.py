@@ -33,7 +33,7 @@ import torch
 from genrec_tpu_torch.device import resolve_device
 
 #: The only KV page type the port stores; int8 pages arrive with ROADMAP
-#: A13 (int8 serving) and its kernel, queue B item 2.
+#: A6 (int8 serving) and its kernel, queue B item 2.
 KV_DTYPES = ("float32",)
 
 
@@ -59,7 +59,7 @@ class PagedConfig:
         if self.kv_dtype not in KV_DTYPES:
             raise ValueError(
                 f"kv_dtype {self.kv_dtype!r} is not ported: the port stores "
-                f"{KV_DTYPES} pages only; int8 pages come with ROADMAP A13 "
+                f"{KV_DTYPES} pages only; int8 pages come with ROADMAP A6 "
                 "(int8 serving) and kernel B2"
             )
 

@@ -1,0 +1,242 @@
+"""HSTU trainer (port of genrec_tpu/trainers/hstu_trainer.py).
+
+    python -m genrec_tpu_torch.trainers.hstu_trainer config/hstu/amazon.gin \
+        --gin 'train.dataset="synthetic"' [--gin 'train.device="cpu"']
+
+The same config files drive both packages. Epoch loop, Adam(b2=0.98) (or
+AdamW with weight decay), no LR schedule, full-vocab eval, timestamps
+passed through, first-fit-decreasing sequence packing with
+segment-masked attention. ``use_pallas`` and ``use_fused_ce`` keep their
+JAX names; ``"auto"`` means True: the CUDA kernels on the card, their
+plain versions on the CPU.
+
+Runs on one device, ``device="cuda"`` by default (it raises without a
+card unless given ``device="cpu"``). Not ported yet: the ``amazon``
+dataset branch (its files are not in the repository), resume and
+periodic checkpoints, preemption, profiling windows, wandb forwarding
+(ROADMAP A3 and A12).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from genrec_tpu_torch import configlib
+from genrec_tpu_torch.core.harness import make_train_step
+from genrec_tpu_torch.core.logging import Tracker, setup_logger
+from genrec_tpu_torch.core.optim import Adam
+from genrec_tpu_torch.core.state import TrainState
+from genrec_tpu_torch.data.batching import (
+    batch_iterator,
+    fold_valid,
+    pack_examples,
+    prefetch_to_device,
+)
+from genrec_tpu_torch.data.synthetic import SyntheticSeqDataset
+from genrec_tpu_torch.device import resolve_device
+from genrec_tpu_torch.models.hstu import HSTU
+from genrec_tpu_torch.ops.metrics import first_match_ranks
+from genrec_tpu_torch.trainers.packed_loop import PackedTrainLoop
+
+KS = (1, 5, 10)
+
+
+def make_eval_step(model):
+    """``eval_step(batch, valid) -> dict of device sums``: the last slot's
+    logits with column 0 at -inf, the top 10 in ``jax.lax.top_k``'s order
+    (higher score first, the lower index first among ties: a stable
+    descending sort), and the hit and DCG sums at 1, 5 and 10."""
+
+    @torch.no_grad()
+    def eval_step(batch, valid):
+        model.eval()
+        logits, _ = model(batch["input_ids"], batch.get("timestamps"))
+        last = logits[:, -1, :].to(torch.float32)
+        last[:, 0] = -torch.inf
+        top = torch.sort(last, dim=-1, descending=True, stable=True).indices[:, :10]
+        ranks = first_match_ranks(batch["targets"], top[..., None])
+        v = valid.to(torch.float32)
+        out = {"total": v.sum()}
+        for k in KS:
+            hit = ranks < k
+            out[f"recall_sum@{k}"] = (hit * v).sum()
+            out[f"ndcg_sum@{k}"] = (torch.where(
+                hit, 1.0 / torch.log2(ranks.to(torch.float32) + 2.0), 0.0) * v).sum()
+        return out
+
+    return eval_step
+
+
+def evaluate(eval_step, arrays, batch_size, device):
+    """Recall@{1,5,10} and NDCG@{1,5,10} over ``arrays`` (padded last
+    batch masked out)."""
+    sums: dict[str, torch.Tensor] = {}
+    for batch, _ in prefetch_to_device(fold_valid(batch_iterator(arrays, batch_size)),
+                                       device):
+        for k, v in eval_step(batch, batch["valid"]).items():
+            sums[k] = v if k not in sums else sums[k] + v
+    sums = {k: float(v) for k, v in sums.items()}
+    total = max(sums.get("total", 0.0), 1.0)
+    return {
+        **{f"Recall@{k}": sums[f"recall_sum@{k}"] / total for k in KS},
+        **{f"NDCG@{k}": sums[f"ndcg_sum@{k}"] / total for k in KS},
+    }
+
+
+def make_loss_fn():
+    """``loss_fn(model, batch, generator) -> (loss, aux)``: the training
+    forward with dropout from ``generator``; packed batches add the
+    real-token count to aux."""
+
+    def loss_fn(model, batch, generator):
+        _, loss = model(batch["input_ids"], batch.get("timestamps"), batch["targets"],
+                        deterministic=False, segment_ids=batch.get("segment_ids"),
+                        generator=generator)
+        aux = {}
+        if "segment_ids" in batch:
+            aux["real_tokens"] = (batch["segment_ids"] != 0).sum().to(torch.float32)
+        return loss, aux
+
+    return loss_fn
+
+
+class BestTracker:
+    """Best-metric snapshot of the parameters, kept on the host and
+    written to ``<save_dir>/best_model.pt``."""
+
+    def __init__(self, save_dir: str | None):
+        self.path = os.path.join(save_dir, "best_model.pt") if save_dir else None
+        self.value = -1.0
+        self.params = None
+
+    def update(self, value: float, model) -> bool:
+        if value <= self.value:
+            return False
+        self.value = value
+        self.params = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        if self.path:
+            torch.save(self.params, self.path)
+        return True
+
+
+@configlib.configurable
+def train(
+    epochs=10,
+    batch_size=128,
+    learning_rate=1e-3,
+    weight_decay=0.0,
+    max_seq_len=50,
+    embed_dim=64,
+    num_heads=2,
+    num_blocks=2,
+    dropout=0.2,
+    num_position_buckets=32,
+    num_time_buckets=64,
+    max_position_distance=128,
+    use_temporal_bias=True,
+    use_pallas="auto",
+    use_fused_ce="auto",
+    pack_sequences=True,
+    dataset="synthetic",
+    dataset_folder="dataset/amazon",
+    split="beauty",
+    num_items=None,
+    do_eval=True,
+    eval_every_epoch=1,
+    eval_batch_size=256,
+    save_dir_root="out/hstu",
+    save_every_epoch=50,
+    resume_from_checkpoint=False,
+    wandb_logging=False,
+    wandb_project="hstu_training",
+    wandb_log_interval=100,
+    amp=True,
+    mixed_precision_type="bf16",
+    profile_steps=0,
+    seed=0,
+    device="cuda",
+):
+    """Train HSTU; returns (valid metrics, test metrics) of the best
+    parameters (by valid Recall@10), as the JAX trainer does."""
+    dev = resolve_device(device)
+    if dataset != "synthetic":
+        raise NotImplementedError(
+            f"dataset={dataset!r}: the port's Amazon loader (data/amazon.py) waits "
+            "for the review files to be in the repository (ROADMAP A3); use "
+            "dataset='synthetic'")
+    if resume_from_checkpoint or profile_steps or (save_dir_root and save_every_epoch <= epochs):
+        raise NotImplementedError(
+            "resume_from_checkpoint, profile_steps and periodic checkpoints "
+            f"(save_every_epoch={save_every_epoch} <= epochs={epochs}) are not ported "
+            "yet (ROADMAP A12)")
+    logger = setup_logger(save_dir_root)
+    tracker = Tracker(wandb_logging, wandb_project, save_dir=save_dir_root, logger=logger)
+
+    ds = SyntheticSeqDataset(max_seq_len=max_seq_len, seed=seed)
+    n_items = num_items or ds.num_items
+    valid_arrays = ds.eval_arrays_with_time("valid")
+    test_arrays = ds.eval_arrays_with_time("test")
+
+    repack, train_arrays = None, None
+    if pack_sequences:
+        examples = ds.train_examples(with_time=True)
+
+        def repack(epoch: int):
+            arrays, rep = pack_examples(examples, row_len=max_seq_len, seed=(seed, epoch))
+            # HSTU has no absolute positions and segment_valid has no
+            # consumer in its token-level CE: not shipped to the device.
+            arrays.pop("positions")
+            arrays.pop("segment_valid")
+            return arrays, rep
+    else:
+        train_arrays = ds.train_arrays_with_time()
+
+    compute_dtype = (torch.bfloat16 if (amp and mixed_precision_type == "bf16")
+                     else torch.float32)
+    model = HSTU(
+        num_items=n_items, max_seq_len=max_seq_len, embed_dim=embed_dim,
+        num_heads=num_heads, num_blocks=num_blocks, dropout=dropout,
+        num_position_buckets=num_position_buckets, num_time_buckets=num_time_buckets,
+        max_position_distance=max_position_distance, use_temporal_bias=use_temporal_bias,
+        use_pallas=use_pallas == "auto" or bool(use_pallas),
+        fused_ce=use_fused_ce == "auto" or bool(use_fused_ce),
+        dtype=compute_dtype, device=dev, seed=seed,
+    )
+    optimizer = Adam(learning_rate, b2=0.98, weight_decay=weight_decay)
+    step_fn = make_train_step(make_loss_fn(), optimizer, clip_norm=None)
+    state = TrainState.create(model, optimizer, seed)
+    eval_step = make_eval_step(model)
+    best = BestTracker(save_dir_root)
+    loop = PackedTrainLoop(
+        logger=logger, tracker=tracker, device=dev, rows_per_step=batch_size,
+        row_len=max_seq_len, seed=seed, pack_sequences=pack_sequences, repack=repack,
+        train_arrays=train_arrays, wandb_log_interval=wandb_log_interval,
+    )
+    global_step = 0
+    for epoch in range(epochs):
+        res = loop.run_epoch(state, step_fn, epoch, global_step)
+        state, global_step = res.state, res.global_step
+        if do_eval and (epoch + 1) % eval_every_epoch == 0:
+            m = evaluate(eval_step, valid_arrays, eval_batch_size, dev)
+            logger.info(f"epoch {epoch} valid " + ", ".join(f"{k}={v:.4f}" for k, v in m.items()))
+            tracker.log({"epoch": epoch, **{f"eval/{k}": v for k, v in m.items()}})
+            best.update(m["Recall@10"], model)
+
+    if best.params is not None:
+        model.load_state_dict(best.params)
+    elif save_dir_root:  # no eval ran: snapshot the final params
+        best.update(np.inf, model)
+    valid_metrics = evaluate(eval_step, valid_arrays, eval_batch_size, dev)
+    test_metrics = evaluate(eval_step, test_arrays, eval_batch_size, dev)
+    logger.info("test " + ", ".join(f"{k}={v:.4f}" for k, v in test_metrics.items()))
+    tracker.log({f"test/{k}": v for k, v in test_metrics.items()})
+    loop.shutdown()
+    return valid_metrics, test_metrics
+
+
+if __name__ == "__main__":
+    configlib.parse_config()
+    train()

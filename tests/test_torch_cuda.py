@@ -8,15 +8,21 @@ that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 (``--noconftest``: tests/conftest.py sets up JAX for the rest of the
-suite.) Tolerance: rtol 1e-5, atol 1e-5. Kernel and plain version both
-sum in fp32 and differ only in order: the kernel runs an online softmax
-over 32-position chunks, the plain version one max and one sum.
+suite.) Tolerance for float32 inputs: rtol 1e-5, atol 1e-5. Kernel and
+plain version both sum in fp32 and differ only in order (the paged kernel
+runs an online softmax over 32-position chunks, the plain version one max
+and one sum). The HSTU bias-table gradients sum every visible pair of the
+batch, so they get rtol 1e-4. With bfloat16 inputs both sides accumulate
+in fp32 and round the result to bfloat16, where another order can move
+the rounding by one bfloat16 step: rtol and atol 1e-2.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from genrec_tpu_torch.kernels import fused_ce as fc
+from genrec_tpu_torch.kernels import hstu_attention as ha
 from genrec_tpu_torch.kernels.paged_attention import (
     paged_attention_stats_cuda,
     paged_attention_stats_ref,
@@ -86,3 +92,164 @@ def test_kernel_wrapper_refuses_what_it_does_not_take(card):
         with pytest.raises(ValueError):
             paged_attention_stats_cuda(**kwargs)
     assert paged_attention_stats_cuda.launches == before
+
+
+def _hstu_inputs(dev, B, H, L, hd, dtype, use_time, use_seg, seed=0):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    f = lambda *s: t((rng.normal(size=s) * 0.5).astype(np.float32)).to(dtype)  # noqa: E731
+    pad = np.zeros((B, L), bool)
+    pad[0, :5] = True
+    pad[-1] = True  # an all-pad row
+    seg = None
+    if use_seg:
+        seg = np.zeros((B, L), np.int32)
+        for b in range(B - 1):
+            at, s = 0, 1
+            while at < L - 3:
+                n = int(rng.integers(2, 12))
+                seg[b, at:at + n] = s
+                at, s = at + n, s + 1
+        pad = seg == 0
+    ts = (np.cumsum(rng.integers(3600, 200_000, size=(B, L)), axis=1)
+          + 1_500_000_000).astype(np.int32)
+    return dict(
+        q=f(B, H, L, hd), k=f(B, H, L, hd), v=f(B, H, L, hd),
+        timestamps=t(ts) if use_time else None, padding_mask=t(pad),
+        pos_table=t((rng.normal(size=(H, 32)) * 0.1).astype(np.float32)),
+        time_table=t((rng.normal(size=(H, 64)) * 0.1).astype(np.float32)) if use_time else None,
+        segment_ids=t(seg) if use_seg else None, g=f(B, H, L, hd),
+    )
+
+
+def _tol(dtype):
+    return dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape,use_time,use_seg", [
+    ((4, 2, 50, 32), True, True),    # the trainer's layout: packed, timestamps
+    ((4, 2, 50, 32), False, False),  # no timestamps, left padding
+    ((3, 1, 77, 24), True, False),   # odd L over three 32-position tiles
+    ((2, 2, 40, 128), True, True),   # hd at its limit
+])
+def test_hstu_kernels_match_plain_versions(card, shape, use_time, use_seg, dtype):
+    x = _hstu_inputs(card, *shape, dtype, use_time, use_seg)
+    fwd = {k: v for k, v in x.items() if k != "g"}
+    launches = (ha.hstu_attention_fwd_cuda.launches, ha.hstu_attention_bwd_cuda.launches)
+    got = ha.hstu_attention_fwd_cuda(**fwd)
+    got_b = ha.hstu_attention_bwd_cuda(**x)
+    torch.cuda.synchronize()
+    assert (ha.hstu_attention_fwd_cuda.launches,
+            ha.hstu_attention_bwd_cuda.launches) == (launches[0] + 1, launches[1] + 1)
+    assert got.dtype == dtype and float(got[-1].float().abs().max()) == 0.0
+    torch.testing.assert_close(got, ha.hstu_attention_ref(**fwd), **_tol(dtype))
+    for name, g, w in zip(("dq", "dk", "dv", "dpos", "dtime"), got_b,
+                          ha.hstu_attention_bwd_ref(**x)):
+        if w is None:
+            assert g is None and not use_time
+            continue
+        tol = dict(rtol=1e-4, atol=1e-4) if name.startswith(("dpos", "dtime")) else _tol(dtype)
+        torch.testing.assert_close(g, w, msg=name, **tol)
+
+
+def test_hstu_autograd_function_on_the_card_matches_the_cpu(card):
+    """The autograd function launches one forward and one backward kernel
+    and gives the gradients its plain versions give on the CPU."""
+    x = _hstu_inputs(card, 3, 2, 50, 32, torch.float32, True, True, seed=1)
+    names = ("q", "k", "v", "pos_table", "time_table")
+    grads = {}
+    for where in ("cuda", "cpu"):
+        leaves = {n: x[n].detach().to(where).requires_grad_() for n in names}
+        out = ha.hstu_attention(leaves["q"], leaves["k"], leaves["v"],
+                                x["timestamps"].to(where), x["padding_mask"].to(where),
+                                leaves["pos_table"], leaves["time_table"],
+                                x["segment_ids"].to(where))
+        before = ha.hstu_attention_bwd_cuda.launches
+        (out * x["g"].to(where)).sum().backward()
+        assert ha.hstu_attention_bwd_cuda.launches == before + (where == "cuda")
+        grads[where] = {n: leaves[n].grad.cpu() for n in names}
+    for n in names:
+        torch.testing.assert_close(grads["cuda"][n], grads["cpu"][n], rtol=1e-4, atol=1e-4,
+                                   msg=n)
+
+
+def test_hstu_wrappers_refuse_what_they_do_not_take(card):
+    x = _hstu_inputs(card, 2, 2, 16, 8, torch.float32, True, False)
+    fwd = {k: v for k, v in x.items() if k != "g"}
+    before = ha.hstu_attention_fwd_cuda.launches
+    for bad in (dict(fwd, q=fwd["q"].double()), dict(fwd, k=fwd["k"].to(torch.bfloat16)),
+                dict(fwd, timestamps=fwd["timestamps"].long()),
+                dict(fwd, padding_mask=fwd["padding_mask"].int()),
+                dict(fwd, v=fwd["v"].transpose(2, 3).contiguous().transpose(2, 3)),
+                dict(fwd, q=torch.zeros((2, 2, 16, 129), device=card))):
+        with pytest.raises(ValueError):
+            ha.hstu_attention_fwd_cuda(**bad)
+    assert ha.hstu_attention_fwd_cuda.launches == before
+
+
+def _ce_inputs(dev, R, V, d, dtype, all_ignored=False, seed=0):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    tgt = rng.integers(0, V, R).astype(np.int32)
+    tgt[rng.random(R) < 0.2] = 0
+    if all_ignored:
+        tgt[:] = 0
+    return dict(x=t(rng.normal(size=(R, d)).astype(np.float32)).to(dtype),
+                w=t((rng.normal(size=(V, d)) * 0.1).astype(np.float32)).to(dtype),
+                targets=t(tgt), g=t(rng.normal(size=R).astype(np.float32)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape,all_ignored", [
+    ((6400, 12102, 64), False),  # the trainer's shapes: V a multiple of neither tile
+    ((37, 700, 48), False),      # ragged rows
+    ((64, 300, 16), True),       # every row ignored
+    ((33, 65, 128), False),      # d at its limit
+])
+def test_fused_ce_kernels_match_plain_versions(card, shape, all_ignored, dtype):
+    x = _ce_inputs(card, *shape, dtype, all_ignored)
+    fwd = dict(x=x["x"], w=x["w"], targets=x["targets"])
+    loss, lse = fc.fused_linear_ce_fwd_cuda(**fwd)
+    want_loss, want_lse = fc.fused_linear_ce_ref(**fwd)
+    torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    bwd = dict(fwd, lse=want_lse, g=x["g"])
+    counts = (fc.fused_linear_ce_dx_cuda.launches, fc.fused_linear_ce_dw_cuda.launches)
+    dx, dw = fc.fused_linear_ce_dx_cuda(**bwd), fc.fused_linear_ce_dw_cuda(**bwd)
+    torch.cuda.synchronize()
+    assert (fc.fused_linear_ce_dx_cuda.launches,
+            fc.fused_linear_ce_dw_cuda.launches) == (counts[0] + 1, counts[1] + 1)
+    want_dx, want_dw = fc.fused_linear_ce_bwd_ref(**bwd)
+    assert dx.dtype == dtype and dw.dtype == dtype
+    torch.testing.assert_close(dx, want_dx, **_tol(dtype))
+    torch.testing.assert_close(dw, want_dw, **_tol(dtype))
+    if all_ignored:
+        assert float(loss.abs().max()) == float(dx.abs().max()) == float(dw.abs().max()) == 0
+
+
+def test_fused_ce_mean_loss_on_the_card_matches_the_cpu(card):
+    x = _ce_inputs(card, 300, 1000, 32, torch.float32, seed=2)
+    grads = {}
+    for where in ("cuda", "cpu"):
+        xx = x["x"].detach().to(where).requires_grad_()
+        ww = x["w"].detach().to(where).requires_grad_()
+        loss = fc.fused_ce_mean_loss(xx, ww, x["targets"].to(where))
+        loss.backward()
+        grads[where] = (loss.detach().cpu(), xx.grad.cpu(), ww.grad.cpu())
+    for name, a, b in zip(("loss", "dx", "dW"), grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5, msg=name)
+
+
+def test_fused_ce_wrappers_refuse_what_they_do_not_take(card):
+    x = _ce_inputs(card, 8, 20, 4, torch.float32)
+    fwd = dict(x=x["x"], w=x["w"], targets=x["targets"])
+    before = fc.fused_linear_ce_fwd_cuda.launches
+    for bad in (dict(fwd, x=fwd["x"].double()), dict(fwd, w=fwd["w"].to(torch.bfloat16)),
+                dict(fwd, targets=fwd["targets"].long()),
+                dict(fwd, x=torch.zeros((8, 129), device=card),
+                     w=torch.zeros((20, 129), device=card)),
+                dict(fwd, targets=fwd["targets"][:4])):
+        with pytest.raises(ValueError):
+            fc.fused_linear_ce_fwd_cuda(**bad)
+    assert fc.fused_linear_ce_fwd_cuda.launches == before

@@ -241,7 +241,7 @@ def test_paged_config_defaults_and_validation():
         PagedConfig(max_slots=4, page_size=0, pages_per_slot=3)
     with pytest.raises(ValueError):
         PagedConfig(max_slots=4, page_size=16, pages_per_slot=0)
-    with pytest.raises(ValueError, match="A13"):
+    with pytest.raises(ValueError, match="ROADMAP A6"):
         PagedConfig(kv_dtype="int8")
     assert cfg.hbm_bytes(n_layers=2, n_heads=4, head_dim=8) == 2 * 2 * 13 * 16 * 4 * 8 * 4
 
