@@ -12,14 +12,15 @@ line each; any failure ends the run with a traceback and a non-zero exit:
             genrec_tpu_torch/csrc/ into build/, for sm_90a, one nvcc per
             source, all started together;
 3. kernel   each kernel against its plain PyTorch version on the card, in
-            its edge cases and at the shapes its main path gives it (B1 at
-            the TIGER serving shapes; B3-B6 at the HSTU training shapes),
-            then timed by device time (CUDA-graph replay of calls on
-            inputs cold in L2): the kernel, the plain version, one PyTorch
-            library call computing the same function where there is one (a
-            yardstick only), and the least time the card could take (bytes
-            over 3.35 TB/s, or operations over the data-sheet peak of the
-            inputs' type: 67 TFLOP/s fp32, 989 TFLOP/s bf16);
+            its edge cases and at the shapes its main path gives it (B1 and
+            B2 at the TIGER serving shapes; B3-B6 at the HSTU training
+            shapes; B7 at the RQ-VAE export's), then timed by device time
+            (CUDA-graph replay of calls on inputs cold in L2): the kernel,
+            the plain version, one PyTorch library call computing the same
+            function where there is one (a yardstick only), and the least
+            time the card could take (bytes over 3.35 TB/s, or operations
+            over the data-sheet peak of the inputs' type: 67 TFLOP/s fp32,
+            989 TFLOP/s bf16);
 4. train    HSTU at the widths of config/hstu/amazon.gin through the port's
             trainer (hstu_trainer.train, 2 epochs with eval, synthetic data
             with Amazon-Beauty's 12,101 items), then a fixed number of steps
@@ -32,12 +33,23 @@ line each; any failure ends the run with a traceback and a non-zero exit:
 5. parity   20 steps from one init on the same batches, dropout 0 and fp32,
             through the kernels (use_pallas=use_fused_ce=True) and through
             the plain path (both False): the loss trajectories must agree;
-6. serve    TIGER at the Amazon widths of config/tiger/amazon/tiger.gin,
+6. rqvae    the RQ-VAE at the widths of config/tiger/amazon/rqvae.gin:
+            rqvae_trainer.train through that file (synthetic item
+            embeddings at Amazon-Beauty's 12,101 items x 768, epochs cut to
+            RQVAE_EPOCHS), whose loss must fall; fixed steps (steps/s, p50
+            step); the sem-id export over the 12,101 items, which must launch
+            B7 exactly ceil(12,101 / 4096) = 3 times and equal the model
+            path's get_semantic_ids outside near ties (counted);
+7. serve    TIGER at the Amazon widths of config/tiger/amazon/tiger.gin,
             random weights from --seed, answering --requests requests through
-            ServingEngine + TigerGenerativeHead; every answer must be a
-            catalog item, and a sample must equal offline
-            tiger_generate_paged on the card and on the CPU. With
-            --profile the traffic is served once more under torch.profiler.
+            ServingEngine + TigerGenerativeHead, with float32 pages (B1, 4
+            launches a decode step) and then the same requests with int8
+            pages (B2, 4 launches a decode step, B1 none); every answer must
+            be a catalog item, and a sample must equal offline
+            tiger_generate_paged of the same page type on the card (fp32:
+            also on the CPU). With --profile the traffic is served once
+            more under torch.profiler, and the RQ-VAE runs one more epoch
+            under it.
 
 Each phase that drives a main path sets every kernel's launch counter to 0
 just before and reads it just after. Then the kernels line, the card's
@@ -134,6 +146,11 @@ KERNELS = {
     "fused_linear_ce_bwd_dw": ("genrec_tpu_torch/csrc/fused_ce.cu",
                                "genrec_tpu/kernels/fused_ce.py:180",
                                "fused_linear_ce_bwd (_dw_kernel)"),
+    "paged_attention_stats_quantized": ("genrec_tpu_torch/csrc/paged_attention.cu",
+                                        "genrec_tpu/kernels/paged_attention.py:112",
+                                        "paged_attention_stats_pallas_quantized"),
+    "rq_cascade": ("genrec_tpu_torch/csrc/rq_cascade.cu",
+                   "genrec_tpu/kernels/rq_cascade.py:75", "rq_cascade_pallas"),
 }
 LIBRARY_ATOL = 1e-4  # the library call normalises; checked, never used
 # Scores are sums of 3 log-softmaxes of logits / 0.2. Across batch shapes
@@ -141,6 +158,29 @@ LIBRARY_ATOL = 1e-4  # the library call normalises; checked, never used
 # summation order), which moves the scores by up to ~1e-4 (measured on the
 # CPU); sem-ids must be equal.
 SAMPLE_ATOL = 1e-3
+# int8 pages: the same, plus quantisation's rounding edges. A K/V element
+# whose x / scale lies within the projections' last-bit noise of a .5
+# edge lands one int8 step (its row's amax / 127) apart between batch
+# shapes (the engine's prefill batch against offline decoding of one
+# request), and moves the beams' scores by up to ~1e-2 at T = 0.2
+# (tests/test_torch_quant.py). Two beams whose scores are that close may
+# then trade ranks, so int8 answers are matched tuple by tuple
+# (int8_answers_agree) instead of rank by rank.
+INT8_SAMPLE_ATOL = 2e-2
+
+# RQ-VAE, config/tiger/amazon/rqvae.gin (input 768, hidden 512-256-128-64,
+# embed 32, 3 levels x 256, STE + Sinkhorn, AdamW 1e-3 wd 1e-4, batch 1024,
+# Gumbel temperature 0.2, 20,000-row k-means warm-up). Only the depth is
+# cut: RQVAE_EPOCHS of the file's 5,000 epochs (11 steps each at 12,101
+# items), and RQVAE_STEPS fixed steps after RQVAE_WARM.
+RQVAE_EPOCHS = 20
+RQVAE_WARM, RQVAE_STEPS = 3, 40
+SEM_ID_CHUNK = 4096  # compute_sem_ids' batch: one B7 launch a chunk
+# Sem-id comparisons: exact outside rows whose two nearest codewords at some
+# level are within NEAR_TIE_REL x max |dist| (another summation order may
+# pick either); at most NEAR_TIE_MAX_SHARE of the rows may be near ties.
+NEAR_TIE_REL = 1e-5
+NEAR_TIE_MAX_SHARE = 0.02
 
 
 def check(ok, what) -> None:
@@ -336,6 +376,170 @@ def kernel_phase(dev, seed) -> dict:
         bound_ms=bound_ms, bound_by=bound_by, work=work,
         kv_bytes_walked=walked, walked_bound_ms=1e3 * walked / HBM_BYTES_PER_S,
         cold_copies=n_copies, clocks_after_timing=clocks,
+    )
+
+
+def quantized_inputs(dev, seed, S, K, H, hd, page, Pm, seq_lens, null_tail):
+    """``paged_inputs`` with int8 pools (QuantizedKVPool, quantised as the
+    serving path's write_pages quantises); every third row of page 1 is all
+    zeros, so its scale is 1e-12 / 127."""
+    from genrec_tpu_torch.ops.quant import QuantizedKVPool, quantize_symmetric
+
+    x = paged_inputs(dev, seed, S, K, H, hd, page, Pm, seq_lens, null_tail)
+    for name in ("k_pool", "v_pool"):
+        pool = x[name]
+        pool[1, ::3] = 0.0
+        x[name] = QuantizedKVPool(*quantize_symmetric(pool, (-2, -1)))
+    return x
+
+
+def quantized_bound(x) -> tuple[float, str, dict]:
+    """``paged_attention_bound`` for int8 pools: a K or V row is H*hd bytes
+    plus its 4-byte scale, and each element is dequantised (one convert and
+    one multiply) before the fp32 dot products."""
+    S, K, H, hd = x["q"].shape
+    Pm, page = x["block_tables"].shape[1], x["k_pool"].data.shape[1]
+    sl = x["seq_lens"].long()
+    tokens = int(torch.where(sl > 0, sl.clamp_max(Pm * page), Pm * page).sum())
+    bytes_ = (tokens * (H * hd + 4) * 2 + S * K * H * hd * 4 + S * (Pm + 1) * 4
+              + S * K * H * (hd + 2) * 4)
+    flops = 4 * K * H * hd * tokens + 2 * 2 * H * hd * tokens
+    ms, by = bound(bytes_, flops, FP32_FLOPS)
+    return ms, by, dict(bytes=bytes_, flops=flops, kv_tokens=tokens)
+
+
+def quantized_kernel_phase(dev, seed) -> dict:
+    """B2 against its plain version (dequantise after the gather) and timed."""
+    from genrec_tpu_torch.kernels.paged_attention import (
+        paged_attention_stats_quantized_cuda,
+        paged_attention_stats_quantized_ref,
+    )
+
+    S, K = PAGED["max_slots"], BEAMS
+    H = TIGER_AMAZON["num_heads"]
+    hd = TIGER_AMAZON["attn_dim"] // H
+    page, Pm = PAGED["page_size"], PAGED["pages_per_slot"]
+    rng = np.random.default_rng(seed + 1)
+    served_lens = 1 + TIGER_AMAZON["sem_id_dim"] * rng.integers(1, MAX_ITEMS + 1, S)
+    masked_lens = served_lens.copy()
+    masked_lens[::5] = 0  # free slots: seq_len 0, every entry the null page
+    cases = {  # name: (K, seq_lens, null tail); served lens end in partial pages
+        "serving_k10": (K, served_lens, True),
+        "seq_len_0_slots_k10": (K, masked_lens, True),
+        "k1": (1, served_lens, True),
+        "every_page_full_k10": (K, np.full(S, Pm * page), False),
+    }
+    errs = {}
+    for i, (name, (k, lens, null_tail)) in enumerate(cases.items()):
+        x = quantized_inputs(dev, seed + 10 + i, S, k, H, hd, page, Pm, lens, null_tail)
+        got = paged_attention_stats_quantized_cuda(**x)
+        torch.cuda.synchronize()
+        want = paged_attention_stats_quantized_ref(**x)
+        errs[name] = max(assert_near(f"B2 {name}/{out}", g, w, FP32_TOL)
+                         for out, g, w in zip(("acc", "m", "l"), got, want))
+
+    base = quantized_inputs(dev, seed, S, K, H, hd, page, Pm, served_lens, True)
+    per_copy = nbytes(base["q"], base["k_pool"].data, base["k_pool"].scale,
+                      base["v_pool"].data, base["v_pool"].scale, base["block_tables"],
+                      base["seq_lens"])
+    copies = [base] + cold_copies(
+        lambda c: quantized_inputs(dev, seed + 100 + c, S, K, H, hd, page, Pm, served_lens,
+                                   True), per_copy)[1:]
+    lib = [library_inputs(x) for x in copies]  # gather_pages dequantises
+    acc, _, l = paged_attention_stats_quantized_cuda(**base)
+    torch.testing.assert_close(library_paged_attention(**lib[0]),
+                               (acc / l[..., None]).permute(0, 2, 1, 3),
+                               rtol=0, atol=LIBRARY_ATOL)
+    ms = device_ms(paged_attention_stats_quantized_cuda, copies)
+    plain_ms = device_ms(paged_attention_stats_quantized_ref, copies)
+    library_ms = device_ms(library_paged_attention, lib)
+    bound_ms, bound_by, work = quantized_bound(base)
+    return emit(
+        "kernel", name="paged_attention_stats_quantized",
+        shape=dict(S=S, K=K, H=H, hd=hd, page=page, Pm=Pm, pools="int8 + fp32 row scales"),
+        max_abs_err=max(errs.values()), max_abs_err_by_case=errs,
+        tolerance=dict(rel=FP32_TOL, relative_to="max|plain|"),
+        ms=ms, plain_ms=plain_ms, library_ms=library_ms, timed_by="cuda_graph",
+        library="torch.nn.functional.scaled_dot_product_attention on pre-gathered, "
+                "dequantised K/V",
+        bound_ms=bound_ms, bound_by=bound_by, work=work, cold_copies=len(copies),
+    )
+
+
+# ---- phase 3: the residual-quantisation cascade (B7) ------------------------
+
+
+def rq_inputs(dev, seed, B, L, K, D, duplicate=False):
+    """x ~ N(0, 0.3^2) (an encoder output's scale) and codebooks (L, K, D)
+    ~ N(0, 0.2^2); with ``duplicate`` the second half of every level
+    repeats the first, so every argmin ties exactly."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = 0.3 * torch.randn((B, D), generator=gen, device=dev)
+    cb = 0.2 * torch.randn((L, K, D), generator=gen, device=dev)
+    if duplicate:
+        cb[:, K // 2:] = cb[:, :K - K // 2].clone()
+    return dict(x=x, codebooks=cb.contiguous())
+
+
+def check_sem_ids(what, x, codebooks, got, want) -> dict:
+    """Sem-ids equal to ``want`` on every row outside the near ties (the
+    rows are counted, and their share bounded)."""
+    from genrec_tpu_torch.kernels.rq_cascade import near_tie_rows
+
+    near = near_tie_rows(x, codebooks, want, NEAR_TIE_REL)
+    differ = (got != want).any(dim=1)
+    outside = int((differ & ~near).sum())
+    share = float(near.float().mean())
+    check(outside == 0, f"{what}: {outside} rows differ outside the near ties")
+    check(share <= NEAR_TIE_MAX_SHARE, f"{what}: near-tie share {share}")
+    return dict(rows=len(got), near_tie_rows=int(near.sum()), differing_rows=int(differ.sum()),
+                differing_outside_near_ties=outside)
+
+
+def rq_kernel_phase(dev, seed) -> dict:
+    """B7 against its plain version (TF32 off) and timed."""
+    from genrec_tpu_torch.kernels.rq_cascade import rq_cascade_cuda, rq_cascade_ref
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off for the plain cascade")
+    cases = {  # name: (B, L, K, D, duplicated codewords)
+        "export_chunk": (SEM_ID_CHUNK, 3, 256, 32, False),
+        "ragged_B": (1000, 3, 256, 32, False),
+        "L1_K45": (777, 1, 45, 32, False),
+        "K300_D40": (300, 3, 300, 40, False),
+        "duplicated_codewords": (512, 3, 256, 32, True),
+    }
+    errs, ties = {}, {}
+    for i, (name, (B, L, K, D, dup)) in enumerate(cases.items()):
+        x = rq_inputs(dev, seed + 20 + i, B, L, K, D, dup)
+        ids, qsum = rq_cascade_cuda(**x)
+        torch.cuda.synchronize()
+        want_ids, want_q = rq_cascade_ref(**x)
+        if dup:  # every row ties exactly: ids must be equal everywhere
+            check(torch.equal(ids, want_ids) and int(ids.max()) < K - K // 2,
+                  "duplicated codewords: the lower index must win on every row")
+            ties[name] = dict(rows=B, differing_rows=0)
+        else:
+            ties[name] = check_sem_ids(f"B7 {name}", x["x"], x["codebooks"], ids, want_ids)
+        same = ~(ids != want_ids).any(dim=1)
+        errs[name] = assert_near(f"B7 {name}/qsum", qsum[same], want_q[same], FP32_TOL)
+
+    B, L, K, D = cases["export_chunk"][:4]
+    base = rq_inputs(dev, seed, B, L, K, D)
+    copies = [base] + cold_copies(lambda c: rq_inputs(dev, seed + 100 + c, B, L, K, D),
+                                  nbytes(*base.values()))[1:]
+    ms = device_ms(rq_cascade_cuda, copies)
+    plain_ms = device_ms(rq_cascade_ref, copies)
+    bytes_ = nbytes(*base.values()) + B * L * 4 + B * D * 4
+    flops = 2 * B * K * D * L
+    bound_ms, bound_by = bound(bytes_, flops, FP32_FLOPS)
+    return emit(
+        "kernel", name="rq_cascade", shape=dict(B=B, L=L, K=K, D=D, dtype="fp32"),
+        max_abs_err=max(errs.values()), max_abs_err_by_case=errs, sem_ids_by_case=ties,
+        tolerance=dict(qsum_rel=FP32_TOL, relative_to="max|plain|", ids="exact outside "
+                       f"near ties ({NEAR_TIE_REL} x max|dist|)"),
+        ms=ms, plain_ms=plain_ms, library_ms=None, library="none (no single call)",
+        timed_by="cuda_graph", bound_ms=bound_ms, bound_by=bound_by,
+        work=dict(bytes=bytes_, flops=flops), cold_copies=len(copies),
     )
 
 
@@ -647,10 +851,12 @@ def ce_kernel_phase(dev, seed) -> dict:
 
 def kernel_counters() -> dict:
     """Every kernel wrapper of the port, by its name in the kernels line."""
-    from genrec_tpu_torch.kernels import fused_ce, hstu_attention, paged_attention
+    from genrec_tpu_torch.kernels import fused_ce, hstu_attention, paged_attention, rq_cascade
 
     return {
         "paged_attention_stats": paged_attention.paged_attention_stats_cuda,
+        "paged_attention_stats_quantized": paged_attention.paged_attention_stats_quantized_cuda,
+        "rq_cascade": rq_cascade.rq_cascade_cuda,
         "hstu_attention_fwd": hstu_attention.hstu_attention_fwd_cuda,
         "hstu_attention_bwd": hstu_attention.hstu_attention_bwd_cuda,
         "fused_linear_ce_fwd": fused_ce.fused_linear_ce_fwd_cuda,
@@ -844,7 +1050,155 @@ def parity_phase(dev, seed) -> dict:
                 plain_losses=traj[False])
 
 
-# ---- phase 6: the serving slice --------------------------------------------
+# ---- phase 6: RQ-VAE semantic ids -------------------------------------------
+
+
+def rqvae_trainer_run(dev, seed) -> dict:
+    """rqvae_trainer.train through config/tiger/amazon/rqvae.gin with
+    synthetic item embeddings at Amazon-Beauty's size, RQVAE_EPOCHS epochs:
+    the user's entry point. Its epoch losses and collision rate come back
+    from the run's metrics.jsonl."""
+    from genrec_tpu_torch import configlib
+    from genrec_tpu_torch.models.rqvae import count_distinct
+    from genrec_tpu_torch.trainers import rqvae_trainer
+
+    configlib.clear_bindings()
+    configlib.clear_macros()
+    configlib.parse_file(str(HERE / "config/tiger/amazon/rqvae.gin"),
+                         substitutions={"split": "beauty"})
+    with tempfile.TemporaryDirectory() as tmp:
+        for binding in ('train.dataset = "synthetic"', f"train.num_items = {CATALOG_ITEMS}",
+                        "train.wandb_logging = False", f'train.save_dir_root = "{tmp}"',
+                        f'train.sem_ids_path = "{tmp}/sem_ids.npz"',
+                        f"train.epochs = {RQVAE_EPOCHS}", f"train.seed = {seed}",
+                        f'train.device = "{dev}"'):
+            configlib.parse_binding(binding)
+        reset_counters()
+        t0 = time.perf_counter()
+        model, sem_ids = rqvae_trainer.train()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = read_counters()["rq_cascade"]
+        logged = [json.loads(line) for line in open(f"{tmp}/metrics.jsonl")]
+    configlib.clear_bindings()
+    configlib.clear_macros()
+    epoch_loss = [m["train/loss"] for m in logged if "epoch" in m and "train/loss" in m]
+    collision = [m["collision_rate"] for m in logged if "collision_rate" in m]
+    check(len(epoch_loss) == RQVAE_EPOCHS and np.isfinite(epoch_loss).all(), epoch_loss)
+    check(np.mean(epoch_loss[-3:]) < np.mean(epoch_loss[:3]), ("loss did not fall", epoch_loss))
+    check(sem_ids.shape == (CATALOG_ITEMS, 3) and collision, (sem_ids.shape, collision))
+    # The collision eval and the export each run B7 once a 4096-item chunk.
+    chunks = -(-CATALOG_ITEMS // SEM_ID_CHUNK)
+    check(launches == chunks * (1 + len(collision)), (launches, chunks, len(collision)))
+    distinct = int(count_distinct(torch.as_tensor(sem_ids)))
+    return dict(wall_s=wall_s, epochs=RQVAE_EPOCHS, epoch_loss=epoch_loss,
+                collision_rate=collision[-1], export_collision_rate=1 - distinct / len(sem_ids),
+                rq_cascade_launches=launches)
+
+
+def rqvae_phase(dev, seed, profile=False) -> dict:
+    """The trainer run, fixed steps at the file's widths, and the sem-id
+    export over Amazon-Beauty's 12,101 items through B7. With ``profile``,
+    one more epoch of steps under torch.profiler."""
+    from genrec_tpu_torch.core.harness import make_train_step
+    from genrec_tpu_torch.core.logging import Tracker, setup_logger
+    from genrec_tpu_torch.core.optim import Adam
+    from genrec_tpu_torch.core.state import TrainState
+    from genrec_tpu_torch.data.items import SyntheticItemEmbeddings
+    from genrec_tpu_torch.models.rqvae import QuantizeForwardMode, RqVae, kmeans_init_params
+    from genrec_tpu_torch.ops.schedules import linear_schedule_with_warmup
+    from genrec_tpu_torch.trainers.packed_loop import PackedTrainLoop
+    from genrec_tpu_torch.trainers.rqvae_trainer import compute_sem_ids, make_loss_fn
+
+    trainer = rqvae_trainer_run(dev, seed)
+    src = SyntheticItemEmbeddings(num_items=CATALOG_ITEMS, dim=768, seed=seed)
+    train_x, _ = src.arrays()
+    model = RqVae(input_dim=768, embed_dim=32, hidden_dims=(512, 256, 128, 64),
+                  codebook_size=256, codebook_mode=QuantizeForwardMode.STE,
+                  codebook_last_layer_mode=QuantizeForwardMode.SINKHORN, n_layers=3,
+                  commitment_weight=0.25, n_cat_features=0, device=dev, seed=seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kmeans_init_params(model, torch.as_tensor(train_x[:20000], device=dev),
+                       torch.Generator(device=dev).manual_seed(seed + 1))
+    torch.cuda.synchronize()
+    kmeans_s = time.perf_counter() - t0
+    steps_per_epoch = len(train_x) // 1024
+    optimizer = Adam(linear_schedule_with_warmup(1e-3, 50 * steps_per_epoch,
+                                                 5000 * steps_per_epoch), weight_decay=1e-4)
+    step_fn = make_train_step(make_loss_fn(0.2), optimizer, clip_norm=1.0)
+    state = TrainState.create(model, optimizer, seed)
+    events, losses = [], []
+
+    def hook(state, m, global_step):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        losses.append(m["loss"])
+
+    loop = PackedTrainLoop(logger=setup_logger(None), tracker=Tracker(), device=dev,
+                           rows_per_step=1024, row_len=1, seed=seed, pack_sequences=False,
+                           train_arrays={"x": train_x}, step_hook=hook)
+    loop.run_epoch(state, step_fn, 0, 0, max_steps=RQVAE_WARM)
+    events.clear()
+    losses.clear()
+    torch.cuda.synchronize()
+    first = torch.cuda.Event(enable_timing=True)
+    first.record()
+    t0 = time.perf_counter()
+    step, epoch = RQVAE_WARM, 0
+    while step < RQVAE_WARM + RQVAE_STEPS:  # across epochs: 11 steps an epoch
+        start = RQVAE_WARM if epoch == 0 else 0
+        res = loop.run_epoch(state, step_fn, epoch, step, start_batch=start,
+                             max_steps=RQVAE_WARM + RQVAE_STEPS)
+        step, epoch = res.global_step, epoch + 1
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    step_ms = [a.elapsed_time(b) for a, b in zip([first] + events[:-1], events)]
+    loss = [float(v) for v in losses]
+    check(len(loss) == RQVAE_STEPS and np.isfinite(loss).all(), loss)
+    check(np.mean(loss[-5:]) < np.mean(loss[:5]), ("loss did not fall", loss))
+
+    # The export: B7 through compute_sem_ids, against the model path.
+    reset_counters()
+    t0 = time.perf_counter()
+    sem_ids = compute_sem_ids(model, src.embeddings, batch_size=SEM_ID_CHUNK, use_pallas=True)
+    export_s = time.perf_counter() - t0
+    launches = read_counters()["rq_cascade"]
+    chunks = -(-CATALOG_ITEMS // SEM_ID_CHUNK)
+    check(launches == chunks, f"export: {launches} B7 launches, want {chunks}")
+    model_ids = compute_sem_ids(model, src.embeddings, batch_size=SEM_ID_CHUNK,
+                                use_pallas=False)
+    with torch.no_grad():
+        enc = model.encode(torch.as_tensor(src.embeddings, device=dev))
+    ties = check_sem_ids("export vs get_semantic_ids", enc, model.codebooks().detach(),
+                         torch.as_tensor(sem_ids, device=dev),
+                         torch.as_tensor(model_ids, device=dev))
+    distinct = len({tuple(r) for r in sem_ids.tolist()})
+    prof = None
+    if profile:
+        def run_more():
+            t = time.perf_counter()
+            loop.run_epoch(state, step_fn, epoch, step, max_steps=step + steps_per_epoch)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+
+        prof = emit("rqvae_profile", steps=steps_per_epoch, **device_profile(run_more))
+    return emit(
+        "rqvae", card=torch.cuda.get_device_name(dev), trainer=trainer, profile=prof,
+        config="config/tiger/amazon/rqvae.gin widths, synthetic item embeddings "
+               f"({CATALOG_ITEMS} x 768)", kmeans_init_s=kmeans_s, rows_per_step=1024,
+        steps=len(loss), steps_per_s=len(loss) / wall_s, wall_s=wall_s,
+        step_ms_p50=float(np.percentile(step_ms, 50)),
+        step_ms_p90=float(np.percentile(step_ms, 90)),
+        first_loss=loss[0], last_loss=loss[-1], losses=loss,
+        export=dict(items=CATALOG_ITEMS, chunk=SEM_ID_CHUNK, rq_cascade_launches=launches,
+                    wall_s=export_s, collision_rate=1 - distinct / CATALOG_ITEMS,
+                    vs_model_path=ties),
+    )
+
+
+# ---- phase 7: the serving slice --------------------------------------------
 
 
 def make_requests(rng, n, n_items):
@@ -864,14 +1218,35 @@ def serve(engine, reqs):
     return responses, time.perf_counter() - t0
 
 
-def offline_answer(model, head, trie, req, L):
+def offline_answer(model, head, trie, req, L, kv_dtype="float32"):
     from genrec_tpu_torch.models.tiger import tiger_generate_paged
 
     user, ids, types, mask = (t.to(model.device) for t in head.make_batch([req], 1, L))
     out = tiger_generate_paged(model, trie, user, ids, types, mask,
                                n_top_k_candidates=BEAMS,
-                               page_size=PAGED["page_size"])
+                               page_size=PAGED["page_size"], kv_dtype=kv_dtype)
     return out.sem_ids[0].cpu().numpy(), out.log_probas[0].cpu().numpy()
+
+
+def int8_answers_agree(sem, logp, got_sem, got_scores, atol) -> tuple[float, int]:
+    """Offline (sem, logp) against an engine answer, both (BEAMS, D) tuples
+    with descending scores: every tuple in both has scores within
+    ``atol``; a tuple in one only scores within ``atol`` of the other's
+    last (it sat at the cut-off); every answer's scores sort descending.
+    Returns (max score difference of the shared tuples, beams whose rank
+    differs)."""
+    want = {tuple(t): float(v) for t, v in zip(sem.tolist(), logp)}
+    got = {tuple(t): float(v) for t, v in zip(got_sem.tolist(), got_scores)}
+    check(len(want) == len(got) == BEAMS, (want, got))
+    err = max([abs(want[t] - got[t]) for t in want.keys() & got.keys()] or [0.0])
+    check(err <= atol, ("int8 scores of the same tuples", err, want, got))
+    for a, b in ((want, got), (got, want)):
+        floor = min(b.values())
+        check(all(a[t] <= floor + atol for t in a.keys() - b.keys()),
+              ("a tuple of one answer only, above the other's cut-off", want, got))
+    check(bool((np.diff(got_scores) <= 0).all()), got_scores)
+    moved = int(sum(tuple(x) != tuple(y) for x, y in zip(sem.tolist(), got_sem.tolist())))
+    return err, moved
 
 
 def device_profile(serve_once) -> dict:
@@ -898,7 +1273,13 @@ def device_profile(serve_once) -> dict:
     )
 
 
-def serve_phase(dev, seed, n_requests, profile=False) -> tuple[dict, dict | None]:
+def serve_phase(dev, seed, n_requests, profile=False, kv_dtype="float32",
+                fp32_answers=None) -> tuple[dict, dict | None, list]:
+    """The serving burst with ``kv_dtype`` pages. The same seed gives the
+    same catalog, weights and requests for both page types; with
+    ``fp32_answers`` (the float32 burst's responses) the int8 answers'
+    top-10 agreement with them is reported. Returns (the phase's line, the
+    profile's line or None, the responses)."""
     from genrec_tpu_torch.models.tiger import Tiger
     from genrec_tpu_torch.serving.buckets import BucketLadder
     from genrec_tpu_torch.serving.engine import ServingEngine
@@ -916,9 +1297,11 @@ def serve_phase(dev, seed, n_requests, profile=False) -> tuple[dict, dict | None
     head = TigerGenerativeHead(model, item_sem_ids=catalog, top_k=BEAMS)
     ladder = BucketLadder((1, 2, 4, 8, 16), (4, 8, 16, MAX_ITEMS))
 
+    cfg = PagedConfig(**PAGED, kv_dtype=kv_dtype)
+
     def engine():
         return ServingEngine([head], device=dev, ladder=ladder, max_batch=16,
-                             max_wait_ms=2.0, paged_config=PagedConfig(**PAGED)).start()
+                             max_wait_ms=2.0, paged_config=cfg, kv_dtype=kv_dtype).start()
 
     warm = engine()  # first calls: cuBLAS handles, allocator, kernel library
     serve(warm, make_requests(rng, 32, CATALOG_ITEMS))
@@ -928,8 +1311,13 @@ def serve_phase(dev, seed, n_requests, profile=False) -> tuple[dict, dict | None
     eng = engine()
     reset_counters()
     responses, wall_s = serve(eng, reqs)
-    launches = read_counters()["paged_attention_stats"]
+    counts = read_counters()
     stats = eng.stop()
+    kernel, other = "paged_attention_stats", "paged_attention_stats_quantized"
+    if kv_dtype == "int8":
+        kernel, other = other, kernel
+    launches = counts[kernel]
+    check(counts[other] == 0, f"{kv_dtype} burst launched {other} {counts[other]} times")
     pool = eng.runner(head.name).pool
     pool.check_invariants()
     check(pool.allocator.pages_in_use == 0 and pool.active_slot_count == 0, pool.stats())
@@ -945,24 +1333,44 @@ def serve_phase(dev, seed, n_requests, profile=False) -> tuple[dict, dict | None
         check(all(tuple(int(c) for c in t) in index for t in resp.sem_ids)
               and (resp.items >= 0).all(), ("not catalog items", resp.sem_ids))
 
-    # A sample against offline decoding: on the card (the same kernel, one
-    # request per batch) and on the CPU (the plain version, CPU GEMMs).
-    cpu_model = Tiger(**TIGER_AMAZON, device="cpu").eval()
-    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    cpu_trie = head.catalog.device_trie("cpu")
+    # A sample against offline decoding of the same page type: on the card
+    # (the same kernel, one request per batch) and, for fp32, on the CPU
+    # (the plain version, CPU GEMMs).
+    on_cpu = 4 if kv_dtype == "float32" else 0
+    atol = SAMPLE_ATOL if kv_dtype == "float32" else INT8_SAMPLE_ATOL
+    if on_cpu:
+        cpu_model = Tiger(**TIGER_AMAZON, device="cpu").eval()
+        cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        cpu_trie = head.catalog.device_trie("cpu")
     sample = rng.choice(len(reqs), 12, replace=False)
+    sample_err, moved = 0.0, 0
     for i, j in enumerate(sample):
         req, resp = reqs[j], responses[j]
-        refs = [("cuda", model, head.trie)] + ([("cpu", cpu_model, cpu_trie)] if i < 4 else [])
+        refs = [("cuda", model, head.trie)] + ([("cpu", cpu_model, cpu_trie)] if i < on_cpu
+                                               else [])
         for where, m, trie in refs:
-            sem, logp = offline_answer(m, head, trie, req, resp.bucket[1])
-            check((sem == resp.sem_ids).all(), (where, j, sem, resp.sem_ids))
-            check(np.abs(logp - resp.scores).max() <= SAMPLE_ATOL, (where, j, logp, resp.scores))
+            sem, logp = offline_answer(m, head, trie, req, resp.bucket[1], kv_dtype)
+            if kv_dtype == "int8":
+                err, n = int8_answers_agree(sem, logp, resp.sem_ids, resp.scores, atol)
+                moved += n
+            else:
+                check((sem == resp.sem_ids).all(), (where, j, sem, resp.sem_ids))
+                err = float(np.abs(logp - resp.scores).max())
+                check(err <= atol, (where, j, logp, resp.scores))
+            sample_err = max(sample_err, err)
+    agreement = None
+    if fp32_answers is not None:
+        agreement = float(np.mean([
+            len({tuple(t) for t in a.sem_ids.tolist()} & {tuple(t) for t in b.sem_ids.tolist()})
+            / BEAMS for a, b in zip(responses, fp32_answers)]))
 
     total_ms = np.asarray([r.total_s for r in responses]) * 1e3
     compute_ms = np.asarray([r.compute_s for r in responses]) * 1e3
+    geometry = (decode_layers, TIGER_AMAZON["num_heads"],
+                TIGER_AMAZON["attn_dim"] // TIGER_AMAZON["num_heads"])
     served = emit(
-        "serve", card=torch.cuda.get_device_name(dev), requests=len(reqs),
+        "serve" if kv_dtype == "float32" else "serve_int8", kv_dtype=kv_dtype,
+        card=torch.cuda.get_device_name(dev), requests=len(reqs),
         qps=len(reqs) / wall_s, wall_s=wall_s,
         p50_ms=float(np.percentile(total_ms, 50)),
         p99_ms=float(np.percentile(total_ms, 99)),
@@ -970,23 +1378,25 @@ def serve_phase(dev, seed, n_requests, profile=False) -> tuple[dict, dict | None
         compute_p99_ms=float(np.percentile(compute_ms, 99)),
         decode_steps=steps,
         prefill_batches=stats["batches"], bucket_hits=stats["bucket_hits"],
-        paged_attention_launches=launches,
+        kernel=kernel, paged_attention_launches=launches,
         launches_per_decode_step=launches / steps,
         catalog_items=CATALOG_ITEMS, catalog_version=head.catalog_version,
-        sample_checked=len(sample), sample_checked_on_cpu=4,
-        pool_bytes=PagedConfig(**PAGED).hbm_bytes(
-            decode_layers, TIGER_AMAZON["num_heads"],
-            TIGER_AMAZON["attn_dim"] // TIGER_AMAZON["num_heads"]),
+        sample_checked=len(sample), sample_checked_on_cpu=on_cpu,
+        sample_max_abs_score_err=sample_err, sample_atol=atol,
+        sample_beams_in_another_rank=moved,
+        pool_bytes=cfg.hbm_bytes(*geometry),
+        pool_bytes_fp32=PagedConfig(**PAGED).hbm_bytes(*geometry),
+        top10_agreement_with_fp32=agreement,
     )
     if not profile:
-        return served, None
+        return served, None, responses
     # The same traffic again, a fresh request set, under the profiler.
     again = make_requests(rng, n_requests, CATALOG_ITEMS)
     eng = engine()
-    prof = emit("profile", requests=n_requests,
+    prof = emit("profile" if kv_dtype == "float32" else "profile_int8", requests=n_requests,
                 **device_profile(lambda: serve(eng, again)[1]))
     eng.stop()
-    return served, prof
+    return served, prof, responses
 
 
 def build_all() -> dict:
@@ -1012,8 +1422,9 @@ def main(argv=None) -> int:
     ap.add_argument("--requests", type=int, default=384)
     ap.add_argument("--out", type=Path, help="also write every phase's JSON here")
     ap.add_argument("--profile", action="store_true",
-                    help="run more train steps and serve the traffic once more under "
-                         "torch.profiler, and report device time by kernel")
+                    help="run more HSTU and RQ-VAE train steps and serve the traffic once "
+                         "more (fp32 and int8) under torch.profiler, and report device "
+                         "time by kernel")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1040,18 +1451,30 @@ def main(argv=None) -> int:
         cuda=torch.version.cuda, python=sys.version.split()[0],
     )}
     phases["build"] = emit("build", **build_all())
-    kernels = {"paged_attention_stats": kernel_phase(dev, args.seed)}
+    kernels = {"paged_attention_stats": kernel_phase(dev, args.seed),
+               "paged_attention_stats_quantized": quantized_kernel_phase(dev, args.seed),
+               "rq_cascade": rq_kernel_phase(dev, args.seed)}
     kernels.update(hstu_kernel_phase(dev, args.seed))
     kernels.update(ce_kernel_phase(dev, args.seed))
     phases["kernel_phases"] = kernels
     phases["train"] = train_phase(dev, args.seed, args.profile)
     phases["parity"] = parity_phase(dev, args.seed)
-    phases["serve"], profiled = serve_phase(dev, args.seed, args.requests, args.profile)
+    phases["rqvae"] = rqvae_phase(dev, args.seed, args.profile)
+    phases["serve"], profiled, fp32_answers = serve_phase(dev, args.seed, args.requests,
+                                                          args.profile)
     if profiled:
         phases["serve_profile"] = profiled
+    phases["serve_int8"], profiled, _ = serve_phase(dev, args.seed, args.requests,
+                                                    args.profile, kv_dtype="int8",
+                                                    fp32_answers=fp32_answers)
+    if profiled:
+        phases["serve_int8_profile"] = profiled
     phases["wall_s"] = time.perf_counter() - t_start
 
     launches = {"paged_attention_stats": phases["serve"]["paged_attention_launches"],
+                "paged_attention_stats_quantized":
+                    phases["serve_int8"]["paged_attention_launches"],
+                "rq_cascade": phases["rqvae"]["export"]["rq_cascade_launches"],
                 **{k: phases["train"]["launches"][k] for k in LAUNCHES_PER_STEP}}
     line = {"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,

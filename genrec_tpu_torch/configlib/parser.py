@@ -14,6 +14,11 @@ Values are Python literals plus three gin extensions:
     %MACRO            -> macro table lookup
     %pkg.Enum.MEMBER  -> enum member (gin constants_from_enum)
     @Name / @Name()   -> configurable reference / evaluated reference
+
+The files name the JAX package; ``import genrec_tpu.<mod>`` imports the
+port's ``genrec_tpu_torch.<mod>`` and raises, naming the ROADMAP item
+that ports it, where the port has no such module yet. Every other
+``genrec_tpu.`` name is mapped the same way by ``registry.port_name``.
 """
 
 from __future__ import annotations
@@ -26,6 +31,16 @@ from typing import Any
 from genrec_tpu_torch.configlib import registry
 
 _MACROS: dict[str, Any] = {}
+
+# JAX-package modules a config file may import that the port has not
+# ported yet, and the ROADMAP item that ports each.
+_ROADMAP_ITEM = {
+    "models.sasrec": "A5 (SASRec on fused CE)",
+    "trainers.sasrec_trainer": "A5 (SASRec on fused CE)",
+    "models.lcrec": "A5 (LCRec, with kernel B8)",
+    "trainers.lcrec_trainer": "A5 (LCRec, with kernel B8)",
+    "trainers.tiger_trainer": "A9 (TIGER training)",
+}
 
 _REF_RE = re.compile(r"@([A-Za-z_][\w\./]*)(\(\))?")
 _PCT_RE = re.compile(r"%([A-Za-z_][\w\.]*)")
@@ -171,9 +186,27 @@ def parse_string(
                         break
             parse_file(path, substitutions=substitutions)
         elif line.startswith("import "):
-            importlib.import_module(line[len("import ") :].strip())
+            import_port_module(line[len("import ") :].strip())
         else:
             parse_binding(line)
+
+
+def import_port_module(name: str):
+    """Import the port's counterpart of ``name`` (a config file's
+    ``import`` line); a module the port lacks raises ImportError naming
+    the ROADMAP item that ports it."""
+    port = registry.port_name(name)
+    try:
+        return importlib.import_module(port)
+    except ModuleNotFoundError as e:
+        if not (e.name and (port == e.name or port.startswith(e.name + "."))):
+            raise  # a module that exists failed on one of its own imports
+        rest = port.split(".", 1)[1] if "." in port else port
+        item = _ROADMAP_ITEM.get(rest, "no item yet: see ROADMAP.md queue A")
+        raise ImportError(
+            f"config imports {name}, whose port {port} does not exist yet; "
+            f"ROADMAP {item} ports it"
+        ) from e
 
 
 def parse_file(path: str, *, substitutions: dict[str, str] | None = None) -> None:

@@ -15,6 +15,13 @@ bindings supply the same parameter the most specific target (most dot
 components) wins, later bindings breaking ties.  This is what lets one
 process import many trainers (pipelines.py) while shipped configs keep
 writing plain ``train.x = y``.
+
+The config files name the JAX package (``import genrec_tpu.models.rqvae``,
+``%genrec_tpu.models.rqvae.QuantizeForwardMode.STE``). Every dotted name
+that starts with ``genrec_tpu.`` is read as its counterpart under
+``genrec_tpu_torch.`` (``port_name``): in import lines, binding targets,
+``@`` references and ``%`` enum constants. Nothing here or in the parser
+imports a ``genrec_tpu`` module.
 """
 
 from __future__ import annotations
@@ -41,6 +48,17 @@ _BINDINGS: dict[tuple[str, str], Any] = {}
 _ENUMS: dict[str, type[enum.Enum]] = {}
 
 
+_JAX_PACKAGE, _PORT_PACKAGE = "genrec_tpu", "genrec_tpu_torch"
+
+
+def port_name(dotted: str) -> str:
+    """``genrec_tpu.<rest>`` -> ``genrec_tpu_torch.<rest>``; any other name
+    unchanged (``genrec_tpu_torch.x`` included)."""
+    if dotted == _JAX_PACKAGE or dotted.startswith(_JAX_PACKAGE + "."):
+        return _PORT_PACKAGE + dotted[len(_JAX_PACKAGE):]
+    return dotted
+
+
 class Ref:
     """Base for lazily-resolved config values (resolved at injection time)."""
 
@@ -54,7 +72,7 @@ class ConfigurableRef(Ref):
     def __init__(self, name: str, evaluate: bool = False):
         # gin scopes ("@scope/Name") are accepted and flattened, matching
         # the LHS treatment in the parser.
-        self.name = name.rsplit("/", 1)[-1]
+        self.name = port_name(name.rsplit("/", 1)[-1])
         self.evaluate = evaluate
 
     def resolve(self):
@@ -219,16 +237,19 @@ def register_enum(cls: type[enum.Enum]) -> type[enum.Enum]:
 
 
 def resolve_enum(dotted: str):
-    """Resolve ``pkg.module.Enum.MEMBER`` to the enum member, or None."""
+    """Resolve ``pkg.module.Enum.MEMBER`` to the enum member, or None.
+
+    A ``genrec_tpu.`` path names the port's module (``port_name``); an
+    enum not registered yet is looked up by importing that port module,
+    never the JAX one."""
     if "." not in dotted:
         return None
-    path, member = dotted.rsplit(".", 1)
+    path, member = port_name(dotted).rsplit(".", 1)
     with _LOCK:
         cls = _ENUMS.get(path) or _ENUMS.get(path.rsplit(".", 1)[-1])
     if cls is None:
-        # Try importing the module holding the enum.
         mod_path, _, cls_name = path.rpartition(".")
-        if mod_path:
+        if mod_path.startswith(_PORT_PACKAGE + "."):
             try:
                 import importlib
 
@@ -248,6 +269,7 @@ def lookup(name: str) -> Callable | None:
     identify exactly ONE registered configurable — `@train` with two
     trainer modules imported is an error (gin's ambiguity rule applies to
     *references*, which need a single callable, not to bindings)."""
+    name = port_name(name)
     with _LOCK:
         if name in _REGISTRY:
             return _REGISTRY[name]
@@ -268,7 +290,9 @@ def bind(target: str, param: str, value: Any) -> None:
     """Store a binding under its literal target; resolution against
     configurables happens lazily at call time (suffix rule), so binding an
     ambiguous or not-yet-imported name is legal, exactly as in gin files
-    parsed before their imports."""
+    parsed before their imports. A ``genrec_tpu.`` target binds the
+    port's counterpart."""
+    target = port_name(target)
     with _LOCK:
         # Re-insert so "later binding wins" holds for repeated targets.
         _BINDINGS.pop((target, param), None)
@@ -278,6 +302,7 @@ def bind(target: str, param: str, value: Any) -> None:
 def get_binding(target: str, param: str, default: Any = None) -> Any:
     """The value ``param`` would receive if the configurable named by
     ``target`` were called now (suffix resolution included)."""
+    target = port_name(target)
     with _LOCK:
         paths = [p for ps in _SHORT.values() for p in ps if _matches(target, p)]
     if not paths:
@@ -291,6 +316,7 @@ def get_binding(target: str, param: str, default: Any = None) -> Any:
 
 
 def get_bindings(target: str) -> dict[str, Any]:
+    target = port_name(target)
     with _LOCK:
         paths = [p for ps in _SHORT.values() for p in ps if _matches(target, p)]
     if not paths:

@@ -1,10 +1,11 @@
 """Weights carried across from the JAX package.
 
-``tiger_params_from_flax`` and ``hstu_params_from_flax`` map a Flax param
-tree (nested dicts of numpy arrays, as ``jax.device_get(params)`` gives
-it) onto the state dict of the port's ``Tiger`` and ``HSTU``, so both
-packages compute the same function from the same weights. The names
-follow the Flax module names one for one, with these rewrites:
+``tiger_params_from_flax``, ``hstu_params_from_flax`` and
+``rqvae_params_from_flax`` map a Flax param tree (nested dicts of numpy
+arrays, as ``jax.device_get(params)`` gives it) onto the state dict of
+the port's ``Tiger``, ``HSTU`` and ``RqVae``, so both packages compute
+the same function from the same weights. The names follow the Flax
+module names one for one, with these rewrites:
 
 - ``layer_<i>`` (Flax list submodules) -> ``layers.<i>`` (``nn.ModuleList``);
 - ``<dense>/kernel`` (Flax ``nn.Dense``, stored ``(in, out)``) ->
@@ -54,6 +55,14 @@ def hstu_params_from_flax(params_np, model=None) -> dict[str, torch.Tensor]:
     ``HSTU`` state dict, with the same two checks as
     ``tiger_params_from_flax``."""
     return _params_from_flax(params_np, model, {"scale": "weight"})
+
+
+def rqvae_params_from_flax(params_np, model=None) -> dict[str, torch.Tensor]:
+    """Flax RQ-VAE params (``RqVae.init(...)["params"]``) -> the port's
+    ``RqVae`` state dict (``encoder.dense_<i>``, ``decoder.dense_<i>``,
+    ``quantize_<i>.codebook`` and ``.out_proj``), with the same two checks
+    as ``tiger_params_from_flax``."""
+    return _params_from_flax(params_np, model, {})
 
 
 def _params_from_flax(params_np, model, renames) -> dict[str, torch.Tensor]:

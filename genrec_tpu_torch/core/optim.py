@@ -9,6 +9,10 @@ gradients. ``update`` keeps parameters and moments unchanged and the
 count unincremented where ``ok`` (a 0-d bool tensor on the device) is
 False, with no host synchronisation: the non-finite step guard of
 ``core.harness``. Parameters and moments are updated in place.
+
+``learning_rate`` is a number or a schedule (``ops/schedules.py``: count
+-> rate), which is evaluated, as optax evaluates it, at the update count
+before its increment: the first update runs at ``schedule(0)``.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import torch
 
 
 class Adam:
-    def __init__(self, learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+    def __init__(self, learning_rate, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, weight_decay: float = 0.0):
         self.learning_rate, self.b1, self.b2, self.eps = learning_rate, b1, b2, eps
         self.weight_decay = weight_decay
@@ -46,7 +50,10 @@ class Adam:
                                                             self.eps))
         if self.weight_decay:
             upd = torch._foreach_add(upd, torch._foreach_mul(params, self.weight_decay))
-        new = torch._foreach_add(params, torch._foreach_mul(upd, -self.learning_rate))
+        lr = self.learning_rate
+        if callable(lr):
+            lr = lr(state["count"])
+        new = torch._foreach_add(params, torch._foreach_mul(upd, -lr))
         for old, fresh in ((params, new), (state["mu"], mu), (state["nu"], nu)):
             for o, f in zip(old, fresh):
                 o.copy_(torch.where(ok, f, o))

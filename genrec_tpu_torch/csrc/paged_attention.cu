@@ -1,7 +1,10 @@
-// Paged decode attention, flash statistics, for Hopper (sm_90a).
+// Paged decode attention, flash statistics, for Hopper (sm_90a): over
+// float32 pools (B1) and over int8 pools dequantised in the kernel (B2).
 //
-// Replaces the TPU kernel genrec_tpu/kernels/paged_attention.py::
-// paged_attention_stats_pallas (pallas_call at :227, body _kernel at :43).
+// B1 replaces the TPU kernel genrec_tpu/kernels/paged_attention.py::
+// paged_attention_stats_pallas (pallas_call at :227, body _kernel at :43);
+// B2 replaces paged_attention_stats_pallas_quantized (pallas_call at :164,
+// body _kernel_quant at :78).
 // Computes exactly what genrec_tpu/ops/paged.py::_stats_fallback computes
 // (and its port, genrec_tpu_torch/kernels/paged_attention.py::
 // paged_attention_stats_ref): for every slot s, beam b and head h,
@@ -35,9 +38,27 @@
 //   - the TPU version's (8,128) padding of beams/head_dim and its
 //     lane-replicated m/l blocks are tiling artefacts and are gone.
 // Block-table entries are clamped into [0, P) like a JAX gather.
+//
+// B2 (int8 pools): the pools hold int8 rows (P, page, H, hd) and one fp32
+// scale per (page, row), (P, page). The kernel is B1 with another page
+// load: each K and V element is dequantised right after the load,
+// k = float(int8) * scale[page, row], into the same fp32 shared-memory
+// page, and the score is (q . k) * hd^-0.5 in that order, as
+// genrec_tpu_torch/kernels/paged_attention.py::
+// paged_attention_stats_quantized_ref (dequantise after the gather) and
+// the TPU kernel compute it. The pool is never upcast outside the kernel.
+// Rows are loaded as 4-byte words (char4) when hd is a multiple of 4 and
+// the pools are 4-byte aligned (the wrapper says which), else byte by
+// byte. Bound: memory, S*Pm*page*(H*hd + 4)*2 bytes of int8 rows and
+// scales at the serving shapes (3.2 MB, ~1 us at 3.35 TB/s; B1 walks
+// 12.6 MB). The TPU version's (P, page, 128) lane pad of the scale plane
+// and its (8, 128) q pads are gone.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -69,17 +90,55 @@ size_t smem_floats(int K, int hd, int page) {
          (size_t)2 * K + (size_t)kWarps * 32;
 }
 
+// One page's K or V rows of head h into shared memory as fp32 (row j at
+// dst + j * dst_stride). T = float: copied. T = int8_t: dequantised with
+// the row's scale right after the load, 4 bytes at a time when `vec4`.
+template <typename T>
+__device__ __forceinline__ void load_page(float* dst, int dst_stride, const T* src,
+                                          const float* row_scale, size_t row_stride,
+                                          int page, int hd, bool vec4, int tid) {
+  if constexpr (std::is_same<T, float>::value) {
+    for (int i = tid; i < page * hd; i += kThreads) {
+      const int j = i / hd;
+      const int d = i - j * hd;
+      dst[j * dst_stride + d] = src[j * row_stride + d];
+    }
+  } else if (vec4) {
+    const int words = hd >> 2;
+    for (int i = tid; i < page * words; i += kThreads) {
+      const int j = i / words;
+      const int w = i - j * words;
+      const char4 c = reinterpret_cast<const char4*>(src + j * row_stride)[w];
+      const float sc = row_scale[j];
+      float* o = dst + j * dst_stride + 4 * w;
+      o[0] = (float)c.x * sc;
+      o[1] = (float)c.y * sc;
+      o[2] = (float)c.z * sc;
+      o[3] = (float)c.w * sc;
+    }
+  } else {
+    for (int i = tid; i < page * hd; i += kThreads) {
+      const int j = i / hd;
+      const int d = i - j * hd;
+      dst[j * dst_stride + d] = (float)src[j * row_stride + d] * row_scale[j];
+    }
+  }
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_stats_kernel(const float* __restrict__ q,
-                             const float* __restrict__ k_pool,
-                             const float* __restrict__ v_pool,
+                             const T* __restrict__ k_pool,
+                             const T* __restrict__ v_pool,
+                             const float* __restrict__ k_scale,
+                             const float* __restrict__ v_scale,
                              const int* __restrict__ block_tables,
                              const int* __restrict__ seq_lens,
                              float* __restrict__ acc,
                              float* __restrict__ m_out,
                              float* __restrict__ l_out,
                              int K, int H, int hd, int P, int page, int Pm,
-                             float scale) {
+                             float scale, bool vec4) {
   extern __shared__ float smem[];
   const int s = blockIdx.x;
   const int h = blockIdx.y;
@@ -114,14 +173,11 @@ paged_attention_stats_kernel(const float* __restrict__ q,
     int pg = block_tables[s * Pm + p];
     pg = min(max(pg, 0), P - 1);
     __syncthreads();  // the previous page is consumed; init is visible
-    const float* k_page = k_pool + (size_t)pg * page * row_stride + (size_t)h * hd;
-    const float* v_page = v_pool + (size_t)pg * page * row_stride + (size_t)h * hd;
-    for (int i = tid; i < page * hd; i += kThreads) {
-      const int j = i / hd;
-      const int d = i - j * hd;
-      k_s[j * kstride + d] = k_page[j * row_stride + d];
-      v_s[i] = v_page[j * row_stride + d];
-    }
+    const size_t at = (size_t)pg * page * row_stride + (size_t)h * hd;
+    const float* ks = k_scale ? k_scale + (size_t)pg * page : nullptr;
+    const float* vs = v_scale ? v_scale + (size_t)pg * page : nullptr;
+    load_page<T>(k_s, kstride, k_pool + at, ks, row_stride, page, hd, vec4, tid);
+    load_page<T>(v_s, hd, v_pool + at, vs, row_stride, page, hd, vec4, tid);
     __syncthreads();
 
     for (int b = warp; b < K; b += kWarps) {
@@ -174,34 +230,56 @@ paged_attention_stats_kernel(const float* __restrict__ q,
   }
 }
 
+template <typename T>
+int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
+           const void* v_scale, const void* block_tables, const void* seq_lens,
+           void* acc, void* m, void* l, int S, int K, int H, int hd, int P, int page,
+           int Pm, float scale, bool vec4, void* stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (S == 0 || H == 0) return 0;
+  const size_t smem = smem_floats(K, hd, page) * sizeof(float);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(paged_attention_stats_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid(S, H);
+  paged_attention_stats_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)q, (const T*)k_pool, (const T*)v_pool, (const float*)k_scale,
+      (const float*)v_scale, (const int*)block_tables, (const int*)seq_lens,
+      (float*)acc, (float*)m, (float*)l, K, H, hd, P, page, Pm, scale, vec4);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C interface for ctypes. Pointers are device pointers of contiguous
 // tensors (the Python wrapper checks dtype, shape, device and
-// contiguity); `stream` is the caller's cudaStream_t. Launches on that
-// stream without synchronising and returns cudaGetLastError() (0 = ok).
+// contiguity); `stream` is the caller's cudaStream_t. Each launches on
+// that stream without synchronising and returns cudaGetLastError()
+// (0 = ok).
 extern "C" int paged_attention_stats_f32(
     const void* q, const void* k_pool, const void* v_pool,
     const void* block_tables, const void* seq_lens,
     void* acc, void* m, void* l,
     int S, int K, int H, int hd, int P, int page, int Pm, float scale,
     void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (S == 0 || H == 0) return 0;
-  const size_t smem = smem_floats(K, hd, page) * sizeof(float);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(paged_attention_stats_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid(S, H);
-  paged_attention_stats_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k_pool, (const float*)v_pool,
-      (const int*)block_tables, (const int*)seq_lens,
-      (float*)acc, (float*)m, (float*)l, K, H, hd, P, page, Pm, scale);
-  return (int)cudaGetLastError();
+  return launch<float>(q, k_pool, v_pool, nullptr, nullptr, block_tables, seq_lens, acc,
+                       m, l, S, K, H, hd, P, page, Pm, scale, false, stream, device);
+}
+
+// B2: int8 pools (P, page, H, hd) with fp32 scales (P, page). `vec4` != 0
+// when hd % 4 == 0 and both pools' data pointers are 4-byte aligned.
+extern "C" int paged_attention_stats_q8(
+    const void* q, const void* k_data, const void* k_scale, const void* v_data,
+    const void* v_scale, const void* block_tables, const void* seq_lens,
+    void* acc, void* m, void* l,
+    int S, int K, int H, int hd, int P, int page, int Pm, float scale, int vec4,
+    void* stream, int device) {
+  return launch<int8_t>(q, k_data, v_data, k_scale, v_scale, block_tables, seq_lens, acc,
+                        m, l, S, K, H, hd, P, page, Pm, scale, vec4 != 0, stream, device);
 }
 
 extern "C" const char* paged_attention_error_string(int code) {

@@ -33,7 +33,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 # Every kernel library of the port, by source stem.
-LIBRARIES = ("paged_attention", "hstu_attention", "fused_ce")
+LIBRARIES = ("paged_attention", "hstu_attention", "fused_ce", "rq_cascade")
 
 
 def _nvcc() -> str:

@@ -1,17 +1,25 @@
-"""Paged decode attention: the CUDA kernel's wrapper and its plain version.
+"""Paged decode attention: the CUDA kernels' wrappers and their plain
+versions.
 
-``paged_attention_stats_cuda`` launches the hand-written Hopper kernel in
-``genrec_tpu_torch/csrc/paged_attention.cu``, which replaces the TPU
-kernel ``genrec_tpu/kernels/paged_attention.py::paged_attention_stats_pallas``.
-``paged_attention_stats_ref`` is the plain PyTorch version of the same
-function (gather, einsum, mask, softmax statistics) — the port of
-``genrec_tpu/ops/paged.py::_stats_fallback`` and the numerics contract the
-kernel is held to. The CPU takes the plain version (``ops/paged.py``
-routes by device); a CUDA tensor goes through the kernel or raises.
+``paged_attention_stats_cuda`` (B1, float32 pools) and
+``paged_attention_stats_quantized_cuda`` (B2, int8 pools with one fp32
+scale per page row, dequantised inside the kernel) launch the
+hand-written Hopper kernels in ``genrec_tpu_torch/csrc/paged_attention.cu``,
+which replace the TPU kernels ``paged_attention_stats_pallas`` and
+``paged_attention_stats_pallas_quantized`` of
+``genrec_tpu/kernels/paged_attention.py``. ``paged_attention_stats_ref``
+and ``paged_attention_stats_quantized_ref`` are the plain PyTorch
+versions (gather — and for int8 dequantise after the gather — einsum,
+mask, softmax statistics): the port of ``genrec_tpu/ops/paged.py::
+_stats_fallback`` and the numerics contract the kernels are held to. The
+CPU takes the plain versions (``ops/paged.py`` routes by device); a CUDA
+tensor goes through a kernel or raises.
 
-The kernel is memory-bound: one call reads ``S*Pm*page*H*hd*2*4`` bytes
-of K/V (12.6 MB at the serving shapes S=64, Pm=4, page=16, H=6, hd=64:
-3.8 us at 3.35 TB/s). The source's header says what its design does.
+Both kernels are memory-bound: one call reads the K/V rows of every page
+it walks, ``S*Pm*page*H*hd*2*4`` bytes in fp32 (12.6 MB at the serving
+shapes S=64, Pm=4, page=16, H=6, hd=64: 3.8 us at 3.35 TB/s) and
+``S*Pm*page*(H*hd + 4)*2`` in int8 with scales (3.2 MB). The source's
+header says what the design does.
 
 Build: ``kernels/build.py`` compiles ``csrc/paged_attention.cu`` with nvcc
 for sm_90a into a ctypes library under ``<repo>/build/`` at first use.
@@ -45,7 +53,35 @@ def _library() -> ctypes.CDLL:
         ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
     ]
     fn.restype = ctypes.c_int
+    fn = lib.paged_attention_stats_q8
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+    ]
+    fn.restype = ctypes.c_int
     return lib
+
+
+def _check_shapes(q, k_shape, v_shape, block_tables, seq_lens):
+    """(S, K, H, hd, P, page, Pm) after the checks both kernels share."""
+    if q.dim() != 4 or len(k_shape) != 4:
+        raise ValueError(f"q {tuple(q.shape)} and pools {tuple(k_shape)} must be 4-D")
+    S, K, H, hd = q.shape
+    P, page = k_shape[:2]
+    if tuple(k_shape) != (P, page, H, hd) or tuple(v_shape) != tuple(k_shape):
+        raise ValueError(
+            f"pools {tuple(k_shape)} / {tuple(v_shape)} do not match (P, page, {H}, {hd})"
+        )
+    if block_tables.dim() != 2 or block_tables.shape[0] != S or tuple(seq_lens.shape) != (S,):
+        raise ValueError(
+            f"block_tables {tuple(block_tables.shape)} / seq_lens "
+            f"{tuple(seq_lens.shape)} do not match S={S}"
+        )
+    if P < 1:
+        raise ValueError("pools hold no page (page 0 is the null page)")
+    if not 1 <= K <= MAX_BEAMS or not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"kernel takes 1 <= K <= {MAX_BEAMS}, 1 <= hd <= "
+                         f"{MAX_HEAD_DIM}; got K={K}, hd={hd}")
+    return S, K, H, hd, P, page, block_tables.shape[1]
 
 
 def paged_attention_stats_cuda(q, k_pool, v_pool, block_tables, seq_lens):
@@ -63,26 +99,8 @@ def paged_attention_stats_cuda(q, k_pool, v_pool, block_tables, seq_lens):
         check_tensor(name, t, (torch.float32,), dev)
     for name, t in (("block_tables", block_tables), ("seq_lens", seq_lens)):
         check_tensor(name, t, (torch.int32,), dev)
-    if q.dim() != 4 or k_pool.dim() != 4:
-        raise ValueError(f"q {tuple(q.shape)} and pools {tuple(k_pool.shape)} must be 4-D")
-    S, K, H, hd = q.shape
-    P, page = k_pool.shape[:2]
-    if tuple(k_pool.shape) != (P, page, H, hd) or v_pool.shape != k_pool.shape:
-        raise ValueError(
-            f"pools {tuple(k_pool.shape)} / {tuple(v_pool.shape)} do not match "
-            f"(P, page, {H}, {hd})"
-        )
-    if block_tables.dim() != 2 or block_tables.shape[0] != S or tuple(seq_lens.shape) != (S,):
-        raise ValueError(
-            f"block_tables {tuple(block_tables.shape)} / seq_lens "
-            f"{tuple(seq_lens.shape)} do not match S={S}"
-        )
-    if P < 1:
-        raise ValueError("pools hold no page (page 0 is the null page)")
-    if not 1 <= K <= MAX_BEAMS or not 1 <= hd <= MAX_HEAD_DIM:
-        raise ValueError(f"kernel takes 1 <= K <= {MAX_BEAMS}, 1 <= hd <= "
-                         f"{MAX_HEAD_DIM}; got K={K}, hd={hd}")
-    Pm = block_tables.shape[1]
+    S, K, H, hd, P, page, Pm = _check_shapes(q, k_pool.shape, v_pool.shape, block_tables,
+                                             seq_lens)
     acc = torch.empty((S, K, H, hd), dtype=torch.float32, device=dev)
     m = torch.empty((S, K, H), dtype=torch.float32, device=dev)
     l = torch.empty((S, K, H), dtype=torch.float32, device=dev)
@@ -102,6 +120,52 @@ def paged_attention_stats_cuda(q, k_pool, v_pool, block_tables, seq_lens):
 paged_attention_stats_cuda.launches = 0
 
 
+def paged_attention_stats_quantized_cuda(q, k_pool, v_pool, block_tables, seq_lens):
+    """Kernel twin of ``paged_attention_stats_quantized_ref``: (acc, m, l)
+    fp32 over int8 pools. ``k_pool`` / ``v_pool`` are
+    ``ops.quant.QuantizedKVPool``s: data (P, page, H, hd) int8 and scale
+    (P, page) float32. q (S, K, H, hd) float32, block_tables (S, Pm) and
+    seq_lens (S,) int32; all contiguous on one CUDA device, K <= 32,
+    hd <= 128. Each K/V element is dequantised in the kernel right after
+    its load; the pools are never upcast. Raises as
+    ``paged_attention_stats_cuda`` does.
+    ``paged_attention_stats_quantized_cuda.launches`` counts the launches.
+    """
+    dev = q.device
+    check_tensor("q", q, (torch.float32,), dev)
+    for name, t in (("k_pool.data", k_pool.data), ("v_pool.data", v_pool.data)):
+        check_tensor(name, t, (torch.int8,), dev)
+    for name, t in (("k_pool.scale", k_pool.scale), ("v_pool.scale", v_pool.scale)):
+        check_tensor(name, t, (torch.float32,), dev)
+    for name, t in (("block_tables", block_tables), ("seq_lens", seq_lens)):
+        check_tensor(name, t, (torch.int32,), dev)
+    S, K, H, hd, P, page, Pm = _check_shapes(q, k_pool.data.shape, v_pool.data.shape,
+                                             block_tables, seq_lens)
+    for name, t in (("k_pool.scale", k_pool.scale), ("v_pool.scale", v_pool.scale)):
+        if tuple(t.shape) != (P, page):
+            raise ValueError(f"{name} {tuple(t.shape)} must be (P, page) = {(P, page)}")
+    vec4 = int(hd % 4 == 0 and k_pool.data.data_ptr() % 4 == 0
+               and v_pool.data.data_ptr() % 4 == 0)
+    acc = torch.empty((S, K, H, hd), dtype=torch.float32, device=dev)
+    m = torch.empty((S, K, H), dtype=torch.float32, device=dev)
+    l = torch.empty((S, K, H), dtype=torch.float32, device=dev)
+    lib = _library()
+    rc = lib.paged_attention_stats_q8(
+        q.data_ptr(), k_pool.data.data_ptr(), k_pool.scale.data_ptr(),
+        v_pool.data.data_ptr(), v_pool.scale.data_ptr(),
+        block_tables.data_ptr(), seq_lens.data_ptr(),
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+        S, K, H, hd, P, page, Pm, float(hd**-0.5), vec4,
+        *launch_context(q),
+    )
+    raise_on_error(lib, "paged_attention", "paged_attention_stats_quantized", rc)
+    paged_attention_stats_quantized_cuda.launches += 1
+    return acc, m, l
+
+
+paged_attention_stats_quantized_cuda.launches = 0
+
+
 def paged_attention_stats_ref(q, k_pool, v_pool, block_tables, seq_lens):
     """Plain PyTorch version: gather the slots' pages, score, fill masked
     positions with -1e9, and take the softmax statistics over all Pm*page
@@ -112,8 +176,32 @@ def paged_attention_stats_ref(q, k_pool, v_pool, block_tables, seq_lens):
     idx = block_tables.long()
     k = k_pool[idx].reshape(S, Pm * page, H, hd)
     v = v_pool[idx].reshape(S, Pm * page, H, hd)
+    return _stats(q, k, v, seq_lens)
+
+
+def paged_attention_stats_quantized_ref(q, k_pool, v_pool, block_tables, seq_lens):
+    """Plain PyTorch version over ``QuantizedKVPool``s: gather the slots'
+    int8 rows and their scales, dequantise after the gather
+    (float(int8) * scale), then ``paged_attention_stats_ref``'s
+    arithmetic. Same shapes and dtypes as the kernel."""
+    S, K, H, hd = q.shape
+    Pm = block_tables.shape[1]
+    page = k_pool.data.shape[1]
+    idx = block_tables.long()
+
+    def rows(pool):
+        out = pool.data[idx].to(torch.float32) * pool.scale[idx][..., None, None]
+        return out.reshape(S, Pm * page, H, hd)
+
+    return _stats(q, rows(k_pool), rows(v_pool), seq_lens)
+
+
+def _stats(q, k, v, seq_lens):
+    """(acc, m, l) of q (S, K, H, hd) over per-slot K/V (S, M, H, hd),
+    positions at or past seq_lens filled with -1e9."""
+    hd = q.shape[-1]
     s = torch.einsum("skhd,smhd->skhm", q, k).to(torch.float32) * (hd**-0.5)
-    tok = torch.arange(Pm * page, device=q.device)
+    tok = torch.arange(k.shape[1], device=q.device)
     s = s.masked_fill(tok[None, None, None, :] >= seq_lens.long()[:, None, None, None], NEG)
     m = s.amax(dim=-1)
     e = torch.exp(s - m[..., None])

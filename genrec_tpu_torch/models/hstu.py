@@ -29,6 +29,7 @@ from torch import nn
 from genrec_tpu_torch.device import resolve_device
 from genrec_tpu_torch.kernels.fused_ce import fused_ce_mean_loss
 from genrec_tpu_torch.kernels.hstu_attention import hstu_attention, hstu_attention_ref
+from genrec_tpu_torch.models.layers import truncated_normal
 from genrec_tpu_torch.ops.losses import cross_entropy_with_ignore
 
 
@@ -176,11 +177,11 @@ class HSTU(nn.Module):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
             elif isinstance(m, Dense):
-                m.weight.copy_(_trunc(m.weight.shape, m.in_features ** -0.5, gen))
+                m.weight.copy_(truncated_normal(m.weight.shape, m.in_features ** -0.5, gen))
                 m.bias.zero_()
             elif isinstance(m, RelativePositionBias):
-                m.bias.copy_(_trunc(m.bias.shape, 0.02, gen))
-        self.item_embedding.copy_(_trunc(self.item_embedding.shape, 0.02, gen))
+                m.bias.copy_(truncated_normal(m.bias.shape, 0.02, gen))
+        self.item_embedding.copy_(truncated_normal(self.item_embedding.shape, 0.02, gen))
 
     def _encode(self, input_ids, timestamps=None, deterministic: bool = True,
                 segment_ids=None, generator=None):
@@ -220,10 +221,3 @@ class HSTU(nn.Module):
         (B, d)."""
         return self._encode(input_ids, timestamps, deterministic=True)[:, -1]
 
-
-def _trunc(shape, stddev, gen):
-    """Flax ``truncated_normal(stddev)``: a standard normal cut at +-2,
-    scaled by stddev / 0.8796 (the cut normal's standard deviation)."""
-    std = stddev / 0.87962566103423978
-    return nn.init.trunc_normal_(torch.empty(shape), std=std, a=-2 * std, b=2 * std,
-                                 generator=gen)

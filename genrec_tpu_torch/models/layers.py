@@ -1,11 +1,50 @@
-"""Shared layers (port of genrec_tpu/models/layers.py: ``RMSNorm``)."""
+"""Shared layers (port of genrec_tpu/models/layers.py: ``MLP`` and
+``RMSNorm``)."""
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 from torch import nn
 
 from genrec_tpu_torch.device import resolve_device
+from genrec_tpu_torch.ops.normalize import l2norm
+
+
+def truncated_normal(shape, stddev: float, gen: torch.Generator) -> torch.Tensor:
+    """Flax ``truncated_normal(stddev)`` (also ``lecun_normal`` with
+    stddev = fan_in^-1/2): a standard normal cut at +-2, scaled by
+    stddev / 0.8796 (the cut normal's standard deviation). CPU tensor."""
+    std = stddev / 0.87962566103423978
+    return nn.init.trunc_normal_(torch.empty(shape), std=std, a=-2 * std, b=2 * std,
+                                 generator=gen)
+
+
+class MLP(nn.Module):
+    """Bias-free SiLU MLP with an optional L2-normalised output (the
+    RQ-VAE encoder and decoder). Layers are ``dense_<i>``, the Flax names;
+    weights are ``nn.Linear``'s (out, in). Initialised by the owner."""
+
+    def __init__(self, in_dim: int, hidden_dims: Sequence[int], out_dim: int,
+                 normalize: bool = False, device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        dims = [in_dim, *hidden_dims, out_dim]
+        self.n_dense = len(dims) - 1
+        self.normalize = normalize
+        for i in range(self.n_dense):
+            self.add_module(f"dense_{i}",
+                            nn.Linear(dims[i], dims[i + 1], bias=False, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.n_dense):
+            x = getattr(self, f"dense_{i}")(x)
+            if i != self.n_dense - 1:
+                x = torch.nn.functional.silu(x)
+        if self.normalize:
+            x = l2norm(x)
+        return x
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

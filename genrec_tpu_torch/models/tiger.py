@@ -35,6 +35,7 @@ from genrec_tpu_torch.models.t5transformer import (
     gather_beam_caches,
 )
 from genrec_tpu_torch.ops.paged import write_pages
+from genrec_tpu_torch.ops.quant import KV_DTYPES, QuantizedKVPool
 from genrec_tpu_torch.ops.trie import advance_ragged, legal_mask_ragged
 
 _ILLEGAL = -1e32
@@ -256,8 +257,9 @@ def tiger_paged_decode_step(model: Tiger, trie, state: dict, steps, block_tables
     """Advance every slot one constrained-beam position (per-slot steps).
 
     steps (S,) int64; block_tables (S, Pm) int32; seq_lens (S,) int32;
-    pools: one (P, page, H, hd) K and V pool per decoder layer. Free slots
-    compute garbage harmlessly: nothing here reduces across rows.
+    pools: one (P, page, H, hd) K and V pool (or QuantizedKVPool) per
+    decoder layer. Free slots compute garbage harmlessly: nothing here
+    reduces across rows.
     """
     S, K, D = state["beam_seqs"].shape
     caches = [
@@ -306,12 +308,14 @@ def tiger_prefill_paged(model: Tiger, user_input_ids, item_input_ids,
 def tiger_generate_paged(model: Tiger, trie, user_input_ids, item_input_ids,
                          token_type_ids, seq_mask, temperature: float = 0.2,
                          n_top_k_candidates: int = 10, sample_factor: int = 6,
-                         page_size: int = 8) -> TigerGenerationOutput:
+                         page_size: int = 8,
+                         kv_dtype: str = "float32") -> TigerGenerationOutput:
     """Deterministic constrained beam search through the paged path:
     prefill into a fresh pool (contiguous block tables), then the decode
     step with every row in lockstep. The offline reference for serving.
     Inputs are tensors on the model's device; seq_mask rows must be
-    contiguous valid prefixes (the serving layout)."""
+    contiguous valid prefixes (the serving layout). ``kv_dtype="int8"``
+    stores the pools quantised (``ops.quant.QuantizedKVPool``)."""
     B = item_input_ids.shape[0]
     K = n_top_k_candidates
     D = model.sem_id_dim
@@ -324,8 +328,15 @@ def tiger_generate_paged(model: Tiger, trie, user_input_ids, item_input_ids,
     num_pages = 1 + B * pages_per_slot  # page 0 = the null page
     block_tables = (1 + torch.arange(B * pages_per_slot, device=dev)).reshape(
         B, pages_per_slot).to(torch.int32)
-    k_pools = tuple(torch.zeros((num_pages, page_size, H, hd), device=dev) for _ in range(nl))
-    v_pools = tuple(torch.zeros((num_pages, page_size, H, hd), device=dev) for _ in range(nl))
+    shape = (num_pages, page_size, H, hd)
+    if kv_dtype == "int8":
+        zeros = lambda: QuantizedKVPool.zeros(shape, device=dev)  # noqa: E731
+    elif kv_dtype == "float32":
+        zeros = lambda: torch.zeros(shape, device=dev)  # noqa: E731
+    else:
+        raise ValueError(f"kv_dtype {kv_dtype!r} not supported; choose one of {KV_DTYPES}")
+    k_pools = tuple(zeros() for _ in range(nl))
+    v_pools = tuple(zeros() for _ in range(nl))
     k_pools, v_pools, seq_lens = tiger_prefill_paged(
         model, user_input_ids, item_input_ids, token_type_ids, seq_mask,
         block_tables, k_pools, v_pools,

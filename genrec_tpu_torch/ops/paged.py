@@ -12,9 +12,16 @@ shared by the plain version and the CUDA kernel:
   ``Pm * page`` positions, null page included;
 - valid tokens are a CONTIGUOUS prefix of the slot's pages.
 
-Routing: ``paged_attention_stats`` takes the plain version
-(``_stats_fallback``) only for CPU tensors. For CUDA tensors it launches
-the kernel or raises; there is no fallback on the card.
+A pool is an fp32 (P, page, H, hd) tensor or an ``ops.quant.
+QuantizedKVPool`` (int8 rows + one fp32 scale per page row): the int8
+pool is quantised where it is written (``write_pages``) and dequantised
+after the gather (``gather_pages``, the plain versions) or inside the
+kernel (B2), never as a whole.
+
+Routing: ``paged_attention_stats`` takes the plain versions
+(``_stats_fallback``, ``paged_attention_stats_quantized_ref``) only for
+CPU tensors. For CUDA tensors it launches the kernel of the pool's type
+(B1 fp32, B2 int8) or raises; there is no fallback on the card.
 """
 
 from __future__ import annotations
@@ -23,8 +30,11 @@ import torch
 
 from genrec_tpu_torch.kernels.paged_attention import (
     paged_attention_stats_cuda,
+    paged_attention_stats_quantized_cuda,
+    paged_attention_stats_quantized_ref,
     paged_attention_stats_ref as _stats_fallback,
 )
+from genrec_tpu_torch.ops.quant import QuantizedKVPool, quantize_symmetric
 
 NEG = -1e9
 
@@ -34,22 +44,32 @@ __all__ = [
 ]
 
 
-def gather_pages(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
+def gather_pages(pool, block_tables: torch.Tensor) -> torch.Tensor:
     """(P, page, H, hd) pool + (S, Pm) block tables -> (S, Pm*page, H, hd)
-    contiguous per-slot K or V."""
+    contiguous per-slot K or V. A ``QuantizedKVPool`` dequantises AFTER
+    the gather: only the gathered rows are upcast to fp32."""
     S, Pm = block_tables.shape
-    out = pool[block_tables.long()]  # (S, Pm, page, H, hd)
+    idx = block_tables.long()
+    if isinstance(pool, QuantizedKVPool):
+        out = pool.data[idx].to(torch.float32) * pool.scale[idx][..., None, None]
+    else:
+        out = pool[idx]  # (S, Pm, page, H, hd)
     return out.reshape(S, Pm * pool.shape[1], *pool.shape[2:])
 
 
-def write_pages(pool: torch.Tensor, block_tables: torch.Tensor,
-                kv: torch.Tensor) -> torch.Tensor:
+def write_pages(pool, block_tables: torch.Tensor, kv: torch.Tensor):
     """Scatter one layer's prefill K or V into its slots' pages, IN PLACE
-    (the JAX function returns a new pool; here the pool tensor is updated
-    and returned, which saves a pool-sized copy per prefill).
+    (the JAX function returns a new pool; here the pool is updated and
+    returned, which saves a pool-sized copy per prefill).
 
     kv: (B, H, L, hd); block_tables (B, Pm). Rows padded with page 0 absorb
     the padded-tail writes (never read unmasked). Requires L <= Pm * page.
+    A ``QuantizedKVPool`` is quantised here, per (page, position) row over
+    heads x head_dim, and each row's scale lands at the same page index.
+    Several rows may scatter into page 0 in one call; an in-place scatter
+    with repeated indices keeps one of them, and page 0's int8 data and
+    its scales may then come from different rows. Page 0 is only ever
+    read masked, so this changes no output.
     """
     B, H, L, hd = kv.shape
     page = pool.shape[1]
@@ -62,22 +82,31 @@ def write_pages(pool: torch.Tensor, block_tables: torch.Tensor,
         )
     rows = kv.transpose(1, 2)  # (B, L, H, hd)
     rows = torch.nn.functional.pad(rows, (0, 0, 0, 0, 0, cap - L))
-    rows = rows.reshape(B, Pm, page, H, hd).to(pool.dtype)
-    pool[block_tables.long()] = rows
+    rows = rows.reshape(B, Pm, page, H, hd)
+    idx = block_tables.long()
+    if isinstance(pool, QuantizedKVPool):
+        data, scale = quantize_symmetric(rows, (-2, -1))  # scale (B, Pm, page)
+        pool.data[idx] = data
+        pool.scale[idx] = scale
+        return pool
+    pool[idx] = rows.to(pool.dtype)
     return pool
 
 
 def paged_attention_stats(q, k_pool, v_pool, block_tables, seq_lens):
     """Flash-stats attention of per-slot queries over paged K/V.
 
-    q (S, K, H, hd); pools (P, page, H, hd); block_tables (S, Pm) int32;
-    seq_lens (S,) int32. Returns (acc (S, K, H, hd), m (S, K, H),
+    q (S, K, H, hd); pools (P, page, H, hd) fp32 or ``QuantizedKVPool``s;
+    block_tables (S, Pm) int32; seq_lens (S,) int32. Returns (acc (S, K, H, hd), m (S, K, H),
     l (S, K, H)), all fp32: the unnormalised accumulator, running max and
     running sum over ALL Pm*page positions with masked ones at -1e9.
     """
-    if q.is_cuda:
-        return paged_attention_stats_cuda(q, k_pool, v_pool, block_tables, seq_lens)
-    return _stats_fallback(q, k_pool, v_pool, block_tables, seq_lens)
+    if isinstance(k_pool, QuantizedKVPool):
+        fn = (paged_attention_stats_quantized_cuda if q.is_cuda
+              else paged_attention_stats_quantized_ref)
+    else:
+        fn = paged_attention_stats_cuda if q.is_cuda else _stats_fallback
+    return fn(q, k_pool, v_pool, block_tables, seq_lens)
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, seq_lens) -> torch.Tensor:

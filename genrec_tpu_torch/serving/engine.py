@@ -247,7 +247,9 @@ class ServingEngine:
     defaults to the card and raises when there is none; pass
     ``device="cpu"`` to serve on the CPU. ``paged_config`` sizes every
     head's page pool (default: ``4 * max_batch`` slots, pages covering the
-    largest history bucket).
+    largest history bucket, pages of ``kv_dtype``). ``kv_dtype`` ("float32"
+    or "int8") is the default config's page type; an explicit
+    ``paged_config`` carries its own, and passing both must agree.
     """
 
     def __init__(
@@ -259,6 +261,7 @@ class ServingEngine:
         max_batch: int = 16,
         max_wait_ms: float = 4.0,
         paged_config: Optional[PagedConfig] = None,
+        kv_dtype: str = "float32",
     ):
         self.device = resolve_device(device)
         self._heads = {h.name: h for h in heads}
@@ -278,6 +281,15 @@ class ServingEngine:
         self._max_batch = max_batch
         self._max_wait_s = max_wait_ms / 1e3
         self._paged_config = paged_config
+        # A silent override would hold other bytes than the caller asked for.
+        self._kv_dtype = str(kv_dtype)
+        if (paged_config is not None and self._kv_dtype != "float32"
+                and paged_config.kv_dtype != self._kv_dtype):
+            raise ValueError(
+                f"kv_dtype={self._kv_dtype!r} conflicts with "
+                f"paged_config.kv_dtype={paged_config.kv_dtype!r}; set it "
+                "on the PagedConfig (or drop the engine kwarg)"
+            )
         self._log = logging.getLogger("genrec_tpu_torch")
         self.metrics = ServingMetrics()
         self._runners: dict[str, _PagedRunner] = {}
@@ -314,6 +326,7 @@ class ServingEngine:
             max_slots=4 * self._max_batch,
             page_size=page_size,
             pages_per_slot=-(-max_kv // page_size),
+            kv_dtype=self._kv_dtype,
         )
 
     def runner(self, head_name: str) -> _PagedRunner:

@@ -14,7 +14,10 @@ occupancy tracks the pages the resident tokens actually fill.
   ``admit(n_tokens)`` binds a free slot to fresh pages, ``evict(slot)``
   releases them. Block-table rows pad with page 0; prefill's padded-tail
   writes land there and attention never reads it unmasked.
-- ``PagedConfig``: the static shapes of the paged decode path.
+- ``PagedConfig``: the static shapes of the paged decode path and the
+  page type, ``kv_dtype`` "float32" or "int8" (``ops.quant.
+  QuantizedKVPool``: int8 rows plus one fp32 scale per page row,
+  dequantised in the attention kernel).
 
 Block tables and seq_lens are host numpy (the engine copies the rows it
 decodes to the device each step); the pools are device tensors. Host
@@ -31,10 +34,7 @@ import numpy as np
 import torch
 
 from genrec_tpu_torch.device import resolve_device
-
-#: The only KV page type the port stores; int8 pages arrive with ROADMAP
-#: A6 (int8 serving) and its kernel, queue B item 2.
-KV_DTYPES = ("float32",)
+from genrec_tpu_torch.ops.quant import KV_DTYPES, QuantizedKVPool
 
 
 class PoolExhausted(RuntimeError):
@@ -58,9 +58,7 @@ class PagedConfig:
             raise ValueError(f"invalid paged config {self}")
         if self.kv_dtype not in KV_DTYPES:
             raise ValueError(
-                f"kv_dtype {self.kv_dtype!r} is not ported: the port stores "
-                f"{KV_DTYPES} pages only; int8 pages come with ROADMAP A6 "
-                "(int8 serving) and kernel B2"
+                f"kv_dtype {self.kv_dtype!r} not supported; choose one of {KV_DTYPES}"
             )
 
     @property
@@ -85,8 +83,12 @@ class PagedConfig:
 
     def hbm_bytes(self, n_layers: int, n_heads: int, head_dim: int,
                   itemsize: int = 4) -> int:
-        """Device footprint of the pools (K + V, all layers)."""
-        return 2 * n_layers * self.num_pages * self.page_size * n_heads * head_dim * itemsize
+        """Device footprint of the pools (K + V, all layers). int8 pages
+        cost one byte an element plus the fp32 scale of each page row."""
+        rows = 2 * n_layers * self.num_pages * self.page_size
+        if self.kv_dtype == "int8":
+            return rows * (n_heads * head_dim * 1 + 4)
+        return rows * n_heads * head_dim * itemsize
 
 
 class PageAllocator:
@@ -149,7 +151,9 @@ class PageAllocator:
 
 
 class KVPagePool:
-    """Device page pools + slot bindings for ONE head's decode layers."""
+    """Device page pools + slot bindings for ONE head's decode layers.
+    ``dtype`` is the fp32 pools' type; ``cfg.kv_dtype="int8"`` builds
+    ``QuantizedKVPool``s instead."""
 
     def __init__(self, cfg: PagedConfig, n_layers: int, n_heads: int,
                  head_dim: int, dtype=torch.float32, device="cuda"):
@@ -157,10 +161,12 @@ class KVPagePool:
         self.cfg = cfg
         self.n_layers = n_layers
         shape = (cfg.num_pages, cfg.page_size, n_heads, head_dim)
-        self.k_pools = tuple(torch.zeros(shape, dtype=dtype, device=dev)
-                             for _ in range(n_layers))
-        self.v_pools = tuple(torch.zeros(shape, dtype=dtype, device=dev)
-                             for _ in range(n_layers))
+        if cfg.kv_dtype == "int8":
+            zeros = lambda: QuantizedKVPool.zeros(shape, device=dev)  # noqa: E731
+        else:
+            zeros = lambda: torch.zeros(shape, dtype=dtype, device=dev)  # noqa: E731
+        self.k_pools = tuple(zeros() for _ in range(n_layers))
+        self.v_pools = tuple(zeros() for _ in range(n_layers))
         self.allocator = PageAllocator(cfg.num_pages)
         self.block_tables = np.zeros((cfg.max_slots, cfg.pages_per_slot), np.int32)
         self.seq_lens = np.zeros((cfg.max_slots,), np.int32)

@@ -14,7 +14,12 @@ runs an online softmax over 32-position chunks, the plain version one max
 and one sum). The HSTU bias-table gradients sum every visible pair of the
 batch, so they get rtol 1e-4. With bfloat16 inputs both sides accumulate
 in fp32 and round the result to bfloat16, where another order can move
-the rounding by one bfloat16 step: rtol and atol 1e-2.
+the rounding by one bfloat16 step: rtol and atol 1e-2. The int8 paged
+kernel dequantises with the same product as its plain version, so it
+too is held at 1e-5. The residual cascade's ids are held exactly outside
+near ties (rows whose two nearest codewords are within 1e-5 x max |dist|,
+where another summation order may pick the other one), and at most 2%
+of the rows may be near ties; qsum 1e-5 of its largest element.
 """
 
 import numpy as np
@@ -23,10 +28,14 @@ import torch
 
 from genrec_tpu_torch.kernels import fused_ce as fc
 from genrec_tpu_torch.kernels import hstu_attention as ha
+from genrec_tpu_torch.kernels import rq_cascade as rq
 from genrec_tpu_torch.kernels.paged_attention import (
     paged_attention_stats_cuda,
+    paged_attention_stats_quantized_cuda,
+    paged_attention_stats_quantized_ref,
     paged_attention_stats_ref,
 )
+from genrec_tpu_torch.ops.quant import QuantizedKVPool, quantize_symmetric
 
 pytestmark = pytest.mark.cuda
 
@@ -253,3 +262,88 @@ def test_fused_ce_wrappers_refuse_what_they_do_not_take(card):
         with pytest.raises(ValueError):
             fc.fused_linear_ce_fwd_cuda(**bad)
     assert fc.fused_linear_ce_fwd_cuda.launches == before
+
+
+def _quantized(x):
+    """The fp32 inputs' pools as int8 pools; every third row of page 1
+    all zeros (scale 1e-12 / 127)."""
+    out = dict(x)
+    for name in ("k_pool", "v_pool"):
+        pool = x[name].clone()
+        pool[1, ::3] = 0.0
+        out[name] = QuantizedKVPool(*quantize_symmetric(pool, (-2, -1)))
+    return out
+
+
+@pytest.mark.parametrize("shape,lens,null_tail", [
+    ((64, 10, 6, 64, 16, 4), "random", True),     # the serving shapes
+    ((5, 3, 2, 8, 8, 3), [24, 0, 9, 1, 17], True),  # seq_len 0, partial pages
+    ((4, 1, 3, 6, 8, 2), [3, 16, 0, 9], False),    # K = 1; hd % 4 != 0: bytewise loads
+    ((3, 32, 1, 128, 40, 2), [80, 41, 0], False),  # K and hd at their limits
+])
+def test_quantized_kernel_matches_plain_version(card, shape, lens, null_tail):
+    S, K, H, hd, page, Pm = shape
+    if lens == "random":
+        lens = np.random.default_rng(2).integers(4, Pm * page + 1, S)
+    x = _quantized(_inputs(card, S, K, H, hd, page, Pm, lens, null_tail, seed=3))
+    before = paged_attention_stats_quantized_cuda.launches
+    got = paged_attention_stats_quantized_cuda(**x)
+    torch.cuda.synchronize()
+    assert paged_attention_stats_quantized_cuda.launches == before + 1
+    want = paged_attention_stats_quantized_ref(**x)
+    for name, g, w in zip(("acc", "m", "l"), got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5, msg=name)
+
+
+def test_quantized_kernel_wrapper_refuses_what_it_does_not_take(card):
+    x = _quantized(_inputs(card, 2, 3, 2, 8, 8, 2, [5, 9]))
+    k = x["k_pool"]
+    before = paged_attention_stats_quantized_cuda.launches
+    for bad in (dict(x, k_pool=QuantizedKVPool(k.data.float(), k.scale)),
+                dict(x, k_pool=QuantizedKVPool(k.data, k.scale[:, :4].contiguous())),
+                dict(x, k_pool=QuantizedKVPool(k.data.cpu(), k.scale.cpu())),
+                dict(x, q=x["q"].double())):
+        with pytest.raises(ValueError):
+            paged_attention_stats_quantized_cuda(**bad)
+    assert paged_attention_stats_quantized_cuda.launches == before
+
+
+@pytest.mark.parametrize("B,L,K,D,dup", [
+    (4096, 3, 256, 32, False),   # one export chunk at the RQ-VAE's widths
+    (1000, 3, 256, 32, False),   # B not a multiple of the 32-row block
+    (77, 1, 45, 16, False),      # L = 1, K not a multiple of 32
+    (300, 3, 300, 40, False),    # K above a 256-codeword chunk, D above a warp
+    (128, 3, 64, 8, True),       # duplicated codewords: the lower index wins
+])
+def test_rq_cascade_kernel_matches_plain_version(card, B, L, K, D, dup):
+    rng = np.random.default_rng(B + K)
+    x = torch.as_tensor(rng.normal(size=(B, D)).astype(np.float32), device=card)
+    cb = (rng.normal(size=(L, K, D)) * 0.7).astype(np.float32)
+    if dup:
+        cb[:, K // 2:] = cb[:, :K - K // 2]
+    cb = torch.as_tensor(cb, device=card)
+    before = rq.rq_cascade_cuda.launches
+    ids, qsum = rq.rq_cascade_cuda(x, cb)
+    torch.cuda.synchronize()
+    assert rq.rq_cascade_cuda.launches == before + 1
+    want_ids, want_q = rq.rq_cascade_ref(x, cb)
+    if dup:  # every row ties exactly: equal everywhere, the lower index
+        assert torch.equal(ids, want_ids) and int(ids.max()) < K - K // 2
+        return
+    near = rq.near_tie_rows(x, cb, want_ids)
+    differ = (ids != want_ids).any(dim=1)
+    assert not (differ & ~near).any() and float(near.float().mean()) <= 0.02
+    same = ~differ
+    torch.testing.assert_close(qsum[same], want_q[same], rtol=0,
+                               atol=1e-5 * float(want_q.abs().max()))
+
+
+def test_rq_cascade_wrapper_refuses_what_it_does_not_take(card):
+    x = torch.zeros((8, 16), device=card)
+    cb = torch.zeros((3, 32, 16), device=card)
+    before = rq.rq_cascade_cuda.launches
+    for bx, bcb in ((x.double(), cb), (x, cb[:, :, :8].contiguous()), (x.cpu(), cb),
+                    (x, cb.transpose(1, 2))):
+        with pytest.raises(ValueError):
+            rq.rq_cascade_cuda(bx, bcb)
+    assert rq.rq_cascade_cuda.launches == before

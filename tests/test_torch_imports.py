@@ -1,6 +1,7 @@
 """The port stands alone: genrec_tpu_torch imports neither jax nor the JAX
-package, its entry points default to the card, and chip_smoke.py refuses
-to report anything without one.
+package (nor does reading the repo's gin files through its configlib),
+its entry points default to the card, and chip_smoke.py refuses to
+report anything without one.
 """
 
 import ast
@@ -27,6 +28,7 @@ from genrec_tpu_torch.models.t5transformer import (
     TransformerEncoder,
     TransformerEncoderDecoder,
 )
+from genrec_tpu_torch.models.rqvae import RqVae
 from genrec_tpu_torch.models.tiger import Tiger
 from genrec_tpu_torch.serving.engine import ServingEngine
 from genrec_tpu_torch.serving.heads import TigerGenerativeHead
@@ -66,6 +68,50 @@ leaked = sorted(
 assert not leaked, leaked
 print(len(names))
 """ % (FORBIDDEN,)
+
+
+# Parse a gin file that names the JAX package through the port's
+# configlib, in a fresh interpreter that refuses jax and genrec_tpu.
+_PARSE_GIN = _IMPORT_EVERY_MODULE.split("import genrec_tpu_torch\n")[0] + r"""
+from genrec_tpu_torch import configlib
+from genrec_tpu_torch.configlib import registry
+from genrec_tpu_torch.trainers import rqvae_trainer
+
+configlib.parse_file(sys.argv[1], substitutions={"split": "beauty"})
+b = configlib.get_bindings("genrec_tpu_torch.trainers.rqvae_trainer.train")
+from genrec_tpu_torch.models.rqvae import QuantizeForwardMode as Q
+assert b["vae_codebook_mode"] is Q.STE, b["vae_codebook_mode"]
+assert b["vae_codebook_last_layer_mode"] is Q.SINKHORN
+assert b["vae_input_dim"] == int(sys.argv[2]), b["vae_input_dim"]
+assert registry.resolve_enum("genrec_tpu.models.rqvae.QuantizeDistance.L2").name == "L2"
+assert registry.lookup("genrec_tpu.trainers.rqvae_trainer.train") is rqvae_trainer.train
+leaked = sorted(
+    n for n, m in sys.modules.items()
+    if m is not None and n.split(".")[0] in FORBIDDEN
+)
+assert not leaked, leaked
+print("ok")
+"""
+
+
+@pytest.mark.parametrize("gin,input_dim", [("config/tiger/amazon/rqvae.gin", 768),
+                                           ("config/rqvae/synthetic.gin", 64)])
+def test_gin_files_naming_the_jax_package_parse_without_it(gin, input_dim):
+    """``import genrec_tpu.models.rqvae`` and ``%genrec_tpu.models.rqvae.
+    QuantizeForwardMode.STE`` read as the port's names; afterwards neither
+    jax nor genrec_tpu is in sys.modules."""
+    proc = subprocess.run([sys.executable, "-c", _PARSE_GIN, gin, str(input_dim)], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.split()[-1] == "ok", proc.stderr
+
+
+def test_gin_import_of_an_unported_module_names_its_roadmap_item():
+    from genrec_tpu_torch import configlib
+
+    with pytest.raises(ImportError, match="ROADMAP A5"):
+        configlib.parse_string("import genrec_tpu.models.sasrec")
+    with pytest.raises(ImportError, match="ROADMAP"):
+        configlib.parse_string("import genrec_tpu.models.cobra")
 
 
 def test_every_module_imports_without_jax_or_the_jax_package():
@@ -126,6 +172,15 @@ def test_default_device_entry_points_raise_without_a_card(no_card):
             build()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         KVPagePool(PagedConfig(max_slots=2, page_size=8, pages_per_slot=1), 1, 2, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        KVPagePool(PagedConfig(max_slots=2, page_size=8, pages_per_slot=1, kv_dtype="int8"),
+                   1, 2, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RqVae(input_dim=8, embed_dim=4, hidden_dims=(6,), codebook_size=4)
+    from genrec_tpu_torch.trainers import rqvae_trainer
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rqvae_trainer.train(epochs=1, save_dir_root=None)
     catalog = CatalogSnapshot.build(np.asarray([[0, 1], [2, 3]]), 4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         catalog.device_trie()
