@@ -49,7 +49,27 @@ line each; any failure ends the run with a traceback and a non-zero exit:
             tiger_generate_paged of the same page type on the card (fp32:
             also on the CPU). With --profile the traffic is served once
             more under torch.profiler, and the RQ-VAE runs one more epoch
-            under it.
+            under it;
+8. lcrec    LCRec SFT at tensor_parallel=2 at Qwen2.5-1.5B widths
+            (QwenConfig() with config/lcrec/amazon/lcrec.gin): first B3 and
+            B4 at one rank's shard of the head (8 x 511 rows, 76,608 vocab
+            rows, d 1,536, bf16; a full and a ragged live-vocab limit) and
+            at d = 64, 1,000, 1,536, 2,048 at a small size, held to their
+            plain versions and timed (part of phase 3); then the tp=1 side
+            of a parity run and the library yardstick of B8 here, and 2
+            ranks through parallel.mesh.spawn (gloo with both ranks on the
+            one card, NCCL where each has its own): (a) B8 against its plain
+            twin at the full-width head (targets on the other shard, all
+            rows ignored, an empty shard); (b) 5 fp32 steps of 2 layers at
+            full widths and vocab against the tp=1 run, losses within 1e-4
+            relative; (c) all 28 layers, bf16, batch 8 x 512, LCREC["steps"]
+            fixed steps with B3, B4 dx and B4 dW launched exactly once a
+            step a rank, no non-finite skip and the same loss on both ranks
+            (steps/s, tokens/s, p50 step, collectives and bytes a step,
+            peak memory a rank; with --profile the device idle share and
+            top kernels of 3 more steps); (d) lcrec_trainer.train through
+            config/lcrec/synthetic.gin at tensor_parallel=2, whose loss
+            must fall.
 
 Each phase that drives a main path sets every kernel's launch counter to 0
 just before and reads it just after. Then the kernels line, the card's
@@ -64,7 +84,9 @@ from __future__ import annotations
 
 import argparse
 import functools
+import gc
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -151,6 +173,18 @@ KERNELS = {
                                         "paged_attention_stats_pallas_quantized"),
     "rq_cascade": ("genrec_tpu_torch/csrc/rq_cascade.cu",
                    "genrec_tpu/kernels/rq_cascade.py:75", "rq_cascade_pallas"),
+    "fused_linear_ce_fwd_lcrec": ("genrec_tpu_torch/csrc/fused_ce.cu",
+                                  "genrec_tpu/kernels/fused_ce.py:137",
+                                  "fused_linear_ce_fwd, per shard of sharded_fused_linear_ce"),
+    "fused_linear_ce_bwd_dx_lcrec": ("genrec_tpu_torch/csrc/fused_ce.cu",
+                                     "genrec_tpu/kernels/fused_ce.py:180",
+                                     "fused_linear_ce_bwd (_dx_kernel), per shard"),
+    "fused_linear_ce_bwd_dw_lcrec": ("genrec_tpu_torch/csrc/fused_ce.cu",
+                                     "genrec_tpu/kernels/fused_ce.py:180",
+                                     "fused_linear_ce_bwd (_dw_kernel), per shard"),
+    "sharded_fused_linear_ce": ("genrec_tpu_torch/kernels/fused_ce.py",
+                                "genrec_tpu/kernels/fused_ce.py:328",
+                                "sharded_fused_linear_ce (_tp_vjp_fwd :350, _tp_vjp_bwd :375)"),
 }
 LIBRARY_ATOL = 1e-4  # the library call normalises; checked, never used
 # Scores are sums of 3 log-softmaxes of logits / 0.2. Across batch shapes
@@ -181,6 +215,33 @@ SEM_ID_CHUNK = 4096  # compute_sem_ids' batch: one B7 launch a chunk
 # pick either); at most NEAR_TIE_MAX_SHARE of the rows may be near ties.
 NEAR_TIE_REL = 1e-5
 NEAR_TIE_MAX_SHARE = 0.02
+
+# LCRec SFT at tensor_parallel=2: QwenConfig()'s defaults, Qwen2.5-1.5B
+# (genrec_tpu/models/backbones/qwen.py:32-47; config/base.gin:10: hidden
+# 1,536, 28 layers, 12 heads of 128, 2 KV heads, FFN 8,960, vocab 151,936,
+# tied head, RoPE theta 1e6), trained by config/lcrec/amazon/lcrec.gin: 5
+# codebooks x 256 appended (live vocab 153,216, a multiple of 8, so 76,608
+# rows a shard), max_text_len 512, bf16, AdamW 2e-5 with weight decay 0.01
+# after a 50-step warm-up, clip 1.0; batch 8 (lcrec_debug.gin). Random
+# weights from --seed (the HF checkpoint is not in the repository). Cut:
+# the fixed steps (LCREC["steps"] after LCREC["warm"]); the parity run's
+# depth (2 layers), batch and lr; the trainer run's epochs and eval sets.
+LCREC = dict(base_vocab=151936, codebooks=5, codebook_size=256, layers=28, batch=8, seq=512,
+             lr=2e-5, warmup=50, wd=0.01, warm=2, steps=10, profile_steps=3,
+             parity_layers=2, parity_steps=5, parity_batch=4, parity_seq=128, parity_lr=1e-3,
+             trainer_epochs=2, trainer_eval=64)
+LCREC_TP = 2
+LCREC_LIVE = LCREC["base_vocab"] + LCREC["codebooks"] * LCREC["codebook_size"]
+LCREC_SHARD = LCREC_LIVE // LCREC_TP
+LCREC_DIMS = (64, 1000, 1536, 2048)  # B3/B4 checked at each d at a small size
+LCREC_REPS = 3  # graph replays per timing at the shard shape (each call takes ms)
+LCREC_TIMEOUT_S = 900  # the ranks' time limit, spawn included
+# tp=1 against tp=2, fp32: the paths sum in other orders (the row-parallel
+# all-reduce, the sharded logsumexp merge) and Adam carries the differences.
+LCREC_PARITY_RTOL = 1e-4
+# Launches of each kernel per train step per rank.
+LCREC_LAUNCHES_PER_STEP = {"fused_linear_ce_fwd": 1, "fused_linear_ce_bwd_dx": 1,
+                           "fused_linear_ce_bwd_dw": 1}
 
 
 def check(ok, what) -> None:
@@ -862,6 +923,7 @@ def kernel_counters() -> dict:
         "fused_linear_ce_fwd": fused_ce.fused_linear_ce_fwd_cuda,
         "fused_linear_ce_bwd_dx": fused_ce.fused_linear_ce_dx_cuda,
         "fused_linear_ce_bwd_dw": fused_ce.fused_linear_ce_dw_cuda,
+        "sharded_fused_linear_ce": fused_ce.sharded_fused_linear_ce,
     }
 
 
@@ -1399,6 +1461,496 @@ def serve_phase(dev, seed, n_requests, profile=False, kv_dtype="float32",
     return served, prof, responses
 
 
+# ---- phases 8 and 9: LCRec SFT at tensor_parallel=2 ---------------------------
+
+
+def lcrec_cfg(layers: int):
+    """QwenConfig()'s Qwen2.5-1.5B widths at ``layers`` layers (tied head)."""
+    from genrec_tpu_torch.models.backbones.qwen import QwenConfig
+
+    return QwenConfig(vocab_size=LCREC["base_vocab"], num_hidden_layers=layers)
+
+
+def lcrec_shard_inputs(dev, seed, *, R, V, d, vlim, dtype=torch.bfloat16):
+    """One rank's per-shard inputs of B3/B4 under B8: x (R, d) ~ N(0, 1)
+    (the final RMSNorm's output), the shard's rows w (V, d) ~ N(0, 0.02)
+    (the embedding's init), local targets below vlim or -1 (held on the
+    other shard, half the rows), and g: the mean loss's 1 / valid, 0 on
+    the 20% of rows whose label is -100 (B8 zeroes their cotangent)."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    tgt = rng.integers(0, max(vlim, 1), R).astype(np.int32)
+    tgt[rng.random(R) < 0.5] = -1
+    if vlim == 0:
+        tgt[:] = -1
+    g = np.full(R, 1.0 / R, np.float32)
+    g[rng.random(R) < 0.2] = 0.0
+    return dict(x=t(rng.normal(size=(R, d)).astype(np.float32)).to(dtype),
+                w=t((rng.normal(size=(V, d)) * 0.02).astype(np.float32)).to(dtype),
+                targets=t(tgt), g=t(g), vlim=vlim)
+
+
+def lcrec_library_ce(x, w, targets):
+    """The yardstick of the per-shard forward: the same logits and
+    logsumexp by one PyTorch call (targets of the other shard read
+    column 0)."""
+    return torch.nn.functional.cross_entropy(
+        torch.nn.functional.linear(x, w), targets.long().clamp_min(0), reduction="none")
+
+
+def ce_lcrec_kernel_phase(dev, seed) -> dict:
+    """B3 and B4 (dx, dW) at an LCRec shard (R = 8 x 511 rows, 76,608
+    vocab rows, d 1,536, bf16) with the full shard live and with a ragged
+    live-vocab limit, and at d in LCREC_DIMS at a small size, each against
+    its plain version; then timed at the shard shape."""
+    from genrec_tpu_torch.kernels import fused_ce as fc
+
+    R, V, d = LCREC["batch"] * (LCREC["seq"] - 1), LCREC_SHARD, lcrec_cfg(1).hidden_size
+    cases = {"shard_full": dict(R=R, V=V, d=d, vlim=V),
+             "shard_ragged": dict(R=R, V=V, d=d, vlim=V * 63 // 64)}
+    cases.update({f"small_d{dd}": dict(R=300, V=2000, d=dd, vlim=1900) for dd in LCREC_DIMS})
+    errs = {"fwd": {}, "dx": {}, "dw": {}}
+    for i, (name, shape) in enumerate(cases.items()):
+        x = lcrec_shard_inputs(dev, seed + i, **shape)
+        fwd = dict(x=x["x"], w=x["w"], targets=x["targets"], ignore_index=-2, vlim=x["vlim"])
+        loss, lse = fc.fused_linear_ce_fwd_cuda(**fwd)
+        torch.cuda.synchronize()
+        want_loss, want_lse = fc.fused_linear_ce_ref(**fwd)
+        errs["fwd"][name] = max(assert_near(f"ce loss {name}", loss, want_loss, FP32_TOL),
+                                assert_near(f"ce lse {name}", lse, want_lse, FP32_TOL))
+        bwd = dict(fwd, lse=want_lse, g=x["g"])
+        dx = fc.fused_linear_ce_dx_cuda(**bwd)
+        torch.cuda.synchronize()
+        errs["dx"][name] = assert_near(f"ce dx {name}", dx, fc.fused_linear_ce_dx_ref(**bwd),
+                                       BF16_TOL)
+        del dx
+        dw = fc.fused_linear_ce_dw_cuda(**bwd)
+        torch.cuda.synchronize()
+        errs["dw"][name] = assert_near(f"ce dW {name}", dw, fc.fused_linear_ce_dw_ref(**bwd),
+                                       BF16_TOL)
+        check(zero_tail(dw, x["vlim"]), f"{name}: pad rows past vlim must get exactly zero dW")
+        del dw, x, fwd, bwd
+        torch.cuda.empty_cache()
+
+    base = lcrec_shard_inputs(dev, seed, **cases["shard_full"])
+    copies = cold_copies(lambda c: lcrec_shard_inputs(dev, seed + 100 + c,
+                                                      **cases["shard_full"]),
+                         nbytes(base["x"], base["w"], base["targets"], base["g"]))
+    fwd_sets = [dict(x=c["x"], w=c["w"], targets=c["targets"], ignore_index=-2,
+                     vlim=c["vlim"]) for c in copies]
+    bwd_sets = [dict(f, lse=fc.fused_linear_ce_ref(**f)[1], g=c["g"])
+                for f, c in zip(fwd_sets, copies)]
+    lib_sets = [dict(x=c["x"], w=c["w"], targets=c["targets"]) for c in copies]
+    lib_fwd_ms = device_ms(lcrec_library_ce, lib_sets, reps=LCREC_REPS)
+    x_bytes, w_bytes, rows = nbytes(base["x"]), nbytes(base["w"]), nbytes(base["targets"])
+    logits = 2 * R * V * d
+    specs = {
+        "fused_linear_ce_fwd": (fc.fused_linear_ce_fwd_cuda, fwd_sets, fc.fused_linear_ce_ref,
+                                x_bytes + w_bytes + 3 * rows, logits),
+        "fused_linear_ce_bwd_dx": (fc.fused_linear_ce_dx_cuda, bwd_sets,
+                                   fc.fused_linear_ce_dx_ref,
+                                   2 * x_bytes + w_bytes + 3 * rows, 2 * logits),
+        "fused_linear_ce_bwd_dw": (fc.fused_linear_ce_dw_cuda, bwd_sets,
+                                   fc.fused_linear_ce_dw_ref,
+                                   x_bytes + 2 * w_bytes + 3 * rows, 2 * logits),
+    }
+    out = {}
+    for name, (fn, sets, plain, bytes_, ops) in specs.items():
+        key = name.rsplit("_", 1)[-1]
+        ms = device_ms(fn, sets, reps=LCREC_REPS)
+        plain_ms = device_ms(plain, sets, reps=LCREC_REPS)
+        if key == "fwd":
+            library_ms = lib_fwd_ms
+            library = "F.cross_entropy(F.linear(x, w_shard), reduction='none')"
+        else:
+            wrt = "x" if key == "dx" else "w"
+            library_ms = device_ms(functools.partial(library_grad, wrt=wrt), [
+                dict(s, g=c["g"]) for s, c in zip(lib_sets, copies)],
+                reps=LCREC_REPS) - lib_fwd_ms
+            library = (f"autograd of the same call for {key} alone: its forward+backward "
+                       "time less its forward time")
+        bound_ms, bound_by = bound(bytes_, ops, BF16_FLOPS)
+        out[name + "_lcrec"] = emit(
+            "kernel", name=name + "_lcrec", kernel=name,
+            shape=dict(R=R, V=V, d=d, dtype="bf16", vlim=V,
+                       what="one rank's shard of the LCRec head at tensor_parallel=2"),
+            max_abs_err=max(errs[key].values()), max_abs_err_by_case=errs[key],
+            tolerance=dict(bf16=BF16_TOL, loss_lse=FP32_TOL, relative_to="max|plain|"),
+            ms=ms, plain_ms=plain_ms, plain=plain.__name__, library_ms=library_ms,
+            library=library, timed_by="cuda_graph", bound_ms=bound_ms, bound_by=bound_by,
+            cold_copies=len(sets), reps=LCREC_REPS, work=dict(bytes=bytes_, flops=ops),
+        )
+    del copies, fwd_sets, bwd_sets, lib_sets, base
+    torch.cuda.empty_cache()
+    return out
+
+
+def zero_tail(t, start: int) -> bool:
+    """Rows start.. of t are exactly zero (true when there are none)."""
+    tail = t[start:]
+    return tail.numel() == 0 or float(tail.float().abs().max()) == 0.0
+
+
+def library_grad(x, w, targets, g, wrt):
+    """The gradient of sum(g * the library CE) in x or w (autograd)."""
+    x = x.detach().requires_grad_(wrt == "x")
+    w = w.detach().requires_grad_(wrt == "w")
+    return torch.autograd.grad(lcrec_library_ce(x, w, targets), x if wrt == "x" else w, g)
+
+
+def lcrec_tokens(seed, B, L, live_vocab):
+    """Seeded SFT batches over the whole live vocab: each row's first 25-75%
+    are prompt (label -100), every position valid."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, live_vocab, (B, L)).astype(np.int32)
+    labels = ids.copy()
+    for b, p in enumerate(rng.integers(L // 4, 3 * L // 4, B)):
+        labels[b, :p] = -100
+    return {"input_ids": ids, "attention_mask": np.ones((B, L), np.int32), "labels": labels}
+
+
+def lcrec_model(cfg, dev, seed, dtype, group):
+    """The rank's shard of the full parameters made from ``seed`` (every
+    rank builds the same full tensors on its card), the codebook tokens
+    appended and the vocab padded to lcm(8, tp), as the trainer does."""
+    from genrec_tpu_torch.models.backbones.qwen import QwenLM, qwen_init_params
+    from genrec_tpu_torch.models.lcrec import extend_vocab
+    from genrec_tpu_torch.parallel.shardings import shard_qwen_params
+
+    tp = 1 if group is None else group.size
+    full = qwen_init_params(cfg, seed, dev)
+    cfg, full, base = extend_vocab(cfg, full, LCREC["codebooks"], LCREC["codebook_size"],
+                                   torch.Generator(device=dev).manual_seed(seed + 1),
+                                   pad_to=math.lcm(8, tp))
+    model = QwenLM(cfg, dtype=dtype, group=group, device=dev)
+    model.load_state_dict(shard_qwen_params(full, 0 if group is None else group.rank, tp))
+    del full
+    torch.cuda.empty_cache()
+    return model, base + LCREC["codebooks"] * LCREC["codebook_size"]
+
+
+def lcrec_stepper(model, live, group, lr, warmup, total, wd):
+    """``run(batches, hook=None) -> metrics per step``: train steps through
+    the trainer's recipe, one optimizer state across calls: AdamW after a
+    cosine warm-up, clip 1.0 (its norm over the group), the SFT loss
+    through B8 (a group) or the fused CE (none)."""
+    from genrec_tpu_torch.core.harness import make_train_step
+    from genrec_tpu_torch.core.optim import Adam
+    from genrec_tpu_torch.core.state import TrainState
+    from genrec_tpu_torch.models.lcrec import make_tp_sharded_fused_sft_loss, sft_loss
+    from genrec_tpu_torch.ops.schedules import cosine_schedule_with_warmup
+
+    if group is None:
+        def loss(b):
+            return sft_loss(model, b["input_ids"], b["attention_mask"], b["labels"],
+                            valid_vocab=live, use_fused_ce=True)
+    else:
+        loss = make_tp_sharded_fused_sft_loss(model, live)
+    opt = Adam(cosine_schedule_with_warmup(lr, warmup, total), weight_decay=wd)
+    step = make_train_step(lambda m, b, g: (loss(b), {}), opt, clip_norm=1.0, group=group)
+    state = TrainState.create(model, opt, 0)
+    dev = model.norm.weight.device
+
+    def run(batches, hook=None):
+        out = []
+        for b in batches:
+            _, m = step(state, {k: torch.as_tensor(v, device=dev) for k, v in b.items()})
+            out.append({k: float(v) for k, v in m.items()})
+            if hook is not None:
+                hook()
+        return out
+
+    return run
+
+
+def lcrec_parity_batches(seed):
+    return [lcrec_tokens(seed + 10 + i, LCREC["parity_batch"], LCREC["parity_seq"],
+                         LCREC_LIVE) for i in range(LCREC["parity_steps"])]
+
+
+def lcrec_parity_tp1(dev, seed) -> list:
+    """tensor_parallel=1 side of the parity run: fp32, the fused CE (B3/B4)."""
+    model, live = lcrec_model(lcrec_cfg(LCREC["parity_layers"]), dev, seed, torch.float32,
+                              None)
+    run = lcrec_stepper(model, live, None, LCREC["parity_lr"], 1, LCREC["parity_steps"],
+                        LCREC["wd"])
+    losses = [m["loss"] for m in run(lcrec_parity_batches(seed))]
+    del model, run
+    torch.cuda.empty_cache()
+    return losses
+
+
+def lcrec_b8_inputs(dev, seed):
+    """B8 at the full-width head, bf16: x (8 x 511 rows, 1,536), the whole
+    padded head (153,216 rows) and, per case, (global targets, valid
+    vocab); -100 is ignored."""
+    R, d = LCREC["batch"] * (LCREC["seq"] - 1), lcrec_cfg(1).hidden_size
+    rng = np.random.default_rng(seed + 7)
+    x = torch.as_tensor(rng.normal(size=(R, d)).astype(np.float32), device=dev)
+    w = torch.as_tensor((rng.normal(size=(LCREC_LIVE, d)) * 0.02).astype(np.float32),
+                        device=dev)
+    t = rng.integers(0, LCREC_LIVE, R).astype(np.int32)
+    t[rng.random(R) < 0.2] = -100
+    cases = {"mixed": (t, LCREC_LIVE),
+             "other_shard": (rng.integers(LCREC_SHARD, LCREC_LIVE, R).astype(np.int32),
+                             LCREC_LIVE),
+             "all_ignored": (np.full(R, -100, np.int32), LCREC_LIVE),
+             "empty_shard": (rng.integers(0, LCREC_SHARD, R).astype(np.int32), LCREC_SHARD)}
+    return x.to(torch.bfloat16), w.to(torch.bfloat16), cases
+
+
+def lcrec_b8(group, seed) -> dict:
+    """(a) B8 against its plain twin on this rank, every case; B8 and the
+    twin timed (forward and backward, both ranks running) on "mixed"."""
+    from genrec_tpu_torch.kernels import fused_ce as fc
+
+    dev = group.device
+    Vs = LCREC_SHARD
+    errs, times = {}, {}
+    x, w, cases = lcrec_b8_inputs(dev, seed)
+    w_shard = w[group.rank * Vs:(group.rank + 1) * Vs].contiguous()
+    del w
+    for name, (t, vv) in cases.items():
+        outs = {}
+        for fn in (fc.sharded_fused_linear_ce, fc.sharded_fused_linear_ce_ref):
+            reps = []
+            for _ in range(LCREC_REPS if name == "mixed" else 1):
+                xx = x.detach().clone().requires_grad_()
+                ww = w_shard.detach().clone().requires_grad_()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = fn(xx, ww, torch.as_tensor(t, device=dev), group, -100, vv)
+                (loss.sum() / max(int((t != -100).sum()), 1)).backward()
+                torch.cuda.synchronize()
+                reps.append(1e3 * (time.perf_counter() - t0))
+            outs[fn.__name__] = (loss.detach(), xx.grad, ww.grad)
+            times.setdefault(name, {})[fn.__name__] = float(np.median(reps))
+        (k_loss, k_dx, k_dw), (p_loss, p_dx, p_dw) = outs.values()
+        errs[name] = max(assert_near(f"B8 loss {name}", k_loss, p_loss, FP32_TOL),
+                         assert_near(f"B8 dx {name}", k_dx, p_dx, BF16_TOL),
+                         assert_near(f"B8 dW {name}", k_dw, p_dw, BF16_TOL))
+        check(zero_tail(k_dw, min(max(vv - group.rank * Vs, 0), Vs)),
+              f"B8 {name}: pad rows must get exactly zero dW")
+        if name == "all_ignored":
+            check(float(k_loss.abs().max()) == 0.0 and float(k_dx.float().abs().max()) == 0.0,
+                  "B8 all rows ignored: loss and dx must be exactly 0")
+        del outs
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=max(errs.values()), max_abs_err_by_case=errs,
+                ms=times["mixed"]["sharded_fused_linear_ce"],
+                plain_ms=times["mixed"]["sharded_fused_linear_ce_ref"], ms_by_case=times)
+
+
+def lcrec_fixed_steps(group, seed, profile) -> dict:
+    """(c) All layers at full width, bf16, batch 8 x 512: LCREC["warm"]
+    steps, then LCREC["steps"] measured with every launch counter at 0
+    before and read after."""
+    from genrec_tpu_torch.kernels import fused_ce as fc
+
+    dev = group.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model, live = lcrec_model(lcrec_cfg(LCREC["layers"]), dev, seed, torch.bfloat16, group)
+    init_s = time.perf_counter() - t0
+    n, warm = LCREC["steps"], LCREC["warm"]
+    batches = [lcrec_tokens(seed + 100 + i, LCREC["batch"], LCREC["seq"], live)
+               for i in range(warm + n + (LCREC["profile_steps"] if profile else 0))]
+    stamps = []
+
+    def hook():
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    run = lcrec_stepper(model, live, group, LCREC["lr"], LCREC["warmup"], len(batches),
+                        LCREC["wd"])
+    run(batches[:warm])
+    torch.cuda.synchronize()
+    reset_counters()
+    calls0, bytes0 = group.calls, group.bytes
+    t_start = time.perf_counter()
+    metrics = run(batches[warm:warm + n], hook)
+    wall_s = time.perf_counter() - t_start
+    launches = read_counters()
+    calls, nbytes_ = group.calls - calls0, group.bytes - bytes0
+    step_ms = 1e3 * np.diff([t_start] + stamps)
+    tokens = LCREC["batch"] * LCREC["seq"]
+    out = dict(init_s=init_s, steps=n, wall_s=wall_s, steps_per_s=n / wall_s,
+               tokens_per_s=n * tokens / wall_s,
+               label_tokens_per_step=float(np.mean(
+                   [(b["labels"][:, 1:] != -100).sum() for b in batches[warm:warm + n]])),
+               step_ms_p50=float(np.percentile(step_ms, 50)),
+               step_ms_p90=float(np.percentile(step_ms, 90)),
+               losses=[m["loss"] for m in metrics], grad_norms=[m["grad_norm"] for m in metrics],
+               nonfinite=sum(m["nonfinite"] for m in metrics),
+               collectives_per_step=calls / n, collective_bytes_per_step=nbytes_ / n,
+               peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               launches=launches, b8_calls=fc.sharded_fused_linear_ce.launches)
+    if profile:
+        def more():
+            t = time.perf_counter()
+            run(batches[warm + n:])
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+
+        out["profile"] = dict(steps=LCREC["profile_steps"], **device_profile(more))
+    del model, run
+    torch.cuda.empty_cache()
+    return out
+
+
+def lcrec_trainer_run(group, seed) -> dict:
+    """(d) lcrec_trainer.train at tensor_parallel=2 through
+    config/lcrec/synthetic.gin, epochs and eval sets cut; the per-step
+    losses come back from rank 0's metrics.jsonl."""
+    from genrec_tpu_torch import configlib
+    from genrec_tpu_torch.trainers import lcrec_trainer
+
+    configlib.clear_bindings()
+    configlib.clear_macros()
+    configlib.parse_file(str(HERE / "config/lcrec/synthetic.gin"))
+    with tempfile.TemporaryDirectory() as tmp:
+        for binding in ("train.tensor_parallel = 2", f'train.device = "{group.device}"',
+                        f'train.save_dir_root = "{tmp}"', "train.wandb_log_interval = 1",
+                        f"train.epochs = {LCREC['trainer_epochs']}",
+                        f"train.max_eval_samples = {LCREC['trainer_eval']}",
+                        f"train.eval_items_limit = {LCREC['trainer_eval']}",
+                        f"train.seed = {seed}"):
+            configlib.parse_binding(binding)
+        reset_counters()
+        t0 = time.perf_counter()
+        valid, test = lcrec_trainer.train()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = read_counters()
+        logged = ([json.loads(line) for line in open(f"{tmp}/metrics.jsonl")]
+                  if group.rank == 0 else [])
+    configlib.clear_bindings()
+    configlib.clear_macros()
+    losses = [m["train/loss"] for m in logged if "global_step" in m]
+    return dict(wall_s=wall_s, valid=valid, test=test, launches=launches, losses=losses)
+
+
+def gloo_takes_cuda(group) -> str:
+    """Whether gloo all-reduces a CUDA tensor by itself: recorded only, the
+    group stages every gloo collective through host memory either way."""
+    import torch.distributed as dist
+
+    if group.backend != "gloo" or group.device.type != "cuda":
+        return "not asked"
+    t = torch.ones(4, device=group.device)
+    try:
+        dist.all_reduce(t, group=group.pg)
+        torch.cuda.synchronize()
+    except Exception as e:  # noqa: BLE001 - the answer is the exception
+        return f"no: {type(e).__name__}: {str(e)[:160]}"
+    return "yes" if t.tolist() == [float(group.size)] * 4 else f"wrong sum {t.tolist()}"
+
+
+def lcrec_rank(group, seed, profile) -> dict:
+    """One tensor-parallel rank of the lcrec_tp phase: (a) B8 against its
+    twin, (b) the tp=2 side of the parity run, (c) the fixed steps at full
+    width, (d) the trainer."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # as in main(): a fresh process
+    out = {"backend": group.backend, "device": str(group.device),
+           "gloo_takes_cuda_tensors": gloo_takes_cuda(group), "b8": lcrec_b8(group, seed)}
+    model, live = lcrec_model(lcrec_cfg(LCREC["parity_layers"]), group.device, seed,
+                              torch.float32, group)
+    run = lcrec_stepper(model, live, group, LCREC["parity_lr"], 1, LCREC["parity_steps"],
+                        LCREC["wd"])
+    out["parity_losses"] = [m["loss"] for m in run(lcrec_parity_batches(seed))]
+    del model, run
+    torch.cuda.empty_cache()
+    out["steps"] = lcrec_fixed_steps(group, seed, profile)
+    out["trainer"] = lcrec_trainer_run(group, seed)
+    return out
+
+
+def lcrec_library_b8(x, w, targets):
+    """The yardstick of B8: the same loss and gradients by one PyTorch call
+    over the whole head on one card."""
+    x = x.detach().requires_grad_()
+    w = w.detach().requires_grad_()
+    loss = torch.nn.functional.cross_entropy(torch.nn.functional.linear(x, w),
+                                             targets.long(), ignore_index=-100)
+    return torch.autograd.grad(loss, (x, w))
+
+
+def lcrec_tp_phase(dev, seed, profile, rank_fn=None) -> dict:
+    """LCRec SFT at tensor_parallel=2: the tp=1 side of the parity run and
+    the library yardstick of B8 here, then 2 ranks through parallel.spawn
+    (gloo on one card, NCCL where each rank has its own). ``rank_fn``
+    stands in for ``lcrec_rank`` in a rehearsal on the CPU, which must
+    patch each fresh rank process itself."""
+    from genrec_tpu_torch.parallel.mesh import choose_backend, rank_device, spawn
+
+    t0 = time.perf_counter()
+    tp1 = lcrec_parity_tp1(dev, seed)
+    parity_tp1_s = time.perf_counter() - t0
+    x, w, cases = lcrec_b8_inputs(dev, seed)
+    lib_sets = [dict(x=x, w=w, targets=torch.as_tensor(cases["mixed"][0], device=dev))]
+    library_ms = device_ms(lcrec_library_b8, lib_sets, reps=LCREC_REPS)
+    del x, w, lib_sets
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks share this card: hand back the cache
+    backend = choose_backend(rank_device(0, LCREC_TP, dev.type), LCREC_TP)
+    emit("lcrec_tp_start", backend=backend, ranks=LCREC_TP,
+         device_count=torch.cuda.device_count(),
+         parent_reserved_gb=torch.cuda.memory_reserved(dev) / 1e9)
+    t0 = time.perf_counter()
+    ranks = spawn(rank_fn or lcrec_rank, LCREC_TP, (seed, profile), device=dev.type,
+                  timeout_s=LCREC_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    r0, r1 = ranks
+    tp2 = r0["parity_losses"]
+    check(r1["parity_losses"] == tp2, ("ranks disagree on the parity losses", tp2,
+                                       r1["parity_losses"]))
+    rel = float(np.max(np.abs(np.asarray(tp2) - tp1) / np.abs(tp1)))
+    check(np.isfinite(tp2).all() and rel <= LCREC_PARITY_RTOL,
+          f"tp=1 vs tp=2 losses: max relative diff {rel} > {LCREC_PARITY_RTOL}")
+    steps = r0["steps"]
+    for r in ranks:
+        s = r["steps"]
+        check(s["nonfinite"] == 0, f"non-finite steps: {s['nonfinite']}")
+        check(all(np.isfinite(s["losses"])), s["losses"])
+        for name in LCREC_LAUNCHES_PER_STEP:
+            check(s["launches"][name] == LCREC["steps"],
+                  f"{name}: {s['launches'][name]} launches in {LCREC['steps']} steps, want 1 "
+                  "per step per rank")
+        check(s["b8_calls"] == LCREC["steps"], ("B8 calls", s["b8_calls"]))
+    check(r1["steps"]["losses"] == steps["losses"], "the ranks' losses differ")
+    trainer = r0["trainer"]
+    losses = trainer["losses"]
+    check(len(losses) >= 10 and np.isfinite(losses).all(), losses)
+    check(np.mean(losses[-5:]) < np.mean(losses[:5]), ("trainer loss did not fall", losses))
+    for name in LCREC_LAUNCHES_PER_STEP:
+        check(trainer["launches"][name] > 0, f"train(): {name} was never launched")
+    check(all(np.isfinite(v) for v in (*trainer["valid"].values(), *trainer["test"].values())),
+          trainer)
+    b8 = r0["b8"]
+    R, d, V = LCREC["batch"] * (LCREC["seq"] - 1), lcrec_cfg(1).hidden_size, LCREC_LIVE
+    # Both ranks' B3 + B4 dx + B4 dW over the whole head, on the one card.
+    b8_bound_ms, b8_bound_by = bound(2 * R * d * 2 + V * d * 2 * 2, 5 * 2 * R * V * d,
+                                     BF16_FLOPS)
+    return emit(
+        "lcrec_tp", backend=r0["backend"], devices=[r["device"] for r in ranks],
+        gloo_takes_cuda_tensors=r0["gloo_takes_cuda_tensors"],
+        config=("QwenConfig() (Qwen2.5-1.5B widths), config/lcrec/amazon/lcrec.gin: "
+                f"{LCREC['codebooks']} x {LCREC['codebook_size']} codebook tokens, "
+                f"max_text_len {LCREC['seq']}, bf16, AdamW {LCREC['lr']} wd {LCREC['wd']}, "
+                f"clip 1.0; batch {LCREC['batch']}; random weights from --seed"),
+        live_vocab=LCREC_LIVE, shard_rows=LCREC_SHARD,
+        b8=dict(b8, library_ms=library_ms, bound_ms=b8_bound_ms, bound_by=b8_bound_by,
+                rank1=r1["b8"]),
+        parity=dict(layers=LCREC["parity_layers"], steps=LCREC["parity_steps"], dtype="fp32",
+                    batch=[LCREC["parity_batch"], LCREC["parity_seq"]], tp1_losses=tp1,
+                    tp2_losses=tp2, max_rel_diff=rel, rtol=LCREC_PARITY_RTOL,
+                    tp1_s=parity_tp1_s),
+        steps=steps, steps_rank1={k: r1["steps"][k] for k in
+                                  ("step_ms_p50", "peak_memory_gb", "losses")},
+        trainer=dict(trainer, rank1_valid=r1["trainer"]["valid"]), spawn_s=spawn_s,
+    )
+
+
 def build_all() -> dict:
     """Every kernel library, one nvcc per source, all started together."""
     from genrec_tpu_torch.kernels.build import LIBRARIES, NVCC_FLAGS, build_library
@@ -1422,9 +1974,9 @@ def main(argv=None) -> int:
     ap.add_argument("--requests", type=int, default=384)
     ap.add_argument("--out", type=Path, help="also write every phase's JSON here")
     ap.add_argument("--profile", action="store_true",
-                    help="run more HSTU and RQ-VAE train steps and serve the traffic once "
-                         "more (fp32 and int8) under torch.profiler, and report device "
-                         "time by kernel")
+                    help="run more HSTU, RQ-VAE and LCRec train steps and serve the "
+                         "traffic once more (fp32 and int8) under torch.profiler, and report "
+                         "device time by kernel")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1456,6 +2008,7 @@ def main(argv=None) -> int:
                "rq_cascade": rq_kernel_phase(dev, args.seed)}
     kernels.update(hstu_kernel_phase(dev, args.seed))
     kernels.update(ce_kernel_phase(dev, args.seed))
+    kernels.update(ce_lcrec_kernel_phase(dev, args.seed))
     phases["kernel_phases"] = kernels
     phases["train"] = train_phase(dev, args.seed, args.profile)
     phases["parity"] = parity_phase(dev, args.seed)
@@ -1469,13 +2022,18 @@ def main(argv=None) -> int:
                                                     fp32_answers=fp32_answers)
     if profiled:
         phases["serve_int8_profile"] = profiled
+    phases["lcrec_tp"] = lcrec_tp_phase(dev, args.seed, args.profile)
+    kernels["sharded_fused_linear_ce"] = phases["lcrec_tp"]["b8"]
     phases["wall_s"] = time.perf_counter() - t_start
 
     launches = {"paged_attention_stats": phases["serve"]["paged_attention_launches"],
                 "paged_attention_stats_quantized":
                     phases["serve_int8"]["paged_attention_launches"],
                 "rq_cascade": phases["rqvae"]["export"]["rq_cascade_launches"],
-                **{k: phases["train"]["launches"][k] for k in LAUNCHES_PER_STEP}}
+                **{k: phases["train"]["launches"][k] for k in LAUNCHES_PER_STEP},
+                **{k + "_lcrec": phases["lcrec_tp"]["steps"]["launches"][k]
+                   for k in LCREC_LAUNCHES_PER_STEP},
+                "sharded_fused_linear_ce": phases["lcrec_tp"]["steps"]["b8_calls"]}
     line = {"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "replaces_function": function, "launches": launches[name],

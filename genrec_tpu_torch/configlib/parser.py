@@ -37,8 +37,6 @@ _MACROS: dict[str, Any] = {}
 _ROADMAP_ITEM = {
     "models.sasrec": "A5 (SASRec on fused CE)",
     "trainers.sasrec_trainer": "A5 (SASRec on fused CE)",
-    "models.lcrec": "A5 (LCRec, with kernel B8)",
-    "trainers.lcrec_trainer": "A5 (LCRec, with kernel B8)",
     "trainers.tiger_trainer": "A9 (TIGER training)",
 }
 

@@ -1,9 +1,10 @@
 """Weights carried across from the JAX package.
 
-``tiger_params_from_flax``, ``hstu_params_from_flax`` and
-``rqvae_params_from_flax`` map a Flax param tree (nested dicts of numpy
+``tiger_params_from_flax``, ``hstu_params_from_flax``,
+``rqvae_params_from_flax`` and ``qwen_params_from_flax`` map a Flax param
+tree (nested dicts of numpy
 arrays, as ``jax.device_get(params)`` gives it) onto the state dict of
-the port's ``Tiger``, ``HSTU`` and ``RqVae``, so both packages compute
+the port's ``Tiger``, ``HSTU``, ``RqVae`` and ``QwenLM``, so both packages compute
 the same function from the same weights. The names follow the Flax
 module names one for one, with these rewrites:
 
@@ -11,6 +12,7 @@ module names one for one, with these rewrites:
 - ``<dense>/kernel`` (Flax ``nn.Dense``, stored ``(in, out)``) ->
   ``<dense>.weight`` (``nn.Linear``, stored ``(out, in)``), transposed;
 - HSTU only: ``<norm>/scale`` (Flax ``nn.LayerNorm``) -> ``<norm>.weight``;
+- Qwen only: ``embed_tokens`` (a raw Flax param) -> ``embed_tokens.weight``;
 - every other leaf keeps its name and storage (TIGER's ``rel_bias`` its
   ``(H * buckets, 1)``, HSTU's bias tables their ``(buckets, H)``).
 """
@@ -85,3 +87,24 @@ def _params_from_flax(params_np, model, renames) -> dict[str, torch.Tensor]:
                if tuple(t.shape) != want[n]}
         assert not bad, f"shape mismatches (flax -> port, port): {bad}"
     return out
+
+
+def qwen_params_from_flax(params_np, cfg, rank: int = 0, tp: int = 1) -> dict[str, torch.Tensor]:
+    """Flax ``QwenLM`` params -> rank ``rank``'s shard of the port's
+    ``QwenLM`` state dict at tensor_parallel ``tp`` (CPU float tensors).
+
+    Every Flax leaf is consumed exactly once and every parameter of
+    ``QwenLM(cfg)`` is filled at its full shape before the shard is cut
+    (``parallel.shardings.shard_qwen_params``); both are asserted."""
+    from genrec_tpu_torch.models.backbones.qwen import qwen_param_specs
+    from genrec_tpu_torch.parallel.shardings import shard_qwen_params
+
+    full = _params_from_flax(params_np, None, {"embed_tokens": "embed_tokens.weight"})
+    want = {n: shape for n, (shape, _) in qwen_param_specs(cfg).items()}
+    unfilled = sorted(set(want) - set(full))
+    unused = sorted(set(full) - set(want))
+    assert not unfilled, f"port parameters with no Flax leaf: {unfilled}"
+    assert not unused, f"Flax leaves with no port parameter: {unused}"
+    bad = {n: (tuple(t.shape), want[n]) for n, t in full.items() if tuple(t.shape) != want[n]}
+    assert not bad, f"shape mismatches (flax -> port, port): {bad}"
+    return shard_qwen_params(full, rank, tp)

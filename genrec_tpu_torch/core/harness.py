@@ -4,6 +4,13 @@ global-norm clip, the optimizer update, and the non-finite guard, all
 issued without waiting for the device. PyTorch runs eagerly, so there is
 no counterpart of ``jit_train_step``; the step updates the state in place
 and returns it.
+
+Under tensor parallelism (``group``, a ``parallel.mesh.TPGroup``) each
+rank holds its shards: the global norm of the clip sums the squares of
+the sharded parameters' gradients (``tp_sharded``) over the group, once
+per rank, and those of the replicated ones once, so every rank clips by
+the norm of the whole model's gradient and the non-finite guard decides
+the same on every rank.
 """
 
 from __future__ import annotations
@@ -19,9 +26,18 @@ from genrec_tpu_torch.core.state import TrainState
 LossFn = Callable[[Any, dict, torch.Generator], tuple[torch.Tensor, dict]]
 
 
-def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every gradient (optax.global_norm)."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+def global_norm(grads: list[torch.Tensor], sharded: list[bool] | None = None,
+                group=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every gradient (optax.global_norm).
+    With ``group``, the gradients flagged in ``sharded`` are this rank's
+    shards: their square sum is summed over the group (one all-reduce)."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    if group is None or not any(sharded):
+        return torch.linalg.vector_norm(norms)
+    flag = torch.tensor(sharded, device=norms.device)
+    sq = norms.square()
+    whole = torch.where(flag, 0.0, sq).sum() + group.all_reduce(torch.where(flag, sq, 0.0).sum())
+    return whole.sqrt()
 
 
 def make_train_step(
@@ -29,6 +45,7 @@ def make_train_step(
     optimizer: Adam,
     accum_steps: int = 1,
     clip_norm: float | None = 1.0,
+    group=None,
 ):
     """Build ``step(state, batch) -> (state, metrics)``.
 
@@ -71,7 +88,7 @@ def make_train_step(
             grads = torch._foreach_div(grads, accum_steps)
             aux = {k: v / accum_steps for k, v in aux.items()}
 
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, [getattr(p, "tp_sharded", False) for p in params], group)
         if clip_norm is not None:
             scale = torch.clamp(clip_norm / gnorm.clamp_min(1e-6), max=1.0)
             grads = torch._foreach_mul(grads, scale)

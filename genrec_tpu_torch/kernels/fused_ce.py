@@ -1,5 +1,6 @@
 """Fused linear + cross-entropy: the CUDA kernels' wrappers, their plain
-versions, and the autograd function that joins them.
+versions, the autograd function that joins them, and the vocab-sharded
+composition over a tensor-parallel group.
 
 ``fused_linear_ce_fwd_cuda``, ``fused_linear_ce_dx_cuda`` and
 ``fused_linear_ce_dw_cuda`` launch the hand-written Hopper kernels in
@@ -12,15 +13,28 @@ versions and the numerics contract they are held to
 (``fused_linear_ce_bwd_ref`` is the pair). ``fused_linear_ce`` mirrors the JAX
 ``custom_vjp`` and ``fused_ce_mean_loss`` the model-side mean. A CPU
 tensor takes the plain versions; a CUDA tensor launches the kernels or
-raises. The vocab-sharded composition (``sharded_fused_linear_ce``) is
-not ported yet.
+raises.
+
+Every version takes ``vlim``, the live-vocab limit of the JAX
+``_tile_logits``: columns at or past min(V, vlim) read -1e30 and stay
+inside the softmax. A target outside [0, V) has target logit 0 and no
+one-hot column, as the Pallas kernel's sum-select gives.
+
+``sharded_fused_linear_ce`` ports ``sharded_fused_linear_ce`` (B8): the
+head vocab-sharded over a ``parallel.mesh.TPGroup``, each rank running
+the forward and backward kernels (B3, B4) over its shard with
+offset-mapped targets, the per-shard logsumexps merged with one max and
+two sums over the group, dx summed over the group and dW left on its
+shard. ``sharded_fused_linear_ce_ref`` is its plain twin: the same
+composition over the plain versions, on any device.
 
 Logits are fp32 in every version (x and w upcast, as the JAX kernels and
 ``linear_ce_xla`` do); dx and dW come back in the input dtypes.
 
-Bound on an H100 at the HSTU trainer's shapes (R=6400, V=12102, d=64,
-bf16): operations, 9.9 GFLOP per pass over the logits. The source's
-header says what the design does.
+Bound on an H100: operations, 2 R V d per pass over the logits (9.9
+GFLOP at the HSTU trainer's shapes R=6400, V=12102, d=64; 0.96 TFLOP at
+an LCRec shard under tensor_parallel=2, R=4088, V=76608, d=1536). The
+source's header says what the design does.
 """
 
 from __future__ import annotations
@@ -37,7 +51,8 @@ from genrec_tpu_torch.kernels.build import (
     raise_on_error,
 )
 
-MAX_DIM = 128
+MAX_DIM = 2048
+NEG = -1e30
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -47,10 +62,10 @@ def _library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.fused_ce_workspace.argtypes = [i32] * 4
     lib.fused_ce_workspace.restype = ctypes.c_longlong
-    lib.fused_ce_fwd.argtypes = [ptr] * 6 + [i32] * 5 + [ptr, i32]
+    lib.fused_ce_fwd.argtypes = [ptr] * 6 + [i32] * 6 + [ptr, i32]
     lib.fused_ce_fwd.restype = i32
     for fn in (lib.fused_ce_dx, lib.fused_ce_dw):
-        fn.argtypes = [ptr] * 7 + [i32] * 5 + [ptr, i32]
+        fn.argtypes = [ptr] * 7 + [i32] * 6 + [ptr, i32]
         fn.restype = i32
     return lib
 
@@ -86,13 +101,18 @@ def _checked(x, w, targets, lse=None, g=None):
     return R, V, d
 
 
-def fused_linear_ce_fwd_cuda(x, w, targets, ignore_index: int = 0):
+def _vlim(V: int, vlim) -> int:
+    """The kernels' live-vocab limit argument: V for none."""
+    return V if vlim is None else int(vlim)
+
+
+def fused_linear_ce_fwd_cuda(x, w, targets, ignore_index: int = 0, vlim=None):
     """Kernel twin of ``fused_linear_ce_ref``: (loss (R,), lse (R,)) fp32.
 
-    x (R, d) and w (V, d) float32 or bfloat16, one dtype, d <= 128;
-    targets (R,) int32; all contiguous on one CUDA device. Raises on
-    anything else and when the build or launch fails. Launches on the
-    current stream and does not synchronise;
+    x (R, d) and w (V, d) float32 or bfloat16, one dtype, d <= 2048;
+    targets (R,) int32; all contiguous on one CUDA device; ``vlim`` an int
+    or None. Raises on anything else and when the build or launch fails.
+    Launches on the current stream and does not synchronise;
     ``fused_linear_ce_fwd_cuda.launches`` counts the launches."""
     R, V, d = _checked(x, w, targets)
     loss = torch.empty((R,), dtype=torch.float32, device=x.device)
@@ -101,7 +121,7 @@ def fused_linear_ce_fwd_cuda(x, w, targets, ignore_index: int = 0):
     ws = _workspace(lib, "fwd", R, V, d, x.device)
     rc = lib.fused_ce_fwd(
         x.data_ptr(), w.data_ptr(), targets.data_ptr(), loss.data_ptr(), lse.data_ptr(),
-        ws.data_ptr(), R, V, d, ignore_index, int(x.dtype == torch.bfloat16),
+        ws.data_ptr(), R, V, d, ignore_index, _vlim(V, vlim), int(x.dtype == torch.bfloat16),
         *launch_context(x),
     )
     raise_on_error(lib, "fused_ce", "fused_linear_ce_fwd", rc)
@@ -112,26 +132,26 @@ def fused_linear_ce_fwd_cuda(x, w, targets, ignore_index: int = 0):
 fused_linear_ce_fwd_cuda.launches = 0
 
 
-def _bwd_launch(which, x, w, targets, lse, g, ignore_index):
+def _bwd_launch(which, x, w, targets, lse, g, ignore_index, vlim):
     R, V, d = _checked(x, w, targets, lse, g)
     out = torch.empty_like(x if which == "dx" else w)
     lib = _library()
     ws = _workspace(lib, which, R, V, d, x.device)
     rc = getattr(lib, f"fused_ce_{which}")(
         x.data_ptr(), w.data_ptr(), targets.data_ptr(), lse.data_ptr(), g.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), R, V, d, ignore_index,
+        out.data_ptr(), ws.data_ptr(), R, V, d, ignore_index, _vlim(V, vlim),
         int(x.dtype == torch.bfloat16), *launch_context(x),
     )
     raise_on_error(lib, "fused_ce", f"fused_linear_ce_{which}", rc)
     return out
 
 
-def fused_linear_ce_dx_cuda(x, w, targets, lse, g, ignore_index: int = 0):
+def fused_linear_ce_dx_cuda(x, w, targets, lse, g, ignore_index: int = 0, vlim=None):
     """dx (R, d) in x's dtype: sum over the vocabulary of
     g (softmax - onehot) w, with g taken as 0 at ignored rows. Takes what
     ``fused_linear_ce_fwd_cuda`` takes plus lse and g (R,) float32;
     ``fused_linear_ce_dx_cuda.launches`` counts the launches."""
-    out = _bwd_launch("dx", x, w, targets, lse, g, ignore_index)
+    out = _bwd_launch("dx", x, w, targets, lse, g, ignore_index, vlim)
     fused_linear_ce_dx_cuda.launches += 1
     return out
 
@@ -139,11 +159,11 @@ def fused_linear_ce_dx_cuda(x, w, targets, lse, g, ignore_index: int = 0):
 fused_linear_ce_dx_cuda.launches = 0
 
 
-def fused_linear_ce_dw_cuda(x, w, targets, lse, g, ignore_index: int = 0):
+def fused_linear_ce_dw_cuda(x, w, targets, lse, g, ignore_index: int = 0, vlim=None):
     """dW (V, d) in w's dtype: sum over the rows of g (softmax - onehot)
     x, the transposed grid of ``fused_linear_ce_dx_cuda``;
     ``fused_linear_ce_dw_cuda.launches`` counts the launches."""
-    out = _bwd_launch("dw", x, w, targets, lse, g, ignore_index)
+    out = _bwd_launch("dw", x, w, targets, lse, g, ignore_index, vlim)
     fused_linear_ce_dw_cuda.launches += 1
     return out
 
@@ -151,41 +171,58 @@ def fused_linear_ce_dw_cuda(x, w, targets, lse, g, ignore_index: int = 0):
 fused_linear_ce_dw_cuda.launches = 0
 
 
-def _logits(x, w):
-    return x.float() @ w.float().T
+def _logits(x, w, vlim=None):
+    """fp32 logits, columns at or past ``vlim`` at NEG (``_tile_logits``)."""
+    logits = x.float() @ w.float().T
+    if vlim is not None and vlim < w.shape[0]:
+        col = torch.arange(w.shape[0], device=x.device)
+        logits = torch.where(col[None, :] < vlim, logits, NEG)
+    return logits
 
 
-def fused_linear_ce_ref(x, w, targets, ignore_index: int = 0):
+def fused_linear_ce_ref(x, w, targets, ignore_index: int = 0, vlim=None):
     """Plain PyTorch version (port of ``linear_ce_xla``): materialised fp32
     logits, logsumexp and the target logit. Returns (loss, lse) as the
-    kernel does; loss is 0 where the target is ``ignore_index``."""
-    logits = _logits(x, w)
+    kernel does; loss is 0 where the target is ``ignore_index``; a target
+    outside [0, V) has target logit 0 (the Pallas sum-select)."""
+    logits = _logits(x, w, vlim)
     lse = torch.logsumexp(logits, dim=-1)
-    t = logits.gather(1, targets.long()[:, None])[:, 0]
-    return torch.where(targets == ignore_index, 0.0, lse - t), lse
+    t = targets.long()
+    inside = (t >= 0) & (t < w.shape[0])
+    tl = logits.gather(1, torch.where(inside, t, 0)[:, None])[:, 0]
+    tl = torch.where(inside, tl, 0.0)
+    return torch.where(targets == ignore_index, 0.0, lse - tl), lse
 
 
-def _coeff(x, w, targets, lse, g, ignore_index):
-    """g (exp(logits - lse) - onehot), fp32 (R, V), g zeroed at ignored rows."""
+def _coeff(x, w, targets, lse, g, ignore_index, vlim):
+    """g (exp(logits - lse) - onehot), fp32 (R, V), g zeroed at ignored
+    rows; a target outside [0, V) has no one-hot column."""
     g = torch.where(targets == ignore_index, 0.0, g.float())
     onehot = (torch.arange(w.shape[0], device=x.device)[None, :] == targets[:, None])
-    return g[:, None] * (torch.exp(_logits(x, w) - lse[:, None]) - onehot.float())
+    return g[:, None] * (torch.exp(_logits(x, w, vlim) - lse[:, None]) - onehot.float())
 
 
-def fused_linear_ce_dx_ref(x, w, targets, lse, g, ignore_index: int = 0):
+def fused_linear_ce_dx_ref(x, w, targets, lse, g, ignore_index: int = 0, vlim=None):
     """Plain version of the dx kernel: coeff w in x's dtype."""
-    return (_coeff(x, w, targets, lse, g, ignore_index) @ w.float()).to(x.dtype)
+    return (_coeff(x, w, targets, lse, g, ignore_index, vlim) @ w.float()).to(x.dtype)
 
 
-def fused_linear_ce_dw_ref(x, w, targets, lse, g, ignore_index: int = 0):
+def fused_linear_ce_dw_ref(x, w, targets, lse, g, ignore_index: int = 0, vlim=None):
     """Plain version of the dW kernel: coeffᵀ x in w's dtype."""
-    return (_coeff(x, w, targets, lse, g, ignore_index).T @ x.float()).to(w.dtype)
+    return (_coeff(x, w, targets, lse, g, ignore_index, vlim).T @ x.float()).to(w.dtype)
 
 
-def fused_linear_ce_bwd_ref(x, w, targets, lse, g, ignore_index: int = 0):
+def fused_linear_ce_bwd_ref(x, w, targets, lse, g, ignore_index: int = 0, vlim=None):
     """Plain PyTorch backward, (dx, dW) in the input dtypes."""
-    return (fused_linear_ce_dx_ref(x, w, targets, lse, g, ignore_index),
-            fused_linear_ce_dw_ref(x, w, targets, lse, g, ignore_index))
+    return (fused_linear_ce_dx_ref(x, w, targets, lse, g, ignore_index, vlim),
+            fused_linear_ce_dw_ref(x, w, targets, lse, g, ignore_index, vlim))
+
+
+def _versions(kernels: bool):
+    """(forward, dx, dW): the kernels or the plain versions."""
+    if kernels:
+        return fused_linear_ce_fwd_cuda, fused_linear_ce_dx_cuda, fused_linear_ce_dw_cuda
+    return fused_linear_ce_ref, fused_linear_ce_dx_ref, fused_linear_ce_dw_ref
 
 
 class _FusedLinearCE(torch.autograd.Function):
@@ -196,7 +233,7 @@ class _FusedLinearCE(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, targets, ignore_index):
-        fwd = fused_linear_ce_fwd_cuda if x.is_cuda else fused_linear_ce_ref
+        fwd, _, _ = _versions(x.is_cuda)
         loss, lse = fwd(x, w, targets, ignore_index)
         ctx.save_for_backward(x, w, targets, lse)
         ctx.ignore_index = ignore_index
@@ -205,10 +242,7 @@ class _FusedLinearCE(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w, targets, lse = ctx.saved_tensors
-        if x.is_cuda:
-            dx_fn, dw_fn = fused_linear_ce_dx_cuda, fused_linear_ce_dw_cuda
-        else:
-            dx_fn, dw_fn = fused_linear_ce_dx_ref, fused_linear_ce_dw_ref
+        _, dx_fn, dw_fn = _versions(x.is_cuda)
         args = (x, w, targets, lse, g.float().contiguous(), ctx.ignore_index)
         return dx_fn(*args), dw_fn(*args), None, None
 
@@ -229,3 +263,84 @@ def fused_ce_mean_loss(x, head_weights, targets, ignore_index: int = 0):
                               ignore_index)
     valid = (targets.reshape(-1) != ignore_index).to(torch.float32)
     return per_row.sum() / valid.sum().clamp_min(1.0)
+
+
+# ---- B8: the vocab-sharded composition --------------------------------------
+
+
+def local_shard_targets(targets, rank: int, Vs: int, valid_vocab):
+    """(local targets, local vlim) of shard ``rank`` of ``Vs`` rows (JAX
+    ``_local_shard_targets``): global ids outside [rank Vs, (rank + 1) Vs)
+    map to -1, which matches no column; the live-vocab limit becomes
+    clip(valid_vocab - rank Vs, 0, Vs), or None."""
+    off = rank * Vs
+    t = targets.to(torch.int32)
+    here = (t >= off) & (t < off + Vs)
+    local = torch.where(here, t - off, -1).to(torch.int32).contiguous()
+    vlim = None if valid_vocab is None else min(max(int(valid_vocab) - off, 0), Vs)
+    return local, vlim
+
+
+class _ShardedFusedLinearCE(torch.autograd.Function):
+    """``_tp_vjp_fwd`` / ``_tp_vjp_bwd`` of ``genrec_tpu/kernels/fused_ce.py``
+    (:350, :375): the forward kernel on this rank's shard with
+    ``ignore_index=-2`` (never matches), t_l = lse_l - loss_l, then
+    m = max(lse_l), lse = m + log(sum(exp(lse_l - m))) and t = sum(t_l)
+    over the group; the backward runs the dx and dW kernels against the
+    merged lse, sums dx over the group and keeps dW on the shard.
+    ``kernels`` picks the CUDA kernels or the plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, w_shard, targets, group, ignore_index, valid_vocab, kernels):
+        fwd, _, _ = _versions(kernels)
+        local, vlim = local_shard_targets(targets, group.rank, w_shard.shape[0], valid_vocab)
+        loss_l, lse_l = fwd(x, w_shard, local, -2, vlim)
+        t_l = lse_l - loss_l
+        m = group.all_reduce(lse_l, "max")
+        lse = m + torch.log(group.all_reduce(torch.exp(lse_l - m), "sum"))
+        t = group.all_reduce(t_l, "sum")
+        ignored = targets == ignore_index
+        ctx.save_for_backward(x, w_shard, local, lse, ignored)
+        ctx.group, ctx.vlim, ctx.kernels = group, vlim, kernels
+        return torch.where(ignored, 0.0, lse - t)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w_shard, local, lse, ignored = ctx.saved_tensors
+        _, dx_fn, dw_fn = _versions(ctx.kernels)
+        g = torch.where(ignored, 0.0, g.float()).contiguous()
+        args = (x, w_shard, local, lse, g, -2, ctx.vlim)
+        dx = ctx.group.all_reduce(dx_fn(*args), "sum")
+        return dx, dw_fn(*args), None, None, None, None, None
+
+
+def _sharded(x, w_shard, targets, group, ignore_index, valid_vocab, kernels):
+    return _ShardedFusedLinearCE.apply(
+        x.contiguous(), w_shard.contiguous(), targets.to(torch.int32).contiguous(), group,
+        ignore_index, valid_vocab, kernels)
+
+
+def sharded_fused_linear_ce(x, w_shard, targets, group, ignore_index: int = 0,
+                            valid_vocab=None):
+    """Exact full-softmax CE with the head vocab-sharded over ``group``.
+
+    x (R, d) and targets (R,) (global vocab ids) the same on every rank;
+    w_shard (Vs, d) this rank's rows [rank Vs, (rank + 1) Vs) of the
+    padded head. Rows past ``valid_vocab`` are left out of the softmax
+    and get exactly zero dW. Returns per-row losses (0 at ignored rows),
+    the same on every rank. Every rank must call it, in the same order.
+    CUDA tensors run the kernels (``sharded_fused_linear_ce.launches``
+    counts the calls that did), CPU tensors the plain versions."""
+    if x.is_cuda:
+        sharded_fused_linear_ce.launches += 1
+    return _sharded(x, w_shard, targets, group, ignore_index, valid_vocab, x.is_cuda)
+
+
+sharded_fused_linear_ce.launches = 0
+
+
+def sharded_fused_linear_ce_ref(x, w_shard, targets, group, ignore_index: int = 0,
+                                valid_vocab=None):
+    """Plain twin of ``sharded_fused_linear_ce``: the same composition and
+    collectives over the plain versions, on any device."""
+    return _sharded(x, w_shard, targets, group, ignore_index, valid_vocab, False)

@@ -1,9 +1,18 @@
-"""Loss primitives (port of genrec_tpu/ops/losses.py, the parts the HSTU
-and RQ-VAE slices run). JAX's ``stop_gradient`` is ``detach()``."""
+"""Loss primitives (port of genrec_tpu/ops/losses.py, the parts the HSTU,
+RQ-VAE and LCRec slices run). JAX's ``stop_gradient`` is ``detach()``."""
 
 from __future__ import annotations
 
 import torch
+
+
+def mask_vocab_logits(logits: torch.Tensor, valid_vocab: int | None) -> torch.Tensor:
+    """Logits at vocab ids >= ``valid_vocab`` set to -1e9 (vocab pad rows
+    stay out of the softmax and get no gradient)."""
+    if valid_vocab is None or valid_vocab >= logits.shape[-1]:
+        return logits
+    col = torch.arange(logits.shape[-1], device=logits.device)
+    return torch.where(col >= valid_vocab, -1e9, logits)
 
 
 def cross_entropy_with_ignore(

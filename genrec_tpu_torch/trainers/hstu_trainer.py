@@ -105,10 +105,10 @@ def make_loss_fn():
 
 class BestTracker:
     """Best-metric snapshot of the parameters, kept on the host and
-    written to ``<save_dir>/best_model.pt``."""
+    written to ``<save_dir>/<name>``."""
 
-    def __init__(self, save_dir: str | None):
-        self.path = os.path.join(save_dir, "best_model.pt") if save_dir else None
+    def __init__(self, save_dir: str | None, name: str = "best_model.pt"):
+        self.path = os.path.join(save_dir, name) if save_dir else None
         self.value = -1.0
         self.params = None
 

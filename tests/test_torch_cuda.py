@@ -19,7 +19,9 @@ kernel dequantises with the same product as its plain version, so it
 too is held at 1e-5. The residual cascade's ids are held exactly outside
 near ties (rows whose two nearest codewords are within 1e-5 x max |dist|,
 where another summation order may pick the other one), and at most 2%
-of the rows may be near ties; qsum 1e-5 of its largest element.
+of the rows may be near ties; qsum 1e-5 of its largest element. The
+vocab-sharded CE (B8) runs on 2 ranks sharing the card over gloo and is
+held to its plain twin at 1e-5.
 """
 
 import numpy as np
@@ -36,6 +38,7 @@ from genrec_tpu_torch.kernels.paged_attention import (
     paged_attention_stats_ref,
 )
 from genrec_tpu_torch.ops.quant import QuantizedKVPool, quantize_symmetric
+from genrec_tpu_torch.parallel.mesh import spawn
 
 pytestmark = pytest.mark.cuda
 
@@ -256,12 +259,73 @@ def test_fused_ce_wrappers_refuse_what_they_do_not_take(card):
     before = fc.fused_linear_ce_fwd_cuda.launches
     for bad in (dict(fwd, x=fwd["x"].double()), dict(fwd, w=fwd["w"].to(torch.bfloat16)),
                 dict(fwd, targets=fwd["targets"].long()),
-                dict(fwd, x=torch.zeros((8, 129), device=card),
-                     w=torch.zeros((20, 129), device=card)),
+                dict(fwd, x=torch.zeros((8, 2049), device=card),
+                     w=torch.zeros((20, 2049), device=card)),
                 dict(fwd, targets=fwd["targets"][:4])):
         with pytest.raises(ValueError):
             fc.fused_linear_ce_fwd_cuda(**bad)
     assert fc.fused_linear_ce_fwd_cuda.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape,vlim", [
+    ((37, 700, 64), 650),     # HSTU's width, narrow backward
+    ((70, 300, 1000), 290),   # wide backward, d not a multiple of any chunk
+    ((300, 900, 1536), 880),  # the Qwen2.5-1.5B hidden size, several groups a split
+    ((33, 130, 2048), 129),   # d at its limit
+    ((40, 200, 1536), 0),     # a shard of pad rows only
+])
+def test_fused_ce_kernels_with_vlim_match_plain_versions(card, shape, vlim, dtype):
+    """Columns at or past vlim read -1e30 inside the softmax; targets stay
+    below vlim, or lie on another shard (-1) when vlim is 0. Held to the
+    plain versions with the same lse and g."""
+    R, V, d = shape
+    x = _ce_inputs(card, R, V, d, dtype)
+    x["x"] = (x["x"].float() / d ** 0.5).to(dtype)
+    t = x["targets"]
+    x["targets"] = torch.where(t > 0, t % vlim, 0).to(torch.int32) if vlim else torch.full_like(t, -1)
+    fwd = dict(x=x["x"], w=x["w"], targets=x["targets"], ignore_index=0, vlim=vlim)
+    loss, lse = fc.fused_linear_ce_fwd_cuda(**fwd)
+    want_loss, want_lse = fc.fused_linear_ce_ref(**fwd)
+    torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    bwd = dict(fwd, lse=want_lse, g=x["g"])
+    dx, dw = fc.fused_linear_ce_dx_cuda(**bwd), fc.fused_linear_ce_dw_cuda(**bwd)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(dx, fc.fused_linear_ce_dx_ref(**bwd), **_tol(dtype))
+    torch.testing.assert_close(dw, fc.fused_linear_ce_dw_ref(**bwd), **_tol(dtype))
+    if vlim:
+        assert float(dw[vlim:].float().abs().max()) == 0.0  # pad rows: exactly zero dW
+
+
+def _b8_ranks(group, x, w, t, valid_vocab):
+    """Rank side: B8 on the card and its plain twin on the same inputs."""
+    Vs = w.shape[0] // group.size
+    dev = group.device
+    out = []
+    for fn in (fc.sharded_fused_linear_ce, fc.sharded_fused_linear_ce_ref):
+        xt = torch.as_tensor(x, device=dev).requires_grad_()
+        ws = torch.as_tensor(w[group.rank * Vs:(group.rank + 1) * Vs], device=dev)
+        ws.requires_grad_()
+        loss = fn(xt, ws, torch.as_tensor(t, device=dev), group, -100, valid_vocab)
+        loss.sum().backward()
+        out.append([a.detach().cpu() for a in (loss, xt.grad, ws.grad)])
+    return out
+
+
+def test_sharded_fused_ce_two_ranks_on_one_card_match_twin(card, tmp_path):
+    """B8 over gloo with both ranks on cuda:0 (NCCL refuses two ranks on
+    one device): loss, dx and each rank's dW equal the plain twin's."""
+    rng = np.random.default_rng(3)
+    R, V, d, vv = 300, 1024, 1536, 1000
+    x = (rng.normal(size=(R, d)) / d ** 0.5).astype(np.float32)
+    w = (rng.normal(size=(V, d)) * 0.1).astype(np.float32)
+    t = rng.integers(0, vv, R).astype(np.int32)
+    t[rng.random(R) < 0.2] = -100
+    for kernel, twin in spawn(_b8_ranks, 2, (x, w, t, vv), device="cuda",
+                              timeout_s=300, store_dir=tmp_path):
+        for name, a, b in zip(("loss", "dx", "dW"), kernel, twin):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5, msg=name)
 
 
 def _quantized(x):

@@ -13,6 +13,8 @@ Pallas kernels take an online logsumexp over 512-column tiles, the plain
 version one max and one sum).
 """
 
+import signal
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +27,19 @@ from genrec_tpu_torch.kernels import fused_ce as tf
 torch.set_num_threads(1)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+@pytest.fixture(autouse=True)
+def _time_limit():
+    """Each test fails after 120 s instead of hanging."""
+    def expire(signum, frame):
+        raise TimeoutError("test exceeded its 120 s limit")
+
+    old = signal.signal(signal.SIGALRM, expire)
+    signal.alarm(120)
+    yield
+    signal.alarm(0)
+    signal.signal(signal.SIGALRM, old)
 
 
 def _inputs(R=300, V=1000, d=48, seed=0, ignore_frac=0.2):
@@ -124,3 +139,72 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             fn(x, w, tgt, lse, g)
     assert [f.launches for f in (tf.fused_linear_ce_fwd_cuda, tf.fused_linear_ce_dx_cuda,
                                  tf.fused_linear_ce_dw_cuda)] == before
+
+
+def _jax_fwd_bwd(x, w, tgt, g, ignore_index, vlim=None):
+    """JAX forward and backward (Pallas, interpret mode), one jit."""
+
+    @jax.jit
+    def run(x, w, t, g):
+        loss, lse = jf.fused_linear_ce_fwd(x, w, t, ignore_index, interpret=True, vlim=vlim)
+        dx, dw = jf.fused_linear_ce_bwd(x, w, t, lse, g, ignore_index, interpret=True,
+                                        vlim=vlim)
+        return loss, lse, dx, dw
+
+    return [np.asarray(a) for a in run(*(jnp.asarray(a) for a in (x, w, tgt, g)))]
+
+
+def _port_fwd_bwd(x, w, tgt, g, ignore_index, vlim=None):
+    args = (torch.as_tensor(x), torch.as_tensor(w), torch.as_tensor(tgt))
+    loss, lse = tf.fused_linear_ce_ref(*args, ignore_index, vlim)
+    dx = tf.fused_linear_ce_dx_ref(*args, lse, torch.as_tensor(g), ignore_index, vlim)
+    dw = tf.fused_linear_ce_dw_ref(*args, lse, torch.as_tensor(g), ignore_index, vlim)
+    return [a.numpy() for a in (loss, lse, dx, dw)]
+
+
+@pytest.mark.parametrize("ignore_index,outside", [(-100, -100), (-2, -1)],
+                         ids=["ignored_minus_100", "other_shard_minus_1"])
+def test_targets_outside_the_vocab_match_pallas(ignore_index, outside):
+    """A target outside [0, V) has target logit 0 and no one-hot column
+    (the Pallas sum-select): -100 targets at ignore_index=-100 (LCRec's
+    SFT labels) and -1 targets at ignore_index=-2 (B8's targets held on
+    another shard, not ignored). The plain versions used to raise on
+    them (an out-of-range gather)."""
+    x, w, tgt, g = _inputs(R=70, V=300, d=24, seed=4)
+    tgt[::3] = outside
+    got = _port_fwd_bwd(x, w, tgt, g, ignore_index)
+    want = _jax_fwd_bwd(x, w, tgt, g, ignore_index)
+    for name, a, b in zip(("loss", "lse", "dx", "dW"), got, want):
+        np.testing.assert_allclose(a, b, err_msg=name, **TOL)
+    if ignore_index == -2:  # not ignored: the loss is the whole lse
+        np.testing.assert_allclose(got[0][::3], got[1][::3], **TOL)
+
+
+@pytest.mark.parametrize("vlim", [250, 0], ids=["pad_rows", "empty"])
+def test_vlim_matches_pallas(vlim):
+    """Columns at or past vlim read -1e30 inside the softmax (JAX
+    ``_tile_logits``); vlim 0 is a shard of pad rows only."""
+    x, w, tgt, g = _inputs(R=45, V=300, d=32, seed=5)
+    tgt = np.where(tgt > 0, tgt % max(vlim, 1), 0).astype(np.int32)
+    if vlim == 0:
+        tgt[tgt > 0] = -1
+    got = _port_fwd_bwd(x, w, tgt, g, 0, vlim)
+    want = _jax_fwd_bwd(x, w, tgt, g, 0, vlim)
+    for name, a, b in zip(("loss", "lse", "dx", "dW"), got, want):
+        np.testing.assert_allclose(a, b, err_msg=name, **TOL)
+    if vlim:
+        ref = jf.linear_ce_xla(jnp.asarray(x), jnp.asarray(w[:vlim]), jnp.asarray(tgt))
+        np.testing.assert_allclose(got[0], np.asarray(ref), atol=1e-4, rtol=1e-5)
+        assert np.abs(got[3][vlim:]).max() == 0.0  # pad rows: exactly zero dW
+
+
+def test_lcrec_width_matches_pallas():
+    """d = 1536 (the Qwen2.5-1.5B hidden state) at small R and V, with a
+    live-vocab limit."""
+    x, w, tgt, g = _inputs(R=20, V=130, d=1536, seed=6)
+    x /= np.sqrt(1536.0)
+    tgt = np.minimum(tgt, 119).astype(np.int32)
+    got = _port_fwd_bwd(x, w, tgt, g, 0, 120)
+    want = _jax_fwd_bwd(x, w, tgt, g, 0, 120)
+    for name, a, b in zip(("loss", "lse", "dx", "dW"), got, want):
+        np.testing.assert_allclose(a, b, err_msg=name, **TOL)

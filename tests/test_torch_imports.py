@@ -177,10 +177,17 @@ def test_default_device_entry_points_raise_without_a_card(no_card):
                    1, 2, 4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         RqVae(input_dim=8, embed_dim=4, hidden_dims=(6,), codebook_size=4)
-    from genrec_tpu_torch.trainers import rqvae_trainer
+    from genrec_tpu_torch.trainers import lcrec_trainer, rqvae_trainer
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         rqvae_trainer.train(epochs=1, save_dir_root=None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lcrec_trainer.train(epochs=1, save_dir_root=None)
+    from genrec_tpu_torch.models.backbones.qwen import QwenConfig, QwenLM
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        QwenLM(QwenConfig(vocab_size=16, hidden_size=8, intermediate_size=8,
+                          num_hidden_layers=1, num_attention_heads=2, num_key_value_heads=2))
     catalog = CatalogSnapshot.build(np.asarray([[0, 1], [2, 3]]), 4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         catalog.device_trie()
