@@ -20,7 +20,10 @@ line each; any failure ends the run with a traceback and a non-zero exit:
             function where there is one (a yardstick only), and the least
             time the card could take (bytes over 3.35 TB/s, or operations
             over the data-sheet peak of the inputs' type: 67 TFLOP/s fp32,
-            989 TFLOP/s bf16);
+            989 TFLOP/s bf16); the bf16 B4 rows (dx, dW) also give their
+            TFLOP/s, share of the bound, workspace bytes, the registers,
+            spills and shared memory of their kernels (ptxas -v), and a
+            check that two calls give the same bits;
 4. train    HSTU at the widths of config/hstu/amazon.gin through the port's
             trainer (hstu_trainer.train, 2 epochs with eval, synthetic data
             with Amazon-Beauty's 12,101 items), then a fixed number of steps
@@ -55,7 +58,8 @@ line each; any failure ends the run with a traceback and a non-zero exit:
             B4 at one rank's shard of the head (8 x 511 rows, 76,608 vocab
             rows, d 1,536, bf16; a full and a ragged live-vocab limit) and
             at d = 64, 1,000, 1,536, 2,048 at a small size, held to their
-            plain versions and timed (part of phase 3); then the tp=1 side
+            plain versions and timed, B4 as in phase 3 (part of phase 3);
+            then the tp=1 side
             of a parity run and the library yardstick of B8 here, and 2
             ranks through parallel.mesh.spawn (gloo with both ranks on the
             one card, NCCL where each has its own): (a) B8 against its plain
@@ -87,6 +91,7 @@ import functools
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -314,6 +319,64 @@ def bound(bytes_, flops, peak) -> tuple[float, str]:
     """(least ms for these bytes and operations, what bounds it)."""
     t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def ptxas_by_kernel(log: str) -> dict:
+    """What ``nvcc -Xptxas -v`` printed for each kernel (mangled name):
+    registers, spill stores and loads, static shared memory."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+        elif name is not None:
+            for key, pat in (("registers", r"Used (\d+) registers"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads"),
+                             ("static_smem", r"(\d+) bytes smem")):
+                m = re.search(pat, ln)
+                if m:
+                    out[name][key] = int(m.group(1))
+    return out
+
+
+# The bf16 backward's kernels: name -> a fragment of its mangled name.
+B4_KERNELS = {"ce_fused_kernel<dx>": "ce_fused_kernelILb0E",
+              "ce_fused_kernel<dW>": "ce_fused_kernelILb1E",
+              "ce_tc_kernel<kCoeff>": "ce_tc_kernelILi0E",
+              "ce_tc_kernel<kDxProduct>": "ce_tc_kernelILi1E",
+              "ce_tc_kernel<kDwProduct>": "ce_tc_kernelILi2E",
+              "ce_merge_bf16_kernel": "ce_merge_bf16_kernel"}
+
+
+def b4_report(key, R, V, d, ms, bound_ms, flops, ptxas) -> dict:
+    """The bf16 B4 row's extras: achieved TFLOP/s (the bound's operations
+    over the time), share of the bound, workspace bytes, and the ptxas
+    numbers and dynamic shared memory of the kernels that width d runs
+    (ptxas prints nothing when the library was built before this run)."""
+    from genrec_tpu_torch.kernels import fused_ce as fc
+
+    names = (["ce_fused_kernel<dx>" if key == "dx" else "ce_fused_kernel<dW>",
+              "ce_merge_bf16_kernel"] if d <= fc.FUSED_DIM else
+             ["ce_tc_kernel<kCoeff>",
+              "ce_tc_kernel<kDxProduct>" if key == "dx" else "ce_tc_kernel<kDwProduct>"])
+    kernels = {}
+    for n in names:
+        found = [v for k, v in ptxas.items() if B4_KERNELS[n] in k]
+        smem = 0 if n == "ce_merge_bf16_kernel" else fc.bf16_block_smem(d, "Product" in n)
+        kernels[n] = dict(*found[:1], dynamic_smem=smem)
+    return dict(achieved_tflops=flops / ms / 1e9, share_of_bound=bound_ms / ms,
+                workspace_bytes=fc.workspace_bytes(key, R, V, d, torch.bfloat16),
+                kernels=kernels)
+
+
+def bit_equal_twice(fn, args, what) -> None:
+    """Two calls on the same inputs give the same bits (every sum has one
+    fixed order)."""
+    a, b = fn(**args), fn(**args)
+    torch.cuda.synchronize()
+    check(torch.equal(a, b), f"{what}: two calls differ")
 
 
 # ---- phase 3: the paged-attention kernel -----------------------------------
@@ -814,8 +877,10 @@ def library_ce_dw(x, w, targets, g):
     return torch.autograd.grad(library_ce(x, w, targets), w, g)
 
 
-def ce_kernel_phase(dev, seed) -> dict:
-    """B3 and B4 (dx, dW) against their plain versions and timed."""
+def ce_kernel_phase(dev, seed, ptxas) -> dict:
+    """B3 and B4 (dx, dW) against their plain versions and timed; the bf16
+    B4 rows also give their TFLOP/s, share of the bound, workspace, ptxas
+    numbers and a check that two calls give the same bits."""
     from genrec_tpu_torch.kernels.fused_ce import (
         fused_linear_ce_dw_cuda,
         fused_linear_ce_dw_ref,
@@ -845,6 +910,9 @@ def ce_kernel_phase(dev, seed) -> dict:
         torch.cuda.synchronize()
         errs["dx"][name] = assert_near(f"ce dx {name}", dx, fused_linear_ce_dx_ref(**bwd), tol)
         errs["dw"][name] = assert_near(f"ce dW {name}", dw, fused_linear_ce_dw_ref(**bwd), tol)
+        if dtype == torch.bfloat16:
+            bit_equal_twice(fused_linear_ce_dx_cuda, bwd, f"ce dx {name}")
+            bit_equal_twice(fused_linear_ce_dw_cuda, bwd, f"ce dW {name}")
         if all_ignored:
             check(float(loss.abs().max()) == 0.0 and float(dx.float().abs().max()) == 0.0
                   and float(dw.float().abs().max()) == 0.0,
@@ -893,8 +961,11 @@ def ce_kernel_phase(dev, seed) -> dict:
             library = (f"autograd of the same call for {key} alone: its forward+backward "
                        "time less its forward time")
         bound_ms, bound_by = bound(bytes_, ops, BF16_FLOPS)
+        extra = {} if key == "fwd" else dict(
+            b4_report(key, R, V, d, ms, bound_ms, ops, ptxas),
+            bit_equal_twice_cases=[n for n, (dt, _) in cases.items() if dt == torch.bfloat16])
         out[name] = emit(
-            "kernel", name=name, shape=dict(R=R, V=V, d=d, dtype="bf16"),
+            "kernel", name=name, shape=dict(R=R, V=V, d=d, dtype="bf16"), **extra,
             max_abs_err=max(errs[key].values()), max_abs_err_by_case=errs[key],
             tolerance=dict(fp32=FP32_TOL, bf16=BF16_TOL, loss_lse=FP32_TOL,
                            relative_to="max|plain|"),
@@ -1498,11 +1569,13 @@ def lcrec_library_ce(x, w, targets):
         torch.nn.functional.linear(x, w), targets.long().clamp_min(0), reduction="none")
 
 
-def ce_lcrec_kernel_phase(dev, seed) -> dict:
+def ce_lcrec_kernel_phase(dev, seed, ptxas) -> dict:
     """B3 and B4 (dx, dW) at an LCRec shard (R = 8 x 511 rows, 76,608
     vocab rows, d 1,536, bf16) with the full shard live and with a ragged
     live-vocab limit, and at d in LCREC_DIMS at a small size, each against
-    its plain version; then timed at the shard shape."""
+    its plain version and B4 twice for equal bits; then timed at the shard
+    shape, B4 with its TFLOP/s, share of the bound, workspace and ptxas
+    numbers."""
     from genrec_tpu_torch.kernels import fused_ce as fc
 
     R, V, d = LCREC["batch"] * (LCREC["seq"] - 1), LCREC_SHARD, lcrec_cfg(1).hidden_size
@@ -1523,11 +1596,13 @@ def ce_lcrec_kernel_phase(dev, seed) -> dict:
         torch.cuda.synchronize()
         errs["dx"][name] = assert_near(f"ce dx {name}", dx, fc.fused_linear_ce_dx_ref(**bwd),
                                        BF16_TOL)
+        bit_equal_twice(fc.fused_linear_ce_dx_cuda, bwd, f"ce dx {name}")
         del dx
         dw = fc.fused_linear_ce_dw_cuda(**bwd)
         torch.cuda.synchronize()
         errs["dw"][name] = assert_near(f"ce dW {name}", dw, fc.fused_linear_ce_dw_ref(**bwd),
                                        BF16_TOL)
+        bit_equal_twice(fc.fused_linear_ce_dw_cuda, bwd, f"ce dW {name}")
         check(zero_tail(dw, x["vlim"]), f"{name}: pad rows past vlim must get exactly zero dW")
         del dw, x, fwd, bwd
         torch.cuda.empty_cache()
@@ -1570,8 +1645,11 @@ def ce_lcrec_kernel_phase(dev, seed) -> dict:
             library = (f"autograd of the same call for {key} alone: its forward+backward "
                        "time less its forward time")
         bound_ms, bound_by = bound(bytes_, ops, BF16_FLOPS)
+        extra = {} if key == "fwd" else dict(
+            b4_report(key, R, V, d, ms, bound_ms, ops, ptxas),
+            bit_equal_twice_cases=list(cases))
         out[name + "_lcrec"] = emit(
-            "kernel", name=name + "_lcrec", kernel=name,
+            "kernel", name=name + "_lcrec", kernel=name, **extra,
             shape=dict(R=R, V=V, d=d, dtype="bf16", vlim=V,
                        what="one rank's shard of the LCRec head at tensor_parallel=2"),
             max_abs_err=max(errs[key].values()), max_abs_err_by_case=errs[key],
@@ -1962,8 +2040,7 @@ def build_all() -> dict:
     return dict(
         wall_s=time.perf_counter() - t0, flags=list(NVCC_FLAGS),
         libraries={n: dict(path=str(path.relative_to(HERE)), seconds=sec,
-                           ptxas=[ln.strip() for ln in log.splitlines()
-                                  if "Used" in ln or "spill" in ln])
+                           ptxas=ptxas_by_kernel(log))
                    for n, (path, sec, log) in built.items()},
     )
 
@@ -2007,8 +2084,9 @@ def main(argv=None) -> int:
                "paged_attention_stats_quantized": quantized_kernel_phase(dev, args.seed),
                "rq_cascade": rq_kernel_phase(dev, args.seed)}
     kernels.update(hstu_kernel_phase(dev, args.seed))
-    kernels.update(ce_kernel_phase(dev, args.seed))
-    kernels.update(ce_lcrec_kernel_phase(dev, args.seed))
+    ptxas = phases["build"]["libraries"]["fused_ce"]["ptxas"]
+    kernels.update(ce_kernel_phase(dev, args.seed, ptxas))
+    kernels.update(ce_lcrec_kernel_phase(dev, args.seed, ptxas))
     phases["kernel_phases"] = kernels
     phases["train"] = train_phase(dev, args.seed, args.profile)
     phases["parity"] = parity_phase(dev, args.seed)

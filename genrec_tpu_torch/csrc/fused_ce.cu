@@ -22,20 +22,67 @@
 //   dW:       dW_v = sum_r g_r (exp(l_rv - lse_r) - [v == t_r]) x_r
 //
 // with g_r taken as 0 at ignored rows. x and w are float or bf16 (one
-// dtype); products and sums are fp32 (TF32 plays no part: plain FFMA);
-// dx and dW are rounded to the input dtype at the end, as the Pallas
-// wrapper's astype does. d is at most 2048.
+// dtype); products and sums are fp32; dx and dW are rounded to the input
+// dtype at the end, as the Pallas wrapper's astype does. d is at most 2048.
 //
 // Bound on an H100: operations. At the HSTU training shapes (R = 6400,
 // V = 12102, d = 64, bf16) the forward is 2*R*V*d = 9.9 GFLOP and each
 // backward kernel twice that (the recomputed logits plus one product of
-// the same size): 0.010 ms forward on the bf16 tensor cores (989
-// TFLOP/s), while the inputs are 2.4 MB (0.7 us). At the LCRec shard
-// shapes under tensor_parallel=2 (R = 4088, V = 76608, d = 1536, bf16)
-// the forward is 0.96 TFLOP: 0.97 ms on the tensor cores, 14 ms at the
-// fp32 FFMA rate (67 TFLOP/s) that these kernels use.
+// the same size): 0.010 ms forward and 0.020 ms backward on the bf16
+// tensor cores (989 TFLOP/s), while the inputs are 2.4 MB (0.7 us). At
+// the LCRec shard shapes under tensor_parallel=2 (R = 4088, V = 76608,
+// d = 1536, bf16) the forward is 0.96 TFLOP: 0.97 ms on the tensor cores,
+// 14 ms at the fp32 FFMA rate (67 TFLOP/s); each backward 1.95 ms.
 //
-// Design (FFMA from shared memory; no mma/wgmma/TMA yet):
+// Two designs, by input type.
+//
+// bf16 backward (dx and dW): tensor cores (wgmma, bf16 operands, fp32
+// accumulators in registers), operands fed by TMA (sm90.cuh). Each kernel
+// has 288 threads: two consumer warpgroups of 64 output rows each, and a
+// producer warp whose first thread keeps 4 stages of TMA loads in
+// flight (64 x 64 boxes, 128-byte swizzle, a full mbarrier per stage
+// counting the bytes, an empty one returning it). coeff = g_r (exp(l -
+// lse_r) - [v == t_r]) enters the products as two bf16 values, hi =
+// bf16(coeff) and lo = bf16(coeff - hi), two products each: one bf16 value
+// alone rounds coeff by up to 2^-9 of itself, and a row's target term
+// g_r (p - 1) is of the order of g, so its rounding, times x, moves dW
+// elements near 0 by more than the 1e-2 tolerance of the HSTU-shape card
+// test; hi + lo carries coeff to ~2^-17. bf16, not fp16: a mean loss's g
+// of ~1e-9 must not underflow. Ragged edges (R, V, a chunk, d past its tile) read TMA's
+// zero fill and are masked at the store. d must be a multiple of 8 (TMA's
+// 16-byte rows): the Python wrapper pads x and w with zero columns. No
+// float atomics: every output element is summed in one fixed order, so
+// two calls give equal bits.
+//   - d <= 64 (HSTU): ce_fused_kernel. A block holds 128 rows of x (dx) or
+//     of w (dW) in shared memory and walks a split of the other matrix in
+//     tiles of 128 rows: the logits tile (m64n128k16 from K-major tiles),
+//     coeff in registers, then the product with coeff as the register A
+//     operand of m64n64k16 and the walked tile, read MN-major, as B; the
+//     128 x d output tile stays in registers for the whole walk. dW's
+//     walked rows' meta (lse, g, target) is staged in shared memory a tile
+//     at a time. Each split writes an fp32 partial; ce_merge_bf16_kernel
+//     adds them in split order (workspace: splits x rows x d fp32, ~10 MB
+//     at the HSTU shapes).
+//   - d > 64 (LCRec, d = 1536): the output rows do not fit in registers,
+//     so the vocabulary goes in chunks of Vc columns (chunk_cols: both
+//     coeff planes, 4 R Vc bytes, within kChunkBytes = 64 MB: at the LCRec
+//     shard on an H100, ce_bwd_ab.py timed dx 6.49 / 5.91 / 5.76 ms and
+//     dW 6.01 / 5.30 / 5.35 ms with 32 / 64 / 128 MB, so fewer chunks
+//     outweigh the L2 misses up to 64 MB, and 128 MB buys no more for its
+//     67 MB). Per chunk,
+//     ce_tc_kernel<kCoeff> computes the logits tile (128 x 256, K = d)
+//     and writes the hi and lo planes of coeff (R x Vc) to the workspace;
+//     then ce_tc_kernel<kDxProduct>: dx += C (K-major) . w_c (Vc x d, the
+//     MN-major B), summed over the chunks in chunk order through an fp32
+//     (R, d) accumulator in the workspace (each tile starts its registers
+//     from it while its first stages load), the last chunk writing bf16;
+//     or ce_tc_kernel<kDwProduct>: dW_c = C^T (the MN-major A) . x
+//     (MN-major B), written once. Workspace: 4 R Vc bytes, plus 4 R d for
+//     dx over several chunks, whatever V is (67 and 92 MB at the shard).
+//
+// fp32 (every kernel) and the bf16 forward: FFMA from shared memory, no
+// tensor cores, so that fp32 results agree with the plain versions to
+// 1e-5 (TF32 would not):
 //   - a logits tile is 32 rows x 64 vocab columns, computed by 128 threads
 //     from shared memory, each thread a 4 x 4 register block (rows
 //     4*ty.., columns tx + 16*c, so the 16 threads of a row are one half
@@ -72,6 +119,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -92,12 +142,6 @@ constexpr int kTileFloats = kRows * kCStride;
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 struct Params {
   const void* x;
   const void* w;
@@ -111,7 +155,7 @@ struct Params {
   int per_split;      // tiles of the walked axis per split
 };
 
-int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
 // Splits of a narrow walked axis of n_tiles tiles; an empty axis (R = 0
 // for dW) still has one split, of zeros.
 int splits_of(int n_tiles) { return n_tiles > 0 ? cdiv(n_tiles, kTilesPerBlock) : 1; }
@@ -632,16 +676,15 @@ __global__ void __launch_bounds__(kThreads) ce_dw_wide_kernel(Params p) {
   }
 }
 
-// Merge of the backward's splits: out[e] = sum over splits of ws[s][e],
-// in split order, rounded to T.
-template <typename T>
+// Merge of the fp32 backward's splits: out[e] = sum over splits of
+// ws[s][e], in split order.
 __global__ void __launch_bounds__(kThreads) ce_sum_kernel(const float* ws, int splits,
-                                                         long long n, T* out) {
+                                                         long long n, float* out) {
   const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (e >= n) return;
   float a = 0.f;
   for (int s = 0; s < splits; ++s) a += ws[s * n + e];
-  out[e] = from_f<T>(a);
+  out[e] = a;
 }
 
 size_t fwd_smem() { return (size_t)(kRows + kCols) * (kChunk + 1) * sizeof(float); }
@@ -667,28 +710,27 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, A
   return cudaGetLastError();
 }
 
-// The backward kernels: narrow, instantiated for d <= 32, 64 and 128, and
-// wide for 128 < d <= 2048.
-template <typename T>
-cudaError_t launch_dx(dim3 grid, cudaStream_t st, const Params& p) {
-  if (p.d <= 32) return launch(ce_dx_kernel<T, 2>, grid, bwd_smem(32), st, p);
-  if (p.d <= 64) return launch(ce_dx_kernel<T, 4>, grid, bwd_smem(64), st, p);
-  if (p.d <= kNarrowDim) return launch(ce_dx_kernel<T, 8>, grid, bwd_smem(128), st, p);
-  return launch(ce_dx_wide_kernel<T>, grid, wide_smem_bytes(), st, p);
-}
-
-template <typename T>
-cudaError_t launch_dw(dim3 grid, cudaStream_t st, const Params& p) {
-  if (p.d <= 32) return launch(ce_dw_kernel<T, 2>, grid, bwd_smem(32), st, p);
-  if (p.d <= 64) return launch(ce_dw_kernel<T, 4>, grid, bwd_smem(64), st, p);
-  if (p.d <= kNarrowDim) return launch(ce_dw_kernel<T, 8>, grid, bwd_smem(128), st, p);
-  return launch(ce_dw_wide_kernel<T>, grid, wide_smem_bytes(), st, p);
-}
-
-template <typename T>
-cudaError_t launch_sum(const float* ws, int splits, long long n, void* out, cudaStream_t st) {
-  const dim3 grid((unsigned)((n + kThreads - 1) / kThreads));
-  return launch(ce_sum_kernel<T>, grid, 0, st, ws, splits, n, static_cast<T*>(out));
+// The fp32 backward kernels: narrow, instantiated for d <= 32, 64 and
+// 128, and wide for 128 < d <= 2048; then the merge of their splits.
+cudaError_t launch_ffma_bwd(bool dw, dim3 grid, cudaStream_t st, const Params& p, int splits,
+                            void* out) {
+  cudaError_t err;
+  if (p.d <= 32)
+    err = launch(dw ? ce_dw_kernel<float, 2> : ce_dx_kernel<float, 2>, grid, bwd_smem(32), st,
+                 p);
+  else if (p.d <= 64)
+    err = launch(dw ? ce_dw_kernel<float, 4> : ce_dx_kernel<float, 4>, grid, bwd_smem(64), st,
+                 p);
+  else if (p.d <= kNarrowDim)
+    err = launch(dw ? ce_dw_kernel<float, 8> : ce_dx_kernel<float, 8>, grid, bwd_smem(128), st,
+                 p);
+  else
+    err = launch(dw ? ce_dw_wide_kernel<float> : ce_dx_wide_kernel<float>, grid,
+                 wide_smem_bytes(), st, p);
+  if (err != cudaSuccess) return err;
+  const long long n = (long long)(dw ? p.V : p.R) * p.d;
+  const dim3 sum_grid((unsigned)((n + kThreads - 1) / kThreads));
+  return launch(ce_sum_kernel, sum_grid, 0, st, p.ws, splits, n, static_cast<float*>(out));
 }
 
 Params make_params(const void* x, const void* w, const void* tgt, void* ws, int R, int V,
@@ -712,20 +754,590 @@ cudaError_t check_args(int device, int d) {
   return (d < 1 || d > kMaxDim) ? cudaErrorInvalidValue : cudaSuccess;
 }
 
+
+// ---- bf16 backward on the tensor cores ----
+
+using sm90::kAtomBytes;
+using sm90::kBox;
+using sm90::kBoxBytes;
+
+constexpr int kTcM = 128;         // output rows of a tile: two consumer warpgroups of 64
+constexpr int kTcN = 128;         // output columns of a tile, and walked rows a fused step
+constexpr int kTcK = 64;          // depth of a pipeline stage
+constexpr int kTcStages = 4;
+constexpr int kTcThreads = 288;   // two consumer warpgroups, then one producer warp
+constexpr long long kChunkBytes = 64LL << 20;  // both coeff planes of a chunk
+constexpr int kFusedDim = 64;     // d up to here: the fused kernels
+constexpr int kFusedBlocks = 264; // the fused kernels' target grid: two waves of the SMs
+
+// The shared-memory descriptors of a 64-row slice of a tile: K-major (the
+// k16 step moves 32 bytes in the swizzle atom) or MN-major (16 rows, 2 KB;
+// LBO = the next 64-wide box along M or N).
+__device__ __forceinline__ uint64_t desc_kmajor(const void* tile, int kk) {
+  return sm90::desc_sw128(static_cast<const unsigned char*>(tile) + 32 * kk, 16, kAtomBytes);
+}
+__device__ __forceinline__ uint64_t desc_mnmajor(const void* tile, int kk) {
+  return sm90::desc_sw128(static_cast<const unsigned char*>(tile) + 2 * kAtomBytes * kk,
+                          kBoxBytes, kAtomBytes);
+}
+
+// coeff = g (exp(logit - lse) - [v == t]) for vocab column v, 0 past V;
+// columns at or past lim take the logit kNeg.
+__device__ __forceinline__ float coeff_of(float logit, int v, float lse, float g, int t,
+                                          const int V, const int lim) {
+  if (v >= V) return 0.f;
+  return g * (expf((v < lim ? logit : kNeg) - lse) - (v == t ? 1.f : 0.f));
+}
+
+// (hi, lo) bf16x2 registers of two coeffs: hi = bf16(c), lo = bf16(c - hi).
+__device__ __forceinline__ void split_bf16(float c0, float c1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(c0, c1);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = sm90::pack_bf16x2(c0 - __low2float(h), c1 - __high2float(h));
+}
+
+// The row meta of row r: (lse, g with ignored rows and rows past R at 0,
+// target, -1 past R).
+struct RowMeta {
+  float lse, g;
+  int t;
+};
+__device__ __forceinline__ RowMeta row_meta(int r, int R, const int* tgt, const float* lse,
+                                            const float* g, int ignore_index) {
+  RowMeta m = {0.f, 0.f, -1};
+  if (r < R) {
+    m.t = tgt[r];
+    m.lse = lse[r];
+    m.g = m.t == ignore_index ? 0.f : g[r];
+  }
+  return m;
+}
+
+// ---- d > 64: per vocab chunk, the coeff kernel, then a product kernel ----
+
+enum TcMode { kCoeff = 0, kDxProduct = 1, kDwProduct = 2 };
+
+struct TcParams {
+  int R, V, d;      // d a multiple of 8
+  int v0, vc;       // this chunk: vocab rows [v0, v0 + vc)
+  int ldc;          // row stride of a coeff plane, elements (a multiple of 128)
+  int lim, ignore_index;
+  const int* tgt;
+  const float* lse;
+  const float* g;
+  __nv_bfloat16* hi;   // coeff planes (R, ldc): hi = bf16(coeff), lo = bf16(coeff - hi)
+  __nv_bfloat16* lo;
+  float* acc;          // dx: the fp32 sum over the chunks so far (R, d)
+  __nv_bfloat16* out;  // dx (R, d) or dW (V, d)
+  int first, last;     // dx: this is the first / the last chunk
+};
+
+// Tile width and A planes by kernel. The coeff kernel's tiles are 128 x
+// 256 (m64n256k16): at the LCRec shard on an H100 (ce_bwd_ab.py) it took
+// 2.61 ms a call against 2.82 on 128 x 128 tiles, while the dW product
+// ran its 1.92 TFLOP in 2.58 ms. The products keep 128 x 128 tiles, whose
+// two A planes (hi, lo) share one B.
+template <int Mode>
+struct TcShape {
+  static constexpr int planes = Mode == kCoeff ? 1 : 2;
+  static constexpr int bn = Mode == kCoeff ? 256 : kTcN;
+};
+
+// Per stage: A (128 rows x 64, two 64-row boxes) in one plane (coeff
+// kernel) or two (hi, lo: the products), B (bn x 64).
+template <int Mode>
+struct alignas(1024) TcSmem {
+  __nv_bfloat16 a[kTcStages][TcShape<Mode>::planes][kTcM * kTcK];
+  __nv_bfloat16 b[kTcStages][TcShape<Mode>::bn * kTcK];
+  uint64_t full[kTcStages];
+  uint64_t empty[kTcStages];
+};
+
+// Columns of a vocab chunk: both bf16 coeff planes (4 R Vc bytes) within
+// kChunkBytes, a multiple of 128, at least 128, at most V rounded up.
+int chunk_cols(int R, int V) {
+  long long vc = kChunkBytes / (4LL * (R > 0 ? R : 1)) / 128 * 128;
+  const long long whole = (long long)cdiv(V, 128) * 128;
+  if (vc < 128) vc = 128;
+  return (int)(vc < whole ? vc : whole);
+}
+
+// The producer: the first thread of the producer warp keeps the stages in
+// flight.
+template <int Mode>
+__device__ void tc_produce(TcSmem<Mode>& s, const CUtensorMap* a, const CUtensorMap* a_lo,
+                           const CUtensorMap* b, const TcParams& p, int m0, int n0, int nk) {
+  constexpr int planes = TcShape<Mode>::planes;
+  constexpr int bn = TcShape<Mode>::bn;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt % kTcStages;
+    if (kt >= kTcStages) sm90::mbar_wait(&s.empty[st], ((kt / kTcStages) & 1) ^ 1);
+    uint64_t* bar = &s.full[st];
+    sm90::mbar_expect_tx(bar, (planes * kTcM + bn) * kTcK * 2);
+    const int k0 = kt * kTcK;
+    for (int pl = 0; pl < planes; ++pl) {
+      const CUtensorMap* map = pl == 0 ? a : a_lo;
+      for (int j = 0; j < kTcM / kBox; ++j) {
+        __nv_bfloat16* dst = s.a[st][pl] + j * kBox * kBox;
+        if (Mode == kDwProduct)  // C^T: the chunk's columns are A's rows
+          sm90::tma_load_2d(dst, map, bar, m0 + kBox * j, k0);
+        else
+          sm90::tma_load_2d(dst, map, bar, k0, m0 + kBox * j);
+      }
+    }
+    for (int j = 0; j < bn / kBox; ++j) {
+      __nv_bfloat16* dst = s.b[st] + j * kBox * kBox;
+      if (Mode == kCoeff)  // w_c rows, K-major
+        sm90::tma_load_2d(dst, b, bar, k0, p.v0 + n0 + kBox * j);
+      else if (Mode == kDxProduct)  // w_c rows k, MN-major
+        sm90::tma_load_2d(dst, b, bar, n0 + kBox * j, p.v0 + k0);
+      else  // x rows k, MN-major
+        sm90::tma_load_2d(dst, b, bar, n0 + kBox * j, k0);
+    }
+  }
+}
+
+// One tile of 128 output rows (m0..) by bn columns (n0..):
+//   kCoeff      rows of x by the chunk's vocab columns; K = d. Writes the
+//               coeff planes. map_a = x, map_b = w.
+//   kDxProduct  rows of x by columns of d; K = the chunk's vocab columns.
+//               map_a / map_a_lo = the coeff planes, map_b = w.
+//   kDwProduct  the chunk's vocab rows by columns of d; K = R.
+//               map_a / map_a_lo = the coeff planes, map_b = x.
+template <int Mode>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    ce_tc_kernel(const __grid_constant__ CUtensorMap map_a,
+                 const __grid_constant__ CUtensorMap map_a_lo,
+                 const __grid_constant__ CUtensorMap map_b, const TcParams p) {
+  constexpr int stages = kTcStages;
+  constexpr int bn = TcShape<Mode>::bn;
+  extern __shared__ unsigned char smem_raw[];
+  TcSmem<Mode>& s = *reinterpret_cast<TcSmem<Mode>*>(
+      smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023));
+  const int wg = threadIdx.x / 128;
+  const int m0 = blockIdx.y * kTcM;
+  const int n0 = blockIdx.x * bn;
+  const int depth = Mode == kCoeff ? p.d : Mode == kDxProduct ? p.vc : p.R;
+  const int nk = cdiv(depth, kTcK);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < stages; ++i) {
+      sm90::mbar_init(&s.full[i], 1);
+      sm90::mbar_init(&s.empty[i], 2);  // one arrival per consumer warpgroup
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+  if (wg == 2) {
+    if (threadIdx.x == 256) tc_produce<Mode>(s, &map_a, &map_a_lo, &map_b, p, m0, n0, nk);
+    return;
+  }
+
+  constexpr int TA = Mode == kDwProduct;  // A MN-major
+  constexpr int TB = Mode != kCoeff;      // B MN-major
+  const int c = wg;                       // this warpgroup's 64 rows of the tile
+  const int t = threadIdx.x - 128 * wg;
+  // acc[4 j + 2 h + q] is row 16 warp + lane / 4 + 8 h of this warpgroup's
+  // 64, column 8 j + 2 (lane % 4) + q of the tile (the wgmma D layout).
+  const int lane = t & 31;
+  const int row0 = m0 + 64 * c + 16 * (t >> 5) + (lane >> 2);
+  const int col0 = n0 + 2 * (lane & 3);
+  float acc[bn / 2];
+#pragma unroll
+  for (int i = 0; i < bn / 2; ++i) acc[i] = 0.f;
+  if (Mode == kDxProduct && !p.first) {
+    // dx: start from the earlier chunks' sum, read while the first stages
+    // load; this chunk's products then add to it in k order.
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + 8 * h;
+#pragma unroll
+      for (int j = 0; j < bn / 8; ++j) {
+        const int k = col0 + 8 * j;
+        if (r < p.R && k < p.d) {
+          const float2 prev = *reinterpret_cast<const float2*>(p.acc + (size_t)r * p.d + k);
+          acc[4 * j + 2 * h] = prev.x;
+          acc[4 * j + 2 * h + 1] = prev.y;
+        }
+      }
+    }
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt % stages;
+    sm90::mbar_wait(&s.full[st], (kt / stages) & 1);
+    sm90::fence_operands(acc);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTcK / 16; ++kk) {
+      const uint64_t db = TB ? desc_mnmajor(s.b[st], kk) : desc_kmajor(s.b[st], kk);
+#pragma unroll
+      for (int pl = 0; pl < TcShape<Mode>::planes; ++pl) {
+        const __nv_bfloat16* a_t = s.a[st][pl] + c * kBox * kBox;
+        const uint64_t da = TA ? desc_mnmajor(a_t, kk) : desc_kmajor(a_t, kk);
+        if constexpr (bn == 256)
+          sm90::wgmma_m64n256k16<TA, TB>(acc, da, db);
+        else
+          sm90::wgmma_m64n128k16<TA, TB>(acc, da, db);
+      }
+    }
+    sm90::wgmma_commit();
+    sm90::fence_operands(acc);
+    sm90::wgmma_wait<1>();  // the previous stage's products are done: return it
+    if (kt > 0 && t == 0) sm90::mbar_arrive(&s.empty[(kt - 1) % stages]);
+  }
+  sm90::wgmma_wait<0>();
+  sm90::fence_operands(acc);
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + 8 * h;  // kDwProduct: a vocab row of the chunk
+    if constexpr (Mode == kCoeff) {
+      if (r >= p.R) continue;
+      const RowMeta m = row_meta(r, p.R, p.tgt, p.lse, p.g, p.ignore_index);
+      const size_t o = (size_t)r * p.ldc;
+#pragma unroll
+      for (int j = 0; j < bn / 8; ++j) {
+        const int col = col0 + 8 * j;
+        if (col >= p.vc) continue;
+        const int v = p.v0 + col;
+        uint32_t hi, lo;
+        split_bf16(coeff_of(acc[4 * j + 2 * h], v, m.lse, m.g, m.t, p.V, p.lim),
+                   coeff_of(acc[4 * j + 2 * h + 1], v + 1, m.lse, m.g, m.t, p.V, p.lim), hi,
+                   lo);
+        *reinterpret_cast<uint32_t*>(p.hi + o + col) = hi;
+        *reinterpret_cast<uint32_t*>(p.lo + o + col) = lo;
+      }
+    } else if constexpr (Mode == kDxProduct) {
+      if (r >= p.R) continue;
+#pragma unroll
+      for (int j = 0; j < kTcN / 8; ++j) {
+        const int k = col0 + 8 * j;
+        if (k >= p.d) continue;
+        const size_t o = (size_t)r * p.d + k;
+        const float2 v = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        if (p.last)
+          *reinterpret_cast<__nv_bfloat162*>(p.out + o) = __floats2bfloat162_rn(v.x, v.y);
+        else
+          *reinterpret_cast<float2*>(p.acc + o) = v;
+      }
+    } else {
+      if (r >= p.vc) continue;
+      const size_t o = (size_t)(p.v0 + r) * p.d;
+#pragma unroll
+      for (int j = 0; j < kTcN / 8; ++j) {
+        const int k = col0 + 8 * j;
+        if (k >= p.d) continue;
+        *reinterpret_cast<__nv_bfloat162*>(p.out + o + k) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+// ---- d <= 64: fused, coeff never leaves the registers ----
+
+struct FusedParams {
+  int R, V, d, lim, ignore_index;
+  const int* tgt;
+  const float* lse;
+  const float* g;
+  float* part;    // fp32 partials (splits, rows, d); rows = R (dx) or V (dW)
+  int n_tiles;    // walked tiles of 128: of the vocabulary (dx) or of the rows (dW)
+  int per_split;  // walked tiles a split
+};
+
+struct alignas(1024) FusedSmem {
+  __nv_bfloat16 res[kTcM * kTcK];           // the resident 128 rows of x (dx) or w (dW)
+  __nv_bfloat16 b[kTcStages][kTcN * kTcK];  // walked tiles: 128 rows of w (dx) or x (dW)
+  RowMeta meta[2][kTcN];                    // dW: the walked rows' meta, two tiles in turn
+  uint64_t res_bar;
+  uint64_t full[kTcStages];
+  uint64_t empty[kTcStages];
+};
+
+// One block: 128 resident rows (x rows for dx, vocab rows of w for dW) and
+// one split of the walked tiles (vocab tiles for dx, row tiles for dW).
+// Per walked tile: the logits tile (resident . walked^T, K = d <= 64, on
+// the tensor cores from shared memory), coeff in registers, then the
+// product coeff . walked (dx: coeff . w; dW: coeff^T . x), with coeff as
+// the register A operand (hi, then lo) and the walked tile, MN-major, as
+// B; the 128 x d output tile stays in registers for the whole walk and is
+// written as this split's fp32 partial.
+template <bool DW>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    ce_fused_kernel(const __grid_constant__ CUtensorMap map_res,
+                    const __grid_constant__ CUtensorMap map_walk, const FusedParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  FusedSmem& s = *reinterpret_cast<FusedSmem*>(
+      smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023));
+  const int wg = threadIdx.x / 128;
+  const int m0 = blockIdx.x * kTcM;
+  const int t0 = blockIdx.y * p.per_split;
+  const int nt = min(t0 + p.per_split, p.n_tiles) - t0;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&s.res_bar, 1);
+    for (int i = 0; i < kTcStages; ++i) {
+      sm90::mbar_init(&s.full[i], 1);
+      sm90::mbar_init(&s.empty[i], 2);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+  if (wg == 2) {
+    if (threadIdx.x == 256) {
+      sm90::mbar_expect_tx(&s.res_bar, kTcM * kTcK * 2);
+      for (int j = 0; j < kTcM / kBox; ++j)
+        sm90::tma_load_2d(s.res + j * kBox * kBox, &map_res, &s.res_bar, 0, m0 + kBox * j);
+      for (int kt = 0; kt < nt; ++kt) {
+        const int st = kt % kTcStages;
+        if (kt >= kTcStages) sm90::mbar_wait(&s.empty[st], ((kt / kTcStages) & 1) ^ 1);
+        sm90::mbar_expect_tx(&s.full[st], kTcN * kTcK * 2);
+        for (int j = 0; j < kTcN / kBox; ++j)
+          sm90::tma_load_2d(s.b[st] + j * kBox * kBox, &map_walk, &s.full[st], 0,
+                            (t0 + kt) * kTcN + kBox * j);
+      }
+    }
+    return;
+  }
+
+  const int c = wg;
+  const int t = threadIdx.x - 128 * wg;
+  const int lane = t & 31;
+  const int row0 = m0 + 64 * c + 16 * (t >> 5) + (lane >> 2);  // and row0 + 8
+  RowMeta rm[2];  // dx: this thread's two rows of x
+  if (!DW)
+    for (int h = 0; h < 2; ++h)
+      rm[h] = row_meta(row0 + 8 * h, p.R, p.tgt, p.lse, p.g, p.ignore_index);
+  const __nv_bfloat16* res = s.res + c * kBox * kBox;
+  float out[32];  // the output tile: 64 rows x 64 columns of d (the D layout)
+#pragma unroll
+  for (int i = 0; i < 32; ++i) out[i] = 0.f;
+  sm90::mbar_wait(&s.res_bar, 0);
+  for (int kt = 0; kt < nt; ++kt) {
+    const int st = kt % kTcStages;
+    const int w0 = (t0 + kt) * kTcN;  // the tile's first walked vocab column (dx) or row (dW)
+    const RowMeta* meta = s.meta[kt & 1];
+    if (DW) {  // the consumers stage the tile's row meta; two buffers in turn
+      if (threadIdx.x < kTcN)
+        s.meta[kt & 1][threadIdx.x] =
+            row_meta(w0 + threadIdx.x, p.R, p.tgt, p.lse, p.g, p.ignore_index);
+      sm90::consumer_sync();
+    }
+    sm90::mbar_wait(&s.full[st], (kt / kTcStages) & 1);
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    sm90::fence_operands(acc);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTcK / 16; ++kk)
+      sm90::wgmma_m64n128k16<0, 0>(acc, desc_kmajor(res, kk), desc_kmajor(s.b[st], kk));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(acc);
+
+    // Register q of k16 block kb of the A fragment holds acc[8 kb + 2 q]
+    // and acc[8 kb + 2 q + 1]: row + 8 (q & 1), walked columns
+    // 16 kb + 8 (q >> 1) + 2 (lane % 4) + {0, 1}.
+    uint32_t hi[8][4], lo[8][4];
+#pragma unroll
+    for (int kb = 0; kb < 8; ++kb) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int h = q & 1;
+        const int col = 16 * kb + 8 * (q >> 1) + 2 * (lane & 3);
+        float cf[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float logit = acc[8 * kb + 2 * q + e];
+          if (DW) {  // the column is a row of x; this thread's row is a vocab row
+            const RowMeta m = meta[col + e];
+            cf[e] = coeff_of(logit, row0 + 8 * h, m.lse, m.g, m.t, p.V, p.lim);
+          } else {
+            cf[e] = coeff_of(logit, w0 + col + e, rm[h].lse, rm[h].g, rm[h].t, p.V, p.lim);
+          }
+        }
+        split_bf16(cf[0], cf[1], hi[kb][q], lo[kb][q]);
+      }
+    }
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kb = 0; kb < 8; ++kb) {
+      const uint64_t db = desc_mnmajor(s.b[st], kb);
+      sm90::wgmma_m64n64k16_rs<1>(out, hi[kb], db);
+      sm90::wgmma_m64n64k16_rs<1>(out, lo[kb], db);
+    }
+    sm90::wgmma_commit();
+    sm90::fence_operands(out);
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(out);
+    if (t == 0) sm90::mbar_arrive(&s.empty[st]);
+  }
+
+  const int rows = DW ? p.V : p.R;
+  float* part = p.part + (size_t)blockIdx.y * rows * p.d;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + 8 * h;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int k = 8 * j + 2 * (lane & 3);
+      if (k < p.d)
+        *reinterpret_cast<float2*>(part + (size_t)r * p.d + k) =
+            make_float2(out[4 * j + 2 * h], out[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// out[e] = the sum of the splits' partials part[s][e], in split order, as bf16.
+__global__ void __launch_bounds__(kThreads) ce_merge_bf16_kernel(const float* part, int splits,
+                                                                long long n,
+                                                                __nv_bfloat16* out) {
+  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= n) return;
+  float a = 0.f;
+  for (int s = 0; s < splits; ++s) a += part[s * n + e];
+  out[e] = __float2bfloat16_rn(a);
+}
+
+// (splits, walked tiles a split) of a fused kernel: about kFusedBlocks
+// blocks in all, no split empty.
+void fused_split(bool dw, int R, int V, int& splits, int& per) {
+  const int walked = cdiv(dw ? R : V, kTcN);
+  int want = cdiv(kFusedBlocks, cdiv(dw ? V : R, kTcM));
+  if (want > walked) want = walked;
+  per = cdiv(walked, want);
+  splits = cdiv(walked, per);
+}
+
+long long tc_workspace_bytes(bool dx, int R, int V, int d) {
+  if (d <= kFusedDim) {
+    int splits, per;
+    fused_split(!dx, R, V, splits, per);
+    return 4LL * splits * (dx ? R : V) * d;
+  }
+  const int vc = chunk_cols(R, V);
+  long long bytes = 4LL * R * vc;
+  if (dx && cdiv(V, vc) > 1) bytes += 4LL * R * d;
+  return bytes;
+}
+
+template <int Mode>
+constexpr size_t tc_smem_bytes() {
+  return sizeof(TcSmem<Mode>) + 1024;  // + the alignment slack
+}
+
+template <typename Kernel, typename... Args>
+cudaError_t launch_tc(Kernel kernel, size_t smem, dim3 grid, cudaStream_t st, Args... args) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kTcThreads, smem, st>>>(args...);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; }
+
+// dx (dw = false) or dW of bf16 inputs, d <= 64: the fused kernel, then
+// the merge of its splits.
+cudaError_t fused_backward(bool dw, const Params& q, const CUtensorMap& mx,
+                           const CUtensorMap& mw, void* out, cudaStream_t st) {
+  FusedParams p = {};
+  p.R = q.R;
+  p.V = q.V;
+  p.d = q.d;
+  p.lim = q.lim;
+  p.ignore_index = q.ignore_index;
+  p.tgt = q.tgt;
+  p.lse = q.lse;
+  p.g = q.g;
+  p.part = q.ws;
+  int splits;
+  fused_split(dw, q.R, q.V, splits, p.per_split);
+  p.n_tiles = cdiv(dw ? q.R : q.V, kTcN);
+  const int rows = dw ? q.V : q.R;
+  const dim3 grid(cdiv(rows, kTcM), splits);
+  const size_t smem = sizeof(FusedSmem) + 1024;
+  const cudaError_t err =
+      dw ? launch_tc(ce_fused_kernel<true>, smem, grid, st, mw, mx, p)
+         : launch_tc(ce_fused_kernel<false>, smem, grid, st, mx, mw, p);
+  if (err != cudaSuccess) return err;
+  const long long n = (long long)rows * q.d;
+  return launch(ce_merge_bf16_kernel, dim3((unsigned)((n + kThreads - 1) / kThreads)), 0, st,
+                static_cast<const float*>(q.ws), splits, n, static_cast<__nv_bfloat16*>(out));
+}
+
+// dx (dw = false) or dW of bf16 inputs, d > 64: per vocab chunk, the coeff
+// kernel, then the product.
+cudaError_t chunked_backward(bool dw, const Params& q, const CUtensorMap& mx,
+                             const CUtensorMap& mw, void* out, cudaStream_t st) {
+  const int R = q.R, V = q.V;
+  const int vc_max = chunk_cols(R, V);
+  const int chunks = cdiv(V, vc_max);
+  TcParams p = {};
+  p.R = R;
+  p.V = V;
+  p.d = q.d;
+  p.ldc = vc_max;
+  p.lim = q.lim;
+  p.ignore_index = q.ignore_index;
+  p.tgt = q.tgt;
+  p.lse = q.lse;
+  p.g = q.g;
+  p.hi = reinterpret_cast<__nv_bfloat16*>(q.ws);
+  p.lo = p.hi + (size_t)R * vc_max;
+  p.acc = reinterpret_cast<float*>(p.lo + (size_t)R * vc_max);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  CUtensorMap mhi, mlo;
+  for (int ch = 0; ch < chunks; ++ch) {
+    p.v0 = ch * vc_max;
+    p.vc = V - p.v0 < vc_max ? V - p.v0 : vc_max;
+    p.first = ch == 0;
+    p.last = ch == chunks - 1;
+    // The planes as this chunk's (R, vc) matrices: columns past vc read 0.
+    if (!sm90::bf16_map(&mhi, p.hi, R, p.vc, vc_max) ||
+        !sm90::bf16_map(&mlo, p.lo, R, p.vc, vc_max))
+      return cudaErrorInvalidValue;
+    cudaError_t err =
+        launch_tc(ce_tc_kernel<kCoeff>, tc_smem_bytes<kCoeff>(),
+                  dim3(cdiv(p.vc, TcShape<kCoeff>::bn), cdiv(R, kTcM)), st, mx, mx, mw, p);
+    if (err != cudaSuccess) return err;
+    err = dw ? launch_tc(ce_tc_kernel<kDwProduct>, tc_smem_bytes<kDwProduct>(),
+                         dim3(cdiv(q.d, kTcN), cdiv(p.vc, kTcM)), st, mhi, mlo, mx, p)
+             : launch_tc(ce_tc_kernel<kDxProduct>, tc_smem_bytes<kDxProduct>(),
+                         dim3(cdiv(q.d, kTcN), cdiv(R, kTcM)), st, mhi, mlo, mw, p);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// dx (dw = false) or dW of bf16 inputs (R, V >= 1).
+cudaError_t tc_backward(bool dw, const Params& q, void* out, cudaStream_t st) {
+  if (q.d % 8 != 0 || !aligned16(q.x) || !aligned16(q.w) || !aligned16(q.ws))
+    return cudaErrorInvalidValue;
+  CUtensorMap mx, mw;
+  if (!sm90::bf16_map(&mx, q.x, q.R, q.d, q.d) || !sm90::bf16_map(&mw, q.w, q.V, q.d, q.d))
+    return cudaErrorInvalidValue;
+  return q.d <= kFusedDim ? fused_backward(dw, q, mx, mw, out, st)
+                          : chunked_backward(dw, q, mx, mw, out, st);
+}
+
 }  // namespace
 
 // C interface for ctypes. Pointers are device pointers of contiguous
 // tensors (the Python wrapper checks dtype, shape, device and
 // contiguity): x (R, d) and w (V, d) float or, with `bf16`, bfloat16;
 // targets int32; loss, lse and g float; ws a float workspace of
-// fused_ce_workspace(...) elements. d must be in [1, 2048]; vlim is the
-// live-vocab limit (V for none). Each launches its kernels on `stream`
-// without synchronising and returns cudaGetLastError() (0 = ok).
+// fused_ce_workspace(...) elements. d must be in [1, 2048], and for the
+// bf16 backward a multiple of 8 with x, w and ws 16-byte aligned; vlim is
+// the live-vocab limit (V for none). Each launches its kernels on
+// `stream` without synchronising and returns cudaGetLastError() (0 = ok).
 
 // fp32 workspace elements of fused_ce_fwd (which = 0), fused_ce_dx (1) or
-// fused_ce_dw (2) for these sizes.
-extern "C" long long fused_ce_workspace(int which, int R, int V, int d) {
+// fused_ce_dw (2) for these sizes and input type.
+extern "C" long long fused_ce_workspace(int which, int R, int V, int d, int bf16) {
   if (which == 0) return 2LL * splits_of(cdiv(V, kCols)) * R;
+  if (bf16) return (tc_workspace_bytes(which == 1, R, V, d) + 3) / 4;
   int splits, per;
   bwd_split(which == 2, R, V, d, splits, per);
   return (long long)splits * (which == 1 ? R : V) * d;
@@ -758,50 +1370,48 @@ extern "C" int fused_ce_fwd(const void* x, const void* w, const void* tgt, void*
   return (int)err;
 }
 
-extern "C" int fused_ce_dx(const void* x, const void* w, const void* tgt, const void* lse,
-                           const void* g, void* dx, void* ws, int R, int V, int d,
-                           int ignore_index, int vlim, int bf16, void* stream, int device) {
+// dx (dw = false) or dW: bf16 on the tensor cores, fp32 by FFMA.
+static int backward(bool dw, const void* x, const void* w, const void* tgt, const void* lse,
+             const void* g, void* out, void* ws, int R, int V, int d, int ignore_index,
+             int vlim, int bf16, void* stream, int device) {
   cudaError_t err = check_args(device, d);
   if (err != cudaSuccess) return (int)err;
-  if (R == 0) return 0;
+  if (R == 0 || V == 0) {  // no rows: dW is 0; no rows or no vocab: dx is empty or 0
+    const size_t n = (size_t)(dw ? V : R) * d * (bf16 ? 2 : 4);
+    return n ? (int)cudaMemsetAsync(out, 0, n, static_cast<cudaStream_t>(stream)) : 0;
+  }
   Params p = make_params(x, w, tgt, ws, R, V, d, ignore_index, vlim);
   p.lse = static_cast<const float*>(lse);
   p.g = static_cast<const float*>(g);
-  p.n_tiles = cdiv(V, kCols);
-  int splits;
-  bwd_split(false, R, V, d, splits, p.per_split);
-  const dim3 grid(cdiv(R, kRows), splits);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = bf16 ? launch_dx<__nv_bfloat16>(grid, st, p) : launch_dx<float>(grid, st, p);
-  if (err != cudaSuccess) return (int)err;
-  const long long n = (long long)R * d;
-  err = bf16 ? launch_sum<__nv_bfloat16>(p.ws, splits, n, dx, st)
-             : launch_sum<float>(p.ws, splits, n, dx, st);
-  return (int)err;
+  if (bf16) return (int)tc_backward(dw, p, out, st);
+  p.n_tiles = dw ? cdiv(R, kRows) : cdiv(V, kCols);
+  int splits;
+  bwd_split(dw, R, V, d, splits, p.per_split);
+  const dim3 grid(dw ? cdiv(V, kCols) : cdiv(R, kRows), splits);
+  return (int)launch_ffma_bwd(dw, grid, st, p, splits, out);
+}
+
+extern "C" int fused_ce_dx(const void* x, const void* w, const void* tgt, const void* lse,
+                           const void* g, void* dx, void* ws, int R, int V, int d,
+                           int ignore_index, int vlim, int bf16, void* stream, int device) {
+  return backward(false, x, w, tgt, lse, g, dx, ws, R, V, d, ignore_index, vlim, bf16, stream,
+                  device);
 }
 
 extern "C" int fused_ce_dw(const void* x, const void* w, const void* tgt, const void* lse,
                            const void* g, void* dw, void* ws, int R, int V, int d,
                            int ignore_index, int vlim, int bf16, void* stream, int device) {
-  cudaError_t err = check_args(device, d);
-  if (err != cudaSuccess) return (int)err;
-  if (V == 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (R == 0 && d > kNarrowDim)  // no rows: dW is 0 (the narrow kernel writes its zeros)
-    return (int)cudaMemsetAsync(dw, 0, (size_t)V * d * (bf16 ? 2 : 4), st);
-  Params p = make_params(x, w, tgt, ws, R, V, d, ignore_index, vlim);
-  p.lse = static_cast<const float*>(lse);
-  p.g = static_cast<const float*>(g);
-  p.n_tiles = cdiv(R, kRows);
-  int splits;
-  bwd_split(true, R, V, d, splits, p.per_split);
-  const dim3 grid(cdiv(V, kCols), splits);
-  err = bf16 ? launch_dw<__nv_bfloat16>(grid, st, p) : launch_dw<float>(grid, st, p);
-  if (err != cudaSuccess) return (int)err;
-  const long long n = (long long)V * d;
-  err = bf16 ? launch_sum<__nv_bfloat16>(p.ws, splits, n, dw, st)
-             : launch_sum<float>(p.ws, splits, n, dw, st);
-  return (int)err;
+  return backward(true, x, w, tgt, lse, g, dw, ws, R, V, d, ignore_index, vlim, bf16, stream,
+                  device);
+}
+
+// Dynamic shared memory of one block of the bf16 backward's kernel at
+// width d: ce_fused_kernel (d <= 64, kernel ignored), or ce_tc_kernel of
+// the coeff (kernel = 0) or of the product (1).
+extern "C" long long fused_ce_bf16_smem(int d, int kernel) {
+  if (d <= kFusedDim) return (long long)sizeof(FusedSmem) + 1024;
+  return (long long)(kernel ? tc_smem_bytes<kDxProduct>() : tc_smem_bytes<kCoeff>());
 }
 
 extern "C" const char* fused_ce_error_string(int code) {

@@ -3,7 +3,9 @@
 Every ``csrc/<name>.cu`` is compiled on its own by nvcc into a shared
 library with a plain C interface, ``<repo>/build/genrec_tpu_torch/
 lib<name>-<hash>.so``, at first use, and loaded with ctypes. The hash
-covers the source and the flags, so an edited kernel is rebuilt. The
+covers the source, every ``csrc`` header it includes (``#include
+"x.cuh"``, followed through the headers' own includes) and the flags, so
+an edited kernel or header is rebuilt. The
 library is written under a temporary name and renamed into place, so two
 processes building at once never load a half-written file. Nothing here
 runs when a module is imported.
@@ -19,6 +21,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -50,8 +53,29 @@ def source_path(name: str) -> Path:
     return CSRC / f"{name}.cu"
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def included_headers(source: Path) -> list[Path]:
+    """The headers of ``source``'s directory that it includes, directly or
+    through other such headers, in the order first reached."""
+    found: list[Path] = []
+    todo = [source]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop(0).read_bytes()):
+            path = source.parent / name.decode()
+            if path.exists() and path not in found:
+                found.append(path)
+                todo.append(path)
+    return found
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(source_path(name).read_bytes() + " ".join(NVCC_FLAGS).encode())
+    source = source_path(name)
+    digest = hashlib.sha256(source.read_bytes())
+    for header in included_headers(source):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -31,10 +31,25 @@ composition over the plain versions, on any device.
 Logits are fp32 in every version (x and w upcast, as the JAX kernels and
 ``linear_ce_xla`` do); dx and dW come back in the input dtypes.
 
+Two designs sit under the wrappers, by input type. fp32 inputs, and the
+forward in either type, run FFMA kernels (fp32 products from shared
+memory), which agree with the plain versions to 1e-5. The bf16 backward
+runs on the tensor cores (wgmma, operands fed by TMA), with coeff = g
+(softmax - onehot) entering the products as a bf16 hi + lo pair (coeff to
+~2^-17; one bf16 value moved dW elements near 0 past the 1e-2
+tolerance). At d <= 64 (HSTU) one fused kernel keeps coeff in registers
+and the output tile in registers for its whole walk, and a merge adds
+the splits' fp32 partials in order. At d > 64 (LCRec) the vocabulary
+goes in chunks: a kernel writes the chunk's coeff to a bounded workspace,
+then a second forms dx (summed over the chunks in order, in fp32) or dW
+from it. TMA needs 16-byte rows, so the wrapper pads x and w with zero
+columns to a multiple of 8 and slices the result. Every sum has one
+fixed order, so two calls give equal bits.
+
 Bound on an H100: operations, 2 R V d per pass over the logits (9.9
 GFLOP at the HSTU trainer's shapes R=6400, V=12102, d=64; 0.96 TFLOP at
-an LCRec shard under tensor_parallel=2, R=4088, V=76608, d=1536). The
-source's header says what the design does.
+an LCRec shard under tensor_parallel=2, R=4088, V=76608, d=1536); each
+backward is two passes. The source's header says more.
 """
 
 from __future__ import annotations
@@ -52,6 +67,7 @@ from genrec_tpu_torch.kernels.build import (
 )
 
 MAX_DIM = 2048
+FUSED_DIM = 64  # the bf16 backward's fused kernels take d up to here (kFusedDim)
 NEG = -1e30
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -60,10 +76,12 @@ _DTYPES = (torch.float32, torch.bfloat16)
 def _library() -> ctypes.CDLL:
     lib = load_library("fused_ce")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.fused_ce_workspace.argtypes = [i32] * 4
+    lib.fused_ce_workspace.argtypes = [i32] * 5
     lib.fused_ce_workspace.restype = ctypes.c_longlong
     lib.fused_ce_fwd.argtypes = [ptr] * 6 + [i32] * 6 + [ptr, i32]
     lib.fused_ce_fwd.restype = i32
+    lib.fused_ce_bf16_smem.argtypes = [i32, i32]
+    lib.fused_ce_bf16_smem.restype = ctypes.c_longlong
     for fn in (lib.fused_ce_dx, lib.fused_ce_dw):
         fn.argtypes = [ptr] * 7 + [i32] * 6 + [ptr, i32]
         fn.restype = i32
@@ -73,9 +91,11 @@ def _library() -> ctypes.CDLL:
 _WORKSPACE = {"fwd": 0, "dx": 1, "dw": 2}
 
 
-def _workspace(lib, which, R, V, d, device):
-    """The fp32 partials the kernel's splits write before they are merged."""
-    n = lib.fused_ce_workspace(_WORKSPACE[which], R, V, d)
+def _workspace(lib, which, R, V, d, bf16, device):
+    """The kernel's scratch: the fp32 partials of its splits (the forward,
+    the fp32 backward) or one vocab chunk's bf16 coeff planes and the fp32
+    dx sum (the bf16 backward)."""
+    n = lib.fused_ce_workspace(_WORKSPACE[which], R, V, d, int(bf16))
     return torch.empty((n,), dtype=torch.float32, device=device)
 
 
@@ -118,7 +138,7 @@ def fused_linear_ce_fwd_cuda(x, w, targets, ignore_index: int = 0, vlim=None):
     loss = torch.empty((R,), dtype=torch.float32, device=x.device)
     lse = torch.empty((R,), dtype=torch.float32, device=x.device)
     lib = _library()
-    ws = _workspace(lib, "fwd", R, V, d, x.device)
+    ws = _workspace(lib, "fwd", R, V, d, x.dtype == torch.bfloat16, x.device)
     rc = lib.fused_ce_fwd(
         x.data_ptr(), w.data_ptr(), targets.data_ptr(), loss.data_ptr(), lse.data_ptr(),
         ws.data_ptr(), R, V, d, ignore_index, _vlim(V, vlim), int(x.dtype == torch.bfloat16),
@@ -132,18 +152,48 @@ def fused_linear_ce_fwd_cuda(x, w, targets, ignore_index: int = 0, vlim=None):
 fused_linear_ce_fwd_cuda.launches = 0
 
 
+def workspace_bytes(which: str, R: int, V: int, d: int, dtype) -> int:
+    """Bytes of scratch that the ``which`` ("fwd", "dx" or "dw") kernel
+    allocates for these sizes and input dtype (d as passed, before the bf16
+    backward's padding)."""
+    bf16 = dtype == torch.bfloat16
+    dk = d + (-d % 8 if bf16 and which != "fwd" else 0)
+    return 4 * _library().fused_ce_workspace(_WORKSPACE[which], R, V, dk, int(bf16))
+
+
+def bf16_block_smem(d: int, product: bool = False) -> int:
+    """Dynamic shared memory of one block of the bf16 backward's kernel at
+    width d (ptxas reports only static shared memory): the fused kernel at
+    d <= FUSED_DIM, else the coeff kernel or, with ``product``, the
+    product kernel."""
+    return _library().fused_ce_bf16_smem(d + -d % 8, int(product))
+
+
+def _tma_operand(t):
+    """t for the bf16 backward's TMA loads: d padded with zero columns to a
+    multiple of 8 (16-byte rows), the storage 16-byte aligned."""
+    pad = -t.shape[1] % 8
+    if pad:
+        t = torch.nn.functional.pad(t, (0, pad))
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _bwd_launch(which, x, w, targets, lse, g, ignore_index, vlim):
     R, V, d = _checked(x, w, targets, lse, g)
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        x, w = _tma_operand(x), _tma_operand(w)
+    dk = x.shape[1]
     out = torch.empty_like(x if which == "dx" else w)
     lib = _library()
-    ws = _workspace(lib, which, R, V, d, x.device)
+    ws = _workspace(lib, which, R, V, dk, bf16, x.device)
     rc = getattr(lib, f"fused_ce_{which}")(
         x.data_ptr(), w.data_ptr(), targets.data_ptr(), lse.data_ptr(), g.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), R, V, d, ignore_index, _vlim(V, vlim),
-        int(x.dtype == torch.bfloat16), *launch_context(x),
+        out.data_ptr(), ws.data_ptr(), R, V, dk, ignore_index, _vlim(V, vlim), int(bf16),
+        *launch_context(x),
     )
     raise_on_error(lib, "fused_ce", f"fused_linear_ce_{which}", rc)
-    return out
+    return out if dk == d else out[:, :d].contiguous()
 
 
 def fused_linear_ce_dx_cuda(x, w, targets, lse, g, ignore_index: int = 0, vlim=None):

@@ -217,10 +217,19 @@ def _ce_inputs(dev, R, V, d, dtype, all_ignored=False, seed=0):
     ((6400, 12102, 64), False),  # the trainer's shapes: V a multiple of neither tile
     ((37, 700, 48), False),      # ragged rows
     ((64, 300, 16), True),       # every row ignored
-    ((33, 65, 128), False),      # d at its limit
+    ((33, 65, 128), False),      # d at the fp32 narrow kernels' limit
+    # bf16 backward: R a multiple of neither 64 nor 128, V over several vocab
+    # chunks, the LCRec hidden size
+    ((4100, 9000, 1536), False),
+    ((300, 2000, 37), False),     # d not a multiple of 8: padded for TMA
+    ((33, 700, 2048), False),     # d at its limit
+    ((300, 5000, 1536), True),    # every row ignored, d wide
 ])
 def test_fused_ce_kernels_match_plain_versions(card, shape, all_ignored, dtype):
     x = _ce_inputs(card, *shape, dtype, all_ignored)
+    d = shape[2]
+    if d > 128:  # logits of std ~0.8 at every d, as at d = 64 (and in the vlim test)
+        x["x"] = (x["x"].float() * (64 / d) ** 0.5).to(dtype)
     fwd = dict(x=x["x"], w=x["w"], targets=x["targets"])
     loss, lse = fc.fused_linear_ce_fwd_cuda(**fwd)
     want_loss, want_lse = fc.fused_linear_ce_ref(**fwd)
@@ -234,10 +243,14 @@ def test_fused_ce_kernels_match_plain_versions(card, shape, all_ignored, dtype):
             fc.fused_linear_ce_dw_cuda.launches) == (counts[0] + 1, counts[1] + 1)
     want_dx, want_dw = fc.fused_linear_ce_bwd_ref(**bwd)
     assert dx.dtype == dtype and dw.dtype == dtype
+    assert dx.shape == x["x"].shape and dw.shape == x["w"].shape
     torch.testing.assert_close(dx, want_dx, **_tol(dtype))
     torch.testing.assert_close(dw, want_dw, **_tol(dtype))
     if all_ignored:
         assert float(loss.abs().max()) == float(dx.abs().max()) == float(dw.abs().max()) == 0
+    # Every sum has one fixed order: a second call gives the same bits.
+    assert torch.equal(fc.fused_linear_ce_dx_cuda(**bwd), dx)
+    assert torch.equal(fc.fused_linear_ce_dw_cuda(**bwd), dw)
 
 
 def test_fused_ce_mean_loss_on_the_card_matches_the_cpu(card):
@@ -274,6 +287,7 @@ def test_fused_ce_wrappers_refuse_what_they_do_not_take(card):
     ((300, 900, 1536), 880),  # the Qwen2.5-1.5B hidden size, several groups a split
     ((33, 130, 2048), 129),   # d at its limit
     ((40, 200, 1536), 0),     # a shard of pad rows only
+    ((4100, 9000, 1536), 5000),  # vlim inside a vocab chunk of the bf16 backward
 ])
 def test_fused_ce_kernels_with_vlim_match_plain_versions(card, shape, vlim, dtype):
     """Columns at or past vlim read -1e30 inside the softmax; targets stay

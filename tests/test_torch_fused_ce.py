@@ -10,10 +10,12 @@ tests run it) and with ``linear_ce_xla``; the plain backward
 
 Tolerance: 1e-5 absolute plus 1e-5 relative, fp32 on both sides (the
 Pallas kernels take an online logsumexp over 512-column tiles, the plain
-version one max and one sum).
+version one max and one sum). The last tests check, without a card, what
+the bf16 backward's wrapper does around its kernels (TMA's padding).
 """
 
 import signal
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -208,3 +210,36 @@ def test_lcrec_width_matches_pallas():
     want = _jax_fwd_bwd(x, w, tgt, g, 0, 120)
     for name, a, b in zip(("loss", "lse", "dx", "dW"), got, want):
         np.testing.assert_allclose(a, b, err_msg=name, **TOL)
+
+
+# ---- what the bf16 backward's wrapper does around its kernels (no card) ----
+
+
+@pytest.mark.parametrize("d", [1, 37, 64, 1536])
+def test_tma_operand_pads_d_to_a_multiple_of_8(d):
+    """TMA reads rows of a multiple of 16 bytes: x and w get zero columns
+    up to a multiple of 8 bf16, and keep their values."""
+    t = torch.as_tensor(np.random.default_rng(d).normal(size=(5, d)).astype(np.float32))
+    t = t.to(torch.bfloat16)
+    got = tf._tma_operand(t)
+    assert got.shape == (5, d + -d % 8) and got.shape[1] % 8 == 0
+    assert torch.equal(got[:, :d], t) and not got[:, d:].any()
+    assert got.data_ptr() % 16 == 0
+
+
+def test_tma_operand_copies_a_misaligned_view():
+    """A view that starts off a 16-byte boundary is copied; an aligned one
+    is passed through."""
+    base = torch.zeros((10, 16), dtype=torch.bfloat16)
+    view = base.view(-1)[4:4 + 9 * 16].view(9, 16)  # 8 bytes past the start
+    assert view.data_ptr() % 16 == 8
+    got = tf._tma_operand(view)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, view)
+    assert tf._tma_operand(base) is base
+
+
+def test_fused_dim_matches_the_kernel_source():
+    """The wrapper's FUSED_DIM (which kernels a width runs, as chip_smoke
+    reports them) is the source's kFusedDim."""
+    src = (Path(tf.__file__).resolve().parents[1] / "csrc" / "fused_ce.cu").read_text()
+    assert f"constexpr int kFusedDim = {tf.FUSED_DIM};" in src
