@@ -20,10 +20,10 @@ line each; any failure ends the run with a traceback and a non-zero exit:
             function where there is one (a yardstick only), and the least
             time the card could take (bytes over 3.35 TB/s, or operations
             over the data-sheet peak of the inputs' type: 67 TFLOP/s fp32,
-            989 TFLOP/s bf16); the bf16 B4 rows (dx, dW) also give their
-            TFLOP/s, share of the bound, workspace bytes, the registers,
-            spills and shared memory of their kernels (ptxas -v), and a
-            check that two calls give the same bits;
+            989 TFLOP/s bf16); the bf16 B3 and B4 rows (forward, dx, dW)
+            also give their TFLOP/s, share of the bound, workspace bytes,
+            the registers, spills and shared memory of their kernels
+            (ptxas -v), and a check that two calls give the same bits;
 4. train    HSTU at the widths of config/hstu/amazon.gin through the port's
             trainer (hstu_trainer.train, 2 epochs with eval, synthetic data
             with Amazon-Beauty's 12,101 items), then a fixed number of steps
@@ -58,7 +58,7 @@ line each; any failure ends the run with a traceback and a non-zero exit:
             B4 at one rank's shard of the head (8 x 511 rows, 76,608 vocab
             rows, d 1,536, bf16; a full and a ragged live-vocab limit) and
             at d = 64, 1,000, 1,536, 2,048 at a small size, held to their
-            plain versions and timed, B4 as in phase 3 (part of phase 3);
+            plain versions and timed, as in phase 3 (part of phase 3);
             then the tp=1 side
             of a parity run and the library yardstick of B8 here, and 2
             ranks through parallel.mesh.spawn (gloo with both ranks on the
@@ -341,30 +341,46 @@ def ptxas_by_kernel(log: str) -> dict:
     return out
 
 
-# The bf16 backward's kernels: name -> a fragment of its mangled name.
-B4_KERNELS = {"ce_fused_kernel<dx>": "ce_fused_kernelILb0E",
-              "ce_fused_kernel<dW>": "ce_fused_kernelILb1E",
-              "ce_tc_kernel<kCoeff>": "ce_tc_kernelILi0E",
-              "ce_tc_kernel<kDxProduct>": "ce_tc_kernelILi1E",
-              "ce_tc_kernel<kDwProduct>": "ce_tc_kernelILi2E",
-              "ce_merge_bf16_kernel": "ce_merge_bf16_kernel"}
+# The bf16 CE kernels (B3, B4): name -> (a fragment of its mangled name,
+# the kind of its block's dynamic shared memory for bf16_block_smem, or
+# None for a merge without any).
+TC_KERNELS = {"ce_fwd_tc_kernel": ("ce_fwd_tc_kernel", "fwd"),
+              "ce_fwd_merge_kernel": ("ce_fwd_merge_kernel", None),
+              "ce_fused_kernel<dx>": ("ce_fused_kernelILb0E", "coeff"),
+              "ce_fused_kernel<dW>": ("ce_fused_kernelILb1E", "coeff"),
+              "ce_tc_kernel<kCoeff>": ("ce_tc_kernelILi0E", "coeff"),
+              "ce_tc_kernel<kDxProduct>": ("ce_tc_kernelILi1E", "product"),
+              "ce_tc_kernel<kDwProduct>": ("ce_tc_kernelILi2E", "product"),
+              "ce_merge_bf16_kernel": ("ce_merge_bf16_kernel", None)}
 
 
-def b4_report(key, R, V, d, ms, bound_ms, flops, ptxas) -> dict:
-    """The bf16 B4 row's extras: achieved TFLOP/s (the bound's operations
-    over the time), share of the bound, workspace bytes, and the ptxas
-    numbers and dynamic shared memory of the kernels that width d runs
-    (ptxas prints nothing when the library was built before this run)."""
+def tc_kernels(key: str, d: int) -> list:
+    """The bf16 kernels that the ``key`` ("fwd", "dx" or "dw") wrapper
+    launches at width d."""
     from genrec_tpu_torch.kernels import fused_ce as fc
 
-    names = (["ce_fused_kernel<dx>" if key == "dx" else "ce_fused_kernel<dW>",
-              "ce_merge_bf16_kernel"] if d <= fc.FUSED_DIM else
-             ["ce_tc_kernel<kCoeff>",
-              "ce_tc_kernel<kDxProduct>" if key == "dx" else "ce_tc_kernel<kDwProduct>"])
+    if key == "fwd":
+        return ["ce_fwd_tc_kernel", "ce_fwd_merge_kernel"]
+    if d <= fc.FUSED_DIM:
+        return ["ce_fused_kernel<dx>" if key == "dx" else "ce_fused_kernel<dW>",
+                "ce_merge_bf16_kernel"]
+    return ["ce_tc_kernel<kCoeff>",
+            "ce_tc_kernel<kDxProduct>" if key == "dx" else "ce_tc_kernel<kDwProduct>"]
+
+
+def tc_report(key, R, V, d, ms, bound_ms, flops, ptxas) -> dict:
+    """A bf16 B3 or B4 row's extras: achieved TFLOP/s (the bound's
+    operations over the time), share of the bound, workspace bytes, and
+    the ptxas numbers and dynamic shared memory of the kernels that width
+    d runs (ptxas prints nothing when the library was built before this
+    run)."""
+    from genrec_tpu_torch.kernels import fused_ce as fc
+
     kernels = {}
-    for n in names:
-        found = [v for k, v in ptxas.items() if B4_KERNELS[n] in k]
-        smem = 0 if n == "ce_merge_bf16_kernel" else fc.bf16_block_smem(d, "Product" in n)
+    for n in tc_kernels(key, d):
+        fragment, smem_kind = TC_KERNELS[n]
+        found = [v for k, v in ptxas.items() if fragment in k]
+        smem = 0 if smem_kind is None else fc.bf16_block_smem(d, smem_kind)
         kernels[n] = dict(*found[:1], dynamic_smem=smem)
     return dict(achieved_tflops=flops / ms / 1e9, share_of_bound=bound_ms / ms,
                 workspace_bytes=fc.workspace_bytes(key, R, V, d, torch.bfloat16),
@@ -373,10 +389,11 @@ def b4_report(key, R, V, d, ms, bound_ms, flops, ptxas) -> dict:
 
 def bit_equal_twice(fn, args, what) -> None:
     """Two calls on the same inputs give the same bits (every sum has one
-    fixed order)."""
+    fixed order); ``fn`` returns a tensor or a tuple of them."""
     a, b = fn(**args), fn(**args)
     torch.cuda.synchronize()
-    check(torch.equal(a, b), f"{what}: two calls differ")
+    pairs = zip(a, b) if isinstance(a, tuple) else [(a, b)]
+    check(all(torch.equal(x, y) for x, y in pairs), f"{what}: two calls differ")
 
 
 # ---- phase 3: the paged-attention kernel -----------------------------------
@@ -879,7 +896,7 @@ def library_ce_dw(x, w, targets, g):
 
 def ce_kernel_phase(dev, seed, ptxas) -> dict:
     """B3 and B4 (dx, dW) against their plain versions and timed; the bf16
-    B4 rows also give their TFLOP/s, share of the bound, workspace, ptxas
+    rows also give their TFLOP/s, share of the bound, workspace, ptxas
     numbers and a check that two calls give the same bits."""
     from genrec_tpu_torch.kernels.fused_ce import (
         fused_linear_ce_dw_cuda,
@@ -911,6 +928,7 @@ def ce_kernel_phase(dev, seed, ptxas) -> dict:
         errs["dx"][name] = assert_near(f"ce dx {name}", dx, fused_linear_ce_dx_ref(**bwd), tol)
         errs["dw"][name] = assert_near(f"ce dW {name}", dw, fused_linear_ce_dw_ref(**bwd), tol)
         if dtype == torch.bfloat16:
+            bit_equal_twice(fused_linear_ce_fwd_cuda, fwd, f"ce fwd {name}")
             bit_equal_twice(fused_linear_ce_dx_cuda, bwd, f"ce dx {name}")
             bit_equal_twice(fused_linear_ce_dw_cuda, bwd, f"ce dW {name}")
         if all_ignored:
@@ -961,8 +979,8 @@ def ce_kernel_phase(dev, seed, ptxas) -> dict:
             library = (f"autograd of the same call for {key} alone: its forward+backward "
                        "time less its forward time")
         bound_ms, bound_by = bound(bytes_, ops, BF16_FLOPS)
-        extra = {} if key == "fwd" else dict(
-            b4_report(key, R, V, d, ms, bound_ms, ops, ptxas),
+        extra = dict(
+            tc_report(key, R, V, d, ms, bound_ms, ops, ptxas),
             bit_equal_twice_cases=[n for n, (dt, _) in cases.items() if dt == torch.bfloat16])
         out[name] = emit(
             "kernel", name=name, shape=dict(R=R, V=V, d=d, dtype="bf16"), **extra,
@@ -1382,10 +1400,20 @@ def int8_answers_agree(sem, logp, got_sem, got_scores, atol) -> tuple[float, int
     return err, moved
 
 
+@functools.cache
+def port_kernel_names() -> frozenset:
+    """The names of the ``__global__`` functions in the port's sources."""
+    from genrec_tpu_torch.kernels.build import CSRC
+
+    pattern = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)")
+    return frozenset(n for src in CSRC.glob("*.cu") for n in pattern.findall(src.read_text()))
+
+
 def device_profile(serve_once) -> dict:
     """Device time by CUDA kernel over one ``serve_once()`` under
-    torch.profiler. The profiler slows the host, so the idle share it
-    shows is an upper bound on the unprofiled run's."""
+    torch.profiler: the top 12, and every kernel of the port's own. The
+    profiler slows the host, so the idle share it shows is an upper bound
+    on the unprofiled run's."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1403,6 +1431,9 @@ def device_profile(serve_once) -> dict:
         device_idle_share=1 - busy_ms / (1e3 * wall_s),
         kernel_launches=sum(n for _, _, n in kernels),
         top_kernels=[dict(name=k[:90], ms=ms, launches=n) for k, ms, n in kernels[:12]],
+        port_kernels=[dict(name=k[:90], ms=ms, launches=n) for k, ms, n in kernels
+                      if (m := re.search(r"::(\w+)[<(]", k))
+                      and m.group(1) in port_kernel_names()],
     )
 
 
@@ -1573,8 +1604,8 @@ def ce_lcrec_kernel_phase(dev, seed, ptxas) -> dict:
     """B3 and B4 (dx, dW) at an LCRec shard (R = 8 x 511 rows, 76,608
     vocab rows, d 1,536, bf16) with the full shard live and with a ragged
     live-vocab limit, and at d in LCREC_DIMS at a small size, each against
-    its plain version and B4 twice for equal bits; then timed at the shard
-    shape, B4 with its TFLOP/s, share of the bound, workspace and ptxas
+    its plain version and twice for equal bits; then timed at the shard
+    shape, with TFLOP/s, share of the bound, workspace and ptxas
     numbers."""
     from genrec_tpu_torch.kernels import fused_ce as fc
 
@@ -1591,6 +1622,7 @@ def ce_lcrec_kernel_phase(dev, seed, ptxas) -> dict:
         want_loss, want_lse = fc.fused_linear_ce_ref(**fwd)
         errs["fwd"][name] = max(assert_near(f"ce loss {name}", loss, want_loss, FP32_TOL),
                                 assert_near(f"ce lse {name}", lse, want_lse, FP32_TOL))
+        bit_equal_twice(fc.fused_linear_ce_fwd_cuda, fwd, f"ce fwd {name}")
         bwd = dict(fwd, lse=want_lse, g=x["g"])
         dx = fc.fused_linear_ce_dx_cuda(**bwd)
         torch.cuda.synchronize()
@@ -1645,9 +1677,8 @@ def ce_lcrec_kernel_phase(dev, seed, ptxas) -> dict:
             library = (f"autograd of the same call for {key} alone: its forward+backward "
                        "time less its forward time")
         bound_ms, bound_by = bound(bytes_, ops, BF16_FLOPS)
-        extra = {} if key == "fwd" else dict(
-            b4_report(key, R, V, d, ms, bound_ms, ops, ptxas),
-            bit_equal_twice_cases=list(cases))
+        extra = dict(tc_report(key, R, V, d, ms, bound_ms, ops, ptxas),
+                     bit_equal_twice_cases=list(cases))
         out[name + "_lcrec"] = emit(
             "kernel", name=name + "_lcrec", kernel=name, **extra,
             shape=dict(R=R, V=V, d=d, dtype="bf16", vlim=V,

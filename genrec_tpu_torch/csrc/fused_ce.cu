@@ -32,9 +32,42 @@
 // tensor cores (989 TFLOP/s), while the inputs are 2.4 MB (0.7 us). At
 // the LCRec shard shapes under tensor_parallel=2 (R = 4088, V = 76608,
 // d = 1536, bf16) the forward is 0.96 TFLOP: 0.97 ms on the tensor cores,
-// 14 ms at the fp32 FFMA rate (67 TFLOP/s); each backward 1.95 ms.
+// 14 ms at the fp32 FFMA rate (67 TFLOP/s); each backward 1.95 ms. The
+// forward also takes one exp per logit: R V = 77.5M at the HSTU shapes,
+// ~0.02 ms at the multi-function units' 16 a clock per SM, twice its
+// tensor work there.
 //
 // Two designs, by input type.
+//
+// bf16 forward: ce_fwd_tc_kernel, then ce_fwd_merge_kernel. A block of
+// 288 threads (two consumer warpgroups of 64 rows, a producer warp) owns
+// 128 rows of x and walks a split of consecutive vocab tiles of 256
+// columns: the logits tile on wgmma (m64n256k16, x and w K-major from
+// 64 x 64 TMA boxes with the 128-byte swizzle, 4 stages), then an
+// epilogue that folds it into each row's running max, sum of exps and
+// target logit in registers. The producer streams the K-slices of x and
+// w for every tile of the split through the ring without draining it at
+// tile boundaries, so the loads of the next tile overlap the epilogue.
+// In the wgmma D layout a row's 256 columns lie on the 4 lanes of a quad:
+// each lane keeps its own state over its 64 columns and the quad combines
+// them with two shuffles at the end of the split. The exps are exp2f of
+// logits pre-scaled by log2 e. The target logit is read from the same
+// accumulator as the row's logsumexp (the Pallas sum-select), so the
+// merge reads neither x nor w. Columns at or past lim (and the zero-filled
+// ones past V) read -1e30 inside the softmax, set by one compare per
+// column against the thread's count of live columns and only in the tile
+// that reaches lim: a fallback value kept per column spilled the
+// epilogue past the 168 registers a thread that 9 warps allow. The grid
+// runs row tiles fastest, so the row blocks of a split read the same w
+// tiles at about the same time, and the split count (fwd_split) fills the
+// SMs in the fewest waves of one block each (4 splits, 128 blocks, one
+// wave, at the LCRec shard; 5 splits, 250 blocks, at the HSTU shapes).
+// Each split writes (max, sum, target logit) per row, 3 x splits x R
+// floats; the merge folds the splits in split order, so two calls give
+// equal bits. On an H100 (chip_smoke.py; ce_bwd_ab.py --mode fwd for the
+// variants) this takes 1.31 ms at the LCRec shard, 74% of its 0.97 ms
+// bound, and 0.058 ms at the HSTU shapes, where the exps bound it (the
+// tensor bound is 0.010 ms); 157 registers, no spills.
 //
 // bf16 backward (dx and dW): tensor cores (wgmma, bf16 operands, fp32
 // accumulators in registers), operands fed by TMA (sm90.cuh). Each kernel
@@ -80,17 +113,18 @@
 //     (MN-major B), written once. Workspace: 4 R Vc bytes, plus 4 R d for
 //     dx over several chunks, whatever V is (67 and 92 MB at the shard).
 //
-// fp32 (every kernel) and the bf16 forward: FFMA from shared memory, no
-// tensor cores, so that fp32 results agree with the plain versions to
+// fp32 (every kernel): FFMA from shared memory, no tensor cores, so that fp32 results agree with the plain versions to
 // 1e-5 (TF32 would not):
 //   - a logits tile is 32 rows x 64 vocab columns, computed by 128 threads
 //     from shared memory, each thread a 4 x 4 register block (rows
 //     4*ty.., columns tx + 16*c, so the 16 threads of a row are one half
 //     of a warp and reduce with shuffles). Rows in shared memory are
 //     padded by one float so neighbouring threads hit distinct banks.
-//     d streams through shared memory in chunks of 64 columns, one fmaf
-//     chain over k ascending whatever the chunking; x stays resident when
-//     d <= 64.
+//     d streams through shared memory in chunks of 64 columns, each chunk
+//     one fmaf chain over k ascending from 0, the chunks' sums added in
+//     order (the rounding error grows with 64 plus the number of chunks,
+//     not with d); x stays resident when d <= 64. The narrow backward
+//     (d <= 128) runs one chain over all of d.
 //   - forward and dx: blockIdx.x picks 32 rows and walks vocab tiles (the
 //     Pallas grid's sequential vocab axis); dW: the transposed grid,
 //     blockIdx.x picks 64 vocab rows and walks row tiles.
@@ -139,9 +173,6 @@ constexpr float kNeg = -1e30f;
 constexpr int kCStride = kCols + 1;
 constexpr int kTileFloats = kRows * kCStride;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
 struct Params {
   const void* x;
   const void* w;
@@ -187,17 +218,15 @@ void bwd_split(bool dw, int R, int V, int d, int& splits, int& per) {
 }
 
 // n rows starting at r0, columns k0 .. k0 + width - 1, of an (N, d) matrix
-// into dst, fp32, row stride width + 1; rows past N and columns past d
-// read 0.
-template <typename T>
-__device__ void load_tile(float* dst, const T* src, int r0, int n, int N, int d, int k0,
+// into dst, row stride width + 1; rows past N and columns past d read 0.
+__device__ void load_tile(float* dst, const float* src, int r0, int n, int N, int d, int k0,
                           int width) {
   const int ld = width + 1;
   for (int i = threadIdx.x; i < n * width; i += kThreads) {
     const int r = i / width;
     const int k = i - r * width;
     dst[r * ld + k] =
-        (r0 + r < N && k0 + k < d) ? to_f(src[(size_t)(r0 + r) * d + k0 + k]) : 0.f;
+        (r0 + r < N && k0 + k < d) ? src[(size_t)(r0 + r) * d + k0 + k] : 0.f;
   }
 }
 
@@ -227,20 +256,28 @@ __device__ __forceinline__ void add_logits(const float* x_s, const float* w_s, i
 
 // acc = the logits tile of x rows [r0, r0 + 32) and w rows [v0, v0 + 64),
 // d streamed through x_s [kRows][kChunk + 1] and w_s [kCols][kChunk + 1].
-// With x_resident (d <= kChunk) x_s already holds the rows. Starts with a
-// barrier, so the caller may reuse x_s and w_s up to the call.
-template <typename T>
+// Each chunk's products are one fmaf chain from 0, added to acc: a single
+// chain over d = 2048 put the logits ~4x farther from fp64 than the plain
+// version's GEMM. With x_resident (d <= kChunk) x_s already holds the
+// rows. Starts with a barrier, so the caller may reuse x_s and w_s up to
+// the call.
 __device__ void chunked_logits(const Params& p, int r0, int v0, float* x_s, float* w_s,
                                bool x_resident, int ty, int tx, float acc[4][4]) {
-  const T* x = static_cast<const T*>(p.x);
-  const T* w = static_cast<const T*>(p.w);
+  const float* x = static_cast<const float*>(p.x);
+  const float* w = static_cast<const float*>(p.w);
   zero_acc(acc);
   for (int k0 = 0; k0 < p.d; k0 += kChunk) {
     __syncthreads();
     if (!x_resident) load_tile(x_s, x, r0, kRows, p.R, p.d, k0, kChunk);
     load_tile(w_s, w, v0, kCols, p.V, p.d, k0, kChunk);
     __syncthreads();
-    add_logits(x_s, w_s, kChunk + 1, min(kChunk, p.d - k0), ty, tx, acc);
+    float part[4][4];
+    zero_acc(part);
+    add_logits(x_s, w_s, kChunk + 1, min(kChunk, p.d - k0), ty, tx, part);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] += part[r][c];
   }
 }
 
@@ -299,7 +336,6 @@ __device__ __forceinline__ void split_range(const Params& p, int& t0, int& t1) {
 
 // Forward, one split: the running max and sum of exp over this split's
 // vocab tiles, per row, into ws[2 split][row] and ws[2 split + 1][row].
-template <typename T>
 __global__ void __launch_bounds__(kThreads) ce_fwd_kernel(Params p) {
   extern __shared__ float smem[];
   const int r0 = blockIdx.x * kRows;
@@ -308,7 +344,7 @@ __global__ void __launch_bounds__(kThreads) ce_fwd_kernel(Params p) {
   float* x_s = smem;                        // [kRows][kChunk + 1]
   float* w_s = x_s + kRows * (kChunk + 1);  // [kCols][kChunk + 1]
   const bool x_resident = p.d <= kChunk;
-  if (x_resident) load_tile(x_s, static_cast<const T*>(p.x), r0, kRows, p.R, p.d, 0, kChunk);
+  if (x_resident) load_tile(x_s, static_cast<const float*>(p.x), r0, kRows, p.R, p.d, 0, kChunk);
 
   float m_run[4], s_run[4];
 #pragma unroll
@@ -321,7 +357,7 @@ __global__ void __launch_bounds__(kThreads) ce_fwd_kernel(Params p) {
   for (int t = t0; t < t1; ++t) {
     const int v0 = t * kCols;
     float acc[4][4];
-    chunked_logits<T>(p, r0, v0, x_s, w_s, x_resident, ty, tx, acc);
+    chunked_logits(p, r0, v0, x_s, w_s, x_resident, ty, tx, acc);
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
 #pragma unroll
@@ -355,7 +391,6 @@ __global__ void __launch_bounds__(kThreads) ce_fwd_kernel(Params p) {
 
 // Forward, merge: one thread per row folds the splits' (max, sum) in split
 // order into lse, reads the target logit and writes loss and lse.
-template <typename T>
 __global__ void __launch_bounds__(kThreads) ce_lse_kernel(Params p, int splits, float* loss,
                                                          float* lse_out) {
   const int r = blockIdx.x * kThreads + threadIdx.x;
@@ -368,14 +403,19 @@ __global__ void __launch_bounds__(kThreads) ce_lse_kernel(Params p, int splits, 
   for (int s = 0; s < splits; ++s) sum += ws[(2 * s + 1) * R + r] * expf(ws[2 * s * R + r] - m);
   const float lse = m + logf(sum);
   const int t = p.tgt[r];
-  // The target logit, read directly: the same fmaf chain as its tile's.
+  // The target logit, read directly: the same chunked fmaf chains as its
+  // tile's (chunked_logits), so the same bits.
   float tl = 0.f;
   if (t >= p.lim && t < p.V) {
     tl = kNeg;
   } else if (t >= 0 && t < p.V) {
-    const T* xr = static_cast<const T*>(p.x) + (size_t)r * p.d;
-    const T* wt = static_cast<const T*>(p.w) + (size_t)t * p.d;
-    for (int k = 0; k < p.d; ++k) tl = fmaf(to_f(xr[k]), to_f(wt[k]), tl);
+    const float* xr = static_cast<const float*>(p.x) + (size_t)r * p.d;
+    const float* wt = static_cast<const float*>(p.w) + (size_t)t * p.d;
+    for (int k0 = 0; k0 < p.d; k0 += kChunk) {
+      float part = 0.f;
+      for (int k = k0; k < min(k0 + kChunk, p.d); ++k) part = fmaf(xr[k], wt[k], part);
+      tl += part;
+    }
   }
   lse_out[r] = lse;
   loss[r] = (t == p.ignore_index) ? 0.f : lse - tl;
@@ -383,7 +423,7 @@ __global__ void __launch_bounds__(kThreads) ce_lse_kernel(Params p, int splits, 
 
 // dx, narrow (d <= 16 DJ <= 128), one split: this split's vocab tiles'
 // share of dx for 32 rows, fp32, into ws[split] (R, d).
-template <typename T, int DJ>
+template <int DJ>
 __global__ void __launch_bounds__(kThreads) ce_dx_kernel(Params p) {
   constexpr int W = 16 * DJ;
   constexpr int ld = W + 1;
@@ -398,8 +438,8 @@ __global__ void __launch_bounds__(kThreads) ce_dx_kernel(Params p) {
   float* lse_s = c_s + kTileFloats;
   float* g_s = lse_s + kRows;
   int* t_s = reinterpret_cast<int*>(g_s + kRows);
-  const T* x = static_cast<const T*>(p.x);
-  const T* w = static_cast<const T*>(p.w);
+  const float* x = static_cast<const float*>(p.x);
+  const float* w = static_cast<const float*>(p.w);
 
   load_tile(x_s, x, r0, kRows, p.R, d, 0, W);
   load_row_meta(p, r0, t_s, lse_s, g_s);
@@ -448,7 +488,7 @@ __global__ void __launch_bounds__(kThreads) ce_dx_kernel(Params p) {
 
 // dW, narrow, one split: this split's row tiles' share of dW for 64 vocab
 // rows, fp32, into ws[split] (V, d).
-template <typename T, int DJ>
+template <int DJ>
 __global__ void __launch_bounds__(kThreads) ce_dw_kernel(Params p) {
   constexpr int W = 16 * DJ;
   constexpr int ld = W + 1;
@@ -463,8 +503,8 @@ __global__ void __launch_bounds__(kThreads) ce_dw_kernel(Params p) {
   float* lse_s = c_s + kTileFloats;
   float* g_s = lse_s + kRows;
   int* t_s = reinterpret_cast<int*>(g_s + kRows);
-  const T* x = static_cast<const T*>(p.x);
-  const T* w = static_cast<const T*>(p.w);
+  const float* x = static_cast<const float*>(p.x);
+  const float* w = static_cast<const float*>(p.w);
 
   load_tile(w_s, w, v0, kCols, p.V, d, 0, W);
   float dw[8][DJ];  // vocab rows ty + 8 i, columns tx + 16 j
@@ -543,7 +583,6 @@ __device__ __forceinline__ WideSmem wide_smem(float* smem) {
 
 // dx, wide (d > 128), one split: 32 rows, this split's vocab tiles in
 // groups of kGroup, the fp32 partial accumulated in ws[split] (R, d).
-template <typename T>
 __global__ void __launch_bounds__(kThreads) ce_dx_wide_kernel(Params p) {
   extern __shared__ float smem[];
   const WideSmem s = wide_smem(smem);
@@ -551,7 +590,7 @@ __global__ void __launch_bounds__(kThreads) ce_dx_wide_kernel(Params p) {
   const int r0 = blockIdx.x * kRows;
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
-  const T* w = static_cast<const T*>(p.w);
+  const float* w = static_cast<const float*>(p.w);
   float* out = p.ws + (size_t)blockIdx.y * p.R * d;
 
   load_row_meta(p, r0, s.t_s, s.lse_s, s.g_s);
@@ -562,7 +601,7 @@ __global__ void __launch_bounds__(kThreads) ce_dx_wide_kernel(Params p) {
     for (int g = 0; g < ng; ++g) {
       const int v0 = (tg + g) * kCols;
       float acc[4][4];
-      chunked_logits<T>(p, r0, v0, s.x_s, s.w_s, false, ty, tx, acc);
+      chunked_logits(p, r0, v0, s.x_s, s.w_s, false, ty, tx, acc);
       coeff_tile(acc, v0, ty, tx, p, s.t_s, s.lse_s, s.g_s, s.c_s + g * kTileFloats);
     }
     for (int k0 = 0; k0 < d; k0 += kProdCols) {
@@ -610,7 +649,6 @@ __global__ void __launch_bounds__(kThreads) ce_dx_wide_kernel(Params p) {
 
 // dW, wide, one split: 64 vocab rows, this split's row tiles in groups of
 // kGroup, the fp32 partial accumulated in ws[split] (V, d).
-template <typename T>
 __global__ void __launch_bounds__(kThreads) ce_dw_wide_kernel(Params p) {
   extern __shared__ float smem[];
   const WideSmem s = wide_smem(smem);
@@ -618,7 +656,7 @@ __global__ void __launch_bounds__(kThreads) ce_dw_wide_kernel(Params p) {
   const int v0 = blockIdx.x * kCols;
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
-  const T* x = static_cast<const T*>(p.x);
+  const float* x = static_cast<const float*>(p.x);
   float* out = p.ws + (size_t)blockIdx.y * p.V * d;
 
   int t0, t1;
@@ -630,7 +668,7 @@ __global__ void __launch_bounds__(kThreads) ce_dw_wide_kernel(Params p) {
       __syncthreads();  // the previous tile's coeff_tile has read the row meta
       load_row_meta(p, r0, s.t_s, s.lse_s, s.g_s);
       float acc[4][4];
-      chunked_logits<T>(p, r0, v0, s.x_s, s.w_s, false, ty, tx, acc);
+      chunked_logits(p, r0, v0, s.x_s, s.w_s, false, ty, tx, acc);
       coeff_tile(acc, v0, ty, tx, p, s.t_s, s.lse_s, s.g_s, s.c_s + g * kTileFloats);
     }
     for (int k0 = 0; k0 < d; k0 += kProdCols) {
@@ -716,17 +754,13 @@ cudaError_t launch_ffma_bwd(bool dw, dim3 grid, cudaStream_t st, const Params& p
                             void* out) {
   cudaError_t err;
   if (p.d <= 32)
-    err = launch(dw ? ce_dw_kernel<float, 2> : ce_dx_kernel<float, 2>, grid, bwd_smem(32), st,
-                 p);
+    err = launch(dw ? ce_dw_kernel<2> : ce_dx_kernel<2>, grid, bwd_smem(32), st, p);
   else if (p.d <= 64)
-    err = launch(dw ? ce_dw_kernel<float, 4> : ce_dx_kernel<float, 4>, grid, bwd_smem(64), st,
-                 p);
+    err = launch(dw ? ce_dw_kernel<4> : ce_dx_kernel<4>, grid, bwd_smem(64), st, p);
   else if (p.d <= kNarrowDim)
-    err = launch(dw ? ce_dw_kernel<float, 8> : ce_dx_kernel<float, 8>, grid, bwd_smem(128), st,
-                 p);
+    err = launch(dw ? ce_dw_kernel<8> : ce_dx_kernel<8>, grid, bwd_smem(128), st, p);
   else
-    err = launch(dw ? ce_dw_wide_kernel<float> : ce_dx_wide_kernel<float>, grid,
-                 wide_smem_bytes(), st, p);
+    err = launch(dw ? ce_dw_wide_kernel : ce_dx_wide_kernel, grid, wide_smem_bytes(), st, p);
   if (err != cudaSuccess) return err;
   const long long n = (long long)(dw ? p.V : p.R) * p.d;
   const dim3 sum_grid((unsigned)((n + kThreads - 1) / kThreads));
@@ -1322,6 +1356,270 @@ cudaError_t tc_backward(bool dw, const Params& q, void* out, cudaStream_t st) {
                           : chunked_backward(dw, q, mx, mw, out, st);
 }
 
+// ---- bf16 forward on the tensor cores ----
+
+constexpr int kFwdN = 256;           // vocab columns of a tile (m64n256k16)
+constexpr int kFwdSplits = 0;        // 0: fwd_split chooses; else at most this many
+constexpr bool kFwdRowsFast = true;  // grid x = row tiles, y = splits (else swapped)
+constexpr int kSMs = 132;            // an H100 SXM's SMs: one block each
+// The exps run on logits pre-scaled by log2 e, one exp2f each;
+// lse = (m + log2 sum) / kFwdScale.
+constexpr float kFwdScale = 1.4426950408889634f;
+__device__ __forceinline__ float fwd_exp(float v) { return exp2f(v); }
+__device__ __forceinline__ float fwd_log(float v) { return log2f(v); }
+
+struct FwdParams {
+  int R, V, d, lim;
+  int n_tiles, per_split;  // vocab tiles of kFwdN columns; tiles a split
+  const int* tgt;
+  float* part;  // (splits, 3, R): scaled running max, sum of exps, target logit
+};
+
+// Per stage: x (128 rows x 64 of d, two boxes) and w (BN rows x 64).
+template <int BN>
+struct alignas(1024) FwdSmem {
+  __nv_bfloat16 a[kTcStages][kTcM * kTcK];
+  __nv_bfloat16 b[kTcStages][BN * kTcK];
+  uint64_t full[kTcStages];
+  uint64_t empty[kTcStages];
+};
+
+// (splits, tiles a split) of the forward's vocab tiles beside cdiv(R, 128)
+// row tiles: the fewest waves of one block an SM times a block's work in
+// k-steps (a tile's nk, plus one for its epilogue; plus the pipeline's
+// fill), the fewest splits on a tie; no split empty.
+int fwd_split(int R, int V, int d, int& per) {
+  const int rows = cdiv(R, kTcM), tiles = cdiv(V, kFwdN), nk = cdiv(d, kTcK);
+  int splits = kFwdSplits > 0 ? (kFwdSplits < tiles ? kFwdSplits : tiles) : 1;
+  if (kFwdSplits <= 0) {
+    long long best = -1;
+    for (int want = 1; want <= tiles; ++want) {
+      const int p = cdiv(tiles, want);
+      if (cdiv(tiles, p) != want) continue;
+      const long long cost = (long long)cdiv(rows * want, kSMs) * (p * (nk + 1LL) + kTcStages);
+      if (best < 0 || cost < best) {
+        best = cost;
+        splits = want;
+      }
+    }
+  }
+  per = cdiv(tiles, splits);
+  return cdiv(tiles, per);
+}
+
+// Folds one logits tile into this thread's running state of its two rows
+// (h = 0, 1: rows row0 and row0 + 8). acc[4 j + 2 h + q] is vocab column
+// c0 + 8 j + q. With ragged (the tile reaches lim) columns at or past lim
+// read kNeg, those past V too: they add exp(kNeg - m) = 0 to a row with a
+// live column, and to a row with none (lim = 0) they add to a sum whose
+// log vanishes beside |kNeg| (lse = -1e30 in fp32 either way). The
+// target logit is taken from the tile when the row's target is one of
+// this thread's columns (kNeg at or past lim, as the plain version reads
+// it).
+template <int BN>
+__device__ __forceinline__ void fwd_fold(float (&acc)[BN / 2], int c0, bool ragged,
+                                         const FwdParams& p, const int (&tg)[2], float (&m)[2],
+                                         float (&sum)[2], float (&tl)[2]) {
+  if (ragged) {  // one compare against this thread's count of live columns
+    const int live = p.lim - c0;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (8 * j + q >= live) acc[4 * j + 2 * h + q] = kNeg;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int c = tg[h] - c0;
+    if (c >= 0 && c < BN && tg[h] < p.V) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          if (c == 8 * j + q) tl[h] = acc[4 * j + 2 * h + q];
+    }
+    float mx = m[h];
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        float& a = acc[4 * j + 2 * h + q];
+        a *= kFwdScale;
+        mx = fmaxf(mx, a);
+      }
+    float e = 0.f;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) e += fwd_exp(acc[4 * j + 2 * h + q] - mx);
+    sum[h] = sum[h] * fwd_exp(m[h] - mx) + e;
+    m[h] = mx;
+  }
+}
+
+// One block: 128 rows of x against one split of consecutive vocab tiles
+// of BN columns. The producer warp's first thread streams (x, w) K-slices
+// of every tile of the split through the ring without draining it between
+// tiles (at d <= 64 too: x's slice comes from L2 with each tile, and
+// loading it once measured no faster); the two consumer
+// warpgroups (64 rows each) run the logits tile on wgmma (K-major x and
+// w) and fold it into each row's running max, sum of exps and target
+// logit in registers. Each lane keeps its own state over its columns; the
+// four lanes of a row combine theirs at the end, and the split writes its
+// partials for ce_fwd_merge_kernel.
+template <int BN>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    ce_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_x,
+                     const __grid_constant__ CUtensorMap map_w, const FwdParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  FwdSmem<BN>& s = *reinterpret_cast<FwdSmem<BN>*>(
+      smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023));
+  const int wg = threadIdx.x / 128;
+  const int split = kFwdRowsFast ? blockIdx.y : blockIdx.x;
+  const int m0 = (kFwdRowsFast ? blockIdx.x : blockIdx.y) * kTcM;
+  const int t0 = split * p.per_split;
+  const int nt = min(t0 + p.per_split, p.n_tiles) - t0;
+  const int nk = cdiv(p.d, kTcK);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kTcStages; ++i) {
+      sm90::mbar_init(&s.full[i], 1);
+      sm90::mbar_init(&s.empty[i], 2);  // one arrival per consumer warpgroup
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+  if (wg == 2) {
+    if (threadIdx.x == 256) {
+      for (int it = 0; it < nt * nk; ++it) {
+        const int st = it % kTcStages;
+        if (it >= kTcStages) sm90::mbar_wait(&s.empty[st], ((it / kTcStages) & 1) ^ 1);
+        const int k0 = (it % nk) * kTcK;
+        const int v0 = (t0 + it / nk) * BN;
+        uint64_t* bar = &s.full[st];
+        sm90::mbar_expect_tx(bar, (kTcM + BN) * kTcK * 2);
+        for (int j = 0; j < kTcM / kBox; ++j)
+          sm90::tma_load_2d(s.a[st] + j * kBox * kBox, &map_x, bar, k0, m0 + kBox * j);
+        for (int j = 0; j < BN / kBox; ++j)
+          sm90::tma_load_2d(s.b[st] + j * kBox * kBox, &map_w, bar, k0, v0 + kBox * j);
+      }
+    }
+    return;
+  }
+
+  const int t = threadIdx.x - 128 * wg;
+  const int lane = t & 31;
+  const int row0 = m0 + 64 * wg + 16 * (t >> 5) + (lane >> 2);  // and row0 + 8
+  int tg[2];
+  float m[2], sum[2], tl[2];  // every tile's columns are finite (masked: kNeg)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    tg[h] = row0 + 8 * h < p.R ? p.tgt[row0 + 8 * h] : -1;
+    m[h] = -INFINITY;
+    sum[h] = 0.f;
+    tl[h] = 0.f;
+  }
+  float acc[BN / 2];
+  int it = 0;
+  for (int tile = 0; tile < nt; ++tile) {
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int st = it % kTcStages;
+      sm90::mbar_wait(&s.full[st], (it / kTcStages) & 1);
+      const __nv_bfloat16* a_t = s.a[st] + wg * kBox * kBox;
+      sm90::fence_operands(acc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTcK / 16; ++kk) {
+        if constexpr (BN == 256)
+          sm90::wgmma_m64n256k16<0, 0>(acc, desc_kmajor(a_t, kk), desc_kmajor(s.b[st], kk));
+        else
+          sm90::wgmma_m64n128k16<0, 0>(acc, desc_kmajor(a_t, kk), desc_kmajor(s.b[st], kk));
+      }
+      sm90::wgmma_commit();
+      sm90::fence_operands(acc);
+      sm90::wgmma_wait<1>();  // the previous stage's products are done: return it
+      if (kt > 0 && t == 0) sm90::mbar_arrive(&s.empty[(it - 1) % kTcStages]);
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(acc);
+    if (t == 0) sm90::mbar_arrive(&s.empty[(it - 1) % kTcStages]);  // the tile's last stage
+    const int v0 = (t0 + tile) * BN;
+    fwd_fold<BN>(acc, v0 + 2 * (lane & 3), v0 + BN > p.lim, p, tg, m, sum, tl);
+  }
+
+  // The four lanes of each row combine their states; the first writes.
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[h], o);
+      const float so = __shfl_xor_sync(0xffffffffu, sum[h], o);
+      const float mx = fmaxf(m[h], mo);
+      sum[h] = sum[h] * fwd_exp(m[h] - mx) + so * fwd_exp(mo - mx);
+      m[h] = mx;
+      tl[h] += __shfl_xor_sync(0xffffffffu, tl[h], o);  // one lane at most holds it
+    }
+    const int r = row0 + 8 * h;
+    if ((lane & 3) == 0 && r < p.R) {
+      float* out = p.part + (size_t)3 * split * p.R + r;
+      out[0] = m[h];
+      out[p.R] = sum[h];
+      out[2 * (size_t)p.R] = tl[h];
+    }
+  }
+}
+
+// Merge of the bf16 forward's splits: one thread a row folds the splits'
+// (max, sum, target logit) in split order into lse and loss.
+__global__ void __launch_bounds__(kThreads)
+    ce_fwd_merge_kernel(const float* part, int splits, int R, const int* tgt, int ignore_index,
+                        float* loss, float* lse_out) {
+  const int r = blockIdx.x * kThreads + threadIdx.x;
+  if (r >= R) return;
+  const size_t n = R;
+  float m = -INFINITY;
+  for (int s = 0; s < splits; ++s) m = fmaxf(m, part[3 * s * n + r]);
+  float sum = 0.f, tl = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    const float* q = part + 3 * s * n + r;
+    sum += q[n] * fwd_exp(q[0] - m);
+    tl += q[2 * n];
+  }
+  const float lse = (m + fwd_log(sum)) / kFwdScale;
+  lse_out[r] = lse;
+  loss[r] = tgt[r] == ignore_index ? 0.f : lse - tl;
+}
+
+constexpr size_t fwd_smem_bytes() { return sizeof(FwdSmem<kFwdN>) + 1024; }
+
+// The forward of bf16 inputs (R, V >= 1): the tensor-core kernel, then
+// the merge of its splits.
+cudaError_t tc_forward(const Params& q, float* loss, float* lse, cudaStream_t st) {
+  if (q.d % 8 != 0 || !aligned16(q.x) || !aligned16(q.w)) return cudaErrorInvalidValue;
+  CUtensorMap mx, mw;
+  if (!sm90::bf16_map(&mx, q.x, q.R, q.d, q.d) || !sm90::bf16_map(&mw, q.w, q.V, q.d, q.d))
+    return cudaErrorInvalidValue;
+  FwdParams p = {};
+  p.R = q.R;
+  p.V = q.V;
+  p.d = q.d;
+  p.lim = q.lim;
+  p.n_tiles = cdiv(q.V, kFwdN);
+  p.tgt = q.tgt;
+  p.part = q.ws;
+  const int splits = fwd_split(q.R, q.V, q.d, p.per_split);
+  const int rows = cdiv(q.R, kTcM);
+  const dim3 grid = kFwdRowsFast ? dim3(rows, splits) : dim3(splits, rows);
+  const cudaError_t err =
+      launch_tc(ce_fwd_tc_kernel<kFwdN>, fwd_smem_bytes(), grid, st, mx, mw, p);
+  if (err != cudaSuccess) return err;
+  return launch(ce_fwd_merge_kernel, dim3(cdiv(q.R, kThreads)), 0, st,
+                static_cast<const float*>(q.ws), splits, q.R, q.tgt, q.ignore_index, loss, lse);
+}
+
 }  // namespace
 
 // C interface for ctypes. Pointers are device pointers of contiguous
@@ -1336,6 +1634,10 @@ cudaError_t tc_backward(bool dw, const Params& q, void* out, cudaStream_t st) {
 // fp32 workspace elements of fused_ce_fwd (which = 0), fused_ce_dx (1) or
 // fused_ce_dw (2) for these sizes and input type.
 extern "C" long long fused_ce_workspace(int which, int R, int V, int d, int bf16) {
+  if (which == 0 && bf16) {
+    int per;
+    return 3LL * fwd_split(R, V, d, per) * R;
+  }
   if (which == 0) return 2LL * splits_of(cdiv(V, kCols)) * R;
   if (bf16) return (tc_workspace_bytes(which == 1, R, V, d) + 3) / 4;
   int splits, per;
@@ -1350,23 +1652,16 @@ extern "C" int fused_ce_fwd(const void* x, const void* w, const void* tgt, void*
   if (err != cudaSuccess) return (int)err;
   if (R == 0) return 0;
   Params p = make_params(x, w, tgt, ws, R, V, d, ignore_index, vlim);
-  p.n_tiles = cdiv(V, kCols);
-  p.per_split = kTilesPerBlock;
-  const int splits = splits_of(p.n_tiles);
-  const dim3 grid(cdiv(R, kRows), splits);
-  const dim3 rows(cdiv(R, kThreads));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* loss_f = static_cast<float*>(loss);
   float* lse_f = static_cast<float*>(lse);
-  if (bf16) {
-    err = launch(ce_fwd_kernel<__nv_bfloat16>, grid, fwd_smem(), st, p);
-    if (err == cudaSuccess)
-      err = launch(ce_lse_kernel<__nv_bfloat16>, rows, 0, st, p, splits, loss_f, lse_f);
-  } else {
-    err = launch(ce_fwd_kernel<float>, grid, fwd_smem(), st, p);
-    if (err == cudaSuccess)
-      err = launch(ce_lse_kernel<float>, rows, 0, st, p, splits, loss_f, lse_f);
-  }
+  if (bf16) return (int)tc_forward(p, loss_f, lse_f, st);
+  p.n_tiles = cdiv(V, kCols);
+  p.per_split = kTilesPerBlock;
+  const int splits = splits_of(p.n_tiles);
+  err = launch(ce_fwd_kernel, dim3(cdiv(R, kRows), splits), fwd_smem(), st, p);
+  if (err == cudaSuccess)
+    err = launch(ce_lse_kernel, dim3(cdiv(R, kThreads)), 0, st, p, splits, loss_f, lse_f);
   return (int)err;
 }
 
@@ -1406,10 +1701,12 @@ extern "C" int fused_ce_dw(const void* x, const void* w, const void* tgt, const 
                   device);
 }
 
-// Dynamic shared memory of one block of the bf16 backward's kernel at
-// width d: ce_fused_kernel (d <= 64, kernel ignored), or ce_tc_kernel of
-// the coeff (kernel = 0) or of the product (1).
+// Dynamic shared memory of one block of a bf16 kernel at width d: the
+// forward's ce_fwd_tc_kernel (kernel = 2), or the backward's
+// ce_fused_kernel (d <= 64, kernel 0 or 1), ce_tc_kernel of the coeff
+// (kernel = 0) or of the product (1).
 extern "C" long long fused_ce_bf16_smem(int d, int kernel) {
+  if (kernel == 2) return (long long)fwd_smem_bytes();
   if (d <= kFusedDim) return (long long)sizeof(FusedSmem) + 1024;
   return (long long)(kernel ? tc_smem_bytes<kDxProduct>() : tc_smem_bytes<kCoeff>());
 }

@@ -31,20 +31,23 @@ composition over the plain versions, on any device.
 Logits are fp32 in every version (x and w upcast, as the JAX kernels and
 ``linear_ce_xla`` do); dx and dW come back in the input dtypes.
 
-Two designs sit under the wrappers, by input type. fp32 inputs, and the
-forward in either type, run FFMA kernels (fp32 products from shared
-memory), which agree with the plain versions to 1e-5. The bf16 backward
-runs on the tensor cores (wgmma, operands fed by TMA), with coeff = g
-(softmax - onehot) entering the products as a bf16 hi + lo pair (coeff to
-~2^-17; one bf16 value moved dW elements near 0 past the 1e-2
-tolerance). At d <= 64 (HSTU) one fused kernel keeps coeff in registers
-and the output tile in registers for its whole walk, and a merge adds
-the splits' fp32 partials in order. At d > 64 (LCRec) the vocabulary
-goes in chunks: a kernel writes the chunk's coeff to a bounded workspace,
-then a second forms dx (summed over the chunks in order, in fp32) or dW
-from it. TMA needs 16-byte rows, so the wrapper pads x and w with zero
-columns to a multiple of 8 and slices the result. Every sum has one
-fixed order, so two calls give equal bits.
+Two designs sit under the wrappers, by input type. fp32 inputs run FFMA
+kernels (fp32 products from shared memory), which agree with the plain
+versions to 1e-5. bf16 inputs run on the tensor cores (wgmma, operands
+fed by TMA). The forward walks a split of 256-column vocab tiles per
+128-row block and folds each logits tile into every row's running max,
+sum of exps and target logit in registers; a merge folds the splits in
+order into (loss, lse). The backward's coeff = g (softmax - onehot)
+enters the products as a bf16 hi + lo pair (coeff to ~2^-17; one bf16
+value moved dW elements near 0 past the 1e-2 tolerance). At d <= 64
+(HSTU) one fused kernel keeps coeff in registers and the output tile in
+registers for its whole walk, and a merge adds the splits' fp32 partials
+in order. At d > 64 (LCRec) the vocabulary goes in chunks: a kernel
+writes the chunk's coeff to a bounded workspace, then a second forms dx
+(summed over the chunks in order, in fp32) or dW from it. TMA needs
+16-byte rows, so the wrapper pads x and w with zero columns to a multiple
+of 8 (and slices dx and dW). Every sum has one fixed order, so two calls
+give equal bits.
 
 Bound on an H100: operations, 2 R V d per pass over the logits (9.9
 GFLOP at the HSTU trainer's shapes R=6400, V=12102, d=64; 0.96 TFLOP at
@@ -68,6 +71,7 @@ from genrec_tpu_torch.kernels.build import (
 
 MAX_DIM = 2048
 FUSED_DIM = 64  # the bf16 backward's fused kernels take d up to here (kFusedDim)
+FWD_COLS = 256  # vocab columns of a bf16 forward tile (kFwdN)
 NEG = -1e30
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -134,14 +138,18 @@ def fused_linear_ce_fwd_cuda(x, w, targets, ignore_index: int = 0, vlim=None):
     or None. Raises on anything else and when the build or launch fails.
     Launches on the current stream and does not synchronise;
     ``fused_linear_ce_fwd_cuda.launches`` counts the launches."""
-    R, V, d = _checked(x, w, targets)
+    R, V, _ = _checked(x, w, targets)
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        x, w = _tma_operand(x), _tma_operand(w)
+    dk = x.shape[1]
     loss = torch.empty((R,), dtype=torch.float32, device=x.device)
     lse = torch.empty((R,), dtype=torch.float32, device=x.device)
     lib = _library()
-    ws = _workspace(lib, "fwd", R, V, d, x.dtype == torch.bfloat16, x.device)
+    ws = _workspace(lib, "fwd", R, V, dk, bf16, x.device)
     rc = lib.fused_ce_fwd(
         x.data_ptr(), w.data_ptr(), targets.data_ptr(), loss.data_ptr(), lse.data_ptr(),
-        ws.data_ptr(), R, V, d, ignore_index, _vlim(V, vlim), int(x.dtype == torch.bfloat16),
+        ws.data_ptr(), R, V, dk, ignore_index, _vlim(V, vlim), int(bf16),
         *launch_context(x),
     )
     raise_on_error(lib, "fused_ce", "fused_linear_ce_fwd", rc)
@@ -155,22 +163,25 @@ fused_linear_ce_fwd_cuda.launches = 0
 def workspace_bytes(which: str, R: int, V: int, d: int, dtype) -> int:
     """Bytes of scratch that the ``which`` ("fwd", "dx" or "dw") kernel
     allocates for these sizes and input dtype (d as passed, before the bf16
-    backward's padding)."""
+    kernels' padding)."""
     bf16 = dtype == torch.bfloat16
-    dk = d + (-d % 8 if bf16 and which != "fwd" else 0)
+    dk = d + (-d % 8 if bf16 else 0)
     return 4 * _library().fused_ce_workspace(_WORKSPACE[which], R, V, dk, int(bf16))
 
 
-def bf16_block_smem(d: int, product: bool = False) -> int:
-    """Dynamic shared memory of one block of the bf16 backward's kernel at
-    width d (ptxas reports only static shared memory): the fused kernel at
-    d <= FUSED_DIM, else the coeff kernel or, with ``product``, the
-    product kernel."""
-    return _library().fused_ce_bf16_smem(d + -d % 8, int(product))
+_SMEM_KIND = {"coeff": 0, "product": 1, "fwd": 2}
+
+
+def bf16_block_smem(d: int, kind: str = "coeff") -> int:
+    """Dynamic shared memory of one block of a bf16 kernel at width d
+    (ptxas reports only static shared memory): the forward's
+    (``kind="fwd"``), or the backward's fused kernel at d <= FUSED_DIM,
+    else its coeff kernel or product kernel (``"product"``)."""
+    return _library().fused_ce_bf16_smem(d + -d % 8, _SMEM_KIND[kind])
 
 
 def _tma_operand(t):
-    """t for the bf16 backward's TMA loads: d padded with zero columns to a
+    """t for the bf16 kernels' TMA loads: d padded with zero columns to a
     multiple of 8 (16-byte rows), the storage 16-byte aligned."""
     pad = -t.shape[1] % 8
     if pad:

@@ -21,7 +21,10 @@ near ties (rows whose two nearest codewords are within 1e-5 x max |dist|,
 where another summation order may pick the other one), and at most 2%
 of the rows may be near ties; qsum 1e-5 of its largest element. The
 vocab-sharded CE (B8) runs on 2 ranks sharing the card over gloo and is
-held to its plain twin at 1e-5.
+held to its plain twin at 1e-5. The fused CE's loss and lse are fp32
+sums of exact bf16 products in either dtype: 1e-5, and two calls give
+equal bits. The fp32 CE at d = 2,048 with unscaled inputs is also held,
+with its plain version, to an fp64 evaluation of the same formulas.
 """
 
 import numpy as np
@@ -217,10 +220,12 @@ def _ce_inputs(dev, R, V, d, dtype, all_ignored=False, seed=0):
     ((6400, 12102, 64), False),  # the trainer's shapes: V a multiple of neither tile
     ((37, 700, 48), False),      # ragged rows
     ((64, 300, 16), True),       # every row ignored
+    ((5, 70, 64), False),        # smaller than one tile of either forward
     ((33, 65, 128), False),      # d at the fp32 narrow kernels' limit
     # bf16 backward: R a multiple of neither 64 nor 128, V over several vocab
     # chunks, the LCRec hidden size
     ((4100, 9000, 1536), False),
+    ((130, 1100, 1536), False),   # 2 rows in the last row tile, 76 columns in the last
     ((300, 2000, 37), False),     # d not a multiple of 8: padded for TMA
     ((33, 700, 2048), False),     # d at its limit
     ((300, 5000, 1536), True),    # every row ignored, d wide
@@ -235,6 +240,8 @@ def test_fused_ce_kernels_match_plain_versions(card, shape, all_ignored, dtype):
     want_loss, want_lse = fc.fused_linear_ce_ref(**fwd)
     torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    loss2, lse2 = fc.fused_linear_ce_fwd_cuda(**fwd)
+    assert torch.equal(loss2, loss) and torch.equal(lse2, lse)  # splits merged in order
     bwd = dict(fwd, lse=want_lse, g=x["g"])
     counts = (fc.fused_linear_ce_dx_cuda.launches, fc.fused_linear_ce_dw_cuda.launches)
     dx, dw = fc.fused_linear_ce_dx_cuda(**bwd), fc.fused_linear_ce_dw_cuda(**bwd)
@@ -251,6 +258,78 @@ def test_fused_ce_kernels_match_plain_versions(card, shape, all_ignored, dtype):
     # Every sum has one fixed order: a second call gives the same bits.
     assert torch.equal(fc.fused_linear_ce_dx_cuda(**bwd), dx)
     assert torch.equal(fc.fused_linear_ce_dw_cuda(**bwd), dw)
+
+
+@pytest.mark.parametrize("d", [64, 1536])
+@pytest.mark.parametrize("outside", [-1, -100])
+def test_fused_ce_bf16_targets_outside_the_vocab(card, d, outside):
+    """bf16, ignore_index=-100: targets of -100 are ignored rows (loss 0),
+    targets of -1 have target logit 0 (loss = lse), as the plain versions
+    and the Pallas sum-select give."""
+    x = _ce_inputs(card, 300, 2000, d, torch.bfloat16, seed=3)
+    x["x"] = (x["x"].float() * min(1.0, (64 / d) ** 0.5)).to(torch.bfloat16)
+    t = x["targets"].clone()
+    t[::3] = outside
+    fwd = dict(x=x["x"], w=x["w"], targets=t, ignore_index=-100)
+    loss, lse = fc.fused_linear_ce_fwd_cuda(**fwd)
+    want_loss, want_lse = fc.fused_linear_ce_ref(**fwd)
+    torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    if outside == -100:
+        assert float(loss[::3].abs().max()) == 0.0
+    else:
+        torch.testing.assert_close(loss[::3], lse[::3], rtol=1e-5, atol=1e-5)
+    bwd = dict(fwd, lse=want_lse, g=x["g"])
+    dx, dw = fc.fused_linear_ce_dx_cuda(**bwd), fc.fused_linear_ce_dw_cuda(**bwd)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(dx, fc.fused_linear_ce_dx_ref(**bwd), **_tol(torch.bfloat16))
+    torch.testing.assert_close(dw, fc.fused_linear_ce_dw_ref(**bwd), **_tol(torch.bfloat16))
+
+
+def _fp64_ce(x, w, t, lse, g):
+    """loss, lse, dx and dW of the same formulas in fp64 (targets inside
+    [1, V), 0 ignored; dx and dW from the given lse)."""
+    logits = x.double() @ w.double().T
+    lse64 = torch.logsumexp(logits, -1)
+    tl = logits.gather(1, t.long()[:, None])[:, 0]
+    onehot = torch.nn.functional.one_hot(t.long(), w.shape[0]).double()
+    coeff = torch.where(t == 0, 0.0, g.double())[:, None] * (
+        torch.exp(logits - lse.double()[:, None]) - onehot)
+    return (torch.where(t == 0, 0.0, lse64 - tl), lse64, coeff @ w.double(),
+            coeff.T @ x.double())
+
+
+# Of max |fp64|, by output. ce_bwd_ab.py --mode fp32 on an H100 measured,
+# at (33, 700, 2048) over 4 seeds: loss and lse <= 0.26e-6 for the kernels
+# and the plain versions; dx and dW <= 1.6e-6 for the kernels, <= 3.3e-6
+# for the plain versions; one fmaf chain over all of d up to 1.6e-6 and
+# 8.9e-6.
+FP64_REL = dict(loss=1e-6, lse=1e-6, dx=5e-6, dW=5e-6)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_fused_ce_fp32_wide_d_unscaled_matches_fp64(card, seed):
+    """The fp32 kernels at d = 2,048 with x ~ N(0, 1) and w ~ N(0, 0.1)
+    unscaled (logits of std ~4.5, where summation order shows) against an
+    fp64 evaluation of the same formulas: the kernels sum each 64-wide
+    chunk of d as one fmaf chain and add the chunks, and lie within
+    FP64_REL of max |fp64| on loss, lse, dx and dW, as the plain versions
+    (cuBLAS) do; kernel against plain version at the same 1e-5 as the
+    other cases."""
+    x = _ce_inputs(card, 33, 700, 2048, torch.float32, seed=seed)
+    args = (x["x"], x["w"], x["targets"])
+    loss, lse = fc.fused_linear_ce_fwd_cuda(*args)
+    want_loss, want_lse = fc.fused_linear_ce_ref(*args)
+    bwd = (*args, want_lse, x["g"])
+    got = (loss, lse, fc.fused_linear_ce_dx_cuda(*bwd), fc.fused_linear_ce_dw_cuda(*bwd))
+    plain = (want_loss, want_lse, *fc.fused_linear_ce_bwd_ref(*bwd))
+    for name, a, b, ref in zip(("loss", "lse", "dx", "dW"), got, plain, _fp64_ce(*bwd)):
+        scale = float(ref.abs().max())
+        for who, v in (("kernel", a), ("plain", b)):
+            err = float((v.double() - ref).abs().max())
+            tol = FP64_REL[name]
+            assert err <= tol * scale, f"{name} {who}: {err} > {tol} x {scale}"
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5, msg=name)
 
 
 def test_fused_ce_mean_loss_on_the_card_matches_the_cpu(card):
@@ -288,6 +367,7 @@ def test_fused_ce_wrappers_refuse_what_they_do_not_take(card):
     ((33, 130, 2048), 129),   # d at its limit
     ((40, 200, 1536), 0),     # a shard of pad rows only
     ((4100, 9000, 1536), 5000),  # vlim inside a vocab chunk of the bf16 backward
+    ((1000, 3000, 64), 1300),    # vlim inside a 256-column tile of the bf16 forward
 ])
 def test_fused_ce_kernels_with_vlim_match_plain_versions(card, shape, vlim, dtype):
     """Columns at or past vlim read -1e30 inside the softmax; targets stay

@@ -10,8 +10,10 @@ tests run it) and with ``linear_ce_xla``; the plain backward
 
 Tolerance: 1e-5 absolute plus 1e-5 relative, fp32 on both sides (the
 Pallas kernels take an online logsumexp over 512-column tiles, the plain
-version one max and one sum). The last tests check, without a card, what
-the bf16 backward's wrapper does around its kernels (TMA's padding).
+version one max and one sum). The last tests check, without a card, the
+order in which the bf16 forward kernel folds its tiles (emulated in plain
+torch, held to the Pallas forward) and what the bf16 kernels' wrappers do
+around them (TMA's padding).
 """
 
 import signal
@@ -212,7 +214,92 @@ def test_lcrec_width_matches_pallas():
         np.testing.assert_allclose(a, b, err_msg=name, **TOL)
 
 
-# ---- what the bf16 backward's wrapper does around its kernels (no card) ----
+# ---- the bf16 forward's order, and what the bf16 wrappers do (no card) ----
+
+
+def _tc_forward_order(x, w, t, ignore_index, vlim, splits):
+    """The bf16 forward kernel's order (csrc/fused_ce.cu, ce_fwd_tc_kernel
+    and ce_fwd_merge_kernel) in plain torch: vocab tiles of FWD_COLS
+    columns, consecutive tiles split into ``splits`` walks; in each tile
+    columns at or past min(V, vlim) read -1e30 (those past V too, as the
+    kernel's zero-filled tail does), the target logit is taken from its
+    tile, and the logits scaled by log2 e fold into a running max and sum
+    of exp2 per row and lane, a row's columns dealt to the 4 lanes of a
+    quad as the wgmma D layout deals them (column c to lane c % 8 // 2);
+    the lanes combine as the kernel's xor-shuffles do (1, then 2), and
+    the splits merge in order. x (R, d), w (V, d) fp32; (loss, lse)."""
+    cols, scale = tf.FWD_COLS, np.float32(1.4426950408889634)
+    R, V = x.shape[0], w.shape[0]
+    lim = V if vlim is None else min(V, vlim)
+    tiles = -(-V // cols)
+    per = -(-tiles // splits)
+    lane = torch.arange(cols) % 8 // 2
+    parts = []
+    for s in range(-(-tiles // per)):
+        m = torch.full((R, 4), float("-inf"))
+        sm = torch.zeros((R, 4))
+        tl = torch.zeros(R)
+        for tile in range(s * per, min((s + 1) * per, tiles)):
+            v = tile * cols + torch.arange(cols)
+            logits = x @ torch.nn.functional.pad(w[tile * cols:], (0, 0, 0, cols)).T[:, :cols]
+            logits = torch.where(v[None] < lim, logits, tf.NEG)
+            here = (t[:, None] == v[None]) & (t[:, None] < V)
+            tl = torch.where(here.any(1), (logits * here).sum(1), tl)
+            scaled = logits * scale
+            for q in range(4):
+                mx = torch.maximum(m[:, q], scaled[:, lane == q].max(1).values)
+                sm[:, q] = (sm[:, q] * torch.exp2(m[:, q] - mx)
+                            + torch.exp2(scaled[:, lane == q] - mx[:, None]).sum(1))
+                m[:, q] = mx
+        for o in (1, 2):
+            pair = torch.arange(4) ^ o
+            mx = torch.maximum(m, m[:, pair])
+            sm = sm * torch.exp2(m - mx) + sm[:, pair] * torch.exp2(m[:, pair] - mx)
+            m = mx
+        parts.append((m[:, 0], sm[:, 0], tl))
+    mx = torch.stack([p[0] for p in parts]).max(0).values
+    total, tl = torch.zeros(R), torch.zeros(R)
+    for pm, ps, pt in parts:
+        total = total + ps * torch.exp2(pm - mx)
+        tl = tl + pt
+    lse = (mx + torch.log2(total)) / scale
+    return torch.where(t == ignore_index, 0.0, lse - tl), lse
+
+
+@pytest.mark.parametrize("d,vlim,ignore_index,outside,splits", [
+    (64, None, 0, None, 1),       # HSTU's width, ignored rows at 0
+    (64, 650, -100, -1, 2),       # vlim inside a tile; -100 ignored, -1 outside the vocab
+    (64, 0, -2, -1, 2),           # a shard of pad rows only (B8's local targets)
+    (1536, None, 0, None, 3),     # the LCRec width
+    (1536, 520, -100, -100, 2),   # vlim inside a tile, LCRec's -100 labels
+], ids=["d64", "d64_vlim", "d64_empty_shard", "d1536", "d1536_vlim"])
+def test_bf16_forward_order_matches_pallas(d, vlim, ignore_index, outside, splits):
+    """The bf16 forward's tile, lane and split order on bf16-rounded inputs
+    against the Pallas forward (interpret mode) on the same values: the
+    order changes only the summation, within 1e-5."""
+    x, w, tgt, _ = _inputs(R=37, V=700, d=d, seed=7)
+    x /= np.sqrt(d / 64)
+    x, w = (torch.as_tensor(a).to(torch.bfloat16).float().numpy() for a in (x, w))
+    if vlim is not None:
+        tgt = np.where(tgt > 0, tgt % max(vlim, 1), 0).astype(np.int32)
+    if outside is not None:
+        tgt[::4] = outside
+        tgt[1::4] = ignore_index
+    if vlim == 0:
+        tgt[:] = outside
+    got = _tc_forward_order(torch.as_tensor(x), torch.as_tensor(w), torch.as_tensor(tgt),
+                            ignore_index, vlim, splits)
+    want = jf.fused_linear_ce_fwd(jnp.asarray(x), jnp.asarray(w), jnp.asarray(tgt),
+                                  ignore_index, interpret=True, vlim=vlim)
+    for name, a, b in zip(("loss", "lse"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **TOL)
+
+
+def test_fwd_cols_matches_the_kernel_source():
+    """The tile width of the emulated order is the source's kFwdN."""
+    src = (Path(tf.__file__).resolve().parents[1] / "csrc" / "fused_ce.cu").read_text()
+    assert f"constexpr int kFwdN = {tf.FWD_COLS};" in src
+
 
 
 @pytest.mark.parametrize("d", [1, 37, 64, 1536])
