@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""A/B of design variants of the fused CE kernels (B3, B4) on one NVIDIA card.
+"""A/B of design variants of the port's kernels on one NVIDIA card: the
+fused CE (B3, B4) and the paged decode attention (B1, B2).
 
-    python3 ce_bwd_ab.py [--mode bwd|fwd|fp32] [--reps 3] [--out FILE]
+    python3 ce_bwd_ab.py [--mode bwd|fwd|fp32|paged] [--reps 3] [--out FILE]
 
 Builds genrec_tpu_torch/csrc/fused_ce.cu as it is and in variants made
 by replacing a line or a few of it (each a copy under build/ce_bwd_ab/,
@@ -34,7 +35,33 @@ logits scaled by log2 e); 128-column tiles; 8 and 32 splits; the splits
 as the fast axis (at the chosen count and at 32); expf on unscaled
 logits; one ex2.approx.ftz instruction instead of exp2f.
 
-Inputs are seeded, warm in L2 between calls (unlike chip_smoke.py's
+`--mode paged`, B1 (fp32 pages) and B2 (int8 pages) of
+genrec_tpu_torch/csrc/paged_attention.cu at the TIGER serving shape (K 10,
+H 6, hd 64, page 16, Pm 4, chip_smoke.py's served lengths) with S 64 and
+S 16 slots: the source (live positions only, cp.async, 8 warps a block,
+one block per (slot, head) unless that leaves SMs idle, then the beams
+split over enough blocks, head dim a template parameter, the slot's
+block-table row read once into shared memory); `all_pages` (every
+position walked); `tma_bulk` (K/V rows by TMA bulk copies, one mbarrier
+a stage, where rows are 16-byte multiples); `splits_1` and `splits_2`
+(always one, always two blocks a (slot, head)); `warps_4` (4 warps a
+block); `runtime_hd` (one instantiation at width 128, the dot's loop
+bound hd at run time); `pages_from_global` (each copy reads its
+block-table entry from global memory, the first design's way);
+`compact_pairs` (scores of the live pairs only, spread evenly, a pair a
+thread at a time, the dot in four partial sums); `breaks` (the beam
+loops leave at the first beam past the block's, as the first design's
+did); and,
+timed only, `empty` (the kernel returns at once: a launch inside the
+graph), `copies_only` (the copies and their wait, no math),
+`scores_only` (no softmax, no e.V) and `no_ev` (no e.V). Each other
+variant is held to the plain versions at 1e-5 of max
+|plain| (serving, a multi-stage shape, hd 6 and 8; a variant that
+disagrees is reported and not timed), then timed as
+chip_smoke.py times B1 and B2: CUDA-graph replay over input copies that
+together exceed L2 three times.
+
+CE inputs are seeded, warm in L2 between calls (unlike chip_smoke.py's
 cold copies). Prints each variant's ptxas numbers for the kernels of the
 mode, one JSON line per measurement, then the card's name and power
 limit. Imports nothing of JAX.
@@ -109,36 +136,263 @@ VARIANTS = {
     }""", "    for (int k = 0; k < p.d; ++k) tl = fmaf(xr[k], wt[k], tl);")],
 }
 TIMING_ONLY = {"no_coeff_stores"}
+
+_BULK_HELPERS = """#include <type_traits>
+
+#include "sm90.cuh"
+
+namespace {
+__shared__ uint64_t bulk_bars[4];
+__shared__ unsigned char* bulk_ring;
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      :: "r"(sm90::smem_addr(dst)), "l"(src), "r"(bytes), "r"(sm90::smem_addr(bar)) : "memory");
+}
+}  // namespace"""
+# Scores of only the stage's live (beam, position) pairs, spread evenly over
+# the block, a thread a pair at a time (K row reread for each beam), the dot
+# in four partial sums.
+_COMPACT_SCORES = """template <int HD>
+__device__ __forceinline__ void stage_scores_compact(const unsigned char* stage,
+                                                     const float* q_s, float* sc_s, int Kb,
+                                                     int t0, int n, int seq_len, float scale,
+                                                     int tid) {
+  using F = Stage<float, HD>;
+  for (int i = tid; i < Kb * n; i += kThreads) {
+    const int b = i / n;
+    const int t = i - b * n;
+    const float* krow = reinterpret_cast<const float*>(stage + t * F::kKRow);
+    const float* qb = q_s + b * HD;
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int d = 0; d < HD; d += 4) {
+      const float4 k4 = *reinterpret_cast<const float4*>(krow + d);
+      const float4 q4 = *reinterpret_cast<const float4*>(qb + d);
+      part[0] = fmaf(q4.x, k4.x, part[0]);
+      part[1] = fmaf(q4.y, k4.y, part[1]);
+      part[2] = fmaf(q4.z, k4.z, part[2]);
+      part[3] = fmaf(q4.w, k4.w, part[3]);
+    }
+    const float dot = (part[0] + part[1]) + (part[2] + part[3]);
+    sc_s[b * kScRow + t] = t0 + t >= seq_len ? kNeg : dot * scale;
+  }
+  const int rest = kStageTokens - n;
+  for (int i = tid; i < Kb * rest; i += kThreads) {
+    const int b = i / rest;
+    sc_s[b * kScRow + n + (i - b * rest)] = -INFINITY;
+  }
+}
+
+"""
+# The first design's softmax and e.V: a warp a beam (beams warp, warp + 8,
+# ...), 2 positions a lane in the reductions, then the stage's positions in
+# turn, each beam of the warp in turn, lanes across head_dim (2 floats a
+# lane at hd 64).
+_WARP_BEAMS = """template <int HD>
+struct WarpBeams {
+  static constexpr int kSlots = kMaxBeams / kWarps;
+  static constexpr int kLane = HD / 32;
+  float m[kSlots], l[kSlots], acc[kSlots][kLane];
+  int warp, lane;
+
+  __device__ __forceinline__ explicit WarpBeams(int tid) : warp(tid >> 5), lane(tid & 31) {
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j) {
+      m[j] = -INFINITY;
+      l[j] = 0.f;
+#pragma unroll
+      for (int w = 0; w < kLane; ++w) acc[j][w] = 0.f;
+    }
+  }
+
+  __device__ __forceinline__ bool low(int Kb) const {
+    bool r = false;
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j)
+      if (warp + kWarps * j < Kb && m[j] <= kNeg + kSkipMargin) r = true;
+    return r;
+  }
+
+  __device__ __forceinline__ void stage(float* sc_s, const unsigned char* vrows, int n,
+                                        int Kb) {
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j) {
+      const int b = warp + kWarps * j;
+      if (b < Kb) {
+        float* row = sc_s + b * kScRow;
+        float mx = -INFINITY;
+#pragma unroll
+        for (int k = lane; k < kStageTokens; k += 32) mx = fmaxf(mx, row[k]);
+        const float m_new = fmaxf(m[j], warp_max(mx));
+        const float corr = expf(m[j] - m_new);
+        float sum = 0.f;
+#pragma unroll
+        for (int k = lane; k < kStageTokens; k += 32) {
+          const float e = expf(row[k] - m_new);
+          row[k] = e;
+          sum += e;
+        }
+        l[j] = l[j] * corr + warp_sum(sum);
+        m[j] = m_new;
+#pragma unroll
+        for (int w = 0; w < kLane; ++w) acc[j][w] *= corr;
+      }
+    }
+    __syncwarp();
+#pragma unroll 4
+    for (int t = 0; t < n; ++t) {
+      float v[kLane];
+      lane_floats<kLane>(reinterpret_cast<const float*>(vrows + t * Stage<float, HD>::kVRow),
+                         lane, v);
+#pragma unroll
+      for (int j = 0; j < kSlots; ++j) {
+        const int b = warp + kWarps * j;
+        if (b < Kb) {
+          const float e = sc_s[b * kScRow + t];
+#pragma unroll
+          for (int w = 0; w < kLane; ++w) acc[j][w] = fmaf(e, v[w], acc[j][w]);
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(const Params& p, int s, int h, int b_lo,
+                                        int Kb) const {
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j) {
+      const int b = warp + kWarps * j;
+      if (b < Kb) {
+        const size_t o = (size_t)(s * p.K + b_lo + b) * p.H + h;
+#pragma unroll
+        for (int w = 0; w < kLane; ++w) {
+          const int d = lane * kLane + w;
+          if (d < p.hd) p.acc[o * p.hd + d] = acc[j][w];
+        }
+        if (lane == 0) {
+          p.m[o] = m[j];
+          p.l[o] = l[j];
+        }
+      }
+    }
+  }
+};
+
+"""
+# name -> the (text of paged_attention.cu replaced, its replacement) pairs, or None
+PAGED_VARIANTS = {
+    "source": None,
+    "all_pages": ("const int n_live = seq_len > 0 ? min(seq_len, cap) : cap;",
+                  "const int n_live = cap;"),
+    "splits_2": ("constexpr int kBeamSplits = 1;", "constexpr int kBeamSplits = 2;"),
+    "lb_2": ("__global__ void __launch_bounds__(kThreads)",
+             "__global__ void __launch_bounds__(kThreads, 2)"),
+    "lb_3": ("__global__ void __launch_bounds__(kThreads)",
+             "__global__ void __launch_bounds__(kThreads, 3)"),
+    "warps_4": ("constexpr int kWarps = 8;", "constexpr int kWarps = 4;"),
+    "pages_from_global": [
+        ("(((size_t)pages[pi] * p.page + (pos - pi * p.page)) * p.H + h) * p.hd * sizeof(T) + b0;",
+         "(((size_t)min(max(__ldg(p.block_tables + (size_t)blockIdx.x * p.Pm + pi), 0), p.P - 1)"
+         " * p.page + (pos - pi * p.page)) * p.H + h) * p.hd * sizeof(T) + b0;"),
+        ("const size_t at = (size_t)pages[pi] * p.page + (pos - pi * p.page);",
+         "const size_t at = (size_t)min(max(__ldg(p.block_tables + (size_t)blockIdx.x * p.Pm + pi),"
+         " 0), p.P - 1) * p.page + (pos - pi * p.page);")],
+    "runtime_hd": [
+        ("  if (p.hd <= 32) return launch_hd<T, 32>(p, S, st);\n"
+         "  if (p.hd <= 64) return launch_hd<T, 64>(p, S, st);\n", ""),
+        ("float scale, int tid) {", "float scale, int tid, int hd) {"),
+        ("seq_len, p.scale, tid);", "seq_len, p.scale, tid, p.hd);"),
+        ("for (int d = 0; d < HD; d += 4) {", "for (int d = 0; d < hd; d += 4) {")],
+    "compact_pairs": [
+        ("template <typename T, int HD>\n__global__", _COMPACT_SCORES + "template <typename T, int HD>\n__global__"),
+        ("stage_scores<HD>(rows,", "stage_scores_compact<HD>(rows,")],
+    "tma_bulk": [
+        ("#include <type_traits>", _BULK_HELPERS),
+        ("  for (int i = tid; i < n * L::kUnits; i += kThreads) {", """  if (p.copy_bytes == 16) {
+    if (tid < 32) {
+      uint64_t* bar = &bulk_bars[(stage - bulk_ring) / L::kBytes];
+      if (tid == 0) sm90::mbar_expect_tx(bar, 2 * n * row_bytes);
+      __syncwarp();
+      for (int r = tid; r < n; r += 32) {
+        const int pos = t0 + r;
+        const int pi = pos / p.page;
+        const size_t row =
+            (((size_t)pages[pi] * p.page + (pos - pi * p.page)) * p.H + h) * row_bytes;
+        bulk_copy(stage + r * L::kKRow, static_cast<const char*>(p.k_pool) + row, row_bytes, bar);
+        bulk_copy(stage + L::kV + r * L::kVRow, static_cast<const char*>(p.v_pool) + row,
+                  row_bytes, bar);
+      }
+    }
+  } else
+  for (int i = tid; i < n * L::kUnits; i += kThreads) {"""),
+        ("  unsigned char* ring = reinterpret_cast<unsigned char*>(sc_s + Kb * kScRow);",
+         """  unsigned char* ring = reinterpret_cast<unsigned char*>(sc_s + Kb * kScRow);
+  if (tid == 0) {
+    for (int i = 0; i < kMaxStages; ++i) sm90::mbar_init(&bulk_bars[i], 1);
+    sm90::fence_barrier_init();
+    bulk_ring = ring;
+  }
+  __syncthreads();
+  uint32_t bulk_phase = 0;"""),
+        ("      cp_async_wait(p.stages - 1);\n", """      cp_async_wait(p.stages - 1);
+      if (p.copy_bytes == 16) {
+        sm90::mbar_wait(&bulk_bars[st % p.stages], (bulk_phase >> (st % p.stages)) & 1);
+        bulk_phase ^= 1u << (st % p.stages);
+      }
+""")],
+    "warp_per_beam": [
+        ("template <int HD>\nusing Beams", _WARP_BEAMS + "template <int HD>\nusing Beams"),
+        ("using Beams = HalfWarpBeams<HD>;", "using Beams = WarpBeams<HD>;")],
+    # Timing only: the kernel returns at once (a launch inside the graph),
+    # or copies and waits for the live positions and does no math.
+    "empty": ("  if (Kb <= 0) return;", "  if (Kb <= 0 || p.K > 0) return;"),
+    "copies_only": [
+        ("      __syncthreads();  // every thread's copies of stage st have landed\n",
+         "      __syncthreads();  // every thread's copies of stage st have landed\n"
+         "      if (p.K > 0) { cp_async_commit(); continue; }\n"),
+        ("if (!__syncthreads_or(beams.low(Kb)) || n_live == cap) break;",
+         "if (!__syncthreads_or(false) || n_live == cap) break;")],
+}
+PAGED_VARIANTS["no_ev"] = ("      if (b < Kb) {\n        const float* e = sc_s",
+                           "      if (b < Kb && Kb < 0) {\n        const float* e = sc_s")
+PAGED_TIMING_ONLY = {"empty", "copies_only", "no_ev"}
+# B1 and B2 at the serving shape with S slots (chip_smoke.py's served lengths).
+PAGED_CELLS = {"s64": 64, "s16": 16}
+_PAGED = ["source", "all_pages", "tma_bulk", "splits_2", "warps_4", "runtime_hd",
+          "pages_from_global", "compact_pairs", "warp_per_beam", "lb_2", "lb_3", "empty",
+          "copies_only", "no_ev", "source"]
 _FWD = ["source", "fwd_cols_128", "fwd_splits_8", "fwd_splits_32", "fwd_splits_fast",
         "fwd_splits_32_fast", "fwd_expf", "fwd_ex2_approx", "source"]
 AT = {"bwd": {"shard": ["source", "chunk_32mb", "chunk_128mb", "coeff_128x128",
                         "no_coeff_stores", "source"],
               "hstu": ["source", "chunked_at_d64", "source"]},
       "fwd": {"shard": _FWD, "hstu": _FWD},
-      "fp32": {"fp32_shard": ["source", "fp32_one_chain", "source"]}}
+      "fp32": {"fp32_shard": ["source", "fp32_one_chain", "source"]},
+      "paged": {cell: _PAGED for cell in PAGED_CELLS}}
 FP32_WIDE = (33, 700, 2048)
 # The kernels each mode reports ptxas numbers of: a fragment of the name.
 PTXAS_OF = {"bwd": ("ce_tc_kernel", "ce_fused_kernel"), "fwd": ("ce_fwd",),
-            "fp32": ("ce_fwd_kernel", "ce_lse", "wide")}
+            "fp32": ("ce_fwd_kernel", "ce_lse", "wide"), "paged": ("paged_attention",)}
 
 
-def build(name: str, replace) -> tuple[Path, str]:
-    """The variant's library and what ptxas printed."""
+def build(name: str, replace, stem: str = "fused_ce") -> tuple[Path, str]:
+    """The variant's library of csrc/<stem>.cu and what ptxas printed."""
     from genrec_tpu_torch.kernels import build as kb
 
-    out = HERE / "build" / "ce_bwd_ab" / name
+    out = HERE / "build" / "ce_bwd_ab" / f"{stem}-{name}"
     out.mkdir(parents=True, exist_ok=True)
-    src = (kb.CSRC / "fused_ce.cu").read_text()
+    src = (kb.CSRC / f"{stem}.cu").read_text()
     for old, new in ([replace] if isinstance(replace, tuple) else replace or []):
         if src.count(old) != 1:
-            raise RuntimeError(f"{name}: the line to replace is not in fused_ce.cu once: {old}")
+            raise RuntimeError(f"{name}: the text to replace is not in {stem}.cu once: {old}")
         src = src.replace(old, new)
-    (out / "fused_ce.cu").write_text(src)
-    for header in kb.included_headers(kb.CSRC / "fused_ce.cu"):
+    (out / f"{stem}.cu").write_text(src)
+    for header in kb.CSRC.glob("*.cuh"):  # a variant may include one the source does not
         (out / header.name).write_text(header.read_text())
-    lib = out / "libfused_ce.so"
+    lib = out / f"lib{stem}.so"
     proc = subprocess.run([kb._nvcc(), *kb.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(lib),
-                           str(out / "fused_ce.cu")], capture_output=True, text=True)
+                           str(out / f"{stem}.cu")], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"{name}: nvcc failed\n{proc.stderr[-3000:]}")
     return lib, proc.stdout + proc.stderr
@@ -275,11 +529,90 @@ def timed(lib, which, a, reps) -> dict:
                 workspace_bytes=ws.numel() * 4)
 
 
+def paged_check_cases():
+    """name -> (S, K, H, hd, page, Pm, seq_lens, null_tail): the serving
+    shape, a shape that streams 4 stages through a ring of 2, and hd 8 and
+    6 (4-byte and, for int8, byte copies)."""
+    import chip_smoke as cs
+
+    return {"serving": (cs.PAGED["max_slots"], cs.BEAMS, 6, 64, 16, 4, served_lens(), True),
+            "multi_stage": (2, 10, 2, 128, 16, 16, [256, 130], False),
+            "hd8": (5, 3, 2, 8, 8, 3, [24, 0, 9, 1, 17], True),
+            "hd6": (4, 1, 3, 6, 8, 2, [3, 16, 0, 9], False)}
+
+
+def served_lens(seed: int = 0):
+    """chip_smoke.py's served KV lengths of the 64 slots (its kernel phase)."""
+    import chip_smoke as cs
+
+    rng = np.random.default_rng(seed)
+    return 1 + cs.TIGER_AMAZON["sem_id_dim"] * rng.integers(1, cs.MAX_ITEMS + 1,
+                                                          cs.PAGED["max_slots"])
+
+
+def paged_ab(dev, libs, order, reps, add) -> None:
+    """Check every variant of the paged kernels, then time them in turns."""
+    import chip_smoke as cs
+    from genrec_tpu_torch.kernels import paged_attention as pa
+
+    kinds = {"f32": (cs.paged_inputs, pa.paged_attention_stats_cuda,
+                     pa.paged_attention_stats_ref),
+             "int8": (cs.quantized_inputs, pa.paged_attention_stats_quantized_cuda,
+                      pa.paged_attention_stats_quantized_ref)}
+    original = pa._library
+    failed = set()
+    try:
+        for name in dict.fromkeys(order):
+            if name in PAGED_TIMING_ONLY:
+                continue
+            pa._library = lambda lib=libs[name]: lib
+            errs = {}
+            for case, (S, K, H, hd, page, Pm, lens, null_tail) in paged_check_cases().items():
+                for kind, (make, fn, ref) in kinds.items():
+                    x = make(dev, 7, S, K, H, hd, page, Pm, lens, null_tail)
+                    got, want = fn(**x), ref(**x)
+                    torch.cuda.synchronize()
+                    for out, g, w in zip(("acc", "m", "l"), got, want):
+                        scale = float(w.abs().max())
+                        e = float((g - w).abs().max())
+                        errs[f"{case}/{kind}/{out}"] = e
+                        if not e <= FP32_TOL * scale:
+                            failed.add(name)
+            add(phase="check", variant=name, ok=name not in failed,
+                max_abs_err=max(errs.values()), max_abs_err_by_case=errs)
+        if "source" in failed:
+            raise RuntimeError("the source disagrees with the plain versions")
+        order = [n for n in order if n not in failed]
+        for cell, S in PAGED_CELLS.items():
+            lens = served_lens()[:S]
+            for kind, (make, fn, _) in kinds.items():
+                shape = (S, cs.BEAMS, 6, 64, 16, 4)
+                base = make(dev, 0, *shape, lens, True)
+                per_copy = cs.nbytes(*(t for v in base.values()
+                                       for t in (getattr(v, "data", v), getattr(v, "scale", None))))
+                copies = [base] + cs.cold_copies(
+                    lambda c: make(dev, 100 + c, *shape, lens, True), per_copy)[1:]
+                bound_ms, bound_by, work = (cs.paged_attention_bound if kind == "f32"
+                                            else cs.quantized_bound)(base)
+                for turn, name in enumerate(order):
+                    pa._library = lambda lib=libs[name]: lib
+                    add(phase="time", cell=cell, kind=kind, variant=name, turn=turn,
+                        shape=dict(zip(("S", "K", "H", "hd", "page", "Pm"), shape)),
+                        ms=cs.device_ms(fn, copies, reps), bound_ms=bound_ms,
+                        bound_by=bound_by, kv_tokens=work["kv_tokens"], timed_by="cuda_graph")
+                del base, copies
+                torch.cuda.empty_cache()
+    finally:
+        pa._library = original
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mode", choices=tuple(AT), default="bwd")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--out", type=Path)
+    ap.add_argument("--variants", help="comma-separated: only these of the mode's variants "
+                                       "(the source is always built and timed first and last)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("ce_bwd_ab: no CUDA device", file=sys.stderr)
@@ -288,12 +621,22 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda", 0)
     at = AT[args.mode]
-    kernels = {"fwd": ("fwd",), "bwd": ("dx", "dw"), "fp32": ("fwd", "dx", "dw")}[args.mode]
+    if args.variants:
+        keep = {"source", *args.variants.split(",")}
+        at = {cell: [n for n in order if n in keep] for cell, order in at.items()}
+    paged = args.mode == "paged"
     names = list(dict.fromkeys(n for cell in at.values() for n in cell))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
-        built = dict(zip(names, pool.map(lambda n: build(n, VARIANTS[n]), names)))
-    libs = {name: load(path) for name, (path, _) in built.items()}
+        built = dict(zip(names, pool.map(
+            lambda n: build(n, PAGED_VARIANTS[n], "paged_attention") if paged
+            else build(n, VARIANTS[n]), names)))
+    if paged:
+        from genrec_tpu_torch.kernels.paged_attention import bind
+
+        libs = {name: bind(ctypes.CDLL(str(path))) for name, (path, _) in built.items()}
+    else:
+        libs = {name: load(path) for name, (path, _) in built.items()}
     lines = []
 
     def add(**line):
@@ -305,13 +648,17 @@ def main(argv=None) -> int:
         add(phase="ptxas", variant=name, kernels={
             k: v for k, v in ptxas_by_kernel(log).items()
             if any(f in k for f in PTXAS_OF[args.mode])})
+    if paged:
+        paged_ab(dev, libs, at["s64"], args.reps, add)
     if args.mode == "fp32":
         for seed in range(4):
             a = inputs(dev, *FP32_WIDE, seed, torch.float32, w_std=0.1, g_normal=True)
             for name in names:
                 add(phase="fp64", shape=dict(zip("RVd", FP32_WIDE)), seed=seed, variant=name,
                     rel_err_of_max=fp64_errors(libs[name], a))
-    for cell in at:
+    kernels = {"fwd": ("fwd",), "bwd": ("dx", "dw"), "fp32": ("fwd", "dx", "dw"),
+               "paged": ()}[args.mode]
+    for cell in () if paged else at:
         R, V, d = SHAPES[cell]
         a = inputs(dev, R, V, d, seed=0, dtype=torch.float32 if args.mode == "fp32" else
                    torch.bfloat16)

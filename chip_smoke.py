@@ -23,7 +23,14 @@ line each; any failure ends the run with a traceback and a non-zero exit:
             989 TFLOP/s bf16); the bf16 B3 and B4 rows (forward, dx, dW)
             also give their TFLOP/s, share of the bound, workspace bytes,
             the registers, spills and shared memory of their kernels
-            (ptxas -v), and a check that two calls give the same bits;
+            (ptxas -v), and a check that two calls give the same bits; B1
+            and B2 also run their edge cases (scores within 128 of -1e9,
+            seq_len past Pm * page with block-table entries outside [0, P),
+            S = 1 and 16, a shape that streams through the ring), each
+            launching exactly once, give equal bits over two calls, are
+            timed at S = 16 beside S = 64, and report the K/V bytes the
+            call needs against those of every position, the share of the
+            bound, and the ptxas numbers and shared memory of a block;
 4. train    HSTU at the widths of config/hstu/amazon.gin through the port's
             trainer (hstu_trainer.train, 2 epochs with eval, synthetic data
             with Amazon-Beauty's 12,101 items), then a fixed number of steps
@@ -323,7 +330,8 @@ def bound(bytes_, flops, peak) -> tuple[float, str]:
 
 def ptxas_by_kernel(log: str) -> dict:
     """What ``nvcc -Xptxas -v`` printed for each kernel (mangled name):
-    registers, spill stores and loads, static shared memory."""
+    registers, spill stores and loads, stack frame (local memory a thread:
+    spills, or register arrays indexed at run time), static shared memory."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
@@ -334,6 +342,7 @@ def ptxas_by_kernel(log: str) -> dict:
             for key, pat in (("registers", r"Used (\d+) registers"),
                              ("spill_stores", r"(\d+) bytes spill stores"),
                              ("spill_loads", r"(\d+) bytes spill loads"),
+                             ("stack_frame", r"(\d+) bytes stack frame"),
                              ("static_smem", r"(\d+) bytes smem")):
                 m = re.search(pat, ln)
                 if m:
@@ -416,6 +425,105 @@ def paged_inputs(dev, seed, S, K, H, hd, page, Pm, seq_lens, null_tail):
                 seq_lens=seq_lens)
 
 
+def to_int8(x):
+    """``x`` with its pools as int8 pools (QuantizedKVPool, quantised as the
+    serving path's write_pages quantises); every third row of page 1 is all
+    zeros, so its scale is 1e-12 / 127."""
+    from genrec_tpu_torch.ops.quant import QuantizedKVPool, quantize_symmetric
+
+    x = dict(x)
+    for name in ("k_pool", "v_pool"):
+        pool = x[name].clone()
+        pool[1, ::3] = 0.0
+        x[name] = QuantizedKVPool(*quantize_symmetric(pool, (-2, -1)))
+    return x
+
+
+def near_neg_inputs(dev, seed, S, K, H, page, Pm, seq_lens, int8):
+    """Inputs whose scores are exact in any summation order (integer K, q a
+    multiple of 512, hd 64 so hd^-0.5 = 1/8) and put each beam's max over
+    its live positions at -1e9 - 64, -1e9 or -1e9 + 64: every beam is
+    within 128 of -1e9, so the kernels must walk the masked positions too,
+    and where the max is -1e9 or below those carry real weight."""
+    from genrec_tpu_torch.ops.quant import QuantizedKVPool
+
+    hd = 64
+    x = paged_inputs(dev, seed, S, K, H, hd, page, Pm, seq_lens, False)
+    rng = np.random.default_rng(seed)
+    bt = x["block_tables"].cpu().numpy()
+    P, cap = x["k_pool"].shape[0], Pm * page
+    k = rng.integers(-1, 2, size=(P, page, H, hd)).astype(np.float32)
+    k[..., 0] = 1.0
+    qn = rng.integers(-1, 2, size=(S, K, H, hd)).astype(np.float32)
+    qn[..., 0] = 0.0
+    sums = np.einsum("skhd,slhd->skhl", qn, k[bt].reshape(S, cap, H, hd))
+    lens = np.asarray(seq_lens)
+    live = np.arange(cap)[None, :] < np.where(lens > 0, np.minimum(lens, cap), cap)[:, None]
+    top = np.where(live[:, None, None, :], sums, -(10**6)).max(-1)
+    q = 512.0 * qn
+    q[..., 0] = -8e9 - 512.0 * (top - rng.integers(-1, 2, size=top.shape))
+    x["q"] = torch.as_tensor(q.astype(np.float32), device=dev)
+    x["k_pool"] = torch.as_tensor(k, device=dev)
+    if int8:
+        x = to_int8(x)
+        x["k_pool"] = QuantizedKVPool(torch.as_tensor(k.astype(np.int8), device=dev),
+                                      torch.ones((P, page), device=dev))
+    return x
+
+
+def paged_edge_inputs(dev, seed, served_lens, int8) -> dict:
+    """The redesigned B1/B2's edges: scores within 128 of -1e9 (the walk
+    past the live positions; a partial and a full slot), seq_len above
+    Pm * page with block-table entries outside [0, P), S = 1 and S = 16 at
+    the serving widths, and a shape that streams 4 stages through the
+    ring."""
+    H, hd = TIGER_AMAZON["num_heads"], TIGER_AMAZON["attn_dim"] // TIGER_AMAZON["num_heads"]
+    page, Pm = PAGED["page_size"], PAGED["pages_per_slot"]
+    conv = to_int8 if int8 else (lambda x: x)
+    outside = paged_inputs(dev, seed + 30, 3, BEAMS, H, hd, page, Pm, [100, 7, Pm * page],
+                           False)
+    P = outside["k_pool"].shape[0]
+    outside["block_tables"][0, -1] = -5
+    outside["block_tables"][1, 0] = P + 7
+    outside["block_tables"][2, 1] = P
+    return {"seq_len_over_cap_bt_outside": conv(outside),
+           "near_neg_partial": near_neg_inputs(dev, seed + 31, 3, BEAMS, 2, page, Pm,
+                                               [40, 5, 17], int8),
+           "near_neg_full": near_neg_inputs(dev, seed + 32, 2, BEAMS, 2, page, Pm,
+                                            [Pm * page, Pm * page + 16], int8),
+           "s1": conv(paged_inputs(dev, seed + 33, 1, BEAMS, H, hd, page, Pm,
+                                   served_lens[:1], True)),
+           "s16": conv(paged_inputs(dev, seed + 34, 16, BEAMS, H, hd, page, Pm,
+                                    served_lens[:16], True)),
+           "multi_stage": conv(paged_inputs(dev, seed + 35, 2, BEAMS, 2, 128, 16, 16,
+                                            [256, 130], False))}
+
+
+def check_paged_edges(dev, seed, served_lens, kernel, plain, int8) -> dict:
+    """Each edge case through ``kernel`` (its launch count must rise by
+    exactly one) against ``plain``: max |error| <= 1e-5 x max |plain|."""
+    errs = {}
+    for name, x in paged_edge_inputs(dev, seed, served_lens, int8).items():
+        before = kernel.launches
+        got = kernel(**x)
+        torch.cuda.synchronize()
+        check(kernel.launches == before + 1, f"{name}: {kernel.launches - before} launches")
+        errs[name] = max(assert_near(f"{name}/{out}", g, w, FP32_TOL)
+                         for out, g, w in zip(("acc", "m", "l"), got, plain(**x)))
+    return errs
+
+
+def paged_ptxas(ptxas: dict) -> dict:
+    """ptxas -v numbers of the B1 (fp32) and B2 (int8) instantiations, by
+    page type and head width."""
+    out = {}
+    for name, v in ptxas.items():
+        m = re.search(r"paged_attention_stats_kernelI([fa])Li(\d+)E", name)
+        if m:
+            out[f"{'fp32' if m.group(1) == 'f' else 'int8'}_hd{m.group(2)}"] = v
+    return out
+
+
 def paged_attention_bound(x) -> tuple[float, str, dict]:
     """Least time for one call on these inputs: each input byte the
     function needs read once, each output written once. A slot needs the
@@ -455,8 +563,9 @@ def library_inputs(x):
     return dict(q=x["q"].permute(0, 2, 1, 3).contiguous(), k=k, v=v, mask=mask)
 
 
-def kernel_phase(dev, seed) -> dict:
+def kernel_phase(dev, seed, ptxas) -> dict:
     from genrec_tpu_torch.kernels.paged_attention import (
+        block_smem_bytes,
         paged_attention_stats_cuda,
         paged_attention_stats_ref,
     )
@@ -486,52 +595,70 @@ def kernel_phase(dev, seed) -> dict:
                                        msg=lambda m, c=name, o=out: f"{c}/{o}: {m}")
         errs[name] = max(float((g - w).abs().max()) for g, w in zip(got, want))
 
-    # Timing at the serving case, each call on inputs cold in L2.
+    errs.update(check_paged_edges(dev, seed, served_lens, paged_attention_stats_cuda,
+                                  paged_attention_stats_ref, False))
+
+    # Timing at the serving case, each call on inputs cold in L2; S = 16
+    # beside S = 64 (the engine steps any slot prefix).
     base = paged_inputs(dev, seed, S, K, H, hd, page, Pm, served_lens, True)
-    per_copy = sum(t.numel() * t.element_size() for t in base.values())
-    n_copies = max(2, -(-3 * L2_BYTES // per_copy))
-    copies = [base] + [
-        paged_inputs(dev, seed + 100 + c, S, K, H, hd, page, Pm, served_lens, True)
-        for c in range(n_copies - 1)
-    ]
-    lib = [library_inputs(x) for x in copies]
-    acc, _, l = paged_attention_stats_cuda(**base)
-    torch.testing.assert_close(library_paged_attention(**lib[0]),
-                               (acc / l[..., None]).permute(0, 2, 1, 3),
-                               rtol=0, atol=LIBRARY_ATOL)
-    ms = device_ms(paged_attention_stats_cuda, copies)
-    plain_ms = device_ms(paged_attention_stats_ref, copies)
-    library_ms = device_ms(library_paged_attention, lib)
-    ms_again = device_ms(paged_attention_stats_cuda, copies)
+    bit_equal_twice(paged_attention_stats_cuda, base, "B1 at the serving shape")
+    t64 = paged_times(dev, seed, S, served_lens, paged_inputs, paged_attention_stats_cuda,
+                      paged_attention_stats_ref, paged_attention_bound)
+    ms_again = device_ms(paged_attention_stats_cuda, t64.pop("copies"))
+    t16 = paged_times(dev, seed, 16, served_lens, paged_inputs, paged_attention_stats_cuda,
+                      paged_attention_stats_ref, paged_attention_bound)
+    t16.pop("copies")
     clocks = nvidia_smi_line("clocks.sm,clocks.mem,power.draw,temperature.gpu")
-    bound_ms, bound_by, work = paged_attention_bound(base)
-    walked = S * Pm * page * H * hd * 2 * 4
     return emit(
         "kernel", name="paged_attention_stats",
         shape=dict(S=S, K=K, H=H, hd=hd, page=page, Pm=Pm),
         max_abs_err=max(errs.values()), max_abs_err_by_case=errs,
-        tolerance=dict(rtol=KERNEL_RTOL, atol=KERNEL_ATOL),
-        ms=ms, ms_repeat=ms_again, plain_ms=plain_ms, library_ms=library_ms,
+        tolerance=dict(rtol=KERNEL_RTOL, atol=KERNEL_ATOL, edge_cases="1e-5 of max|plain|"),
+        **t64, ms_repeat=ms_again, s16=t16, bit_equal_twice=True,
         timed_by="cuda_graph",
         library="torch.nn.functional.scaled_dot_product_attention on pre-gathered K/V",
-        bound_ms=bound_ms, bound_by=bound_by, work=work,
-        kv_bytes_walked=walked, walked_bound_ms=1e3 * walked / HBM_BYTES_PER_S,
-        cold_copies=n_copies, clocks_after_timing=clocks,
+        ptxas=paged_ptxas(ptxas), block_smem_bytes=block_smem_bytes(K, hd, page, Pm, False),
+        clocks_after_timing=clocks,
     )
+
+
+def paged_times(dev, seed, S, served_lens, make, kernel, plain, bound_fn) -> dict:
+    """B1 or B2 at the serving shape with the first S slots: device time of
+    the kernel, its plain version and the library call, each on input
+    copies cold in L2; the bound, its share, and the K/V bytes the call
+    needs (live positions) against those of every position."""
+    K, H = BEAMS, TIGER_AMAZON["num_heads"]
+    hd = TIGER_AMAZON["attn_dim"] // H
+    page, Pm = PAGED["page_size"], PAGED["pages_per_slot"]
+    lens = served_lens[:S]
+    base = make(dev, seed, S, K, H, hd, page, Pm, lens, True)
+    per_copy = nbytes(*(t for v in base.values()
+                        for t in ((v.data, v.scale) if hasattr(v, "scale") else (v,))))
+    copies = [base] + cold_copies(
+        lambda c: make(dev, seed + 100 + c, S, K, H, hd, page, Pm, lens, True), per_copy)[1:]
+    lib = [library_inputs(x) for x in copies]  # gather_pages dequantises int8
+    acc, _, l = kernel(**base)
+    torch.testing.assert_close(library_paged_attention(**lib[0]),
+                               (acc / l[..., None]).permute(0, 2, 1, 3),
+                               rtol=0, atol=LIBRARY_ATOL)
+    ms = device_ms(kernel, copies)
+    plain_ms = device_ms(plain, copies)
+    library_ms = device_ms(library_paged_attention, lib)
+    bound_ms, bound_by, work = bound_fn(base)
+    # K or V bytes of one position, all heads: int8 rows carry a 4-byte scale.
+    row = H * hd + 4 if hasattr(base["k_pool"], "scale") else H * hd * 4
+    return dict(S=S, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by, share_of_bound=bound_ms / ms, work=work,
+                kv_bytes_live=2 * row * work["kv_tokens"],
+                kv_bytes_all_positions=2 * row * S * Pm * page, cold_copies=len(copies),
+                copies=copies)
 
 
 def quantized_inputs(dev, seed, S, K, H, hd, page, Pm, seq_lens, null_tail):
     """``paged_inputs`` with int8 pools (QuantizedKVPool, quantised as the
     serving path's write_pages quantises); every third row of page 1 is all
     zeros, so its scale is 1e-12 / 127."""
-    from genrec_tpu_torch.ops.quant import QuantizedKVPool, quantize_symmetric
-
-    x = paged_inputs(dev, seed, S, K, H, hd, page, Pm, seq_lens, null_tail)
-    for name in ("k_pool", "v_pool"):
-        pool = x[name]
-        pool[1, ::3] = 0.0
-        x[name] = QuantizedKVPool(*quantize_symmetric(pool, (-2, -1)))
-    return x
+    return to_int8(paged_inputs(dev, seed, S, K, H, hd, page, Pm, seq_lens, null_tail))
 
 
 def quantized_bound(x) -> tuple[float, str, dict]:
@@ -549,9 +676,10 @@ def quantized_bound(x) -> tuple[float, str, dict]:
     return ms, by, dict(bytes=bytes_, flops=flops, kv_tokens=tokens)
 
 
-def quantized_kernel_phase(dev, seed) -> dict:
+def quantized_kernel_phase(dev, seed, ptxas) -> dict:
     """B2 against its plain version (dequantise after the gather) and timed."""
     from genrec_tpu_torch.kernels.paged_attention import (
+        block_smem_bytes,
         paged_attention_stats_quantized_cuda,
         paged_attention_stats_quantized_ref,
     )
@@ -579,31 +707,29 @@ def quantized_kernel_phase(dev, seed) -> dict:
         errs[name] = max(assert_near(f"B2 {name}/{out}", g, w, FP32_TOL)
                          for out, g, w in zip(("acc", "m", "l"), got, want))
 
+    errs.update(check_paged_edges(dev, seed, served_lens,
+                                  paged_attention_stats_quantized_cuda,
+                                  paged_attention_stats_quantized_ref, True))
+
     base = quantized_inputs(dev, seed, S, K, H, hd, page, Pm, served_lens, True)
-    per_copy = nbytes(base["q"], base["k_pool"].data, base["k_pool"].scale,
-                      base["v_pool"].data, base["v_pool"].scale, base["block_tables"],
-                      base["seq_lens"])
-    copies = [base] + cold_copies(
-        lambda c: quantized_inputs(dev, seed + 100 + c, S, K, H, hd, page, Pm, served_lens,
-                                   True), per_copy)[1:]
-    lib = [library_inputs(x) for x in copies]  # gather_pages dequantises
-    acc, _, l = paged_attention_stats_quantized_cuda(**base)
-    torch.testing.assert_close(library_paged_attention(**lib[0]),
-                               (acc / l[..., None]).permute(0, 2, 1, 3),
-                               rtol=0, atol=LIBRARY_ATOL)
-    ms = device_ms(paged_attention_stats_quantized_cuda, copies)
-    plain_ms = device_ms(paged_attention_stats_quantized_ref, copies)
-    library_ms = device_ms(library_paged_attention, lib)
-    bound_ms, bound_by, work = quantized_bound(base)
+    bit_equal_twice(paged_attention_stats_quantized_cuda, base, "B2 at the serving shape")
+    t64 = paged_times(dev, seed, S, served_lens, quantized_inputs,
+                      paged_attention_stats_quantized_cuda, paged_attention_stats_quantized_ref,
+                      quantized_bound)
+    t16 = paged_times(dev, seed, 16, served_lens, quantized_inputs,
+                      paged_attention_stats_quantized_cuda, paged_attention_stats_quantized_ref,
+                      quantized_bound)
+    t64.pop("copies")
+    t16.pop("copies")
     return emit(
         "kernel", name="paged_attention_stats_quantized",
         shape=dict(S=S, K=K, H=H, hd=hd, page=page, Pm=Pm, pools="int8 + fp32 row scales"),
         max_abs_err=max(errs.values()), max_abs_err_by_case=errs,
         tolerance=dict(rel=FP32_TOL, relative_to="max|plain|"),
-        ms=ms, plain_ms=plain_ms, library_ms=library_ms, timed_by="cuda_graph",
+        **t64, s16=t16, bit_equal_twice=True, timed_by="cuda_graph",
         library="torch.nn.functional.scaled_dot_product_attention on pre-gathered, "
                 "dequantised K/V",
-        bound_ms=bound_ms, bound_by=bound_by, work=work, cold_copies=len(copies),
+        ptxas=paged_ptxas(ptxas), block_smem_bytes=block_smem_bytes(K, hd, page, Pm, True),
     )
 
 
@@ -1411,7 +1537,8 @@ def port_kernel_names() -> frozenset:
 
 def device_profile(serve_once) -> dict:
     """Device time by CUDA kernel over one ``serve_once()`` under
-    torch.profiler: the top 12, and every kernel of the port's own. The
+    torch.profiler: the top 12, and every kernel of the port's own with its
+    share of the device's busy time. The
     profiler slows the host, so the idle share it shows is an upper bound
     on the unprofiled run's."""
     from torch.profiler import ProfilerActivity, profile
@@ -1431,7 +1558,8 @@ def device_profile(serve_once) -> dict:
         device_idle_share=1 - busy_ms / (1e3 * wall_s),
         kernel_launches=sum(n for _, _, n in kernels),
         top_kernels=[dict(name=k[:90], ms=ms, launches=n) for k, ms, n in kernels[:12]],
-        port_kernels=[dict(name=k[:90], ms=ms, launches=n) for k, ms, n in kernels
+        port_kernels=[dict(name=k[:90], ms=ms, launches=n, share_of_device_time=ms / busy_ms)
+                      for k, ms, n in kernels
                       if (m := re.search(r"::(\w+)[<(]", k))
                       and m.group(1) in port_kernel_names()],
     )
@@ -2111,8 +2239,10 @@ def main(argv=None) -> int:
         cuda=torch.version.cuda, python=sys.version.split()[0],
     )}
     phases["build"] = emit("build", **build_all())
-    kernels = {"paged_attention_stats": kernel_phase(dev, args.seed),
-               "paged_attention_stats_quantized": quantized_kernel_phase(dev, args.seed),
+    paged_ptx = phases["build"]["libraries"]["paged_attention"]["ptxas"]
+    kernels = {"paged_attention_stats": kernel_phase(dev, args.seed, paged_ptx),
+               "paged_attention_stats_quantized": quantized_kernel_phase(dev, args.seed,
+                                                                         paged_ptx),
                "rq_cascade": rq_kernel_phase(dev, args.seed)}
     kernels.update(hstu_kernel_phase(dev, args.seed))
     ptxas = phases["build"]["libraries"]["fused_ce"]["ptxas"]

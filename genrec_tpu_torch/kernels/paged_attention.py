@@ -15,11 +15,15 @@ _stats_fallback`` and the numerics contract the kernels are held to. The
 CPU takes the plain versions (``ops/paged.py`` routes by device); a CUDA
 tensor goes through a kernel or raises.
 
-Both kernels are memory-bound: one call reads the K/V rows of every page
-it walks, ``S*Pm*page*H*hd*2*4`` bytes in fp32 (12.6 MB at the serving
-shapes S=64, Pm=4, page=16, H=6, hd=64: 3.8 us at 3.35 TB/s) and
-``S*Pm*page*(H*hd + 4)*2`` in int8 with scales (3.2 MB). The source's
-header says what the design does.
+Both kernels are memory-bound: a call needs the K/V rows of each slot's
+first ``min(seq_len, Pm*page)`` positions (all ``Pm*page`` when
+``seq_len <= 0``): at the TIGER serving shapes (S=64, K=10, H=6, hd=64,
+page=16, Pm=4) with served histories ~6.5 MB of fp32 K/V (8.5 MB with q
+and the outputs: 2.5 us at 3.35 TB/s), ~1.6 MB of int8 rows and scales.
+The kernels walk only those positions (the rest weigh exactly 0 once a
+beam's max is above -1e9 + 128, which the kernel checks), copying them
+asynchronously into shared memory; the source's header says what the
+design does.
 
 Build: ``kernels/build.py`` compiles ``csrc/paged_attention.cu`` with nvcc
 for sm_90a into a ctypes library under ``<repo>/build/`` at first use.
@@ -45,9 +49,8 @@ MAX_BEAMS = 32
 MAX_HEAD_DIM = 128
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = load_library("paged_attention")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Type the entry points of a build of ``csrc/paged_attention.cu``."""
     fn = lib.paged_attention_stats_f32
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
@@ -55,10 +58,26 @@ def _library() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn = lib.paged_attention_stats_q8
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
     ]
     fn.restype = ctypes.c_int
+    lib.paged_attention_block_smem.argtypes = [ctypes.c_int] * 5
+    lib.paged_attention_block_smem.restype = ctypes.c_longlong
+    lib.paged_attention_error_string.argtypes = [ctypes.c_int]
+    lib.paged_attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    return bind(load_library("paged_attention"))
+
+
+def block_smem_bytes(beams: int, hd: int, page: int, Pm: int, int8: bool) -> int:
+    """Dynamic shared memory a block of B1 (``int8`` False) or B2 takes at
+    these shapes with ``beams`` beams a block (all K of them, unless the
+    slots and heads alone leave SMs idle and the beams are split)."""
+    return int(_library().paged_attention_block_smem(beams, hd, page, Pm, int(int8)))
 
 
 def _check_shapes(q, k_shape, v_shape, block_tables, seq_lens):
@@ -89,9 +108,9 @@ def paged_attention_stats_cuda(q, k_pool, v_pool, block_tables, seq_lens):
 
     q (S, K, H, hd) float32; pools (P, page, H, hd) float32; block_tables
     (S, Pm) int32; seq_lens (S,) int32; all contiguous on one CUDA device,
-    K <= 32, hd <= 128. Raises on anything else, and when the build or the
-    launch fails (a page too large for a block's shared memory fails the
-    launch). Launches on the current stream and does not synchronise.
+    K <= 32, hd <= 128, any page size and Pm. Raises on anything else, and
+    when the build or the launch fails. Launches on the current stream and
+    does not synchronise.
     ``paged_attention_stats_cuda.launches`` counts the launches.
     """
     dev = q.device
@@ -144,8 +163,6 @@ def paged_attention_stats_quantized_cuda(q, k_pool, v_pool, block_tables, seq_le
     for name, t in (("k_pool.scale", k_pool.scale), ("v_pool.scale", v_pool.scale)):
         if tuple(t.shape) != (P, page):
             raise ValueError(f"{name} {tuple(t.shape)} must be (P, page) = {(P, page)}")
-    vec4 = int(hd % 4 == 0 and k_pool.data.data_ptr() % 4 == 0
-               and v_pool.data.data_ptr() % 4 == 0)
     acc = torch.empty((S, K, H, hd), dtype=torch.float32, device=dev)
     m = torch.empty((S, K, H), dtype=torch.float32, device=dev)
     l = torch.empty((S, K, H), dtype=torch.float32, device=dev)
@@ -155,7 +172,7 @@ def paged_attention_stats_quantized_cuda(q, k_pool, v_pool, block_tables, seq_le
         v_pool.data.data_ptr(), v_pool.scale.data_ptr(),
         block_tables.data_ptr(), seq_lens.data_ptr(),
         acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-        S, K, H, hd, P, page, Pm, float(hd**-0.5), vec4,
+        S, K, H, hd, P, page, Pm, float(hd**-0.5),
         *launch_context(q),
     )
     raise_on_error(lib, "paged_attention", "paged_attention_stats_quantized", rc)
@@ -167,13 +184,15 @@ paged_attention_stats_quantized_cuda.launches = 0
 
 
 def paged_attention_stats_ref(q, k_pool, v_pool, block_tables, seq_lens):
-    """Plain PyTorch version: gather the slots' pages, score, fill masked
+    """Plain PyTorch version: gather the slots' pages (block-table entries
+    clamped into [0, P), as the kernels clamp; JAX's gather clamps entries
+    >= P the same way and wraps negative ones), score, fill masked
     positions with -1e9, and take the softmax statistics over all Pm*page
     positions. Same shapes and dtypes as the kernel."""
     S, K, H, hd = q.shape
     Pm = block_tables.shape[1]
-    page = k_pool.shape[1]
-    idx = block_tables.long()
+    P, page = k_pool.shape[:2]
+    idx = block_tables.long().clamp(0, P - 1)
     k = k_pool[idx].reshape(S, Pm * page, H, hd)
     v = v_pool[idx].reshape(S, Pm * page, H, hd)
     return _stats(q, k, v, seq_lens)
@@ -186,8 +205,8 @@ def paged_attention_stats_quantized_ref(q, k_pool, v_pool, block_tables, seq_len
     arithmetic. Same shapes and dtypes as the kernel."""
     S, K, H, hd = q.shape
     Pm = block_tables.shape[1]
-    page = k_pool.data.shape[1]
-    idx = block_tables.long()
+    P, page = k_pool.data.shape[:2]
+    idx = block_tables.long().clamp(0, P - 1)
 
     def rows(pool):
         out = pool.data[idx].to(torch.float32) * pool.scale[idx][..., None, None]

@@ -10,7 +10,7 @@ that has only PyTorch:
 (``--noconftest``: tests/conftest.py sets up JAX for the rest of the
 suite.) Tolerance for float32 inputs: rtol 1e-5, atol 1e-5. Kernel and
 plain version both sum in fp32 and differ only in order (the paged kernel
-runs an online softmax over 32-position chunks, the plain version one max
+runs an online softmax over 64-position stages, the plain version one max
 and one sum). The HSTU bias-table gradients sum every visible pair of the
 batch, so they get rtol 1e-4. With bfloat16 inputs both sides accumulate
 in fp32 and round the result to bfloat16, where another order can move
@@ -464,6 +464,99 @@ def test_quantized_kernel_wrapper_refuses_what_it_does_not_take(card):
         with pytest.raises(ValueError):
             paged_attention_stats_quantized_cuda(**bad)
     assert paged_attention_stats_quantized_cuda.launches == before
+
+
+def _near_neg(dev, S, K, H, page, Pm, lens, int8, seed=0):
+    """Inputs whose scores are exact in any summation order (integer K,
+    q a multiple of 512, hd 64 so hd^-0.5 = 1/8) and put each beam's max
+    over its live positions at -1e9 - 64, -1e9 or -1e9 + 64: every beam
+    is within 128 of -1e9, so the kernel must walk the masked positions
+    too, and where the max is -1e9 or below they carry real weight."""
+    hd = 64
+    x = _inputs(dev, S, K, H, hd, page, Pm, lens, seed=seed)
+    rng = np.random.default_rng(seed)
+    bt = x["block_tables"].cpu().numpy()
+    P, cap = x["k_pool"].shape[0], Pm * page
+    k = rng.integers(-1, 2, size=(P, page, H, hd)).astype(np.float32)
+    k[..., 0] = 1.0
+    qn = rng.integers(-1, 2, size=(S, K, H, hd)).astype(np.float32)
+    qn[..., 0] = 0.0
+    sums = np.einsum("skhd,slhd->skhl", qn, k[bt].reshape(S, cap, H, hd))
+    lens = np.asarray(lens)
+    live = np.arange(cap)[None, :] < np.where(lens > 0, np.minimum(lens, cap), cap)[:, None]
+    top = np.where(live[:, None, None, :], sums, -(10**6)).max(-1)
+    q = 512.0 * qn
+    q[..., 0] = -8e9 - 512.0 * (top - rng.integers(-1, 2, size=top.shape))
+    x["q"] = torch.as_tensor(q.astype(np.float32), device=dev)
+    if int8:
+        x = _quantized(x)
+        x["k_pool"] = QuantizedKVPool(torch.as_tensor(k.astype(np.int8), device=dev),
+                                      torch.ones((P, page), device=dev))
+    else:
+        x["k_pool"] = torch.as_tensor(k, device=dev)
+    return x
+
+
+def _b1_b2(int8):
+    return ((paged_attention_stats_quantized_cuda, paged_attention_stats_quantized_ref)
+            if int8 else (paged_attention_stats_cuda, paged_attention_stats_ref))
+
+
+# The redesigned kernels' edges (B1 and B2 both): scores within 128 of
+# -1e9 (the walk past the live positions), seq_len above Pm * page with
+# block-table entries outside [0, P) (clamped on both sides), S = 1 and
+# S = 16 at the serving widths, and a shape whose positions stream through
+# the ring in 4 stages.
+EDGE_CASES = {
+    "near_neg_partial": lambda dev, int8: _near_neg(dev, 3, 10, 2, 16, 4, [40, 5, 17], int8),
+    "near_neg_full": lambda dev, int8: _near_neg(dev, 2, 10, 2, 16, 4, [64, 80], int8),
+    "seq_len_over_cap_bt_outside": lambda dev, int8: _out_of_range(
+        _inputs(dev, 3, 10, 6, 64, 16, 4, [100, 7, 64], seed=4), int8),
+    "s1_serving_widths": lambda dev, int8: _maybe_int8(
+        _inputs(dev, 1, 10, 6, 64, 16, 4, [61], null_tail=True, seed=5), int8),
+    "s16_serving_widths": lambda dev, int8: _maybe_int8(
+        _inputs(dev, 16, 10, 6, 64, 16, 4, np.random.default_rng(6).integers(4, 62, 16),
+                null_tail=True, seed=6), int8),
+    "multi_stage": lambda dev, int8: _maybe_int8(
+        _inputs(dev, 2, 10, 2, 128, 16, 16, [256, 130], seed=7), int8),
+}
+
+
+def _maybe_int8(x, int8):
+    return _quantized(x) if int8 else x
+
+
+def _out_of_range(x, int8):
+    P = x["k_pool"].shape[0]
+    bt = x["block_tables"].clone()
+    bt[0, -1], bt[1, 0], bt[2, 1] = -5, P + 7, P
+    return _maybe_int8(dict(x, block_tables=bt), int8)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_paged_kernels_edge_cases_match_plain_versions(card, case, int8):
+    kernel, plain = _b1_b2(int8)
+    x = EDGE_CASES[case](card, int8)
+    before = kernel.launches
+    got = kernel(**x)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = plain(**x)
+    for name, g, w in zip(("acc", "m", "l"), got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5, msg=name)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
+def test_paged_kernels_give_equal_bits_over_two_calls(card, int8):
+    kernel, _ = _b1_b2(int8)
+    lens = np.random.default_rng(8).integers(4, 62, 64)
+    x = _maybe_int8(_inputs(card, 64, 10, 6, 64, 16, 4, lens, null_tail=True, seed=8), int8)
+    before = kernel.launches
+    a, b = kernel(**x), kernel(**x)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
 
 
 @pytest.mark.parametrize("B,L,K,D,dup", [

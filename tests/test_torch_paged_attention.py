@@ -22,7 +22,10 @@ from genrec_tpu_torch.kernels.paged_attention import (
     paged_attention_stats_cuda,
     paged_attention_stats_ref,
 )
+from genrec_tpu.ops.quant import QuantizedKVPool as JaxQuantizedKVPool
+from genrec_tpu_torch.kernels.paged_attention import paged_attention_stats_quantized_ref
 from genrec_tpu_torch.ops import paged as tpaged
+from genrec_tpu_torch.ops.quant import QuantizedKVPool, quantize_symmetric
 
 torch.set_num_threads(1)
 
@@ -83,6 +86,70 @@ def test_paged_attention_matches_jax(case):
     want = jpaged.paged_attention(**_as(jnp.asarray, x), use_kernel=False)
     got = tpaged.paged_attention(**_as(torch.as_tensor, x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+def _past_seq_len(bt, sl, page, P):
+    """(P, page) mask of the pool rows that no slot reads at a position
+    below its seq_len."""
+    live = np.zeros((P, page), bool)
+    for row, n in zip(bt, sl):
+        for t in range(max(int(n), 0)):
+            if t < len(row) * page:
+                live[row[t // page], t % page] = True
+    return ~live
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
+def test_positions_past_seq_len_weigh_exactly_zero(int8):
+    """The premise of the CUDA kernels' walk of live positions only: with
+    every live score far above -1e9, the rows past each slot's seq_len
+    change no bit of (acc, m, l), whatever finite values they hold. Both
+    the port's plain version and the JAX fallback show it: large values
+    there give the same outputs as zeros, to 0 difference."""
+    x = _inputs(6, "mixed")
+    P, page = x["k_pool"].shape[:2]
+    dead = _past_seq_len(x["block_tables"], x["seq_lens"], page, P)
+    assert dead.any() and not dead.all()
+    rng = np.random.default_rng(7)
+    big = rng.choice([-1.0, 1.0], size=x["k_pool"].shape) * rng.uniform(1e5, 1e6, x["k_pool"].shape)
+    zeros, filled = dict(x), dict(x)
+    for name in ("k_pool", "v_pool"):
+        zeros[name] = np.where(dead[..., None, None], 0.0, x[name]).astype(np.float32)
+        filled[name] = np.where(dead[..., None, None], big, x[name]).astype(np.float32)
+    outs = []
+    for pools in (zeros, filled):
+        if int8:
+            pools = dict(pools)
+            for name in ("k_pool", "v_pool"):
+                data, scale = quantize_symmetric(torch.as_tensor(pools[name]), (-2, -1))
+                pools[name] = (data.numpy(), scale.numpy())
+            port = paged_attention_stats_quantized_ref(**{
+                k: QuantizedKVPool(*map(torch.as_tensor, v)) if k.endswith("pool")
+                else torch.as_tensor(v) for k, v in pools.items()})
+            jax_out = jpaged._stats_fallback(**{
+                k: JaxQuantizedKVPool(*map(jnp.asarray, v)) if k.endswith("pool")
+                else jnp.asarray(v) for k, v in pools.items()})
+        else:
+            port = paged_attention_stats_ref(**_as(torch.as_tensor, pools))
+            jax_out = jpaged._stats_fallback(**_as(jnp.asarray, pools))
+        outs.append((port, jax_out))
+    (port_zero, jax_zero), (port_big, jax_big) = outs
+    for name, a, b, c, d in zip(("acc", "m", "l"), port_zero, port_big, jax_zero, jax_big):
+        np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=f"port {name}")
+        np.testing.assert_array_equal(np.asarray(c), np.asarray(d), err_msg=f"jax {name}")
+    assert float(port_zero[1].min()) > -1e3  # every live score is far above -1e9
+
+
+def test_stats_ref_clamps_block_table_entries_past_the_pool_like_jax():
+    """Entries >= P read the last page on both sides (JAX's gather clamps)."""
+    x = _inputs(8, "mixed")
+    P = x["k_pool"].shape[0]
+    x["block_tables"] = x["block_tables"].copy()
+    x["block_tables"][0, 1], x["block_tables"][3, 2] = P, P + 9
+    want = jpaged._stats_fallback(**_as(jnp.asarray, x))
+    got = paged_attention_stats_ref(**_as(torch.as_tensor, x))
+    for name, g, w in zip(("acc", "m", "l"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, err_msg=name)
 
 
 def test_cpu_tensors_take_the_plain_version():
