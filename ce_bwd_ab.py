@@ -1,8 +1,15 @@
 #!/usr/bin/env python3
 """A/B of design variants of the port's kernels on one NVIDIA card: the
-fused CE (B3, B4) and the paged decode attention (B1, B2).
+fused CE (B3, B4), the paged decode attention (B1, B2), the HSTU attention
+backward (B6, bf16) and the RQ cascade (B7).
 
-    python3 ce_bwd_ab.py [--mode bwd|fwd|fp32|paged] [--reps 3] [--out FILE]
+    python3 ce_bwd_ab.py [--mode bwd|fwd|fp32|paged|hstu|rq] [--reps 3]
+                         [--variants a,b] [--parent CHECKOUT] [--out FILE]
+
+With `--parent`, the mode's kernel source of another checkout (say the
+parent commit's, unpacked by `git archive` into a directory that
+.gitignore lists) is built, checked and timed as variant `parent`, second
+in turn; for `hstu`, through that checkout's own wrapper module.
 
 Builds genrec_tpu_torch/csrc/fused_ce.cu as it is and in variants made
 by replacing a line or a few of it (each a copy under build/ce_bwd_ab/,
@@ -60,6 +67,32 @@ variant is held to the plain versions at 1e-5 of max
 disagrees is reported and not timed), then timed as
 chip_smoke.py times B1 and B2: CUDA-graph replay over input copies that
 together exceed L2 three times.
+
+`--mode hstu`, the bf16 backward of genrec_tpu_torch/csrc/hstu_attention.cu
+(`hstu_bwd_tc_kernel` and its table sums) at the HSTU trainer's shape (B
+128, H 2, L 50, hd 32, packed with timestamps): the source (mma.sync on
+64-position tiles, dS and silu(S) as bf16 hi + lo planes, the time bucket
+from the edge table on every pair); `one_rounding` (dS and silu(S) rounded
+to bf16 once: one plane); `log_every_pair` (the double-log bucket on every
+pair); `bucket_visible_only` (the bucket behind a branch on visible pairs);
+and, timed only, `empty` (returns at once), `loads_only` (the tiles'
+copies and their wait, no math), `scores_only` (stops after S, dS and the
+bins), `no_dk_dv` (skips the key-owned products) and `no_stores` (no
+output stores). Each other variant is held to the plain version (dq, dk, dv
+at 1e-2 and the tables at 1e-4 of max |plain|; trainer, left-padded, no
+timestamps, L 200) and to the source's bits, its errors printed with
+whether they stay below a tenth of 1e-2, then timed by CUDA-graph replay
+on cold copies, with device time by kernel from torch.profiler.
+
+`--mode rq`, B7 of genrec_tpu_torch/csrc/rq_cascade.cu at one export chunk
+(B 4,096, L 3, K 256, D 32): the source (32 rows a block, 4 x 8 register
+tiles, the three codebooks by one TMA box a level); `cp_async` (staged by
+16-byte cp.async instead); `per_level` (one level at a time behind
+barriers); `tile_1x8` and `tile_8x8` (1 and 8 rows a thread); `rows_16`
+(16 rows a block); and, timed only, `empty` and `staging_only` (the copies and the
+norms, no scoring). Each other variant is held to the plain version (ids
+exact outside near ties, at most 2% near ties, over six shapes) and to the
+source's bits, then timed by CUDA-graph replay on cold copies.
 
 CE inputs are seeded, warm in L2 between calls (unlike chip_smoke.py's
 cold copies). Prints each variant's ptxas numbers for the kernels of the
@@ -357,6 +390,46 @@ PAGED_VARIANTS = {
 PAGED_VARIANTS["no_ev"] = ("      if (b < Kb) {\n        const float* e = sc_s",
                            "      if (b < Kb && Kb < 0) {\n        const float* e = sc_s")
 PAGED_TIMING_ONLY = {"empty", "copies_only", "no_ev"}
+# name -> the (text of hstu_attention.cu replaced, its replacement) pairs, or None
+HSTU_VARIANTS = {
+    "source": None,
+    "one_rounding": ("constexpr int kPlanes = 2;", "constexpr int kPlanes = 1;"),
+    "log_every_pair": ("              tb = time_bucket_edges(qr.x, kr.x, edges, p.ntb);",
+                       "              tb = time_bucket(qr.x, kr.x, p.ntb);"),
+    "bucket_visible_only": ("            if (use_time) {\n              tb = time_bucket_edges",
+                            "            if (use_time && vis) {\n              tb = time_bucket_edges"),
+    # Timing only: the kernel returns at once (a launch inside the graph);
+    # loads its tiles and waits for them and does no math; stops after the
+    # scores, dS and the bins; or skips dk and dv.
+    "empty": ("  // Every visible pair has key <= query, so rel <= 0 reads the bucket of 0.\n",
+              "  if (p.L > 0) return;\n"),
+    "loads_only": ("      cp_async_wait_all();\n      __syncthreads();\n",
+                   "      cp_async_wait_all();\n      __syncthreads();\n      if (p.L > 0) continue;\n"),
+    "scores_only": ("      // dq of the warp's rows:", "      if (p.L > 0) continue;\n      // dq of the warp's rows:"),
+    "no_dk_dv": ("      if (kw < L) {", "      if (kw < L && p.L < 0) {"),
+    "no_stores": ("  if (col >= hd) return;\n", "  if (col >= hd || acc[0] != 12345.f) return;\n"),
+}
+HSTU_TIMING_ONLY = {"empty", "loads_only", "scores_only", "no_dk_dv", "no_stores"}
+_HSTU = ["source", "one_rounding", "log_every_pair", "bucket_visible_only", "empty", "loads_only",
+         "scores_only", "no_dk_dv", "no_stores", "source"]
+# name -> the (text of rq_cascade.cu replaced, its replacement) pairs, or None
+RQ_VARIANTS = {
+    "source": None,
+    "per_level": ("const int staged = smem_bytes(L, K, D) <= (size_t)optin ? L : 1;",
+                  "const int staged = 1;"),
+    "tile_1x8": ("constexpr int kTileRows = 4;", "constexpr int kTileRows = 1;"),
+    "tile_8x8": ("constexpr int kTileRows = 4;", "constexpr int kTileRows = 8;"),
+    "rows_16": ("constexpr int kBlockRows = 32;", "constexpr int kBlockRows = 16;"),
+    # Timing only: the kernel returns at once, or after staging the
+    # codebooks and their norms.
+    "empty": ("  __shared__ uint64_t bars[2];", "  if (B > 0) return;\n  __shared__ uint64_t bars[2];"),
+    "staging_only": ("    if (r0 >= nrows) continue;", "    if (r0 >= nrows || B > 0) continue;"),
+}
+RQ_VARIANTS["cp_async"] = ("  int tma = staged == L && D == 32 && K <= 256 && K % 8 == 0;",
+                            "  int tma = 0;")
+RQ_TIMING_ONLY = {"empty", "staging_only"}
+_RQ = ["source", "cp_async", "per_level", "tile_1x8", "tile_8x8", "rows_16", "empty",
+       "staging_only", "source"]
 # B1 and B2 at the serving shape with S slots (chip_smoke.py's served lengths).
 PAGED_CELLS = {"s64": 64, "s16": 16}
 _PAGED = ["source", "all_pages", "tma_bulk", "splits_2", "warps_4", "runtime_hd",
@@ -369,26 +442,34 @@ AT = {"bwd": {"shard": ["source", "chunk_32mb", "chunk_128mb", "coeff_128x128",
               "hstu": ["source", "chunked_at_d64", "source"]},
       "fwd": {"shard": _FWD, "hstu": _FWD},
       "fp32": {"fp32_shard": ["source", "fp32_one_chain", "source"]},
-      "paged": {cell: _PAGED for cell in PAGED_CELLS}}
+      "paged": {cell: _PAGED for cell in PAGED_CELLS},
+      "hstu": {"trainer_bf16": _HSTU}, "rq": {"export_chunk": _RQ}}
+# Each mode's source stem (csrc/<stem>.cu) and variants, where not fused_ce's.
+STEMS = {"paged": ("paged_attention", PAGED_VARIANTS), "hstu": ("hstu_attention", HSTU_VARIANTS),
+         "rq": ("rq_cascade", RQ_VARIANTS)}
 FP32_WIDE = (33, 700, 2048)
 # The kernels each mode reports ptxas numbers of: a fragment of the name.
 PTXAS_OF = {"bwd": ("ce_tc_kernel", "ce_fused_kernel"), "fwd": ("ce_fwd",),
-            "fp32": ("ce_fwd_kernel", "ce_lse", "wide"), "paged": ("paged_attention",)}
+            "fp32": ("ce_fwd_kernel", "ce_lse", "wide"), "paged": ("paged_attention",),
+            "hstu": ("hstu_bwd",), "rq": ("rq_cascade",)}
 
 
-def build(name: str, replace, stem: str = "fused_ce") -> tuple[Path, str]:
-    """The variant's library of csrc/<stem>.cu and what ptxas printed."""
+def build(name: str, replace, stem: str = "fused_ce", csrc: Path | None = None
+          ) -> tuple[Path, str]:
+    """The variant's library of csrc/<stem>.cu (of another checkout's
+    csrc where given) and what ptxas printed."""
     from genrec_tpu_torch.kernels import build as kb
 
+    csrc = csrc or kb.CSRC
     out = HERE / "build" / "ce_bwd_ab" / f"{stem}-{name}"
     out.mkdir(parents=True, exist_ok=True)
-    src = (kb.CSRC / f"{stem}.cu").read_text()
+    src = (csrc / f"{stem}.cu").read_text()
     for old, new in ([replace] if isinstance(replace, tuple) else replace or []):
         if src.count(old) != 1:
             raise RuntimeError(f"{name}: the text to replace is not in {stem}.cu once: {old}")
         src = src.replace(old, new)
     (out / f"{stem}.cu").write_text(src)
-    for header in kb.CSRC.glob("*.cuh"):  # a variant may include one the source does not
+    for header in csrc.glob("*.cuh"):  # a variant may include one the source does not
         (out / header.name).write_text(header.read_text())
     lib = out / f"lib{stem}.so"
     proc = subprocess.run([kb._nvcc(), *kb.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(lib),
@@ -606,6 +687,144 @@ def paged_ab(dev, libs, order, reps, add) -> None:
         pa._library = original
 
 
+def parent_hstu(path: Path, checkout: Path):
+    """The parent checkout's HSTU wrapper module, on its own build ``path``:
+    its backward is timed as it was called (the table sums by torch)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "parent_hstu_attention", checkout / "genrec_tpu_torch" / "kernels" / "hstu_attention.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    lib = ctypes.CDLL(str(path))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.hstu_attention_bwd.argtypes = [ptr] * 15 + [i32] * 7 + [f32, i32, ptr, i32]
+    lib.hstu_attention_bwd.restype = i32
+    lib.hstu_attention_error_string.argtypes = [i32]
+    lib.hstu_attention_error_string.restype = ctypes.c_char_p
+    mod._library = lambda: lib
+    return mod
+
+
+def _rel_errs(got, want, prefix, errs) -> bool:
+    """Each output's max |got - want| / max |want| into errs; whether all
+    are within their tolerance (bf16 gradients BF16_TOL, tables 1e-4)."""
+    ok = True
+    for out, g, w in zip(("dq", "dk", "dv", "dpos", "dtime"), got, want):
+        if w is None:
+            continue
+        rel = float((g.float() - w.float()).abs().max() / w.float().abs().max())
+        errs[f"{prefix}/{out}"] = rel
+        ok &= rel <= (1e-4 if out in ("dpos", "dtime") else BF16_TOL)
+    return ok
+
+
+def _same_bits(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b) if x is not None)
+
+
+def hstu_ab(dev, libs, order, reps, add) -> None:
+    """Check every variant of the bf16 HSTU backward (B6) against the plain
+    version and the source's bits, then time them in turns at the
+    trainer's shape."""
+    import chip_smoke as cs
+    from genrec_tpu_torch.kernels import hstu_attention as ha
+
+    cases = {"trainer": dict(), "left_padded": dict(packed=False), "no_time": dict(timestamps=False),
+             "L200": dict(B=16, L=200)}
+    original = ha._library
+    failed, first = set(), {}
+    try:
+        def bwd(name):  # the variant's backward; the parent's is its own module's
+            if isinstance(libs[name], ctypes.CDLL):
+                ha._library = lambda lib=libs[name]: lib
+                return ha.hstu_attention_bwd_cuda
+            return libs[name].hstu_attention_bwd_cuda
+
+        for name in dict.fromkeys(order):
+            if name in HSTU_TIMING_ONLY:
+                continue
+            fn = bwd(name)
+            errs, ok, same = {}, True, True
+            for i, (case, kw) in enumerate(cases.items()):
+                x = cs.hstu_inputs(dev, 7 + i, torch.bfloat16, **kw)
+                got = fn(**x)
+                torch.cuda.synchronize()
+                ok &= _rel_errs(got, ha.hstu_attention_bwd_ref(**x), case, errs)
+                same &= _same_bits(got, first.setdefault(case, got))
+            if not ok:
+                failed.add(name)
+            add(phase="check", variant=name, ok=ok, rel_err_of_max=errs,
+                below_a_tenth_of_bf16_tol=all(v <= BF16_TOL / 10 for k, v in errs.items()
+                                              if k.endswith(("dq", "dk", "dv"))),
+                bit_equal_to_source=same)
+        if "source" in failed:
+            raise RuntimeError("the source disagrees with the plain version")
+        order = [n for n in order if n not in failed]
+        base = cs.hstu_inputs(dev, 0, torch.bfloat16)
+        copies = [base] + cs.cold_copies(
+            lambda c: cs.hstu_inputs(dev, 100 + c, torch.bfloat16),
+            cs.nbytes(*(v for v in base.values() if v is not None)))[1:]
+        bound_ms, bound_by = cs.hstu_bounds(base)["bwd"]
+        for turn, name in enumerate(order):
+            fn = bwd(name)
+            add(phase="time", cell="trainer_bf16", variant=name, turn=turn,
+                ms=cs.device_ms(fn, copies, reps), ms_by_kernel=cs.device_ms_by_kernel(fn, copies),
+                bound_ms=bound_ms, bound_by=bound_by, timed_by="cuda_graph")
+    finally:
+        ha._library = original
+
+
+def rq_ab(dev, libs, order, reps, add) -> None:
+    """Check every variant of the RQ cascade (B7) against the plain version
+    (ids exact outside near ties) and the source's bits, then time them in
+    turns at one export chunk."""
+    import chip_smoke as cs
+    from genrec_tpu_torch.kernels import rq_cascade as rq
+
+    cases = {"export_chunk": (cs.SEM_ID_CHUNK, 3, 256, 32), "ragged_B": (1000, 3, 256, 32),
+             "L1_K45": (777, 1, 45, 32), "K300_D40": (300, 3, 300, 40),
+             "K512_D64": (517, 3, 512, 64), "D10": (100, 2, 70, 10)}
+    original = rq._library
+    failed, first = set(), {}
+    try:
+        for name in dict.fromkeys(order):
+            if name in RQ_TIMING_ONLY:
+                continue
+            rq._library = lambda lib=libs[name]: lib
+            ties, ok, same = {}, True, True
+            for i, (case, (B, L, K, D)) in enumerate(cases.items()):
+                x = cs.rq_inputs(dev, 20 + i, B, L, K, D)
+                got = rq.rq_cascade_cuda(**x)
+                torch.cuda.synchronize()
+                try:
+                    ties[case] = cs.check_sem_ids(f"{name} {case}", x["x"], x["codebooks"],
+                                                  got[0], rq.rq_cascade_ref(**x)[0])
+                except RuntimeError as e:
+                    ok, ties[case] = False, str(e)
+                same &= _same_bits(got, first.setdefault(case, got))
+            if not ok:
+                failed.add(name)
+            add(phase="check", variant=name, ok=ok, sem_ids_by_case=ties,
+                bit_equal_to_source=same)
+        if "source" in failed:
+            raise RuntimeError("the source disagrees with the plain version")
+        order = [n for n in order if n not in failed]
+        B, L, K, D = cases["export_chunk"]
+        base = cs.rq_inputs(dev, 0, B, L, K, D)
+        copies = [base] + cs.cold_copies(lambda c: cs.rq_inputs(dev, 100 + c, B, L, K, D),
+                                         cs.nbytes(*base.values()))[1:]
+        bound_ms, bound_by = cs.bound(cs.nbytes(*base.values()) + B * L * 4 + B * D * 4,
+                                      2 * B * K * D * L, cs.FP32_FLOPS)
+        for turn, name in enumerate(order):
+            rq._library = lambda lib=libs[name]: lib
+            add(phase="time", cell="export_chunk", variant=name, turn=turn,
+                ms=cs.device_ms(rq.rq_cascade_cuda, copies, reps), bound_ms=bound_ms,
+                bound_by=bound_by, timed_by="cuda_graph")
+    finally:
+        rq._library = original
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mode", choices=tuple(AT), default="bwd")
@@ -613,6 +832,10 @@ def main(argv=None) -> int:
     ap.add_argument("--out", type=Path)
     ap.add_argument("--variants", help="comma-separated: only these of the mode's variants "
                                        "(the source is always built and timed first and last)")
+    ap.add_argument("--parent", type=Path,
+                    help="another checkout (e.g. the parent commit's): its source of the "
+                         "mode's kernel is built, checked and timed as variant `parent`, "
+                         "second in turn")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("ce_bwd_ab: no CUDA device", file=sys.stderr)
@@ -624,17 +847,25 @@ def main(argv=None) -> int:
     if args.variants:
         keep = {"source", *args.variants.split(",")}
         at = {cell: [n for n in order if n in keep] for cell, order in at.items()}
+    if args.parent:
+        at = {cell: order[:1] + ["parent"] + order[1:] for cell, order in at.items()}
     paged = args.mode == "paged"
+    stem, variants = STEMS.get(args.mode, ("fused_ce", VARIANTS))
     names = list(dict.fromkeys(n for cell in at.values() for n in cell))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(
-            lambda n: build(n, PAGED_VARIANTS[n], "paged_attention") if paged
-            else build(n, VARIANTS[n]), names)))
-    if paged:
-        from genrec_tpu_torch.kernels.paged_attention import bind
+            lambda n: build(n, None, stem, args.parent / "genrec_tpu_torch" / "csrc")
+            if n == "parent" else build(n, variants[n], stem), names)))
+    if args.mode in STEMS:
+        from genrec_tpu_torch.kernels import hstu_attention, paged_attention, rq_cascade
 
-        libs = {name: bind(ctypes.CDLL(str(path))) for name, (path, _) in built.items()}
+        bind = {"paged": paged_attention.bind, "hstu": hstu_attention.bind,
+                "rq": rq_cascade.bind}[args.mode]
+        libs = {}
+        for name, (path, _) in built.items():
+            libs[name] = (parent_hstu(path, args.parent) if name == "parent" and
+                          args.mode == "hstu" else bind(ctypes.CDLL(str(path))))
     else:
         libs = {name: load(path) for name, (path, _) in built.items()}
     lines = []
@@ -650,15 +881,19 @@ def main(argv=None) -> int:
             if any(f in k for f in PTXAS_OF[args.mode])})
     if paged:
         paged_ab(dev, libs, at["s64"], args.reps, add)
+    if args.mode == "hstu":
+        hstu_ab(dev, libs, at["trainer_bf16"], args.reps, add)
+    if args.mode == "rq":
+        rq_ab(dev, libs, at["export_chunk"], args.reps, add)
     if args.mode == "fp32":
         for seed in range(4):
             a = inputs(dev, *FP32_WIDE, seed, torch.float32, w_std=0.1, g_normal=True)
             for name in names:
                 add(phase="fp64", shape=dict(zip("RVd", FP32_WIDE)), seed=seed, variant=name,
                     rel_err_of_max=fp64_errors(libs[name], a))
-    kernels = {"fwd": ("fwd",), "bwd": ("dx", "dw"), "fp32": ("fwd", "dx", "dw"),
-               "paged": ()}[args.mode]
-    for cell in () if paged else at:
+    kernels = {"fwd": ("fwd",), "bwd": ("dx", "dw"), "fp32": ("fwd", "dx", "dw")}.get(
+        args.mode, ())
+    for cell in () if args.mode in STEMS else at:
         R, V, d = SHAPES[cell]
         a = inputs(dev, R, V, d, seed=0, dtype=torch.float32 if args.mode == "fp32" else
                    torch.bfloat16)

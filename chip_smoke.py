@@ -30,7 +30,11 @@ line each; any failure ends the run with a traceback and a non-zero exit:
             launching exactly once, give equal bits over two calls, are
             timed at S = 16 beside S = 64, and report the K/V bytes the
             call needs against those of every position, the share of the
-            bound, and the ptxas numbers and shared memory of a block;
+            bound, and the ptxas numbers and shared memory of a block; the
+            bf16 B6 and B7 give equal bits over two calls and report their
+            ptxas numbers, B6's time is also split by kernel (its own, the
+            table sums), and the time-bucket sweep runs through B5 and the
+            bf16 B6;
 4. train    HSTU at the widths of config/hstu/amazon.gin through the port's
             trainer (hstu_trainer.train, 2 epochs with eval, synthetic data
             with Amazon-Beauty's 12,101 items), then a fixed number of steps
@@ -195,8 +199,9 @@ KERNELS = {
                                      "genrec_tpu/kernels/fused_ce.py:180",
                                      "fused_linear_ce_bwd (_dw_kernel), per shard"),
     "sharded_fused_linear_ce": ("genrec_tpu_torch/kernels/fused_ce.py",
-                                "genrec_tpu/kernels/fused_ce.py:328",
-                                "sharded_fused_linear_ce (_tp_vjp_fwd :350, _tp_vjp_bwd :375)"),
+                                "genrec_tpu/kernels/fused_ce.py:329",
+                                "sharded_fused_linear_ce (_tp_vjp_fwd :350, _tp_vjp_bwd :375, "
+                                "B4 at :387)"),
 }
 LIBRARY_ATOL = 1e-4  # the library call normalises; checked, never used
 # Scores are sums of 3 log-softmaxes of logits / 0.2. Across batch shapes
@@ -763,8 +768,9 @@ def check_sem_ids(what, x, codebooks, got, want) -> dict:
                 differing_outside_near_ties=outside)
 
 
-def rq_kernel_phase(dev, seed) -> dict:
-    """B7 against its plain version (TF32 off) and timed."""
+def rq_kernel_phase(dev, seed, ptxas) -> dict:
+    """B7 against its plain version (TF32 off), equal bits over two calls,
+    timed; with its ptxas numbers."""
     from genrec_tpu_torch.kernels.rq_cascade import rq_cascade_cuda, rq_cascade_ref
 
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off for the plain cascade")
@@ -773,6 +779,7 @@ def rq_kernel_phase(dev, seed) -> dict:
         "ragged_B": (1000, 3, 256, 32, False),
         "L1_K45": (777, 1, 45, 32, False),
         "K300_D40": (300, 3, 300, 40, False),
+        "K512_D64_a_level_at_a_time": (517, 3, 512, 64, False),
         "duplicated_codewords": (512, 3, 256, 32, True),
     }
     errs, ties = {}, {}
@@ -792,6 +799,7 @@ def rq_kernel_phase(dev, seed) -> dict:
 
     B, L, K, D = cases["export_chunk"][:4]
     base = rq_inputs(dev, seed, B, L, K, D)
+    bit_equal_twice(rq_cascade_cuda, base, "B7 at the export chunk")
     copies = [base] + cold_copies(lambda c: rq_inputs(dev, seed + 100 + c, B, L, K, D),
                                   nbytes(*base.values()))[1:]
     ms = device_ms(rq_cascade_cuda, copies)
@@ -806,22 +814,23 @@ def rq_kernel_phase(dev, seed) -> dict:
                        f"near ties ({NEAR_TIE_REL} x max|dist|)"),
         ms=ms, plain_ms=plain_ms, library_ms=None, library="none (no single call)",
         timed_by="cuda_graph", bound_ms=bound_ms, bound_by=bound_by,
-        work=dict(bytes=bytes_, flops=flops), cold_copies=len(copies),
+        work=dict(bytes=bytes_, flops=flops), cold_copies=len(copies), bit_equal_twice=True,
+        ptxas={k: v for k, v in ptxas.items() if "rq_cascade_kernel" in k},
     )
 
 
 # ---- phase 3: the HSTU training kernels (B3-B6) -----------------------------
 
 
-def hstu_inputs(dev, seed, dtype, *, timestamps=True, packed=True, B=HSTU_BATCH):
-    """Inputs of one HSTU attention call at the trainer's shapes: q, k, v
-    and a cotangent g (B, H, L, hd); packed rows (segments of 2-28 tokens
-    from slot 0, pad at the tail, as pack_examples lays them out) or
-    left-padded rows (as eval rows); row 0 all padding; synthetic
-    timestamps (~1 event a day from 1.5e9 s, int32)."""
+def hstu_inputs(dev, seed, dtype, *, timestamps=True, packed=True, B=HSTU_BATCH, L=None):
+    """Inputs of one HSTU attention call at the trainer's shapes (L may be
+    set): q, k, v and a cotangent g (B, H, L, hd); packed rows (segments
+    of 2-28 tokens from slot 0, pad at the tail, as pack_examples lays
+    them out) or left-padded rows (as eval rows); row 0 all padding;
+    synthetic timestamps (~1 event a day from 1.5e9 s, int32)."""
     rng = np.random.default_rng(seed)
     H = HSTU_AMAZON["num_heads"]
-    L = HSTU_AMAZON["max_seq_len"]
+    L = L or HSTU_AMAZON["max_seq_len"]
     hd = HSTU_AMAZON["embed_dim"] // H
     seg = np.zeros((B, L), np.int32)
     pad = np.zeros((B, L), bool)
@@ -895,8 +904,12 @@ def time_bucket_sweep(dev) -> dict:
     and int32's extremes (t_q - t_k wraps). Each dt is a row of two
     positions, t = (0, dt), with q = k = 0, v = (1, 0), no position bias
     and time_table[n] = n, so the output of position 1 is
-    silu(time_table[bucket(dt)]) and names the bucket."""
-    from genrec_tpu_torch.kernels.hstu_attention import hstu_attention_fwd_cuda
+    silu(time_table[bucket(dt)]) and names the bucket; the same rows
+    through the bf16 backward name it by their dtime partials."""
+    from genrec_tpu_torch.kernels.hstu_attention import (
+        hstu_attention_bwd_partials_cuda,
+        hstu_attention_fwd_cuda,
+    )
     from genrec_tpu_torch.ops.buckets import hstu_log_bucket
 
     edges = {int(np.exp(0.693 * n)) for n in range(32)} | {2**k for k in range(31)}
@@ -918,11 +931,61 @@ def time_bucket_sweep(dev) -> dict:
     want = hstu_log_bucket(dt, 64).long()
     mismatched = int((got != want).sum())
     check(mismatched == 0, f"time buckets: {mismatched} of {B} differ from the CPU's")
-    return dict(values=B, mismatched=mismatched, top_bucket_reached=int(want.max()))
+    # The bf16 backward: key 1 padded and g_0 = 0, so pair (1, 0) is the one
+    # that carries a gradient, and its row's dtime partials are nonzero in
+    # its bucket only.
+    zb = torch.zeros((B, 1, 2, 8), dtype=torch.bfloat16, device=dev)
+    vb, gb = zb.clone(), zb.clone()
+    vb[:, :, 0, 0] = 1.0
+    gb[:, :, 1, 0] = 1.0
+    pad = torch.zeros((B, 2), dtype=torch.bool, device=dev)
+    pad[:, 1] = True
+    dtt = hstu_attention_bwd_partials_cuda(zb, zb.clone(), vb, ts, pad,
+                                           torch.zeros((1, 32), device=dev),
+                                           torch.ones((1, 64), device=dev), gb)[4]
+    got_b = torch.where((dtt != 0).sum(1) == 1, dtt.abs().argmax(1), -1).cpu()
+    mismatched_bwd = int((got_b != want).sum())
+    check(mismatched_bwd == 0,
+          f"backward time buckets: {mismatched_bwd} of {B} differ from the CPU's")
+    return dict(values=B, mismatched=mismatched, mismatched_bwd=mismatched_bwd,
+                top_bucket_reached=int(want.max()))
 
 
-def hstu_kernel_phase(dev, seed) -> dict:
-    """B5 and B6 against their plain versions and timed."""
+def hstu_ptxas(ptxas: dict) -> dict:
+    """ptxas -v numbers of the HSTU kernels, by kernel and instantiation
+    (the bf16 backward by its padded head width)."""
+    out = {}
+    for name, v in ptxas.items():
+        m = re.search(r"(hstu_\w+?_kernel)I(Li(\d+)E|f|13__nv_bfloat16)", name)
+        if m:
+            arg = m.group(3) or ("float" if m.group(2) == "f" else "bf16")
+            out[f"{m.group(1)}<{arg}>"] = v
+    return out
+
+
+def device_ms_by_kernel(fn, arg_sets, reps: int = 3) -> dict:
+    """Device time of one ``fn(**args)`` by CUDA kernel (torch.profiler over
+    eager calls on ``arg_sets``), in ms a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for args in arg_sets:
+                fn(**args)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            m = re.search(r"::(\w+)[<(]", e.key)
+            key = m.group(1) if m else e.key[:60]
+            out[key] = out.get(key, 0.0) + e.self_device_time_total / 1e3 / (reps * len(arg_sets))
+    return out
+
+
+def hstu_kernel_phase(dev, seed, ptxas) -> dict:
+    """B5 and B6 against their plain versions, the bf16 B6 giving equal bits
+    over two calls, and timed (B6 also split by kernel: its own and the
+    wrapper's sums); with their ptxas numbers."""
     from genrec_tpu_torch.kernels.hstu_attention import (
         hstu_attention_bwd_cuda,
         hstu_attention_bwd_ref,
@@ -962,6 +1025,7 @@ def hstu_kernel_phase(dev, seed) -> dict:
                          nbytes(*(v for v in base.values() if v is not None)))
     fwd_copies = [_fwd(x) for x in copies]
     bounds = hstu_bounds(base)
+    bit_equal_twice(hstu_attention_bwd_cuda, base, "B6 bf16 at the trainer's shape")
     out = {}
     for name, fn, ref, sets, errs in (
         ("hstu_attention_fwd", hstu_attention_fwd_cuda, hstu_attention_ref, fwd_copies, errs_f),
@@ -969,6 +1033,8 @@ def hstu_kernel_phase(dev, seed) -> dict:
     ):
         ms, plain_ms = device_ms(fn, sets), device_ms(ref, sets)
         bound_ms, bound_by = bounds["fwd" if name.endswith("fwd") else "bwd"]
+        extra = (dict(ms_by_kernel=device_ms_by_kernel(fn, sets), bit_equal_twice=True)
+                 if name.endswith("bwd") else {})
         out[name] = emit(
             "kernel", name=name, shape=dict(B=HSTU_BATCH, H=2, L=50, hd=32, dtype="bf16"),
             max_abs_err=max(errs.values()), max_abs_err_by_case=errs,
@@ -978,7 +1044,7 @@ def hstu_kernel_phase(dev, seed) -> dict:
             library="none: no single PyTorch call computes biased SiLU attention",
             timed_by="cuda_graph", bound_ms=bound_ms,
             bound_by=bound_by, work=bounds["work"], cold_copies=len(sets),
-            time_bucket_sweep=sweep,
+            time_bucket_sweep=sweep, ptxas=hstu_ptxas(ptxas), **extra,
         )
     return out
 
@@ -2243,8 +2309,10 @@ def main(argv=None) -> int:
     kernels = {"paged_attention_stats": kernel_phase(dev, args.seed, paged_ptx),
                "paged_attention_stats_quantized": quantized_kernel_phase(dev, args.seed,
                                                                          paged_ptx),
-               "rq_cascade": rq_kernel_phase(dev, args.seed)}
-    kernels.update(hstu_kernel_phase(dev, args.seed))
+               "rq_cascade": rq_kernel_phase(
+                   dev, args.seed, phases["build"]["libraries"]["rq_cascade"]["ptxas"])}
+    kernels.update(hstu_kernel_phase(
+        dev, args.seed, phases["build"]["libraries"]["hstu_attention"]["ptxas"]))
     ptxas = phases["build"]["libraries"]["fused_ce"]["ptxas"]
     kernels.update(ce_kernel_phase(dev, args.seed, ptxas))
     kernels.update(ce_lcrec_kernel_phase(dev, args.seed, ptxas))

@@ -25,14 +25,15 @@
 //   ds_ij = (g_i . v_j) sig(s) (1 + s (1 - sig(s))), exactly 0 where masked
 //   dq_i = sum_j ds_ij k_j,  dk_j = sum_i ds_ij q_i,  dv_j = sum_i silu(s_ij) g_i
 //   dpos[h, n] = sum over pairs in bucket n of ds, dtime likewise,
-// written per (b, h) and summed over b by the wrapper (fixed order).
+// written per (b, h) and summed over b by a second launch of the same call
+// (a warp per (h, bucket), rows in a fixed order).
 //
 // Bound on an H100 at the HSTU training shapes (B=128, H=2, L=50, hd=32,
 // bf16): memory for the forward (3.3 MB of q/k/v/out, ~1 us) and the
-// backward (~6.6 MB, ~2 us); the causal half of 4*L*L*hd*B*H FLOP is
+// backward (~5.8 MB, ~1.7 us); the causal half of 4*L*L*hd*B*H FLOP is
 // ~41 MFLOP, far below either. At these sizes launch and latency decide.
 //
-// Design (simple and right first; no wgmma/TMA):
+// Forward, and the backward of fp32 inputs (FFMA, simple and right first):
 //   - tiles of 32 queries x 32 keys; 128 threads (4 warps). Phase 1 of a
 //     tile: each warp takes query rows, one key per lane, and computes the
 //     masked score and its silu (backward: also ds) into shared memory.
@@ -56,10 +57,43 @@
 //     added in warp order at the end.
 //   - the TPU version's padding of L to the q block and of hd to 128 lanes
 //     is gone: rows and keys past L are skipped, hd keeps its width.
+//
+// Backward of bf16 inputs (hstu_bwd_tc_kernel, on the tensor cores):
+//   - one block of 4 warps per (b, h) holds q, g, k and v of a 64-position
+//     tile in shared memory (the trainer's L 50 is one tile; beyond, key
+//     tiles outer and query tiles inner, as above), copied with 16-byte
+//     cp.async (zero-filled past L and hd) while the tiles' timestamps,
+//     segments and padding come into registers; head dim padded to 16, 32,
+//     64 or 128 (a template parameter). ~92 KB a block at hd 32: 2 an SM,
+//     the trainer's 256 blocks in one wave;
+//   - S = Q.K^T and dP = G.V^T on mma.sync.m16n8k16 (bf16 in, fp32 sums),
+//     the warp owning 16 query rows and skipping the key tiles its rows
+//     cannot see; bias, masks, silu and dS in the sums' registers, every
+//     pair without branches so the pairs' chains overlap. The time bucket
+//     takes no log: e = floor(log2 |dt|) by a leading-zero count, then one
+//     comparison with an edge table found on the plain version's own
+//     function (time_bucket_edges): the double log on every pair was the
+//     costliest variant measured (ce_bwd_ab.py --mode hstu);
+//   - dq = dS.K with the sums' registers as the A operand (the m16n8
+//     accumulator layout is the m16n8k16 A layout); dk = dS^T.Q and dv =
+//     silu(S)^T.G by ldmatrix.trans of dS and silu(S) stored in shared
+//     memory, the warp owning 16 keys. dS and silu(S) enter every product
+//     as a bf16 hi + lo pair (two MMAs, ~16 bits of each), as the Pallas
+//     backward multiplies them in fp32; q, k, v and g are exact in bf16.
+//     One rounding was off by more than a tenth of the 1e-2 tolerance on
+//     the card, so it is not taken;
+//   - where L fits one tile, dq, dk and dv go from registers to the output;
+//     beyond, their sums across tiles go through an fp32 scratch that only
+//     the block touches (hstu_attention_bwd_scratch);
+//   - dpos: every visible pair reads position bucket 0, so one register a
+//     thread; dtime: a bin per (bucket, thread) in shared memory, each
+//     row's visible pairs added in runs of one bucket. No atomics: equal
+//     bits over two calls.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -69,6 +103,8 @@ constexpr int kTile = 32;  // queries and keys per tile
 constexpr int kMaxHeadDim = 128;
 constexpr int kOwn = kTile * kMaxHeadDim / kThreads;  // outputs a thread owns
 constexpr int kStride = kTile + 1;  // row stride of the score tiles
+
+constexpr int kTimeEdges = 32;  // edges[0] unused; a < 2^31 has e <= 30
 
 struct Params {
   const void* q;
@@ -81,7 +117,8 @@ struct Params {
   const float* ptab;           // (H, nb)
   const float* ttab;           // (H, ntb) or null
   void* out;                   // forward output (B, H, L, hd)
-  float* dq32;                 // backward: fp32 dq scratch (B, H, L, hd)
+  float* dq32;                 // backward: fp32 scratch, planes of (B, H, L, hd)
+  size_t plane;                // floats of one scratch plane (bf16 backward)
   void* dq;
   void* dk;
   void* dv;
@@ -89,6 +126,7 @@ struct Params {
   float* dtt;                  // (B*H, ntb) partials or null
   int H, L, hd, nb, ntb, max_exact;
   float log_ratio;             // log(max_position_distance / max_exact)
+  int time_edges[kTimeEdges];  // bf16 backward: see time_bucket_edges
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -130,6 +168,20 @@ __device__ __forceinline__ int time_bucket(int tq, int tk, int ntb) {
 }
 
 __device__ __forceinline__ float sigmoid(float s) { return 1.f / (1.f + expf(-s)); }
+
+// time_bucket without a log: as 0.693 < ln 2, the bucket of a = |dt| >= 1
+// is e = floor(log2 a) or e + 1 (below 2^31, e * (ln 2 / 0.693 - 1) < 1),
+// so it is e + (a >= edges[e + 1]), where edges[n] is the least a whose
+// bucket is n or more (kTimeEdges of them, from the plain version's own
+// function; the wrapper finds them and checks 2^(n-1) <= edges[n] <= 2^n).
+// a <= 1, and |INT_MIN|, which wraps negative, read bucket 0 as there.
+__device__ __forceinline__ int time_bucket_edges(int tq, int tk, const int* edges, int ntb) {
+  const int diff = (int)((unsigned)tq - (unsigned)tk);
+  const int a = (int)(diff < 0 ? 0u - (unsigned)diff : (unsigned)diff);
+  const int e = 31 - __clz(a > 1 ? a : 1);
+  const int b = e + (a >= edges[e + 1]);
+  return b < ntb - 1 ? b : ntb - 1;
+}
 
 // Shared memory common to both directions, carved from the front.
 struct Tiles {
@@ -446,6 +498,503 @@ __global__ void __launch_bounds__(kThreads) hstu_bwd_kernel(Params p) {
     }
 }
 
+// ---- the bf16 backward on the tensor cores (hstu_bwd_tc_kernel) ----
+
+constexpr int kTcTile = 64;      // query and key positions of a tile
+constexpr int kTcThreads = 128;  // 4 warps; in each product a warp owns 16 rows
+constexpr int kDsStride = kTcTile + 8;  // bf16 row stride of the dS and silu(S) planes
+constexpr int kBinStride = kTcThreads + 1;  // floats between time bins
+// dS and silu(S) enter the products as bf16 hi + lo planes (1: one rounding).
+constexpr int kPlanes = 2;
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes, of which the first src_bytes (16 or 0) come from src and the
+// rest are zero.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// ldmatrix: lane l gives the address of row l % 8 of matrix l / 8.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_u32(p)) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_u32(p)) : "memory");
+}
+
+// d += a . b on a 16 x 8 x 16 tile, bf16 in, fp32 sums.
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// Two fp32 values as bf16x2 planes: out[0] the rounded pair, out[1] the
+// rounded remainder (x - hi), which together carry ~16 bits of each.
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t (&out)[kPlanes]) {
+  const bf16 h0 = __float2bfloat16_rn(x0);
+  const bf16 h1 = __float2bfloat16_rn(x1);
+  out[0] = bf16x2_bits(h0, h1);
+  if (kPlanes > 1)
+    out[kPlanes - 1] = bf16x2_bits(__float2bfloat16_rn(x0 - __bfloat162float(h0)),
+                                   __float2bfloat16_rn(x1 - __bfloat162float(h1)));
+}
+
+// A fragments (rows of the warp x 16 keys, kPlanes planes) of the fp32
+// accumulators of key tiles 2kk and 2kk + 1: the m16n8 sums' layout is the
+// m16n8k16 A operand's, register for register.
+__device__ __forceinline__ void acc_to_a(const float (&c0)[4], const float (&c1)[4],
+                                         uint32_t (&a)[kPlanes][4]) {
+  uint32_t t0[kPlanes], t1[kPlanes], t2[kPlanes], t3[kPlanes];
+  split_pair(c0[0], c0[1], t0);  // row g, keys 2t, 2t + 1
+  split_pair(c0[2], c0[3], t1);  // row g + 8
+  split_pair(c1[0], c1[1], t2);  // row g, keys 8 + 2t, 8 + 2t + 1
+  split_pair(c1[2], c1[3], t3);  // row g + 8
+#pragma unroll
+  for (int pl = 0; pl < kPlanes; ++pl) {
+    a[pl][0] = t0[pl];
+    a[pl][1] = t1[pl];
+    a[pl][2] = t2[pl];
+    a[pl][3] = t3[pl];
+  }
+}
+
+// Smem layout of the block, in bytes from the front.
+template <int HDP>
+struct TcSmem {
+  static constexpr int kRow = HDP + 8;  // bf16 row stride of the q, g, k, v tiles
+  static constexpr int kMat = kTcTile * kRow * 2;
+  static constexpr int kPlane = kTcTile * kDsStride * 2;
+  static constexpr int kQ = 0, kG = kMat, kK = 2 * kMat, kV = 3 * kMat;
+  static constexpr int kDs = 4 * kMat;               // kPlanes planes of dS
+  static constexpr int kAt = kDs + kPlanes * kPlane;  // kPlanes planes of silu(S)
+  static constexpr int kMeta = kAt + kPlanes * kPlane;  // kTcTile int4 and int2, 4 floats
+  static constexpr int kTtab = kMeta + kTcTile * 24 + 16 + kTimeEdges * 4;
+  static size_t bytes(int ntb) {
+    return (size_t)kTtab + (size_t)ntb * 4 + (size_t)ntb * kBinStride * 4;
+  }
+};
+
+// Rows [r0, r0 + kTcTile) of a (L, hd) bf16 matrix into a tile of HDP
+// columns with row stride kRow, rows past L and columns past hd zero.
+template <int HDP>
+__device__ void load_tile(bf16* dst, const bf16* src, int r0, int L, int hd) {
+  constexpr int kRow = TcSmem<HDP>::kRow;
+  if (hd % 8 == 0) {  // 16-byte rows: cp.async, zero-filling what is outside
+    constexpr int kChunks = HDP / 8;
+    for (int x = threadIdx.x; x < kTcTile * kChunks; x += kTcThreads) {
+      const int r = x / kChunks;
+      const int c = x - r * kChunks;
+      const bool in = r0 + r < L && 8 * c < hd;
+      cp_async_16(dst + r * kRow + 8 * c, in ? src + (size_t)(r0 + r) * hd + 8 * c : src,
+                  in ? 16 : 0);
+    }
+  } else {
+    for (int x = threadIdx.x; x < kTcTile * HDP; x += kTcThreads) {
+      const int r = x / HDP;
+      const int d = x - r * HDP;
+      dst[r * kRow + d] = (r0 + r < L && d < hd) ? src[(size_t)(r0 + r) * hd + d]
+                                                 : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// One 16-row x 8-column sum fragment (rows r and r + 8 of `row0`, columns
+// 2t, 2t + 1 of `col0`) of a (L, hd) output: added to the fp32 scratch
+// unless `first`, then written in bf16 if `last`, else to the scratch; a
+// column pair as one 4- or 8-byte store where hd is even.
+__device__ __forceinline__ void emit_frag(const float (&acc)[4], int row0, int col0, int lane,
+                                          int L, int hd, bool first, bool last, float* scratch,
+                                          bf16* out) {
+  const int col = col0 + 2 * (lane & 3);
+  if (col >= hd) return;
+  const bool pair = hd % 2 == 0;  // then col + 1 < hd too
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + (lane >> 2) + 8 * half;
+    if (row >= L) continue;
+    const size_t o = (size_t)row * hd + col;
+    float x0 = acc[2 * half], x1 = acc[2 * half + 1];
+    if (pair) {
+      if (!first) {
+        const float2 s2 = *reinterpret_cast<const float2*>(scratch + o);
+        x0 = s2.x + x0;
+        x1 = s2.y + x1;
+      }
+      if (last)
+        *reinterpret_cast<uint32_t*>(out + o) =
+            bf16x2_bits(__float2bfloat16_rn(x0), __float2bfloat16_rn(x1));
+      else
+        *reinterpret_cast<float2*>(scratch + o) = make_float2(x0, x1);
+    } else {
+      for (int e = 0; e < 2 && col + e < hd; ++e) {
+        float x = e ? x1 : x0;
+        if (!first) x = scratch[o + e] + x;
+        if (last) out[o + e] = __float2bfloat16_rn(x);
+        else scratch[o + e] = x;
+      }
+    }
+  }
+}
+
+// Shared memory allows 2 blocks an SM at hd <= 64; saying so lets ptxas
+// keep its registers (aiming at 3 blocks, it spilled at hd 64 and 128).
+template <int HDP>
+__global__ void __launch_bounds__(kTcThreads, 2) hstu_bwd_tc_kernel(Params p) {
+  using Sm = TcSmem<HDP>;
+  constexpr int kRow = Sm::kRow;
+  constexpr int kDimTiles = HDP / 8;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(tc_smem + Sm::kQ);
+  bf16* g_s = reinterpret_cast<bf16*>(tc_smem + Sm::kG);
+  bf16* k_s = reinterpret_cast<bf16*>(tc_smem + Sm::kK);
+  bf16* v_s = reinterpret_cast<bf16*>(tc_smem + Sm::kV);
+  bf16* ds_s = reinterpret_cast<bf16*>(tc_smem + Sm::kDs);
+  bf16* at_s = reinterpret_cast<bf16*>(tc_smem + Sm::kAt);
+  int4* km = reinterpret_cast<int4*>(tc_smem + Sm::kMeta);  // key tile: time, segment, masked
+  int2* qm = reinterpret_cast<int2*>(km + kTcTile);           // query tile: time, segment
+  float* red = reinterpret_cast<float*>(qm + kTcTile);        // 4 warp sums
+  int* edges = reinterpret_cast<int*>(red + 4);          // kTimeEdges time-bucket edges
+  float* ttab = reinterpret_cast<float*>(tc_smem + Sm::kTtab);
+  const bool use_time = p.ttab && p.ts;
+  const int ntb = use_time ? p.ntb : 0;
+  float* bins = ttab + ntb;  // [ntb][kBinStride]: a bin per thread per time bucket
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int L = p.L;
+  const int hd = p.hd;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g8 = lane >> 2;
+  const int t4 = lane & 3;
+
+  // Every visible pair has key <= query, so rel <= 0 reads the bucket of 0.
+  const int pb0 = pos_bucket(0, p);
+  float pbias = 0.f;
+  float dpos = 0.f;  // this thread's sum of ds over its visible pairs
+
+  const size_t base = (size_t)bh * L * hd;
+  const bf16* q = static_cast<const bf16*>(p.q) + base;
+  const bf16* k = static_cast<const bf16*>(p.k) + base;
+  const bf16* v = static_cast<const bf16*>(p.v) + base;
+  const bf16* g = static_cast<const bf16*>(p.g) + base;
+  bf16* dq_out = static_cast<bf16*>(p.dq) + base;
+  bf16* dk_out = static_cast<bf16*>(p.dk) + base;
+  bf16* dv_out = static_cast<bf16*>(p.dv) + base;
+  // fp32 sums across tiles, used only where L > kTcTile
+  float* dq32 = p.dq32 + base;
+  float* dk32 = p.dq32 + p.plane + base;
+  float* dv32 = p.dq32 + 2 * p.plane + base;
+
+  const int nt = (L + kTcTile - 1) / kTcTile;
+  for (int kt = 0; kt < nt; ++kt) {
+    const int k0 = kt * kTcTile;
+    for (int qt = kt; qt < nt; ++qt) {  // earlier query tiles see none of these keys
+      const int q0 = qt * kTcTile;
+      __syncthreads();  // the previous pair's tiles and planes are consumed
+      if (qt == kt) {
+        load_tile<HDP>(k_s, k, k0, L, hd);
+        load_tile<HDP>(v_s, v, k0, L, hd);
+      }
+      load_tile<HDP>(q_s, q, q0, L, hd);
+      load_tile<HDP>(g_s, g, q0, L, hd);
+      // The tiles' metadata, loaded into registers while the copies fly
+      // (thread i: query q0 + i, key k0 + i; keys past L are masked).
+      int2 mq = make_int2(0, 0);
+      int4 mk = make_int4(0, 0, 1, 0);
+      if (tid < kTcTile) {
+        const int qi = q0 + tid;
+        const int kj = k0 + tid;
+        if (qi < L) mq = make_int2(use_time ? p.ts[b * L + qi] : 0, p.seg ? p.seg[b * L + qi] : 0);
+        if (qt == kt && kj < L)
+          mk = make_int4(use_time ? p.ts[b * L + kj] : 0, p.seg ? p.seg[b * L + kj] : 0,
+                         p.pad[b * L + kj] != 0, 0);
+      }
+      if (kt == 0 && qt == 0) {  // once: the time table, the bins, the edges, the bias
+        float tv[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r)  // ntb <= 255
+          tv[r] = tid + r * kTcThreads < ntb ? p.ttab[h * p.ntb + tid + r * kTcThreads] : 0.f;
+        pbias = p.ptab[h * p.nb + pb0];
+        for (int i = tid; i < ntb * kBinStride; i += kTcThreads) bins[i] = 0.f;
+        if (tid < kTimeEdges) edges[tid] = p.time_edges[tid];
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          if (tid + r * kTcThreads < ntb) ttab[tid + r * kTcThreads] = tv[r];
+      }
+      if (tid < kTcTile) {
+        qm[tid] = mq;
+        if (qt == kt) km[tid] = mk;
+      }
+      cp_async_wait_all();
+      __syncthreads();
+
+      // Scores: the warp's 16 query rows against the tile's 64 keys, S =
+      // Q.K^T and dP = G.V^T, then silu(S) and dS in place.
+      const int rw = 16 * warp;  // the warp's first row in the tile
+      const int qmax = min(q0 + rw + 15, L - 1);  // its last query that exists
+      float sa[8][4], pa[8][4];
+#pragma unroll
+      for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sa[nn][e] = pa[nn][e] = 0.f;
+      if (q0 + rw < L) {
+#pragma unroll
+        for (int kk = 0; kk < HDP / 16; ++kk) {
+          uint32_t aq[4], ag[4];
+          const int ar = rw + (lane & 7) + ((lane >> 3) & 1) * 8;
+          const int ac = 16 * kk + (lane >> 4) * 8;
+          ldsm_x4(aq, q_s + ar * kRow + ac);
+          ldsm_x4(ag, g_s + ar * kRow + ac);
+#pragma unroll
+          for (int nn = 0; nn < 8; ++nn) {
+            if (k0 + 8 * nn <= qmax) {  // causal: later keys are all masked
+              uint32_t bk[2], bv[2];
+              const int br = 8 * nn + (lane & 7);
+              const int bc = 16 * kk + ((lane >> 3) & 1) * 8;
+              ldsm_x2(bk, k_s + br * kRow + bc);
+              ldsm_x2(bv, v_s + br * kRow + bc);
+              mma_16816(sa[nn], aq, bk);
+              mma_16816(pa[nn], ag, bv);
+            }
+          }
+        }
+      }
+      // Every pair of the n-tiles the causal mask leaves, without branches,
+      // so the pairs' chains (bucket, bias, exp, reciprocal) overlap; the
+      // visible ones are kept. The bucket of each pair, 255 where masked,
+      // is packed 4 to a register.
+      const bool rows_in = q0 + rw < L;
+      const int2 qa = qm[rw + g8], qb = qm[rw + g8 + 8];
+      uint32_t tbp[8];
+#pragma unroll
+      for (int nn = 0; nn < 8; ++nn) {
+        tbp[nn] = 0xffffffffu;
+        if (rows_in && k0 + 8 * nn <= qmax) {
+          const int j0 = 8 * nn + 2 * t4;
+          const int4 ka = km[j0], kb = km[j0 + 1];
+          uint32_t packed = 0;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int2 qr = (e >> 1) ? qb : qa;
+            const int4 kr = (e & 1) ? kb : ka;
+            const int qi = q0 + rw + g8 + 8 * (e >> 1);
+            const int kj = k0 + j0 + (e & 1);
+            const bool vis = (qi < L) & (kj <= qi) & (kr.z == 0) & (qr.y == kr.y);
+            float s = sa[nn][e] + pbias;
+            int tb = 0;
+            if (use_time) {
+              tb = time_bucket_edges(qr.x, kr.x, edges, p.ntb);
+              s = s + ttab[tb];
+            }
+            const float sig = sigmoid(s);
+            const float at = s * sig;
+            const float ds = pa[nn][e] * sig * (1.f + s * (1.f - sig));
+            sa[nn][e] = vis ? at : 0.f;  // masked pairs: exactly 0, in no bin
+            pa[nn][e] = vis ? ds : 0.f;
+            packed |= (uint32_t)(vis ? tb : 255) << (8 * e);
+          }
+          tbp[nn] = packed;
+        }
+      }
+      // The sums of ds: dpos in pair order; dtime row by row, in runs of
+      // one bucket (keys in order meet few buckets), each run added to its
+      // bin once.
+#pragma unroll
+      for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dpos += pa[nn][e];
+      if (use_time) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          int run_tb = 255;
+          float run = 0.f;
+#pragma unroll
+          for (int nn = 0; nn < 8; ++nn) {
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int e = 2 * half + c;
+              const int tb = (tbp[nn] >> (8 * e)) & 255;
+              if (tb != 255) {
+                if (tb != run_tb) {
+                  if (run_tb != 255) bins[run_tb * kBinStride + tid] += run;
+                  run_tb = tb;
+                  run = 0.f;
+                }
+                run += pa[nn][e];
+              }
+            }
+          }
+          if (run_tb != 255) bins[run_tb * kBinStride + tid] += run;
+        }
+      }
+
+      // dq of the warp's rows: dS (16 x 64 keys) . K (64 keys x HDP), the A
+      // operand straight from the sums' registers.
+      {
+        uint32_t a[4][kPlanes][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) acc_to_a(pa[2 * kk], pa[2 * kk + 1], a[kk]);
+#pragma unroll
+        for (int dn = 0; dn < kDimTiles; ++dn) {
+          float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            if (q0 + rw < L && k0 + 16 * kk <= qmax) {
+              uint32_t bk[2];
+              ldsm_x2_trans(bk, k_s + (16 * kk + (lane & 15)) * kRow + 8 * dn);
+#pragma unroll
+              for (int pl = 0; pl < kPlanes; ++pl) mma_16816(acc, a[kk][pl], bk);
+            }
+          }
+          // query tile qt meets key tiles 0 .. qt: first at kt 0, last at qt
+          emit_frag(acc, q0 + rw, 8 * dn, lane, L, hd, kt == 0, kt == qt, dq32, dq_out);
+        }
+      }
+
+      // The planes of dS and silu(S) for the key-owned products.
+#pragma unroll
+      for (int nn = 0; nn < 8; ++nn) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int o = (rw + g8 + 8 * half) * kDsStride + 8 * nn + 2 * t4;
+          uint32_t d2[kPlanes], a2[kPlanes];
+          split_pair(pa[nn][2 * half], pa[nn][2 * half + 1], d2);
+          split_pair(sa[nn][2 * half], sa[nn][2 * half + 1], a2);
+#pragma unroll
+          for (int pl = 0; pl < kPlanes; ++pl) {
+            *reinterpret_cast<uint32_t*>(ds_s + pl * kTcTile * kDsStride + o) = d2[pl];
+            *reinterpret_cast<uint32_t*>(at_s + pl * kTcTile * kDsStride + o) = a2[pl];
+          }
+        }
+      }
+      __syncthreads();
+
+      // dk and dv of the warp's 16 keys: dS^T . Q and silu(S)^T . G over
+      // the tile's queries, A by transposing loads of the planes.
+      const int kw = k0 + rw;  // the warp's first key
+      if (kw < L) {
+        // query tile qt is key tile kt's last at nt - 1, first at kt
+        const bool first = qt == kt, last = qt == nt - 1;
+#pragma unroll
+        for (int which = 0; which < 2; ++which) {
+          const bf16* plane = which == 0 ? ds_s : at_s;
+          const bf16* rhs = which == 0 ? q_s : g_s;
+          uint32_t a[4][kPlanes][4];
+          bool live[4];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            live[kk] = q0 + 16 * kk < L && q0 + 16 * kk + 15 >= kw;
+            if (live[kk]) {
+              const int r = 16 * kk + (lane & 7) + (lane >> 4) * 8;
+              const int c = rw + ((lane >> 3) & 1) * 8;
+#pragma unroll
+              for (int pl = 0; pl < kPlanes; ++pl)
+                ldsm_x4_trans(a[kk][pl], plane + pl * kTcTile * kDsStride + r * kDsStride + c);
+            }
+          }
+#pragma unroll
+          for (int dn = 0; dn < kDimTiles; dn += 2) {  // two dim tiles a B load
+            float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              if (live[kk]) {
+                uint32_t b4[4];  // matrices: (k 0-7, dn), (k 8-15, dn), then dn + 1
+                ldsm_x4_trans(b4, rhs + (16 * kk + (lane & 15)) * kRow + 8 * dn + (lane >> 4) * 8);
+                const uint32_t b0[2] = {b4[0], b4[1]}, b1[2] = {b4[2], b4[3]};
+#pragma unroll
+                for (int pl = 0; pl < kPlanes; ++pl) {
+                  mma_16816(acc[0], a[kk][pl], b0);
+                  mma_16816(acc[1], a[kk][pl], b1);
+                }
+              }
+            }
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+              emit_frag(acc[j], kw, 8 * (dn + j), lane, L, hd, first, last,
+                        which == 0 ? dk32 : dv32, which == 0 ? dk_out : dv_out);
+          }
+        }
+      }
+    }
+  }
+
+  // The tables: dpos gets every visible ds in bucket pb0 (a fixed xor tree
+  // in the warp, the warps in order), dtime each bucket's bins in thread
+  // order, 4 partial sums.
+  float s = dpos;
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  __syncthreads();
+  if (lane == 0) red[warp] = s;
+  __syncthreads();
+  const float total = (red[0] + red[1]) + (red[2] + red[3]);
+  for (int n = tid; n < p.nb; n += kTcThreads)
+    p.dpt[(size_t)bh * p.nb + n] = n == pb0 ? total : 0.f;  // no other bucket is visible
+  for (int n = tid; n < ntb; n += kTcThreads) {
+    const float* row = bins + n * kBinStride;
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int i = 0; i < kTcThreads; i += 4)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) part[j] += row[i + j];
+    p.dtt[(size_t)bh * ntb + n] = (part[0] + part[1]) + (part[2] + part[3]);
+  }
+}
+
+// The per-(b, h) table sums summed over b: a warp per (h, bucket) of dpos
+// then dtime, lane j adding rows b = j, j + 32, ... in order, then a fixed
+// xor tree.
+__global__ void __launch_bounds__(256) hstu_tables_sum_kernel(Params p, float* dpos,
+                                                               float* dtime, int B) {
+  const int w = (blockIdx.x * 256 + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  const int n_pos = p.H * p.nb;
+  if (w >= n_pos + p.H * p.ntb) return;
+  const bool pos = w < n_pos;
+  const int x = pos ? w : w - n_pos;
+  const int width = pos ? p.nb : p.ntb;
+  const int h = x / width;
+  const float* part = (pos ? p.dpt : p.dtt) + (size_t)h * width + (x - h * width);
+  float s = 0.f;
+  for (int b = lane; b < B; b += 32) s += part[(size_t)b * p.H * width];
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if (lane == 0) (pos ? dpos : dtime)[x] = s;
+}
+
 size_t meta_bytes(const Params& p) {
   return (size_t)(p.nb + p.ntb) * sizeof(float) + (size_t)5 * kTile * sizeof(int);
 }
@@ -473,6 +1022,13 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
   }
   kernel<<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+static_assert(kTcThreads == kThreads, "launch() starts kThreads threads a block");
+
+template <int HDP>
+cudaError_t launch_tc(dim3 grid, cudaStream_t stream, const Params& p) {
+  return launch(hstu_bwd_tc_kernel<HDP>, grid, TcSmem<HDP>::bytes(p.ntb), stream, p);
 }
 
 Params make_params(const void* q, const void* k, const void* v, const void* ts,
@@ -525,16 +1081,26 @@ extern "C" int hstu_attention_fwd(const void* q, const void* k, const void* v,
   return (int)err;
 }
 
-// dq32: fp32 scratch (B, H, L, hd), fully written; dq may alias it when
-// the inputs are float. dpt (B*H, nb) and dtt (B*H, ntb, null without a
-// time table) receive the per-(b, h) bucket sums.
+// The fp32 scratch the backward takes, in floats: fp32 inputs, dq's sums
+// (B, H, L, hd), which dq may alias; bf16 inputs, the sums of dq, dk and
+// dv across tiles, three such planes where L > kTcTile, else none.
+extern "C" long long hstu_attention_bwd_scratch(int B, int H, int L, int hd, int bf16) {
+  const long long n = (long long)B * H * L * hd;
+  return bf16 ? (L > kTcTile ? 3 * n : 0) : n;
+}
+
+// dq32: the scratch above (null when it is empty). dpt (B*H, nb) and dtt
+// (B*H, ntb, null without a time table) receive the per-(b, h) bucket
+// sums; where dpos is not null, a second launch sums them over b into
+// dpos (H, nb) and dtime (H, ntb). time_edges: kTimeEdges ints in host
+// memory (time_bucket_edges), read by the bf16 kernel.
 extern "C" int hstu_attention_bwd(const void* q, const void* k, const void* v,
                                   const void* g, const void* ts, const void* pad,
                                   const void* seg, const void* ptab, const void* ttab,
                                   void* dq32, void* dq, void* dk, void* dv, void* dpt,
-                                  void* dtt, int B, int H, int L, int hd, int nb, int ntb,
-                                  int max_exact, float log_ratio, int bf16, void* stream,
-                                  int device) {
+                                  void* dtt, void* dpos, void* dtime, const int* time_edges,
+                                  int B, int H, int L, int hd, int nb, int ntb, int max_exact,
+                                  float log_ratio, int bf16, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || H == 0 || L == 0) return 0;
@@ -550,9 +1116,20 @@ extern "C" int hstu_attention_bwd(const void* q, const void* k, const void* v,
   p.dtt = ttab ? static_cast<float*>(dtt) : nullptr;
   const dim3 grid(B * H);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = bf16 ? launch(hstu_bwd_kernel<__nv_bfloat16>, grid, bwd_smem(p), st, p)
-             : launch(hstu_bwd_kernel<float>, grid, bwd_smem(p), st, p);
-  return (int)err;
+  p.plane = (size_t)B * H * L * hd;
+  if (time_edges)
+    for (int i = 0; i < kTimeEdges; ++i) p.time_edges[i] = time_edges[i];
+  if (!bf16) err = launch(hstu_bwd_kernel<float>, grid, bwd_smem(p), st, p);
+  else if (p.ntb > 255) err = cudaErrorInvalidValue;  // buckets are packed in bytes
+  else if (hd <= 16) err = launch_tc<16>(grid, st, p);
+  else if (hd <= 32) err = launch_tc<32>(grid, st, p);
+  else if (hd <= 64) err = launch_tc<64>(grid, st, p);
+  else err = launch_tc<128>(grid, st, p);
+  if (err != cudaSuccess || !dpos) return (int)err;
+  const int warps = H * (nb + p.ntb);
+  hstu_tables_sum_kernel<<<(warps + 7) / 8, 256, 0, st>>>(p, static_cast<float*>(dpos),
+                                                           static_cast<float*>(dtime), B);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* hstu_attention_error_string(int code) {

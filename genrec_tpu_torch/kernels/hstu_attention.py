@@ -44,15 +44,23 @@ MAX_HEAD_DIM = 128
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = load_library("hstu_attention")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Type the entry points of a build of ``csrc/hstu_attention.cu``."""
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.hstu_attention_fwd.argtypes = [ptr] * 9 + [i32] * 7 + [f32, i32, ptr, i32]
     lib.hstu_attention_fwd.restype = i32
-    lib.hstu_attention_bwd.argtypes = [ptr] * 15 + [i32] * 7 + [f32, i32, ptr, i32]
+    lib.hstu_attention_bwd.argtypes = [ptr] * 18 + [i32] * 7 + [f32, i32, ptr, i32]
     lib.hstu_attention_bwd.restype = i32
+    lib.hstu_attention_bwd_scratch.argtypes = [i32] * 5
+    lib.hstu_attention_bwd_scratch.restype = ctypes.c_longlong
+    lib.hstu_attention_error_string.argtypes = [i32]
+    lib.hstu_attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    return bind(load_library("hstu_attention"))
 
 
 def _ptr(t):
@@ -97,6 +105,28 @@ def _checked(q, k, v, timestamps, padding_mask, pos_table, time_table, segment_i
     return B, H, L, hd, pos_table.shape[1], ntb, (time_table if use_time else None)
 
 
+TIME_EDGES = 32  # kTimeEdges of the source
+
+
+@functools.cache
+def time_bucket_edges() -> ctypes.Array:
+    """edges[n], n = 1..31: the least |dt| whose ``hstu_log_bucket`` (not
+    clipped) is n or more, found by bisection on the plain function itself;
+    edges[0] = 0. The bf16 backward kernel reads a bucket as e + (|dt| >=
+    edges[e + 1]) with e = floor(log2 |dt|), which holds because 2^(n-1) <=
+    edges[n] <= 2^n (checked here)."""
+    n = torch.arange(1, TIME_EDGES, dtype=torch.int64)
+    lo = torch.ones_like(n)  # bucket(lo) < n <= bucket(hi)
+    hi = torch.full_like(n, 2**31 - 1)
+    while bool((hi - lo > 1).any()):
+        mid = (lo + hi) // 2
+        up = hstu_log_bucket(mid.to(torch.int32), 2 * TIME_EDGES).long() >= n
+        hi, lo = torch.where(up, mid, hi), torch.where(up, lo, mid)
+    if not bool(((2 ** (n - 1) <= hi) & (hi <= 2**n)).all()):
+        raise RuntimeError(f"time-bucket edges {hi.tolist()} leave [2^(n-1), 2^n]")
+    return (ctypes.c_int * TIME_EDGES)(0, *hi.tolist())
+
+
 def _bucket_args(nb: int, max_position_distance: int) -> tuple[int, float]:
     max_exact = nb // 2
     return max_exact, float(math.log(max_position_distance / max_exact))
@@ -133,36 +163,59 @@ def hstu_attention_fwd_cuda(q, k, v, timestamps, padding_mask, pos_table, time_t
 hstu_attention_fwd_cuda.launches = 0
 
 
+def _bwd(q, k, v, timestamps, padding_mask, pos_table, time_table, g,
+         max_position_distance, segment_ids, sums: bool):
+    """One call of the C backward: (dq, dk, dv, dpos, dtime or None), the
+    tables summed over b (sums) or per (b, h) row."""
+    B, H, L, hd, nb, ntb, ttab = _checked(
+        q, k, v, timestamps, padding_mask, pos_table, time_table, segment_ids, g=g)
+    bf16 = int(q.dtype == torch.bfloat16)
+    lib = _library()
+    n = lib.hstu_attention_bwd_scratch(B, H, L, hd, bf16)
+    dev = q.device
+    scratch = torch.empty((n,), dtype=torch.float32, device=dev) if n else None
+    dq = torch.empty_like(q) if bf16 or scratch is None else scratch.view(q.shape)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dpt = torch.empty((B * H, nb), dtype=torch.float32, device=dev)
+    dtt = torch.empty((B * H, ntb), dtype=torch.float32, device=dev) if ttab is not None else None
+    dpos = torch.empty((H, nb), dtype=torch.float32, device=dev) if sums else None
+    dtime = (torch.empty((H, ntb), dtype=torch.float32, device=dev)
+             if sums and ttab is not None else None)
+    max_exact, log_ratio = _bucket_args(nb, max_position_distance)
+    rc = lib.hstu_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        _ptr(timestamps if ttab is not None else None), padding_mask.data_ptr(),
+        _ptr(segment_ids), pos_table.data_ptr(), _ptr(ttab),
+        _ptr(scratch), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        dpt.data_ptr(), _ptr(dtt), _ptr(dpos), _ptr(dtime), time_bucket_edges(),
+        B, H, L, hd, nb, ntb, max_exact, log_ratio, bf16, *launch_context(q),
+    )
+    raise_on_error(lib, "hstu_attention", "hstu_attention_bwd", rc)
+    hstu_attention_bwd_cuda.launches += 1
+    return (dq, dk, dv, dpos, dtime) if sums else (dq, dk, dv, dpt, dtt)
+
+
 def hstu_attention_bwd_cuda(q, k, v, timestamps, padding_mask, pos_table, time_table, g,
                             max_position_distance: int = 128, segment_ids=None):
     """Kernel twin of ``hstu_attention_bwd_ref``: (dq, dk, dv, dpos_table,
     dtime_table or None), gradients in q's dtype and tables float32.
     Takes what ``hstu_attention_fwd_cuda`` takes plus g (B, H, L, hd) in
-    q's dtype. ``hstu_attention_bwd_cuda.launches`` counts the launches;
-    the per-(b, h) table partials are summed over the batch afterwards."""
-    B, H, L, hd, nb, ntb, ttab = _checked(
-        q, k, v, timestamps, padding_mask, pos_table, time_table, segment_ids, g=g)
-    dq32 = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    dq = dq32 if q.dtype == torch.float32 else torch.empty_like(q)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    dpt = torch.empty((B * H, nb), dtype=torch.float32, device=q.device)
-    dtt = (torch.empty((B * H, ntb), dtype=torch.float32, device=q.device)
-           if ttab is not None else None)
-    max_exact, log_ratio = _bucket_args(nb, max_position_distance)
-    lib = _library()
-    rc = lib.hstu_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-        _ptr(timestamps if ttab is not None else None), padding_mask.data_ptr(),
-        _ptr(segment_ids), pos_table.data_ptr(), _ptr(ttab),
-        dq32.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        dpt.data_ptr(), _ptr(dtt),
-        B, H, L, hd, nb, ntb, max_exact, log_ratio, int(q.dtype == torch.bfloat16),
-        *launch_context(q),
-    )
-    raise_on_error(lib, "hstu_attention", "hstu_attention_bwd", rc)
-    hstu_attention_bwd_cuda.launches += 1
-    dtime = dtt.view(B, H, ntb).sum(0) if dtt is not None else None
-    return dq, dk, dv, dpt.view(B, H, nb).sum(0), dtime
+    q's dtype; bf16 inputs run the tensor-core kernel, float32 inputs the
+    FFMA kernel, and a second launch of the same call sums the tables'
+    per-(b, h) rows over b. ``hstu_attention_bwd_cuda.launches`` counts
+    the calls."""
+    return _bwd(q, k, v, timestamps, padding_mask, pos_table, time_table, g,
+                max_position_distance, segment_ids, sums=True)
+
+
+def hstu_attention_bwd_partials_cuda(q, k, v, timestamps, padding_mask, pos_table,
+                                     time_table, g, max_position_distance: int = 128,
+                                     segment_ids=None):
+    """``hstu_attention_bwd_cuda`` without the sum over b: (dq, dk, dv, dpos
+    (B*H, nb), dtime (B*H, ntb) or None), the tables of each (b, h) row
+    (a row's time buckets can be read from them)."""
+    return _bwd(q, k, v, timestamps, padding_mask, pos_table, time_table, g,
+                max_position_distance, segment_ids, sums=False)
 
 
 hstu_attention_bwd_cuda.launches = 0

@@ -39,13 +39,19 @@ from genrec_tpu_torch.kernels.build import (
 )
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = load_library("rq_cascade")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Type the entry point of a build of ``csrc/rq_cascade.cu``."""
     fn = lib.rq_cascade_f32
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int]
     fn.restype = ctypes.c_int
+    lib.rq_cascade_error_string.argtypes = [ctypes.c_int]
+    lib.rq_cascade_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    return bind(load_library("rq_cascade"))
 
 
 def rq_cascade_cuda(x: torch.Tensor, codebooks: torch.Tensor):

@@ -14,7 +14,9 @@ runs an online softmax over 64-position stages, the plain version one max
 and one sum). The HSTU bias-table gradients sum every visible pair of the
 batch, so they get rtol 1e-4. With bfloat16 inputs both sides accumulate
 in fp32 and round the result to bfloat16, where another order can move
-the rounding by one bfloat16 step: rtol and atol 1e-2. The int8 paged
+the rounding by one bfloat16 step: rtol and atol 1e-2 (the bf16 HSTU
+backward multiplies dS and silu(S) as bf16 hi + lo pairs on the tensor
+cores, ~16 bits of each, so the same holds). The int8 paged
 kernel dequantises with the same product as its plain version, so it
 too is held at 1e-5. The residual cascade's ids are held exactly outside
 near ties (rows whose two nearest codewords are within 1e-5 x max |dist|,
@@ -109,7 +111,10 @@ def test_kernel_wrapper_refuses_what_it_does_not_take(card):
     assert paged_attention_stats_cuda.launches == before
 
 
-def _hstu_inputs(dev, B, H, L, hd, dtype, use_time, use_seg, seed=0):
+def _hstu_inputs(dev, B, H, L, hd, dtype, use_time, use_seg, seed=0, seg_edge=None):
+    """Left padding on row 0 and an all-pad last row; with ``use_seg``
+    packed rows of 2-11 tokens, one segment ending at ``seg_edge`` where
+    given."""
     rng = np.random.default_rng(seed)
     t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
     f = lambda *s: t((rng.normal(size=s) * 0.5).astype(np.float32)).to(dtype)  # noqa: E731
@@ -123,6 +128,8 @@ def _hstu_inputs(dev, B, H, L, hd, dtype, use_time, use_seg, seed=0):
             at, s = 0, 1
             while at < L - 3:
                 n = int(rng.integers(2, 12))
+                if seg_edge is not None and at < seg_edge < at + n:
+                    n = seg_edge - at
                 seg[b, at:at + n] = s
                 at, s = at + n, s + 1
         pad = seg == 0
@@ -142,14 +149,21 @@ def _tol(dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("shape,use_time,use_seg", [
-    ((4, 2, 50, 32), True, True),    # the trainer's layout: packed, timestamps
-    ((4, 2, 50, 32), False, False),  # no timestamps, left padding
-    ((3, 1, 77, 24), True, False),   # odd L over three 32-position tiles
-    ((2, 2, 40, 128), True, True),   # hd at its limit
+@pytest.mark.parametrize("shape,use_time,use_seg,seg_edge", [
+    ((4, 2, 50, 32), True, True, None),    # the trainer's layout: packed, timestamps
+    ((4, 2, 50, 32), False, False, None),  # no timestamps, left padding
+    ((3, 1, 77, 24), True, False, None),   # odd L over three 32-position tiles
+    ((2, 2, 40, 128), True, True, None),   # hd at its limit
+    ((3, 2, 64, 32), True, True, None),    # one full 64-position tile (bf16 backward)
+    ((3, 1, 65, 32), True, False, None),   # one position past it
+    ((3, 1, 128, 32), True, True, 64),     # two tiles, a segment ending on their edge
+    ((2, 1, 200, 32), True, True, None),   # four tiles, the last ragged
+    ((3, 2, 50, 16), True, True, None),    # hd 16
+    ((2, 1, 30, 12), False, True, None),   # hd not a multiple of 8: no 16-byte copies
+    ((2, 1, 30, 13), True, True, None),    # odd hd: no paired stores either
 ])
-def test_hstu_kernels_match_plain_versions(card, shape, use_time, use_seg, dtype):
-    x = _hstu_inputs(card, *shape, dtype, use_time, use_seg)
+def test_hstu_kernels_match_plain_versions(card, shape, use_time, use_seg, seg_edge, dtype):
+    x = _hstu_inputs(card, *shape, dtype, use_time, use_seg, seg_edge=seg_edge)
     fwd = {k: v for k, v in x.items() if k != "g"}
     launches = (ha.hstu_attention_fwd_cuda.launches, ha.hstu_attention_bwd_cuda.launches)
     got = ha.hstu_attention_fwd_cuda(**fwd)
@@ -166,6 +180,48 @@ def test_hstu_kernels_match_plain_versions(card, shape, use_time, use_seg, dtype
             continue
         tol = dict(rtol=1e-4, atol=1e-4) if name.startswith(("dpos", "dtime")) else _tol(dtype)
         torch.testing.assert_close(g, w, msg=name, **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_hstu_backward_gives_equal_bits_over_two_calls(card, dtype):
+    x = _hstu_inputs(card, 128, 2, 50, 32, dtype, True, True, seed=3)
+    a, b = ha.hstu_attention_bwd_cuda(**x), ha.hstu_attention_bwd_cuda(**x)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, w) for u, w in zip(a, b))
+
+
+def _time_sweep_dts():
+    """Every |dt| within 300 of each time-bucket edge exp(0.693 n) and of
+    each 2^k, 0..70000, of both signs, and int32's extremes."""
+    edges = {int(np.exp(0.693 * n)) for n in range(32)} | {2**k for k in range(31)}
+    dts = sorted({e + d for e in edges for d in range(-300, 301) if 0 <= e + d < 2**31}
+                 | set(range(70000)))
+    return dts + [-v for v in dts] + [2**31 - 1, -(2**31)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_hstu_backward_time_buckets_match_the_cpu(card, dtype):
+    """The backward kernel's time buckets: each dt is a row of two
+    positions, t = (0, dt), key 1 padded and g_0 = 0, so the one pair that
+    carries a gradient is (1, 0), and its row's dtime partials are
+    nonzero in its bucket only."""
+    from genrec_tpu_torch.ops.buckets import hstu_log_bucket
+
+    dt = torch.tensor(_time_sweep_dts(), dtype=torch.int32)
+    B, hd = len(dt), 8
+    zeros = torch.zeros((B, 1, 2, hd), device=card, dtype=dtype)
+    v, g = zeros.clone(), zeros.clone()
+    v[:, :, 0, 0] = 1.0
+    g[:, :, 1, 0] = 1.0
+    pad = torch.zeros((B, 2), dtype=torch.bool, device=card)
+    pad[:, 1] = True
+    _, _, _, _, dtt = ha.hstu_attention_bwd_partials_cuda(
+        zeros, zeros.clone(), v, torch.stack([torch.zeros_like(dt), dt], 1).to(card), pad,
+        torch.zeros((1, 32), device=card), torch.ones((1, 64), device=card), g)
+    torch.cuda.synchronize()
+    assert int((dtt != 0).sum(1).ne(1).sum()) == 0
+    got = dtt.abs().argmax(1).cpu()
+    assert int((got != hstu_log_bucket(dt, 64).long()).sum()) == 0
 
 
 def test_hstu_autograd_function_on_the_card_matches_the_cpu(card):
@@ -562,6 +618,8 @@ def test_paged_kernels_give_equal_bits_over_two_calls(card, int8):
 @pytest.mark.parametrize("B,L,K,D,dup", [
     (4096, 3, 256, 32, False),   # one export chunk at the RQ-VAE's widths
     (1000, 3, 256, 32, False),   # B not a multiple of the 32-row block
+    (517, 3, 512, 64, False),    # codebooks past a block's shared memory: a level at a time
+    (100, 2, 70, 10, False),     # D not a multiple of 4
     (77, 1, 45, 16, False),      # L = 1, K not a multiple of 32
     (300, 3, 300, 40, False),    # K above a 256-codeword chunk, D above a warp
     (128, 3, 64, 8, True),       # duplicated codewords: the lower index wins
@@ -587,6 +645,15 @@ def test_rq_cascade_kernel_matches_plain_version(card, B, L, K, D, dup):
     same = ~differ
     torch.testing.assert_close(qsum[same], want_q[same], rtol=0,
                                atol=1e-5 * float(want_q.abs().max()))
+
+
+def test_rq_cascade_gives_equal_bits_over_two_calls(card):
+    rng = np.random.default_rng(9)
+    x = torch.as_tensor(rng.normal(size=(4096, 32)).astype(np.float32), device=card)
+    cb = torch.as_tensor((rng.normal(size=(3, 256, 32)) * 0.7).astype(np.float32), device=card)
+    a, b = rq.rq_cascade_cuda(x, cb), rq.rq_cascade_cuda(x, cb)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 def test_rq_cascade_wrapper_refuses_what_it_does_not_take(card):

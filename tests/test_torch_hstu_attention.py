@@ -12,7 +12,10 @@ twins. Inputs come from a numpy seed and go to both sides.
 Tolerance: 1e-5 absolute plus 1e-5 relative, fp32 on both sides (only
 the summation order differs); the bias-table gradients are sums over
 every visible pair of the batch and get 1e-4 relative. Buckets are
-exact.
+exact. The bf16 backward kernel's products, emulated here (dS and
+silu(S) as bf16 hi + lo pairs times bf16 inputs, fp32 sums), are held
+to the Pallas backward at 1e-4 of its largest element: the pair keeps
+~16 bits of each factor, so each product is off by ~2^-17 of itself.
 """
 
 import jax
@@ -179,6 +182,18 @@ def test_time_bucket_sweep_matches_jax():
     assert want.max() == 31  # the sweep reaches int32's top bucket
 
 
+def test_time_bucket_edges_give_the_log_bucket_of_jax():
+    """The bf16 backward kernel reads a time bucket as e + (|dt| >=
+    edges[e + 1]), e = floor(log2 |dt|), the edges found on the port's
+    plain bucket; on the sweep that equals the JAX package's bucket."""
+    dt = _sweep()
+    a = np.abs(dt)  # int32: |INT_MIN| wraps negative, as in the kernel
+    edges = np.asarray(list(tk.time_bucket_edges()), np.int64)
+    e = np.floor(np.log2(np.maximum(a, 1).astype(np.float64))).astype(np.int64)
+    got = np.minimum(e + (a >= edges[e + 1]), 63)
+    np.testing.assert_array_equal(got, np.asarray(jax_log_bucket(jnp.asarray(dt), 64)))
+
+
 def test_time_bucket_of_wrapped_differences_matches_jax():
     """t_q - t_k wraps in int32 on both sides, as the kernels compute it."""
     rng = np.random.default_rng(4)
@@ -209,3 +224,50 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         tk.hstu_attention_bwd_cuda(*args, g)
     assert (tk.hstu_attention_fwd_cuda.launches,
             tk.hstu_attention_bwd_cuda.launches) == before
+
+
+def _bf16_planes(x, planes):
+    """x as bf16 planes whose sum approximates it: the rounded value, then
+    (with 2 planes) the rounded remainder."""
+    hi = x.to(torch.bfloat16).float()
+    return [hi, (x - hi).to(torch.bfloat16).float()][:planes]
+
+
+def _tc_products(x, planes):
+    """dq, dk, dv as the bf16 backward kernel forms them: fp32 scores,
+    silu(S) and dS as the plain backward computes them, then each split
+    into ``planes`` bf16 planes, multiplied by the bf16 inputs (exact in
+    fp32) and summed in fp32."""
+    q, k, v, g, ts, pad, ptab, ttab, seg = _torch(
+        x, "q", "k", "v", "g", "timestamps", "padding_mask", "pos_table", "time_table",
+        "segment_ids")
+    s, masked, _, _ = tk._masked_scores(q, k, ts, pad, ptab, ttab, 128, seg)
+    sig = torch.sigmoid(s)
+    attn = s * sig
+    ds = torch.where(masked, 0.0, (g @ v.transpose(-1, -2)) * sig * (1.0 + s * (1.0 - sig)))
+    dq = sum(p @ k for p in _bf16_planes(ds, planes))
+    dk = sum(p.transpose(-1, -2) @ q for p in _bf16_planes(ds, planes))
+    dv = sum(p.transpose(-1, -2) @ g for p in _bf16_planes(attn, planes))
+    return dq, dk, dv
+
+
+def test_bf16_kernel_products_with_hi_lo_planes_match_pallas():
+    """The tensor-core backward's numerics on the CPU: with hi + lo planes
+    its dq, dk and dv stay within 1e-4 of max |JAX| of the Pallas backward
+    on the same bf16-exact inputs; one bf16 rounding of dS and silu(S) is
+    further off."""
+    x = _inputs(B=2, H=2, L=50, hd=32, use_time=True, use_seg=True, seed=6)
+    for n in ("q", "k", "v", "g"):
+        x[n] = torch.as_tensor(x[n]).to(torch.bfloat16).float().numpy()
+    (seg,) = _jax(x, "segment_ids")
+    want = pallas_bwd(*_jax(x, *ARGS, "g"), blk_q=128, interpret=True, segment_ids=seg)[:3]
+    errs = {}
+    for planes in (2, 1):
+        for name, got, w in zip(("dq", "dk", "dv"), _tc_products(x, planes), want):
+            w = np.asarray(w)
+            errs[planes, name] = float(np.abs(got.numpy() - w).max() / np.abs(w).max())
+    print("max |err| / max |JAX|, hi + lo:", {n: errs[2, n] for n in ("dq", "dk", "dv")},
+          "one rounding:", {n: errs[1, n] for n in ("dq", "dk", "dv")})
+    for name in ("dq", "dk", "dv"):
+        assert errs[2, name] <= 1e-4, (name, errs[2, name])
+        assert errs[1, name] > errs[2, name], (name, errs)
