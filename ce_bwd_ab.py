@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """A/B of design variants of the port's kernels on one NVIDIA card: the
 fused CE (B3, B4), the paged decode attention (B1, B2), the HSTU attention
-backward (B6, bf16) and the RQ cascade (B7).
+backward (B6, bf16) and forward (B5, bf16), and the RQ cascade (B7).
 
-    python3 ce_bwd_ab.py [--mode bwd|fwd|fp32|paged|hstu|rq] [--reps 3]
+    python3 ce_bwd_ab.py [--mode bwd|fwd|fp32|paged|hstu|hstu_fwd|rq] [--reps 3]
                          [--variants a,b] [--parent CHECKOUT] [--out FILE]
 
 With `--parent`, the mode's kernel source of another checkout (say the
 parent commit's, unpacked by `git archive` into a directory that
 .gitignore lists) is built, checked and timed as variant `parent`, second
-in turn; for `hstu`, through that checkout's own wrapper module.
+in turn; for `hstu` and `hstu_fwd`, through that checkout's own wrapper
+module, typed by its own `bind`.
 
 Builds genrec_tpu_torch/csrc/fused_ce.cu as it is and in variants made
 by replacing a line or a few of it (each a copy under build/ce_bwd_ab/,
@@ -80,9 +81,25 @@ copies and their wait, no math), `scores_only` (stops after S, dS and the
 bins), `no_dk_dv` (skips the key-owned products) and `no_stores` (no
 output stores). Each other variant is held to the plain version (dq, dk, dv
 at 1e-2 and the tables at 1e-4 of max |plain|; trainer, left-padded, no
-timestamps, L 200) and to the source's bits, its errors printed with
+timestamps, L 200, hd 13) and to the source's bits, its errors printed with
 whether they stay below a tenth of 1e-2, then timed by CUDA-graph replay
 on cold copies, with device time by kernel from torch.profiler.
+
+`--mode hstu_fwd`, the bf16 forward of genrec_tpu_torch/csrc/hstu_attention.cu
+(`hstu_fwd_tc_kernel`) at the same shape: the source (mma.sync on
+64-position tiles, a block per (b, h) and query tile, two warps a 16-row
+group taking alternate 16-key steps at hd <= 64, each step S, then P =
+silu(S) rounded once to bf16, then P.V from registers; the time bias
+from one table of edges and biases); `log_every_pair` (the double-log
+bucket on every pair); `split_1` (one warp a 16-row group); `split_2_lb1`
+(two at every width, ptxas free to 255 registers: one block an SM);
+`exact_silu` (s * sigmoid(s) with the exact exponential and division);
+`tile_32` (32-position tiles); `heads_2` (two (b, h) a block); and,
+timed only, `empty`, `loads_only`, `scores_only` (S and P, folded into
+the sums without P.V) and `no_stores`. Each other variant is held to the
+plain version at 1e-2 of max |plain| (trainer, left-padded, no
+timestamps, L 200, hd 13) and to the source's bits, then timed like
+`hstu`.
 
 `--mode rq`, B7 of genrec_tpu_torch/csrc/rq_cascade.cu at one export chunk
 (B 4,096, L 3, K 256, D 32): the source (32 rows a block, 4 x 8 register
@@ -390,12 +407,26 @@ PAGED_VARIANTS = {
 PAGED_VARIANTS["no_ev"] = ("      if (b < Kb) {\n        const float* e = sc_s",
                            "      if (b < Kb && Kb < 0) {\n        const float* e = sc_s")
 PAGED_TIMING_ONLY = {"empty", "copies_only", "no_ev"}
+# The time bucket with a log (int32 wrap, the float32 log taken in double and
+# rounded), as the kernels read it before the edge table: put in before
+# sigmoid() by the log_every_pair variants.
+_LOG_BUCKET = (
+    "__device__ __forceinline__ float sigmoid(float s)",
+    "__device__ __forceinline__ int time_bucket(int tq, int tk, int ntb) {\n"
+    "  const int diff = (int)((unsigned)tq - (unsigned)tk);\n"
+    "  const int a = (int)(diff < 0 ? 0u - (unsigned)diff : (unsigned)diff);\n"
+    "  const float lg = (float)log((double)(float)(a > 1 ? a : 1));\n"
+    "  const int b = (int)(lg / 0.693f);\n"
+    "  return b < 0 ? 0 : (b > ntb - 1 ? ntb - 1 : b);\n"
+    "}\n\n"
+    "__device__ __forceinline__ float sigmoid(float s)")
 # name -> the (text of hstu_attention.cu replaced, its replacement) pairs, or None
 HSTU_VARIANTS = {
     "source": None,
     "one_rounding": ("constexpr int kPlanes = 2;", "constexpr int kPlanes = 1;"),
-    "log_every_pair": ("              tb = time_bucket_edges(qr.x, kr.x, edges, p.ntb);",
-                       "              tb = time_bucket(qr.x, kr.x, p.ntb);"),
+    "log_every_pair": [_LOG_BUCKET,
+                       ("              tb = time_bucket_edges(qr.x, kr.x, edges, p.ntb);",
+                        "              tb = time_bucket(qr.x, kr.x, p.ntb);")],
     "bucket_visible_only": ("            if (use_time) {\n              tb = time_bucket_edges",
                             "            if (use_time && vis) {\n              tb = time_bucket_edges"),
     # Timing only: the kernel returns at once (a launch inside the graph);
@@ -412,6 +443,44 @@ HSTU_VARIANTS = {
 HSTU_TIMING_ONLY = {"empty", "loads_only", "scores_only", "no_dk_dv", "no_stores"}
 _HSTU = ["source", "one_rounding", "log_every_pair", "bucket_visible_only", "empty", "loads_only",
          "scores_only", "no_dk_dv", "no_stores", "source"]
+# The bf16 forward (hstu_fwd_tc_kernel): name -> replacements, as above.
+HSTU_FWD_VARIANTS = {
+    "source": None,
+    "log_every_pair": [_LOG_BUCKET, (
+        "          s = s + __int_as_float(a >= tb.x ? tb.z : tb.y);",
+        "          s = s + __int_as_float(time_bucket(qr.x, kr.x, 64) > 31 - __clz(a > 1 ? a : 1)"
+        " ? tb.z : tb.y);")],
+    "split_1": ("  static constexpr int kSplit = HDP <= 64 ? 2 : 1;",
+                "  static constexpr int kSplit = 1;"),
+    "split_2_lb1": [("  static constexpr int kSplit = HDP <= 64 ? 2 : 1;",
+                     "  static constexpr int kSplit = 2;"),
+                    ("__launch_bounds__(FwdCfg<HDP>::kThreads, 2)",
+                     "__launch_bounds__(FwdCfg<HDP>::kThreads, 1)")],
+    "exact_silu": ("        x[e] = vis ? silu_fast(s) : 0.f;",
+                   "        x[e] = vis ? s * sigmoid(s) : 0.f;"),
+    "tile_32": ("constexpr int kFwdTile = 64;", "constexpr int kFwdTile = 32;"),
+    "heads_2": [("constexpr int kFwdHeads = 1;", "constexpr int kFwdHeads = 2;"),
+                ("__launch_bounds__(FwdCfg<HDP>::kThreads, 2)",
+                 "__launch_bounds__(FwdCfg<HDP>::kThreads, 1)")],
+    # Timing only: the kernel returns at once; loads its tiles and waits for
+    # them and does no math; computes S and P and folds P into the sums
+    # without P.V; or stores nothing.
+    "empty": ("  float pbias = 0.f;  // a visible pair has key <= query: position bucket of 0\n",
+              "  if (p.L > 0) return;\n"
+              "  float pbias = 0.f;  // a visible pair has key <= query: position bucket of 0\n"),
+    "loads_only": ("    if (!rows_in) continue;\n", "    if (!rows_in || p.L > 0) continue;\n"),
+    "scores_only": ("      // out += P.V over the step's 16 keys, two dim tiles a B load.\n",
+                    "      if (p.L > 0) {\n"
+                    "        for (int e = 0; e < 4; ++e) oacc[0][e] += __uint_as_float(pf[e]);\n"
+                    "        continue;\n"
+                    "      }\n"
+                    "      // out += P.V over the step's 16 keys, two dim tiles a B load.\n"),
+    "no_stores": ("      emit_frag(oacc[dn], q0 + rw, 8 * dn, lane,",
+                  "      if (oacc[dn][0] == 12345.f) emit_frag(oacc[dn], q0 + rw, 8 * dn, lane,"),
+}
+HSTU_FWD_TIMING_ONLY = {"empty", "loads_only", "scores_only", "no_stores"}
+_HSTU_FWD = ["source", "log_every_pair", "split_1", "split_2_lb1", "exact_silu", "tile_32",
+             "heads_2", "empty", "loads_only", "scores_only", "no_stores", "source"]
 # name -> the (text of rq_cascade.cu replaced, its replacement) pairs, or None
 RQ_VARIANTS = {
     "source": None,
@@ -443,15 +512,16 @@ AT = {"bwd": {"shard": ["source", "chunk_32mb", "chunk_128mb", "coeff_128x128",
       "fwd": {"shard": _FWD, "hstu": _FWD},
       "fp32": {"fp32_shard": ["source", "fp32_one_chain", "source"]},
       "paged": {cell: _PAGED for cell in PAGED_CELLS},
-      "hstu": {"trainer_bf16": _HSTU}, "rq": {"export_chunk": _RQ}}
+      "hstu": {"trainer_bf16": _HSTU}, "hstu_fwd": {"trainer_bf16": _HSTU_FWD},
+      "rq": {"export_chunk": _RQ}}
 # Each mode's source stem (csrc/<stem>.cu) and variants, where not fused_ce's.
 STEMS = {"paged": ("paged_attention", PAGED_VARIANTS), "hstu": ("hstu_attention", HSTU_VARIANTS),
-         "rq": ("rq_cascade", RQ_VARIANTS)}
+         "hstu_fwd": ("hstu_attention", HSTU_FWD_VARIANTS), "rq": ("rq_cascade", RQ_VARIANTS)}
 FP32_WIDE = (33, 700, 2048)
 # The kernels each mode reports ptxas numbers of: a fragment of the name.
 PTXAS_OF = {"bwd": ("ce_tc_kernel", "ce_fused_kernel"), "fwd": ("ce_fwd",),
             "fp32": ("ce_fwd_kernel", "ce_lse", "wide"), "paged": ("paged_attention",),
-            "hstu": ("hstu_bwd",), "rq": ("rq_cascade",)}
+            "hstu": ("hstu_bwd",), "hstu_fwd": ("hstu_fwd",), "rq": ("rq_cascade",)}
 
 
 def build(name: str, replace, stem: str = "fused_ce", csrc: Path | None = None
@@ -688,29 +758,27 @@ def paged_ab(dev, libs, order, reps, add) -> None:
 
 
 def parent_hstu(path: Path, checkout: Path):
-    """The parent checkout's HSTU wrapper module, on its own build ``path``:
-    its backward is timed as it was called (the table sums by torch)."""
+    """The parent checkout's HSTU wrapper module on its own build ``path``,
+    typed by that module's own ``bind`` (its entry points' signatures are
+    its own): its kernels are timed as that module calls them."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
         "parent_hstu_attention", checkout / "genrec_tpu_torch" / "kernels" / "hstu_attention.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    lib = ctypes.CDLL(str(path))
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.hstu_attention_bwd.argtypes = [ptr] * 15 + [i32] * 7 + [f32, i32, ptr, i32]
-    lib.hstu_attention_bwd.restype = i32
-    lib.hstu_attention_error_string.argtypes = [i32]
-    lib.hstu_attention_error_string.restype = ctypes.c_char_p
+    lib = mod.bind(ctypes.CDLL(str(path)))
     mod._library = lambda: lib
     return mod
 
 
 def _rel_errs(got, want, prefix, errs) -> bool:
     """Each output's max |got - want| / max |want| into errs; whether all
-    are within their tolerance (bf16 gradients BF16_TOL, tables 1e-4)."""
+    are within their tolerance (bf16 outputs BF16_TOL, tables 1e-4). The
+    backward's outputs are a tuple, the forward's one tensor."""
     ok = True
-    for out, g, w in zip(("dq", "dk", "dv", "dpos", "dtime"), got, want):
+    names = ("dq", "dk", "dv", "dpos", "dtime") if isinstance(got, tuple) else ("out",)
+    for out, g, w in zip(names, *((got, want) if isinstance(got, tuple) else ((got,), (want,)))):
         if w is None:
             continue
         rel = float((g.float() - w.float()).abs().max() / w.float().abs().max())
@@ -720,54 +788,63 @@ def _rel_errs(got, want, prefix, errs) -> bool:
 
 
 def _same_bits(a, b) -> bool:
-    return all(torch.equal(x, y) for x, y in zip(a, b) if x is not None)
+    pairs = zip(a, b) if isinstance(a, tuple) else [(a, b)]
+    return all(torch.equal(x, y) for x, y in pairs if x is not None)
 
 
-def hstu_ab(dev, libs, order, reps, add) -> None:
-    """Check every variant of the bf16 HSTU backward (B6) against the plain
-    version and the source's bits, then time them in turns at the
-    trainer's shape."""
+def hstu_ab(dev, libs, order, reps, add, direction="bwd") -> None:
+    """Check every variant of a bf16 HSTU kernel, the backward (B6) or
+    with direction "fwd" the forward (B5), against the plain version and
+    the source's bits, then time them in turns at the trainer's shape."""
     import chip_smoke as cs
     from genrec_tpu_torch.kernels import hstu_attention as ha
 
+    fwd = direction == "fwd"
+    timing_only = HSTU_FWD_TIMING_ONLY if fwd else HSTU_TIMING_ONLY
+    ref = ha.hstu_attention_ref if fwd else ha.hstu_attention_bwd_ref
+    wrapper = f"hstu_attention_{direction}_cuda"
+
+    def inputs(seed, **kw):
+        x = cs.hstu_inputs(dev, seed, torch.bfloat16, **kw)
+        return cs._fwd(x) if fwd else x
+
     cases = {"trainer": dict(), "left_padded": dict(packed=False), "no_time": dict(timestamps=False),
-             "L200": dict(B=16, L=200)}
+             "L200": dict(B=16, L=200), "hd13": dict(B=16, hd=13)}
     original = ha._library
     failed, first = set(), {}
     try:
-        def bwd(name):  # the variant's backward; the parent's is its own module's
+        def kernel(name):  # the variant's wrapper; the parent's is its own module's
             if isinstance(libs[name], ctypes.CDLL):
                 ha._library = lambda lib=libs[name]: lib
-                return ha.hstu_attention_bwd_cuda
-            return libs[name].hstu_attention_bwd_cuda
+                return getattr(ha, wrapper)
+            return getattr(libs[name], wrapper)
 
         for name in dict.fromkeys(order):
-            if name in HSTU_TIMING_ONLY:
+            if name in timing_only:
                 continue
-            fn = bwd(name)
+            fn = kernel(name)
             errs, ok, same = {}, True, True
             for i, (case, kw) in enumerate(cases.items()):
-                x = cs.hstu_inputs(dev, 7 + i, torch.bfloat16, **kw)
+                x = inputs(7 + i, **kw)
                 got = fn(**x)
                 torch.cuda.synchronize()
-                ok &= _rel_errs(got, ha.hstu_attention_bwd_ref(**x), case, errs)
+                ok &= _rel_errs(got, ref(**x), case, errs)
                 same &= _same_bits(got, first.setdefault(case, got))
             if not ok:
                 failed.add(name)
             add(phase="check", variant=name, ok=ok, rel_err_of_max=errs,
                 below_a_tenth_of_bf16_tol=all(v <= BF16_TOL / 10 for k, v in errs.items()
-                                              if k.endswith(("dq", "dk", "dv"))),
+                                              if k.endswith(("dq", "dk", "dv", "out"))),
                 bit_equal_to_source=same)
         if "source" in failed:
             raise RuntimeError("the source disagrees with the plain version")
         order = [n for n in order if n not in failed]
-        base = cs.hstu_inputs(dev, 0, torch.bfloat16)
-        copies = [base] + cs.cold_copies(
-            lambda c: cs.hstu_inputs(dev, 100 + c, torch.bfloat16),
-            cs.nbytes(*(v for v in base.values() if v is not None)))[1:]
-        bound_ms, bound_by = cs.hstu_bounds(base)["bwd"]
+        base = inputs(0)
+        per_copy = cs.nbytes(*(v for v in base.values() if v is not None))
+        copies = [base] + cs.cold_copies(lambda c: inputs(100 + c), per_copy)[1:]
+        bound_ms, bound_by = cs.hstu_bounds(base)[direction]
         for turn, name in enumerate(order):
-            fn = bwd(name)
+            fn = kernel(name)
             add(phase="time", cell="trainer_bf16", variant=name, turn=turn,
                 ms=cs.device_ms(fn, copies, reps), ms_by_kernel=cs.device_ms_by_kernel(fn, copies),
                 bound_ms=bound_ms, bound_by=bound_by, timed_by="cuda_graph")
@@ -861,11 +938,11 @@ def main(argv=None) -> int:
         from genrec_tpu_torch.kernels import hstu_attention, paged_attention, rq_cascade
 
         bind = {"paged": paged_attention.bind, "hstu": hstu_attention.bind,
-                "rq": rq_cascade.bind}[args.mode]
+                "hstu_fwd": hstu_attention.bind, "rq": rq_cascade.bind}[args.mode]
         libs = {}
         for name, (path, _) in built.items():
             libs[name] = (parent_hstu(path, args.parent) if name == "parent" and
-                          args.mode == "hstu" else bind(ctypes.CDLL(str(path))))
+                          args.mode.startswith("hstu") else bind(ctypes.CDLL(str(path))))
     else:
         libs = {name: load(path) for name, (path, _) in built.items()}
     lines = []
@@ -881,8 +958,9 @@ def main(argv=None) -> int:
             if any(f in k for f in PTXAS_OF[args.mode])})
     if paged:
         paged_ab(dev, libs, at["s64"], args.reps, add)
-    if args.mode == "hstu":
-        hstu_ab(dev, libs, at["trainer_bf16"], args.reps, add)
+    if args.mode in ("hstu", "hstu_fwd"):
+        hstu_ab(dev, libs, at["trainer_bf16"], args.reps, add,
+                "fwd" if args.mode == "hstu_fwd" else "bwd")
     if args.mode == "rq":
         rq_ab(dev, libs, at["export_chunk"], args.reps, add)
     if args.mode == "fp32":

@@ -822,16 +822,17 @@ def rq_kernel_phase(dev, seed, ptxas) -> dict:
 # ---- phase 3: the HSTU training kernels (B3-B6) -----------------------------
 
 
-def hstu_inputs(dev, seed, dtype, *, timestamps=True, packed=True, B=HSTU_BATCH, L=None):
-    """Inputs of one HSTU attention call at the trainer's shapes (L may be
-    set): q, k, v and a cotangent g (B, H, L, hd); packed rows (segments
+def hstu_inputs(dev, seed, dtype, *, timestamps=True, packed=True, B=HSTU_BATCH, L=None,
+                hd=None):
+    """Inputs of one HSTU attention call at the trainer's shapes (L and hd
+    may be set): q, k, v and a cotangent g (B, H, L, hd); packed rows (segments
     of 2-28 tokens from slot 0, pad at the tail, as pack_examples lays
     them out) or left-padded rows (as eval rows); row 0 all padding;
     synthetic timestamps (~1 event a day from 1.5e9 s, int32)."""
     rng = np.random.default_rng(seed)
     H = HSTU_AMAZON["num_heads"]
     L = L or HSTU_AMAZON["max_seq_len"]
-    hd = HSTU_AMAZON["embed_dim"] // H
+    hd = hd or HSTU_AMAZON["embed_dim"] // H
     seg = np.zeros((B, L), np.int32)
     pad = np.zeros((B, L), bool)
     for b in range(B):
@@ -904,8 +905,10 @@ def time_bucket_sweep(dev) -> dict:
     and int32's extremes (t_q - t_k wraps). Each dt is a row of two
     positions, t = (0, dt), with q = k = 0, v = (1, 0), no position bias
     and time_table[n] = n, so the output of position 1 is
-    silu(time_table[bucket(dt)]) and names the bucket; the same rows
-    through the bf16 backward name it by their dtime partials."""
+    silu(time_table[bucket(dt)]) and names the bucket, through the fp32
+    and the bf16 forward (silu(n) rounded to bf16 stays nearest its own
+    n); the same rows through the bf16 backward name it by their dtime
+    partials."""
     from genrec_tpu_torch.kernels.hstu_attention import (
         hstu_attention_bwd_partials_cuda,
         hstu_attention_fwd_cuda,
@@ -919,18 +922,20 @@ def time_bucket_sweep(dev) -> dict:
     dt = torch.tensor(dts, dtype=torch.int32)
     B = len(dts)
     ts = torch.stack([torch.zeros_like(dt), dt], dim=1).to(dev)
-    v = torch.zeros((B, 1, 2, 1), device=dev)
-    v[:, :, 0] = 1.0
-    zeros = torch.zeros((B, 1, 2, 1), device=dev)
     nb = torch.arange(64, dtype=torch.float32, device=dev)[None]
-    out = hstu_attention_fwd_cuda(zeros, zeros.clone(), v, ts,
-                                  torch.zeros((B, 2), dtype=torch.bool, device=dev),
-                                  torch.zeros((1, 32), device=dev), nb.contiguous())
-    silu = nb * torch.sigmoid(nb)
-    got = (out[:, 0, 1, 0][:, None] - silu).abs().argmin(dim=1).cpu()
     want = hstu_log_bucket(dt, 64).long()
-    mismatched = int((got != want).sum())
-    check(mismatched == 0, f"time buckets: {mismatched} of {B} differ from the CPU's")
+    mismatched = {}
+    for dtype, hd in ((torch.float32, 1), (torch.bfloat16, 8)):
+        zeros = torch.zeros((B, 1, 2, hd), dtype=dtype, device=dev)
+        v = zeros.clone()
+        v[:, :, 0, 0] = 1.0
+        out = hstu_attention_fwd_cuda(zeros, zeros.clone(), v, ts,
+                                      torch.zeros((B, 2), dtype=torch.bool, device=dev),
+                                      torch.zeros((1, 32), device=dev), nb.contiguous())
+        silu = (nb * torch.sigmoid(nb)).to(dtype).float()
+        got = (out[:, 0, 1, 0].float()[:, None] - silu).abs().argmin(dim=1).cpu()
+        mismatched[str(dtype)[6:]] = n = int((got != want).sum())
+        check(n == 0, f"{dtype} forward time buckets: {n} of {B} differ from the CPU's")
     # The bf16 backward: key 1 padded and g_0 = 0, so pair (1, 0) is the one
     # that carries a gradient, and its row's dtime partials are nonzero in
     # its bucket only.
@@ -947,7 +952,7 @@ def time_bucket_sweep(dev) -> dict:
     mismatched_bwd = int((got_b != want).sum())
     check(mismatched_bwd == 0,
           f"backward time buckets: {mismatched_bwd} of {B} differ from the CPU's")
-    return dict(values=B, mismatched=mismatched, mismatched_bwd=mismatched_bwd,
+    return dict(values=B, mismatched_fwd=mismatched, mismatched_bwd=mismatched_bwd,
                 top_bucket_reached=int(want.max()))
 
 
@@ -983,9 +988,10 @@ def device_ms_by_kernel(fn, arg_sets, reps: int = 3) -> dict:
 
 
 def hstu_kernel_phase(dev, seed, ptxas) -> dict:
-    """B5 and B6 against their plain versions, the bf16 B6 giving equal bits
-    over two calls, and timed (B6 also split by kernel: its own and the
-    wrapper's sums); with their ptxas numbers."""
+    """B5 and B6 against their plain versions (bf16 cases: the trainer's,
+    left padding, L beyond one tile, odd hd), the bf16 kernels giving equal
+    bits over two calls, and timed (also split by kernel: B6's own and its
+    table sums); with their ptxas numbers, none spilling."""
     from genrec_tpu_torch.kernels.hstu_attention import (
         hstu_attention_bwd_cuda,
         hstu_attention_bwd_ref,
@@ -993,15 +999,18 @@ def hstu_kernel_phase(dev, seed, ptxas) -> dict:
         hstu_attention_ref,
     )
 
-    cases = {  # name: (dtype, timestamps, packed)
-        "packed_time_bf16": (torch.bfloat16, True, True),
-        "packed_time_fp32": (torch.float32, True, True),
-        "packed_no_time_fp32": (torch.float32, False, True),
-        "left_padded_time_fp32": (torch.float32, True, False),
+    cases = {  # name: (dtype, timestamps, packed, other shapes)
+        "packed_time_bf16": (torch.bfloat16, True, True, {}),
+        "left_padded_time_bf16": (torch.bfloat16, True, False, {}),
+        "packed_time_L200_bf16": (torch.bfloat16, True, True, dict(B=16, L=200)),
+        "packed_time_hd13_bf16": (torch.bfloat16, True, True, dict(B=16, hd=13)),
+        "packed_time_fp32": (torch.float32, True, True, {}),
+        "packed_no_time_fp32": (torch.float32, False, True, {}),
+        "left_padded_time_fp32": (torch.float32, True, False, {}),
     }
     errs_f, errs_b = {}, {}
-    for i, (name, (dtype, with_time, packed)) in enumerate(cases.items()):
-        x = hstu_inputs(dev, seed + i, dtype, timestamps=with_time, packed=packed)
+    for i, (name, (dtype, with_time, packed, shape)) in enumerate(cases.items()):
+        x = hstu_inputs(dev, seed + i, dtype, timestamps=with_time, packed=packed, **shape)
         tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
         got = hstu_attention_fwd_cuda(**_fwd(x))
         torch.cuda.synchronize()
@@ -1025,7 +1034,11 @@ def hstu_kernel_phase(dev, seed, ptxas) -> dict:
                          nbytes(*(v for v in base.values() if v is not None)))
     fwd_copies = [_fwd(x) for x in copies]
     bounds = hstu_bounds(base)
+    bit_equal_twice(hstu_attention_fwd_cuda, _fwd(base), "B5 bf16 at the trainer's shape")
     bit_equal_twice(hstu_attention_bwd_cuda, base, "B6 bf16 at the trainer's shape")
+    ptx = hstu_ptxas(ptxas)
+    spilled = {k: v for k, v in ptx.items() if v.get("spill_stores") or v.get("spill_loads")}
+    check(not spilled, f"HSTU kernels spill: {spilled}")
     out = {}
     for name, fn, ref, sets, errs in (
         ("hstu_attention_fwd", hstu_attention_fwd_cuda, hstu_attention_ref, fwd_copies, errs_f),
@@ -1033,8 +1046,6 @@ def hstu_kernel_phase(dev, seed, ptxas) -> dict:
     ):
         ms, plain_ms = device_ms(fn, sets), device_ms(ref, sets)
         bound_ms, bound_by = bounds["fwd" if name.endswith("fwd") else "bwd"]
-        extra = (dict(ms_by_kernel=device_ms_by_kernel(fn, sets), bit_equal_twice=True)
-                 if name.endswith("bwd") else {})
         out[name] = emit(
             "kernel", name=name, shape=dict(B=HSTU_BATCH, H=2, L=50, hd=32, dtype="bf16"),
             max_abs_err=max(errs.values()), max_abs_err_by_case=errs,
@@ -1044,7 +1055,8 @@ def hstu_kernel_phase(dev, seed, ptxas) -> dict:
             library="none: no single PyTorch call computes biased SiLU attention",
             timed_by="cuda_graph", bound_ms=bound_ms,
             bound_by=bound_by, work=bounds["work"], cold_copies=len(sets),
-            time_bucket_sweep=sweep, ptxas=hstu_ptxas(ptxas), **extra,
+            time_bucket_sweep=sweep, ptxas=ptx, ms_by_kernel=device_ms_by_kernel(fn, sets),
+            bit_equal_twice=True,
         )
     return out
 

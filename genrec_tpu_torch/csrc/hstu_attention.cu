@@ -15,11 +15,13 @@
 // with no softmax and no 1/sqrt(hd) scale. The position bucket keeps the
 // reference quirk: rel = key - query is clamped to >= 0, so every visible
 // pair reads bucket 0. The time bucket is int(log(max(|dt|, 1)) / 0.693f),
-// clipped to the table, with the float32 log correctly rounded (taken in
-// double) as on the CPU, and the library is built without --use_fast_math,
-// so a bucket edge never moves by an ulp. Scores and sums
-// are fp32 from fp32 or bf16 inputs; with bf16 inputs silu(s) is rounded to
-// bf16 before it meets v, as the Pallas kernel's attn.astype(v.dtype) does.
+// clipped to the table, with the float32 log correctly rounded, as on the
+// CPU. No kernel takes that log: every one reads the bucket from an edge
+// table (time_bucket_edges), exact on every int32 |dt|, so a bucket edge
+// never moves by an ulp (CUDA's logf is one ulp off on some inputs), and
+// no pair pays for a double-precision log. Scores and sums are fp32 from
+// fp32 or bf16 inputs; with bf16 inputs silu(s) is rounded to bf16 once
+// before it meets v, as the Pallas kernel's attn.astype(v.dtype) does.
 //
 // Backward (flash style, nothing saved but the inputs): recompute s, then
 //   ds_ij = (g_i . v_j) sig(s) (1 + s (1 - sig(s))), exactly 0 where masked
@@ -33,7 +35,8 @@
 // backward (~5.8 MB, ~1.7 us); the causal half of 4*L*L*hd*B*H FLOP is
 // ~41 MFLOP, far below either. At these sizes launch and latency decide.
 //
-// Forward, and the backward of fp32 inputs (FFMA, simple and right first):
+// fp32 inputs, forward and backward (FFMA, the parity path: a TF32 product
+// would miss its 1e-5):
 //   - tiles of 32 queries x 32 keys; 128 threads (4 warps). Phase 1 of a
 //     tile: each warp takes query rows, one key per lane, and computes the
 //     masked score and its silu (backward: also ds) into shared memory.
@@ -57,6 +60,31 @@
 //     added in warp order at the end.
 //   - the TPU version's padding of L to the q block and of hd to 128 lanes
 //     is gone: rows and keys past L are skipped, hd keeps its width.
+//
+// Forward of bf16 inputs (hstu_fwd_tc_kernel, on the tensor cores):
+//   - grid (B*H, query tiles of 64); a block per (b, h) and query tile
+//     walks the key tiles up to its own (the trainer's L 50 is one tile,
+//     so a (b, h) is one block: 256 blocks, one wave). q, k and v tiles
+//     come in by 16-byte cp.async (zero-filled past L and hd, head dim
+//     padded to 16, 32, 64 or 128), the tiles' timestamps, segments and
+//     padding alongside;
+//   - each 16 query rows are shared by two warps taking alternate 16-key
+//     steps (at hd 128, by one warp: 128 registers a thread would not hold
+//     it), as under the causal mask the last rows see four times the keys
+//     of the first; the second warp's sums join the first's through
+//     shared memory at the end, in a fixed order;
+//   - a step: S = Q.K^T on mma.sync.m16n8k16 (bf16 in, fp32 sums, Q's
+//     fragments kept in registers), then bias, masks and silu in the sums'
+//     registers (a masked pair is exactly 0, as silu(-1e9) = -0 is in the
+//     Pallas kernel), the time bias by one 16-byte read a pair of a table
+//     that holds each power of two's bucket edge and both buckets' biases,
+//     silu by the fast exponential and division, rounded once to bf16 (one
+//     plane: a second would take the kernel away from the Pallas numbers),
+//     then out += P.V with P straight from those registers (the m16n8
+//     accumulator layout is the m16n8k16 A layout) and V by ldmatrix.trans;
+//   - no softmax, so no rescaling: the sums stay in registers across key
+//     tiles and leave as bf16 in paired stores. No atomics: equal bits.
+//   - ce_bwd_ab.py --mode hstu_fwd measures the alternatives (PERF.md).
 //
 // Backward of bf16 inputs (hstu_bwd_tc_kernel, on the tensor cores):
 //   - one block of 4 warps per (b, h) holds q, g, k and v of a 64-position
@@ -125,18 +153,15 @@ struct Params {
   float* dpt;                  // (B*H, nb) partials
   float* dtt;                  // (B*H, ntb) partials or null
   int H, L, hd, nb, ntb, max_exact;
+  int BH;                      // B * H: (b, h) pairs of the call
   float log_ratio;             // log(max_position_distance / max_exact)
-  int time_edges[kTimeEdges];  // bf16 backward: see time_bucket_edges
+  int time_edges[kTimeEdges];  // see time_bucket_edges; set when ttab is
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // The value the input dtype would hold (Pallas: attn.astype(v.dtype)).
 template <typename T> __device__ __forceinline__ float round_as(float x) {
@@ -144,7 +169,7 @@ template <typename T> __device__ __forceinline__ float round_as(float x) {
 }
 
 // genrec_tpu/ops/buckets.py::hstu_position_bucket, float32 as there (the log
-// correctly rounded, as in time_bucket).
+// taken in double and rounded: the correctly rounded logf of the CPU).
 __device__ __forceinline__ int pos_bucket(int rel, const Params& p) {
   const int rp = rel > 0 ? rel : 0;
   if (rp < p.max_exact) return rp;
@@ -155,21 +180,10 @@ __device__ __forceinline__ int pos_bucket(int rel, const Params& p) {
   return large < p.nb - 1 ? large : p.nb - 1;
 }
 
-// genrec_tpu/ops/buckets.py::hstu_log_bucket of t_q - t_k, int32 wrap as there.
-// The float32 log is taken in double and rounded, which gives the correctly
-// rounded logf the CPU computes: CUDA's logf is off by one ulp on some
-// inputs, and one ulp moves thousands of large |dt| across a bucket edge.
-__device__ __forceinline__ int time_bucket(int tq, int tk, int ntb) {
-  const int diff = (int)((unsigned)tq - (unsigned)tk);
-  const int a = (int)(diff < 0 ? 0u - (unsigned)diff : (unsigned)diff);
-  const float lg = (float)log((double)(float)(a > 1 ? a : 1));
-  const int b = (int)(lg / 0.693f);
-  return b < 0 ? 0 : (b > ntb - 1 ? ntb - 1 : b);
-}
-
 __device__ __forceinline__ float sigmoid(float s) { return 1.f / (1.f + expf(-s)); }
 
-// time_bucket without a log: as 0.693 < ln 2, the bucket of a = |dt| >= 1
+// genrec_tpu/ops/buckets.py::hstu_log_bucket of t_q - t_k (int32 wrap as
+// there) without a log: as 0.693 < ln 2, the bucket of a = |dt| >= 1
 // is e = floor(log2 a) or e + 1 (below 2^31, e * (ln 2 / 0.693 - 1) < 1),
 // so it is e + (a >= edges[e + 1]), where edges[n] is the least a whose
 // bucket is n or more (kTimeEdges of them, from the plain version's own
@@ -192,6 +206,7 @@ struct Tiles {
   int* tk;       // [kTile] key timestamps, segments, padding
   int* sk;
   int* pk;
+  int* edges;    // [kTimeEdges] time-bucket edges
   float* rest;
 };
 
@@ -204,14 +219,17 @@ __device__ Tiles carve(float* smem, const Params& p) {
   t.tk = t.sq + kTile;
   t.sk = t.tk + kTile;
   t.pk = t.sk + kTile;
-  t.rest = reinterpret_cast<float*>(t.pk + kTile);
+  t.edges = t.pk + kTile;
+  t.rest = reinterpret_cast<float*>(t.edges + kTimeEdges);
   return t;
 }
 
 __device__ void load_tables(const Tiles& t, const Params& p, int h) {
   for (int i = threadIdx.x; i < p.nb; i += kThreads) t.ptab[i] = p.ptab[h * p.nb + i];
-  if (p.ttab)
+  if (p.ttab) {
     for (int i = threadIdx.x; i < p.ntb; i += kThreads) t.ttab[i] = p.ttab[h * p.ntb + i];
+    for (int i = threadIdx.x; i < kTimeEdges; i += kThreads) t.edges[i] = p.time_edges[i];
+  }
 }
 
 __device__ void load_query_meta(const Tiles& t, const Params& p, int b, int q0) {
@@ -255,7 +273,7 @@ __device__ __forceinline__ float biased(const Tiles& t, const Params& p, float d
   *pb = pos_bucket(kj - qi, p);
   float s = dot + t.ptab[*pb];
   if (p.ttab && p.ts) {
-    *tb = time_bucket(t.tq[i], t.tk[j], p.ntb);
+    *tb = time_bucket_edges(t.tq[i], t.tk[j], t.edges, p.ntb);
     s = s + t.ttab[*tb];
   }
   return s;
@@ -594,7 +612,7 @@ __device__ __forceinline__ void acc_to_a(const float (&c0)[4], const float (&c1)
 // Smem layout of the block, in bytes from the front.
 template <int HDP>
 struct TcSmem {
-  static constexpr int kRow = HDP + 8;  // bf16 row stride of the q, g, k, v tiles
+  static constexpr int kRow = HDP + 8;  // bf16 row stride of the q, g, k, v tiles (load_tile's)
   static constexpr int kMat = kTcTile * kRow * 2;
   static constexpr int kPlane = kTcTile * kDsStride * 2;
   static constexpr int kQ = 0, kG = kMat, kK = 2 * kMat, kV = 3 * kMat;
@@ -607,14 +625,15 @@ struct TcSmem {
   }
 };
 
-// Rows [r0, r0 + kTcTile) of a (L, hd) bf16 matrix into a tile of HDP
-// columns with row stride kRow, rows past L and columns past hd zero.
-template <int HDP>
-__device__ void load_tile(bf16* dst, const bf16* src, int r0, int L, int hd) {
-  constexpr int kRow = TcSmem<HDP>::kRow;
+// Rows [r0, r0 + kRows) of a (L, hd) bf16 matrix into a tile of HDP
+// columns with row stride HDP + 8, rows past L and columns past hd zero;
+// thread t of kCopiers.
+template <int HDP, int kRows, int kCopiers>
+__device__ void load_tile(bf16* dst, const bf16* src, int r0, int L, int hd, int t) {
+  constexpr int kRow = HDP + 8;
   if (hd % 8 == 0) {  // 16-byte rows: cp.async, zero-filling what is outside
     constexpr int kChunks = HDP / 8;
-    for (int x = threadIdx.x; x < kTcTile * kChunks; x += kTcThreads) {
+    for (int x = t; x < kRows * kChunks; x += kCopiers) {
       const int r = x / kChunks;
       const int c = x - r * kChunks;
       const bool in = r0 + r < L && 8 * c < hd;
@@ -622,7 +641,7 @@ __device__ void load_tile(bf16* dst, const bf16* src, int r0, int L, int hd) {
                   in ? 16 : 0);
     }
   } else {
-    for (int x = threadIdx.x; x < kTcTile * HDP; x += kTcThreads) {
+    for (int x = t; x < kRows * HDP; x += kCopiers) {
       const int r = x / HDP;
       const int d = x - r * HDP;
       dst[r * kRow + d] = (r0 + r < L && d < hd) ? src[(size_t)(r0 + r) * hd + d]
@@ -666,6 +685,226 @@ __device__ __forceinline__ void emit_frag(const float (&acc)[4], int row0, int c
         else scratch[o + e] = x;
       }
     }
+  }
+}
+
+// ---- the bf16 forward on the tensor cores (hstu_fwd_tc_kernel) ----
+
+constexpr int kFwdTile = 64;  // query and key positions of a tile
+constexpr int kFwdHeads = 1;  // (b, h) pairs a block
+constexpr int kFwdRowWarps = kFwdTile / 16;  // 16-row groups of a query tile
+
+// The block of head width HDP. kSplit warps share 16 query rows, taking
+// alternate 16-key steps: two where 128 registers a thread hold the
+// kernel (HDP <= 64; two blocks of 8 warps an SM), else one.
+template <int HDP>
+struct FwdCfg {
+  static constexpr int kSplit = HDP <= 64 ? 2 : 1;
+  static constexpr int kGroup = 32 * kFwdRowWarps * kSplit;  // threads of one (b, h)
+  static constexpr int kThreads = kFwdHeads * kGroup;
+  static constexpr int kSteps = kFwdTile / 16 / kSplit;  // 16-key steps a warp takes a tile
+  static_assert(kGroup >= kFwdTile + kTimeEdges - 1, "a thread a key and a time-bias entry");
+};
+
+// A group's shared memory, in bytes from its front.
+template <int HDP>
+struct FwdSmem {
+  static constexpr int kRow = HDP + 8;  // bf16 row stride of the q, k, v tiles (load_tile's)
+  static constexpr int kMat = kFwdTile * kRow * 2;
+  static constexpr int kQ = 0, kK = kMat, kV = 2 * kMat;
+  static constexpr int kMeta = 3 * kMat;  // kFwdTile int4 (keys) and int2 (queries)
+  static constexpr int kBias = kMeta + kFwdTile * 24;  // kTimeEdges int4: the time bias
+  static constexpr int kBytes = kBias + kTimeEdges * 16;
+  // The second warps' sums, handed to the first after the last key tile,
+  // fit in the k and v tiles they have consumed.
+  static_assert(kFwdRowWarps * 32 * HDP / 2 * 4 <= 2 * kMat, "exchange fits in k and v");
+};
+
+// silu(s) = s / (1 + e^-s) with the fast exponential and division (a
+// few ulp of fp32, far inside the bf16 rounding that follows; -0 when e^-s
+// overflows). The fp32 kernels keep s * sigmoid(s).
+__device__ __forceinline__ float silu_fast(float s) { return __fdividef(s, 1.f + __expf(-s)); }
+
+// One 16-key step of the warp's rows: S (two n-tiles of 8 keys, both B
+// fragments by one ldmatrix) into sa, then P = silu(S + bias), masked
+// pairs exactly 0, rounded once to bf16 as the step's A fragment for P.V
+// (n-tile 0 gives registers 0 and 1, n-tile 1 registers 2 and 3). Every
+// pair of a live n-tile without branches, so the pairs' chains overlap.
+// The time bias is one 16-byte read a pair: tbias[e] = (edges[e + 1],
+// bias of bucket e, bias of bucket e + 1), e = floor(log2 |dt|) (see
+// time_bucket_edges).
+template <int HDP>
+__device__ __forceinline__ void fwd_step(uint32_t (&pf)[4], const uint32_t (&aq)[HDP / 16][4],
+                                         const bf16* k_s, const int4* km, int2 qa, int2 qb,
+                                         const int4* tbias, bool use_time, float pbias, int k0,
+                                         int kc, int qrow0, int qmax, int lane) {
+  constexpr int kRow = HDP + 8;
+  const int g8 = lane >> 2;
+  const int t4 = lane & 3;
+  float sa[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+  const bool second = k0 + kc + 8 <= qmax;  // causal: later keys are all masked
+#pragma unroll
+  for (int kk = 0; kk < HDP / 16; ++kk) {
+    uint32_t bk[4];  // matrices: (keys 0-7, dims 0-7), (0-7, 8-15), then keys 8-15
+    ldsm_x4(bk, k_s + (kc + (lane & 7) + (lane >> 4) * 8) * kRow + 16 * kk +
+                    ((lane >> 3) & 1) * 8);
+    const uint32_t b0[2] = {bk[0], bk[1]}, b1[2] = {bk[2], bk[3]};
+    mma_16816(sa[0], aq[kk], b0);
+    if (second) mma_16816(sa[1], aq[kk], b1);
+  }
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    float x[4] = {0.f, 0.f, 0.f, 0.f};
+    if (k0 + kc + 8 * n <= qmax) {
+      const int j0 = kc + 8 * n + 2 * t4;
+      const int4 ka = km[j0], kb = km[j0 + 1];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int2 qr = (e >> 1) ? qb : qa;
+        const int4 kr = (e & 1) ? kb : ka;
+        const int qi = qrow0 + g8 + 8 * (e >> 1);  // rows past L are never stored
+        const int kj = k0 + j0 + (e & 1);
+        const bool vis = (kj <= qi) & (kr.z == 0) & (qr.y == kr.y);
+        float s = sa[n][e] + pbias;
+        if (use_time) {
+          const int diff = (int)((unsigned)qr.x - (unsigned)kr.x);
+          const int a = (int)(diff < 0 ? 0u - (unsigned)diff : (unsigned)diff);
+          const int4 tb = tbias[31 - __clz(a > 1 ? a : 1)];
+          s = s + __int_as_float(a >= tb.x ? tb.z : tb.y);
+        }
+        x[e] = vis ? silu_fast(s) : 0.f;
+      }
+    }
+    pf[2 * n] = bf16x2_bits(__float2bfloat16_rn(x[0]), __float2bfloat16_rn(x[1]));
+    pf[2 * n + 1] = bf16x2_bits(__float2bfloat16_rn(x[2]), __float2bfloat16_rn(x[3]));
+  }
+}
+
+// Two blocks an SM: 128 registers a thread at 8 warps a block, 255 at 4
+// (aiming at more blocks on its own, ptxas spilled at hd 16).
+template <int HDP>
+__global__ void __launch_bounds__(FwdCfg<HDP>::kThreads, 2) hstu_fwd_tc_kernel(Params p) {
+  using Sm = FwdSmem<HDP>;
+  using Cfg = FwdCfg<HDP>;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const bool use_time = p.ttab && p.ts;
+  const int tid = threadIdx.x;
+  const int grp = tid / Cfg::kGroup;  // which of the block's (b, h) pairs
+  const int gt = tid - grp * Cfg::kGroup;
+  const int lane = tid & 31;
+  const int rgrp = (gt >> 5) % kFwdRowWarps;  // the warp's 16 rows of the query tile
+  const int half = (gt >> 5) / kFwdRowWarps;  // and which of their key steps it takes
+  unsigned char* sm = tc_smem + grp * Sm::kBytes;
+  bf16* q_s = reinterpret_cast<bf16*>(sm + Sm::kQ);
+  bf16* k_s = reinterpret_cast<bf16*>(sm + Sm::kK);
+  bf16* v_s = reinterpret_cast<bf16*>(sm + Sm::kV);
+  int4* km = reinterpret_cast<int4*>(sm + Sm::kMeta);  // key tile: time, segment, masked
+  int2* qm = reinterpret_cast<int2*>(km + kFwdTile);     // query tile: time, segment
+  int4* tbias = reinterpret_cast<int4*>(sm + Sm::kBias);
+
+  const int bh = blockIdx.x * kFwdHeads + grp;
+  const bool live = bh < p.BH;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int L = p.L;
+  const int hd = p.hd;
+  const int q0 = blockIdx.y * kFwdTile;
+  const int rw = 16 * rgrp;                   // the warp's first row in the query tile
+  const int qmax = min(q0 + rw + 15, L - 1);  // its last query that exists
+  const bool rows_in = live && q0 + rw < L;
+  const size_t base = (size_t)bh * L * hd;
+  const bf16* q = static_cast<const bf16*>(p.q) + base;
+  const bf16* k = static_cast<const bf16*>(p.k) + base;
+  const bf16* v = static_cast<const bf16*>(p.v) + base;
+
+  float pbias = 0.f;  // a visible pair has key <= query: position bucket of 0
+  uint32_t aq[HDP / 16][4];
+  float oacc[HDP / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < HDP / 8; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[dn][e] = 0.f;
+
+  for (int k0 = 0; k0 <= q0; k0 += kFwdTile) {  // causal: later key tiles are all masked
+    if (k0 > 0) __syncthreads();  // every warp is done with the previous key tile
+    if (live) {
+      if (k0 == 0) load_tile<HDP, kFwdTile, Cfg::kGroup>(q_s, q, q0, L, hd, gt);
+      load_tile<HDP, kFwdTile, Cfg::kGroup>(k_s, k, k0, L, hd, gt);
+      load_tile<HDP, kFwdTile, Cfg::kGroup>(v_s, v, k0, L, hd, gt);
+      // The tiles' metadata while the copies fly (thread i: key k0 + i and,
+      // on the first key tile, query q0 + i); keys past L are masked.
+      if (gt < kFwdTile) {
+        const int kj = k0 + gt;
+        int4 mk = make_int4(0, 0, 1, 0);
+        if (kj < L)
+          mk = make_int4(use_time ? p.ts[b * L + kj] : 0, p.seg ? p.seg[b * L + kj] : 0,
+                         p.pad[b * L + kj] != 0, 0);
+        km[gt] = mk;
+        if (k0 == 0) {
+          const int qi = q0 + gt;
+          int2 mq = make_int2(0, 0);
+          if (qi < L)
+            mq = make_int2(use_time ? p.ts[b * L + qi] : 0, p.seg ? p.seg[b * L + qi] : 0);
+          qm[gt] = mq;
+        }
+      } else if (k0 == 0 && use_time && gt < kFwdTile + kTimeEdges - 1) {
+        const int e = gt - kFwdTile;  // once: the time bias of e = floor(log2 |dt|)
+        const float* row = p.ttab + h * p.ntb;
+        tbias[e] = make_int4(p.time_edges[e + 1], __float_as_int(row[min(e, p.ntb - 1)]),
+                             __float_as_int(row[min(e + 1, p.ntb - 1)]), 0);
+      }
+      if (k0 == 0) pbias = p.ptab[h * p.nb + pos_bucket(0, p)];
+    }
+    cp_async_wait_all();  // this thread's copies have landed
+    __syncthreads();      // and every thread's, with the metadata
+    if (!rows_in) continue;
+
+    if (k0 == 0)  // the warp's rows of Q as A fragments, for every key tile
+#pragma unroll
+      for (int kk = 0; kk < HDP / 16; ++kk)
+        ldsm_x4(aq[kk], q_s + (rw + (lane & 7) + ((lane >> 3) & 1) * 8) * Sm::kRow + 16 * kk +
+                            (lane >> 4) * 8);
+    const int2 qa = qm[rw + (lane >> 2)], qb = qm[rw + (lane >> 2) + 8];
+#pragma unroll
+    for (int st = 0; st < Cfg::kSteps; ++st) {
+      const int kc = 16 * (st * Cfg::kSplit + half);  // the step's first key in the tile
+      if (k0 + kc > qmax) continue;
+      uint32_t pf[4];
+      fwd_step<HDP>(pf, aq, k_s, km, qa, qb, tbias, use_time, pbias, k0, kc, q0 + rw, qmax,
+                    lane);
+      // out += P.V over the step's 16 keys, two dim tiles a B load.
+#pragma unroll
+      for (int dn = 0; dn < HDP / 8; dn += 2) {
+        uint32_t b4[4];  // matrices: (keys 0-7, dn), (keys 8-15, dn), then dn + 1
+        ldsm_x4_trans(b4, v_s + (kc + (lane & 15)) * Sm::kRow + 8 * dn + (lane >> 4) * 8);
+        const uint32_t b0[2] = {b4[0], b4[1]}, b1[2] = {b4[2], b4[3]};
+        mma_16816(oacc[dn], pf, b0);
+        mma_16816(oacc[dn + 1], pf, b1);
+      }
+    }
+  }
+
+  if (Cfg::kSplit > 1) {  // the second warps' sums to the first, through the k and v tiles
+    float* xch = reinterpret_cast<float*>(sm + Sm::kK) + rgrp * 32 * (HDP / 2) + lane;
+    __syncthreads();  // every warp is done with the last key tile
+    if (rows_in && half == 1)
+#pragma unroll
+      for (int dn = 0; dn < HDP / 8; ++dn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xch[(4 * dn + e) * 32] = oacc[dn][e];
+    __syncthreads();
+    if (half == 1) return;
+    if (rows_in)
+#pragma unroll
+      for (int dn = 0; dn < HDP / 8; ++dn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) oacc[dn][e] += xch[(4 * dn + e) * 32];
+  }
+  if (rows_in) {
+    bf16* out = static_cast<bf16*>(p.out) + base;
+#pragma unroll
+    for (int dn = 0; dn < HDP / 8; ++dn)
+      emit_frag(oacc[dn], q0 + rw, 8 * dn, lane, L, hd, true, true, nullptr, out);
   }
 }
 
@@ -728,11 +967,11 @@ __global__ void __launch_bounds__(kTcThreads, 2) hstu_bwd_tc_kernel(Params p) {
       const int q0 = qt * kTcTile;
       __syncthreads();  // the previous pair's tiles and planes are consumed
       if (qt == kt) {
-        load_tile<HDP>(k_s, k, k0, L, hd);
-        load_tile<HDP>(v_s, v, k0, L, hd);
+        load_tile<HDP, kTcTile, kTcThreads>(k_s, k, k0, L, hd, tid);
+        load_tile<HDP, kTcTile, kTcThreads>(v_s, v, k0, L, hd, tid);
       }
-      load_tile<HDP>(q_s, q, q0, L, hd);
-      load_tile<HDP>(g_s, g, q0, L, hd);
+      load_tile<HDP, kTcTile, kTcThreads>(q_s, q, q0, L, hd, tid);
+      load_tile<HDP, kTcTile, kTcThreads>(g_s, g, q0, L, hd, tid);
       // The tiles' metadata, loaded into registers while the copies fly
       // (thread i: query q0 + i, key k0 + i; keys past L are masked).
       int2 mq = make_int2(0, 0);
@@ -996,7 +1235,7 @@ __global__ void __launch_bounds__(256) hstu_tables_sum_kernel(Params p, float* d
 }
 
 size_t meta_bytes(const Params& p) {
-  return (size_t)(p.nb + p.ntb) * sizeof(float) + (size_t)5 * kTile * sizeof(int);
+  return (size_t)(p.nb + p.ntb) * sizeof(float) + (size_t)(5 * kTile + kTimeEdges) * sizeof(int);
 }
 
 size_t fwd_smem(const Params& p) {
@@ -1014,26 +1253,32 @@ size_t bwd_smem(const Params& p) {
 
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
-                   const Params& p) {
+                   const Params& p, int threads = kThreads) {
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-static_assert(kTcThreads == kThreads, "launch() starts kThreads threads a block");
-
 template <int HDP>
 cudaError_t launch_tc(dim3 grid, cudaStream_t stream, const Params& p) {
-  return launch(hstu_bwd_tc_kernel<HDP>, grid, TcSmem<HDP>::bytes(p.ntb), stream, p);
+  return launch(hstu_bwd_tc_kernel<HDP>, grid, TcSmem<HDP>::bytes(p.ntb), stream, p,
+                kTcThreads);
+}
+
+template <int HDP>
+cudaError_t launch_fwd_tc(dim3 grid, cudaStream_t stream, const Params& p) {
+  return launch(hstu_fwd_tc_kernel<HDP>, grid, kFwdHeads * FwdSmem<HDP>::kBytes, stream, p,
+                FwdCfg<HDP>::kThreads);
 }
 
 Params make_params(const void* q, const void* k, const void* v, const void* ts,
                    const void* pad, const void* seg, const void* ptab, const void* ttab,
-                   int H, int L, int hd, int nb, int ntb, int max_exact, float log_ratio) {
+                   const int* time_edges, int B, int H, int L, int hd, int nb, int ntb,
+                   int max_exact, float log_ratio) {
   Params p = {};
   p.q = q;
   p.k = k;
@@ -1049,7 +1294,10 @@ Params make_params(const void* q, const void* k, const void* v, const void* ts,
   p.nb = nb;
   p.ntb = ttab ? ntb : 0;
   p.max_exact = max_exact;
+  p.BH = B * H;
   p.log_ratio = log_ratio;
+  if (ttab)
+    for (int i = 0; i < kTimeEdges; ++i) p.time_edges[i] = time_edges[i];
   return p;
 }
 
@@ -1060,25 +1308,32 @@ Params make_params(const void* q, const void* k, const void* v, const void* ts,
 // contiguity); ts, seg and ttab may be null. `bf16` selects
 // __nv_bfloat16 for q, k, v, g and the outputs (else float); tables,
 // partials and the dq scratch are float, timestamps and segments int32,
-// pad uint8. Launches on `stream` without synchronising and returns
-// cudaGetLastError() (0 = ok); hd must be in [1, 128].
+// pad uint8. time_edges: kTimeEdges ints in host memory
+// (time_bucket_edges), required with ttab. Launches on `stream` without
+// synchronising and returns cudaGetLastError() (0 = ok); hd must be in
+// [1, 128].
 extern "C" int hstu_attention_fwd(const void* q, const void* k, const void* v,
                                   const void* ts, const void* pad, const void* seg,
-                                  const void* ptab, const void* ttab, void* out, int B,
-                                  int H, int L, int hd, int nb, int ntb, int max_exact,
-                                  float log_ratio, int bf16, void* stream, int device) {
+                                  const void* ptab, const void* ttab, void* out,
+                                  const int* time_edges, int B, int H, int L, int hd, int nb,
+                                  int ntb, int max_exact, float log_ratio, int bf16,
+                                  void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || H == 0 || L == 0) return 0;
-  if (hd < 1 || hd > kMaxHeadDim) return (int)cudaErrorInvalidValue;
-  Params p = make_params(q, k, v, ts, pad, seg, ptab, ttab, H, L, hd, nb, ntb, max_exact,
-                         log_ratio);
+  if (hd < 1 || hd > kMaxHeadDim || (ttab && !time_edges)) return (int)cudaErrorInvalidValue;
+  Params p = make_params(q, k, v, ts, pad, seg, ptab, ttab, time_edges, B, H, L, hd, nb, ntb,
+                         max_exact, log_ratio);
   p.out = out;
-  const dim3 grid(B * H, (L + kTile - 1) / kTile);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = bf16 ? launch(hstu_fwd_kernel<__nv_bfloat16>, grid, fwd_smem(p), st, p)
-             : launch(hstu_fwd_kernel<float>, grid, fwd_smem(p), st, p);
-  return (int)err;
+  if (!bf16)
+    return (int)launch(hstu_fwd_kernel<float>, dim3(B * H, (L + kTile - 1) / kTile),
+                       fwd_smem(p), st, p);
+  const dim3 grid((B * H + kFwdHeads - 1) / kFwdHeads, (L + kFwdTile - 1) / kFwdTile);
+  if (hd <= 16) return (int)launch_fwd_tc<16>(grid, st, p);
+  if (hd <= 32) return (int)launch_fwd_tc<32>(grid, st, p);
+  if (hd <= 64) return (int)launch_fwd_tc<64>(grid, st, p);
+  return (int)launch_fwd_tc<128>(grid, st, p);
 }
 
 // The fp32 scratch the backward takes, in floats: fp32 inputs, dq's sums
@@ -1092,8 +1347,7 @@ extern "C" long long hstu_attention_bwd_scratch(int B, int H, int L, int hd, int
 // dq32: the scratch above (null when it is empty). dpt (B*H, nb) and dtt
 // (B*H, ntb, null without a time table) receive the per-(b, h) bucket
 // sums; where dpos is not null, a second launch sums them over b into
-// dpos (H, nb) and dtime (H, ntb). time_edges: kTimeEdges ints in host
-// memory (time_bucket_edges), read by the bf16 kernel.
+// dpos (H, nb) and dtime (H, ntb). time_edges as for the forward.
 extern "C" int hstu_attention_bwd(const void* q, const void* k, const void* v,
                                   const void* g, const void* ts, const void* pad,
                                   const void* seg, const void* ptab, const void* ttab,
@@ -1104,9 +1358,9 @@ extern "C" int hstu_attention_bwd(const void* q, const void* k, const void* v,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || H == 0 || L == 0) return 0;
-  if (hd < 1 || hd > kMaxHeadDim) return (int)cudaErrorInvalidValue;
-  Params p = make_params(q, k, v, ts, pad, seg, ptab, ttab, H, L, hd, nb, ntb, max_exact,
-                         log_ratio);
+  if (hd < 1 || hd > kMaxHeadDim || (ttab && !time_edges)) return (int)cudaErrorInvalidValue;
+  Params p = make_params(q, k, v, ts, pad, seg, ptab, ttab, time_edges, B, H, L, hd, nb, ntb,
+                         max_exact, log_ratio);
   p.g = g;
   p.dq32 = static_cast<float*>(dq32);
   p.dq = dq;
@@ -1117,8 +1371,6 @@ extern "C" int hstu_attention_bwd(const void* q, const void* k, const void* v,
   const dim3 grid(B * H);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   p.plane = (size_t)B * H * L * hd;
-  if (time_edges)
-    for (int i = 0; i < kTimeEdges; ++i) p.time_edges[i] = time_edges[i];
   if (!bf16) err = launch(hstu_bwd_kernel<float>, grid, bwd_smem(p), st, p);
   else if (p.ntb > 255) err = cudaErrorInvalidValue;  // buckets are packed in bytes
   else if (hd <= 16) err = launch_tc<16>(grid, st, p);

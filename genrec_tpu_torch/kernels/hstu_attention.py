@@ -47,7 +47,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Type the entry points of a build of ``csrc/hstu_attention.cu``."""
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.hstu_attention_fwd.argtypes = [ptr] * 9 + [i32] * 7 + [f32, i32, ptr, i32]
+    lib.hstu_attention_fwd.argtypes = [ptr] * 10 + [i32] * 7 + [f32, i32, ptr, i32]
     lib.hstu_attention_fwd.restype = i32
     lib.hstu_attention_bwd.argtypes = [ptr] * 18 + [i32] * 7 + [f32, i32, ptr, i32]
     lib.hstu_attention_bwd.restype = i32
@@ -112,9 +112,9 @@ TIME_EDGES = 32  # kTimeEdges of the source
 def time_bucket_edges() -> ctypes.Array:
     """edges[n], n = 1..31: the least |dt| whose ``hstu_log_bucket`` (not
     clipped) is n or more, found by bisection on the plain function itself;
-    edges[0] = 0. The bf16 backward kernel reads a bucket as e + (|dt| >=
-    edges[e + 1]) with e = floor(log2 |dt|), which holds because 2^(n-1) <=
-    edges[n] <= 2^n (checked here)."""
+    edges[0] = 0. Every kernel reads a bucket as e + (|dt| >= edges[e + 1])
+    with e = floor(log2 |dt|), which holds because 2^(n-1) <= edges[n] <=
+    2^n (checked here)."""
     n = torch.arange(1, TIME_EDGES, dtype=torch.int64)
     lo = torch.ones_like(n)  # bucket(lo) < n <= bucket(hi)
     hi = torch.full_like(n, 2**31 - 1)
@@ -141,7 +141,8 @@ def hstu_attention_fwd_cuda(q, k, v, timestamps, padding_mask, pos_table, time_t
     pos_table (H, nb) and time_table (H, ntb) float32 (the time table is
     used only with timestamps); all contiguous on one CUDA device, hd <=
     128. Raises on anything else and when the build or launch fails.
-    Launches on the current stream and does not synchronise;
+    bf16 inputs run the tensor-core kernel, float32 inputs the FFMA
+    kernel. Launches on the current stream and does not synchronise;
     ``hstu_attention_fwd_cuda.launches`` counts the launches."""
     B, H, L, hd, nb, ntb, ttab = _checked(
         q, k, v, timestamps, padding_mask, pos_table, time_table, segment_ids)
@@ -152,7 +153,8 @@ def hstu_attention_fwd_cuda(q, k, v, timestamps, padding_mask, pos_table, time_t
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         _ptr(timestamps if ttab is not None else None), padding_mask.data_ptr(),
         _ptr(segment_ids), pos_table.data_ptr(), _ptr(ttab), out.data_ptr(),
-        B, H, L, hd, nb, ntb, max_exact, log_ratio, int(q.dtype == torch.bfloat16),
+        time_bucket_edges(), B, H, L, hd, nb, ntb, max_exact, log_ratio,
+        int(q.dtype == torch.bfloat16),
         *launch_context(q),
     )
     raise_on_error(lib, "hstu_attention", "hstu_attention_fwd", rc)

@@ -64,7 +64,14 @@ def hstu_position_bucket(
 
 
 def hstu_log_bucket(time_diff: torch.Tensor, num_buckets: int = 64) -> torch.Tensor:
-    """log2 bucketing of |timestamp differences|: floor(ln(max(1,|d|))/0.693)."""
+    """log2 bucketing of |timestamp differences|: floor(ln(max(1,|d|))/0.693).
+
+    Float32 as on the CPU, on every device: the log is taken in float64
+    and rounded (CUDA's float32 log is one ulp off on some inputs), and the
+    divisor is a tensor, since CUDA divides by a Python number by
+    multiplying with its reciprocal (|d| = 522,824, whose ln / 0.693 is
+    19.0000002, then lands in bucket 18)."""
     abs_diff = time_diff.abs().clamp_min(1).to(torch.float32)
-    buckets = (torch.log(abs_diff) / 0.693).to(torch.int32)
-    return buckets.clamp(0, num_buckets - 1)
+    log = torch.log(abs_diff.to(torch.float64)).to(torch.float32)
+    ratio = torch.full((), 0.693, dtype=torch.float32, device=log.device)
+    return (log / ratio).to(torch.int32).clamp(0, num_buckets - 1)

@@ -108,6 +108,66 @@ def test_forward_twin_matches_pallas_and_xla(case):
         assert np.abs(got[1]).max() == 0.0  # the all-pad row
 
 
+# bf16 forward cases: (time, segments, B, L, hd, Pallas q block): the
+# trainer's packed, time-biased rows at L 50 and hd 32, and a case over
+# several q blocks.
+BF16_CASES = {
+    "trainer": (True, True, 3, 50, 32, 128),
+    "q_blocks": (True, True, 2, 70, 8, 32),
+}
+# One bf16 step of the output (2^-7 of it) plus 2e-3: the scores' sums run
+# in another order, which can move silu(S) across a bf16 rounding edge and
+# the output across its own.
+BF16_TOL = dict(atol=2e-3, rtol=2.0**-7)
+
+
+def _bf16_inputs(case, seed):
+    use_time, use_seg, B, L, hd, blk_q = BF16_CASES[case]
+    x = _inputs(B=B, L=L, hd=hd, use_time=use_time, use_seg=use_seg, seed=seed)
+    bf = {n: torch.as_tensor(x[n]).to(torch.bfloat16) for n in ("q", "k", "v")}
+    jx = {n: jnp.asarray(x[n]).astype(jnp.bfloat16) for n in ("q", "k", "v")}
+    (seg,) = _jax(x, "segment_ids")
+    pallas = pallas_fwd(jx["q"], jx["k"], jx["v"], *_jax(x, *ARGS[3:]), blk_q=blk_q,
+                        interpret=True, segment_ids=seg)
+    assert pallas.dtype == jnp.bfloat16
+    return x, bf, np.asarray(pallas.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("case", BF16_CASES)
+def test_bf16_forward_twin_matches_pallas(case):
+    """The contract of the bf16 tensor-core forward: fp32 scores of the
+    bf16 inputs, silu(S) rounded once to bf16, fp32 sums of its products
+    with v, the output in bf16; the plain version against the Pallas
+    forward on the same bf16 inputs."""
+    x, bf, want = _bf16_inputs(case, seed=7)
+    got = tk.hstu_attention_ref(bf["q"], bf["k"], bf["v"], *_torch(x, *ARGS[3:]),
+                                segment_ids=_torch(x, "segment_ids")[0])
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, **BF16_TOL)
+    if x["q"].shape[0] > 2:
+        assert float(got[1].float().abs().max()) == 0.0  # the all-pad row
+
+
+def test_bf16_forward_rounds_silu_once_as_pallas():
+    """silu(S) rounded once to bf16 before P.V (the tensor-core forward's
+    one plane) gives the Pallas output's bits on nearly every element;
+    keeping silu(S) in fp32, as a bf16 hi + lo pair would, is further off."""
+    x, bf, want = _bf16_inputs("trainer", seed=8)
+    q, k, v = (bf[n].float() for n in ("q", "k", "v"))
+    ts, pad, ptab, ttab, seg = _torch(x, "timestamps", "padding_mask", "pos_table",
+                                      "time_table", "segment_ids")
+    s, _, _, _ = tk._masked_scores(q, k, ts, pad, ptab, ttab, 128, seg)
+    attn = s * torch.sigmoid(s)
+    once = (attn.to(torch.bfloat16).float() @ v).to(torch.bfloat16).float().numpy()
+    fp32 = (attn @ v).to(torch.bfloat16).float().numpy()
+    off_once = float(np.mean(once != want))
+    off_fp32 = float(np.mean(fp32 != want))
+    print(f"share of outputs off Pallas's bits: rounded once {off_once}, fp32 {off_fp32}")
+    np.testing.assert_allclose(once, want, **BF16_TOL)
+    assert off_once < 0.01
+    assert off_fp32 > 2 * off_once
+
+
 @pytest.mark.parametrize("case", ["time", "no_time", "segments", "q_blocks"])
 def test_backward_twin_matches_pallas(case):
     use_time, use_seg, B, L, hd, blk_q = CASES[case]
