@@ -14,7 +14,9 @@ line each; any failure ends the run with a traceback and a non-zero exit:
 3. kernel   each kernel against its plain PyTorch version on the card, in
             its edge cases and at the shapes its main path gives it (B1 and
             B2 at the TIGER serving shapes; B3-B6 at the HSTU training
-            shapes; B7 at the RQ-VAE export's), then timed by device time
+            shapes, B5 also at the retrieval serving buckets with
+            right-aligned rows, all-padding rows exactly 0; B7 at the
+            RQ-VAE export's), then timed by device time
             (CUDA-graph replay of calls on inputs cold in L2): the kernel,
             the plain version, one PyTorch library call computing the same
             function where there is one (a yardstick only), and the least
@@ -47,14 +49,23 @@ line each; any failure ends the run with a traceback and a non-zero exit:
 5. parity   20 steps from one init on the same batches, dropout 0 and fp32,
             through the kernels (use_pallas=use_fused_ce=True) and through
             the plain path (both False): the loss trajectories must agree;
-6. rqvae    the RQ-VAE at the widths of config/tiger/amazon/rqvae.gin:
+6. sasrec   SASRec at the widths of config/sasrec/amazon.gin:
+            sasrec_trainer.train through that file (2 epochs with eval,
+            synthetic data with Amazon-Beauty's 12,101 items; its loss must
+            fall), fixed steps on the train phase's data (steps/s, tokens/s,
+            p50 step, losses, valid Recall@10/NDCG@10 of right-aligned rows)
+            launching B3, B4 dx and B4 dW exactly once a step and no other
+            kernel, 20 fp32 steps through the kernels against the plain path
+            (losses within 1e-4 relative), and B3/B4 on the step's own
+            operands (the tied item table; the `_sasrec` rows);
+7. rqvae    the RQ-VAE at the widths of config/tiger/amazon/rqvae.gin:
             rqvae_trainer.train through that file (synthetic item
             embeddings at Amazon-Beauty's 12,101 items x 768, epochs cut to
             RQVAE_EPOCHS), whose loss must fall; fixed steps (steps/s, p50
             step); the sem-id export over the 12,101 items, which must launch
             B7 exactly ceil(12,101 / 4096) = 3 times and equal the model
             path's get_semantic_ids outside near ties (counted);
-7. serve    TIGER at the Amazon widths of config/tiger/amazon/tiger.gin,
+8. serve    TIGER at the Amazon widths of config/tiger/amazon/tiger.gin,
             random weights from --seed, answering --requests requests through
             ServingEngine + TigerGenerativeHead, with float32 pages (B1, 4
             launches a decode step) and then the same requests with int8
@@ -64,7 +75,18 @@ line each; any failure ends the run with a traceback and a non-zero exit:
             also on the CPU). With --profile the traffic is served once
             more under torch.profiler, and the RQ-VAE runs one more epoch
             under it;
-8. lcrec    LCRec SFT at tensor_parallel=2 at Qwen2.5-1.5B widths
+9. retrieve SASRec (fp32) and HSTU (bf16, B5) retrieval heads at their
+            Amazon widths in one ServingEngine, random weights from --seed,
+            one engine with the fp32 item table and one with the int8 one,
+            answering the valid-split histories of the synthetic
+            Amazon-Beauty users: five bursts of RETRIEVE_BURST requests a
+            table, interleaved (qps of each), then RETRIEVE_OPEN requests at
+            Poisson arrivals of RETRIEVE_RATE a second (p50 and p99 by head,
+            bucket hits); B5 launched exactly twice an HSTU micro-batch and
+            no other kernel; every item a catalog item; a sample of each
+            load against offline last_hidden + item_topk on the card; int8
+            recall@10 against fp32 >= 0.8 for every request;
+10. lcrec   LCRec SFT at tensor_parallel=2 at Qwen2.5-1.5B widths
             (QwenConfig() with config/lcrec/amazon/lcrec.gin): first B3 and
             B4 at one rank's shard of the head (8 x 511 rows, 76,608 vocab
             rows, d 1,536, bf16; a full and a ragged live-vocab limit) and
@@ -165,6 +187,33 @@ LAUNCHES_PER_STEP = {"hstu_attention_fwd": 2, "hstu_attention_bwd": 2,
                      "fused_linear_ce_fwd": 1, "fused_linear_ce_bwd_dx": 1,
                      "fused_linear_ce_bwd_dw": 1}
 
+# SASRec, config/sasrec/amazon.gin (embed 64, 2 heads, 2 blocks, FFN 256,
+# L 50, dropout 0.2, bf16, batch 128 packed rows, Adam 1e-3); depth not cut.
+# Trained on the HSTU phase's synthetic Amazon-Beauty data.
+SASREC_AMAZON = dict(embed_dim=64, num_heads=2, num_blocks=2, ffn_dim=256, max_seq_len=50)
+SASREC_BATCH = 128
+SASREC_LAUNCHES_PER_STEP = {"fused_linear_ce_fwd": 1, "fused_linear_ce_bwd_dx": 1,
+                            "fused_linear_ce_bwd_dw": 1}
+# Retrieval serving: SASRec (fp32) and HSTU (bf16) heads at those widths,
+# top 10 of Amazon-Beauty's 12,101 items. The traffic is the valid-split
+# histories of the synthetic Amazon-Beauty set the trainers use (3 to 28
+# items), HSTU's with their timestamps; the history buckets past
+# max_seq_len (64) clamp to 50.
+RETRIEVE_TOP_K = 10
+RETRIEVE_LADDER = ((1, 2, 4, 8, 16), (8, 16, 32, 64))
+RETRIEVE_BUCKET = (16, 32, 16)  # B5 timed at the bursts' bucket: B, L, requests in it
+RETRIEVE_BURST = 2048  # requests a burst (~0.5 s on the H100)
+RETRIEVE_ORDER = (False, True, True, False, False, True, True, False, False, True)  # int8?
+RETRIEVE_RATE = 1000.0  # offered load of the open-loop run, requests a second
+RETRIEVE_OPEN = 3000  # requests of the open-loop run a table (~3 s)
+RETRIEVE_SAMPLE = 12  # burst requests a head held to offline scoring on the card
+# Engine answer against offline scoring of the same bucket shape, relative
+# to max |score|: fp32 SASRec runs the same GEMMs (1e-5); HSTU's bf16 hidden
+# states may round one step apart between batches (1e-2).
+SASREC_SCORE_TOL = 1e-5
+HSTU_SCORE_TOL = 1e-2
+INT8_RECALL_FLOOR = 0.8  # tests/test_quantized.py::test_engine_quantized_retrieval_heads
+
 # The kernels line: name -> (source, the TPU kernel it replaces, its function).
 KERNELS = {
     "paged_attention_stats": ("genrec_tpu_torch/csrc/paged_attention.cu",
@@ -198,6 +247,18 @@ KERNELS = {
     "fused_linear_ce_bwd_dw_lcrec": ("genrec_tpu_torch/csrc/fused_ce.cu",
                                      "genrec_tpu/kernels/fused_ce.py:180",
                                      "fused_linear_ce_bwd (_dw_kernel), per shard"),
+    "fused_linear_ce_fwd_sasrec": ("genrec_tpu_torch/csrc/fused_ce.cu",
+                                   "genrec_tpu/kernels/fused_ce.py:137",
+                                   "fused_linear_ce_fwd, on the SASRec step's operands"),
+    "fused_linear_ce_bwd_dx_sasrec": ("genrec_tpu_torch/csrc/fused_ce.cu",
+                                      "genrec_tpu/kernels/fused_ce.py:180",
+                                      "fused_linear_ce_bwd (_dx_kernel), SASRec step"),
+    "fused_linear_ce_bwd_dw_sasrec": ("genrec_tpu_torch/csrc/fused_ce.cu",
+                                      "genrec_tpu/kernels/fused_ce.py:180",
+                                      "fused_linear_ce_bwd (_dw_kernel), SASRec step"),
+    "hstu_attention_fwd_retrieve": ("genrec_tpu_torch/csrc/hstu_attention.cu",
+                                    "genrec_tpu/kernels/hstu_attention.py:148",
+                                    "hstu_attention_pallas, at a retrieval serving bucket"),
     "sharded_fused_linear_ce": ("genrec_tpu_torch/kernels/fused_ce.py",
                                 "genrec_tpu/kernels/fused_ce.py:329",
                                 "sharded_fused_linear_ce (_tp_vjp_fwd :350, _tp_vjp_bwd :375, "
@@ -1144,6 +1205,25 @@ def ce_kernel_phase(dev, seed, ptxas) -> dict:
     copies = cold_copies(
         lambda c: ce_inputs(dev, seed + 100 + c, torch.bfloat16, mean_g=True),
         nbytes(*base.values()))
+    return ce_rows(copies, errs, ptxas,
+                   bit_equal_twice_cases=[n for n, (dt, _) in cases.items()
+                                          if dt == torch.bfloat16])
+
+
+def ce_rows(copies, errs, ptxas, suffix="", **extra_fields) -> dict:
+    """B3, B4 dx and B4 dW timed over ``copies`` (dicts of bf16 x, w, int32
+    targets and an fp32 cotangent g, the mean loss's 1 / valid rows), with
+    their plain versions and the library call; one kernel row each, named
+    with ``suffix``, carrying ``errs`` (by direction, then case)."""
+    from genrec_tpu_torch.kernels.fused_ce import (
+        fused_linear_ce_dw_cuda,
+        fused_linear_ce_dw_ref,
+        fused_linear_ce_dx_cuda,
+        fused_linear_ce_dx_ref,
+        fused_linear_ce_fwd_cuda,
+        fused_linear_ce_ref,
+    )
+
     fwd_sets = [dict(x=c["x"], w=c["w"], targets=c["targets"]) for c in copies]
     bwd_sets = [dict(f, lse=fused_linear_ce_ref(**f)[1], g=c["g"])
                 for f, c in zip(fwd_sets, copies)]
@@ -1153,6 +1233,7 @@ def ce_kernel_phase(dev, seed, ptxas) -> dict:
     library_err = assert_near("library CE vs kernel", library_ce(**fwd_sets[0]), got_loss,
                               2 * BF16_TOL)
 
+    base = copies[0]
     R, d = base["x"].shape
     V = base["w"].shape[0]
     x_bytes, w_bytes = nbytes(base["x"]), nbytes(base["w"])
@@ -1183,11 +1264,9 @@ def ce_kernel_phase(dev, seed, ptxas) -> dict:
             library = (f"autograd of the same call for {key} alone: its forward+backward "
                        "time less its forward time")
         bound_ms, bound_by = bound(bytes_, ops, BF16_FLOPS)
-        extra = dict(
-            tc_report(key, R, V, d, ms, bound_ms, ops, ptxas),
-            bit_equal_twice_cases=[n for n, (dt, _) in cases.items() if dt == torch.bfloat16])
-        out[name] = emit(
-            "kernel", name=name, shape=dict(R=R, V=V, d=d, dtype="bf16"), **extra,
+        out[name + suffix] = emit(
+            "kernel", name=name + suffix, kernel=name, shape=dict(R=R, V=V, d=d, dtype="bf16"),
+            **tc_report(key, R, V, d, ms, bound_ms, ops, ptxas), **extra_fields,
             max_abs_err=max(errs[key].values()), max_abs_err_by_case=errs[key],
             tolerance=dict(fp32=FP32_TOL, bf16=BF16_TOL, loss_lse=FP32_TOL,
                            relative_to="max|plain|"),
@@ -1229,16 +1308,20 @@ def read_counters() -> dict:
     return {name: fn.launches for name, fn in kernel_counters().items()}
 
 
-def trainer_run(dev, seed) -> dict:
-    """hstu_trainer.train through config/hstu/amazon.gin, 2 epochs, eval
-    on: the user's entry point."""
-    from genrec_tpu_torch import configlib
-    from genrec_tpu_torch.trainers import hstu_trainer
+def trainer_run(dev, seed, gin="config/hstu/amazon.gin", trainer="hstu_trainer",
+                per_step=LAUNCHES_PER_STEP) -> dict:
+    """``trainers.<trainer>.train`` through ``gin`` on synthetic data at
+    Amazon-Beauty's item count, 2 epochs, eval on: the user's entry point.
+    Each kernel of ``per_step`` must have launched and no other; the epoch
+    losses (from the run's metrics.jsonl) must fall."""
+    import importlib
 
+    from genrec_tpu_torch import configlib
+
+    train = importlib.import_module(f"genrec_tpu_torch.trainers.{trainer}").train
     configlib.clear_bindings()
     configlib.clear_macros()
-    configlib.parse_file(str(HERE / "config/hstu/amazon.gin"),
-                         substitutions={"split": "beauty"})
+    configlib.parse_file(str(HERE / gin), substitutions={"split": "beauty"})
     with tempfile.TemporaryDirectory() as tmp:
         for binding in ('train.dataset = "synthetic"', f"train.num_items = {BEAUTY_ITEMS}",
                         "train.wandb_logging = False", f'train.save_dir_root = "{tmp}"',
@@ -1247,16 +1330,22 @@ def trainer_run(dev, seed) -> dict:
             configlib.parse_binding(binding)
         reset_counters()
         t0 = time.perf_counter()
-        valid, test = hstu_trainer.train()
+        valid, test = train()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = read_counters()
+        logged = [json.loads(line) for line in open(f"{tmp}/metrics.jsonl")]
     configlib.clear_bindings()
     configlib.clear_macros()
-    for name in LAUNCHES_PER_STEP:
-        check(launches[name] > 0, f"train(): {name} was never launched")
+    for name, count in launches.items():
+        check((count > 0) == (name in per_step),
+              f"{trainer}.train(): {name} launched {count} times")
+    epoch_loss = [m["train/loss"] for m in logged if "epoch" in m and "train/loss" in m]
+    check(len(epoch_loss) == 2 and np.isfinite(epoch_loss).all(), epoch_loss)
+    check(epoch_loss[-1] < epoch_loss[0], (f"{trainer}: loss did not fall", epoch_loss))
     check(all(np.isfinite(v) for v in (*valid.values(), *test.values())), (valid, test))
-    return dict(wall_s=wall_s, valid=valid, test=test, launches=launches)
+    return dict(wall_s=wall_s, epoch_loss=epoch_loss, valid=valid, test=test,
+                launches=launches)
 
 
 def train_setup(dev, seed, *, dtype, dropout, use_kernels):
@@ -1277,12 +1366,20 @@ def train_setup(dev, seed, *, dtype, dropout, use_kernels):
 
 
 @functools.cache
-def beauty_data(seed):
-    from genrec_tpu_torch.data.batching import pack_examples
+def beauty_dataset(seed):
+    """SyntheticSeqDataset with Amazon-Beauty's item and user counts, built
+    once (~20 s on the host) for the HSTU and SASRec phases."""
     from genrec_tpu_torch.data.synthetic import SyntheticSeqDataset
 
-    ds = SyntheticSeqDataset(num_items=BEAUTY_ITEMS, num_users=BEAUTY_USERS,
-                             max_seq_len=HSTU_AMAZON["max_seq_len"], seed=seed)
+    return SyntheticSeqDataset(num_items=BEAUTY_ITEMS, num_users=BEAUTY_USERS,
+                               max_seq_len=HSTU_AMAZON["max_seq_len"], seed=seed)
+
+
+@functools.cache
+def beauty_data(seed):
+    from genrec_tpu_torch.data.batching import pack_examples
+
+    ds = beauty_dataset(seed)
     examples = ds.train_examples(with_time=True)
 
     def repack(epoch):
@@ -1295,17 +1392,15 @@ def beauty_data(seed):
     return ds, repack
 
 
-def train_phase(dev, seed, profile) -> dict:
+def timed_steps(dev, seed, state, step_fn, repack, rows, warm=3, n=TRAIN_STEPS):
+    """A PackedTrainLoop over ``repack``'s packed rows: ``warm`` steps (the
+    first calls: kernel libraries, cuBLAS handles, allocator), then ``n``
+    steps of the same epoch timed by a CUDA event a step, with every
+    kernel's launches counted over them (the counters set to 0 just
+    before). Returns (the loop, the numbers)."""
     from genrec_tpu_torch.core.logging import Tracker, setup_logger
-    from genrec_tpu_torch.trainers.hstu_trainer import evaluate, make_eval_step
     from genrec_tpu_torch.trainers.packed_loop import PackedTrainLoop
 
-    trainer = trainer_run(dev, seed)
-    t0 = time.perf_counter()
-    ds, repack = beauty_data(seed)
-    data_s = time.perf_counter() - t0
-    model, step_fn, state = train_setup(dev, seed, dtype=torch.bfloat16, dropout=0.2,
-                                        use_kernels=True)
     events, losses, tokens = [], [], []
 
     def hook(state, m, global_step):
@@ -1315,13 +1410,13 @@ def train_phase(dev, seed, profile) -> dict:
         losses.append(m["loss"])
         tokens.append(m["real_tokens"])
 
+    row_len = HSTU_AMAZON["max_seq_len"]  # SASRec's amazon.gin has the same 50
     loop = PackedTrainLoop(logger=setup_logger(None), tracker=Tracker(), device=dev,
-                           rows_per_step=HSTU_BATCH, row_len=HSTU_AMAZON["max_seq_len"],
-                           seed=seed, pack_sequences=True, repack=repack, step_hook=hook)
-    warm = 3  # first calls: kernel libraries, cuBLAS handles, allocator
+                           rows_per_step=rows, row_len=row_len, seed=seed,
+                           pack_sequences=True, repack=repack, step_hook=hook)
     loop.run_epoch(state, step_fn, 0, 0, max_steps=warm)
-    steps_per_epoch = loop.pack_report.n_rows // HSTU_BATCH
-    check(steps_per_epoch >= warm + TRAIN_STEPS, (steps_per_epoch, warm + TRAIN_STEPS))
+    steps_per_epoch = loop.pack_report.n_rows // rows
+    check(steps_per_epoch >= warm + n, (steps_per_epoch, warm + n))
     events.clear()
     losses.clear()
     tokens.clear()
@@ -1330,40 +1425,67 @@ def train_phase(dev, seed, profile) -> dict:
     reset_counters()
     t0 = time.perf_counter()
     first.record()
-    loop.run_epoch(state, step_fn, 0, warm, start_batch=warm, max_steps=warm + TRAIN_STEPS)
+    loop.run_epoch(state, step_fn, 0, warm, start_batch=warm, max_steps=warm + n)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = read_counters()
-    n = len(events)
-    check(n == TRAIN_STEPS, (n, TRAIN_STEPS))
-    for name, per_step in LAUNCHES_PER_STEP.items():
-        check(launches[name] == per_step * n,
-              f"{name}: {launches[name]} launches in {n} steps, want {per_step} per step")
+    check(len(events) == n, (len(events), n))
     step_ms = [a.elapsed_time(b) for a, b in zip([first] + events[:-1], events)]
     loss = [float(v) for v in losses]
     real_tokens = float(sum(float(v) for v in tokens))
     check(all(np.isfinite(loss)), loss)
     check(np.mean(loss[-5:]) < np.mean(loss[:5]), ("loss did not fall", loss))
-    metrics = evaluate(make_eval_step(model), ds.eval_arrays_with_time("valid"), 256, dev)
-    out = emit(
-        "train", card=torch.cuda.get_device_name(dev), trainer=trainer,
-        config="config/hstu/amazon.gin widths, synthetic data", rows_per_step=HSTU_BATCH,
-        data_build_s=data_s, packing=loop.pack_report.as_dict(), steps=n,
+    return loop, dict(
+        rows_per_step=rows, packing=loop.pack_report.as_dict(), steps=n,
         steps_per_s=n / wall_s, real_tokens_per_s=real_tokens / wall_s,
         real_tokens_per_step=real_tokens / n, wall_s=wall_s,
         step_ms_p50=float(np.percentile(step_ms, 50)),
         step_ms_p90=float(np.percentile(step_ms, 90)),
-        first_loss=loss[0], last_loss=loss[-1], losses=loss,
-        valid_recall_at_10=metrics["Recall@10"], valid_ndcg_at_10=metrics["NDCG@10"],
-        launches=launches,
-        launches_per_step={k: launches[k] / n for k in LAUNCHES_PER_STEP},
+        first_loss=loss[0], last_loss=loss[-1], losses=loss, launches=launches,
+    )
+
+
+def check_launches_per_step(what, launches, per_step, n) -> dict:
+    """Each kernel of ``per_step`` launched exactly that many times a step
+    over ``n`` steps, and every other kernel of the port not at all."""
+    for name, count in launches.items():
+        want = per_step.get(name, 0) * n
+        check(count == want, f"{what}: {name} launched {count} times in {n} steps, "
+                             f"want {per_step.get(name, 0)} a step")
+    return {k: launches[k] / n for k in per_step}
+
+
+def train_phase(dev, seed, profile) -> dict:
+    from genrec_tpu_torch.trainers.evaluation import evaluate
+    from genrec_tpu_torch.trainers.hstu_trainer import make_eval_step
+
+    trainer = trainer_run(dev, seed)
+    t0 = time.perf_counter()
+    ds, repack = beauty_data(seed)
+    data_s = time.perf_counter() - t0
+    model, step_fn, state = train_setup(dev, seed, dtype=torch.bfloat16, dropout=0.2,
+                                        use_kernels=True)
+    warm = 3
+    loop, steps = timed_steps(dev, seed, state, step_fn, repack, HSTU_BATCH, warm=warm)
+    n = steps["steps"]
+    per_step = check_launches_per_step("HSTU step", steps["launches"], LAUNCHES_PER_STEP, n)
+    metrics = evaluate(make_eval_step(model), ds.eval_arrays_with_time("valid"), 256, dev)
+    out = emit(
+        "train", card=torch.cuda.get_device_name(dev), trainer=trainer,
+        config="config/hstu/amazon.gin widths, synthetic data", data_build_s=data_s,
+        **steps, valid_recall_at_10=metrics["Recall@10"], valid_ndcg_at_10=metrics["NDCG@10"],
+        launches_per_step=per_step,
     )
     if not profile:
         return out
-    # The profiled steps run in the second epoch, after its repack and one
-    # step outside the window.
-    more, step = 20, warm + n + 1
-    loop.run_epoch(state, step_fn, 1, warm + n, max_steps=step)
+    return {**out, "profile": profiled_steps("train_profile", loop, state, step_fn, warm + n)}
+
+
+def profiled_steps(phase, loop, state, step_fn, done, more=20) -> dict:
+    """``more`` steps of the second epoch under torch.profiler, after its
+    repack and one step outside the window (``done`` steps ran before)."""
+    step = done + 1
+    loop.run_epoch(state, step_fn, 1, done, max_steps=step)
 
     def run_more():
         t = time.perf_counter()
@@ -1371,16 +1493,16 @@ def train_phase(dev, seed, profile) -> dict:
         torch.cuda.synchronize()
         return time.perf_counter() - t
 
-    prof = emit("train_profile", steps=more, **device_profile(run_more))
-    return {**out, "profile": prof}
+    return emit(phase, steps=more, **device_profile(run_more))
 
 
-def parity_phase(dev, seed) -> dict:
+def parity_phase(dev, seed, setup=train_setup, data=beauty_data, phase="parity") -> dict:
     """The kernels' path against the plain path end to end: same init,
-    same batches, dropout 0, fp32."""
+    same batches, dropout 0, fp32 (HSTU, or SASRec with its setup and
+    data)."""
     from genrec_tpu_torch.data.batching import batch_iterator
 
-    _, repack = beauty_data(seed)
+    _, repack = data(seed)
     arrays, _ = repack(0)
     batches = []
     for batch, _ in batch_iterator(arrays, HSTU_BATCH, drop_last=True):
@@ -1390,8 +1512,8 @@ def parity_phase(dev, seed) -> dict:
     traj = {}
     init = None
     for use_kernels in (True, False):
-        model, step_fn, state = train_setup(dev, seed, dtype=torch.float32, dropout=0.0,
-                                            use_kernels=use_kernels)
+        model, step_fn, state = setup(dev, seed, dtype=torch.float32, dropout=0.0,
+                                      use_kernels=use_kernels)
         if init is None:
             init = {k: v.clone() for k, v in model.state_dict().items()}
         model.load_state_dict(init)
@@ -1400,12 +1522,445 @@ def parity_phase(dev, seed) -> dict:
     rel = float(np.max(np.abs(k - p) / np.abs(p)))
     check(np.isfinite(k).all() and rel <= PARITY_RTOL,
           f"kernel vs plain loss trajectories: max relative diff {rel} > {PARITY_RTOL}")
-    return emit("parity", steps=len(batches), dtype="fp32", dropout=0.0,
+    return emit(phase, steps=len(batches), dtype="fp32", dropout=0.0,
                 max_rel_diff=rel, rtol=PARITY_RTOL, kernel_losses=traj[True],
                 plain_losses=traj[False])
 
 
-# ---- phase 6: RQ-VAE semantic ids -------------------------------------------
+# ---- phases 6 and 9: SASRec training, retrieval serving ----------------------
+
+
+def sasrec_setup(dev, seed, *, dtype, dropout, use_kernels):
+    """SASRec at the amazon.gin widths, its step function and state (the
+    trainer's recipe: Adam 1e-3, b2 0.98, no clipping)."""
+    from genrec_tpu_torch.core.harness import make_train_step
+    from genrec_tpu_torch.core.optim import Adam
+    from genrec_tpu_torch.core.state import TrainState
+    from genrec_tpu_torch.models.sasrec import SASRec
+    from genrec_tpu_torch.trainers.sasrec_trainer import make_loss_fn
+
+    model = SASRec(num_items=BEAUTY_ITEMS, dropout=dropout, fused_ce=use_kernels, dtype=dtype,
+                   device=dev, seed=seed, **SASREC_AMAZON)
+    optimizer = Adam(1e-3, b2=0.98)
+    step_fn = make_train_step(make_loss_fn(), optimizer, clip_norm=None)
+    return model, step_fn, TrainState.create(model, optimizer, seed)
+
+
+@functools.cache
+def sasrec_data(seed):
+    """The HSTU phase's synthetic Amazon-Beauty data, packed as the SASRec
+    trainer packs it: positions kept, no timestamps."""
+    from genrec_tpu_torch.data.batching import pack_examples
+
+    ds = beauty_dataset(seed)
+    examples = ds.train_examples()
+
+    def repack(epoch):
+        arrays, rep = pack_examples(examples, row_len=SASREC_AMAZON["max_seq_len"],
+                                    seed=(seed, epoch))
+        arrays.pop("segment_valid")
+        return arrays, rep
+
+    return ds, repack
+
+
+def ce_sasrec_rows(dev, seed, model, ptxas) -> dict:
+    """B3 and B4 (dx, dW) on the SASRec step's own operands: x the final
+    hidden states of packed batches of the train data, w the tied item
+    table, both bf16, targets of the batch (pad slots ignored), g the mean
+    loss's 1 / valid rows. Held to their plain versions on the first
+    batch, bit-equal over two calls, then timed over copies cold in L2."""
+    from genrec_tpu_torch.data.batching import batch_iterator
+    from genrec_tpu_torch.kernels import fused_ce as fc
+
+    _, repack = sasrec_data(seed)
+    arrays, _ = repack(0)
+    per_copy = SASREC_BATCH * SASREC_AMAZON["max_seq_len"] * SASREC_AMAZON["embed_dim"] * 2 * 2
+    need = max(2, -(-3 * L2_BYTES // per_copy))
+    w = model.item_embedding.detach().to(torch.bfloat16)
+    copies = []
+    with torch.no_grad():
+        for batch, _ in batch_iterator(arrays, SASREC_BATCH, drop_last=True):
+            b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+            x = model._encode(b["input_ids"], segment_ids=b["segment_ids"],
+                              positions=b["positions"]).to(torch.bfloat16)
+            t = b["targets"].reshape(-1).to(torch.int32)
+            valid = max(int((t != 0).sum()), 1)
+            copies.append(dict(x=x.reshape(-1, x.shape[-1]).contiguous(), w=w.clone(),
+                               targets=t, g=torch.full(t.shape, 1.0 / valid, device=dev)))
+            if len(copies) == need:
+                break
+    distinct = len(copies)
+    while len(copies) < need:  # fresh memory for each set; the values repeat
+        copies.append({k: v.clone() for k, v in copies[len(copies) % distinct].items()})
+    first = copies[0]
+    fwd = dict(x=first["x"], w=first["w"], targets=first["targets"])
+    loss, lse = fc.fused_linear_ce_fwd_cuda(**fwd)
+    want_loss, want_lse = fc.fused_linear_ce_ref(**fwd)
+    errs = {"fwd": {"sasrec_step": max(
+        assert_near("sasrec ce loss", loss, want_loss, FP32_TOL),
+        assert_near("sasrec ce lse", lse, want_lse, FP32_TOL))}}
+    bwd = dict(fwd, lse=want_lse, g=first["g"])
+    errs["dx"] = {"sasrec_step": assert_near("sasrec ce dx", fc.fused_linear_ce_dx_cuda(**bwd),
+                                             fc.fused_linear_ce_dx_ref(**bwd), BF16_TOL)}
+    errs["dw"] = {"sasrec_step": assert_near("sasrec ce dW", fc.fused_linear_ce_dw_cuda(**bwd),
+                                             fc.fused_linear_ce_dw_ref(**bwd), BF16_TOL)}
+    bit_equal_twice(fc.fused_linear_ce_fwd_cuda, fwd, "sasrec ce fwd")
+    bit_equal_twice(fc.fused_linear_ce_dx_cuda, bwd, "sasrec ce dx")
+    bit_equal_twice(fc.fused_linear_ce_dw_cuda, bwd, "sasrec ce dW")
+    return ce_rows(copies, errs, ptxas, suffix="_sasrec", bit_equal_twice_cases=["sasrec_step"],
+                   operands="the SASRec step's: final hidden states of packed train "
+                            "batches, the tied item table")
+
+
+def sasrec_phase(dev, seed, ptxas, profile) -> dict:
+    """SASRec at the widths of config/sasrec/amazon.gin: the trainer run,
+    fixed steps (B3, B4 dx and B4 dW exactly once a step, no other kernel),
+    valid Recall@10 / NDCG@10 of right-aligned rows, 20 fp32 steps through
+    the kernels against the plain path, and B3/B4 on the step's own
+    operands. With ``profile``, more steps under torch.profiler."""
+    from genrec_tpu_torch.data.batching import right_align
+    from genrec_tpu_torch.trainers.sasrec_trainer import evaluate, make_eval_step
+
+    trainer = trainer_run(dev, seed, "config/sasrec/amazon.gin", "sasrec_trainer",
+                          SASREC_LAUNCHES_PER_STEP)
+    ds, repack = sasrec_data(seed)
+    model, step_fn, state = sasrec_setup(dev, seed, dtype=torch.bfloat16, dropout=0.2,
+                                         use_kernels=True)
+    warm = 3
+    loop, steps = timed_steps(dev, seed, state, step_fn, repack, SASREC_BATCH, warm=warm)
+    n = steps["steps"]
+    per_step = check_launches_per_step("SASRec step", steps["launches"],
+                                       SASREC_LAUNCHES_PER_STEP, n)
+    metrics = evaluate(make_eval_step(model, last_from_length=True),
+                       right_align(ds.eval_arrays("valid")), 256, dev)
+    out = emit(
+        "sasrec", card=torch.cuda.get_device_name(dev), trainer=trainer,
+        config="config/sasrec/amazon.gin widths, synthetic data", **steps,
+        valid_recall_at_10=metrics["Recall@10"], valid_ndcg_at_10=metrics["NDCG@10"],
+        launches_per_step=per_step,
+    )
+    out["parity"] = parity_phase(dev, seed, setup=sasrec_setup, data=sasrec_data,
+                                 phase="sasrec_parity")
+    out["kernels"] = ce_sasrec_rows(dev, seed, model.eval(), ptxas)
+    if profile:
+        out["profile"] = profiled_steps("sasrec_profile", loop, state, step_fn, warm + n)
+    return out
+
+
+def hstu_serving_inputs(dev, seed, dtype, B, L, n_real):
+    """B5's inputs as the retrieval head gives them at the amazon.gin widths
+    (H 2, hd 32): histories right-aligned (padding in front) of 1 to L
+    items, rows past the ``n_real`` requests all padding, timestamps ~1
+    event a day and 0 on padding; row 0 holds one item."""
+    rng = np.random.default_rng(seed)
+    H = HSTU_AMAZON["num_heads"]
+    hd = HSTU_AMAZON["embed_dim"] // H
+    pad = np.ones((B, L), bool)
+    for b in range(n_real):
+        pad[b, L - int(rng.integers(1, L + 1)):] = False
+    pad[0, :L - 1] = True
+    ts = np.cumsum(rng.integers(3600, 172800, size=(B, L)), axis=1) + 1_500_000_000
+    ts[pad] = 0
+    t = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=dev)  # noqa: E731
+    normal = lambda *shape: t(rng.normal(size=shape).astype(np.float32)).to(dtype)  # noqa: E731
+    return dict(q=normal(B, H, L, hd), k=normal(B, H, L, hd), v=normal(B, H, L, hd),
+                timestamps=t(ts, torch.int32), padding_mask=t(pad),
+                pos_table=t(rng.normal(size=(H, 32)).astype(np.float32) * 0.1),
+                time_table=t(rng.normal(size=(H, 64)).astype(np.float32) * 0.1),
+                segment_ids=None)
+
+
+def hstu_serving_kernel_phase(dev, seed) -> dict:
+    """B5 at the retrieval serving shapes against its plain version: the
+    largest bucket (B 16, L 50, 12 requests and 4 all-padding rows), the
+    smallest (B 1, L 8), L 16 and 32, and the bucket every burst of the
+    retrieve phase's traffic lands in (RETRIEVE_BUCKET), bf16 and fp32;
+    every padded query row, the all-padding rows among them, exactly 0.
+    Timed at the bursts' bucket in bf16 (the HSTU head's type)."""
+    from genrec_tpu_torch.kernels.hstu_attention import hstu_attention_fwd_cuda, hstu_attention_ref
+
+    errs = {}
+    for i, (B, L, n_real) in enumerate(((16, 50, 12), (1, 8, 1), (8, 16, 5), (4, 32, 4),
+                                        RETRIEVE_BUCKET)):
+        for dtype in (torch.bfloat16, torch.float32):
+            name = f"B{B}_L{L}_{str(dtype)[6:]}"
+            x = hstu_serving_inputs(dev, seed + i, dtype, B, L, n_real)
+            got = hstu_attention_fwd_cuda(**x)
+            torch.cuda.synchronize()
+            pad = x["padding_mask"]
+            check(float(got.float().transpose(1, 2)[pad].abs().max()) == 0.0,
+                  f"B5 {name}: padded query rows must be exactly 0")
+            errs[name] = assert_near(f"B5 {name}", got, hstu_attention_ref(**x),
+                                     BF16_TOL if dtype == torch.bfloat16 else FP32_TOL)
+    B, L, n_real = RETRIEVE_BUCKET
+    base = hstu_serving_inputs(dev, seed, torch.bfloat16, B, L, n_real)
+    copies = cold_copies(lambda c: hstu_serving_inputs(dev, seed + 100 + c, torch.bfloat16,
+                                                       B, L, n_real),
+                         nbytes(*(v for v in base.values() if v is not None)))
+    bit_equal_twice(hstu_attention_fwd_cuda, base, "B5 bf16 at the serving bucket")
+    bounds = hstu_bounds(base)
+    bound_ms, bound_by = bounds["fwd"]
+    return emit(
+        "kernel", name="hstu_attention_fwd_retrieve", kernel="hstu_attention_fwd",
+        shape=dict(B=B, H=2, L=L, hd=32, dtype="bf16", requests=n_real,
+                   layout="right-aligned, rows past the requests all padding"),
+        max_abs_err=max(errs.values()), max_abs_err_by_case=errs,
+        tolerance=dict(fp32=FP32_TOL, bf16=BF16_TOL, relative_to="max|plain|"),
+        ms=device_ms(hstu_attention_fwd_cuda, copies),
+        plain_ms=device_ms(hstu_attention_ref, copies), library_ms=None,
+        library="none: no single PyTorch call computes biased SiLU attention",
+        timed_by="cuda_graph", bound_ms=bound_ms, bound_by=bound_by,
+        work=dict(visible_pairs=bounds["work"]["visible_pairs"],
+                  bytes=bounds["work"]["fwd_bytes"], flops=bounds["work"]["fwd_flops"]),
+        cold_copies=len(copies), bit_equal_twice=True,
+    )
+
+
+def retrieval_requests(ds, rng, n):
+    """``n`` requests alternating between the heads, each the valid-split
+    history (``seq[:-2]``, as ``ds.eval_arrays("valid")`` holds it) of a
+    user of ``ds`` drawn at random, HSTU's with that user's timestamps."""
+    from genrec_tpu_torch.serving.types import Request
+
+    users = rng.integers(0, len(ds.sequences), n)
+    return [Request(head=("sasrec", "hstu")[i % 2], history=ds.sequences[u][:-2],
+                    user_id=int(u), timestamps=ds.timestamps[u][:-2] if i % 2 else None)
+            for i, u in enumerate(users)]
+
+
+class GcPauses:
+    """The process's generation-2 garbage collections while the block runs,
+    in ms (``.ms``). Entering collects and freezes every object alive (the
+    phase's requests and the answers it keeps for its checks, which a
+    server would not hold), so a collection inside scans only what was
+    made since."""
+
+    def __enter__(self):
+        gc.collect()
+        gc.freeze()
+        self.ms, self._t0 = [], 0.0
+        gc.callbacks.append(self._timed)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._timed)
+
+    def _timed(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif info["generation"] == 2:
+            self.ms.append(1e3 * (time.perf_counter() - self._t0))
+
+
+def serve_open_loop(engine, reqs, rate, seed):
+    """Submit ``reqs`` at Poisson arrivals of ``rate`` a second (the
+    schedule drawn from ``seed``), then wait for every answer. Returns
+    (responses, seconds from the first arrival to the last answer, the
+    latest a submission fell behind its schedule in seconds)."""
+    gaps = np.random.default_rng(seed).exponential(1.0 / rate, len(reqs))
+    due = np.cumsum(gaps) - gaps[0]
+    futures, late = [], 0.0
+    t0 = time.perf_counter()
+    for req, at in zip(reqs, due):
+        wait = at - (time.perf_counter() - t0)
+        if wait > 0:
+            time.sleep(wait)
+        late = max(late, time.perf_counter() - t0 - at)
+        futures.append(engine.submit(req))
+    responses = [f.result(timeout=300) for f in futures]
+    return responses, time.perf_counter() - t0, late
+
+
+def offline_topk(head, req, bucket):
+    """``last_hidden`` + ``item_topk`` of one request laid out alone in its
+    bucket's (B, L) batch on the card: (scores, ids) of the top k + 1."""
+    from genrec_tpu_torch.parallel.shardings import item_topk
+
+    batch = head.make_batch([req], *bucket)
+    table = head.table
+    h = head.model.last_hidden(*batch)
+    scores, ids = item_topk(h.float(), table, head.top_k + 1)
+    return scores[0].cpu().numpy(), ids[0].cpu().numpy()
+
+
+def check_answer(what, resp, want_scores, want_ids, tol) -> bool:
+    """The engine's answer against offline scoring: scores within ``tol`` x
+    max |score| rank by rank; items equal, except at ranks whose offline
+    score is within that of a neighbour's (k + 1 scored), where the two may
+    trade places. Returns whether such a near tie moved an item."""
+    k = len(resp.items)
+    scale = float(np.abs(want_scores[:k]).max())
+    err = float(np.abs(resp.scores - want_scores[:k]).max())
+    check(err <= tol * scale, (what, "scores", err, tol * scale))
+    moved = np.nonzero(resp.items != want_ids[:k])[0]
+    for j in moved:
+        near = [abs(want_scores[j] - want_scores[i]) <= tol * scale
+                for i in (j - 1, j + 1) if 0 <= i <= k]
+        check(any(near) and resp.items[j] in want_ids,
+              (what, "items differ outside a near tie", resp.items, want_ids))
+    return bool(len(moved))
+
+
+def retrieve_phase(dev, seed, profile=False) -> dict:
+    """One ServingEngine a scoring table, each with RetrievalHead("sasrec")
+    (fp32) and RetrievalHead("hstu", use_timestamps=True) (bf16, B5) at
+    their Amazon widths, random weights from ``seed``. The traffic is
+    ``retrieval_requests`` over the synthetic Amazon-Beauty set. Two loads:
+    bursts of RETRIEVE_BURST requests submitted at once, the fp32 and int8
+    tables interleaved (RETRIEVE_ORDER), whose qps is each burst's
+    requests over its wall time (and the median micro-batch's compute time
+    beside it, which host stalls move less); then RETRIEVE_OPEN requests
+    at Poisson arrivals of RETRIEVE_RATE a second, whose per-head p50 / p99
+    latency and bucket hits are reported. Each load runs under
+    ``GcPauses``, whose pauses are reported too. B5 must launch exactly
+    num_blocks times an HSTU micro-batch and no other kernel at all; every
+    item must be in the catalog; the first RETRIEVE_SAMPLE burst answers a
+    head and the first open-loop answer of every (head, bucket) must equal
+    offline scoring on the card; int8 answers keep a per-request recall of
+    INT8_RECALL_FLOOR against fp32 in the same bucket."""
+    import collections
+
+    from genrec_tpu_torch.models.hstu import HSTU
+    from genrec_tpu_torch.models.sasrec import SASRec
+    from genrec_tpu_torch.serving.buckets import BucketLadder
+    from genrec_tpu_torch.serving.engine import ServingEngine
+    from genrec_tpu_torch.serving.heads import RetrievalHead
+
+    sasrec = SASRec(num_items=BEAUTY_ITEMS, device=dev, seed=seed, **SASREC_AMAZON).eval()
+    hstu = HSTU(num_items=BEAUTY_ITEMS, use_pallas=True, dtype=torch.bfloat16, device=dev,
+                seed=seed + 1, **HSTU_AMAZON).eval()
+    ladder = BucketLadder(*RETRIEVE_LADDER)
+    ds = beauty_dataset(seed)
+    rng = np.random.default_rng(seed)
+    tols = {"sasrec": SASREC_SCORE_TOL, "hstu": HSTU_SCORE_TOL}
+
+    def engine(quantized):
+        heads = [RetrievalHead("sasrec", sasrec, top_k=RETRIEVE_TOP_K, quantized=quantized),
+                 RetrievalHead("hstu", hstu, top_k=RETRIEVE_TOP_K, use_timestamps=True,
+                               quantized=quantized)]
+        return ServingEngine(heads, device=dev, ladder=ladder, max_batch=16,
+                             max_wait_ms=2.0).start(), {h.name: h for h in heads}
+
+    def hits(eng):
+        return collections.Counter(eng.stats()["bucket_hits"])
+
+    engines = {q: engine(q) for q in (False, True)}
+    for eng, _ in engines.values():  # first calls: cuBLAS handles, allocator, kernel library
+        serve(eng, retrieval_requests(ds, rng, 64))
+    burst = retrieval_requests(ds, rng, RETRIEVE_BURST)
+    steady = retrieval_requests(ds, rng, RETRIEVE_OPEN)
+    lengths = np.asarray([len(r.history) for r in burst + steady])
+    before = {q: hits(eng) for q, (eng, _) in engines.items()}
+    reset_counters()
+    bursts, gc_ms = {False: [], True: []}, {False: [], True: []}
+    for q in RETRIEVE_ORDER:
+        with GcPauses() as pauses:
+            bursts[q].append(serve(engines[q][0], burst))
+        gc_ms[q].append(pauses.ms)
+    burst_hits = {q: hits(eng) - before[q] for q, (eng, _) in engines.items()}
+    opened = {}
+    for q in (False, True):
+        with GcPauses() as pauses:
+            opened[q] = serve_open_loop(engines[q][0], steady, RETRIEVE_RATE, seed + 1)
+        gc_ms[q].append(pauses.ms)
+    gc.unfreeze()
+    launches = read_counters()
+    total_hits = {q: collections.Counter(eng.stop()["bucket_hits"]) - before[q]
+                  for q, (eng, _) in engines.items()}
+    hstu_batches = sum(n for q in total_hits for k, n in total_hits[q].items()
+                       if k.startswith("hstu/"))
+    check_launches_per_step("retrieval", launches,
+                            {"hstu_attention_fwd": HSTU_AMAZON["num_blocks"]}, hstu_batches)
+
+    runs, checked, near_ties = {}, {}, 0
+    for q, (_, heads) in engines.items():
+        table = "int8" if q else "fp32"
+        first = bursts[q][0][0]
+        answers = [(req, resp) for responses, _ in bursts[q] for req, resp in zip(burst, responses)]
+        answers += list(zip(steady, opened[q][0]))
+        for req, resp in answers:
+            check(resp.head == req.head and resp.items.shape == (RETRIEVE_TOP_K,), resp)
+            check(bool(((resp.items >= 1) & (resp.items <= BEAUTY_ITEMS)).all()),
+                  ("items outside the catalog", resp.items))
+            check(bool(np.isfinite(resp.scores).all() and (np.diff(resp.scores) <= 0).all()),
+                  resp.scores)
+        sample, seen = [], set()
+        for name in heads:
+            sample += [(r, a) for r, a in zip(burst, first) if r.head == name][:RETRIEVE_SAMPLE]
+        for req, resp in zip(steady, opened[q][0]):
+            if (req.head, resp.bucket) not in seen:
+                seen.add((req.head, resp.bucket))
+                sample.append((req, resp))
+        for req, resp in sample:
+            with torch.no_grad():
+                want = offline_topk(heads[req.head], req, resp.bucket)
+            near_ties += check_answer(f"{table} {req.head}", resp, *want, tols[req.head])
+        checked[table] = dict(burst=RETRIEVE_SAMPLE * len(heads),
+                              open_loop_buckets=len(sample) - RETRIEVE_SAMPLE * len(heads))
+        qps = [len(burst) / wall for _, wall in bursts[q]]
+        responses, wall, late = opened[q]
+        by_head = {}
+        for name in heads:
+            ms = np.asarray([r.total_s for r in responses if r.head == name]) * 1e3
+            n_batches = sum(n for k, n in (total_hits[q] - burst_hits[q]).items()
+                            if k.startswith(name + "/"))
+            by_head[name] = dict(requests=len(ms), batches=n_batches,
+                                 mean_batch=len(ms) / n_batches,
+                                 p50_ms=float(np.percentile(ms, 50)),
+                                 p99_ms=float(np.percentile(ms, 99)))
+        runs[q] = dict(
+            table=table,
+            burst=dict(requests=len(burst), qps=qps, qps_median=float(np.median(qps)),
+                       qps_spread=float((max(qps) - min(qps)) / np.median(qps)),
+                       wall_s=[wall for _, wall in bursts[q]],
+                       batch_ms_p50=[1e3 * float(np.median([r.compute_s for r in responses]))
+                                     for responses, _ in bursts[q]],
+                       gc_gen2_ms=gc_ms[q][:-1],
+                       bucket_hits=dict(sorted(burst_hits[q].items()))),
+            open_loop=dict(requests=len(responses), offered_qps=RETRIEVE_RATE,
+                           achieved_qps=len(responses) / wall, wall_s=wall,
+                           max_late_ms=1e3 * late, gc_gen2_ms=gc_ms[q][-1], by_head=by_head,
+                           bucket_hits=dict(sorted((total_hits[q] - burst_hits[q]).items()))),
+            table_bytes={name: (h.table.nbytes if q else nbytes(h.table))
+                         for name, h in heads.items()})
+    pairs = [(a, b) for a, b in zip(bursts[False][0][0] + opened[False][0],
+                                    bursts[True][0][0] + opened[True][0])
+             if a.bucket == b.bucket]
+    recall = [len(set(a.items.tolist()) & set(b.items.tolist())) / RETRIEVE_TOP_K
+              for a, b in pairs]
+    check(min(recall) >= INT8_RECALL_FLOOR,
+          f"int8 recall@{RETRIEVE_TOP_K} against fp32: min {min(recall)} < {INT8_RECALL_FLOOR}")
+    out = emit("retrieve", card=torch.cuda.get_device_name(dev),
+               config="SASRec at config/sasrec/amazon.gin widths (fp32), HSTU at "
+                      "config/hstu/amazon.gin widths (bf16, use_pallas=True), random weights, "
+                      f"{BEAUTY_ITEMS} items",
+               traffic=dict(source="valid-split histories of SyntheticSeqDataset("
+                                   f"num_items={BEAUTY_ITEMS}, num_users={BEAUTY_USERS})",
+                            history_min=int(lengths.min()), history_max=int(lengths.max()),
+                            history_mean=float(lengths.mean())),
+               order=["int8" if q else "fp32" for q in RETRIEVE_ORDER],
+               fp32=runs[False], int8=runs[True], launches=launches,
+               hstu_batches=hstu_batches,
+               b5_launches_per_hstu_batch=launches["hstu_attention_fwd"] / hstu_batches,
+               sample_checked=checked, sample_near_ties=near_ties,
+               int8_recall_pairs=len(pairs), int8_recall_mean=float(np.mean(recall)),
+               int8_recall_min=float(min(recall)), int8_recall_floor=INT8_RECALL_FLOOR,
+               score_tolerance=dict(sasrec=SASREC_SCORE_TOL, hstu=HSTU_SCORE_TOL,
+                                    relative_to="max|score|"))
+    if profile:
+        out["profile"] = {}
+        for q in (False, True):
+            eng, _ = engine(q)
+            serve(eng, burst)
+            table = "int8" if q else "fp32"
+            out["profile"][table] = emit("retrieve_profile", table=table, requests=len(burst),
+                                         **device_profile(lambda: serve(eng, burst)[1]))
+            eng.stop()
+    return out
+
+
+# ---- phase 7: RQ-VAE semantic ids -------------------------------------------
 
 
 def rqvae_trainer_run(dev, seed) -> dict:
@@ -1553,7 +2108,7 @@ def rqvae_phase(dev, seed, profile=False) -> dict:
     )
 
 
-# ---- phase 7: the serving slice --------------------------------------------
+# ---- phase 8: the serving slice --------------------------------------------
 
 
 def make_requests(rng, n, n_items):
@@ -1769,7 +2324,7 @@ def serve_phase(dev, seed, n_requests, profile=False, kv_dtype="float32",
     return served, prof, responses
 
 
-# ---- phases 8 and 9: LCRec SFT at tensor_parallel=2 ---------------------------
+# ---- phase 10: LCRec SFT at tensor_parallel=2 ---------------------------------
 
 
 def lcrec_cfg(layers: int):
@@ -2325,12 +2880,15 @@ def main(argv=None) -> int:
                    dev, args.seed, phases["build"]["libraries"]["rq_cascade"]["ptxas"])}
     kernels.update(hstu_kernel_phase(
         dev, args.seed, phases["build"]["libraries"]["hstu_attention"]["ptxas"]))
+    kernels["hstu_attention_fwd_retrieve"] = hstu_serving_kernel_phase(dev, args.seed)
     ptxas = phases["build"]["libraries"]["fused_ce"]["ptxas"]
     kernels.update(ce_kernel_phase(dev, args.seed, ptxas))
     kernels.update(ce_lcrec_kernel_phase(dev, args.seed, ptxas))
     phases["kernel_phases"] = kernels
     phases["train"] = train_phase(dev, args.seed, args.profile)
     phases["parity"] = parity_phase(dev, args.seed)
+    phases["sasrec"] = sasrec_phase(dev, args.seed, ptxas, args.profile)
+    kernels.update(phases["sasrec"]["kernels"])
     phases["rqvae"] = rqvae_phase(dev, args.seed, args.profile)
     phases["serve"], profiled, fp32_answers = serve_phase(dev, args.seed, args.requests,
                                                           args.profile)
@@ -2341,6 +2899,7 @@ def main(argv=None) -> int:
                                                     fp32_answers=fp32_answers)
     if profiled:
         phases["serve_int8_profile"] = profiled
+    phases["retrieve"] = retrieve_phase(dev, args.seed, args.profile)
     phases["lcrec_tp"] = lcrec_tp_phase(dev, args.seed, args.profile)
     kernels["sharded_fused_linear_ce"] = phases["lcrec_tp"]["b8"]
     phases["wall_s"] = time.perf_counter() - t_start
@@ -2352,6 +2911,9 @@ def main(argv=None) -> int:
                 **{k: phases["train"]["launches"][k] for k in LAUNCHES_PER_STEP},
                 **{k + "_lcrec": phases["lcrec_tp"]["steps"]["launches"][k]
                    for k in LCREC_LAUNCHES_PER_STEP},
+                **{k + "_sasrec": phases["sasrec"]["launches"][k]
+                   for k in SASREC_LAUNCHES_PER_STEP},
+                "hstu_attention_fwd_retrieve": phases["retrieve"]["launches"]["hstu_attention_fwd"],
                 "sharded_fused_linear_ce": phases["lcrec_tp"]["steps"]["b8_calls"]}
     line = {"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,

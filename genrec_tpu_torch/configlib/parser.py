@@ -35,8 +35,6 @@ _MACROS: dict[str, Any] = {}
 # JAX-package modules a config file may import that the port has not
 # ported yet, and the ROADMAP item that ports each.
 _ROADMAP_ITEM = {
-    "models.sasrec": "A5 (SASRec on fused CE)",
-    "trainers.sasrec_trainer": "A5 (SASRec on fused CE)",
     "trainers.tiger_trainer": "A9 (TIGER training)",
 }
 

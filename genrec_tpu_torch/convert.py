@@ -1,17 +1,19 @@
 """Weights carried across from the JAX package.
 
 ``tiger_params_from_flax``, ``hstu_params_from_flax``,
-``rqvae_params_from_flax`` and ``qwen_params_from_flax`` map a Flax param
-tree (nested dicts of numpy
+``sasrec_params_from_flax``, ``rqvae_params_from_flax`` and
+``qwen_params_from_flax`` map a Flax param tree (nested dicts of numpy
 arrays, as ``jax.device_get(params)`` gives it) onto the state dict of
-the port's ``Tiger``, ``HSTU``, ``RqVae`` and ``QwenLM``, so both packages compute
-the same function from the same weights. The names follow the Flax
-module names one for one, with these rewrites:
+the port's ``Tiger``, ``HSTU``, ``SASRec``, ``RqVae`` and ``QwenLM``, so
+both packages compute the same function from the same weights. The names
+follow the Flax module names one for one, with these rewrites:
 
 - ``layer_<i>`` (Flax list submodules) -> ``layers.<i>`` (``nn.ModuleList``);
+  SASRec's ``block_<i>`` -> ``blocks.<i>``;
 - ``<dense>/kernel`` (Flax ``nn.Dense``, stored ``(in, out)``) ->
   ``<dense>.weight`` (``nn.Linear``, stored ``(out, in)``), transposed;
-- HSTU only: ``<norm>/scale`` (Flax ``nn.LayerNorm``) -> ``<norm>.weight``;
+- HSTU and SASRec: ``<norm>/scale`` (Flax ``nn.LayerNorm``) ->
+  ``<norm>.weight``;
 - Qwen only: ``embed_tokens`` (a raw Flax param) -> ``embed_tokens.weight``;
 - every other leaf keeps its name and storage (TIGER's ``rel_bias`` its
   ``(H * buckets, 1)``, HSTU's bias tables their ``(buckets, H)``).
@@ -57,6 +59,14 @@ def hstu_params_from_flax(params_np, model=None) -> dict[str, torch.Tensor]:
     ``HSTU`` state dict, with the same two checks as
     ``tiger_params_from_flax``."""
     return _params_from_flax(params_np, model, {"scale": "weight"})
+
+
+def sasrec_params_from_flax(params_np, model=None) -> dict[str, torch.Tensor]:
+    """Flax SASRec params (``SASRec.init(...)["params"]``) -> the port's
+    ``SASRec`` state dict, with the same two checks as
+    ``tiger_params_from_flax``."""
+    tree = {re.sub(r"^block_(\d+)$", r"blocks.\1", str(k)): v for k, v in params_np.items()}
+    return _params_from_flax(tree, model, {"scale": "weight"})
 
 
 def rqvae_params_from_flax(params_np, model=None) -> dict[str, torch.Tensor]:

@@ -1,11 +1,12 @@
 """Static-shape batching over in-memory numpy datasets (port of
-genrec_tpu/data/batching.py, the part the HSTU slice runs).
+genrec_tpu/data/batching.py, the part the HSTU and SASRec slices run).
 
 ``PackingReport``, ``first_fit_decreasing``, ``pack_examples``,
-``pad_to_batch``, ``batch_iterator`` and ``fold_valid`` are numpy only and
-copied as they are. ``prefetch_to_device`` is the torch side: a
-background thread assembles numpy batches ahead, and the main thread
-copies them to the device from pinned host memory without blocking.
+``right_align``, ``pad_to_batch``, ``batch_iterator`` and ``fold_valid``
+are numpy only and copied as they are. ``prefetch_to_device`` is the
+torch side: a background thread assembles numpy batches ahead, and the
+main thread copies them to the device from pinned host memory without
+blocking.
 """
 
 from __future__ import annotations
@@ -282,6 +283,32 @@ def pack_examples(
         real_tokens=real_tokens, max_segments=S,
     )
     return out, report
+
+
+def right_align(arrays: Mapping[str, np.ndarray], *, length_key: str = "input_ids",
+                keys: Sequence[str] | None = None) -> dict[str, np.ndarray]:
+    """Shift left-padded rows (pad id 0 at the FRONT) to right-padded
+    layout (tokens at slots 0..l-1, pad at the tail).
+
+    Packed training teaches learned position p = "p-th event of the
+    window", so eval rows must present the same indexing; callers then read
+    predictions from the last VALID slot instead of slot -1. Non-sequence
+    keys (different trailing shape) pass through untouched."""
+    ref = np.asarray(arrays[length_key])
+    lengths = (ref != 0).sum(axis=1)
+    move = keys if keys is not None else [
+        k for k, v in arrays.items()
+        if np.asarray(v).ndim == 2 and np.asarray(v).shape == ref.shape
+    ]
+    out = dict(arrays)
+    for k in move:
+        v = np.asarray(arrays[k])
+        shifted = np.zeros_like(v)
+        for i, n in enumerate(lengths):
+            if n:
+                shifted[i, :n] = v[i, v.shape[1] - n:]
+        out[k] = shifted
+    return out
 
 
 def batch_iterator(

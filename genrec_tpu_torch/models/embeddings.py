@@ -6,6 +6,7 @@ SemIdEmbedding: one table of ``num_embeddings * sem_ids_dim + 1`` rows
 id, the last real row reserved for padding and read as zero.
 UserIdEmbedding: hash by modulo, then embed. Tables are plain parameters
 named ``embedding`` like the Flax params, so the converter maps names 1:1.
+``quantize_item_table`` builds the retrieval heads' int8 scoring table.
 """
 
 from __future__ import annotations
@@ -14,6 +15,19 @@ import torch
 from torch import nn
 
 from genrec_tpu_torch.device import resolve_device
+from genrec_tpu_torch.ops.quant import QuantizedTable
+
+
+def quantize_item_table(table: torch.Tensor) -> QuantizedTable:
+    """int8-quantise an item-embedding table for serving retrieval.
+
+    Per-row symmetric quantisation (``ops.quant.QuantizedTable``): the
+    table stays tied fp32 in the model for training and the input
+    embedding; serving builds this scoring operand from it once per
+    weights version (``RetrievalHead.on_params``), and
+    ``parallel.shardings.item_topk`` dequantises at score time with fp32
+    accumulation. About a 4x smaller scoring operand."""
+    return QuantizedTable.from_array(table)
 
 
 class SemIdEmbedding(nn.Module):

@@ -29,38 +29,9 @@ from torch import nn
 from genrec_tpu_torch.device import resolve_device
 from genrec_tpu_torch.kernels.fused_ce import fused_ce_mean_loss
 from genrec_tpu_torch.kernels.hstu_attention import hstu_attention, hstu_attention_ref
-from genrec_tpu_torch.models.layers import truncated_normal
+from genrec_tpu_torch.models.layers import Dense, LayerNorm, dropout, truncated_normal
 from genrec_tpu_torch.ops.losses import cross_entropy_with_ignore
-
-
-def dropout(x, rate: float, deterministic: bool, generator=None):
-    """Flax ``nn.Dropout``: keep with probability 1 - rate, scale kept
-    values by 1 / (1 - rate); the bits come from ``generator``."""
-    if deterministic or rate == 0.0:
-        return x
-    keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
-    return torch.where(keep, x / keep_prob, 0.0)
-
-
-class Dense(nn.Linear):
-    """Flax ``nn.Dense(dtype=...)``: float32 parameters cast to the compute
-    dtype at use."""
-
-    def __init__(self, in_features: int, out_features: int, dtype, device):
-        super().__init__(in_features, out_features, device=device)
-        self.compute_dtype = dtype
-
-    def forward(self, x):
-        dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
-
-
-class LayerNorm(nn.LayerNorm):
-    """Flax ``nn.LayerNorm(dtype=float32)``: statistics and output float32."""
-
-    def forward(self, x):
-        return super().forward(x.to(torch.float32))
+from genrec_tpu_torch.parallel.shardings import item_topk
 
 
 class RelativePositionBias(nn.Module):
@@ -218,6 +189,11 @@ class HSTU(nn.Module):
 
     def last_hidden(self, input_ids, timestamps=None):
         """Serving entry point: final-norm hidden state at the last slot,
-        (B, d)."""
+        (B, d), for right-aligned histories (see ``SASRec.last_hidden``)."""
         return self._encode(input_ids, timestamps, deterministic=True)[:, -1]
 
+    def predict(self, input_ids, timestamps=None, top_k: int = 10):
+        """Top-k next items from the last slot, pad id excluded: the serving
+        head's scoring (``parallel.shardings.item_topk``)."""
+        h = self.last_hidden(input_ids, timestamps)
+        return item_topk(h, self.item_embedding.to(self.dtype), top_k)[1]

@@ -1,11 +1,13 @@
 """Shared layers (port of genrec_tpu/models/layers.py: ``MLP`` and
-``RMSNorm``)."""
+``RMSNorm``), and the Flax-style ``Dense``, ``LayerNorm`` and ``dropout``
+that the HSTU and SASRec ports share."""
 
 from __future__ import annotations
 
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from genrec_tpu_torch.device import resolve_device
@@ -68,3 +70,33 @@ class RMSNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return rms_norm(x, self.weight, self.eps)
+
+
+def dropout(x, rate: float, deterministic: bool, generator=None):
+    """Flax ``nn.Dropout``: keep with probability 1 - rate, scale kept
+    values by 1 / (1 - rate); the bits come from ``generator``."""
+    if deterministic or rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, 0.0)
+
+
+class Dense(nn.Linear):
+    """Flax ``nn.Dense(dtype=...)``: float32 parameters cast to the compute
+    dtype at use."""
+
+    def __init__(self, in_features: int, out_features: int, dtype, device):
+        super().__init__(in_features, out_features, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class LayerNorm(nn.LayerNorm):
+    """Flax ``nn.LayerNorm(dtype=float32)``: statistics and output float32."""
+
+    def forward(self, x):
+        return super().forward(x.to(torch.float32))

@@ -1,5 +1,6 @@
 """int8 symmetric quantisation for the serving memory path (port of
-genrec_tpu/ops/quant.py: ``quantize_symmetric`` and ``QuantizedKVPool``).
+genrec_tpu/ops/quant.py: ``quantize_symmetric``, ``QuantizedKVPool`` and
+``QuantizedTable``).
 
 ``QuantizedKVPool`` is one decode layer's K or V page pool as int8
 ``data`` (num_pages, page_size, heads, head_dim) plus one fp32 ``scale``
@@ -14,8 +15,10 @@ scale)`` (a division, not a multiply by the reciprocal; round half to
 even) clipped to [-127, 127]. An all-zero row gets scale 1e-12 / 127 and
 dequantises to exact zeros. Consumers dequantise AFTER the gather
 (``ops/paged.gather_pages``) or inside the kernel, never a whole pool.
-``QuantizedTable`` (the retrieval heads' int8 item table) comes with
-those heads (ROADMAP A4).
+
+``QuantizedTable`` is the retrieval heads' int8 item table: int8 ``data``
+(V, d) plus one fp32 ``scale`` per row (V,), scored by
+``parallel.shardings.item_topk`` as ``(h @ data.T) * scale``.
 """
 
 from __future__ import annotations
@@ -102,3 +105,38 @@ class QuantizedKVPool:
 
     def __repr__(self):
         return f"QuantizedKVPool(data={self.data!r}, scale={self.scale!r})"
+
+
+class QuantizedTable:
+    """A 2-D table as int8 ``data`` (V, d) + fp32 per-row ``scale`` (V,).
+
+    The retrieval heads' item-embedding operand: built once per weights
+    version (``from_array``), scored by dequant-at-score in
+    ``parallel.shardings.item_topk`` (``(h @ data.T) * scale``, which is
+    ``h @ (data * scale[:, None]).T`` in fp32)."""
+
+    __slots__ = ("data", "scale")
+
+    def __init__(self, data: torch.Tensor, scale: torch.Tensor):
+        self.data = data
+        self.scale = scale
+
+    @classmethod
+    def from_array(cls, table: torch.Tensor) -> "QuantizedTable":
+        """Quantise a (V, d) float table per row (symmetric int8)."""
+        return cls(*quantize_symmetric(table.detach(), (-1,)))
+
+    @property
+    def shape(self):
+        return self.data.shape
+
+    @property
+    def nbytes(self) -> int:
+        return (self.data.numel() * self.data.element_size()
+                + self.scale.numel() * self.scale.element_size())
+
+    def dequantize(self) -> torch.Tensor:
+        return self.data.to(torch.float32) * self.scale[:, None]
+
+    def __repr__(self):
+        return f"QuantizedTable(data={self.data!r}, scale={self.scale!r})"

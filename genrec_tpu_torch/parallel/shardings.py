@@ -1,5 +1,7 @@
 """Megatron tensor parallelism for the Qwen backbone (port of ``qwen_rules``,
-genrec_tpu/parallel/shardings.py:33-42).
+genrec_tpu/parallel/shardings.py:33-42), and the retrieval scoring
+``item_topk`` on one device (JAX :120-160; its shard_map branch over the
+item axis of a mesh is not ported, ROADMAP A26).
 
 The JAX rules shard the parameters of one program and leave the
 collectives to GSPMD: column-parallel q/k/v/gate/up kernels (their
@@ -186,3 +188,30 @@ def shard_qwen_params(full: dict, rank: int, tp: int) -> dict:
         n = shard_count(t.shape[dim], tp, f"{name} axis {dim}")
         out[name] = t.narrow(dim, rank * n, n).contiguous()
     return out
+
+
+def _score_items(h: torch.Tensor, emb) -> torch.Tensor:
+    """fp32 (B, V) scores of last-hiddens against a table.
+
+    A ``QuantizedTable`` (anything with ``.data`` and ``.scale``)
+    dequantises at score: ``(h @ data.T) * scale`` equals ``h @ (data *
+    scale[:, None]).T`` in fp32, so the resident operand stays int8 and
+    the accumulation fp32."""
+    if hasattr(emb, "scale"):
+        return (h.to(torch.float32) @ emb.data.to(torch.float32).T) * emb.scale[None, :]
+    return (h @ emb.T).to(torch.float32)
+
+
+def item_topk(h: torch.Tensor, item_emb, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k items from last-hidden states: (B, d) x (V, d) -> (scores
+    fp32, ids int64), both (B, k), with the pad row (item 0) excluded.
+
+    ``item_emb`` is a plain (V, d) table or an int8
+    ``ops.quant.QuantizedTable``. Ties rank the lower id first, as
+    ``jax.lax.top_k`` does: a stable descending sort (``torch.topk``
+    does not promise that order)."""
+    k = min(k, item_emb.shape[0])
+    scores = _score_items(h, item_emb)
+    scores[:, 0] = -torch.inf
+    order = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return order.values[:, :k], order.indices[:, :k]

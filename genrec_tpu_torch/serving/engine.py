@@ -1,8 +1,10 @@
-"""In-process online inference engine with slot-level continuous batching
-(port of genrec_tpu/serving/engine.py: ``ServingEngine`` and
-``_PagedRunner``, for paged generative heads).
+"""In-process online inference engine (port of
+genrec_tpu/serving/engine.py: ``ServingEngine`` with ``_PagedRunner``'s
+slot-level continuous batching for paged generative heads, and the dense
+micro-batch path, ``_next_batch`` / ``_run_batch``, for the retrieval
+heads).
 
-The request path:
+The paged request path:
 
 1. `submit(Request)` validates the request, enqueues it on its head's
    queue and returns a Future.
@@ -19,12 +21,20 @@ The request path:
    they were admitted with. A prefill or decode call that raises fails
    the futures of the slots it ran for and frees those slots.
 
+The dense path: a head's queue is flushed as one micro-batch when it
+holds ``max_batch`` requests, when its oldest request has waited
+``max_wait_ms``, or when the engine drains (queues scanned round-robin, so
+one busy head cannot starve another). The batch is padded to its (batch,
+history) bucket, run as one call (``head.make_fn``), read back with one
+host sync, and split by ``head.finalize``; a batch that raises fails its
+own futures only.
+
 Slot state (beams, log-probs, trie prefixes, suffix caches) stays on the
 device between steps; the step counters, block tables and seq_lens are
 host numpy and are copied to the device for each call. PyTorch runs
 eagerly, so there is no AOT bucket warmup: the bucket ladder bounds the
-prefill shapes. ``stop()`` drains: queued and in-flight requests finish,
-new submissions raise `DrainingError`.
+prefill and micro-batch shapes. ``stop()`` drains: queued and in-flight
+requests finish, new submissions raise `DrainingError`.
 """
 
 from __future__ import annotations
@@ -240,10 +250,12 @@ class _PagedRunner:
 
 
 class ServingEngine:
-    """Serves paged generative heads on one device.
+    """Serves paged generative heads and dense (retrieval) heads on one
+    device.
 
-    ``heads``: heads implementing the paged protocol (serving/heads.py),
-    each holding its model (and weights) on ``device``. ``device``
+    ``heads``: heads of serving/heads.py, each holding its model (and
+    weights) on ``device``; paged heads (``supports_paged``) get a
+    `_PagedRunner`, the others the micro-batch path. ``device``
     defaults to the card and raises when there is none; pass
     ``device="cpu"`` to serve on the CPU. ``paged_config`` sizes every
     head's page pool (default: ``4 * max_batch`` slots, pages covering the
@@ -268,8 +280,6 @@ class ServingEngine:
         if len(self._heads) != len(heads):
             raise ValueError("duplicate head names")
         for h in heads:
-            if not getattr(h, "supports_paged", False):
-                raise ValueError(f"head {h.name!r} does not implement the paged protocol")
             if h.device != self.device:
                 raise ValueError(f"head {h.name!r} lives on {h.device}, engine on {self.device}")
         self._ladder = ladder or default_ladder(max_batch=max_batch)
@@ -296,6 +306,7 @@ class ServingEngine:
         self._lock = threading.Lock()
         self._work = threading.Condition(self._lock)
         self._queues = {name: collections.deque() for name in self._heads}
+        self._rr = 0  # round-robin cursor over the dense heads' queues
         self._draining = False
         self._batcher: Optional[threading.Thread] = None
         self._started = False
@@ -303,14 +314,16 @@ class ServingEngine:
     # -- lifecycle -----------------------------------------------------------
 
     def start(self) -> "ServingEngine":
-        """Build every head's page pool and slot state and start the
-        batcher thread. Returns self."""
+        """Refresh every head's derived tables, build every paged head's page
+        pool and slot state, and start the batcher thread. Returns self."""
         if self._started:
             raise RuntimeError("engine already started")
         for head in self._heads.values():
-            self._runners[head.name] = _PagedRunner(
-                self, head, self._paged_config or self._default_paged_config(head)
-            )
+            head.on_params()
+            if head.supports_paged:
+                self._runners[head.name] = _PagedRunner(
+                    self, head, self._paged_config or self._default_paged_config(head)
+                )
         self._batcher = threading.Thread(
             target=self._batch_loop, name="serving-batcher", daemon=True
         )
@@ -377,6 +390,64 @@ class ServingEngine:
         """Synchronous convenience wrapper around submit()."""
         return self.submit(req).result(timeout)
 
+    # -- dense micro-batches ---------------------------------------------------
+
+    def _next_batch(self):
+        """Pop the next flush-ready queue of a dense head: a full
+        micro-batch, the oldest entry past the wait deadline, or draining.
+        Heads are scanned round-robin from just past the last-flushed one,
+        so a head under sustained full-batch load cannot starve the
+        others."""
+        now = time.monotonic()
+        names = [n for n in self._queues if n not in self._runners]
+        if not names:
+            return None
+        with self._lock:
+            for i in range(len(names)):
+                name = names[(self._rr + i) % len(names)]
+                q = self._queues[name]
+                if not q:
+                    continue
+                if (len(q) >= self._max_batch or self._draining
+                        or now - q[0][2] >= self._max_wait_s):
+                    self._rr = (self._rr + i + 1) % len(names)
+                    n = min(len(q), self._max_batch)
+                    return self._heads[name], [q.popleft() for _ in range(n)]
+        return None
+
+    def _run_batch(self, head, entries) -> None:
+        """One micro-batch: bucket, pad, one call, one host sync, finalize,
+        answer. A batch that raises fails its own futures only."""
+        t_start = time.monotonic()
+        reqs = [e[0] for e in entries]
+        L = self._ladder.history_bucket(max(max(head.natural_len(r) for r in reqs), 1))
+        B = self._ladder.batch_bucket(len(reqs))
+        try:
+            out = head.make_fn(B, L)(*head.make_batch(reqs, B, L))
+            out = tuple(o.cpu().numpy() for o in out)  # the host sync
+            t_done = time.monotonic()
+            payloads = head.finalize(out, reqs)
+        except Exception as exc:  # noqa: BLE001 — a bad batch must not kill the loop
+            self._log.exception(f"serving: micro-batch on head {head.name} failed")
+            for _, fut, _t in entries:
+                if not fut.done():
+                    fut.set_exception(exc)
+            self.metrics.record_failure(len(entries))
+            return
+        self.metrics.record_batch(head.name, (B, L))
+        cat_version = head.catalog_version
+        for (req, fut, t_enq), payload in zip(entries, payloads):
+            now = time.monotonic()
+            resp = Response(
+                head=head.name, items=payload["items"], scores=payload["scores"],
+                sem_ids=payload.get("sem_ids"), catalog_version=cat_version,
+                bucket=(B, L), queue_wait_s=t_start - t_enq, compute_s=t_done - t_start,
+                total_s=now - t_enq,
+            )
+            self.metrics.record_response(resp.queue_wait_s, resp.compute_s, resp.total_s)
+            if not fut.done():  # a cancelled future must not kill the loop
+                fut.set_result(resp)
+
     # -- batcher -------------------------------------------------------------
 
     def _batch_loop(self) -> None:
@@ -389,6 +460,10 @@ class ServingEngine:
                     for runner in self._runners.values():
                         progressed |= runner.admit()
                         progressed |= runner.step()
+                    batch = self._next_batch()
+                    if batch is not None:
+                        self._run_batch(*batch)
+                        continue
                     if progressed:
                         continue
                     with self._lock:

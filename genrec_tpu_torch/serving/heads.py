@@ -1,12 +1,27 @@
-"""Engine heads (port of genrec_tpu/serving/heads.py: ``Head`` and
-``TigerGenerativeHead`` with the paged decode protocol).
+"""Engine heads (port of genrec_tpu/serving/heads.py: ``Head``,
+``TigerGenerativeHead`` with the paged decode protocol, and
+``RetrievalHead`` with the dense micro-batch protocol).
 
-A head owns a model + its item corpus and exposes the hooks the engine's
-`_PagedRunner` composes:
+A head owns a model + its item corpus. Every head has
 
 - ``make_batch(reqs, B, L)``: pad a list of requests into device tensors
   at the (B, L) bucket (rows past the requests are zero-filled, longer
   histories keep their newest items);
+- ``on_params()``: refresh tables derived from the weights (the retrieval
+  heads' int8 table), called by the engine when it starts, never per
+  batch (the port has no hot reload yet, ROADMAP A11).
+
+Dense heads (``supports_paged = False``) add the hooks of the engine's
+micro-batch path:
+
+- ``make_fn(B, L)``: ``fn(*batch) -> outputs`` for one (B, L) bucket
+  (the JAX engine compiles one a bucket; eager PyTorch needs none, so a
+  head may return one function for every bucket);
+- ``finalize(outputs, reqs)``: the host outputs split into one payload a
+  request.
+
+Paged heads add the hooks the engine's `_PagedRunner` composes:
+
 - ``paged_layout() -> (n_layers, n_heads, head_dim, dtype)``: page-pool
   geometry; ``paged_kv_tokens(n_items, L_bucket)``: KV tokens a request
   occupies after prefill;
@@ -35,11 +50,13 @@ import numpy as np
 import torch
 
 from genrec_tpu_torch.catalog.snapshot import CatalogSnapshot
+from genrec_tpu_torch.models.embeddings import quantize_item_table
 from genrec_tpu_torch.models.tiger import (
     init_tiger_paged_state,
     tiger_paged_decode_step,
     tiger_prefill_paged,
 )
+from genrec_tpu_torch.parallel.shardings import item_topk
 
 
 class Head:
@@ -54,9 +71,12 @@ class Head:
         raise NotImplementedError
 
     def runtime_operands(self) -> tuple:
-        """Device-side catalog operands passed to every prefill/decode
-        call; catalog heads return ``(trie,)``."""
+        """Device-side operands passed ahead of the batch to every paged
+        call: catalog heads return ``(trie,)``."""
         return ()
+
+    def on_params(self) -> None:
+        """Refresh tables derived from the weights (none by default)."""
 
     @property
     def catalog_version(self) -> Optional[str]:
@@ -81,6 +101,15 @@ class Head:
 
     def natural_len(self, req) -> int:
         return len(req.history)
+
+    def make_batch(self, reqs, B: int, L: int):
+        raise NotImplementedError
+
+    def make_fn(self, B: int, L: int):
+        raise NotImplementedError
+
+    def finalize(self, outputs, reqs) -> list[dict]:
+        raise NotImplementedError
 
 
 def _clip_history(history, L: int) -> np.ndarray:
@@ -219,3 +248,85 @@ class TigerGenerativeHead(Head):
     def paged_finalize(self, rows: dict, req) -> dict:
         sem = rows["beam_seqs"]
         return dict(items=self.lookup(sem), scores=rows["beam_logps"], sem_ids=sem)
+
+
+class RetrievalHead(Head):
+    """SASRec / HSTU: right-aligned history -> ``last_hidden`` -> top-k over
+    the item table (``parallel.shardings.item_topk``).
+
+    Histories are RIGHT-aligned (the newest item in slot L-1, zeros pad
+    the front) so that the model's last position is the prediction point.
+    ``use_timestamps=True`` (HSTU with its temporal bias) batches each
+    request's timestamps alongside. History buckets are clamped to the
+    model's ``max_seq_len`` (its position table's size), keeping the
+    newest items.
+
+    ``quantized=True`` scores against an int8 per-row copy of the tied
+    item table (``ops.quant.QuantizedTable``) built by ``on_params`` once
+    per weights version; ``item_topk`` dequantises at score time with fp32 accumulation. The fp32 table stays
+    in the model (it is also the input embedding). The mesh placement of
+    the JAX head is not ported (ROADMAP A26)."""
+
+    def __init__(self, name: str, model, top_k: int = 10, use_timestamps: bool = False,
+                 quantized: bool = False):
+        self.name = name
+        self.model = model
+        self.top_k = top_k
+        self.use_timestamps = use_timestamps
+        self.quantized = bool(quantized)
+        self._qtable = None
+        self._max_len = int(getattr(model, "max_seq_len", 0)) or None
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.device
+
+    def on_params(self) -> None:
+        """Build the int8 scoring table from the model's current weights."""
+        if self.quantized:
+            self._qtable = quantize_item_table(self.model.item_embedding)
+
+    @property
+    def table(self):
+        """The scoring table: the model's fp32 item table, or the int8
+        ``QuantizedTable`` that ``on_params`` built."""
+        if not self.quantized:
+            return self.model.item_embedding
+        if self._qtable is None:
+            raise RuntimeError(f"head {self.name!r} is quantized but has no table yet; "
+                               "on_params() must run first")
+        return self._qtable
+
+    def max_item_id(self):
+        return int(self.model.num_items)
+
+    def _clamp(self, L: int) -> int:
+        return min(L, self._max_len) if self._max_len else L
+
+    def make_batch(self, reqs, B: int, L: int):
+        """(ids,) or (ids, timestamps): (B, min(L, max_seq_len)) int32
+        tensors on the head's device, histories right-aligned."""
+        L = self._clamp(L)
+        ids = np.zeros((B, L), np.int32)
+        ts = np.zeros((B, L), np.int32) if self.use_timestamps else None
+        for i, r in enumerate(reqs):
+            h = _clip_history(r.history, L)
+            if len(h):
+                ids[i, L - len(h):] = h
+                if ts is not None and r.timestamps is not None:
+                    t = np.asarray(r.timestamps, np.int64).reshape(-1)[-len(h):]
+                    ts[i, L - len(t):] = t
+        return tuple(torch.as_tensor(a).to(self.device) for a in (ids, ts) if a is not None)
+
+    def make_fn(self, B: int, L: int):
+        del B, L  # one function serves every bucket: shapes come from make_batch
+        return self._score
+
+    def _score(self, *batch):
+        h = self.model.last_hidden(*batch)
+        return item_topk(h.to(torch.float32), self.table, self.top_k)
+
+    def finalize(self, outputs, reqs) -> list[dict]:
+        scores, items = outputs
+        return [dict(items=items[i], scores=scores[i], sem_ids=None)
+                for i in range(len(reqs))]

@@ -1,5 +1,6 @@
 """Typed request/response surface of the serving engine (port of
-genrec_tpu/serving/types.py, the fields the paged TIGER path fills).
+genrec_tpu/serving/types.py, the fields the paged TIGER path and the
+retrieval heads fill).
 
 A `Request` names a head and carries the user's item-id history (oldest
 first); the engine answers with a `Response` holding the top-k items,
@@ -33,11 +34,13 @@ class UnknownHeadError(ServingError, KeyError):
 class Request:
     """One user query. ``history``: (n,) int item ids, oldest -> newest;
     histories longer than the largest history bucket keep their NEWEST
-    items."""
+    items. ``timestamps``: (n,) int seconds aligned with ``history``, read
+    by heads with ``use_timestamps`` (HSTU's temporal bias)."""
 
     head: str
     history: np.ndarray
     user_id: int = 0
+    timestamps: Optional[np.ndarray] = None
 
 
 @dataclasses.dataclass

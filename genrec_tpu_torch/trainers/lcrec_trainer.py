@@ -55,7 +55,7 @@ from genrec_tpu_torch.ops.metrics import TopKAccumulator
 from genrec_tpu_torch.ops.schedules import cosine_schedule_with_warmup
 from genrec_tpu_torch.parallel.mesh import distributed_init
 from genrec_tpu_torch.parallel.shardings import shard_qwen_params
-from genrec_tpu_torch.trainers.hstu_trainer import BestTracker
+from genrec_tpu_torch.trainers.evaluation import BestTracker
 from genrec_tpu_torch.trainers.packed_loop import PackedTrainLoop
 
 TORCHRUN = ("torchrun --standalone --nproc_per_node=2 -m genrec_tpu_torch.trainers."

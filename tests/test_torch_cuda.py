@@ -714,3 +714,116 @@ def test_rq_cascade_wrapper_refuses_what_it_does_not_take(card):
         with pytest.raises(ValueError):
             rq.rq_cascade_cuda(bx, bcb)
     assert rq.rq_cascade_cuda.launches == before
+
+
+# ---- the retrieval serving shapes of B5, and SASRec on the fused CE ------------
+
+
+def _serving_inputs(dev, B, L, dtype, n_real, seed=0):
+    """B5's inputs as the retrieval head gives them: H 2, hd 32, histories
+    right-aligned (the padding in front), lengths 1 to L, rows past the
+    ``n_real`` requests all padding, timestamps ~1 event a day."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    f = lambda *s: t((rng.normal(size=s) * 0.5).astype(np.float32)).to(dtype)  # noqa: E731
+    pad = np.ones((B, L), bool)
+    for b in range(n_real):
+        pad[b, L - int(rng.integers(1, L + 1)):] = False
+    pad[0, : L - 1] = True  # a one-item history
+    ts = (np.cumsum(rng.integers(3600, 200_000, size=(B, L)), axis=1)
+          + 1_500_000_000).astype(np.int32)
+    ts[pad] = 0
+    return dict(q=f(B, 2, L, 32), k=f(B, 2, L, 32), v=f(B, 2, L, 32), timestamps=t(ts),
+                padding_mask=t(pad),
+                pos_table=t((rng.normal(size=(2, 32)) * 0.1).astype(np.float32)),
+                time_table=t((rng.normal(size=(2, 64)) * 0.1).astype(np.float32)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("L", [8, 16, 32, 50])
+@pytest.mark.parametrize("B,n_real", [(1, 1), (4, 3), (16, 11), (16, 16)])
+def test_hstu_forward_at_serving_shapes_matches_plain_version(card, B, n_real, L, dtype):
+    x = _serving_inputs(card, B, L, dtype, n_real, seed=B * L)
+    got = ha.hstu_attention_fwd_cuda(**x)
+    torch.cuda.synchronize()
+    want = ha.hstu_attention_ref(**x)
+    torch.testing.assert_close(got, want, **_tol(dtype))
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= _tol(dtype)["rtol"] * float(want.float().abs().max()), err
+    pad = x["padding_mask"]
+    # Padded query rows, the all-padding rows among them, are exactly 0.
+    assert float(got.float().abs().permute(0, 2, 1, 3)[pad].max()) == 0.0
+    if n_real < B:
+        assert float(got[n_real:].float().abs().max()) == 0.0
+
+
+def test_hstu_last_hidden_on_the_card_matches_the_plain_path(card):
+    """HSTU.last_hidden at the retrieval head's largest bucket (B 16, L 50,
+    bf16, right-aligned histories, the last four rows all padding): the
+    kernel path against use_pallas=False on the same weights, within 1e-2
+    of max |plain|, and B5 launched once a block."""
+    from genrec_tpu_torch.models.hstu import HSTU
+
+    rng = np.random.default_rng(0)
+    ids = np.zeros((16, 50), np.int32)
+    for b in range(12):
+        n = int(rng.integers(1, 51))
+        ids[b, 50 - n:] = rng.integers(1, 12102, n)
+    ts = (np.cumsum(rng.integers(3600, 172800, (16, 50)), axis=1) + 1_500_000_000)
+    ids_t, ts_t = (torch.as_tensor(a.astype(np.int32), device=card) for a in (ids, ts))
+    out = {}
+    for kernels in (True, False):
+        m = HSTU(num_items=12101, use_pallas=kernels, dtype=torch.bfloat16, dropout=0.0,
+                 device=card, seed=0).eval()
+        before = ha.hstu_attention_fwd_cuda.launches
+        with torch.no_grad():
+            out[kernels] = m.last_hidden(ids_t, ts_t).float()
+        torch.cuda.synchronize()
+        assert ha.hstu_attention_fwd_cuda.launches - before == (2 if kernels else 0)
+    err = float((out[True] - out[False]).abs().max())
+    assert err <= 1e-2 * float(out[False].abs().max()), err
+
+
+def test_sasrec_fused_ce_on_the_card_matches_the_plain_path(card):
+    """SASRec at config/sasrec/amazon.gin's widths (fewer rows), packed
+    rows, fp32: the fused CE (B3, B4 on the card) against the materialised
+    logits and CE. Loss within 1e-5 relative; every parameter's gradient,
+    the tied item table's included, within 1e-4 of its max |plain| (the
+    CE kernels' 1e-5 carried through the backward) plus 1e-6 (the key
+    biases' gradients are rounding noise: softmax ignores them). bf16
+    losses within 1e-2 relative."""
+    from genrec_tpu_torch.models.sasrec import SASRec
+
+    rng = np.random.default_rng(1)
+    B, L, V = 32, 50, 12101
+    seg = np.zeros((B, L), np.int32)
+    pos = np.zeros((B, L), np.int32)
+    for b in range(B):
+        at, s = 0, 1
+        while at < L - 2:
+            n = min(int(rng.integers(2, 29)), L - at)
+            seg[b, at:at + n], pos[b, at:at + n] = s, np.arange(n)
+            at, s = at + n, s + 1
+    ids = np.where(seg > 0, rng.integers(1, V + 1, (B, L)), 0)
+    tgt = np.where(seg > 0, rng.integers(1, V + 1, (B, L)), 0)
+    batch = [torch.as_tensor(a.astype(np.int32), device=card) for a in (ids, tgt, seg, pos)]
+    for dtype in (torch.float32, torch.bfloat16):
+        got = {}
+        for fused in (True, False):
+            m = SASRec(num_items=V, dropout=0.0, fused_ce=fused, dtype=dtype, device=card,
+                       seed=0)
+            launches = fc.fused_linear_ce_fwd_cuda.launches
+            _, loss = m(batch[0], batch[1], segment_ids=batch[2], positions=batch[3])
+            loss.backward()
+            torch.cuda.synchronize()
+            assert fc.fused_linear_ce_fwd_cuda.launches - launches == (1 if fused else 0)
+            got[fused] = (float(loss.detach()), {n: p.grad for n, p in m.named_parameters()})
+        rel = abs(got[True][0] - got[False][0]) / abs(got[False][0])
+        if dtype == torch.bfloat16:
+            assert rel <= 1e-2, rel
+            continue
+        assert rel <= 1e-5, rel
+        for name, g in got[True][1].items():
+            w = got[False][1][name]
+            err = float((g - w).abs().max())
+            assert err <= 1e-4 * float(w.abs().max()) + 1e-6, (name, err)

@@ -9,6 +9,9 @@ layout). Both flag settings are covered: ``use_pallas=fused_ce=False``
 functions, their plain versions on the CPU, against the JAX Pallas
 kernels in interpret mode).
 
+The port is also held directly to the reference's golden
+(tests/data/hstu_golden.npz), at tests/test_hstu.py's tolerances.
+
 Tolerance: 1e-5 absolute plus 1e-5 relative on logits, losses, hidden
 states and parameter gradients, fp32 on both sides (only the summation
 order differs). In bf16 the two frameworks round at other places inside
@@ -189,3 +192,43 @@ def test_default_device_raises_without_a_card(no_card):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         HSTULayer(32, 2, 0.0)
     assert HSTU(**CFG, device="cpu").device == torch.device("cpu")
+
+
+# ---- the reference's golden (tests/data/hstu_golden.npz) ---------------------
+# Weights and outputs of the reference implementation, reached through
+# tests/test_hstu.py::_params_from_golden and hstu_params_from_flax, held at
+# that file's tolerances: logits atol 3e-4 / rtol 1e-3, loss 1e-5 relative,
+# top-k equal.
+
+
+@pytest.fixture(scope="module")
+def hstu_golden():
+    return np.load("tests/data/hstu_golden.npz")
+
+
+def _golden_model(g, use_pallas):
+    from test_hstu import _params_from_golden
+
+    tm = HSTU(num_items=30, max_seq_len=12, embed_dim=16, num_heads=2, num_blocks=2,
+              dropout=0.0, use_pallas=use_pallas, device="cpu")
+    tm.load_state_dict(hstu_params_from_flax(jax.device_get(_params_from_golden(g)), tm))
+    return tm
+
+
+@pytest.mark.parametrize("flags", [False, True], ids=["plain", "kernels"])
+def test_forward_matches_the_golden(hstu_golden, flags):
+    g = hstu_golden
+    tm = _golden_model(g, flags)
+    ids, ts = torch.as_tensor(g["ids"]), torch.as_tensor(g["ts"])
+    logits, loss = tm(ids, ts, torch.as_tensor(g["tgt"]))
+    np.testing.assert_allclose(logits.detach().numpy(), g["logits"], atol=3e-4, rtol=1e-3)
+    assert float(loss.detach()) == pytest.approx(float(g["loss"]), rel=1e-5)
+    logits_nt, _ = tm(ids, None)
+    np.testing.assert_allclose(logits_nt.detach().numpy(), g["logits_nt"], atol=3e-4, rtol=1e-3)
+
+
+def test_predict_matches_the_golden(hstu_golden):
+    g = hstu_golden
+    tm = _golden_model(g, True)
+    top = tm.predict(torch.as_tensor(g["ids"]), torch.as_tensor(g["ts"]), top_k=5)
+    np.testing.assert_array_equal(top.numpy(), g["topk"])

@@ -30,8 +30,9 @@ from genrec_tpu_torch.models.t5transformer import (
 )
 from genrec_tpu_torch.models.rqvae import RqVae
 from genrec_tpu_torch.models.tiger import Tiger
+from genrec_tpu_torch.models.sasrec import SASRec, SASRecBlock
 from genrec_tpu_torch.serving.engine import ServingEngine
-from genrec_tpu_torch.serving.heads import TigerGenerativeHead
+from genrec_tpu_torch.serving.heads import RetrievalHead, TigerGenerativeHead
 from genrec_tpu_torch.serving.kv_pool import KVPagePool, PagedConfig
 
 REPO = Path(__file__).resolve().parents[1]
@@ -108,10 +109,32 @@ def test_gin_files_naming_the_jax_package_parse_without_it(gin, input_dim):
 def test_gin_import_of_an_unported_module_names_its_roadmap_item():
     from genrec_tpu_torch import configlib
 
-    with pytest.raises(ImportError, match="ROADMAP A5"):
-        configlib.parse_string("import genrec_tpu.models.sasrec")
+    with pytest.raises(ImportError, match="ROADMAP A9"):
+        configlib.parse_string("import genrec_tpu.trainers.tiger_trainer")
     with pytest.raises(ImportError, match="ROADMAP"):
         configlib.parse_string("import genrec_tpu.models.cobra")
+
+
+@pytest.mark.parametrize("gin", ["config/sasrec/synthetic.gin", "config/sasrec/amazon.gin"])
+def test_sasrec_gin_files_parse_for_the_port(gin):
+    """SASRec is ported: its modules import by their JAX names and both
+    config files bind the port's trainer unchanged."""
+    from genrec_tpu_torch import configlib
+    from genrec_tpu_torch.configlib import registry
+    from genrec_tpu_torch.trainers import sasrec_trainer
+
+    configlib.clear_bindings()
+    configlib.clear_macros()
+    try:
+        configlib.parse_string("import genrec_tpu.models.sasrec\n"
+                               "import genrec_tpu.trainers.sasrec_trainer")
+        configlib.parse_file(gin, substitutions={"split": "beauty"})
+        b = configlib.get_bindings("genrec_tpu_torch.trainers.sasrec_trainer.train")
+        assert registry.lookup("genrec_tpu.trainers.sasrec_trainer.train") is sasrec_trainer.train
+    finally:
+        configlib.clear_bindings()
+        configlib.clear_macros()
+    assert b["num_heads"] == 2 and b["embed_dim"] in (32, 64)
 
 
 def test_every_module_imports_without_jax_or_the_jax_package():
@@ -196,8 +219,21 @@ def test_default_device_entry_points_raise_without_a_card(no_card):
     head = TigerGenerativeHead(Tiger(device="cpu", **cfg), catalog=catalog)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine([head])
+    sasrec = dict(num_items=10, max_seq_len=4, embed_dim=8, num_heads=2, num_blocks=1,
+                  ffn_dim=16)
+    for build in (lambda: SASRec(**sasrec), lambda: SASRecBlock(8, 2, 16, 0.0)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    retrieval = RetrievalHead("sasrec", SASRec(**sasrec, device="cpu"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine([retrieval, head])
+    from genrec_tpu_torch.trainers import sasrec_trainer
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sasrec_trainer.train(epochs=1, save_dir_root=None)
     # Asked for explicitly, the CPU serves.
     assert ServingEngine([head], device="cpu").device == torch.device("cpu")
+    assert ServingEngine([retrieval, head], device="cpu").device == torch.device("cpu")
 
 
 def _run_smoke(cwd: Path) -> subprocess.CompletedProcess:
