@@ -13,7 +13,9 @@ line each; any failure ends the run with a traceback and a non-zero exit:
             source, all started together;
 3. kernel   each kernel against its plain PyTorch version on the card, in
             its edge cases and at the shapes its main path gives it (B1 and
-            B2 at the TIGER serving shapes; B3-B6 at the HSTU training
+            B2 at the TIGER serving shapes and at COBRA's (K 20, H 6, hd
+            128, page 16, Pm 5: the `_cobra` rows, each with free slots
+            at seq_len 0 beside full ones); B3-B6 at the HSTU training
             shapes, B5 also at the retrieval serving buckets with
             right-aligned rows, all-padding rows exactly 0; B7 at the
             RQ-VAE export's), then timed by device time
@@ -75,7 +77,23 @@ line each; any failure ends the run with a traceback and a non-zero exit:
             also on the CPU). With --profile the traffic is served once
             more under torch.profiler, and the RQ-VAE runs one more epoch
             under it;
-9. retrieve SASRec (fp32) and HSTU (bf16, B5) retrieval heads at their
+9. cobra    COBRA at the widths of config/cobra/amazon.gin (tower: 1
+            layer, hidden 768, 8 heads, vocab 32,128; 256 x 3 codebooks,
+            d_model 768 over 6 heads of 128, 8 decoder layers, FFN 2,048),
+            random weights from --seed, 12,101 catalog items with 32 text
+            tokens each, the tower encoded once on the card; --requests
+            requests (the valid-split histories of the synthetic
+            Amazon-Beauty users, newest 20 items) through ServingEngine +
+            CobraGenerativeHead, 20 beams, 64 slots of 5 pages of 16,
+            float32 pages (B1) then int8 pages (B2): exactly 8 launches of
+            the page type's kernel a decode step and none of any other
+            kernel, 2 decode steps a request, every answer a catalog item,
+            12 answers against offline cobra_generate_paged of the same
+            page type on the card, 8 of them rows whose history fills its
+            bucket (only those read the decode steps' attention), 4 of
+            those also on the CPU (the kernels' plain versions); with
+            --profile the traffic once more under torch.profiler;
+10. retrieve SASRec (fp32) and HSTU (bf16, B5) retrieval heads at their
             Amazon widths in one ServingEngine, random weights from --seed,
             one engine with the fp32 item table and one with the int8 one,
             answering the valid-split histories of the synthetic
@@ -86,7 +104,7 @@ line each; any failure ends the run with a traceback and a non-zero exit:
             no other kernel; every item a catalog item; a sample of each
             load against offline last_hidden + item_topk on the card; int8
             recall@10 against fp32 >= 0.8 for every request;
-10. lcrec   LCRec SFT at tensor_parallel=2 at Qwen2.5-1.5B widths
+11. lcrec   LCRec SFT at tensor_parallel=2 at Qwen2.5-1.5B widths
             (QwenConfig() with config/lcrec/amazon/lcrec.gin): first B3 and
             B4 at one rank's shard of the head (8 x 511 rows, 76,608 vocab
             rows, d 1,536, bf16; a full and a ragged live-vocab limit) and
@@ -156,6 +174,23 @@ CATALOG_ITEMS = 12101  # items of Amazon-Beauty (the 2014 5-core split)
 BEAMS = 10
 PAGED = dict(max_slots=64, page_size=16, pages_per_slot=4)
 KERNEL_RTOL = KERNEL_ATOL = 1e-5  # fp32 both sides, summation order differs
+
+# COBRA, config/cobra/amazon.gin: the tower (1 layer, hidden 768, 8 heads,
+# FFN 2,048, vocab 32,128), 256 x 3 codebooks, d_model 768 over 6 decoder
+# heads (head_dim 128), 8 decoder layers, FFN 2,048, max_len 1,024; beams
+# = train.n_beam; item text of amazon_cobra_data's max_text_len tokens.
+# float32, random weights from --seed; depth not cut. Histories of 1-20
+# items (train.max_items) take 4 KV positions an item: 5 pages of 16.
+COBRA_AMAZON = dict(encoder_n_layers=1, encoder_hidden_dim=768, encoder_num_heads=8,
+                    encoder_vocab_size=32128, id_vocab_size=256, n_codebooks=3,
+                    d_model=768, max_len=1024, temperature=0.2, decoder_n_layers=8,
+                    decoder_num_heads=6, decoder_dropout=0.1)
+COBRA_BEAMS = 20
+COBRA_TEXT_LEN = 32
+COBRA_PAGED = dict(max_slots=64, page_size=16, pages_per_slot=5)
+COBRA_SHAPE = (COBRA_BEAMS, COBRA_AMAZON["decoder_num_heads"],
+               COBRA_AMAZON["d_model"] // COBRA_AMAZON["decoder_num_heads"],
+               COBRA_PAGED["page_size"], COBRA_PAGED["pages_per_slot"])
 
 # HSTU, config/hstu/amazon.gin; depth not cut. Amazon-Beauty (2014 5-core):
 # 12,101 items, 22,363 users.
@@ -259,6 +294,13 @@ KERNELS = {
     "hstu_attention_fwd_retrieve": ("genrec_tpu_torch/csrc/hstu_attention.cu",
                                     "genrec_tpu/kernels/hstu_attention.py:148",
                                     "hstu_attention_pallas, at a retrieval serving bucket"),
+    "paged_attention_stats_cobra": ("genrec_tpu_torch/csrc/paged_attention.cu",
+                                    "genrec_tpu/kernels/paged_attention.py:182",
+                                    "paged_attention_stats_pallas, at COBRA's serving shape"),
+    "paged_attention_stats_quantized_cobra": ("genrec_tpu_torch/csrc/paged_attention.cu",
+                                              "genrec_tpu/kernels/paged_attention.py:112",
+                                              "paged_attention_stats_pallas_quantized, at "
+                                              "COBRA's serving shape"),
     "sharded_fused_linear_ce": ("genrec_tpu_torch/kernels/fused_ce.py",
                                 "genrec_tpu/kernels/fused_ce.py:329",
                                 "sharded_fused_linear_ce (_tp_vjp_fwd :350, _tp_vjp_bwd :375, "
@@ -688,14 +730,16 @@ def kernel_phase(dev, seed, ptxas) -> dict:
     )
 
 
-def paged_times(dev, seed, S, served_lens, make, kernel, plain, bound_fn) -> dict:
-    """B1 or B2 at the serving shape with the first S slots: device time of
+def paged_times(dev, seed, S, served_lens, make, kernel, plain, bound_fn,
+                shape=None) -> dict:
+    """B1 or B2 at a serving shape with the first S slots: device time of
     the kernel, its plain version and the library call, each on input
     copies cold in L2; the bound, its share, and the K/V bytes the call
-    needs (live positions) against those of every position."""
-    K, H = BEAMS, TIGER_AMAZON["num_heads"]
-    hd = TIGER_AMAZON["attn_dim"] // H
-    page, Pm = PAGED["page_size"], PAGED["pages_per_slot"]
+    needs (live positions) against those of every position. ``shape`` is
+    (K, H, hd, page, Pm), TIGER's by default."""
+    K, H, hd, page, Pm = shape or (BEAMS, TIGER_AMAZON["num_heads"],
+                                   TIGER_AMAZON["attn_dim"] // TIGER_AMAZON["num_heads"],
+                                   PAGED["page_size"], PAGED["pages_per_slot"])
     lens = served_lens[:S]
     base = make(dev, seed, S, K, H, hd, page, Pm, lens, True)
     per_copy = nbytes(*(t for v in base.values()
@@ -796,6 +840,60 @@ def quantized_kernel_phase(dev, seed, ptxas) -> dict:
         library="torch.nn.functional.scaled_dot_product_attention on pre-gathered, "
                 "dequantised K/V",
         ptxas=paged_ptxas(ptxas), block_smem_bytes=block_smem_bytes(K, hd, page, Pm, True),
+    )
+
+
+def cobra_served_lens(seed, S):
+    """KV positions of ``S`` served COBRA requests, the cobra_serve phase's
+    traffic (``cobra_requests``): 4 an item (3 codes and the dense vector)."""
+    reqs = cobra_requests(beauty_dataset(seed), np.random.default_rng(seed + 2), S)
+    return np.asarray([4 * len(r.history) for r in reqs])
+
+
+def cobra_kernel_phase(dev, seed, ptxas, int8) -> dict:
+    """B1 (``int8`` False) or B2 at COBRA's serving shape (K 20, H 6, hd
+    128, page 16, Pm 5) against its plain version: the served lengths,
+    free slots at seq_len 0 beside full slots, equal bits over two calls;
+    then timed at S 64 and S 16 with its bound and the SDPA yardstick."""
+    from genrec_tpu_torch.kernels import paged_attention as pa
+
+    kernel, plain, make, bound_fn = (
+        (pa.paged_attention_stats_quantized_cuda, pa.paged_attention_stats_quantized_ref,
+         quantized_inputs, quantized_bound) if int8 else
+        (pa.paged_attention_stats_cuda, pa.paged_attention_stats_ref, paged_inputs,
+         paged_attention_bound))
+    K, H, hd, page, Pm = COBRA_SHAPE
+    S = COBRA_PAGED["max_slots"]
+    served_lens = cobra_served_lens(seed, S)
+    edges = served_lens.copy()
+    edges[::5], edges[1::5] = 0, Pm * page  # free slots and full slots
+    errs = {}
+    for i, (name, lens) in enumerate((("serving", served_lens),
+                                      ("seq_len_0_and_full_slots", edges))):
+        x = make(dev, seed + 40 + i, S, K, H, hd, page, Pm, lens, True)
+        before = kernel.launches
+        got = kernel(**x)
+        torch.cuda.synchronize()
+        check(kernel.launches == before + 1, f"{name}: {kernel.launches - before} launches")
+        errs[name] = max(assert_near(f"cobra {name}/{out}", g, w, FP32_TOL)
+                         for out, g, w in zip(("acc", "m", "l"), got, plain(**x)))
+    base = make(dev, seed, S, K, H, hd, page, Pm, served_lens, True)
+    bit_equal_twice(kernel, base, f"{'B2' if int8 else 'B1'} at COBRA's serving shape")
+    t64 = paged_times(dev, seed, S, served_lens, make, kernel, plain, bound_fn, COBRA_SHAPE)
+    t16 = paged_times(dev, seed, 16, served_lens, make, kernel, plain, bound_fn, COBRA_SHAPE)
+    t64.pop("copies")
+    t16.pop("copies")
+    return emit(
+        "kernel", name="paged_attention_stats_quantized_cobra" if int8
+        else "paged_attention_stats_cobra",
+        shape=dict(S=S, K=K, H=H, hd=hd, page=page, Pm=Pm,
+                   pools="int8 + fp32 row scales" if int8 else "fp32"),
+        max_abs_err=max(errs.values()), max_abs_err_by_case=errs,
+        tolerance=dict(rel=FP32_TOL, relative_to="max|plain|"),
+        **t64, s16=t16, bit_equal_twice=True, timed_by="cuda_graph",
+        library="torch.nn.functional.scaled_dot_product_attention on pre-gathered"
+                + (", dequantised" if int8 else "") + " K/V",
+        ptxas=paged_ptxas(ptxas), block_smem_bytes=pa.block_smem_bytes(K, hd, page, Pm, int8),
     )
 
 
@@ -1527,7 +1625,7 @@ def parity_phase(dev, seed, setup=train_setup, data=beauty_data, phase="parity")
                 plain_losses=traj[False])
 
 
-# ---- phases 6 and 9: SASRec training, retrieval serving ----------------------
+# ---- phases 6 and 10: SASRec training, retrieval serving ---------------------
 
 
 def sasrec_setup(dev, seed, *, dtype, dropout, use_kernels):
@@ -2138,8 +2236,9 @@ def offline_answer(model, head, trie, req, L, kv_dtype="float32"):
     return out.sem_ids[0].cpu().numpy(), out.log_probas[0].cpu().numpy()
 
 
-def int8_answers_agree(sem, logp, got_sem, got_scores, atol) -> tuple[float, int]:
-    """Offline (sem, logp) against an engine answer, both (BEAMS, D) tuples
+def int8_answers_agree(sem, logp, got_sem, got_scores, atol,
+                       beams=BEAMS) -> tuple[float, int]:
+    """Offline (sem, logp) against an engine answer, both (beams, D) tuples
     with descending scores: every tuple in both has scores within
     ``atol``; a tuple in one only scores within ``atol`` of the other's
     last (it sat at the cut-off); every answer's scores sort descending.
@@ -2147,7 +2246,7 @@ def int8_answers_agree(sem, logp, got_sem, got_scores, atol) -> tuple[float, int
     differs)."""
     want = {tuple(t): float(v) for t, v in zip(sem.tolist(), logp)}
     got = {tuple(t): float(v) for t, v in zip(got_sem.tolist(), got_scores)}
-    check(len(want) == len(got) == BEAMS, (want, got))
+    check(len(want) == len(got) == beams, (want, got))
     err = max([abs(want[t] - got[t]) for t in want.keys() & got.keys()] or [0.0])
     check(err <= atol, ("int8 scores of the same tuples", err, want, got))
     for a, b in ((want, got), (got, want)):
@@ -2198,6 +2297,90 @@ def device_profile(serve_once) -> dict:
     )
 
 
+def burst_kernel(kv_dtype) -> str:
+    """The paged-attention kernel a burst with ``kv_dtype`` pages runs."""
+    return "paged_attention_stats_quantized" if kv_dtype == "int8" else "paged_attention_stats"
+
+
+def check_burst(eng, head, reqs, responses, stats, counts, kernel, layers, shape) -> int:
+    """What every generative burst must show: each request answered and
+    the pool empty again; ``kernel`` launched exactly once a decoder layer
+    a decode step and no other kernel; each answer ``shape`` (beams,
+    depth) with finite scores naming catalog items. Returns the launches."""
+    others = {k: v for k, v in counts.items() if k != kernel and v}
+    check(not others, f"{head.name} burst launched other kernels: {others}")
+    pool = eng.runner(head.name).pool
+    pool.check_invariants()
+    check(pool.allocator.pages_in_use == 0 and pool.active_slot_count == 0, pool.stats())
+    check(stats["completed"] == len(reqs) and stats["failed"] == 0, stats)
+    launches, steps = counts[kernel], stats["decode_steps"]
+    check(launches > 0 and launches == layers * steps, (launches, steps))
+    index = head.catalog.item_index()
+    for resp in responses:
+        check(resp.sem_ids.shape == shape, resp.sem_ids.shape)
+        check(np.isfinite(resp.scores).all() and (resp.scores > -1e30).all(), resp.scores)
+        check(all(tuple(int(c) for c in t) in index for t in resp.sem_ids)
+              and (resp.items >= 0).all(), ("not catalog items", resp.sem_ids))
+    return launches
+
+
+def check_sample(rng, reqs, responses, kv_dtype, refs, answer, beams, full=None) -> dict:
+    """12 sampled answers against offline decoding of the same page type,
+    ``answer(model, trie, req, L) -> (sem, scores)``: with ``refs[0]``
+    (the card: the same kernel, one request a batch) and, for the first
+    4, every other ref (the CPU: the plain version, CPU GEMMs). fp32: equal
+    sem-ids, scores within SAMPLE_ATOL; int8: tuples matched within
+    INT8_SAMPLE_ATOL. With ``full`` (the indices of the requests whose
+    history fills their bucket), the first 8 are drawn from those and the
+    other 4 from the rest. Returns the line's sample fields."""
+    on_cpu = 4 if len(refs) > 1 else 0
+    atol = SAMPLE_ATOL if kv_dtype == "float32" else INT8_SAMPLE_ATOL
+    if full is None:
+        sample = rng.choice(len(reqs), 12, replace=False)
+    else:
+        rest = np.setdiff1d(np.arange(len(reqs)), full)
+        check(len(full) >= 8 and len(rest) >= 4, ("full rows", len(full), len(rest)))
+        sample = np.concatenate([rng.choice(full, 8, replace=False),
+                                 rng.choice(rest, 4, replace=False)])
+    sample_err, moved = 0.0, 0
+    for i, j in enumerate(sample):
+        req, resp = reqs[j], responses[j]
+        for where, m, trie in refs if i < on_cpu else refs[:1]:
+            sem, scores = answer(m, trie, req, resp.bucket[1])
+            if kv_dtype == "int8":
+                err, n = int8_answers_agree(sem, scores, resp.sem_ids, resp.scores, atol, beams)
+                moved += n
+            else:
+                check((sem == resp.sem_ids).all(), (where, j, sem, resp.sem_ids))
+                err = float(np.abs(scores - resp.scores).max())
+                check(err <= atol, (where, j, scores, resp.scores))
+            sample_err = max(sample_err, err)
+    return dict(sample_checked=len(sample), sample_checked_on_cpu=on_cpu,
+                sample_full_rows=0 if full is None else 8,
+                sample_max_abs_score_err=sample_err, sample_atol=atol,
+                sample_beams_in_another_rank=moved)
+
+
+def burst_fields(reqs, responses, wall_s, stats, fp32_answers, beams) -> dict:
+    """qps, latency percentiles, engine counts, and (given the fp32
+    burst's answers) the top-``beams`` agreement of these with them."""
+    total_ms = np.asarray([r.total_s for r in responses]) * 1e3
+    compute_ms = np.asarray([r.compute_s for r in responses]) * 1e3
+    agreement = None
+    if fp32_answers is not None:
+        agreement = float(np.mean([
+            len({tuple(t) for t in a.sem_ids.tolist()} & {tuple(t) for t in b.sem_ids.tolist()})
+            / beams for a, b in zip(responses, fp32_answers)]))
+    return {"requests": len(reqs), "qps": len(reqs) / wall_s, "wall_s": wall_s,
+            "p50_ms": float(np.percentile(total_ms, 50)),
+            "p99_ms": float(np.percentile(total_ms, 99)),
+            "compute_p50_ms": float(np.percentile(compute_ms, 50)),
+            "compute_p99_ms": float(np.percentile(compute_ms, 99)),
+            "decode_steps": stats["decode_steps"], "prefill_batches": stats["batches"],
+            "bucket_hits": stats["bucket_hits"],
+            f"top{beams}_agreement_with_fp32": agreement}
+
+
 def serve_phase(dev, seed, n_requests, profile=False, kv_dtype="float32",
                 fp32_answers=None) -> tuple[dict, dict | None, list]:
     """The serving burst with ``kv_dtype`` pages. The same seed gives the
@@ -2238,80 +2421,31 @@ def serve_phase(dev, seed, n_requests, profile=False, kv_dtype="float32",
     responses, wall_s = serve(eng, reqs)
     counts = read_counters()
     stats = eng.stop()
-    kernel, other = "paged_attention_stats", "paged_attention_stats_quantized"
-    if kv_dtype == "int8":
-        kernel, other = other, kernel
-    launches = counts[kernel]
-    check(counts[other] == 0, f"{kv_dtype} burst launched {other} {counts[other]} times")
-    pool = eng.runner(head.name).pool
-    pool.check_invariants()
-    check(pool.allocator.pages_in_use == 0 and pool.active_slot_count == 0, pool.stats())
-
+    kernel = burst_kernel(kv_dtype)
     decode_layers = TIGER_AMAZON["n_layers"] // 2
-    steps = stats["decode_steps"]
-    check(stats["completed"] == len(reqs) and stats["failed"] == 0, stats)
-    check(launches > 0 and launches == decode_layers * steps, (launches, steps))
-    index = head.catalog.item_index()
-    for resp in responses:
-        check(resp.sem_ids.shape == (BEAMS, TIGER_AMAZON["sem_id_dim"]), resp.sem_ids.shape)
-        check(np.isfinite(resp.scores).all() and (resp.scores > -1e30).all(), resp.scores)
-        check(all(tuple(int(c) for c in t) in index for t in resp.sem_ids)
-              and (resp.items >= 0).all(), ("not catalog items", resp.sem_ids))
+    launches = check_burst(eng, head, reqs, responses, stats, counts, kernel, decode_layers,
+                           (BEAMS, TIGER_AMAZON["sem_id_dim"]))
 
-    # A sample against offline decoding of the same page type: on the card
-    # (the same kernel, one request per batch) and, for fp32, on the CPU
-    # (the plain version, CPU GEMMs).
-    on_cpu = 4 if kv_dtype == "float32" else 0
-    atol = SAMPLE_ATOL if kv_dtype == "float32" else INT8_SAMPLE_ATOL
-    if on_cpu:
+    refs = [("cuda", model, head.trie)]
+    if kv_dtype == "float32":
         cpu_model = Tiger(**TIGER_AMAZON, device="cpu").eval()
         cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-        cpu_trie = head.catalog.device_trie("cpu")
-    sample = rng.choice(len(reqs), 12, replace=False)
-    sample_err, moved = 0.0, 0
-    for i, j in enumerate(sample):
-        req, resp = reqs[j], responses[j]
-        refs = [("cuda", model, head.trie)] + ([("cpu", cpu_model, cpu_trie)] if i < on_cpu
-                                               else [])
-        for where, m, trie in refs:
-            sem, logp = offline_answer(m, head, trie, req, resp.bucket[1], kv_dtype)
-            if kv_dtype == "int8":
-                err, n = int8_answers_agree(sem, logp, resp.sem_ids, resp.scores, atol)
-                moved += n
-            else:
-                check((sem == resp.sem_ids).all(), (where, j, sem, resp.sem_ids))
-                err = float(np.abs(logp - resp.scores).max())
-                check(err <= atol, (where, j, logp, resp.scores))
-            sample_err = max(sample_err, err)
-    agreement = None
-    if fp32_answers is not None:
-        agreement = float(np.mean([
-            len({tuple(t) for t in a.sem_ids.tolist()} & {tuple(t) for t in b.sem_ids.tolist()})
-            / BEAMS for a, b in zip(responses, fp32_answers)]))
+        refs.append(("cpu", cpu_model, head.catalog.device_trie("cpu")))
+    sampled = check_sample(
+        rng, reqs, responses, kv_dtype, refs,
+        lambda m, trie, req, L: offline_answer(m, head, trie, req, L, kv_dtype), BEAMS)
 
-    total_ms = np.asarray([r.total_s for r in responses]) * 1e3
-    compute_ms = np.asarray([r.compute_s for r in responses]) * 1e3
     geometry = (decode_layers, TIGER_AMAZON["num_heads"],
                 TIGER_AMAZON["attn_dim"] // TIGER_AMAZON["num_heads"])
     served = emit(
         "serve" if kv_dtype == "float32" else "serve_int8", kv_dtype=kv_dtype,
-        card=torch.cuda.get_device_name(dev), requests=len(reqs),
-        qps=len(reqs) / wall_s, wall_s=wall_s,
-        p50_ms=float(np.percentile(total_ms, 50)),
-        p99_ms=float(np.percentile(total_ms, 99)),
-        compute_p50_ms=float(np.percentile(compute_ms, 50)),
-        compute_p99_ms=float(np.percentile(compute_ms, 99)),
-        decode_steps=steps,
-        prefill_batches=stats["batches"], bucket_hits=stats["bucket_hits"],
+        card=torch.cuda.get_device_name(dev),
+        **burst_fields(reqs, responses, wall_s, stats, fp32_answers, BEAMS),
         kernel=kernel, paged_attention_launches=launches,
-        launches_per_decode_step=launches / steps,
-        catalog_items=CATALOG_ITEMS, catalog_version=head.catalog_version,
-        sample_checked=len(sample), sample_checked_on_cpu=on_cpu,
-        sample_max_abs_score_err=sample_err, sample_atol=atol,
-        sample_beams_in_another_rank=moved,
+        launches_per_decode_step=launches / stats["decode_steps"],
+        catalog_items=CATALOG_ITEMS, catalog_version=head.catalog_version, **sampled,
         pool_bytes=cfg.hbm_bytes(*geometry),
         pool_bytes_fp32=PagedConfig(**PAGED).hbm_bytes(*geometry),
-        top10_agreement_with_fp32=agreement,
     )
     if not profile:
         return served, None, responses
@@ -2324,7 +2458,160 @@ def serve_phase(dev, seed, n_requests, profile=False, kv_dtype="float32",
     return served, prof, responses
 
 
-# ---- phase 10: LCRec SFT at tensor_parallel=2 ---------------------------------
+# ---- phase 9: COBRA serving ---------------------------------------------------
+
+
+def cobra_catalog(seed):
+    """CATALOG_ITEMS unique sem-id tuples (3 codes of 256), built as the
+    TIGER serve phase builds its catalog, and each item's text: 32 token
+    ids in [1, 32,128) (0 is the tower's padding)."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, COBRA_AMAZON["id_vocab_size"],
+                         (2 * CATALOG_ITEMS, COBRA_AMAZON["n_codebooks"]))
+    catalog = np.unique(codes, axis=0)
+    catalog = catalog[rng.permutation(len(catalog))[:CATALOG_ITEMS]]
+    check(len(catalog) == CATALOG_ITEMS, len(catalog))
+    text = rng.integers(1, COBRA_AMAZON["encoder_vocab_size"], (CATALOG_ITEMS, COBRA_TEXT_LEN))
+    return catalog, text
+
+
+def cobra_offline_answer(model, head, trie, req, L, kv_dtype="float32"):
+    from genrec_tpu_torch.models.cobra import cobra_generate_paged
+
+    ids, vecs = (t.to(model.device) for t in head.make_batch([req], 1, L))
+    out = cobra_generate_paged(model, ids, None, n_candidates=COBRA_BEAMS, temperature=1.0,
+                               item_vecs=vecs, trie=trie, page_size=COBRA_PAGED["page_size"],
+                               kv_dtype=kv_dtype)
+    return out.sem_ids[0].cpu().numpy(), out.scores[0].cpu().numpy()
+
+
+def cobra_requests(ds, rng, n):
+    """``n`` COBRA requests, each the valid-split history (``seq[:-2]``, as
+    ``ds.eval_arrays("valid")`` holds it) of a user of ``ds`` drawn at
+    random, its newest MAX_ITEMS items (train.max_items), as catalog
+    indices (``ds`` counts items from 1)."""
+    from genrec_tpu_torch.serving.types import Request
+
+    return [Request(head="cobra", history=ds.sequences[u][:-2][-MAX_ITEMS:] - 1,
+                    user_id=int(u))
+            for u in rng.integers(0, len(ds.sequences), n)]
+
+
+class CountingDecode:
+    """Wraps a paged runner's decode call: counts the calls and the active
+    slots each advanced (from the runner's host state, so no sync)."""
+
+    def __init__(self, runner):
+        self.runner, self.fn = runner, runner._decode
+        self.calls = self.slot_steps = 0
+        runner._decode = self
+
+    def __call__(self, *args):
+        self.calls += 1
+        self.slot_steps += int(self.runner.active.sum())
+        return self.fn(*args)
+
+
+def cobra_serve_phase(dev, seed, n_requests, profile=False, kv_dtype="float32",
+                      fp32_answers=None) -> tuple[dict, dict | None, list]:
+    """COBRA at config/cobra/amazon.gin widths behind ServingEngine +
+    CobraGenerativeHead: the tower encoded once on the card from the
+    catalog's item text, then ``n_requests`` requests (``cobra_requests``)
+    at once with ``kv_dtype`` pages. Every answer a catalog item; B1 (fp32)
+    or B2 (int8) exactly once a decoder layer a decode step and no other
+    kernel; 2 decode steps a request (codebook 0 resolves at prefill); a
+    sample, mostly of rows whose history fills its bucket, against offline
+    cobra_generate_paged of the same page type on the card and on the CPU.
+    Returns (line, profile line or None, responses)."""
+    from genrec_tpu_torch.models.cobra import Cobra
+    from genrec_tpu_torch.serving.buckets import BucketLadder
+    from genrec_tpu_torch.serving.engine import ServingEngine
+    from genrec_tpu_torch.serving.heads import CobraGenerativeHead
+    from genrec_tpu_torch.serving.kv_pool import PagedConfig
+
+    catalog, text = cobra_catalog(seed)
+    rng = np.random.default_rng(seed + 1)
+    ds = beauty_dataset(seed)
+    model = Cobra(**COBRA_AMAZON, device=dev, seed=seed).eval()
+    t0 = time.perf_counter()
+    head = CobraGenerativeHead(model, item_sem_ids=catalog, item_text_tokens=text,
+                               top_k=COBRA_BEAMS)
+    torch.cuda.synchronize()
+    tower_s = time.perf_counter() - t0
+    check(head.tower_encodes == 1 and tuple(head.item_vecs.shape) == (
+        CATALOG_ITEMS, COBRA_AMAZON["d_model"]), (head.tower_encodes, head.item_vecs.shape))
+    check(bool(torch.isfinite(head.item_vecs).all()), "tower not finite")
+    ladder = BucketLadder((1, 2, 4, 8, 16), (4, 8, 16, MAX_ITEMS))
+    cfg = PagedConfig(**COBRA_PAGED, kv_dtype=kv_dtype)
+
+    def engine():
+        return ServingEngine([head], device=dev, ladder=ladder, max_batch=16,
+                             max_wait_ms=2.0, paged_config=cfg, kv_dtype=kv_dtype).start()
+
+    warm = engine()
+    serve(warm, cobra_requests(ds, rng, 32))
+    warm.stop()
+    check(head.tower_encodes == 1, "the engine re-encoded the tower")
+
+    reqs = cobra_requests(ds, rng, n_requests)
+    eng = engine()
+    decode = CountingDecode(eng.runner(head.name))
+    reset_counters()
+    responses, wall_s = serve(eng, reqs)
+    counts = read_counters()
+    stats = eng.stop()
+    kernel = burst_kernel(kv_dtype)
+    layers, C = COBRA_AMAZON["decoder_n_layers"], COBRA_AMAZON["n_codebooks"]
+    launches = check_burst(eng, head, reqs, responses, stats, counts, kernel, layers,
+                           (COBRA_BEAMS, C))
+    check(decode.calls == stats["decode_steps"], (decode.calls, stats["decode_steps"]))
+    check(decode.slot_steps == (C - 1) * len(reqs), (decode.slot_steps, len(reqs)))
+
+    # Only a row whose history fills its bucket reads the decode steps'
+    # attention (the others take the prefill's hidden state, as JAX does):
+    # most of the sample, and every CPU check, is drawn from those.
+    items = np.asarray([len(r.history) for r in reqs])
+    full = np.flatnonzero(items == np.asarray([r.bucket[1] for r in responses]))
+    cpu_model = Cobra(**COBRA_AMAZON, device="cpu").eval()
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    refs = [("cuda", model, head.trie), ("cpu", cpu_model, head.catalog.device_trie("cpu"))]
+    sampled = check_sample(
+        rng, reqs, responses, kv_dtype, refs,
+        lambda m, trie, req, L: cobra_offline_answer(m, head, trie, req, L, kv_dtype),
+        COBRA_BEAMS, full)
+    del cpu_model, refs
+
+    geometry = (layers, COBRA_AMAZON["decoder_num_heads"], COBRA_SHAPE[2])
+    served = emit(
+        "cobra_serve" if kv_dtype == "float32" else "cobra_serve_int8", kv_dtype=kv_dtype,
+        card=torch.cuda.get_device_name(dev),
+        **burst_fields(reqs, responses, wall_s, stats, fp32_answers, COBRA_BEAMS),
+        traffic="valid-split histories of the synthetic Amazon-Beauty users, newest "
+                f"{MAX_ITEMS} items", history_items=dict(
+                    min=int(items.min()), mean=float(items.mean()), max=int(items.max())),
+        full_rows=len(full), full_row_share=len(full) / len(reqs),
+        slot_decode_steps=decode.slot_steps,
+        decode_steps_per_request=decode.slot_steps / len(reqs),
+        kernel=kernel, paged_attention_launches=launches,
+        launches_per_decode_step=launches / stats["decode_steps"],
+        params=sum(p.numel() for p in model.parameters()),
+        tower_encodes=head.tower_encodes, tower_encode_s=tower_s,
+        catalog_items=CATALOG_ITEMS, catalog_version=head.catalog_version, **sampled,
+        pool_bytes=cfg.hbm_bytes(*geometry),
+        pool_bytes_fp32=PagedConfig(**COBRA_PAGED).hbm_bytes(*geometry),
+        suffix_cache_bytes=2 * nbytes(eng.runner(head.name).state["cache_k"]),
+    )
+    if not profile:
+        return served, None, responses
+    again = cobra_requests(ds, rng, n_requests)
+    eng = engine()
+    prof = emit("cobra_profile" if kv_dtype == "float32" else "cobra_profile_int8",
+                requests=n_requests, **device_profile(lambda: serve(eng, again)[1]))
+    eng.stop()
+    return served, prof, responses
+
+
+# ---- phase 11: LCRec SFT at tensor_parallel=2 ---------------------------------
 
 
 def lcrec_cfg(layers: int):
@@ -2654,6 +2941,7 @@ def lcrec_fixed_steps(group, seed, profile) -> dict:
                nonfinite=sum(m["nonfinite"] for m in metrics),
                collectives_per_step=calls / n, collective_bytes_per_step=nbytes_ / n,
                peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               peak_reserved_gb=torch.cuda.max_memory_reserved(dev) / 1e9,
                launches=launches, b8_calls=fc.sharded_fused_linear_ce.launches)
     if profile:
         def more():
@@ -2765,7 +3053,9 @@ def lcrec_tp_phase(dev, seed, profile, rank_fn=None) -> dict:
     backend = choose_backend(rank_device(0, LCREC_TP, dev.type), LCREC_TP)
     emit("lcrec_tp_start", backend=backend, ranks=LCREC_TP,
          device_count=torch.cuda.device_count(),
-         parent_reserved_gb=torch.cuda.memory_reserved(dev) / 1e9)
+         parent_allocated_gb=torch.cuda.memory_allocated(dev) / 1e9,
+         parent_reserved_gb=torch.cuda.memory_reserved(dev) / 1e9,
+         free_gb=torch.cuda.mem_get_info(dev)[0] / 1e9)
     t0 = time.perf_counter()
     ranks = spawn(rank_fn or lcrec_rank, LCREC_TP, (seed, profile), device=dev.type,
                   timeout_s=LCREC_TIMEOUT_S)
@@ -2816,7 +3106,8 @@ def lcrec_tp_phase(dev, seed, profile, rank_fn=None) -> dict:
                     tp2_losses=tp2, max_rel_diff=rel, rtol=LCREC_PARITY_RTOL,
                     tp1_s=parity_tp1_s),
         steps=steps, steps_rank1={k: r1["steps"][k] for k in
-                                  ("step_ms_p50", "peak_memory_gb", "losses")},
+                                  ("step_ms_p50", "peak_memory_gb", "peak_reserved_gb",
+                                   "losses")},
         trainer=dict(trainer, rank1_valid=r1["trainer"]["valid"]), spawn_s=spawn_s,
     )
 
@@ -2843,9 +3134,9 @@ def main(argv=None) -> int:
     ap.add_argument("--requests", type=int, default=384)
     ap.add_argument("--out", type=Path, help="also write every phase's JSON here")
     ap.add_argument("--profile", action="store_true",
-                    help="run more HSTU, RQ-VAE and LCRec train steps and serve the "
-                         "traffic once more (fp32 and int8) under torch.profiler, and report "
-                         "device time by kernel")
+                    help="run more HSTU, RQ-VAE and LCRec train steps and serve the TIGER "
+                         "and COBRA traffic once more (fp32 and int8) under torch.profiler, "
+                         "and report device time by kernel")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2880,6 +3171,9 @@ def main(argv=None) -> int:
                    dev, args.seed, phases["build"]["libraries"]["rq_cascade"]["ptxas"])}
     kernels.update(hstu_kernel_phase(
         dev, args.seed, phases["build"]["libraries"]["hstu_attention"]["ptxas"]))
+    for int8 in (False, True):
+        row = cobra_kernel_phase(dev, args.seed, paged_ptx, int8)
+        kernels[f"paged_attention_stats{'_quantized' if int8 else ''}_cobra"] = row
     kernels["hstu_attention_fwd_retrieve"] = hstu_serving_kernel_phase(dev, args.seed)
     ptxas = phases["build"]["libraries"]["fused_ce"]["ptxas"]
     kernels.update(ce_kernel_phase(dev, args.seed, ptxas))
@@ -2899,6 +3193,15 @@ def main(argv=None) -> int:
                                                     fp32_answers=fp32_answers)
     if profiled:
         phases["serve_int8_profile"] = profiled
+    phases["cobra_serve"], profiled, fp32_answers = cobra_serve_phase(
+        dev, args.seed, args.requests, args.profile)
+    if profiled:
+        phases["cobra_serve_profile"] = profiled
+    phases["cobra_serve_int8"], profiled, _ = cobra_serve_phase(
+        dev, args.seed, args.requests, args.profile, kv_dtype="int8",
+        fp32_answers=fp32_answers)
+    if profiled:
+        phases["cobra_serve_int8_profile"] = profiled
     phases["retrieve"] = retrieve_phase(dev, args.seed, args.profile)
     phases["lcrec_tp"] = lcrec_tp_phase(dev, args.seed, args.profile)
     kernels["sharded_fused_linear_ce"] = phases["lcrec_tp"]["b8"]
@@ -2913,6 +3216,9 @@ def main(argv=None) -> int:
                    for k in LCREC_LAUNCHES_PER_STEP},
                 **{k + "_sasrec": phases["sasrec"]["launches"][k]
                    for k in SASREC_LAUNCHES_PER_STEP},
+                "paged_attention_stats_cobra": phases["cobra_serve"]["paged_attention_launches"],
+                "paged_attention_stats_quantized_cobra":
+                    phases["cobra_serve_int8"]["paged_attention_launches"],
                 "hstu_attention_fwd_retrieve": phases["retrieve"]["launches"]["hstu_attention_fwd"],
                 "sharded_fused_linear_ce": phases["lcrec_tp"]["steps"]["b8_calls"]}
     line = {"kernels": [{

@@ -2,25 +2,33 @@
 of genrec_tpu/catalog/snapshot.py: ``build``, ``item_index``,
 ``device_trie``; no save/load, no hot swap yet).
 
-``version`` is the same content hash as the JAX snapshot's, so the two
+Besides ``item_sem_ids`` (N, D), a snapshot may carry COBRA's dense item
+tower: ``item_vecs`` (N, d), precomputed, or ``item_text_tokens`` (N, L),
+the tokenised item text the head encodes once per version. ``version`` is
+the same content hash as the JAX snapshot's over all three, so the two
 packages stamp the same version on the same corpus.
 """
 
 from __future__ import annotations
 
 import hashlib
+from typing import Optional
 
 import numpy as np
 
 from genrec_tpu_torch.catalog.tensor_trie import TensorTrie
 
 
-def _content_version(item_sem_ids: np.ndarray, codebook_size: int) -> str:
+def _content_version(item_sem_ids: np.ndarray, codebook_size: int,
+                     item_vecs=None, item_text_tokens=None) -> str:
     h = hashlib.sha256()
     h.update(str(int(codebook_size)).encode())
     h.update(np.ascontiguousarray(item_sem_ids).tobytes())
-    for _ in range(2):  # the JAX hash's two absent optional tables
+    for arr in (item_vecs, item_text_tokens):
         h.update(b"|")
+        if arr is not None:
+            h.update(str(arr.dtype).encode() + str(arr.shape).encode())
+            h.update(np.ascontiguousarray(arr).tobytes())
     return h.hexdigest()[:16]
 
 
@@ -28,9 +36,13 @@ class CatalogSnapshot:
     """Immutable corpus artifact. Build with :meth:`build`."""
 
     def __init__(self, item_sem_ids: np.ndarray, codebook_size: int,
-                 trie: TensorTrie, version: str):
+                 trie: TensorTrie, version: str, item_vecs: Optional[np.ndarray] = None,
+                 item_text_tokens: Optional[np.ndarray] = None):
         self.item_sem_ids = np.asarray(item_sem_ids, np.int64)
         self.codebook_size = int(codebook_size)
+        self.item_vecs = None if item_vecs is None else np.asarray(item_vecs)
+        self.item_text_tokens = (None if item_text_tokens is None
+                                 else np.asarray(item_text_tokens))
         self._trie = trie
         self.version = version
         self._device_tries: dict[str, TensorTrie] = {}
@@ -38,13 +50,17 @@ class CatalogSnapshot:
 
     @classmethod
     def build(cls, item_sem_ids: np.ndarray, codebook_size: int,
+              item_vecs: Optional[np.ndarray] = None,
+              item_text_tokens: Optional[np.ndarray] = None,
               capacity: int | None = None) -> "CatalogSnapshot":
         """Version-stamp a corpus and build its trie at the smallest
         capacity rung covering it (or at ``capacity``)."""
         item_sem_ids = np.asarray(item_sem_ids, np.int64)
         trie = TensorTrie.build(item_sem_ids, codebook_size, capacity=capacity)
+        vecs = None if item_vecs is None else np.asarray(item_vecs)
+        text = None if item_text_tokens is None else np.asarray(item_text_tokens)
         return cls(item_sem_ids, codebook_size, trie,
-                   _content_version(item_sem_ids, codebook_size))
+                   _content_version(item_sem_ids, codebook_size, vecs, text), vecs, text)
 
     @property
     def n_items(self) -> int:

@@ -10,9 +10,10 @@ Encoding — a rank-based child table, one row per depth:
   ``keys[t, offsets[t, p]:offsets[t, p+1]]``); build-time stats only.
 
 A prefix is its RANK among the sorted valid prefixes of its length; the
-dead-prefix sentinel is C. ``legal_mask_ragged`` / ``advance_ragged`` are
-batched ``torch.searchsorted`` gathers over the per-row key row
-``keys[steps]``: no host sync, no Python loop over beams.
+dead-prefix sentinel is C. ``legal_mask`` / ``advance`` (every row at one
+depth) and ``legal_mask_ragged`` / ``advance_ragged`` (each row at its own,
+through the per-row key row ``keys[steps]``) are batched
+``torch.searchsorted`` gathers: no host sync, no Python loop over beams.
 
 ``build`` runs on the host in numpy; ``to(device)`` returns the same trie
 with its tables as torch tensors (int64, the index type torch gathers
@@ -101,6 +102,24 @@ class TensorTrie:
         )
 
     # -- the decode-loop interface -------------------------------------------
+
+    def legal_mask(self, prefix_idx: torch.Tensor, step: int) -> torch.Tensor:
+        """prefix_idx (...) ranks at depth ``step`` -> (..., K) bool of the
+        legal next codes."""
+        K = self.codebook_size
+        row_keys = self.keys[step]  # (C,)
+        cand = prefix_idx.long()[..., None] * K + torch.arange(K, device=row_keys.device)
+        pos = torch.searchsorted(row_keys, cand).clamp_max(row_keys.shape[0] - 1)
+        return row_keys[pos] == cand
+
+    def advance(self, prefix_idx: torch.Tensor, token: torch.Tensor, step: int) -> torch.Tensor:
+        """Rank of each extended prefix at depth ``step``; dead or illegal
+        extensions get the sentinel capacity C."""
+        row_keys = self.keys[step]
+        C = row_keys.shape[0]
+        key = prefix_idx.long() * self.codebook_size + token.long()
+        pos = torch.searchsorted(row_keys, key).clamp_max(C - 1)
+        return torch.where(row_keys[pos] == key, pos, torch.full_like(pos, C))
 
     def legal_mask_ragged(self, prefix_idx: torch.Tensor,
                           steps: torch.Tensor) -> torch.Tensor:

@@ -36,6 +36,7 @@ _MACROS: dict[str, Any] = {}
 # ported yet, and the ROADMAP item that ports each.
 _ROADMAP_ITEM = {
     "trainers.tiger_trainer": "A9 (TIGER training)",
+    "trainers.cobra_trainer": "A21 (the COBRA trainer)",
 }
 
 _REF_RE = re.compile(r"@([A-Za-z_][\w\./]*)(\(\))?")

@@ -1,10 +1,11 @@
 """Weights carried across from the JAX package.
 
 ``tiger_params_from_flax``, ``hstu_params_from_flax``,
-``sasrec_params_from_flax``, ``rqvae_params_from_flax`` and
-``qwen_params_from_flax`` map a Flax param tree (nested dicts of numpy
-arrays, as ``jax.device_get(params)`` gives it) onto the state dict of
-the port's ``Tiger``, ``HSTU``, ``SASRec``, ``RqVae`` and ``QwenLM``, so
+``sasrec_params_from_flax``, ``rqvae_params_from_flax``,
+``cobra_params_from_flax`` and ``qwen_params_from_flax`` map a Flax param
+tree (nested dicts of numpy arrays, as ``jax.device_get(params)`` gives
+it) onto the state dict of the port's ``Tiger``, ``HSTU``, ``SASRec``,
+``RqVae``, ``Cobra`` and ``QwenLM``, so
 both packages compute the same function from the same weights. The names
 follow the Flax module names one for one, with these rewrites:
 
@@ -12,7 +13,7 @@ follow the Flax module names one for one, with these rewrites:
   SASRec's ``block_<i>`` -> ``blocks.<i>``;
 - ``<dense>/kernel`` (Flax ``nn.Dense``, stored ``(in, out)``) ->
   ``<dense>.weight`` (``nn.Linear``, stored ``(out, in)``), transposed;
-- HSTU and SASRec: ``<norm>/scale`` (Flax ``nn.LayerNorm``) ->
+- HSTU, SASRec and COBRA: ``<norm>/scale`` (Flax ``nn.LayerNorm``) ->
   ``<norm>.weight``;
 - Qwen only: ``embed_tokens`` (a raw Flax param) -> ``embed_tokens.weight``;
 - every other leaf keeps its name and storage (TIGER's ``rel_bias`` its
@@ -75,6 +76,15 @@ def rqvae_params_from_flax(params_np, model=None) -> dict[str, torch.Tensor]:
     ``quantize_<i>.codebook`` and ``.out_proj``), with the same two checks
     as ``tiger_params_from_flax``."""
     return _params_from_flax(params_np, model, {})
+
+
+def cobra_params_from_flax(params_np, model=None) -> dict[str, torch.Tensor]:
+    """Flax COBRA params (``Cobra.init(...)["params"]``) -> the port's
+    ``Cobra`` state dict (raw tables such as ``encoder.embedding`` and
+    ``cobra_emb.id_embed`` keep their names; ``sparse_head_<c>`` stay
+    top-level ``nn.Linear``s), with the same two checks as
+    ``tiger_params_from_flax``."""
+    return _params_from_flax(params_np, model, {"scale": "weight"})
 
 
 def _params_from_flax(params_np, model, renames) -> dict[str, torch.Tensor]:

@@ -37,23 +37,33 @@ class Adam:
     @torch.no_grad()
     def update(self, params: list[torch.Tensor], grads: list[torch.Tensor], state: dict,
                ok: torch.Tensor) -> None:
+        # Steps write in place into the buffer of the step before: the same
+        # operations in the same order, so the same bits (a product with a
+        # number stays out of place: in place its bf16 rounding differs on
+        # the CPU). The update then holds at most four lists of the
+        # parameters' size besides parameters, moments and gradients, not
+        # seven.
         b1, b2 = self.b1, self.b2
-        mu = torch._foreach_add(torch._foreach_mul(grads, 1 - b1),
-                                torch._foreach_mul(state["mu"], b1))
-        nu = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2),
-                                torch._foreach_mul(state["nu"], b2))
+        mu = torch._foreach_mul(grads, 1 - b1)
+        torch._foreach_add_(mu, torch._foreach_mul(state["mu"], b1))
+        nu = torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2)
+        torch._foreach_add_(nu, torch._foreach_mul(state["nu"], b2))
         count = state["count"] + 1
         c = count.to(torch.float32)
-        mu_hat = torch._foreach_div(mu, 1 - torch.pow(b1, c))
-        nu_hat = torch._foreach_div(nu, 1 - torch.pow(b2, c))
-        upd = torch._foreach_div(mu_hat, torch._foreach_add(torch._foreach_sqrt(nu_hat),
-                                                            self.eps))
+        upd = torch._foreach_div(mu, 1 - torch.pow(b1, c))
+        denom = torch._foreach_div(nu, 1 - torch.pow(b2, c))
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        torch._foreach_div_(upd, denom)
+        del denom
         if self.weight_decay:
-            upd = torch._foreach_add(upd, torch._foreach_mul(params, self.weight_decay))
+            torch._foreach_add_(upd, torch._foreach_mul(params, self.weight_decay))
         lr = self.learning_rate
         if callable(lr):
             lr = lr(state["count"])
-        new = torch._foreach_add(params, torch._foreach_mul(upd, -lr))
+        new = torch._foreach_mul(upd, -lr)
+        del upd
+        torch._foreach_add_(new, params)  # new + params: the bits of params + new
         for old, fresh in ((params, new), (state["mu"], mu), (state["nu"], nu)):
             for o, f in zip(old, fresh):
                 o.copy_(torch.where(ok, f, o))

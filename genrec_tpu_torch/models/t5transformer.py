@@ -253,6 +253,15 @@ class TransformerEncoderDecoder(nn.Module):
         )
 
 
+def init_decode_caches(depth: int, batch: int, beams: int, max_len: int, n_heads: int,
+                       d_model: int, dtype=torch.float32, device="cuda") -> list[dict]:
+    """Zeroed per-layer self-attention suffix caches, (B, K, S, H, hd)."""
+    shape = (batch, beams, max_len, n_heads, d_model // n_heads)
+    dev = resolve_device(device)
+    return [{"k": torch.zeros(shape, dtype=dtype, device=dev),
+             "v": torch.zeros(shape, dtype=dtype, device=dev)} for _ in range(depth)]
+
+
 def gather_beam_caches(caches, sel_parent: torch.Tensor):
     """Reorder every (B, K, S, H, hd) cache leaf along the beam axis by
     ``sel_parent`` (B, K), the surviving parents of a beam-search top-k."""

@@ -40,7 +40,7 @@ NEG = -1e9
 
 __all__ = [
     "NEG", "gather_pages", "write_pages", "paged_attention_stats",
-    "paged_attention", "_stats_fallback",
+    "merge_attention_stats", "paged_attention", "_stats_fallback",
 ]
 
 
@@ -107,6 +107,19 @@ def paged_attention_stats(q, k_pool, v_pool, block_tables, seq_lens):
     else:
         fn = paged_attention_stats_cuda if q.is_cuda else _stats_fallback
     return fn(q, k_pool, v_pool, block_tables, seq_lens)
+
+
+def merge_attention_stats(acc_a, m_a, l_a, acc_b, m_b, l_b) -> torch.Tensor:
+    """Combine two flash partials into the jointly softmaxed output:
+    softmax(concat(scores_a, scores_b)) @ concat(values) up to float
+    association. COBRA's paged suffix step merges its paged history
+    partial with its dense suffix partial through this."""
+    m = torch.maximum(m_a, m_b)
+    ca = torch.exp(m_a - m)
+    cb = torch.exp(m_b - m)
+    l = l_a * ca + l_b * cb
+    acc = acc_a * ca[..., None] + acc_b * cb[..., None]
+    return acc / l.clamp_min(1e-30)[..., None]
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, seq_lens) -> torch.Tensor:

@@ -39,7 +39,11 @@ def quantize_symmetric(x: torch.Tensor, reduce_axes) -> tuple[torch.Tensor, torc
     x = x.to(torch.float32)
     dims = tuple(reduce_axes)
     amax = x.abs().amax(dim=dims)
-    scale = torch.clamp(amax, min=_EPS) / 127.0
+    # A float32 tensor divisor: CUDA divides by a Python number by
+    # multiplying with its reciprocal, which put scales one ulp off the
+    # CPU's (and JAX's) amax / 127 on the card.
+    scale = torch.clamp(amax, min=_EPS) / torch.full((), 127.0, dtype=torch.float32,
+                                                     device=x.device)
     expand = scale
     for d in sorted(a % x.dim() for a in dims):
         expand = expand.unsqueeze(d)

@@ -161,13 +161,17 @@ class _PagedRunner:
         batch = head.make_batch(reqs, B, L)
         bt = np.zeros((B, self.cfg.pages_per_slot), np.int32)
         bt[:n] = self.pool.block_tables[slots]  # padded rows -> null page
-        head.make_prefill_paged_fn(B, L)(
+        init = head.make_prefill_paged_fn(B, L)(
             *head.runtime_operands(), *batch, self._to_device(bt),
             self.pool.k_pools, self.pool.v_pools,
         )
         idx = self._to_device(np.asarray(slots, np.int64))
         for v in self.state.values():
             v[idx] = 0
+        # A prefill that resolves state of its own (COBRA's codebook-0
+        # beam, tail hiddens, base positions) returns its batch rows.
+        for key, rows in (init or {}).items():
+            self.state[key][idx] = rows[:n]
         self.steps[slots] = head.paged_init_step
         self.active[slots] = True
         for slot in slots:

@@ -1,6 +1,6 @@
 """Engine heads (port of genrec_tpu/serving/heads.py: ``Head``,
-``TigerGenerativeHead`` with the paged decode protocol, and
-``RetrievalHead`` with the dense micro-batch protocol).
+``TigerGenerativeHead`` and ``CobraGenerativeHead`` with the paged decode
+protocol, and ``RetrievalHead`` with the dense micro-batch protocol).
 
 A head owns a model + its item corpus. Every head has
 
@@ -31,7 +31,9 @@ Paged heads add the hooks the engine's `_PagedRunner` composes:
   tensors);
 - ``make_prefill_paged_fn(B, L)``: ``fn(*runtime_operands, *batch,
   block_tables, k_pools, v_pools)`` runs the encoder and WRITES its K/V
-  into the pools (in place) through the batch's block tables;
+  into the pools (in place) through the batch's block tables; it returns
+  None, or a dict of state rows (B, ...) that the runner writes into the
+  admitted slots after zeroing them (COBRA's codebook-0 beam);
 - ``make_decode_paged_fn()``: ``fn(*runtime_operands, state, steps,
   block_tables, seq_lens, k_pools, v_pools) -> state`` advances every
   slot one step, each at its own step;
@@ -50,6 +52,11 @@ import numpy as np
 import torch
 
 from genrec_tpu_torch.catalog.snapshot import CatalogSnapshot
+from genrec_tpu_torch.models.cobra import (
+    cobra_paged_decode_step,
+    cobra_prefill_paged,
+    init_cobra_paged_state,
+)
 from genrec_tpu_torch.models.embeddings import quantize_item_table
 from genrec_tpu_torch.models.tiger import (
     init_tiger_paged_state,
@@ -120,45 +127,20 @@ def _clip_history(history, L: int) -> np.ndarray:
     return h[-L:] if len(h) > L else h
 
 
-class TigerGenerativeHead(Head):
-    """TIGER trie-constrained beam search through the paged decode path.
-
-    The corpus comes either as a prebuilt ``catalog=`` CatalogSnapshot or
-    as a raw ``item_sem_ids`` (N, D) table; requests carry item ids
-    indexing it. Beam search is deterministic (pure beam, no sampling),
-    so identical requests get identical answers. The model's device is
-    the head's device; the catalog trie is uploaded there once.
-    """
+class _CatalogHead(Head):
+    """What the generative heads share: a CatalogSnapshot served from the
+    model's device (its trie, the sem-id table, the tuple -> item index)
+    and histories laid out left-aligned at the (B, L) bucket."""
 
     supports_paged = True
-    #: State keys ``paged_finalize`` reads: only these leave the device.
-    paged_output_keys = ("beam_seqs", "beam_logps")
 
-    def __init__(self, model, item_sem_ids: Optional[np.ndarray] = None,
-                 top_k: int = 10, name: str = "tiger", catalog=None):
-        self.model = model
-        self.name = name
-        self.top_k = top_k
-        if catalog is None:
-            if item_sem_ids is None:
-                raise ValueError("need item_sem_ids or catalog=")
-            catalog = CatalogSnapshot.build(
-                np.asarray(item_sem_ids, np.int64), model.num_item_embeddings
-            )
-        if catalog.depth != model.sem_id_dim:
-            raise ValueError(
-                f"catalog depth {catalog.depth} != model sem_id_dim {model.sem_id_dim}"
-            )
-        if catalog.codebook_size != model.num_item_embeddings:
-            raise ValueError(
-                f"catalog codebook {catalog.codebook_size} != model "
-                f"num_item_embeddings {model.num_item_embeddings}"
-            )
+    def _serve_catalog(self, catalog) -> None:
+        dev = self.device
         self.catalog = catalog
         self.item_sem_ids = catalog.item_sem_ids
-        self.trie = catalog.device_trie(model.device)
+        self.trie = catalog.device_trie(dev)
         self._item_index = catalog.item_index()
-        self._item_sem_ids_dev = torch.as_tensor(self.item_sem_ids, device=model.device)
+        self._item_sem_ids_dev = torch.as_tensor(self.item_sem_ids, device=dev)
 
     @property
     def device(self) -> torch.device:
@@ -182,22 +164,65 @@ class TigerGenerativeHead(Head):
             np.int64,
         )
 
-    def make_batch(self, reqs, B: int, L: int):
-        """(user (B,), ids (B, L*D), types (B, L*D), mask (B, L*D)) int64
-        tensors on the head's device."""
-        D = self.model.sem_id_dim
+    def _histories(self, reqs, B: int, L: int):
+        """(hist (B, L) item ids, valid (B, L) bool) on the device: each
+        request's newest L items that the corpus holds, left-aligned."""
         hist = np.zeros((B, L), np.int64)
         n = np.zeros(B, np.int64)
-        user = np.zeros(B, np.int64)
         for i, r in enumerate(reqs):
             h = _clip_history(r.history, L)
             h = h[h < len(self.item_sem_ids)]
             hist[i, : len(h)] = h
             n[i] = len(h)
+        dev = self.device
+        valid = torch.arange(L, device=dev)[None, :] < torch.as_tensor(n, device=dev)[:, None]
+        return torch.as_tensor(hist, device=dev), valid
+
+
+class TigerGenerativeHead(_CatalogHead):
+    """TIGER trie-constrained beam search through the paged decode path.
+
+    The corpus comes either as a prebuilt ``catalog=`` CatalogSnapshot or
+    as a raw ``item_sem_ids`` (N, D) table; requests carry item ids
+    indexing it. Beam search is deterministic (pure beam, no sampling),
+    so identical requests get identical answers. The model's device is
+    the head's device; the catalog trie is uploaded there once.
+    """
+
+    #: State keys ``paged_finalize`` reads: only these leave the device.
+    paged_output_keys = ("beam_seqs", "beam_logps")
+
+    def __init__(self, model, item_sem_ids: Optional[np.ndarray] = None,
+                 top_k: int = 10, name: str = "tiger", catalog=None):
+        self.model = model
+        self.name = name
+        self.top_k = top_k
+        if catalog is None:
+            if item_sem_ids is None:
+                raise ValueError("need item_sem_ids or catalog=")
+            catalog = CatalogSnapshot.build(
+                np.asarray(item_sem_ids, np.int64), model.num_item_embeddings
+            )
+        if catalog.depth != model.sem_id_dim:
+            raise ValueError(
+                f"catalog depth {catalog.depth} != model sem_id_dim {model.sem_id_dim}"
+            )
+        if catalog.codebook_size != model.num_item_embeddings:
+            raise ValueError(
+                f"catalog codebook {catalog.codebook_size} != model "
+                f"num_item_embeddings {model.num_item_embeddings}"
+            )
+        self._serve_catalog(catalog)
+
+    def make_batch(self, reqs, B: int, L: int):
+        """(user (B,), ids (B, L*D), types (B, L*D), mask (B, L*D)) int64
+        tensors on the head's device."""
+        D = self.model.sem_id_dim
+        user = np.zeros(B, np.int64)
+        for i, r in enumerate(reqs):
             user[i] = int(r.user_id) % self.model.num_user_embeddings
         dev = self.device
-        hist_t = torch.as_tensor(hist, device=dev)
-        valid = torch.arange(L, device=dev)[None, :] < torch.as_tensor(n, device=dev)[:, None]
+        hist_t, valid = self._histories(reqs, B, L)
         ids = self._item_sem_ids_dev[hist_t]  # (B, L, D)
         ids = ids.masked_fill(~valid[..., None], 0).reshape(B, L * D)
         mask = valid[..., None].expand(B, L, D).reshape(B, L * D).to(torch.int64)
@@ -248,6 +273,137 @@ class TigerGenerativeHead(Head):
     def paged_finalize(self, rows: dict, req) -> dict:
         sem = rows["beam_seqs"]
         return dict(items=self.lookup(sem), scores=rows["beam_logps"], sem_ids=sem)
+
+
+class CobraGenerativeHead(_CatalogHead):
+    """COBRA trie-constrained beam search through the paged decode path.
+
+    The sparse side of each history item comes from the catalog's
+    ``item_sem_ids`` (N, C), the dense side from the item tower: the
+    snapshot's ``item_vecs`` (N, d), or its ``item_text_tokens`` encoded
+    here by the model's encoder once per catalog version (``on_params`` and
+    ``set_catalog`` encode only when the version changed;
+    ``tower_encodes`` counts the encodes). Codebook 0 resolves at prefill,
+    so decode steps cover codebooks 1 .. C - 1. Beam search runs at
+    temperature 1 and is deterministic. Speculative decode and the prefix
+    cache's warm state are not ported (ROADMAP A23, A11).
+    """
+
+    #: State keys ``paged_finalize`` reads: only these leave the device.
+    paged_output_keys = ("beam_tokens", "beam_scores")
+    #: Rows a tower encode takes at once (bounds its activations).
+    tower_chunk = 2048
+
+    def __init__(self, model, item_sem_ids: Optional[np.ndarray] = None,
+                 item_vecs: Optional[np.ndarray] = None,
+                 item_text_tokens: Optional[np.ndarray] = None,
+                 top_k: int = 10, name: str = "cobra", catalog=None):
+        self.model = model
+        self.name = name
+        self.top_k = top_k
+        self.tower_encodes = 0
+        self.item_vecs = None  # (N, d) device tensor, the dense item tower
+        self._vecs_version = None  # catalog version the tower belongs to
+        if catalog is None:
+            if item_sem_ids is None:
+                raise ValueError("need item_sem_ids or catalog=")
+            catalog = CatalogSnapshot.build(
+                np.asarray(item_sem_ids, np.int64), model.id_vocab_size,
+                item_vecs=item_vecs, item_text_tokens=item_text_tokens,
+            )
+        self.set_catalog(catalog)
+
+    def validate_snapshot(self, snapshot) -> None:
+        if snapshot.depth != self.model.n_codebooks:
+            raise ValueError(f"catalog depth {snapshot.depth} != model n_codebooks "
+                             f"{self.model.n_codebooks}")
+        if snapshot.codebook_size != self.model.id_vocab_size:
+            raise ValueError(f"catalog codebook {snapshot.codebook_size} != model "
+                             f"id_vocab_size {self.model.id_vocab_size}")
+        if snapshot.item_vecs is None and snapshot.item_text_tokens is None:
+            raise ValueError("COBRA catalog snapshot needs item_vecs or item_text_tokens "
+                             "(the dense item tower has to come from somewhere)")
+        if snapshot.item_vecs is not None and snapshot.item_vecs.shape[-1] != self.model.d_model:
+            raise ValueError(f"snapshot tower dim {snapshot.item_vecs.shape[-1]} != model "
+                             f"d_model {self.model.d_model}")
+
+    def set_catalog(self, snapshot) -> None:
+        """Serve ``snapshot``: its trie on the device, its tower taken from
+        ``item_vecs`` or encoded from its text if this version has none yet."""
+        self.validate_snapshot(snapshot)
+        self._serve_catalog(snapshot)
+        if snapshot.item_vecs is not None:
+            self.item_vecs = torch.as_tensor(snapshot.item_vecs, dtype=torch.float32,
+                                             device=self.device)
+            self._vecs_version = snapshot.version
+        else:
+            self._encode_tower()
+
+    def on_params(self) -> None:
+        """Encode the tower if the catalog's version has none (a weights
+        refresh alone never re-encodes it)."""
+        self._encode_tower()
+
+    @torch.no_grad()
+    def _encode_tower(self) -> None:
+        if self._vecs_version == self.catalog.version:
+            return
+        text = torch.as_tensor(self.catalog.item_text_tokens, device=self.device)
+        self.item_vecs = torch.cat([self.model.encode_items(chunk)
+                                    for chunk in text.split(self.tower_chunk)])
+        self._vecs_version = self.catalog.version
+        self.tower_encodes += 1
+
+    def make_batch(self, reqs, B: int, L: int):
+        """(ids (B, L*C) int64 with ``pad_id`` padding, vecs (B, L, d) fp32)
+        on the head's device, the newest L items of each history first."""
+        C = self.model.n_codebooks
+        hist_t, valid = self._histories(reqs, B, L)
+        ids = self._item_sem_ids_dev[hist_t].masked_fill(~valid[..., None], self.model.pad_id)
+        vecs = self.item_vecs[hist_t].masked_fill(~valid[..., None], 0.0)
+        return ids.reshape(B, L * C), vecs
+
+    # ---- paged decode protocol ---------------------------------------------
+
+    @property
+    def paged_init_step(self) -> int:
+        return 1  # codebook 0 resolves at prefill
+
+    @property
+    def paged_total_steps(self) -> int:
+        return self.model.n_codebooks
+
+    def paged_layout(self):
+        m = self.model
+        return m.decoder_n_layers, m.decoder_num_heads, m.head_dim, torch.float32
+
+    def paged_kv_tokens(self, n_items: int, L_bucket: int) -> int:
+        # C sparse + 1 dense token per (bucket-clipped) history item
+        return min(int(n_items), L_bucket) * (self.model.n_codebooks + 1)
+
+    def paged_state_zeros(self, n_slots: int) -> dict:
+        return init_cobra_paged_state(self.model, n_slots, self.top_k)
+
+    def make_prefill_paged_fn(self, B: int, L: int):
+        del B, L
+
+        def fn(trie, ids, vecs, block_tables, k_pools, v_pools):
+            # Codebook 0 resolves here, so the trie is live at prefill.
+            return cobra_prefill_paged(self.model, ids, vecs, block_tables, k_pools,
+                                       v_pools, trie, self.top_k, temperature=1.0)[2]
+
+        return fn
+
+    def make_decode_paged_fn(self):
+        def fn(trie, state, steps, block_tables, seq_lens, k_pools, v_pools):
+            return cobra_paged_decode_step(self.model, trie, state, steps, block_tables,
+                                           seq_lens, k_pools, v_pools, temperature=1.0)
+
+        return fn
+
+    def paged_finalize(self, rows: dict, req) -> dict:
+        sem = rows["beam_tokens"]
+        return dict(items=self.lookup(sem), scores=rows["beam_scores"], sem_ids=sem)
 
 
 class RetrievalHead(Head):

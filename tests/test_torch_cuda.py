@@ -571,6 +571,69 @@ def test_quantized_kernel_wrapper_refuses_what_it_does_not_take(card):
     assert paged_attention_stats_quantized_cuda.launches == before
 
 
+# COBRA's serving shape (config/cobra/amazon.gin): 20 beams, 6 heads of 128,
+# 5 pages of 16 (20 items x (3 codes + 1 dense) = 80 positions); slot 0 at
+# seq_len 0 (a free slot: every entry the null page) and slot 1 at full
+# capacity, the rest served lengths (whole items of 4 positions).
+def _cobra_lens():
+    lens = 4 * np.random.default_rng(9).integers(1, 21, 64)
+    lens[0], lens[1] = 0, 80
+    return lens
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
+def test_paged_kernels_at_cobra_shape_match_plain_versions(card, int8):
+    kernel, plain = _b1_b2(int8)
+    x = _maybe_int8(_inputs(card, 64, 20, 6, 128, 16, 5, _cobra_lens(), null_tail=True,
+                            seed=9), int8)
+    before = kernel.launches
+    got = kernel(**x)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = plain(**x)
+    for name, g, w in zip(("acc", "m", "l"), got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5, msg=name)
+
+
+def test_quantize_symmetric_on_the_card_matches_the_cpu(card):
+    """C1: data and scale bit-equal between the card and the CPU over a
+    sweep of row maxima from 1e-30 to 1e30 (every scale's float32
+    mantissa pattern many times over), all-zero rows included."""
+    rng = np.random.default_rng(10)
+    n, width = 200_000, 96
+    amax = 10.0 ** rng.uniform(-30, 30, n)
+    x = rng.uniform(-1, 1, (n, width)) * amax[:, None]
+    x[np.arange(n), rng.integers(0, width, n)] = amax * rng.choice([-1, 1], n)
+    x[::997] = 0.0
+    x = torch.as_tensor(x.astype(np.float32))
+    data_cpu, scale_cpu = quantize_symmetric(x, (-1,))
+    data, scale = quantize_symmetric(x.to(card), (-1,))
+    assert torch.equal(scale.cpu(), scale_cpu)
+    assert torch.equal(data.cpu(), data_cpu)
+    rows = x.reshape(-1, 6, 16)  # the KV pools' (page row, heads, head_dim) reduction
+    for a, b in zip(quantize_symmetric(rows, (-2, -1)),
+                    quantize_symmetric(rows.to(card), (-2, -1))):
+        assert torch.equal(b.cpu(), a)
+
+
+@pytest.mark.parametrize("fn", ["t5_bidirectional", "t5_causal", "hstu"])
+def test_position_buckets_on_the_card_match_the_cpu(card, fn):
+    """C2: the T5 (both directions) and HSTU position buckets equal on the
+    card and on the CPU over |rel| < 5,000, |rel| = 64 included (the
+    bidirectional T5 bucket's log lands within an ulp of a cut there)."""
+    from genrec_tpu_torch.ops.buckets import hstu_position_bucket, t5_relative_position_bucket
+
+    rel = torch.arange(-4999, 5000)
+    assert (rel.abs() == 64).any()
+    for nb, md in ((32, 128), (64, 256), (16, 64)):
+        if fn == "hstu":
+            f = lambda r: hstu_position_bucket(r, nb, md)  # noqa: E731
+        else:
+            f = lambda r: t5_relative_position_bucket(  # noqa: E731
+                r, nb, md, bidirectional=fn == "t5_bidirectional")
+        torch.testing.assert_close(f(rel.to(card)).cpu(), f(rel), rtol=0, atol=0)
+
+
 def _near_neg(dev, S, K, H, page, Pm, lens, int8, seed=0):
     """Inputs whose scores are exact in any summation order (integer K,
     q a multiple of 512, hd 64 so hd^-0.5 = 1/8) and put each beam's max

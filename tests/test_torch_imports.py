@@ -28,11 +28,22 @@ from genrec_tpu_torch.models.t5transformer import (
     TransformerEncoder,
     TransformerEncoderDecoder,
 )
+from genrec_tpu_torch.models.cobra import (
+    Cobra,
+    CobraDecoder,
+    CobraEmbedding,
+    LightT5Encoder,
+    init_cobra_paged_state,
+)
 from genrec_tpu_torch.models.rqvae import RqVae
 from genrec_tpu_torch.models.tiger import Tiger
 from genrec_tpu_torch.models.sasrec import SASRec, SASRecBlock
 from genrec_tpu_torch.serving.engine import ServingEngine
-from genrec_tpu_torch.serving.heads import RetrievalHead, TigerGenerativeHead
+from genrec_tpu_torch.serving.heads import (
+    CobraGenerativeHead,
+    RetrievalHead,
+    TigerGenerativeHead,
+)
 from genrec_tpu_torch.serving.kv_pool import KVPagePool, PagedConfig
 
 REPO = Path(__file__).resolve().parents[1]
@@ -111,8 +122,10 @@ def test_gin_import_of_an_unported_module_names_its_roadmap_item():
 
     with pytest.raises(ImportError, match="ROADMAP A9"):
         configlib.parse_string("import genrec_tpu.trainers.tiger_trainer")
-    with pytest.raises(ImportError, match="ROADMAP"):
-        configlib.parse_string("import genrec_tpu.models.cobra")
+    with pytest.raises(ImportError, match="ROADMAP A21"):
+        configlib.parse_string("import genrec_tpu.trainers.cobra_trainer")
+    # COBRA's model is ported: its gin import resolves to the port's module.
+    configlib.parse_string("import genrec_tpu.models.cobra")
 
 
 @pytest.mark.parametrize("gin", ["config/sasrec/synthetic.gin", "config/sasrec/amazon.gin"])
@@ -231,6 +244,21 @@ def test_default_device_entry_points_raise_without_a_card(no_card):
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sasrec_trainer.train(epochs=1, save_dir_root=None)
+    cobra = dict(encoder_hidden_dim=8, encoder_num_heads=2, encoder_vocab_size=20,
+                 id_vocab_size=4, n_codebooks=2, d_model=8, max_len=16,
+                 decoder_n_layers=1, decoder_num_heads=2)
+    for build in (lambda: Cobra(**cobra), lambda: LightT5Encoder(1, 8, 8, 2, vocab_size=20),
+                  lambda: CobraDecoder(8, 1, 2), lambda: CobraEmbedding(4, 2, 8, 16)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    cobra_model = Cobra(**cobra, device="cpu")
+    assert init_cobra_paged_state(cobra_model, 2, 3)["cache_k"].device.type == "cpu"
+    cobra_head = CobraGenerativeHead(cobra_model, catalog=CatalogSnapshot.build(
+        np.asarray([[0, 1], [2, 3]]), 4, item_text_tokens=np.ones((2, 3), np.int64)))
+    assert cobra_head.tower_encodes == 1
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine([cobra_head])
+    assert ServingEngine([cobra_head, head], device="cpu").device == torch.device("cpu")
     # Asked for explicitly, the CPU serves.
     assert ServingEngine([head], device="cpu").device == torch.device("cpu")
     assert ServingEngine([retrieval, head], device="cpu").device == torch.device("cpu")
