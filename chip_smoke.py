@@ -126,6 +126,36 @@ line each; any failure ends the run with a traceback and a non-zero exit:
             config/lcrec/synthetic.gin at tensor_parallel=2, whose loss
             must fall.
 
+12. tiger_train TIGER at the widths of config/tiger/amazon/tiger.gin:
+            tiger_trainer.train through that file (2 epochs of the trainer's
+            own synthetic data, warm-up cut with the epochs; its epoch loss
+            must fall), then TIGER_TRAIN["steps"] bf16 steps (dropout 0.1,
+            AdamW on the file's schedule, clip 1.0) of the trainer's packed
+            step on synthetic_tiger_data at Amazon-Beauty's 12,101 items and
+            22,363 users (<= 4 segments a row of 61): p50 step, steps/s, real
+            tokens/s, examples/s, packing occupancy, the last 5 losses below
+            the first 5, no kernel launched; with --profile 20 more steps
+            under torch.profiler;
+13. tiger_decode the trained weights through the trainer's generate
+            (cached, sampled, T 0.2, 10 beams, KK 60) over 2,048 valid
+            users at batch 64: Recall/NDCG@10, ms a batch, every tuple a
+            catalog item (tuples_are_valid), no row repeating a beam, no
+            kernel; on a float32 copy, deterministic cached against uncached
+            (one batch) and dense against tiger_generate_paged (4 batches,
+            B1 exactly 12 launches a batch and nothing else): sem-ids equal
+            outside near ties, log-probs within 1e-4;
+14. cobra_train COBRA at the widths of config/cobra/amazon.gin (77.3 M
+            parameters), bf16, dropout 0.1: cobra_trainer.train through that
+            file with the cobra_serve phase's data fed by the callable
+            dataset hook (1 epoch, the final valid and test evals; loss_sparse
+            must fall over the epoch, loss_dense, at its chance level, must
+            not rise by more than 1%), COBRA_TRAIN["steps"]
+            timed steps of the trainer's step (p50, steps/s, finite losses,
+            no kernel; with --profile 10 more under torch.profiler), then
+            one eval: the tower over the 12,101 items and beam fusion (20
+            beams, 10 candidates) on 512 valid users (Recall@10, the seconds
+            of each part).
+
 Each phase that drives a main path sets every kernel's launch counter to 0
 just before and reads it just after. Then the kernels line, the card's
 name and power limit as nvidia-smi prints them, and, last,
@@ -154,6 +184,7 @@ import numpy as np
 import torch
 
 HERE = Path(__file__).resolve().parent
+_STARTED = time.perf_counter()
 
 # H100 SXM data-sheet peaks (NVIDIA): HBM bytes/s, float32 FLOP/s outside
 # the tensor cores, dense bf16 FLOP/s on the tensor cores.
@@ -326,8 +357,9 @@ INT8_SAMPLE_ATOL = 2e-2
 # embed 32, 3 levels x 256, STE + Sinkhorn, AdamW 1e-3 wd 1e-4, batch 1024,
 # Gumbel temperature 0.2, 20,000-row k-means warm-up). Only the depth is
 # cut: RQVAE_EPOCHS of the file's 5,000 epochs (11 steps each at 12,101
-# items), and RQVAE_STEPS fixed steps after RQVAE_WARM.
-RQVAE_EPOCHS = 20
+# items; 20 before the TIGER and COBRA training phases came, cut to keep
+# the smoke's time), and RQVAE_STEPS fixed steps after RQVAE_WARM.
+RQVAE_EPOCHS = 12
 RQVAE_WARM, RQVAE_STEPS = 3, 40
 SEM_ID_CHUNK = 4096  # compute_sem_ids' batch: one B7 launch a chunk
 # Sem-id comparisons: exact outside rows whose two nearest codewords at some
@@ -335,6 +367,37 @@ SEM_ID_CHUNK = 4096  # compute_sem_ids' batch: one B7 launch a chunk
 # pick either); at most NEAR_TIE_MAX_SHARE of the rows may be near ties.
 NEAR_TIE_REL = 1e-5
 NEAR_TIE_MAX_SHARE = 0.02
+
+# TIGER training, config/tiger/amazon/tiger.gin: batch 256 packed rows of
+# 61 (<= 4 segments), AdamW 1e-4 on the cosine warm-up of 100 steps over the
+# file's 100 epochs, weight decay 0.035, clip 1.0, dropout 0.1, bf16 (amp).
+# Only the depth is cut: TIGER_TRAIN["steps"] timed steps after "warm". The
+# trainer run of the file (2 epochs of the trainer's own synthetic data,
+# ~10 steps each) cuts the warm-up with the epochs, so its loss can move.
+TIGER_TRAIN = dict(batch=256, lr=1e-4, warmup=100, wd=0.035, dropout=0.1, epochs=100,
+                   max_segments=4, warm=3, steps=40)
+TIGER_TRAINER_EXTRA = ("train.num_warmup_steps = 10",)
+# TIGER's dense decode on the trained weights: trainer's eval settings
+# (sampled, T 0.2, 10 beams, sample_factor 6: KK 60) over a seeded 2,048 of
+# the Beauty users' valid rows at eval_batch_size 64; the deterministic
+# checks on a float32 copy: cached vs uncached on one batch, dense vs paged
+# (B1) on 4 batches. Log-probs 1e-4 apart at most (sums of 3 log-softmaxes
+# of logits / 0.2 that differ by ~1e-6).
+TIGER_DECODE = dict(users=2048, batch=64, temperature=0.2, paged_users=256)
+TIGER_DECODE_TOL = 1e-4
+# COBRA training, config/cobra/amazon.gin: batch 64, AdamW 3e-4 on the cosine
+# warm-up of 500 steps over 50 epochs, weight decay 0.01, clip 1.0, dropout
+# 0.1, bf16; COBRA_TRAIN["steps"] timed steps after "warm". The eval as the
+# trainer's (beam fusion, n_beam 20, 10 candidates, alpha 0.5) on a seeded
+# 512 of the Beauty users' valid rows; the trainer run's final evals take
+# batches of 1,024 (the file's 32 would be ~1,400 beam-fusion calls).
+COBRA_TRAIN = dict(batch=64, lr=3e-4, warmup=500, wd=0.01, epochs=50, warm=3, steps=20,
+                   eval_users=512, eval_batch=64, n_candidates=10, alpha=0.5,
+                   trainer_eval_batch=1024)
+# The trainer run's dense InfoNCE stays at chance through its one epoch
+# (cobra_trainer_run): its last 20 steps may sit at most 1% above the first
+# 20 (+0.23% on an H100: noise around chance, not a divergence).
+COBRA_DENSE_RISE_MAX = 0.01
 
 # LCRec SFT at tensor_parallel=2: QwenConfig()'s defaults, Qwen2.5-1.5B
 # (genrec_tpu/models/backbones/qwen.py:32-47; config/base.gin:10: hidden
@@ -344,10 +407,11 @@ NEAR_TIE_MAX_SHARE = 0.02
 # rows a shard), max_text_len 512, bf16, AdamW 2e-5 with weight decay 0.01
 # after a 50-step warm-up, clip 1.0; batch 8 (lcrec_debug.gin). Random
 # weights from --seed (the HF checkpoint is not in the repository). Cut:
-# the fixed steps (LCREC["steps"] after LCREC["warm"]); the parity run's
+# the fixed steps (LCREC["steps"] after LCREC["warm"]; 10 before the TIGER
+# and COBRA training phases came, cut to keep the smoke's time); the parity run's
 # depth (2 layers), batch and lr; the trainer run's epochs and eval sets.
 LCREC = dict(base_vocab=151936, codebooks=5, codebook_size=256, layers=28, batch=8, seq=512,
-             lr=2e-5, warmup=50, wd=0.01, warm=2, steps=10, profile_steps=3,
+             lr=2e-5, warmup=50, wd=0.01, warm=2, steps=6, profile_steps=3,
              parity_layers=2, parity_steps=5, parity_batch=4, parity_seq=128, parity_lr=1e-3,
              trainer_epochs=2, trainer_eval=64)
 LCREC_TP = 2
@@ -371,7 +435,9 @@ def check(ok, what) -> None:
 
 
 def emit(phase: str, **fields) -> dict:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """Print a phase's line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, "at_s": time.perf_counter() - _STARTED, **fields}),
+          flush=True)
     return fields
 
 
@@ -1407,11 +1473,13 @@ def read_counters() -> dict:
 
 
 def trainer_run(dev, seed, gin="config/hstu/amazon.gin", trainer="hstu_trainer",
-                per_step=LAUNCHES_PER_STEP) -> dict:
-    """``trainers.<trainer>.train`` through ``gin`` on synthetic data at
-    Amazon-Beauty's item count, 2 epochs, eval on: the user's entry point.
-    Each kernel of ``per_step`` must have launched and no other; the epoch
-    losses (from the run's metrics.jsonl) must fall."""
+                per_step=LAUNCHES_PER_STEP,
+                extra=(f"train.num_items = {BEAUTY_ITEMS}",)) -> dict:
+    """``trainers.<trainer>.train`` through ``gin`` on synthetic data (at
+    Amazon-Beauty's item count, or as ``extra`` bindings say), 2 epochs,
+    eval on: the user's entry point. Each kernel of ``per_step`` must have
+    launched and no other; the epoch losses (from the run's metrics.jsonl)
+    must fall."""
     import importlib
 
     from genrec_tpu_torch import configlib
@@ -1421,7 +1489,7 @@ def trainer_run(dev, seed, gin="config/hstu/amazon.gin", trainer="hstu_trainer",
     configlib.clear_macros()
     configlib.parse_file(str(HERE / gin), substitutions={"split": "beauty"})
     with tempfile.TemporaryDirectory() as tmp:
-        for binding in ('train.dataset = "synthetic"', f"train.num_items = {BEAUTY_ITEMS}",
+        for binding in ('train.dataset = "synthetic"', *extra,
                         "train.wandb_logging = False", f'train.save_dir_root = "{tmp}"',
                         "train.do_eval = True", "train.epochs = 2", f"train.seed = {seed}",
                         f'train.device = "{dev}"'):
@@ -1490,12 +1558,13 @@ def beauty_data(seed):
     return ds, repack
 
 
-def timed_steps(dev, seed, state, step_fn, repack, rows, warm=3, n=TRAIN_STEPS):
-    """A PackedTrainLoop over ``repack``'s packed rows: ``warm`` steps (the
-    first calls: kernel libraries, cuBLAS handles, allocator), then ``n``
-    steps of the same epoch timed by a CUDA event a step, with every
-    kernel's launches counted over them (the counters set to 0 just
-    before). Returns (the loop, the numbers)."""
+def timed_steps(dev, seed, state, step_fn, repack, rows, warm=3, n=TRAIN_STEPS,
+                row_len=HSTU_AMAZON["max_seq_len"]):
+    """A PackedTrainLoop over ``repack``'s packed rows of ``row_len``:
+    ``warm`` steps (the first calls: kernel libraries, cuBLAS handles,
+    allocator), then ``n`` steps of the same epoch timed by a CUDA event a
+    step, with every kernel's launches counted over them (the counters set
+    to 0 just before). Returns (the loop, the numbers)."""
     from genrec_tpu_torch.core.logging import Tracker, setup_logger
     from genrec_tpu_torch.trainers.packed_loop import PackedTrainLoop
 
@@ -1508,7 +1577,6 @@ def timed_steps(dev, seed, state, step_fn, repack, rows, warm=3, n=TRAIN_STEPS):
         losses.append(m["loss"])
         tokens.append(m["real_tokens"])
 
-    row_len = HSTU_AMAZON["max_seq_len"]  # SASRec's amazon.gin has the same 50
     loop = PackedTrainLoop(logger=setup_logger(None), tracker=Tracker(), device=dev,
                            rows_per_step=rows, row_len=row_len, seed=seed,
                            pack_sequences=True, repack=repack, step_hook=hook)
@@ -1536,6 +1604,7 @@ def timed_steps(dev, seed, state, step_fn, repack, rows, warm=3, n=TRAIN_STEPS):
     return loop, dict(
         rows_per_step=rows, packing=loop.pack_report.as_dict(), steps=n,
         steps_per_s=n / wall_s, real_tokens_per_s=real_tokens / wall_s,
+        examples_per_s=n * loop.examples_per_step / wall_s,
         real_tokens_per_step=real_tokens / n, wall_s=wall_s,
         step_ms_p50=float(np.percentile(step_ms, 50)),
         step_ms_p90=float(np.percentile(step_ms, 90)),
@@ -2611,6 +2680,382 @@ def cobra_serve_phase(dev, seed, n_requests, profile=False, kv_dtype="float32",
     return served, prof, responses
 
 
+# ---- phases 12-14: TIGER and COBRA training, TIGER's dense decode ------------
+
+
+@functools.cache
+def tiger_beauty_data(seed):
+    """``synthetic_tiger_data(num_items=12,101, codebook_size=256,
+    sem_id_dim=3, max_items=20, seed, num_users=22,363)``: its
+    SyntheticSeqDataset is ``beauty_dataset(seed)`` (the same arguments),
+    so it is taken from there instead of being drawn again (~20 s on the
+    host), with the recipe's random unique sem-ids."""
+    from genrec_tpu_torch.data.sem_ids import random_unique_sem_ids
+    from genrec_tpu_torch.data.tiger_seq import TigerSeqData
+
+    sem_ids = random_unique_sem_ids(BEAUTY_ITEMS, TIGER_AMAZON["num_item_embeddings"],
+                                    TIGER_AMAZON["sem_id_dim"], np.random.default_rng(seed + 1))
+    return TigerSeqData(beauty_dataset(seed).sequences, sem_ids, max_items=MAX_ITEMS)
+
+
+def tiger_train_setup(dev, seed, n_rows, *, dtype, dropout):
+    """A TIGER at tiger.gin widths, AdamW on the file's schedule (cosine
+    warm-up of 100 steps over 100 epochs of ``n_rows`` packed rows), clip
+    1.0, and the trainer's packed loss: (model, step_fn, state)."""
+    from genrec_tpu_torch.core.harness import make_train_step
+    from genrec_tpu_torch.core.optim import Adam
+    from genrec_tpu_torch.core.state import TrainState
+    from genrec_tpu_torch.models.tiger import Tiger
+    from genrec_tpu_torch.ops.schedules import cosine_schedule_with_warmup
+    from genrec_tpu_torch.trainers.tiger_trainer import make_loss_fn
+
+    t = TIGER_TRAIN
+    model = Tiger(**TIGER_AMAZON, dropout=dropout, dtype=dtype, device=dev, seed=seed)
+    optimizer = Adam(cosine_schedule_with_warmup(
+        t["lr"], t["warmup"], t["epochs"] * (n_rows // t["batch"])), weight_decay=t["wd"])
+    step_fn = make_train_step(make_loss_fn(TIGER_AMAZON["sem_id_dim"], True), optimizer,
+                              clip_norm=1.0)
+    return model, step_fn, TrainState.create(model, optimizer, seed)
+
+
+def tiger_train_phase(dev, seed, profile) -> tuple[dict, object]:
+    """TIGER at config/tiger/amazon/tiger.gin widths: ``tiger_trainer.train``
+    through that file (synthetic data of the trainer's own size, 2
+    epochs), then TIGER_TRAIN["steps"] timed bf16 steps on
+    ``tiger_beauty_data``'s packed rows (<= 4 segments). No kernel may
+    launch. Returns (the line, the trained model)."""
+    from genrec_tpu_torch.data.batching import pack_examples
+
+    trainer = trainer_run(dev, seed, "config/tiger/amazon/tiger.gin", "tiger_trainer",
+                          per_step={}, extra=TIGER_TRAINER_EXTRA)
+    t0 = time.perf_counter()
+    data = tiger_beauty_data(seed)
+    examples = data.train_examples()
+    data_s = time.perf_counter() - t0
+    row_len = 1 + MAX_ITEMS * TIGER_AMAZON["sem_id_dim"]
+
+    def pack(epoch):
+        return pack_examples(examples, row_len=row_len, segment_keys=("target_ids",),
+                             max_segments=TIGER_TRAIN["max_segments"], seed=(seed, epoch))
+
+    t0 = time.perf_counter()
+    first = pack(0)
+    pack_s = time.perf_counter() - t0
+    model, step_fn, state = tiger_train_setup(dev, seed, first[1].n_rows, dtype=torch.bfloat16,
+                                              dropout=TIGER_TRAIN["dropout"])
+    warm, n = TIGER_TRAIN["warm"], TIGER_TRAIN["steps"]
+    loop, steps = timed_steps(dev, seed, state, step_fn,
+                              lambda epoch: first if epoch == 0 else pack(epoch),
+                              TIGER_TRAIN["batch"], warm=warm, n=n, row_len=row_len)
+    check_launches_per_step("TIGER step", steps["launches"], {}, n)
+    out = emit(
+        "tiger_train", card=torch.cuda.get_device_name(dev), trainer=trainer,
+        config=("config/tiger/amazon/tiger.gin widths, bf16, dropout 0.1, AdamW 1e-4 (cosine "
+                "warm-up 100) wd 0.035, clip 1.0; synthetic_tiger_data at Amazon-Beauty's "
+                "12,101 items and 22,363 users, packed <= 4 segments a row"),
+        params=sum(p.numel() for p in model.parameters()), data_build_s=data_s, pack_s=pack_s,
+        **steps, launches_per_step={k: v / n for k, v in steps["launches"].items()},
+    )
+    if profile:
+        out = {**out, "profile": profiled_steps("tiger_train_profile", loop, state, step_fn,
+                                                warm + n, more=10)}
+    return out, model
+
+
+def beams_agree(what, sem_a, lp_a, sem_b, lp_b, tol) -> dict:
+    """Two deterministic decodes of the same rows: log-probs rank by rank
+    within ``tol``, sem-ids equal except in rows where each differing rank
+    scores within ``tol`` of a neighbouring rank, or is the last (a near
+    tie, which two summation orders may break either way); such rows are
+    at most NEAR_TIE_MAX_SHARE of all."""
+    err = float((lp_a - lp_b).abs().max())
+    check(err <= tol, f"{what}: log-probs {err} apart > {tol}")
+    lp = lp_a.cpu().numpy()
+    K = lp.shape[1]
+    near = 0
+    for r in torch.nonzero((sem_a != sem_b).any(-1).any(-1)).flatten().tolist():
+        ranks = torch.nonzero((sem_a[r] != sem_b[r]).any(-1)).flatten().tolist()
+        tied = [k == K - 1 or (k > 0 and lp[r, k - 1] - lp[r, k] <= tol)
+                or lp[r, k] - lp[r, k + 1] <= tol for k in ranks]
+        check(all(tied), f"{what}: row {r} differs at ranks {ranks} without a near tie")
+        near += 1
+    check(near <= NEAR_TIE_MAX_SHARE * len(lp), f"{what}: {near} near-tie rows of {len(lp)}")
+    return dict(rows=len(lp), max_abs_logp_diff=err, tol=tol, near_tie_rows=near)
+
+
+def tiger_decode_phase(dev, seed, model, profile=False) -> dict:
+    """TIGER's dense trie-constrained decode on the trained weights:
+    ``tiger_trainer.make_generate_fn`` (cached, sampled, T 0.2, 10 beams,
+    KK 60) over TIGER_DECODE["users"] valid users (every tuple a catalog
+    item, beams unique, Recall/NDCG@10); then, on a float32 copy of the
+    weights, the deterministic cached decode against the uncached one and
+    against ``tiger_generate_paged`` (B1, counted). With ``profile`` one
+    more sampled batch under torch.profiler."""
+    from genrec_tpu_torch.data.batching import batch_iterator, prefetch_to_device
+    from genrec_tpu_torch.models.tiger import Tiger, tiger_generate, tiger_generate_paged
+    from genrec_tpu_torch.ops.metrics import TopKAccumulator
+    from genrec_tpu_torch.ops.trie import DenseTrie, build_trie, tuples_are_valid
+    from genrec_tpu_torch.trainers.tiger_trainer import make_generate_fn
+
+    c = TIGER_DECODE
+    data = tiger_beauty_data(seed)
+    K_cb, D = TIGER_AMAZON["num_item_embeddings"], TIGER_AMAZON["sem_id_dim"]
+    arrays = data.eval_arrays("valid")
+    users = np.sort(np.random.default_rng(seed + 2).choice(
+        len(arrays["user_ids"]), c["users"], replace=False))
+    arrays = {k: v[users] for k, v in arrays.items()}
+    trie = build_trie(data.valid_item_sem_ids(), K_cb, device=dev)
+    check(isinstance(trie, DenseTrie), type(trie))
+    gen = make_generate_fn(model, trie, c["temperature"], BEAMS)
+    generator = torch.Generator(device=dev).manual_seed(seed + 1)
+    acc = TopKAccumulator(ks=(5, 10))
+    tops, batch_ms = [], []
+    reset_counters()
+    for batch, valid in prefetch_to_device(batch_iterator(arrays, c["batch"]), dev):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        top = gen(batch, generator)
+        torch.cuda.synchronize()
+        batch_ms.append(1e3 * (time.perf_counter() - t0))
+        n = int(valid.sum())
+        acc.accumulate(batch["target_ids"][:n], top[:n])
+        tops.append(top[:n])
+    sampled_launches = read_counters()
+    check(not any(sampled_launches.values()), ("dense decode launched", sampled_launches))
+    sem = torch.cat(tops)
+    check(sem.shape == (c["users"], BEAMS, D), sem.shape)
+    valid_share = float(tuples_are_valid(trie, sem).float().mean())
+    check(valid_share == 1.0, f"{valid_share} of the sampled tuples are catalog items")
+    key = (sem[..., 0] * K_cb + sem[..., 1]) * K_cb + sem[..., 2]
+    key = key.sort(dim=1).values
+    check(bool((key[:, 1:] != key[:, :-1]).all()), "a row repeats a beam")
+    metrics = acc.reduce()
+    prof = None
+    if profile:
+        def one_batch():
+            t = time.perf_counter()
+            gen(batch, generator)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+
+        prof = emit("tiger_decode_profile", batch=c["batch"], **device_profile(one_batch))
+
+    f32 = Tiger(**TIGER_AMAZON, device=dev, seed=seed).eval()
+    f32.load_state_dict(model.state_dict())
+    batches = [{k: v for k, v in b.items()} for b, _ in
+               prefetch_to_device(batch_iterator({k: v[:c["paged_users"]] for k, v in
+                                                  arrays.items()}, c["batch"]), dev)]
+    cols = ("user_ids", "item_input_ids", "token_type_ids", "seq_mask")
+    kw = dict(temperature=c["temperature"], n_top_k_candidates=BEAMS)
+    cached = tiger_generate(f32, trie, *(batches[0][k] for k in cols), deterministic=True, **kw)
+    uncached = tiger_generate(f32, trie, *(batches[0][k] for k in cols), deterministic=True,
+                              use_cache=False, **kw)
+    cache_check = beams_agree("cached vs uncached", cached.sem_ids, cached.log_probas,
+                              uncached.sem_ids, uncached.log_probas, TIGER_DECODE_TOL)
+    dense, paged = [], []
+    reset_counters()
+    for b in batches:
+        paged.append(tiger_generate_paged(f32, trie, *(b[k] for k in cols),
+                                          page_size=PAGED["page_size"], **kw))
+    b1 = read_counters()
+    want = len(batches) * D * (TIGER_AMAZON["n_layers"] // 2)
+    check(b1["paged_attention_stats"] == want and sum(b1.values()) == want,
+          ("paged decode launches", b1, want))
+    for b in batches:
+        dense.append(tiger_generate(f32, trie, *(b[k] for k in cols), deterministic=True, **kw))
+    paged_check = beams_agree(
+        "dense vs paged", torch.cat([o.sem_ids for o in dense]),
+        torch.cat([o.log_probas for o in dense]), torch.cat([o.sem_ids for o in paged]),
+        torch.cat([o.log_probas for o in paged]), TIGER_DECODE_TOL)
+    return emit(
+        "tiger_decode", card=torch.cuda.get_device_name(dev), users=c["users"],
+        batch=c["batch"], beams=BEAMS, temperature=c["temperature"],
+        candidates_per_beam=min(BEAMS * 6, K_cb), trie="DenseTrie",
+        trie_bytes=sum(nbytes(t) for t in trie.tables),
+        recall_at_10=metrics["Recall@10"], ndcg_at_10=metrics["NDCG@10"],
+        recall_at_5=metrics["Recall@5"], ndcg_at_5=metrics["NDCG@5"],
+        batch_ms_p50=float(np.percentile(batch_ms, 50)), batch_ms_mean=float(np.mean(batch_ms)),
+        first_batch_ms=batch_ms[0], valid_tuple_share=valid_share,
+        cached_vs_uncached=dict(cache_check, dtype="fp32 copy"),
+        dense_vs_paged=dict(paged_check, dtype="fp32 copy", batches=len(batches)),
+        paged_attention_launches=b1["paged_attention_stats"], profile=prof,
+    )
+
+
+def cobra_beauty_data(seed):
+    """A ``CobraSeqData`` over the cobra_serve phase's data: the synthetic
+    Amazon-Beauty users' sequences (train rows are their valid-split
+    histories with the target appended), ``cobra_catalog``'s 12,101
+    tuples and 32 text tokens an item, newest 20 items."""
+    from genrec_tpu_torch.data.cobra_seq import CobraSeqData
+
+    catalog, text = cobra_catalog(seed)
+    return CobraSeqData(beauty_dataset(seed).sequences, catalog, text,
+                        id_vocab_size=COBRA_AMAZON["id_vocab_size"], max_items=MAX_ITEMS)
+
+
+def cobra_trainer_run(dev, seed) -> dict:
+    """``cobra_trainer.train`` through config/cobra/amazon.gin with the
+    data fed by the callable ``dataset`` hook, 1 epoch, the final valid and
+    test eval: no kernel launched; the step log's loss_sparse and
+    loss_dense finite, loss_sparse falling (the last 20 steps' mean below
+    the first 20's) and loss_dense not rising (COBRA_DENSE_RISE_MAX).
+
+    The dense loss is an in-batch InfoNCE that sits at its chance level,
+    log of the ~840 valid columns a batch, through this epoch: the tower's
+    vectors of different items start ~0.81 cosine-similar (the shared
+    position embeddings dominate their mean-pool), the loss is blind to
+    what they share, and one epoch at the file's warm-up does not learn
+    the rest (flat, 6.731 -> 6.747, on an H100; PERF.md)."""
+    from genrec_tpu_torch import configlib
+    from genrec_tpu_torch.trainers.cobra_trainer import train
+
+    configlib.clear_bindings()
+    configlib.clear_macros()
+    configlib.parse_file(str(HERE / "config/cobra/amazon.gin"), substitutions={"split": "beauty"})
+    with tempfile.TemporaryDirectory() as tmp:
+        for binding in ("train.wandb_logging = False", f'train.save_dir_root = "{tmp}"',
+                        "train.epochs = 1", "train.wandb_log_interval = 1",
+                        f"train.eval_batch_size = {COBRA_TRAIN['trainer_eval_batch']}",
+                        f"train.seed = {seed}", f'train.device = "{dev}"'):
+            configlib.parse_binding(binding)
+        reset_counters()
+        t0 = time.perf_counter()
+        valid, test = train(dataset=functools.partial(cobra_beauty_data, seed))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = read_counters()
+        logged = [json.loads(line) for line in open(f"{tmp}/metrics.jsonl")]
+    configlib.clear_bindings()
+    configlib.clear_macros()
+    check(not any(launches.values()), ("cobra_trainer.train() launched", launches))
+    steps = [m for m in logged if "train/loss_sparse" in m]
+    out = dict(wall_s=wall_s, steps=len(steps), valid=valid, test=test)
+    for part in ("loss_sparse", "loss_dense"):
+        v = np.asarray([m[f"train/{part}"] for m in steps])
+        check(len(v) >= 40 and np.isfinite(v).all(), (part, v))
+        first, last = float(v[:20].mean()), float(v[-20:].mean())
+        out[part] = dict(first_20_mean=first, last_20_mean=last)
+        if part == "loss_sparse":
+            check(last < first, ("cobra_trainer.train(): loss_sparse did not fall", first, last))
+        else:
+            check(last <= first * (1 + COBRA_DENSE_RISE_MAX),
+                  ("cobra_trainer.train(): loss_dense rose", first, last))
+    check(all(np.isfinite(x) and 0 <= x <= 1 for x in (*valid.values(), *test.values())),
+          (valid, test))
+    return out
+
+
+def cobra_train_phase(dev, seed, profile) -> dict:
+    """COBRA at config/cobra/amazon.gin widths, bf16, dropout 0.1:
+    ``cobra_trainer_run``, then COBRA_TRAIN["steps"] timed steps of the
+    trainer's step on ``cobra_beauty_data`` (no kernel launched, losses
+    finite; with ``profile`` 10 more under torch.profiler), then one eval:
+    the tower over every catalog item, beam fusion (20 beams, 10
+    candidates) on COBRA_TRAIN["eval_users"] valid users."""
+    from genrec_tpu_torch.core.harness import make_train_step
+    from genrec_tpu_torch.core.logging import Tracker, setup_logger
+    from genrec_tpu_torch.core.optim import Adam
+    from genrec_tpu_torch.core.state import TrainState
+    from genrec_tpu_torch.models.cobra import Cobra
+    from genrec_tpu_torch.ops.schedules import cosine_schedule_with_warmup
+    from genrec_tpu_torch.trainers.cobra_trainer import (
+        compute_item_dense_vecs,
+        evaluate,
+        make_fusion_fn,
+        make_loss_fn,
+    )
+    from genrec_tpu_torch.trainers.packed_loop import PackedTrainLoop
+
+    c = COBRA_TRAIN
+    trainer = cobra_trainer_run(dev, seed)
+    data = cobra_beauty_data(seed)
+    train_arrays = data.train_arrays()
+    model = Cobra(**COBRA_AMAZON, dtype=torch.bfloat16, device=dev, seed=seed)
+    optimizer = Adam(cosine_schedule_with_warmup(
+        c["lr"], c["warmup"], c["epochs"] * (len(train_arrays["input_ids"]) // c["batch"])),
+        weight_decay=c["wd"])
+    step_fn = make_train_step(make_loss_fn(), optimizer, clip_norm=1.0)
+    state = TrainState.create(model, optimizer, seed)
+    events, parts = [], []
+
+    def hook(state, m, global_step):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        parts.append((m["loss"], m["loss_sparse"], m["loss_dense"]))
+
+    C = COBRA_AMAZON["n_codebooks"]
+    loop = PackedTrainLoop(logger=setup_logger(None), tracker=Tracker(), device=dev,
+                           rows_per_step=c["batch"], row_len=(MAX_ITEMS + 1) * C, seed=seed,
+                           pack_sequences=False, train_arrays=train_arrays, step_hook=hook)
+    warm, n = c["warm"], c["steps"]
+    loop.run_epoch(state, step_fn, 0, 0, max_steps=warm)
+    events.clear()
+    parts.clear()
+    torch.cuda.synchronize()
+    first = torch.cuda.Event(enable_timing=True)
+    reset_counters()
+    t0 = time.perf_counter()
+    first.record()
+    loop.run_epoch(state, step_fn, 0, warm, start_batch=warm, max_steps=warm + n)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counters()
+    check(len(events) == n and not any(launches.values()), (len(events), launches))
+    step_ms = [a.elapsed_time(b) for a, b in zip([first] + events[:-1], events)]
+    loss, sparse, dense = (np.asarray([float(p[i]) for p in parts]) for i in range(3))
+    check(np.isfinite(loss).all() and np.isfinite(sparse).all() and np.isfinite(dense).all(),
+          (sparse, dense))
+    prof = None
+    if profile:
+        done = warm + n
+
+        def run_more(more=10):
+            t = time.perf_counter()
+            loop.run_epoch(state, step_fn, 0, done, start_batch=done, max_steps=done + more)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+
+        prof = emit("cobra_train_profile", steps=10, **device_profile(run_more))
+
+    reset_counters()
+    t0 = time.perf_counter()
+    vecs = compute_item_dense_vecs(model, data.item_texts)
+    torch.cuda.synchronize()
+    tower_s = time.perf_counter() - t0
+    check(tuple(vecs.shape) == (CATALOG_ITEMS, COBRA_AMAZON["d_model"])
+          and bool(torch.isfinite(vecs).all()), vecs.shape)
+    arrays = data.eval_arrays("valid")
+    users = np.sort(np.random.default_rng(seed + 3).choice(
+        len(arrays["input_ids"]), c["eval_users"], replace=False))
+    item_sem_ids = torch.as_tensor(data.sem_ids, dtype=torch.int64, device=dev)
+    fuse = make_fusion_fn(model, item_sem_ids, c["n_candidates"], COBRA_BEAMS, c["alpha"])
+    t0 = time.perf_counter()
+    metrics = evaluate(fuse, {k: v[users] for k, v in arrays.items()}, vecs,
+                       c["eval_batch"], dev, C)
+    torch.cuda.synchronize()
+    fusion_s = time.perf_counter() - t0
+    eval_launches = read_counters()
+    check(not any(eval_launches.values()), ("COBRA eval launched", eval_launches))
+    check(all(np.isfinite(v) and 0 <= v <= 1 for v in metrics.values()), metrics)
+    return emit(
+        "cobra_train", card=torch.cuda.get_device_name(dev), trainer=trainer,
+        config=("config/cobra/amazon.gin widths, bf16, dropout 0.1, AdamW 3e-4 (cosine "
+                "warm-up 500) wd 0.01, clip 1.0, batch 64; the cobra_serve phase's data "
+                "(synthetic Amazon-Beauty users, 12,101 catalog tuples, 32 text tokens an item)"),
+        params=sum(p.numel() for p in model.parameters()), steps=n,
+        steps_per_s=n / wall_s, examples_per_s=n * c["batch"] / wall_s,
+        step_ms_p50=float(np.percentile(step_ms, 50)),
+        step_ms_p90=float(np.percentile(step_ms, 90)), wall_s=wall_s,
+        losses=loss.tolist(), loss_sparse=sparse.tolist(), loss_dense=dense.tolist(),
+        launches_per_step={k: v / n for k, v in launches.items()},
+        eval=dict(users=c["eval_users"], n_beam=COBRA_BEAMS, n_candidates=c["n_candidates"],
+                  tower_items=CATALOG_ITEMS, tower_s=tower_s, fusion_s=fusion_s, **metrics),
+        profile=prof,
+    )
+
+
 # ---- phase 11: LCRec SFT at tensor_parallel=2 ---------------------------------
 
 
@@ -3134,7 +3579,7 @@ def main(argv=None) -> int:
     ap.add_argument("--requests", type=int, default=384)
     ap.add_argument("--out", type=Path, help="also write every phase's JSON here")
     ap.add_argument("--profile", action="store_true",
-                    help="run more HSTU, RQ-VAE and LCRec train steps and serve the TIGER "
+                    help="run more HSTU, TIGER, RQ-VAE and LCRec train steps and serve the TIGER "
                          "and COBRA traffic once more (fp32 and int8) under torch.profiler, "
                          "and report device time by kernel")
     args = ap.parse_args(argv)
@@ -3202,12 +3647,19 @@ def main(argv=None) -> int:
         fp32_answers=fp32_answers)
     if profiled:
         phases["cobra_serve_int8_profile"] = profiled
+    phases["tiger_train"], tiger = tiger_train_phase(dev, args.seed, args.profile)
+    phases["tiger_decode"] = tiger_decode_phase(dev, args.seed, tiger, args.profile)
+    del tiger
+    phases["cobra_train"] = cobra_train_phase(dev, args.seed, args.profile)
+    gc.collect()
+    torch.cuda.empty_cache()
     phases["retrieve"] = retrieve_phase(dev, args.seed, args.profile)
     phases["lcrec_tp"] = lcrec_tp_phase(dev, args.seed, args.profile)
     kernels["sharded_fused_linear_ce"] = phases["lcrec_tp"]["b8"]
     phases["wall_s"] = time.perf_counter() - t_start
 
-    launches = {"paged_attention_stats": phases["serve"]["paged_attention_launches"],
+    launches = {"paged_attention_stats": (phases["serve"]["paged_attention_launches"]
+                                          + phases["tiger_decode"]["paged_attention_launches"]),
                 "paged_attention_stats_quantized":
                     phases["serve_int8"]["paged_attention_launches"],
                 "rq_cascade": phases["rqvae"]["export"]["rq_cascade_launches"],

@@ -35,8 +35,8 @@ _MACROS: dict[str, Any] = {}
 # JAX-package modules a config file may import that the port has not
 # ported yet, and the ROADMAP item that ports each.
 _ROADMAP_ITEM = {
-    "trainers.tiger_trainer": "A9 (TIGER training)",
-    "trainers.cobra_trainer": "A21 (the COBRA trainer)",
+    "trainers.notellm_trainer": "A22 (NoteLLM)",
+    "trainers.stream_trainer": "A24 (streaming training and rollout)",
 }
 
 _REF_RE = re.compile(r"@([A-Za-z_][\w\./]*)(\(\))?")

@@ -163,9 +163,12 @@ def first_fit_decreasing(
     consumers that allocate per-segment work (TIGER's per-example
     decoders) pay for that max on every row.
 
-    The first-fit scan runs in numpy (one C-speed pass over open bins per
-    example) — the pure-Python scan was minutes of startup at Amazon
-    scale (~1e5 examples, ~2e4 bins)."""
+    Examples of one length are placed together, which is first fit
+    exactly: identical examples fill the lowest-index bin with room until
+    it is full, then the next, then new bins; bins only lose room. So the
+    scan is a few numpy passes per distinct length (~20 at Amazon scale),
+    not one pass over the open bins per example (34 s at Amazon-Beauty's
+    3e5 examples and 1.6e5 bins on one host core)."""
     lengths = np.asarray(lengths, np.int64)
     if lengths.size and int(lengths.max()) > capacity:
         raise ValueError(
@@ -173,26 +176,39 @@ def first_fit_decreasing(
         )
     if (lengths <= 0).any():
         raise ValueError("every example must have at least one token")
+    if not lengths.size:
+        return []
+    cap_seg = capacity if max_segments is None else max_segments  # >= 1 token each
     order = np.argsort(-lengths, kind="stable")
-    bins: list[list[int]] = []
+    sorted_len = lengths[order]
+    N = len(order)
+    remaining = np.zeros(N, np.int64)  # at most one bin an example
+    segs = np.zeros(N, np.int64)
+    bin_of = np.empty(N, np.int64)  # bin of the example at each sorted position
     n_bins = 0
-    remaining = np.empty(len(lengths), np.int64)  # at most one bin/example
-    for idx in order:
-        n = int(lengths[idx])
-        fits = np.nonzero(remaining[:n_bins] >= n)[0]
-        if fits.size:
-            b = int(fits[0])
-            bins[b].append(int(idx))
-            remaining[b] -= n
-            if max_segments is not None and len(bins[b]) == max_segments:
-                remaining[b] = -1  # full: no further examples
-        else:
-            bins.append([int(idx)])
-            remaining[n_bins] = capacity - n
-            if max_segments == 1:
-                remaining[n_bins] = -1
-            n_bins += 1
-    return bins
+    starts = np.flatnonzero(np.r_[True, sorted_len[1:] != sorted_len[:-1]])
+    for a, b in zip(starts, np.r_[starts[1:], N]):
+        n, m = int(sorted_len[a]), int(b - a)
+        room = np.minimum(remaining[:n_bins] // n, cap_seg - segs[:n_bins])
+        cum = np.cumsum(room)
+        placed = min(m, int(cum[-1]) if n_bins else 0)
+        to = np.searchsorted(cum, np.arange(placed), side="right")
+        bin_of[a:a + placed] = to
+        took = np.bincount(to, minlength=n_bins)
+        remaining[:n_bins] -= took * n
+        segs[:n_bins] += took
+        left = m - placed
+        if left:
+            per = min(capacity // n, cap_seg)
+            new = np.arange(left) // per
+            bin_of[a + placed:b] = n_bins + new
+            took = np.bincount(new)
+            remaining[n_bins:n_bins + len(took)] = capacity - took * n
+            segs[n_bins:n_bins + len(took)] = took
+            n_bins += len(took)
+    by_bin = np.argsort(bin_of, kind="stable")  # insertion order inside a bin
+    splits = np.cumsum(np.bincount(bin_of, minlength=n_bins))[:-1]
+    return [part.tolist() for part in np.split(order[by_bin], splits)]
 
 
 def pack_examples(

@@ -11,8 +11,13 @@ interleaved sequence, and per-codebook heads predict the next item's codes
 (codebook 0 from the dense position, codebook c > 0 from codebook c - 1's
 position). Parameters carry the Flax names (``layer_<i>`` ->
 ``layers.<i>``, Dense ``kernel`` -> ``weight``, LayerNorm ``scale`` ->
-``weight``; ``convert.cobra_params_from_flax``). float32 only: the paged
-kernels (B1, B2) take float32 queries and pages.
+``weight``; ``convert.cobra_params_from_flax``). ``dtype`` is the
+compute dtype, as Flax's: parameters stay float32 and are cast where used,
+LayerNorms and softmax compute in float32, activations are ``dtype``; the
+decode paths apply the sparse heads in float32 (JAX's ``x @ kernel +
+bias`` promotes a bf16 ``x``). The paged path is float32 only: the paged
+kernels (B1, B2) take float32 queries and pages. Dropout draws from the
+``generator`` a training forward is given.
 
 The decode paths:
 
@@ -35,10 +40,11 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from genrec_tpu_torch.device import resolve_device
-from genrec_tpu_torch.models.layers import LayerNorm, dropout, truncated_normal
+from genrec_tpu_torch.models.layers import Dense, LayerNorm, dropout, truncated_normal
 from genrec_tpu_torch.models.t5transformer import gather_beam_caches, init_decode_caches
 from genrec_tpu_torch.models.tiger import _top_k
 from genrec_tpu_torch.ops.losses import cross_entropy_with_ignore
@@ -86,35 +92,38 @@ class _TorchMHA(nn.Module):
     projection with bias (``out_proj``). Masked scores are filled with
     -1e9 and kept inside the softmax."""
 
-    def __init__(self, dim: int, num_heads: int, dropout_rate: float = 0.0, device="cuda"):
+    def __init__(self, dim: int, num_heads: int, dropout_rate: float = 0.0,
+                 dtype=torch.float32, device="cuda"):
         super().__init__()
         self.dim, self.num_heads, self.dropout_rate = dim, num_heads, dropout_rate
-        self.in_proj = nn.Linear(dim, 3 * dim, device=device)
-        self.out_proj = nn.Linear(dim, dim, device=device)
+        self.in_proj = Dense(dim, 3 * dim, dtype, device)
+        self.out_proj = Dense(dim, dim, dtype, device)
 
     @property
     def head_dim(self) -> int:
         return self.dim // self.num_heads
 
-    def forward(self, x, attn_mask=None, key_padding_mask=None, deterministic=True):
-        return self._full(x, attn_mask, key_padding_mask, deterministic)[0]
+    def forward(self, x, attn_mask=None, key_padding_mask=None, deterministic=True,
+                generator=None):
+        return self._full(x, attn_mask, key_padding_mask, deterministic, generator)[0]
 
     def prefill(self, x, attn_mask=None, key_padding_mask=None):
         """The full forward, also returning (k, v) each (B, H, L, hd)."""
         return self._full(x, attn_mask, key_padding_mask, True)
 
-    def _full(self, x, attn_mask, key_padding_mask, deterministic):
+    def _full(self, x, attn_mask, key_padding_mask, deterministic, generator=None):
         B, L, D = x.shape
         H, hd = self.num_heads, self.head_dim
         q, k, v = self.in_proj(x).split(D, dim=-1)
         split = lambda t: t.reshape(B, L, H, hd).transpose(1, 2)  # noqa: E731
         q, k, v = split(q), split(k), split(v)
-        scores = torch.einsum("bhqd,bhkd->bhqk", q, k) * (hd**-0.5)
+        scores = torch.einsum("bhqd,bhkd->bhqk", q, k).to(torch.float32) * (hd**-0.5)
         if attn_mask is not None:
             scores = scores.masked_fill(attn_mask[None, None], NEG)
         if key_padding_mask is not None:
             scores = scores.masked_fill(key_padding_mask[:, None, None, :], NEG)
-        attn = dropout(torch.softmax(scores, dim=-1), self.dropout_rate, deterministic)
+        attn = dropout(torch.softmax(scores, dim=-1).to(x.dtype), self.dropout_rate,
+                       deterministic, generator)
         out = torch.einsum("bhqk,bhkd->bhqd", attn, v).transpose(1, 2).reshape(B, L, D)
         return self.out_proj(out), (k, v)
 
@@ -160,11 +169,11 @@ class _TorchMHA(nn.Module):
         cv[:, :, slot] = v_new
         hk, hv = hist_kv
         Lh, S = hk.shape[2], ck.shape[2]
-        s_hist = torch.einsum("bkhd,bhmd->bkhm", q, hk) * (hd**-0.5)
+        s_hist = torch.einsum("bkhd,bhmd->bkhm", q, hk).to(torch.float32) * (hd**-0.5)
         s_hist = s_hist.masked_fill(hist_pad[:, None, None, :], NEG)
-        s_suf = torch.einsum("bkhd,bkshd->bkhs", q, ck) * (hd**-0.5)
+        s_suf = torch.einsum("bkhd,bkshd->bkhs", q, ck).to(torch.float32) * (hd**-0.5)
         s_suf = s_suf.masked_fill(torch.arange(S, device=x.device) > slot, NEG)
-        attn = torch.softmax(torch.cat([s_hist, s_suf], dim=-1), dim=-1)
+        attn = torch.softmax(torch.cat([s_hist, s_suf], dim=-1), dim=-1).to(x.dtype)
         out = (torch.einsum("bkhm,bhmd->bkhd", attn[..., :Lh], hv)
                + torch.einsum("bkhs,bkshd->bkhd", attn[..., Lh:], cv)).reshape(B, K, D)
         return self.out_proj(out), {"k": ck, "v": cv}
@@ -173,21 +182,25 @@ class _TorchMHA(nn.Module):
 class _PostNormEncoderLayer(nn.Module):
     """torch ``nn.TransformerEncoderLayer`` (norm_first=False, relu)."""
 
-    def __init__(self, dim: int, num_heads: int, ff_dim: int, dropout_rate: float, device):
+    def __init__(self, dim: int, num_heads: int, ff_dim: int, dropout_rate: float,
+                 dtype, device):
         super().__init__()
         self.dropout_rate = dropout_rate
-        self.self_attn = _TorchMHA(dim, num_heads, dropout_rate, device)
+        self.self_attn = _TorchMHA(dim, num_heads, dropout_rate, dtype, device)
         self.norm1 = LayerNorm(dim, eps=1e-5, device=device)
         self.norm2 = LayerNorm(dim, eps=1e-5, device=device)
-        self.linear1 = nn.Linear(dim, ff_dim, device=device)
-        self.linear2 = nn.Linear(ff_dim, dim, device=device)
+        self.linear1 = Dense(dim, ff_dim, dtype, device)
+        self.linear2 = Dense(ff_dim, dim, dtype, device)
 
-    def forward(self, x, key_padding_mask, deterministic=True):
-        r = self.dropout_rate
-        h = self.self_attn(x, key_padding_mask=key_padding_mask, deterministic=deterministic)
-        x = self.norm1(x + dropout(h, r, deterministic))
-        h = dropout(torch.relu(self.linear1(x)), r, deterministic)
-        return self.norm2(x + dropout(self.linear2(h), r, deterministic))
+    def forward(self, x, key_padding_mask, deterministic=True, generator=None):
+        def drop(t):
+            return dropout(t, self.dropout_rate, deterministic, generator)
+
+        h = self.self_attn(x, key_padding_mask=key_padding_mask, deterministic=deterministic,
+                           generator=generator)
+        x = self.norm1(x + drop(h)).to(x.dtype)
+        h = drop(torch.relu(self.linear1(x)))
+        return self.norm2(x + drop(self.linear2(h))).to(x.dtype)
 
 
 class _PostNormDecoderLayer(nn.Module):
@@ -195,27 +208,30 @@ class _PostNormDecoderLayer(nn.Module):
     cross-attention term contributes zero but its add & norm (``norm2``)
     still applies. The unused cross projections are omitted, as in JAX."""
 
-    def __init__(self, dim: int, num_heads: int, ff_dim: int, dropout_rate: float, device):
+    def __init__(self, dim: int, num_heads: int, ff_dim: int, dropout_rate: float,
+                 dtype, device):
         super().__init__()
         self.dropout_rate = dropout_rate
-        self.self_attn = _TorchMHA(dim, num_heads, dropout_rate, device)
+        self.self_attn = _TorchMHA(dim, num_heads, dropout_rate, dtype, device)
         self.norm1 = LayerNorm(dim, eps=1e-5, device=device)
         self.norm2 = LayerNorm(dim, eps=1e-5, device=device)
         self.norm3 = LayerNorm(dim, eps=1e-5, device=device)
-        self.linear1 = nn.Linear(dim, ff_dim, device=device)
-        self.linear2 = nn.Linear(ff_dim, dim, device=device)
+        self.linear1 = Dense(dim, ff_dim, dtype, device)
+        self.linear2 = Dense(ff_dim, dim, dtype, device)
 
-    def forward(self, x, attn_mask, key_padding_mask, deterministic=True):
+    def forward(self, x, attn_mask, key_padding_mask, deterministic=True, generator=None):
         h = self.self_attn(x, attn_mask=attn_mask, key_padding_mask=key_padding_mask,
-                           deterministic=deterministic)
-        return self._post_attn(x, h, deterministic)
+                           deterministic=deterministic, generator=generator)
+        return self._post_attn(x, h, deterministic, generator)
 
-    def _post_attn(self, x, h, deterministic=True):
-        r = self.dropout_rate
-        x = self.norm1(x + dropout(h, r, deterministic))
-        x = self.norm2(x)  # + cross-attention over empty memory, which is 0
-        h = dropout(torch.relu(self.linear1(x)), r, deterministic)
-        return self.norm3(x + dropout(self.linear2(h), r, deterministic))
+    def _post_attn(self, x, h, deterministic=True, generator=None):
+        def drop(t):
+            return dropout(t, self.dropout_rate, deterministic, generator)
+
+        x = self.norm1(x + drop(h)).to(x.dtype)
+        x = self.norm2(x).to(x.dtype)  # + cross-attention over empty memory, which is 0
+        h = drop(torch.relu(self.linear1(x)))
+        return self.norm3(x + drop(self.linear2(h))).to(x.dtype)
 
     def prefill(self, x, attn_mask, key_padding_mask):
         h, kv = self.self_attn.prefill(x, attn_mask, key_padding_mask)
@@ -237,27 +253,30 @@ class LightT5Encoder(nn.Module):
 
     def __init__(self, n_layers: int = 1, hidden_dim: int = 768, output_dim: int = 768,
                  num_heads: int = 8, ff_dim: int = 2048, vocab_size: int = 32128,
-                 max_seq_len: int = 512, dropout_rate: float = 0.1, device="cuda"):
+                 max_seq_len: int = 512, dropout_rate: float = 0.1, dtype=torch.float32,
+                 device="cuda"):
         super().__init__()
         device = resolve_device(device)
+        self.dtype = dtype
         self.embedding = nn.Parameter(torch.empty(vocab_size, hidden_dim, device=device))
         self.pos_embedding = nn.Parameter(torch.empty(max_seq_len, hidden_dim, device=device))
         self.layers = nn.ModuleList(
-            _PostNormEncoderLayer(hidden_dim, num_heads, ff_dim, dropout_rate, device)
+            _PostNormEncoderLayer(hidden_dim, num_heads, ff_dim, dropout_rate, dtype, device)
             for _ in range(n_layers)
         )
         self.layer_norm = LayerNorm(hidden_dim, eps=1e-5, device=device)
-        self.proj = nn.Linear(hidden_dim, output_dim, device=device)
+        self.proj = Dense(hidden_dim, output_dim, dtype, device)
 
-    def forward(self, batch_tokens, deterministic=True):
+    def forward(self, batch_tokens, deterministic=True, generator=None):
         """(N, L) or (B, T, L) token ids -> (N, d) or (B, T, d) unit vectors."""
         lead = batch_tokens.shape[:-1]
         flat = batch_tokens.reshape(-1, batch_tokens.shape[-1]).long()
         L = flat.shape[1]
-        x = self.embedding[flat] + self.pos_embedding[None, :L]
+        x = (F.embedding(flat, self.embedding).to(self.dtype)
+             + self.pos_embedding[None, :L].to(self.dtype))
         pad = flat == 0
         for layer in self.layers:
-            x = layer(x, pad, deterministic)
+            x = layer(x, pad, deterministic, generator)
         x = self.layer_norm(x)
         mask = (~pad)[..., None].to(torch.float32)
         pooled = (x * mask).sum(dim=1) / mask.sum(dim=1).clamp_min(1e-9)
@@ -266,19 +285,20 @@ class LightT5Encoder(nn.Module):
 
 class CobraDecoder(nn.Module):
     def __init__(self, hidden_dim: int = 768, n_layers: int = 6, n_heads: int = 12,
-                 ff_dim: int = 2048, dropout_rate: float = 0.1, device="cuda"):
+                 ff_dim: int = 2048, dropout_rate: float = 0.1, dtype=torch.float32,
+                 device="cuda"):
         super().__init__()
         device = resolve_device(device)
         self.layers = nn.ModuleList(
-            _PostNormDecoderLayer(hidden_dim, n_heads, ff_dim, dropout_rate, device)
+            _PostNormDecoderLayer(hidden_dim, n_heads, ff_dim, dropout_rate, dtype, device)
             for _ in range(n_layers)
         )
 
-    def forward(self, tgt, tgt_key_padding_mask=None, deterministic=True):
+    def forward(self, tgt, tgt_key_padding_mask=None, deterministic=True, generator=None):
         causal = _causal(tgt.shape[1], tgt.device)
         x = tgt
         for layer in self.layers:
-            x = layer(x, causal, tgt_key_padding_mask, deterministic)
+            x = layer(x, causal, tgt_key_padding_mask, deterministic, generator)
         return x
 
     def prefill(self, tgt, tgt_key_padding_mask=None):
@@ -314,10 +334,11 @@ class CobraEmbedding(nn.Module):
     embeddings under the sequence mask."""
 
     def __init__(self, id_vocab_size: int, n_codebooks: int = 3, d_model: int = 768,
-                 max_len: int = 1024, device="cuda"):
+                 max_len: int = 1024, dtype=torch.float32, device="cuda"):
         super().__init__()
         device = resolve_device(device)
         self.id_vocab_size, self.n_codebooks, self.max_len = id_vocab_size, n_codebooks, max_len
+        self.dtype = dtype
         self.id_embed = nn.Parameter(
             torch.empty(id_vocab_size * n_codebooks + 1, d_model, device=device))
         self.type_embed = nn.Parameter(torch.empty(2, d_model, device=device))
@@ -339,11 +360,12 @@ class CobraEmbedding(nn.Module):
         is_pad = input_ids == self.pad_id
         offset_ids = torch.where(is_pad, input_ids, input_ids + token_type[None] * self.id_vocab_size)
         # The pad row is the table's last; torch's padding_idx pins it to zero.
-        sparse = self.id_embed[offset_ids.long()].masked_fill(is_pad[..., None], 0.0)
+        dt = self.dtype
+        sparse = F.embedding(offset_ids, self.id_embed).to(dt).masked_fill(is_pad[..., None], 0.0)
         chunks = []
         if n_tok > 0:
             comp = sparse[:, :n_tok].reshape(B, n_complete_items, C, -1)
-            dense = input_vecs[:, :n_complete_items, None, :].to(sparse.dtype)
+            dense = input_vecs[:, :n_complete_items, None, :].to(dt)
             chunks.append(torch.cat([comp, dense], dim=2).reshape(B, n_complete_items * (C + 1), -1))
         if L - n_tok > 0:
             chunks.append(sparse[:, n_tok:])
@@ -352,17 +374,18 @@ class CobraEmbedding(nn.Module):
         item_types = torch.cat([torch.zeros(C, dtype=torch.long), torch.ones(1, dtype=torch.long)])
         type_row = torch.cat([item_types.repeat(n_complete_items),
                               torch.zeros(L - n_tok, dtype=torch.long)])[:out_len].to(dev)
-        m = mask[..., None].to(h.dtype)
+        m = mask[..., None].to(dt)
         h = h * m
-        h = h + self.pos_embed[None, :out_len] * m
-        return h + self.type_embed[type_row][None] * m
+        h = h + self.pos_embed[None, :out_len].to(dt) * m
+        return h + self.type_embed[type_row][None].to(dt) * m
 
     def suffix_token(self, tok, slot: int, base_pos: int):
         """Embed ONE generated token per beam, tok (B, K), at suffix
         position ``slot`` (absolute position base_pos + slot), laid out as
         ``forward`` lays out an appended sparse token."""
-        h = self.id_embed[tok.long() + (slot % self.n_codebooks) * self.id_vocab_size]
-        return h + self.pos_embed[base_pos + slot] + self.type_embed[0]
+        dt = self.dtype
+        h = self.id_embed[tok.long() + (slot % self.n_codebooks) * self.id_vocab_size].to(dt)
+        return h + self.pos_embed[base_pos + slot].to(dt) + self.type_embed[0].to(dt)
 
     def suffix_token_ragged(self, tok, steps, base_pos):
         """``suffix_token`` with per-row suffix slots ``steps`` (B,) and
@@ -389,7 +412,7 @@ def interleave_seq_mask(seq_mask, C: int, n_complete_items: Optional[int] = None
 
 
 class Cobra(nn.Module):
-    """COBRA at float32. Weights are drawn from ``seed`` with the Flax
+    """COBRA computing in ``dtype``. Weights are drawn from ``seed`` with the Flax
     model's initialisers (a CPU generator, so every device gets the same
     weights) or loaded with ``load_state_dict``."""
 
@@ -398,21 +421,23 @@ class Cobra(nn.Module):
                  id_vocab_size: int = 512, n_codebooks: int = 3, d_model: int = 768,
                  max_len: int = 1024, temperature: float = 0.2, decoder_n_layers: int = 8,
                  decoder_num_heads: int = 6, decoder_dropout: float = 0.1,
-                 device="cuda", seed: int = 0):
+                 dtype=torch.float32, device="cuda", seed: int = 0):
         super().__init__()
         dev = resolve_device(device)
+        self.dtype = dtype
         self.id_vocab_size, self.n_codebooks, self.d_model = id_vocab_size, n_codebooks, d_model
         self.temperature = temperature
         self.decoder_n_layers, self.decoder_num_heads = decoder_n_layers, decoder_num_heads
         # The JAX model passes no dropout to the tower: its default, 0.1.
         self.encoder = LightT5Encoder(encoder_n_layers, encoder_hidden_dim, d_model,
                                       encoder_num_heads, vocab_size=encoder_vocab_size,
-                                      device=dev)
-        self.cobra_emb = CobraEmbedding(id_vocab_size, n_codebooks, d_model, max_len, dev)
+                                      dtype=dtype, device=dev)
+        self.cobra_emb = CobraEmbedding(id_vocab_size, n_codebooks, d_model, max_len, dtype,
+                                        dev)
         self.decoder = CobraDecoder(d_model, decoder_n_layers, decoder_num_heads,
-                                    dropout_rate=decoder_dropout, device=dev)
+                                    dropout_rate=decoder_dropout, dtype=dtype, device=dev)
         for c in range(n_codebooks):
-            self.add_module(f"sparse_head_{c}", nn.Linear(d_model, id_vocab_size, device=dev))
+            self.add_module(f"sparse_head_{c}", Dense(d_model, id_vocab_size, dtype, dev))
         self.reset_parameters(seed)
 
     @property
@@ -445,21 +470,27 @@ class Cobra(nn.Module):
             p.copy_(torch.randn(p.shape, generator=gen))
 
     def sparse_head(self, c: int, x):
-        return getattr(self, f"sparse_head_{c}")(x)
+        """Codebook ``c``'s logits in float32, as the decode paths take
+        them (JAX applies the head as ``x @ kernel + bias``, which promotes
+        a bf16 ``x`` to float32)."""
+        head = getattr(self, f"sparse_head_{c}")
+        return F.linear(x.to(torch.float32), head.weight, head.bias)
 
     # ---- training ---------------------------------------------------------
 
-    def forward(self, input_ids, encoder_input_ids, deterministic=True) -> CobraOutput:
+    def forward(self, input_ids, encoder_input_ids, deterministic=True,
+                generator=None) -> CobraOutput:
         """Losses and metrics of one batch: input_ids (B, T*C) sem-ids with
         ``pad_id`` padding, encoder_input_ids (B, T, Ltxt) item text."""
         C = self.n_codebooks
         dev = input_ids.device
-        vecs = self.encoder(encoder_input_ids, deterministic)
+        vecs = self.encoder(encoder_input_ids, deterministic, generator)
         B, TC = input_ids.shape
         T = TC // C
         seq_mask = interleave_seq_mask(input_ids != self.pad_id, C)
         emb = self.cobra_emb(input_ids, vecs, seq_mask)
-        h = self.decoder(emb, tgt_key_padding_mask=~seq_mask, deterministic=deterministic)
+        h = self.decoder(emb, tgt_key_padding_mask=~seq_mask, deterministic=deterministic,
+                         generator=generator)
 
         loss_sparse = 0.0
         total_correct = torch.zeros((), dtype=torch.long, device=dev)
@@ -474,7 +505,7 @@ class Cobra(nn.Module):
             else:
                 pos_c = items * (C + 1) + (c - 1)
                 target_pos = items * C + c
-            logits = self.sparse_head(c, h[:, pos_c, :]).to(torch.float32)
+            logits = getattr(self, f"sparse_head_{c}")(h[:, pos_c, :]).to(torch.float32)
             target = input_ids[:, target_pos]
             valid = target != self.pad_id
             if all_valid is None:
@@ -620,8 +651,8 @@ def cobra_generate(model: Cobra, input_ids, encoder_input_ids, n_candidates: int
             if trie is not None:
                 prefix_idx = trie.advance(torch.gather(prefix_idx, 1, parent), tok, c)
             h_last = _take_beams(h_c.reshape(B, K, -1), parent)
-    return CobraGenerationOutput(sem_ids=beam_tokens, dense_vecs=l2norm(h_last),
-                                 scores=beam_scores)
+    return CobraGenerationOutput(sem_ids=beam_tokens,
+                                 dense_vecs=l2norm(h_last.to(torch.float32)), scores=beam_scores)
 
 
 def _cobra_generate_cached(model: Cobra, input_ids, vecs, K: int, temperature: float,
@@ -647,7 +678,8 @@ def _cobra_generate_cached(model: Cobra, input_ids, vecs, K: int, temperature: f
     full = n_valid == Lint
     hist_pad = ~seq_mask
     caches = init_decode_caches(model.decoder_n_layers, B, K, max(C - 1, 1),
-                                model.decoder_num_heads, model.d_model, device=dev)
+                                model.decoder_num_heads, model.d_model, model.dtype,
+                                device=dev)
     for c in range(1, C):
         h_new, caches = model.decode_suffix_step(beam_tokens[:, :, c - 1], c - 1, Lint,
                                                  hist_kvs, hist_pad, caches)
@@ -661,8 +693,8 @@ def _cobra_generate_cached(model: Cobra, input_ids, vecs, K: int, temperature: f
             prefix_idx = trie.advance(torch.gather(prefix_idx, 1, parent), tok, c)
         caches = gather_beam_caches(caches, parent)
         h_last = _take_beams(h_c, parent)
-    return CobraGenerationOutput(sem_ids=beam_tokens, dense_vecs=l2norm(h_last),
-                                 scores=beam_scores)
+    return CobraGenerationOutput(sem_ids=beam_tokens,
+                                 dense_vecs=l2norm(h_last.to(torch.float32)), scores=beam_scores)
 
 
 @torch.no_grad()

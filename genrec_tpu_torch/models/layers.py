@@ -86,13 +86,15 @@ class Dense(nn.Linear):
     """Flax ``nn.Dense(dtype=...)``: float32 parameters cast to the compute
     dtype at use."""
 
-    def __init__(self, in_features: int, out_features: int, dtype, device):
-        super().__init__(in_features, out_features, device=device)
+    def __init__(self, in_features: int, out_features: int, dtype, device,
+                 bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias, device=device)
         self.compute_dtype = dtype
 
     def forward(self, x):
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class LayerNorm(nn.LayerNorm):

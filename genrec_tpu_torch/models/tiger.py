@@ -1,19 +1,30 @@
-"""TIGER generative retrieval over semantic IDs: the paged serving path
-(port of genrec_tpu/models/tiger.py).
+"""TIGER generative retrieval over semantic IDs (port of
+genrec_tpu/models/tiger.py: the training forwards, the dense
+trie-constrained decode and the paged serving decode).
 
 ``Tiger`` holds the encoder-decoder and its embeddings under the Flax
 parameter names (``genrec_tpu_torch.convert`` maps a JAX param tree onto
-it). The functions below are the paged decode of the serving engine:
+it). ``forward`` is the training forward (loss: the per-sequence SUM of
+token CE, then the batch mean), ``forward_packed`` its packed-row twin
+(several examples an encoder row, segment-restricted attention, the
+decoders per example). ``dtype`` is the compute dtype, as Flax's:
+parameters float32, cast where used; norms and softmax float32; dropout
+from the ``generator`` a training forward is given.
 
-- ``tiger_prefill_paged``: encoder pass + per-layer cross-attention K/V
-  written straight into the page pools through the batch's block tables;
-- ``tiger_paged_decode_step``: every slot advances one constrained-beam
-  position, each at its own step, with cross-attention read from the
-  pools by the paged-attention kernel;
-- ``tiger_generate_paged``: the two above with every row in lockstep —
-  the offline reference the serving engine's answers are held to.
+Decoding:
 
-Serving is deterministic beam search (the JAX path with ``rng=None``).
+- ``tiger_generate``: trie-constrained beam search over a ``DenseTrie``,
+  ``PackedTrie`` or ``TensorTrie``, KV-cached (self-attention appends a
+  position a step, cross-attention K/V projected once from the
+  batch-sized memory) or uncached (the decoder re-run over the prefix);
+  deterministic, or sampling KK = min(K * sample_factor, K_cb) candidates
+  a beam without replacement by Gumbel-top-k (noise from a
+  ``torch.Generator``), then dedup by full sequence and the top K;
+- ``tiger_prefill_paged`` / ``tiger_paged_decode_step`` /
+  ``tiger_generate_paged``: the serving engine's paged decode (float32
+  only: B1 and B2 read float32 or int8 pages), its cross-attention read
+  from the pools by the paged-attention kernel.
+
 Ties are broken as ``jax.lax.top_k`` and ``jnp.lexsort`` break them (lower
 index first), with stable sorts: ties really happen (every illegal
 candidate scores -1e32, and small catalogs leave fewer legal children
@@ -29,11 +40,15 @@ from torch import nn
 
 from genrec_tpu_torch.device import resolve_device
 from genrec_tpu_torch.models.embeddings import SemIdEmbedding, UserIdEmbedding
-from genrec_tpu_torch.models.layers import RMSNorm
+from genrec_tpu_torch.models.layers import Dense, RMSNorm, dropout
 from genrec_tpu_torch.models.t5transformer import (
     TransformerEncoderDecoder,
+    causal_mask,
     gather_beam_caches,
+    init_decode_caches,
 )
+from genrec_tpu_torch.ops.gumbel import sample_gumbel
+from genrec_tpu_torch.ops.losses import cross_entropy_with_ignore
 from genrec_tpu_torch.ops.paged import write_pages
 from genrec_tpu_torch.ops.quant import KV_DTYPES, QuantizedKVPool
 from genrec_tpu_torch.ops.trie import advance_ragged, legal_mask_ragged
@@ -41,22 +56,36 @@ from genrec_tpu_torch.ops.trie import advance_ragged, legal_mask_ragged
 _ILLEGAL = -1e32
 
 
+class TigerOutput(NamedTuple):
+    logits: torch.Tensor
+    loss: torch.Tensor | None
+
+
 class TigerGenerationOutput(NamedTuple):
     sem_ids: torch.Tensor  # (B, K, D)
     log_probas: torch.Tensor  # (B, K)
 
 
+class TigerPackedOutput(NamedTuple):
+    per_example_loss: torch.Tensor  # (R, S) token-sum CE per segment
+    loss: torch.Tensor  # mean over valid segments
+    real_tokens: torch.Tensor  # scalar: non-pad encoder slots in the batch
+
+
 class Tiger(nn.Module):
-    """TIGER encoder-decoder for inference. Weights are drawn from
-    ``seed`` (a CPU generator, so every device gets the same weights) or
-    loaded with ``load_state_dict``."""
+    """TIGER encoder-decoder. Weights are drawn from ``seed`` (a CPU
+    generator, so every device gets the same weights) or loaded with
+    ``load_state_dict``."""
 
     def __init__(self, embedding_dim: int, attn_dim: int, num_heads: int,
                  n_layers: int, num_item_embeddings: int, num_user_embeddings: int,
                  sem_id_dim: int, max_pos: int = 2048, pad_vocab_to: int = 1,
-                 dim_feedforward: int = 1024, device="cuda", seed: int = 0):
+                 dim_feedforward: int = 1024, dropout: float = 0.0,
+                 dtype=torch.float32, device="cuda", seed: int = 0):
         super().__init__()
         dev = resolve_device(device)
+        self.dropout = dropout
+        self.dtype = dtype
         self.embedding_dim = embedding_dim
         self.attn_dim = attn_dim
         self.num_heads = num_heads
@@ -70,10 +99,10 @@ class Tiger(nn.Module):
         self.norm_context = RMSNorm(embedding_dim, device=dev)
         self.sem_id_embedding = SemIdEmbedding(
             num_item_embeddings, sem_id_dim, embedding_dim,
-            rows_multiple=pad_vocab_to, device=dev,
+            rows_multiple=pad_vocab_to, dtype=dtype, device=dev,
         )
         self.user_id_embedding = UserIdEmbedding(
-            num_user_embeddings, embedding_dim, device=dev
+            num_user_embeddings, embedding_dim, dtype=dtype, device=dev
         )
         # Unused by the forward, as in the JAX model; kept so the two
         # parameter surfaces match leaf for leaf. (The JAX model's
@@ -83,15 +112,14 @@ class Tiger(nn.Module):
         self.decoder_pos_embedding = nn.Parameter(
             torch.empty(sem_id_dim, embedding_dim, device=dev)
         )
-        self.in_proj = nn.Linear(embedding_dim, attn_dim, bias=False, device=dev)
-        self.in_proj_context = nn.Linear(embedding_dim, attn_dim, bias=False, device=dev)
+        self.in_proj = Dense(embedding_dim, attn_dim, dtype, dev, bias=False)
+        self.in_proj_context = Dense(embedding_dim, attn_dim, dtype, dev, bias=False)
         self.transformer = TransformerEncoderDecoder(
             d_model=attn_dim, nhead=num_heads,
             num_encoder_layers=n_layers // 2, num_decoder_layers=n_layers // 2,
-            dim_feedforward=dim_feedforward, device=dev,
+            dim_feedforward=dim_feedforward, dropout=dropout, dtype=dtype, device=dev,
         )
-        self.output_head = nn.Linear(attn_dim, self.padded_vocab_size, bias=False,
-                                     device=dev)
+        self.output_head = Dense(attn_dim, self.padded_vocab_size, dtype, dev, bias=False)
         self.reset_parameters(seed)
 
     @property
@@ -130,6 +158,9 @@ class Tiger(nn.Module):
         live = torch.arange(self.padded_vocab_size, device=logits.device) < self.vocab_size
         return logits.masked_fill(~live, -1e9)
 
+    def _drop(self, x, deterministic: bool, generator):
+        return dropout(x, self.dropout, deterministic, generator)
+
     def _encoder_input(self, user_input_ids, item_input_ids, token_type_ids, seq_mask):
         if user_input_ids.dim() == 1:
             user_input_ids = user_input_ids[:, None]
@@ -141,6 +172,97 @@ class Tiger(nn.Module):
              seq_mask == 0], dim=1,
         )  # True = padding; the user token is always valid
         return enc, pad
+
+    def _decoder_input(self, B: int, target_input_ids, target_token_type_ids):
+        """BOS, then the embedded target prefix: (B, 1 + T, E)."""
+        bos = self.bos_embedding.to(self.dtype).expand(B, 1, self.embedding_dim)
+        if target_input_ids is None or target_input_ids.shape[1] == 0:
+            return bos
+        tgt = self.sem_id_embedding(target_input_ids, target_token_type_ids)
+        return torch.cat([bos, tgt], dim=1)
+
+    def _token_loss(self, logits, target_ids, target_types):
+        """Per-token CE of the D target codes (ignore_index -1: vocab id 0
+        is a real token here, nothing is masked): (N, D)."""
+        target_vocab = target_types * self.num_item_embeddings + target_ids
+        per_tok, _ = cross_entropy_with_ignore(logits[:, :-1, :], target_vocab,
+                                               ignore_index=-1)
+        return per_tok
+
+    # ---- training forwards -------------------------------------------------
+
+    def forward(self, user_input_ids, item_input_ids, token_type_ids, target_input_ids,
+                target_token_type_ids, seq_mask, deterministic: bool = True,
+                generator=None) -> TigerOutput:
+        """Logits (B, T + 1, V) and, with D targets, the loss: the
+        per-sequence SUM of token CE, then the batch mean."""
+        if seq_mask is None:
+            seq_mask = torch.ones_like(item_input_ids)
+        B = item_input_ids.shape[0]
+        enc, pad = self._encoder_input(user_input_ids, item_input_ids, token_type_ids,
+                                       seq_mask)
+        dec = self._decoder_input(B, target_input_ids, target_token_type_ids)
+        enc = self.in_proj_context(self._drop(self.norm_context(enc), deterministic,
+                                              generator))
+        dec = self.in_proj(self._drop(self.norm(dec), deterministic, generator))
+        out = self.transformer(enc, dec, src_key_padding_mask=pad,
+                               memory_key_padding_mask=pad, deterministic=deterministic,
+                               generator=generator)
+        logits = self._mask_pad_logits(self.output_head(out))
+        loss = None
+        if target_input_ids is not None and target_input_ids.shape[1] == self.sem_id_dim:
+            per_tok = self._token_loss(logits, target_input_ids, target_token_type_ids)
+            loss = per_tok.sum(dim=1).mean()
+        return TigerOutput(logits=logits, loss=loss)
+
+    def forward_packed(self, item_input_ids, token_type_ids, user_token_ids, user_mask,
+                       segment_ids, positions, target_ids, segment_valid,
+                       deterministic: bool = True, generator=None) -> TigerPackedOutput:
+        """The training forward over PACKED encoder rows (token operands
+        (R, L)): each segment is its user token (``user_mask`` marks the
+        slot, ``user_token_ids`` holds the id) and its flattened history;
+        encoder attention stays inside a segment (-1e9 across) and the
+        relative bias reads within-segment ``positions``, so a segment's
+        memory equals the unpacked forward's. The decoders stay per example
+        ((R * S, D + 1) rows, ``target_ids`` (R, S, D)), each cross-attending
+        into its own segment of its row's memory. The loss is the
+        per-sequence token-sum CE averaged over the valid segments
+        (``segment_valid`` (R, S)): the unpacked batch mean over the same
+        examples."""
+        R, L = item_input_ids.shape
+        item_emb = self.sem_id_embedding(item_input_ids, token_type_ids)
+        user_emb = self.user_id_embedding(user_token_ids)
+        enc = torch.where(user_mask[..., None] == 1, user_emb, item_emb)
+        pad = segment_ids == 0
+        cross = segment_ids[:, :, None] != segment_ids[:, None, :]
+        seg_mask = torch.where(cross, -1e9, 0.0)[:, None]  # additive (R, 1, L, L)
+        enc = self.in_proj_context(self._drop(self.norm_context(enc), deterministic,
+                                              generator))
+        memory = self.transformer.encoder(enc, attn_mask=seg_mask, key_padding_mask=pad,
+                                          deterministic=deterministic, positions=positions,
+                                          generator=generator)
+
+        _, S, D = target_ids.shape
+        N = R * S
+        dev = target_ids.device
+        tgt_flat = target_ids.reshape(N, D)
+        tgt_types = torch.arange(D, device=dev).expand(N, D)
+        dec = self._decoder_input(N, tgt_flat, tgt_types)
+        dec = self.in_proj(self._drop(self.norm(dec), deterministic, generator))
+        mem = memory.repeat_interleave(S, dim=0)  # (N, L, attn_dim)
+        seg_of = torch.arange(1, S + 1, device=dev).repeat(R)
+        mem_pad = segment_ids.repeat_interleave(S, dim=0) != seg_of[:, None]
+        out = self.transformer.decoder(dec, mem, attn_mask=causal_mask(D + 1, dev),
+                                       memory_key_padding_mask=mem_pad,
+                                       deterministic=deterministic, generator=generator)
+        logits = self._mask_pad_logits(self.output_head(out))
+        seq_loss = self._token_loss(logits, tgt_flat, tgt_types).sum(dim=1).reshape(R, S)
+        valid = segment_valid.to(torch.float32)
+        loss = (seq_loss * valid).sum() / valid.sum().clamp_min(1.0)
+        return TigerPackedOutput(per_example_loss=seq_loss, loss=loss,
+                                 real_tokens=(segment_ids != 0).sum())
+
+    # ---- generation --------------------------------------------------------
 
     def encode_context(self, user_input_ids, item_input_ids, token_type_ids, seq_mask):
         enc, pad = self._encoder_input(user_input_ids, item_input_ids,
@@ -154,6 +276,33 @@ class Tiger(nn.Module):
         memory, pad = self.encode_context(user_input_ids, item_input_ids,
                                           token_type_ids, seq_mask)
         return self.transformer.decoder.precompute_cross_kv(memory), pad
+
+    def decode_step(self, memory, memory_pad, tgt_ids, tgt_type):
+        """Uncached: float32 logits at the last position of the (possibly
+        empty) prefix, the decoder re-run over all of it."""
+        dec = self._decoder_input(memory.shape[0], tgt_ids, tgt_type)
+        dec = self.in_proj(self.norm(dec))
+        out = self.transformer.decoder(dec, memory,
+                                       attn_mask=causal_mask(dec.shape[1], memory.device),
+                                       memory_key_padding_mask=memory_pad)
+        return self._mask_pad_logits(self.output_head(out))[:, -1, :].to(torch.float32)
+
+    def decode_step_cached(self, last_tok, caches, cross_kvs, memory_pad, step: int):
+        """Logits for decode position ``step`` from the PREVIOUS token only
+        (None at step 0: BOS), against the per-layer suffix caches:
+        last_tok (B, K). Returns (logits (B, K, V) fp32, new_caches)."""
+        B = memory_pad.shape[0]
+        K = caches[0]["k"].shape[1]
+        if last_tok is None:
+            x = self.bos_embedding.to(self.dtype).expand(B, K, self.embedding_dim)
+        else:
+            x = self.sem_id_embedding(last_tok, torch.full_like(last_tok, step - 1))
+        x = self.in_proj(self.norm(x))
+        x, new_caches = self.transformer.decoder.decode_step(
+            x, caches, cross_kvs, memory_key_padding_mask=memory_pad, step=step
+        )
+        logits = self._mask_pad_logits(self.output_head(x))
+        return logits.to(torch.float32), new_caches
 
     def decode_step_paged(self, last_tok, caches, k_pools, v_pools,
                           block_tables, seq_lens, steps):
@@ -214,40 +363,125 @@ def init_tiger_paged_state(model: Tiger, n_slots: int, beams: int) -> dict:
     }
 
 
-def _tiger_beam_update(model: Tiger, trie, logits, beam_seqs, beam_logps,
-                       prefix_idx, steps, temperature: float, sample_factor: int):
-    """One constrained-beam selection from this step's (S, K, V) logits.
-    Returns (beam_seqs, beam_logps, prefix_idx, sel_parent, sel_tok)."""
-    S, K, D = beam_seqs.shape
+def _draw_candidates(logp: torch.Tensor, k: int, generator=None) -> torch.Tensor:
+    """``k`` candidates a row of (N, V) log-probs: the top k, or with
+    ``generator`` the top k of logp + Gumbel noise, which draws k
+    categories without replacement from softmax(logp) (the distribution
+    of ``torch.multinomial(probs, k)``)."""
+    if generator is not None:
+        logp = logp + sample_gumbel(logp.shape, generator, device=logp.device)
+    return _top_k(logp, k)[1]
+
+
+def _select_beams(model: Tiger, window, legal, beam_logps, prefix_idx,
+                  temperature: float, sample_factor: int, generator=None):
+    """One constrained-beam selection from this step's (B * K, K_cb) logit
+    window and legal mask: log_softmax of the masked window / T, KK =
+    min(K * sample_factor, K_cb) candidates a beam (the top KK, or with
+    ``generator`` a Gumbel-top-k draw: sampling without replacement),
+    illegal draws at -1e32, accumulated scores deduplicated by full
+    sequence (``prefix * K_cb + token``), the top K kept. Returns
+    (beam scores, sel_parent, sel_tok), each (B, K)."""
+    B, K = beam_logps.shape
     Kcb = model.num_item_embeddings
     KK = min(K * sample_factor, Kcb)
+    dev = window.device
+    logp = torch.log_softmax(window.masked_fill(~legal, _ILLEGAL) / temperature, dim=-1)
+    cand_tok = _draw_candidates(logp, KK, generator)
+    cand_logp = torch.gather(logp, 1, cand_tok)
+    cand_logp = cand_logp.masked_fill(~torch.gather(legal, 1, cand_tok), _ILLEGAL)
+
+    total = (beam_logps.reshape(B * K, 1) + cand_logp).reshape(B, K * KK)
+    toks = cand_tok.reshape(B, K * KK)
+    parents = torch.arange(K, device=dev).repeat_interleave(KK)[None].expand(B, K * KK)
+    keys = torch.gather(prefix_idx, 1, parents) * Kcb + toks
+    top_scores, top_idx = _dedup_top_k(total, keys, K)
+    return top_scores, torch.gather(parents, 1, top_idx), torch.gather(toks, 1, top_idx)
+
+
+def _tiger_beam_update(model: Tiger, trie, logits, beam_seqs, beam_logps,
+                       prefix_idx, steps, temperature: float, sample_factor: int):
+    """One constrained-beam selection from this step's (S, K, V) logits,
+    each row at its own step. Returns (beam_seqs, beam_logps, prefix_idx,
+    sel_parent, sel_tok)."""
+    S, K, D = beam_seqs.shape
+    Kcb = model.num_item_embeddings
     dev = logits.device
     flat = logits.reshape(S * K, -1)
     cols = steps.repeat_interleave(K)[:, None] * Kcb + torch.arange(Kcb, device=dev)
     window = torch.gather(flat, 1, cols)  # per-row vocab window at its own step
     legal = legal_mask_ragged(trie, prefix_idx, steps).reshape(S * K, Kcb)
-    masked = window.masked_fill(~legal, _ILLEGAL)
-    logp = torch.log_softmax(masked / temperature, dim=-1)
-
-    _, cand_tok = _top_k(logp, KK)
-    cand_logp = torch.gather(logp, 1, cand_tok)
-    cand_legal = torch.gather(legal, 1, cand_tok)
-    cand_logp = cand_logp.masked_fill(~cand_legal, _ILLEGAL)
-
-    total = (beam_logps.reshape(S * K, 1) + cand_logp).reshape(S, K * KK)
-    toks = cand_tok.reshape(S, K * KK)
-    parents = torch.arange(K, device=dev).repeat_interleave(KK)[None].expand(S, K * KK)
-    keys = torch.gather(prefix_idx, 1, parents) * Kcb + toks
-    top_scores, top_idx = _dedup_top_k(total, keys, K)
-
-    sel_parent = torch.gather(parents, 1, top_idx)  # (S, K)
-    sel_tok = torch.gather(toks, 1, top_idx)
+    top_scores, sel_parent, sel_tok = _select_beams(
+        model, window, legal, beam_logps, prefix_idx, temperature, sample_factor)
     new_seqs = torch.gather(beam_seqs, 1, sel_parent[..., None].expand(S, K, D))
     hit = torch.arange(D, device=dev)[None, None, :] == steps[:, None, None]
     new_seqs = torch.where(hit, sel_tok[..., None], new_seqs)
     sel_prefix = torch.gather(prefix_idx, 1, sel_parent)
     new_prefix = advance_ragged(trie, sel_prefix, sel_tok, steps)
     return new_seqs, top_scores, new_prefix, sel_parent, sel_tok
+
+
+@torch.no_grad()
+def tiger_generate(model: Tiger, trie, user_input_ids, item_input_ids, token_type_ids,
+                   seq_mask, generator=None, temperature: float = 0.2,
+                   n_top_k_candidates: int = 10, sample_factor: int = 6,
+                   deterministic: bool = False, use_cache: bool = True
+                   ) -> TigerGenerationOutput:
+    """Trie-constrained beam search over the model's sem-id steps.
+
+    Each step samples KK = min(K * sample_factor, K_cb) candidates a beam
+    WITHOUT replacement from softmax(masked logits / temperature)
+    (Gumbel-top-k, the noise from ``generator``), accumulates log-probs,
+    dedups by full sequence and keeps the top K; ``deterministic`` drops
+    the noise (pure beam search). ``use_cache`` runs the KV-cached
+    decode; otherwise the decoder re-runs the prefix over a K-fold copy of
+    the memory. ``trie``: a ``DenseTrie``, ``PackedTrie`` or
+    ``TensorTrie`` on the model's device."""
+    if not deterministic and generator is None:
+        raise ValueError("sampled decoding draws its Gumbel noise from a torch.Generator: "
+                         "pass generator=, or deterministic=True")
+    B = item_input_ids.shape[0]
+    K = n_top_k_candidates
+    Kcb = model.num_item_embeddings
+    D = model.sem_id_dim
+    dev = item_input_ids.device
+    gen = None if deterministic else generator
+    if use_cache:
+        cross_kvs, pad = model.encode_for_decode(user_input_ids, item_input_ids,
+                                                 token_type_ids, seq_mask)
+        caches = init_decode_caches(len(cross_kvs), B, K, D, model.num_heads,
+                                    model.attn_dim, model.dtype, device=dev)
+    else:
+        memory, pad = model.encode_context(user_input_ids, item_input_ids,
+                                           token_type_ids, seq_mask)
+        Lm = memory.shape[1]
+        memory = memory[:, None].expand(B, K, Lm, memory.shape[-1]).reshape(B * K, Lm, -1)
+        pad = pad[:, None].expand(B, K, Lm).reshape(B * K, Lm)
+
+    beam_seqs = torch.zeros((B, K, D), dtype=torch.long, device=dev)
+    beam_logps = torch.zeros((B, K), dtype=torch.float32, device=dev)
+    prefix_idx = torch.zeros((B, K), dtype=torch.long, device=dev)
+    for step in range(D):
+        if use_cache:
+            last_tok = None if step == 0 else beam_seqs[:, :, step - 1]
+            logits, caches = model.decode_step_cached(last_tok, caches, cross_kvs, pad, step)
+            logits = logits.reshape(B * K, -1)
+        else:
+            tgt_ids = tgt_type = None
+            if step:
+                tgt_ids = beam_seqs[:, :, :step].reshape(B * K, step)
+                tgt_type = torch.arange(step, device=dev).expand(B * K, step)
+            logits = model.decode_step(memory, pad, tgt_ids, tgt_type)
+        window = logits[:, step * Kcb:(step + 1) * Kcb]
+        legal = trie.legal_mask(prefix_idx.reshape(B * K), step)
+        beam_logps, sel_parent, sel_tok = _select_beams(
+            model, window, legal, beam_logps, prefix_idx, temperature, sample_factor, gen)
+        beam_seqs = torch.gather(beam_seqs, 1, sel_parent[..., None].expand(B, K, D))
+        beam_seqs[:, :, step] = sel_tok
+        prefix_idx = trie.advance(torch.gather(prefix_idx, 1, sel_parent), sel_tok, step)
+        if use_cache:
+            caches = gather_beam_caches(caches, sel_parent)
+    return TigerGenerationOutput(sem_ids=beam_seqs, log_probas=beam_logps)
 
 
 @torch.no_grad()
@@ -293,6 +527,10 @@ def tiger_prefill_paged(model: Tiger, user_input_ids, item_input_ids,
     valid KV length per row, user token + real sem-id tokens, which
     assumes a CONTIGUOUS valid prefix in seq_mask. Rows padded past their
     page allocation scatter into the null page 0."""
+    if model.dtype != torch.float32:
+        raise NotImplementedError(
+            f"paged decode of a {model.dtype} TIGER: B1 and B2 read float32 or int8 "
+            "pages; bf16 pools are ROADMAP queue B (B1/B2 over bf16 pools)")
     cross_kvs, pad = model.encode_for_decode(
         user_input_ids, item_input_ids, token_type_ids, seq_mask
     )

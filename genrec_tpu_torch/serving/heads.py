@@ -298,6 +298,10 @@ class CobraGenerativeHead(_CatalogHead):
                  item_vecs: Optional[np.ndarray] = None,
                  item_text_tokens: Optional[np.ndarray] = None,
                  top_k: int = 10, name: str = "cobra", catalog=None):
+        if model.dtype != torch.float32:
+            raise NotImplementedError(
+                f"a {model.dtype} COBRA cannot serve paged: B1 and B2 read float32 or int8 "
+                "pages; bf16 pools are ROADMAP queue B (B1/B2 over bf16 pools)")
         self.model = model
         self.name = name
         self.top_k = top_k

@@ -1,5 +1,5 @@
 """The step-granular train loop (port of genrec_tpu/trainers/packed_loop.py,
-the part the HSTU slice runs): the per-epoch repack, the shuffled batch
+the part the trainers run): the per-epoch repack, the shuffled batch
 iterator prefetched to the device, device-scalar loss and real-token
 sums (read once per epoch), ``max_steps``, the examples-per-step timer
 and the occupancy line.
@@ -38,13 +38,19 @@ class PackedTrainLoop:
     ``repack(epoch) -> (arrays, PackingReport)`` is called lazily per
     epoch when ``pack_sequences``; otherwise ``train_arrays`` is the fixed
     padded layout. ``rows_per_step`` is the batch rows consumed per
-    optimizer step. ``step_hook(state, metrics, global_step)`` runs after
-    every step (the caller's own timing or logging)."""
+    optimizer step (batch_size, times the accumulation for TIGER);
+    ``tokens_scale`` rescales the step's mean ``real_tokens`` metric back
+    to whole-step tokens under accumulation. ``step_log(metrics,
+    global_step) -> dict`` replaces the default wandb-interval payload;
+    ``step_hook(state, metrics, global_step)`` runs after every step (the
+    caller's own timing or logging)."""
 
     def __init__(self, *, logger, tracker, device, rows_per_step: int, row_len: int,
                  seed: int, pack_sequences: bool,
                  repack: Callable[[int], tuple[dict, Any]] | None = None,
-                 train_arrays: dict | None = None, wandb_log_interval: int = 100,
+                 train_arrays: dict | None = None, tokens_scale: float = 1.0,
+                 wandb_log_interval: int = 100,
+                 step_log: Callable[[dict, int], dict] | None = None,
                  step_hook: Callable[[Any, dict, int], None] | None = None):
         if pack_sequences and repack is None:
             raise ValueError("pack_sequences=True needs a repack closure")
@@ -58,7 +64,9 @@ class PackedTrainLoop:
         self.seed = seed
         self.pack_sequences = pack_sequences
         self._repack = repack
+        self.tokens_scale = tokens_scale
         self.wandb_log_interval = wandb_log_interval
+        self.step_log = step_log
         self.step_hook = step_hook
         self._ran_epoch = False
         self._arrays = train_arrays
@@ -124,13 +132,15 @@ class PackedTrainLoop:
                 loss = torch.where(m["nonfinite"] > 0, 0.0, loss)
             epoch_loss = loss if epoch_loss is None else epoch_loss + loss
             if "real_tokens" in m:
-                tok = m["real_tokens"]
+                tok = m["real_tokens"] * self.tokens_scale
                 epoch_tokens = tok if epoch_tokens is None else epoch_tokens + tok
             timer.tick()
             n_batches += 1
             global_step += 1
             if global_step % self.wandb_log_interval == 0:
-                self.tracker.log({"global_step": global_step, "train/loss": float(m["loss"])})
+                self.tracker.log(self.step_log(m, global_step) if self.step_log is not None
+                                 else {"global_step": global_step,
+                                       "train/loss": float(m["loss"])})
             if self.step_hook is not None:
                 self.step_hook(state, m, global_step)
         if n_batches:

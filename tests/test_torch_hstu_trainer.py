@@ -282,7 +282,7 @@ def test_packed_loop_max_steps_and_unported_options(tmp_path):
         loop.save(state, epoch=1, next_batch=0, global_step=3)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         loop.resume(state)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A18"):
         hstu_trainer.train(dataset="amazon", device="cpu", save_dir_root=str(tmp_path))
 
 
