@@ -335,7 +335,8 @@ PAGED_VARIANTS = {
     "source": None,
     "all_pages": ("const int n_live = seq_len > 0 ? min(seq_len, cap) : cap;",
                   "const int n_live = cap;"),
-    "splits_2": ("constexpr int kBeamSplits = 1;", "constexpr int kBeamSplits = 2;"),
+    "splits_2": ("p.beams_per_block = min(p.K, kMaxBeams);",
+                 "p.beams_per_block = min((p.K + 1) / 2, kMaxBeams);"),
     "lb_2": ("__global__ void __launch_bounds__(kThreads)",
              "__global__ void __launch_bounds__(kThreads, 2)"),
     "lb_3": ("__global__ void __launch_bounds__(kThreads)",

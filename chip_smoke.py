@@ -15,7 +15,9 @@ line each; any failure ends the run with a traceback and a non-zero exit:
             its edge cases and at the shapes its main path gives it (B1 and
             B2 at the TIGER serving shapes and at COBRA's (K 20, H 6, hd
             128, page 16, Pm 5: the `_cobra` rows, each with free slots
-            at seq_len 0 beside full ones); B3-B6 at the HSTU training
+            at seq_len 0 beside full ones), and over the speculative
+            tree's node axis (the `_tree` rows: B1 and B2 at TIGER's 730
+            nodes, hd 64, B1 at COBRA's 180 nodes, hd 128); B3-B6 at the HSTU training
             shapes, B5 also at the retrieval serving buckets with
             right-aligned rows, all-padding rows exactly 0; B7 at the
             RQ-VAE export's), then timed by device time
@@ -155,6 +157,23 @@ line each; any failure ends the run with a traceback and a non-zero exit:
             one eval: the tower over the 12,101 items and beam fusion (20
             beams, 10 candidates) on 512 valid users (Recall@10, the seconds
             of each part).
+15. tiger_spec_serve TIGER's speculative engine (spec_decode=True, the
+            default fanout 8: trees of 730 nodes a slot) at the serve
+            phase's widths, catalog and requests plus a quarter of them
+            again, beside the plain engine on the same traffic, both
+            served in waves of 64 (the slots), fp32 pages then int8
+            (tiger_spec_serve_int8): every answer's sem-ids equal the plain
+            engine's and its scores within 1e-4 / T (5e-4 at TIGER's T
+            0.2, 1e-4 for COBRA at T 1); every repeat admits warm
+            from the prefix cache and answers as its original; B1 (B2) 4
+            times a verify call and no other kernel; the pool, the scratch
+            pages and the prefix index empty after the drain; verify calls
+            a request, mean accept length, prefix hits, qps and p50 beside
+            the plain engine's;
+16. cobra_spec_serve the same for COBRA (trees of 180 nodes, B1 8 times
+            a verify call), fp32 pages; a repeat prefilled at a larger
+            bucket than its own is held to offline cobra_generate_paged at
+            its own bucket (its warm admit judges `full` there).
 
 Each phase that drives a main path sets every kernel's launch counter to 0
 just before and reads it just after. Then the kernels line, the card's
@@ -222,6 +241,22 @@ COBRA_PAGED = dict(max_slots=64, page_size=16, pages_per_slot=5)
 COBRA_SHAPE = (COBRA_BEAMS, COBRA_AMAZON["decoder_num_heads"],
                COBRA_AMAZON["d_model"] // COBRA_AMAZON["decoder_num_heads"],
                COBRA_PAGED["page_size"], COBRA_PAGED["pages_per_slot"])
+
+# Speculative tree decode: the engine's default fanout. TIGER's tree (10
+# beams, spec_depth 2) has 10 + 80 + 640 = 730 nodes a slot, COBRA's (20
+# beams, spec_depth 1) 20 + 160 = 180; B1/B2 take them where the beams were.
+SPEC_FANOUT = 8
+# Requests of a spec phase's traffic served at once: the engine's slots, so
+# both engines (spec and plain) prefill the same groups of the same requests
+# and hold the same pages (int8 rounding included).
+SPEC_WAVE = 64
+# Spec against plain engine, and a warm answer against its cold one: 1e-4
+# at T = 1, scaled by the 1 / T the softmax temperature applies (TIGER
+# decodes at T 0.2). The tree pass runs its GEMMs over S x N rows where the
+# plain step runs S x K, so cuBLAS sums in other orders (~1e-5 in the
+# logits); the sem-ids are held exactly.
+SPEC_SCORE_TOL = 1e-4
+SPEC_MAX_WAIT_MS = 20.0  # coalesces a wave into full prefill groups
 
 # HSTU, config/hstu/amazon.gin; depth not cut. Amazon-Beauty (2014 5-core):
 # 12,101 items, 22,363 users.
@@ -332,6 +367,18 @@ KERNELS = {
                                               "genrec_tpu/kernels/paged_attention.py:112",
                                               "paged_attention_stats_pallas_quantized, at "
                                               "COBRA's serving shape"),
+    "paged_attention_stats_tree": ("genrec_tpu_torch/csrc/paged_attention.cu",
+                                   "genrec_tpu/kernels/paged_attention.py:182",
+                                   "paged_attention_stats_pallas, over TIGER's 730-node "
+                                   "speculative tree"),
+    "paged_attention_stats_quantized_tree": ("genrec_tpu_torch/csrc/paged_attention.cu",
+                                             "genrec_tpu/kernels/paged_attention.py:112",
+                                             "paged_attention_stats_pallas_quantized, over "
+                                             "TIGER's 730-node speculative tree"),
+    "paged_attention_stats_cobra_tree": ("genrec_tpu_torch/csrc/paged_attention.cu",
+                                         "genrec_tpu/kernels/paged_attention.py:182",
+                                         "paged_attention_stats_pallas, over COBRA's 180-node "
+                                         "speculative tree"),
     "sharded_fused_linear_ce": ("genrec_tpu_torch/kernels/fused_ce.py",
                                 "genrec_tpu/kernels/fused_ce.py:329",
                                 "sharded_fused_linear_ce (_tp_vjp_fwd :350, _tp_vjp_bwd :375, "
@@ -960,6 +1007,80 @@ def cobra_kernel_phase(dev, seed, ptxas, int8) -> dict:
         library="torch.nn.functional.scaled_dot_product_attention on pre-gathered"
                 + (", dequantised" if int8 else "") + " K/V",
         ptxas=paged_ptxas(ptxas), block_smem_bytes=pa.block_smem_bytes(K, hd, page, Pm, int8),
+    )
+
+
+def tree_nodes(head: str) -> int:
+    """Nodes a slot of the speculative tree at the engine's default fanout:
+    TIGER's (10 beams, depth sem_id_dim - 1) or COBRA's (20 beams, depth
+    n_codebooks - 2)."""
+    from genrec_tpu_torch.ops.spec_tree import TreeTopology
+
+    if head == "cobra":
+        return TreeTopology(COBRA_BEAMS, SPEC_FANOUT, COBRA_AMAZON["n_codebooks"] - 2).n_nodes
+    return TreeTopology(BEAMS, SPEC_FANOUT, TIGER_AMAZON["sem_id_dim"] - 1).n_nodes
+
+
+def tree_kernel_phase(dev, seed, ptxas, name) -> dict:
+    """B1 or B2 over a speculative tree's node axis, as the spec engines
+    run it: ``paged_attention_stats_tree`` (B1, TIGER: N 730 at S 64, H 6,
+    hd 64, page 16, Pm 4, the serve phase's served lengths),
+    ``paged_attention_stats_quantized_tree`` (B2, the same shape) and
+    ``paged_attention_stats_cobra_tree`` (B1, COBRA: N 180, hd 128, Pm 5,
+    ``cobra_served_lens``). Held to the twin on the served lengths and on
+    free slots beside full ones, equal bits over two calls, then timed at S
+    64 with its bound and SDPA on pre-gathered K/V."""
+    from genrec_tpu_torch.kernels import paged_attention as pa
+
+    int8 = "quantized" in name
+    kernel, plain, make, bound_fn = (
+        (pa.paged_attention_stats_quantized_cuda, pa.paged_attention_stats_quantized_ref,
+         quantized_inputs, quantized_bound) if int8 else
+        (pa.paged_attention_stats_cuda, pa.paged_attention_stats_ref, paged_inputs,
+         paged_attention_bound))
+    S = PAGED["max_slots"]
+    if name.endswith("cobra_tree"):
+        N = tree_nodes("cobra")
+        _, H, hd, page, Pm = COBRA_SHAPE
+        served_lens = cobra_served_lens(seed, S)
+    else:
+        N = tree_nodes("tiger")
+        H = TIGER_AMAZON["num_heads"]
+        hd = TIGER_AMAZON["attn_dim"] // H
+        page, Pm = PAGED["page_size"], PAGED["pages_per_slot"]
+        served_lens = (1 + TIGER_AMAZON["sem_id_dim"]
+                       * np.random.default_rng(seed).integers(1, MAX_ITEMS + 1, S))
+    edges = served_lens.copy()
+    edges[::5], edges[1::5] = 0, Pm * page  # free slots and full slots
+    errs = {}
+    for i, (case, lens) in enumerate((("serving", served_lens),
+                                      ("seq_len_0_and_full_slots", edges))):
+        x = make(dev, seed + 60 + i, S, N, H, hd, page, Pm, lens, True)
+        before = kernel.launches
+        got = kernel(**x)
+        torch.cuda.synchronize()
+        check(kernel.launches == before + 1, f"{case}: {kernel.launches - before} launches")
+        errs[case] = max(assert_near(f"{name} {case}/{out}", g, w, FP32_TOL)
+                         for out, g, w in zip(("acc", "m", "l"), got, plain(**x)))
+        del x, got
+    base = make(dev, seed, S, N, H, hd, page, Pm, served_lens, True)
+    bit_equal_twice(kernel, base, f"{name} at the tree's node axis")
+    del base
+    t64 = paged_times(dev, seed, S, served_lens, make, kernel, plain, bound_fn,
+                      (N, H, hd, page, Pm))
+    t64.pop("copies")
+    return emit(
+        "kernel", name=name,
+        shape=dict(S=S, K=N, H=H, hd=hd, page=page, Pm=Pm, tree_nodes=N,
+                   blocks_per_slot_head=-(-N // 32),
+                   pools="int8 + fp32 row scales" if int8 else "fp32"),
+        max_abs_err=max(errs.values()), max_abs_err_by_case=errs,
+        tolerance=dict(rel=FP32_TOL, relative_to="max|plain|"),
+        **t64, bit_equal_twice=True, timed_by="cuda_graph",
+        library="torch.nn.functional.scaled_dot_product_attention on pre-gathered"
+                + (", dequantised" if int8 else "") + " K/V",
+        ptxas=paged_ptxas(ptxas),
+        block_smem_bytes=pa.block_smem_bytes(min(N, 32), hd, page, Pm, int8),
     )
 
 
@@ -2450,6 +2571,16 @@ def burst_fields(reqs, responses, wall_s, stats, fp32_answers, beams) -> dict:
             f"top{beams}_agreement_with_fp32": agreement}
 
 
+def tiger_catalog(rng):
+    """CATALOG_ITEMS unique sem-id tuples, 3 codes of 256, drawn from ``rng``."""
+    codes = rng.integers(0, TIGER_AMAZON["num_item_embeddings"],
+                         (2 * CATALOG_ITEMS, TIGER_AMAZON["sem_id_dim"]))
+    catalog = np.unique(codes, axis=0)
+    catalog = catalog[rng.permutation(len(catalog))[:CATALOG_ITEMS]]
+    check(len(catalog) == CATALOG_ITEMS, len(catalog))
+    return catalog
+
+
 def serve_phase(dev, seed, n_requests, profile=False, kv_dtype="float32",
                 fp32_answers=None) -> tuple[dict, dict | None, list]:
     """The serving burst with ``kv_dtype`` pages. The same seed gives the
@@ -2464,12 +2595,7 @@ def serve_phase(dev, seed, n_requests, profile=False, kv_dtype="float32",
     from genrec_tpu_torch.serving.kv_pool import PagedConfig
 
     rng = np.random.default_rng(seed)
-    codes = rng.integers(0, TIGER_AMAZON["num_item_embeddings"],
-                         (2 * CATALOG_ITEMS, TIGER_AMAZON["sem_id_dim"]))
-    catalog = np.unique(codes, axis=0)
-    catalog = catalog[rng.permutation(len(catalog))[:CATALOG_ITEMS]]
-    check(len(catalog) == CATALOG_ITEMS, len(catalog))
-
+    catalog = tiger_catalog(rng)
     model = Tiger(**TIGER_AMAZON, device=dev, seed=seed).eval()
     head = TigerGenerativeHead(model, item_sem_ids=catalog, top_k=BEAMS)
     ladder = BucketLadder((1, 2, 4, 8, 16), (4, 8, 16, MAX_ITEMS))
@@ -2477,8 +2603,11 @@ def serve_phase(dev, seed, n_requests, profile=False, kv_dtype="float32",
     cfg = PagedConfig(**PAGED, kv_dtype=kv_dtype)
 
     def engine():
+        # The prefix cache off: the sample is held to offline decoding at each
+        # answer's prefill bucket (the spec phases serve with the cache on).
         return ServingEngine([head], device=dev, ladder=ladder, max_batch=16,
-                             max_wait_ms=2.0, paged_config=cfg, kv_dtype=kv_dtype).start()
+                             max_wait_ms=2.0, paged_config=cfg, kv_dtype=kv_dtype,
+                             prefix_cache=False).start()
 
     warm = engine()  # first calls: cuBLAS handles, allocator, kernel library
     serve(warm, make_requests(rng, 32, CATALOG_ITEMS))
@@ -2614,8 +2743,11 @@ def cobra_serve_phase(dev, seed, n_requests, profile=False, kv_dtype="float32",
     cfg = PagedConfig(**COBRA_PAGED, kv_dtype=kv_dtype)
 
     def engine():
+        # The prefix cache off: the sample is held to offline decoding at each
+        # answer's prefill bucket (the spec phases serve with the cache on).
         return ServingEngine([head], device=dev, ladder=ladder, max_batch=16,
-                             max_wait_ms=2.0, paged_config=cfg, kv_dtype=kv_dtype).start()
+                             max_wait_ms=2.0, paged_config=cfg, kv_dtype=kv_dtype,
+                             prefix_cache=False).start()
 
     warm = engine()
     serve(warm, cobra_requests(ds, rng, 32))
@@ -2678,6 +2810,208 @@ def cobra_serve_phase(dev, seed, n_requests, profile=False, kv_dtype="float32",
                 requests=n_requests, **device_profile(lambda: serve(eng, again)[1]))
     eng.stop()
     return served, prof, responses
+
+
+# ---- phases 15-16: speculative tree decode with the prefix cache --------------
+
+
+def serve_waves(engine, reqs, wave=SPEC_WAVE):
+    """Serve ``reqs`` in waves of ``wave`` requests, each submitted at once
+    and answered before the next: a wave fills the engine's slots in full
+    prefill groups, so two engines given the same traffic prefill the same
+    groups of the same requests. Returns (responses, seconds)."""
+    t0 = time.perf_counter()
+    responses = []
+    for i in range(0, len(reqs), wave):
+        futures = [engine.submit(r) for r in reqs[i:i + wave]]
+        responses.extend(f.result(timeout=300) for f in futures)
+    return responses, time.perf_counter() - t0
+
+
+def spec_traffic(seed, reqs):
+    """The burst's requests, then a quarter of them again in a seeded
+    order: the repeats are answered warm from the prefix cache. Returns
+    (traffic, index of each repeat's original)."""
+    rng = np.random.default_rng(seed + 7)
+    again = rng.choice(len(reqs), len(reqs) // 4, replace=False)
+    return list(reqs) + [reqs[i] for i in again], again
+
+
+def spec_burst(phase, head, make_engine, warm_reqs, reqs, seed, kernel, layers, shape,
+               temperature, solo=None, ladder=None) -> dict:
+    """One speculative engine (``make_engine(True)``) against one plain
+    engine (``make_engine(False)``) on the same traffic (``spec_traffic``
+    of ``reqs``, served in waves). For every request: sem-ids equal the
+    plain engine's, scores within SPEC_SCORE_TOL / ``temperature``; every
+    repeat admits warm
+    and answers as its original did cold. Where the original was prefilled
+    at a larger history bucket than its own and ``solo(req, L) -> (sem,
+    scores)`` is given (COBRA, whose ``full`` flag depends on the bucket),
+    the warm answer is held instead to the request served alone at its own
+    bucket ``L``, as a cold engine serving it alone answers (offline on the
+    card, within SAMPLE_ATOL); ``kernel`` launched
+    exactly ``layers`` times a verify call and no other kernel; pools
+    clean, scratch released and the prefix index empty after the drain.
+    Reports verify calls a request, the mean accept length, prefix hits,
+    and qps / p50 beside the plain engine's."""
+    traffic, again = spec_traffic(seed, reqs)
+    n = len(reqs)
+    tol = SPEC_SCORE_TOL / temperature
+    for spec in (False, True):  # first calls of each path: allocator, cuBLAS
+        eng = make_engine(spec)
+        serve_waves(eng, warm_reqs)
+        eng.stop()
+    eng = make_engine(False)
+    plain, plain_wall = serve_waves(eng, traffic)
+    plain_stats = eng.stop()
+    check(plain_stats["completed"] == len(traffic) and plain_stats["failed"] == 0, plain_stats)
+
+    eng = make_engine(True)
+    runner = eng.runner(head.name)
+    decode = CountingDecode(runner)
+    reset_counters()
+    responses, wall = serve_waves(eng, traffic)
+    counts = read_counters()
+    stats = eng.stop()
+    check(stats["completed"] == len(traffic) and stats["failed"] == 0, stats)
+    others = {k: v for k, v in counts.items() if k != kernel and v}
+    check(not others, f"{phase} launched other kernels: {others}")
+    check(decode.calls == stats["decode_steps"] > 0, (decode.calls, stats["decode_steps"]))
+    check(counts[kernel] == layers * decode.calls, (counts[kernel], layers, decode.calls))
+    pool = runner.pool
+    pool.check_invariants()
+    check(pool.allocator.pages_in_use == 0 and pool.active_slot_count == 0
+          and pool.scratch_page_count == 0 and stats["kv_pool"][head.name]["scratch_pages"] == 0,
+          pool.stats())
+    check(stats["prefix_cache"][head.name]["entries"] == 0, stats["prefix_cache"])
+
+    index = head.catalog.item_index()
+    score_err = 0.0
+    for i, (a, b) in enumerate(zip(responses, plain)):
+        check(a.sem_ids.shape == shape and (a.sem_ids == b.sem_ids).all(),
+              (phase, "spec != plain sem-ids", i, a.sem_ids, b.sem_ids))
+        check(all(tuple(int(c) for c in t) in index for t in a.sem_ids), a.sem_ids)
+        score_err = max(score_err, float(np.abs(a.scores - b.scores).max()))
+    check(score_err <= tol, (phase, "spec vs plain scores", score_err))
+    warm_err, solo_err, n_solo = 0.0, 0.0, 0
+    for k, i in enumerate(again):
+        a, b = responses[n + k], responses[i]
+        own_L = ladder.history_bucket(max(len(reqs[i].history), 1)) if solo else None
+        if solo is not None and b.bucket[1] != own_L:
+            sem, scores = solo(reqs[i], own_L)
+            check((a.sem_ids == sem).all(), (phase, "warm != solo cold sem-ids", i))
+            solo_err = max(solo_err, float(np.abs(a.scores - scores).max()))
+            n_solo += 1
+            continue
+        check((a.sem_ids == b.sem_ids).all(), (phase, "warm != cold sem-ids", i))
+        warm_err = max(warm_err, float(np.abs(a.scores - b.scores).max()))
+    check(warm_err <= tol, (phase, "warm vs cold scores", warm_err))
+    check(solo_err <= SAMPLE_ATOL, (phase, "warm vs solo cold scores", solo_err))
+    pc, spec = stats["prefix_cache"][head.name], stats["spec"][head.name]
+    check(pc["hits"] >= len(again), (phase, "repeats admitted cold", pc))
+    check(spec["slot_steps"] == decode.slot_steps
+          and spec["accepted"] >= spec["slot_steps"], spec)
+
+    def lat(resps):
+        ms = np.asarray([r.total_s for r in resps]) * 1e3
+        return float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
+
+    p50, p99 = lat(responses)
+    plain_p50, plain_p99 = lat(plain)
+    return dict(
+        requests=len(traffic), repeated=len(again), wave=SPEC_WAVE,
+        spec_fanout=SPEC_FANOUT, tree_nodes=runner.spec_topology.n_nodes,
+        spec_depth=head.spec_depth, kernel=kernel, paged_attention_launches=counts[kernel],
+        launches_per_verify_call=counts[kernel] / decode.calls,
+        verify_calls=decode.calls, plain_decode_calls=plain_stats["decode_steps"],
+        verify_calls_per_request=decode.slot_steps / len(traffic),
+        plain_decode_calls_per_request=(head.paged_total_steps - head.paged_init_step),
+        mean_accept_len=spec["codes_per_invocation"], accept_len_hist=spec["accept_len_hist"],
+        drafted=spec["drafted"], prefix_hits=pc["hits"], prefix_lookups=pc["lookups"],
+        prefix_warm_tokens=pc["warm_tokens"], plain_prefix_hits=plain_stats["prefix_cache"][
+            head.name]["hits"],
+        qps=len(traffic) / wall, wall_s=wall, p50_ms=p50, p99_ms=p99,
+        plain_qps=len(traffic) / plain_wall, plain_wall_s=plain_wall, plain_p50_ms=plain_p50,
+        plain_p99_ms=plain_p99, max_abs_score_err_vs_plain=score_err,
+        max_abs_score_err_warm_vs_cold=warm_err, score_tol=tol, temperature=temperature,
+        repeats_held_to_solo_cold=n_solo, max_abs_score_err_warm_vs_solo_cold=solo_err,
+        solo_tol=SAMPLE_ATOL,
+        pool_pages=runner.cfg.num_pages, scratch_pages_reserved=runner._scratch_demand,
+        card=torch.cuda.get_device_name(0),
+    )
+
+
+def tiger_spec_serve_phase(dev, seed, n_requests, kv_dtype="float32") -> dict:
+    """TIGER's speculative engine at the serve phase's widths, catalog and
+    requests (the same seed), pages of ``kv_dtype``: ``spec_burst``
+    against the plain engine. The page budget retains every run of the
+    traffic (the full budget plus pages_per_slot a request), so no repeat
+    is reclaimed before it arrives; the engine adds the tree's scratch."""
+    from genrec_tpu_torch.models.tiger import Tiger
+    from genrec_tpu_torch.serving.buckets import BucketLadder
+    from genrec_tpu_torch.serving.engine import ServingEngine
+    from genrec_tpu_torch.serving.heads import TigerGenerativeHead
+    from genrec_tpu_torch.serving.kv_pool import PagedConfig
+
+    rng = np.random.default_rng(seed)
+    catalog = tiger_catalog(rng)
+    model = Tiger(**TIGER_AMAZON, device=dev, seed=seed).eval()
+    head = TigerGenerativeHead(model, item_sem_ids=catalog, top_k=BEAMS)
+    warm_reqs = make_requests(rng, 32, CATALOG_ITEMS)
+    reqs = make_requests(rng, n_requests, CATALOG_ITEMS)  # the serve phase's burst
+    ladder = BucketLadder((1, 2, 4, 8, 16), (4, 8, 16, MAX_ITEMS))
+    budget = 1 + (PAGED["max_slots"] + n_requests) * PAGED["pages_per_slot"]
+    cfg = PagedConfig(**PAGED, num_pages=budget, kv_dtype=kv_dtype)
+
+    def make_engine(spec):
+        # A head of its own an engine: a speculative runner adds the step-0
+        # draft window to its head's prefill, which a plain engine skips.
+        return ServingEngine([TigerGenerativeHead(model, catalog=head.catalog, top_k=BEAMS)],
+                             device=dev, ladder=ladder, max_batch=16,
+                             max_wait_ms=SPEC_MAX_WAIT_MS, paged_config=cfg,
+                             spec_decode=spec).start()
+
+    fields = spec_burst("tiger_spec_serve", head, make_engine, warm_reqs, reqs, seed,
+                        burst_kernel(kv_dtype), TIGER_AMAZON["n_layers"] // 2,
+                        (BEAMS, TIGER_AMAZON["sem_id_dim"]), temperature=0.2)
+    return emit("tiger_spec_serve" if kv_dtype == "float32" else "tiger_spec_serve_int8",
+                kv_dtype=kv_dtype, **fields)
+
+
+def cobra_spec_serve_phase(dev, seed, n_requests) -> dict:
+    """COBRA's speculative engine at the cobra_serve phase's widths,
+    catalog, tower and requests (the same seed), float32 pages:
+    ``spec_burst`` against the plain engine, the page budget as in
+    ``tiger_spec_serve_phase``."""
+    from genrec_tpu_torch.models.cobra import Cobra
+    from genrec_tpu_torch.serving.buckets import BucketLadder
+    from genrec_tpu_torch.serving.engine import ServingEngine
+    from genrec_tpu_torch.serving.heads import CobraGenerativeHead
+    from genrec_tpu_torch.serving.kv_pool import PagedConfig
+
+    catalog, text = cobra_catalog(seed)
+    rng = np.random.default_rng(seed + 1)
+    ds = beauty_dataset(seed)
+    model = Cobra(**COBRA_AMAZON, device=dev, seed=seed).eval()
+    head = CobraGenerativeHead(model, item_sem_ids=catalog, item_text_tokens=text,
+                               top_k=COBRA_BEAMS)
+    warm_reqs = cobra_requests(ds, rng, 32)
+    reqs = cobra_requests(ds, rng, n_requests)  # the cobra_serve phase's burst
+    ladder = BucketLadder((1, 2, 4, 8, 16), (4, 8, 16, MAX_ITEMS))
+    budget = 1 + (COBRA_PAGED["max_slots"] + n_requests) * COBRA_PAGED["pages_per_slot"]
+    cfg = PagedConfig(**COBRA_PAGED, num_pages=budget)
+
+    def make_engine(spec):
+        return ServingEngine([head], device=dev, ladder=ladder, max_batch=16,
+                             max_wait_ms=SPEC_MAX_WAIT_MS, paged_config=cfg,
+                             spec_decode=spec).start()
+
+    fields = spec_burst("cobra_spec_serve", head, make_engine, warm_reqs, reqs, seed,
+                        burst_kernel("float32"), COBRA_AMAZON["decoder_n_layers"],
+                        (COBRA_BEAMS, COBRA_AMAZON["n_codebooks"]), temperature=1.0,
+                        solo=lambda req, L: cobra_offline_answer(model, head, head.trie, req, L),
+                        ladder=ladder)
+    return emit("cobra_spec_serve", kv_dtype="float32", **fields)
 
 
 # ---- phases 12-14: TIGER and COBRA training, TIGER's dense decode ------------
@@ -3619,6 +3953,9 @@ def main(argv=None) -> int:
     for int8 in (False, True):
         row = cobra_kernel_phase(dev, args.seed, paged_ptx, int8)
         kernels[f"paged_attention_stats{'_quantized' if int8 else ''}_cobra"] = row
+    for name in ("paged_attention_stats_tree", "paged_attention_stats_quantized_tree",
+                 "paged_attention_stats_cobra_tree"):
+        kernels[name] = tree_kernel_phase(dev, args.seed, paged_ptx, name)
     kernels["hstu_attention_fwd_retrieve"] = hstu_serving_kernel_phase(dev, args.seed)
     ptxas = phases["build"]["libraries"]["fused_ce"]["ptxas"]
     kernels.update(ce_kernel_phase(dev, args.seed, ptxas))
@@ -3647,6 +3984,10 @@ def main(argv=None) -> int:
         fp32_answers=fp32_answers)
     if profiled:
         phases["cobra_serve_int8_profile"] = profiled
+    phases["tiger_spec_serve"] = tiger_spec_serve_phase(dev, args.seed, args.requests)
+    phases["tiger_spec_serve_int8"] = tiger_spec_serve_phase(dev, args.seed, args.requests,
+                                                             kv_dtype="int8")
+    phases["cobra_spec_serve"] = cobra_spec_serve_phase(dev, args.seed, args.requests)
     phases["tiger_train"], tiger = tiger_train_phase(dev, args.seed, args.profile)
     phases["tiger_decode"] = tiger_decode_phase(dev, args.seed, tiger, args.profile)
     del tiger
@@ -3672,6 +4013,12 @@ def main(argv=None) -> int:
                 "paged_attention_stats_quantized_cobra":
                     phases["cobra_serve_int8"]["paged_attention_launches"],
                 "hstu_attention_fwd_retrieve": phases["retrieve"]["launches"]["hstu_attention_fwd"],
+                "paged_attention_stats_tree":
+                    phases["tiger_spec_serve"]["paged_attention_launches"],
+                "paged_attention_stats_quantized_tree":
+                    phases["tiger_spec_serve_int8"]["paged_attention_launches"],
+                "paged_attention_stats_cobra_tree":
+                    phases["cobra_spec_serve"]["paged_attention_launches"],
                 "sharded_fused_linear_ce": phases["lcrec_tp"]["steps"]["b8_calls"]}
     line = {"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -7,7 +7,12 @@ Encoding — a rank-based child table, one row per depth:
   pairs, padded to the capacity C with ``PAD_KEY`` (int32 max, sorting
   above every real key);
 - ``offsets`` (D, C+1) — the CSR row index (node p's children occupy
-  ``keys[t, offsets[t, p]:offsets[t, p+1]]``); build-time stats only.
+  ``keys[t, offsets[t, p]:offsets[t, p+1]]``); build-time stats only;
+- ``weights`` (D, C) float32 — each node's draft weight, the sum of the
+  item weights below it (by default every item weighs 1: the node's
+  leaf count), 0 on padding; the speculative drafter ranks legal
+  children by it (``child_weights_ragged``, ``ops.trie.
+  legal_topk_ragged``).
 
 A prefix is its RANK among the sorted valid prefixes of its length; the
 dead-prefix sentinel is C. ``legal_mask`` / ``advance`` (every row at one
@@ -44,10 +49,13 @@ def capacity_for(n_nodes: int) -> int:
 class TensorTrie:
     """Flat tensor trie over sem-id tuples of depth D, codebook size K."""
 
-    def __init__(self, keys, offsets, codebook_size: int):
+    def __init__(self, keys, offsets, codebook_size: int, weights=None):
         self.keys = keys        # (D, C), per-row sorted, PAD_KEY-padded
         self.offsets = offsets  # (D, C+1) CSR row index
         self.codebook_size = int(codebook_size)
+        if weights is None:  # no signal: the drafter ranks by code order
+            weights = np.zeros(np.shape(keys), np.float32)
+        self.weights = weights  # (D, C) float32, 0 on padding
 
     @property
     def depth(self) -> int:
@@ -59,8 +67,11 @@ class TensorTrie:
 
     @classmethod
     def build(cls, valid_ids: np.ndarray, codebook_size: int,
-              capacity: int | None = None) -> "TensorTrie":
-        """Flatten (N, D) legal tuples into the padded host encoding."""
+              capacity: int | None = None,
+              item_weights: np.ndarray | None = None) -> "TensorTrie":
+        """Flatten (N, D) legal tuples into the padded host encoding.
+        ``item_weights`` (N,) scores each tuple (default 1 each); a node's
+        draft weight is the sum over the tuples below it."""
         valid_ids = np.asarray(valid_ids, np.int64)
         if valid_ids.ndim != 2 or valid_ids.size == 0:
             raise ValueError(f"need a (N, D) tuple table, got {valid_ids.shape}")
@@ -68,13 +79,16 @@ class TensorTrie:
         K = int(codebook_size)
         if valid_ids.min() < 0 or valid_ids.max() >= K:
             raise ValueError(f"sem-id codes outside [0, {K})")
-        step_keys = []
+        w_items = (np.ones(N, np.float64) if item_weights is None
+                   else np.asarray(item_weights, np.float64).reshape(N))
+        step_keys, step_weights = [], []
         rank = np.zeros(N, np.int64)
         for t in range(D):
             k = rank * K + valid_ids[:, t]
             uniq = np.unique(k)
             step_keys.append(uniq)
             rank = np.searchsorted(uniq, k)
+            step_weights.append(np.bincount(rank, weights=w_items, minlength=len(uniq)))
         n_max = max(len(u) for u in step_keys)
         C = capacity_for(n_max) if capacity is None else int(capacity)
         if C < n_max:
@@ -86,19 +100,22 @@ class TensorTrie:
             )
         keys = np.full((D, C), PAD_KEY, np.int32)
         offsets = np.zeros((D, C + 1), np.int32)
+        weights = np.zeros((D, C), np.float32)
         for t, uniq in enumerate(step_keys):
             keys[t, : len(uniq)] = uniq
+            weights[t, : len(uniq)] = step_weights[t]
             offsets[t] = np.searchsorted(uniq, np.arange(C + 1) * K)
-        return cls(keys, offsets, K)
+        return cls(keys, offsets, K, weights)
 
     def to(self, device="cuda") -> "TensorTrie":
-        """The same trie with its tables as int64 torch tensors on
-        ``device``."""
+        """The same trie with its key tables as int64 and its weights as
+        float32 torch tensors on ``device``."""
         dev = resolve_device(device)
         return TensorTrie(
             torch.as_tensor(np.asarray(self.keys), dtype=torch.int64, device=dev),
             torch.as_tensor(np.asarray(self.offsets), dtype=torch.int64, device=dev),
             self.codebook_size,
+            torch.as_tensor(np.asarray(self.weights), dtype=torch.float32, device=dev),
         )
 
     # -- the decode-loop interface -------------------------------------------
@@ -144,6 +161,22 @@ class TensorTrie:
         pos = torch.searchsorted(row_keys, key).clamp_max(C - 1)
         hit = torch.gather(row_keys, 1, pos) == key
         return torch.where(hit, pos, torch.full_like(pos, C)).reshape(prefix_idx.shape)
+
+    def child_weights_ragged(self, prefix_idx: torch.Tensor,
+                             steps: torch.Tensor) -> torch.Tensor:
+        """prefix_idx (S, ...) ranks + steps (S,) -> (S, ..., K) float32:
+        the draft weight of each child code where it is legal, 0 where it
+        is not, each row at its own depth."""
+        K = self.codebook_size
+        row_keys = self.keys[steps.long()]  # (S, C)
+        row_w = self.weights[steps.long()]  # (S, C)
+        S = prefix_idx.shape[0]
+        cand = prefix_idx.long()[..., None] * K + torch.arange(K, device=row_keys.device)
+        flat = cand.reshape(S, -1)
+        pos = torch.searchsorted(row_keys, flat).clamp_max(row_keys.shape[1] - 1)
+        hit = torch.gather(row_keys, 1, pos) == flat
+        w = torch.where(hit, torch.gather(row_w, 1, pos), torch.zeros((), device=row_w.device))
+        return w.reshape(cand.shape)
 
     def __repr__(self) -> str:  # pragma: no cover - debugging nicety
         return (f"TensorTrie(depth={self.depth}, capacity={self.capacity}, "

@@ -31,8 +31,13 @@
 //
 // Design (the choices settled by `python3 ce_bwd_ab.py --mode paged`, whose
 // variants are text substitutions of this file):
-//   - One block of 8 warps per (slot, head), all its beams in the block
-//     (splitting them over blocks lost at S 16 and 64). The head dim is a
+//   - One block of 8 warps per (slot, head) and up to 32 beams, all of a
+//     slot's beams in one block when K <= 32 (splitting them over blocks
+//     lost at S 16 and 64). A wider query axis, the speculative tree's
+//     nodes (K 180 or 730), spreads over ceil(K / 32) blocks along z, each
+//     walking the slot's live pages again (mostly from L2); each node's
+//     row is computed as at K <= 32, so the results do not depend on the
+//     split. The head dim is a
 //     template parameter (32, 64 or 128: q and K zero-padded to it in
 //     shared memory, so every hd <= 128 runs and the loops unroll).
 //   - Only live positions are walked. Once a beam's running max m exceeds
@@ -84,7 +89,8 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kStageTokens = 64;  // positions a stage holds; divides kThreads, a multiple of 32
 constexpr int kMaxStages = 4;
 constexpr int kRingBytes = 136 * 1024;  // stages beyond two are added while they fit in this
-constexpr int kBeamSplits = 1;  // blocks sharing a (slot, head), each a split of the beams
+// Beams (or tree nodes) one block holds at most: a (slot, head) with more
+// spreads them over ceil(K / kMaxBeams) blocks along z.
 constexpr int kMaxBeams = 32;
 constexpr float kNeg = -1e9f;
 constexpr float kSkipMargin = 128.f;  // m > kNeg + this: exp(kNeg - m) is exactly 0
@@ -104,7 +110,7 @@ struct Params {
   float* m;
   float* l;
   int K, H, hd, P, page, Pm;
-  int beams_per_block;  // beams of one block: ceil(K / splits)
+  int beams_per_block;  // beams of one block: min(K, kMaxBeams)
   int stages;           // ring depth, 1..kMaxStages
   int copy_bytes;       // 16, 4 or 1
   float scale;
@@ -569,7 +575,7 @@ int launch(Params p, int S, void* stream, int device) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (S == 0 || p.H == 0) return 0;
-  p.beams_per_block = (p.K + kBeamSplits - 1) / kBeamSplits;
+  p.beams_per_block = min(p.K, kMaxBeams);
   const int row_bytes = p.hd * (int)sizeof(T);
   const uintptr_t pools =
       reinterpret_cast<uintptr_t>(p.k_pool) | reinterpret_cast<uintptr_t>(p.v_pool);
@@ -605,7 +611,7 @@ Params params(const void* q, const void* k_pool, const void* v_pool, const void*
 
 // C interface for ctypes. Pointers are device pointers of contiguous
 // tensors (the Python wrapper checks dtype, shape, device and
-// contiguity; K <= 32, hd <= 128); `stream` is the caller's cudaStream_t.
+// contiguity; K >= 1, hd <= 128); `stream` is the caller's cudaStream_t.
 // Each launches on that stream without synchronising and returns
 // cudaGetLastError() (0 = ok).
 extern "C" int paged_attention_stats_f32(

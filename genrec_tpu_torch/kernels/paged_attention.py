@@ -45,7 +45,6 @@ from genrec_tpu_torch.kernels.build import (
 )
 
 NEG = -1e9
-MAX_BEAMS = 32
 MAX_HEAD_DIM = 128
 
 
@@ -75,8 +74,8 @@ def _library() -> ctypes.CDLL:
 
 def block_smem_bytes(beams: int, hd: int, page: int, Pm: int, int8: bool) -> int:
     """Dynamic shared memory a block of B1 (``int8`` False) or B2 takes at
-    these shapes with ``beams`` beams a block (all K of them, unless the
-    slots and heads alone leave SMs idle and the beams are split)."""
+    these shapes with ``beams`` beams a block (``min(K, 32)``: a wider
+    query axis spreads over several blocks)."""
     return int(_library().paged_attention_block_smem(beams, hd, page, Pm, int(int8)))
 
 
@@ -97,9 +96,9 @@ def _check_shapes(q, k_shape, v_shape, block_tables, seq_lens):
         )
     if P < 1:
         raise ValueError("pools hold no page (page 0 is the null page)")
-    if not 1 <= K <= MAX_BEAMS or not 1 <= hd <= MAX_HEAD_DIM:
-        raise ValueError(f"kernel takes 1 <= K <= {MAX_BEAMS}, 1 <= hd <= "
-                         f"{MAX_HEAD_DIM}; got K={K}, hd={hd}")
+    if K < 1 or not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"kernel takes K >= 1, 1 <= hd <= {MAX_HEAD_DIM}; "
+                         f"got K={K}, hd={hd}")
     return S, K, H, hd, P, page, block_tables.shape[1]
 
 
@@ -108,7 +107,8 @@ def paged_attention_stats_cuda(q, k_pool, v_pool, block_tables, seq_lens):
 
     q (S, K, H, hd) float32; pools (P, page, H, hd) float32; block_tables
     (S, Pm) int32; seq_lens (S,) int32; all contiguous on one CUDA device,
-    K <= 32, hd <= 128, any page size and Pm. Raises on anything else, and
+    any K >= 1 (beams, or a speculative tree's nodes: a block takes 32 of
+    them, more spread over blocks), hd <= 128, any page size and Pm. Raises on anything else, and
     when the build or the launch fails. Launches on the current stream and
     does not synchronise.
     ``paged_attention_stats_cuda.launches`` counts the launches.
@@ -144,7 +144,7 @@ def paged_attention_stats_quantized_cuda(q, k_pool, v_pool, block_tables, seq_le
     fp32 over int8 pools. ``k_pool`` / ``v_pool`` are
     ``ops.quant.QuantizedKVPool``s: data (P, page, H, hd) int8 and scale
     (P, page) float32. q (S, K, H, hd) float32, block_tables (S, Pm) and
-    seq_lens (S,) int32; all contiguous on one CUDA device, K <= 32,
+    seq_lens (S,) int32; all contiguous on one CUDA device, any K >= 1,
     hd <= 128. Each K/V element is dequantised in the kernel right after
     its load; the pools are never upcast. Raises as
     ``paged_attention_stats_cuda`` does.

@@ -29,7 +29,12 @@ The decode paths:
   suffix step reading them through ``ops.paged.paged_attention_stats``
   (the B1 kernel over float32 pages, B2 over int8 pages, on the card) and
   merging that partial with the dense suffix partial
-  (``ops.paged.merge_attention_stats``).
+  (``ops.paged.merge_attention_stats``);
+- ``cobra_spec_tree_step``: the speculative tree decode of the suffix
+  (``ops.spec_tree``): every tree node's history partial through B1/B2,
+  its suffix partial over its virtual cache (``ops.paged.
+  tree_suffix_stats``), then the plain step's ``_cobra_beam_update``
+  replayed level by level.
 
 ``jax.lax.top_k`` breaks ties by the lower index; every top-k here is a
 stable sort (``models.tiger._top_k``): trie-masked beams tie at -1e32.
@@ -49,9 +54,20 @@ from genrec_tpu_torch.models.t5transformer import gather_beam_caches, init_decod
 from genrec_tpu_torch.models.tiger import _top_k
 from genrec_tpu_torch.ops.losses import cross_entropy_with_ignore
 from genrec_tpu_torch.ops.normalize import l2norm
-from genrec_tpu_torch.ops.paged import merge_attention_stats, paged_attention_stats, write_pages
+from genrec_tpu_torch.ops.paged import (
+    merge_attention_stats,
+    paged_attention_stats,
+    tree_suffix_stats,
+    write_pages,
+)
 from genrec_tpu_torch.ops.quant import KV_DTYPES, QuantizedKVPool
-from genrec_tpu_torch.ops.trie import advance_ragged, legal_mask_ragged
+from genrec_tpu_torch.ops.spec_tree import (
+    commit_level_kv,
+    match_drafted,
+    tree_topology,
+    tree_virtual_cache,
+)
+from genrec_tpu_torch.ops.trie import advance_ragged, legal_mask_ragged, legal_topk_ragged
 
 NEG = -1e9
 _NEG_SIM = -1e4
@@ -156,6 +172,26 @@ class _TorchMHA(nn.Module):
         out = merge_attention_stats(acc_h, m_h, l_h, acc_s, m_s, l_s).reshape(B, K, D)
         return self.out_proj(out), {"k": ck, "v": cv}
 
+    def decode_tree(self, x, k_pool, v_pool, block_tables, seq_lens, cache, topo,
+                    base_steps):
+        """Speculative tree-verification twin of ``decode_paged``: one pass
+        over every tree node (N in place of the beam axis). The paged
+        history partial is the same ``paged_attention_stats`` read (the
+        nodes of a slot share its pages as its beams do); the suffix
+        partial runs over each node's virtual cache (``ops.spec_tree.
+        tree_virtual_cache``) through ``tree_suffix_stats``; the two merge
+        as in the plain step. ``cache`` is read, never written. Returns
+        (out, (k_new, v_new) per-node projections)."""
+        B, N, D = x.shape
+        q, k_new, v_new = self._step_qkv(x)
+        vc_k = tree_virtual_cache(cache["k"], k_new, topo, base_steps)
+        vc_v = tree_virtual_cache(cache["v"], v_new, topo, base_steps)
+        acc_h, m_h, l_h = paged_attention_stats(q, k_pool, v_pool, block_tables, seq_lens)
+        node_slots = base_steps[:, None] + topo.on(x.device)["level"][None, :]
+        acc_s, m_s, l_s = tree_suffix_stats(q, vc_k, vc_v, node_slots)
+        out = merge_attention_stats(acc_h, m_h, l_h, acc_s, m_s, l_s).reshape(B, N, D)
+        return self.out_proj(out), (k_new, v_new)
+
     def decode(self, x, hist_kv, hist_pad, cache, slot: int):
         """One suffix position for K beams against the shared history K/V
         (B, H, Lh, hd), padding ``hist_pad`` (B, Lh) True; the suffix cache
@@ -246,6 +282,12 @@ class _PostNormDecoderLayer(nn.Module):
                                                    seq_lens, cache, steps)
         return self._post_attn(x, h), new_cache
 
+    def decode_tree(self, x, k_pool, v_pool, block_tables, seq_lens, cache, topo,
+                    base_steps):
+        h, kv = self.self_attn.decode_tree(x, k_pool, v_pool, block_tables, seq_lens,
+                                           cache, topo, base_steps)
+        return self._post_attn(x, h), kv
+
 
 class LightT5Encoder(nn.Module):
     """The item tower: embed + post-norm transformer encoder, mean-pool over
@@ -327,6 +369,17 @@ class CobraDecoder(nn.Module):
             new_caches.append(nc)
         return x, new_caches
 
+    def decode_tree(self, x, k_pools, v_pools, block_tables, seq_lens, caches, topo,
+                    base_steps):
+        """One verification pass over every tree node, all layers: x (B, N,
+        dim) -> (out, per-layer (k_new, v_new))."""
+        node_kvs = []
+        for layer, kp, vp, cache in zip(self.layers, k_pools, v_pools, caches):
+            x, kv = layer.decode_tree(x, kp, vp, block_tables, seq_lens, cache, topo,
+                                      base_steps)
+            node_kvs.append(kv)
+        return x, node_kvs
+
 
 class CobraEmbedding(nn.Module):
     """Interleave C sparse codebook embeddings and one dense vector per
@@ -393,6 +446,17 @@ class CobraEmbedding(nn.Module):
         offset = tok.long() + (steps.long()[:, None] % self.n_codebooks) * self.id_vocab_size
         pos = (base_pos.long() + steps.long()).clamp(0, self.max_len - 1)
         return self.id_embed[offset] + self.pos_embed[pos][:, None] + self.type_embed[0]
+
+    def suffix_token_tree(self, tok, node_slots, base_pos):
+        """``suffix_token_ragged`` with PER-NODE suffix slots: tok (B, N),
+        node_slots (B, N); each tree node embeds its drafted code at its
+        own speculated position. A drafted code outside the codebook (only
+        a test's forced draft makes one) is never accepted; it is clamped
+        so its row exists."""
+        tok = tok.long().clamp(0, self.id_vocab_size - 1)
+        offset = tok + (node_slots.long() % self.n_codebooks) * self.id_vocab_size
+        pos = (base_pos.long()[:, None] + node_slots.long()).clamp(0, self.max_len - 1)
+        return self.id_embed[offset] + self.pos_embed[pos] + self.type_embed[0]
 
 
 def interleave_seq_mask(seq_mask, C: int, n_complete_items: Optional[int] = None):
@@ -586,6 +650,18 @@ class Cobra(nn.Module):
         x = self.cobra_emb.suffix_token_ragged(tok, steps, base_pos)
         return self.decoder.decode_paged(x, k_pools, v_pools, block_tables, seq_lens,
                                          caches, steps)
+
+    def decode_suffix_tree_paged(self, node_tok, topo, base_steps, base_pos, k_pools,
+                                 v_pools, block_tables, seq_lens, caches):
+        """Speculative tree verification: hidden states of EVERY tree node
+        in one suffix pass. ``base_steps`` (S,) is the level-0 suffix slot
+        (the plain step's ``steps - 1``); node n sits at base + level[n].
+        Returns (h (S, N, d), per-layer (k_new, v_new)); ``caches`` are
+        read only."""
+        node_slots = base_steps[:, None] + topo.on(node_tok.device)["level"][None, :]
+        x = self.cobra_emb.suffix_token_tree(node_tok, node_slots, base_pos)
+        return self.decoder.decode_tree(x, k_pools, v_pools, block_tables, seq_lens,
+                                        caches, topo, base_steps)
 
 
 def _constrained_logp(logits, trie, prefix_idx, step: int):
@@ -837,6 +913,126 @@ def cobra_paged_decode_step(model: Cobra, trie, state: dict, steps, block_tables
         "base_pos": state["base_pos"],
         "h_last": _take_beams(h_c, parent),
     }
+
+
+@torch.no_grad()
+def cobra_spec_tree_step(model: Cobra, trie, state: dict, steps, block_tables, seq_lens,
+                         k_pools, v_pools, fanout=4, depth: int | None = None,
+                         temperature: float = 1.0, draft_override=None):
+    """Speculative tree decode of the COBRA suffix: commit 1 to ``depth +
+    1`` codebook positions a slot in ONE decoder invocation.
+
+    As ``models.tiger.tiger_spec_tree_step``: draft trie-legal children a
+    beam by draft weight (the first F codes when ``trie`` is None, free
+    decode), verify the tree in one suffix pass
+    (``Cobra.decode_suffix_tree_paged``), replay the plain step's
+    ``_cobra_beam_update`` level by level, and accept while every
+    selection was a drafted edge. Level 0 is exact. ``draft_override``
+    (tests) replaces the level-l drafts. Returns (new_state, accept (S,)
+    int64).
+    """
+    C = model.n_codebooks
+    S, K, _ = state["beam_tokens"].shape
+    dev = state["beam_tokens"].device
+    if depth is None:
+        depth = max(C - 2, 0)
+    depth = max(min(int(depth), C - 2), 0)
+    topo = tree_topology(K, fanout, depth)
+    caches = [{"k": state["cache_k"][:, i], "v": state["cache_v"][:, i]}
+              for i in range(state["cache_k"].shape[1])]
+
+    # -- draft ---------------------------------------------------------------
+    prev = (steps - 1).clamp(0, C - 1)[:, None, None].expand(S, K, 1)
+    tok_prev = torch.gather(state["beam_tokens"], 2, prev)[:, :, 0]
+    levels_tok = [tok_prev]
+    draft_toks = []
+    cur_prefix = state["prefix_idx"]  # (S, N_prev), N_0 = K
+    for l in range(1, depth + 1):
+        step_l = (steps + (l - 1)).clamp_max(C - 1)
+        F_l = topo.fanouts[l - 1]
+        if draft_override is not None:
+            d_tok = torch.as_tensor(draft_override[l - 1], dtype=torch.int64, device=dev)
+        elif trie is None:  # free decode: no legality to expand
+            d_tok = torch.arange(F_l, device=dev).expand(S, cur_prefix.shape[1], F_l)
+        else:
+            d_tok, _ = legal_topk_ragged(trie, cur_prefix, step_l, F_l)
+        draft_toks.append(d_tok)
+        levels_tok.append(d_tok.reshape(S, -1))
+        if trie is None:
+            cur_prefix = torch.zeros((S, d_tok.shape[1] * d_tok.shape[2]),
+                                     dtype=torch.int64, device=dev)
+        else:
+            cur_prefix = advance_ragged(trie, cur_prefix[..., None].expand(d_tok.shape),
+                                        d_tok, step_l).reshape(S, -1)
+    node_tok = torch.cat(levels_tok, dim=1)  # (S, N)
+
+    # -- verify: one suffix pass over the whole tree ---------------------------
+    h_nodes, node_kvs = model.decode_suffix_tree_paged(
+        node_tok, topo, steps - 1, state["base_pos"], k_pools, v_pools, block_tables,
+        seq_lens, caches)  # (S, N, d)
+    node_steps = steps[:, None] + topo.on(dev)["level"][None, :]
+    c_idx = node_steps.clamp(0, C - 1)
+    d = h_nodes.shape[-1]
+    # Rows whose history does not fill the bucket read their prefill tail.
+    h_tail = torch.gather(state["tail_hidden"], 1, c_idx[..., None].expand(*c_idx.shape, d))
+    h_c_nodes = torch.where(state["full"][:, None, None], h_nodes, h_tail)
+    logits_nodes = model.sparse_head(0, h_c_nodes)
+    for c in range(1, C):  # every sparse head computed, node-selected (C is tiny)
+        logits_nodes = torch.where((node_steps == c)[..., None],
+                                   model.sparse_head(c, h_c_nodes), logits_nodes)
+    logits_nodes = logits_nodes / temperature
+
+    # -- accept scan: replay the plain update along the drafted tree ----------
+    run_tokens = com_tokens = state["beam_tokens"]
+    run_scores = com_scores = state["beam_scores"]
+    run_prefix = com_prefix = state["prefix_idx"]
+    run_ck = com_ck = [c["k"] for c in caches]
+    run_cv = com_cv = [c["v"] for c in caches]
+    com_h_last = state["h_last"]
+    cur_local = torch.arange(K, device=dev)[None].expand(S, K)
+    ok = torch.ones((S,), dtype=torch.bool, device=dev)
+    accept = torch.zeros((S,), dtype=torch.int64, device=dev)
+    V = logits_nodes.shape[-1]
+    for j in range(depth + 1):
+        applied = ok & (steps + j <= C - 1)
+        step_j = (steps + j).clamp_max(C - 1)
+        flat_idx = int(topo.level_offsets[j]) + cur_local  # (S, K)
+        logits_j = torch.gather(logits_nodes, 1, flat_idx[..., None].expand(S, K, V))
+        new_tokens, new_scores, new_prefix, parent, sel_tok = _cobra_beam_update(
+            model, trie, logits_j, run_tokens, run_scores, run_prefix, step_j)
+        # This level's suffix-cache slot is steps - 1 + j.
+        new_ck, new_cv = commit_level_kv(node_kvs, run_ck, run_cv, flat_idx, parent,
+                                         step_j - 1)
+        h_c_sel = _take_beams(h_c_nodes, flat_idx)
+        new_h_last = _take_beams(h_c_sel, parent)
+        ap2 = applied[:, None]
+        ap3 = applied[:, None, None]
+        ap5 = applied[:, None, None, None, None]
+        com_tokens = torch.where(ap3, new_tokens, com_tokens)
+        com_scores = torch.where(ap2, new_scores, com_scores)
+        com_prefix = torch.where(ap2, new_prefix, com_prefix)
+        com_h_last = torch.where(ap3, new_h_last, com_h_last)
+        com_ck = [torch.where(ap5, n, c) for n, c in zip(new_ck, com_ck)]
+        com_cv = [torch.where(ap5, n, c) for n, c in zip(new_cv, com_cv)]
+        accept = accept + applied.long()
+        if j < depth:
+            parent_local = torch.gather(cur_local, 1, parent)
+            matched, child_f = match_drafted(draft_toks[j], parent_local, sel_tok)
+            ok = applied & matched
+            cur_local = parent_local * topo.fanouts[j] + child_f
+            run_tokens, run_scores, run_prefix = new_tokens, new_scores, new_prefix
+            run_ck, run_cv = new_ck, new_cv
+
+    new_state = dict(state)
+    new_state.update(
+        beam_tokens=com_tokens,
+        beam_scores=com_scores,
+        prefix_idx=com_prefix,
+        cache_k=torch.stack(com_ck, dim=1),
+        cache_v=torch.stack(com_cv, dim=1),
+        h_last=com_h_last,
+    )
+    return new_state, accept
 
 
 @torch.no_grad()

@@ -1,7 +1,6 @@
 """T5-style transformer encoder-decoder, TIGER's backbone (port of
 genrec_tpu/models/t5transformer.py: the training forward, the dense
-KV-cached decode and the paged decode; the speculative tree pass waits
-for ROADMAP A23).
+KV-cached decode, the paged decode and the speculative tree pass).
 
 Same contracts as the JAX module: per-layer T5 relative bias stored as an
 ``(n_heads * num_buckets, 1)`` parameter, bias-free projections, fused
@@ -34,6 +33,7 @@ from genrec_tpu_torch.device import resolve_device
 from genrec_tpu_torch.models.layers import Dense, RMSNorm, dropout
 from genrec_tpu_torch.ops.buckets import t5_relative_position_bucket
 from genrec_tpu_torch.ops.paged import paged_attention
+from genrec_tpu_torch.ops.spec_tree import tree_virtual_cache
 
 _NEG = -1e9
 
@@ -202,6 +202,41 @@ class T5Attention(nn.Module):
         out = torch.einsum("bkhs,bkshd->bkhd", attn, cv).reshape(B, K, self.d_model)
         return self.o(out), {"k": ck, "v": cv}
 
+    def decode_self_tree(self, x: torch.Tensor, cache: dict, topo, steps: torch.Tensor):
+        """Speculative tree-verification self-attention: one pass over
+        every candidate-tree node (``ops.spec_tree``).
+
+        x (B, N, d_model): N tree nodes in place of the K beams. cache: the
+        COMMITTED (B, K, S, H, hd) suffix cache, read only (the accept scan
+        commits). steps (B,): the slots' decode positions. Node n attends
+        its root beam's committed prefix plus its ancestors' K/V from this
+        pass (``tree_virtual_cache``), with the ops of
+        ``decode_self_ragged`` at its own position steps + level[n].
+        Returns (out (B, N, d_model), (k_new, v_new) each (B, N, H, hd)).
+        """
+        B, N, _ = x.shape
+        H, hd = self.n_heads, self.head_dim
+        k_new, v_new = self.kv(x).chunk(2, dim=-1)
+        q = self.q(x).reshape(B, N, H, hd)
+        k_new = k_new.reshape(B, N, H, hd)
+        v_new = v_new.reshape(B, N, H, hd)
+        S = cache["k"].shape[2]
+        pos = torch.arange(S, device=x.device)
+        node_steps = steps[:, None] + topo.on(x.device)["level"][None, :]  # (B, N)
+        vk = tree_virtual_cache(cache["k"], k_new, topo, steps)
+        vv = tree_virtual_cache(cache["v"], v_new, topo, steps)
+        scores = torch.einsum("bkhd,bkshd->bkhs", q, vk) * (hd**-0.5)
+        scores = scores.to(torch.float32)
+        if self.has_relative_bias:
+            rel = pos[None, None, :] - node_steps[:, :, None]  # (B, N, S) mem - ctx
+            scores = scores + self._bias_from_rel(rel)  # (B, N, H, S)
+        scores = scores.masked_fill(
+            pos[None, None, None, :] > node_steps[:, :, None, None], _NEG
+        )
+        attn = torch.softmax(scores, dim=-1).to(x.dtype)
+        out = torch.einsum("bkhs,bkshd->bkhd", attn, vv).reshape(B, N, self.d_model)
+        return self.o(out), (k_new, v_new)
+
     def project_kv(self, memory: torch.Tensor):
         """Cross-attention K/V from the encoder memory, computed once per
         request batch: (B, Lm, d) -> two (B, H, Lm, hd)."""
@@ -314,6 +349,21 @@ class TransformerBlock(nn.Module):
             )
         return x + self.ff(self.norm2(x)), new_cache
 
+    def decode_step_tree(self, x, cache, k_pool, v_pool, block_tables,
+                         seq_lens, topo, steps):
+        """``decode_step_paged`` over tree nodes: tree self-attention
+        against the committed cache and the in-pass ancestors; the paged
+        cross-attention reads the slot's pages with the node axis where
+        the beam axis was (B1/B2 on the card). Returns (out, (k_new,
+        v_new)), the nodes' K/V for the accept scan to commit."""
+        h, kv = self.self_attn.decode_self_tree(self.norm1(x), cache, topo, steps)
+        x = x + h
+        if self.has_cross:
+            x = x + self.cross_attn.decode_cross_paged(
+                self.norm_cross(x), k_pool, v_pool, block_tables, seq_lens
+            )
+        return x + self.ff(self.norm2(x)), kv
+
 
 class TransformerEncoder(nn.Module):
     def __init__(self, dim: int, depth: int, num_heads: int,
@@ -384,6 +434,19 @@ class TransformerDecoder(nn.Module):
             )
             new_caches.append(nc)
         return x, new_caches
+
+    def decode_tree(self, x, caches, k_pools, v_pools, block_tables,
+                    seq_lens, topo, steps):
+        """One verification pass over every tree node, all layers: x (B, N,
+        dim) -> (out, per-layer (k_new, v_new)). The committed caches are
+        read, never written."""
+        node_kvs = []
+        for layer, cache, kp, vp in zip(self.layers, caches, k_pools, v_pools):
+            x, kv = layer.decode_step_tree(
+                x, cache, kp, vp, block_tables, seq_lens, topo, steps
+            )
+            node_kvs.append(kv)
+        return x, node_kvs
 
 
 def causal_mask(T: int, device=None) -> torch.Tensor:

@@ -23,7 +23,12 @@ Decoding:
 - ``tiger_prefill_paged`` / ``tiger_paged_decode_step`` /
   ``tiger_generate_paged``: the serving engine's paged decode (float32
   only: B1 and B2 read float32 or int8 pages), its cross-attention read
-  from the pools by the paged-attention kernel.
+  from the pools by the paged-attention kernel;
+- ``tiger_spec_tree_step``: the speculative tree decode (``ops.
+  spec_tree``): a tree of trie-legal drafts verified in one decoder pass
+  (``Tiger.decode_tree_paged``, every node through B1/B2), then the plain
+  step's ``_tiger_beam_update`` replayed level by level, committing 1 to
+  D codes a slot.
 
 Ties are broken as ``jax.lax.top_k`` and ``jnp.lexsort`` break them (lower
 index first), with stable sorts: ties really happen (every illegal
@@ -51,7 +56,8 @@ from genrec_tpu_torch.ops.gumbel import sample_gumbel
 from genrec_tpu_torch.ops.losses import cross_entropy_with_ignore
 from genrec_tpu_torch.ops.paged import write_pages
 from genrec_tpu_torch.ops.quant import KV_DTYPES, QuantizedKVPool
-from genrec_tpu_torch.ops.trie import advance_ragged, legal_mask_ragged
+from genrec_tpu_torch.ops.spec_tree import commit_level_kv, match_drafted, tree_topology
+from genrec_tpu_torch.ops.trie import advance_ragged, legal_mask_ragged, legal_topk_ragged
 
 _ILLEGAL = -1e32
 
@@ -304,6 +310,34 @@ class Tiger(nn.Module):
         logits = self._mask_pad_logits(self.output_head(x))
         return logits.to(torch.float32), new_caches
 
+    def decode_tree_paged(self, node_tok, topo, steps, caches, k_pools, v_pools,
+                          block_tables, seq_lens):
+        """Speculative tree verification: logits for EVERY candidate-tree
+        node in one decoder pass (``ops.spec_tree``).
+
+        node_tok (S, N): level-major node inputs, level 0 each beam's last
+        committed token (the plain step's input; BOS where the slot is at
+        step 0), level l the drafted step-(t + l - 1) candidates. Each
+        node's logits come from the ops ``decode_step_paged`` runs at its
+        step. Returns (logits (S, N, V) fp32, per-layer (k_new, v_new));
+        ``caches`` are read, never written.
+        """
+        S, N = node_tok.shape
+        node_steps = steps[:, None] + topo.on(node_tok.device)["level"][None, :]
+        bos = self.bos_embedding.expand(S, N, self.embedding_dim)
+        tok_type = (node_steps - 1).clamp(0, self.sem_id_dim - 1)
+        # A drafted code outside the codebook (only a test's forced draft
+        # makes one) is never accepted; clamped, its embedding row exists.
+        tok = node_tok.clamp(0, self.num_item_embeddings - 1)
+        emb = self.sem_id_embedding(tok, tok_type)
+        x = torch.where((node_steps == 0)[..., None], bos, emb)
+        x = self.in_proj(self.norm(x))
+        x, node_kvs = self.transformer.decoder.decode_tree(
+            x, caches, k_pools, v_pools, block_tables, seq_lens, topo, steps
+        )
+        logits = self._mask_pad_logits(self.output_head(x))
+        return logits.to(torch.float32), node_kvs
+
     def decode_step_paged(self, last_tok, caches, k_pools, v_pools,
                           block_tables, seq_lens, steps):
         """One decode position for every row at its own step against the
@@ -346,21 +380,27 @@ def _dedup_top_k(scores: torch.Tensor, keys: torch.Tensor, k: int):
     return _top_k(scores.masked_fill(~keep, float("-inf")), k)
 
 
-def init_tiger_paged_state(model: Tiger, n_slots: int, beams: int) -> dict:
+def init_tiger_paged_state(model: Tiger, n_slots: int, beams: int,
+                           draft_hint: bool = False) -> dict:
     """Zeroed slot-major decode state on the model's device. cache_k and
-    cache_v stack the per-layer suffix caches on axis 1."""
+    cache_v stack the per-layer suffix caches on axis 1. ``draft_hint``
+    (speculative engines) adds ``logits0``, the slot's step-0 logit
+    window that the prefill computes for the drafter."""
     nl = model.n_layers // 2
     H = model.num_heads
     hd = model.attn_dim // H
     D = model.sem_id_dim
     dev = model.device
-    return {
+    state = {
         "beam_seqs": torch.zeros((n_slots, beams, D), dtype=torch.int64, device=dev),
         "beam_logps": torch.zeros((n_slots, beams), dtype=torch.float32, device=dev),
         "prefix_idx": torch.zeros((n_slots, beams), dtype=torch.int64, device=dev),
         "cache_k": torch.zeros((n_slots, nl, beams, D, H, hd), device=dev),
         "cache_v": torch.zeros((n_slots, nl, beams, D, H, hd), device=dev),
     }
+    if draft_hint:
+        state["logits0"] = torch.zeros((n_slots, model.num_item_embeddings), device=dev)
+    return state
 
 
 def _draw_candidates(logp: torch.Tensor, k: int, generator=None) -> torch.Tensor:
@@ -520,13 +560,133 @@ def tiger_paged_decode_step(model: Tiger, trie, state: dict, steps, block_tables
 
 
 @torch.no_grad()
+def tiger_spec_tree_step(model: Tiger, trie, state: dict, steps, block_tables, seq_lens,
+                         k_pools, v_pools, fanout=4, depth: int | None = None,
+                         temperature: float = 0.2, sample_factor: int = 6,
+                         draft_override=None):
+    """Speculative tree decode: commit 1 to ``depth + 1`` constrained-beam
+    positions a slot in ONE decoder invocation.
+
+    Draft: per beam the top-``fanout`` trie-legal continuations by the
+    trie's draft weights (``ops.trie.legal_topk_ragged``; at step 0 the
+    top of the prefill's ``logits0`` window where the state has one),
+    expanded ``depth`` levels into a static-topology tree. Verify: one
+    decoder pass over every node (``Tiger.decode_tree_paged``); level 0
+    is the current step's own forward, always exact. Accept: replay the
+    plain step's ``_tiger_beam_update`` level by level on the verified
+    logits; a level commits only while every selected (parent, token)
+    pair was a drafted edge, so the result is the plain step run
+    accept-many times, and a drafter that disagrees commits exactly 1.
+    Deterministic beams only. ``draft_override`` (tests) replaces the
+    drafter's level-l candidate arrays (S, N_{l-1}, F).
+
+    Returns (new_state, accept (S,) int64 codes committed a slot).
+    """
+    S, K, D = state["beam_seqs"].shape
+    dev = state["beam_seqs"].device
+    if depth is None:
+        depth = D - 1
+    depth = max(min(int(depth), D - 1), 0)
+    topo = tree_topology(K, fanout, depth)
+    caches = [
+        {"k": state["cache_k"][:, i], "v": state["cache_v"][:, i]}
+        for i in range(state["cache_k"].shape[1])
+    ]
+
+    # -- draft the candidate tree (trie gathers only, no model work) ---------
+    last_idx = (steps - 1).clamp(0, D - 1)[:, None, None].expand(S, K, 1)
+    last_tok = torch.gather(state["beam_seqs"], 2, last_idx)[:, :, 0]
+    levels_tok = [last_tok]  # level-0 inputs: the plain step's
+    draft_toks = []
+    cur_prefix = state["prefix_idx"]  # (S, N_prev), N_0 = K
+    for l in range(1, depth + 1):
+        step_l = (steps + (l - 1)).clamp_max(D - 1)  # overdeep levels are never accepted
+        if draft_override is not None:
+            d_tok = torch.as_tensor(draft_override[l - 1], dtype=torch.int64, device=dev)
+        else:
+            d_tok, _ = legal_topk_ragged(trie, cur_prefix, step_l, topo.fanouts[l - 1])
+            if l == 1 and "logits0" in state:
+                # At step 0 the root codebook's branching carries no
+                # popularity signal: draft the top of the model's own
+                # step-0 window, computed at prefill.
+                hint = _top_k(state["logits0"], topo.fanouts[0])[1]  # (S, F1)
+                d_tok = torch.where((steps == 0)[:, None, None],
+                                    hint[:, None, :].expand(d_tok.shape), d_tok)
+        draft_toks.append(d_tok)  # (S, N_{l-1}, F)
+        levels_tok.append(d_tok.reshape(S, -1))
+        cur_prefix = advance_ragged(
+            trie, cur_prefix[..., None].expand(d_tok.shape), d_tok, step_l,
+        ).reshape(S, -1)
+    node_tok = torch.cat(levels_tok, dim=1)  # (S, N)
+
+    # -- verify: one pass over the whole tree ----------------------------------
+    logits_all, node_kvs = model.decode_tree_paged(
+        node_tok, topo, steps, caches, k_pools, v_pools, block_tables, seq_lens
+    )  # (S, N, V), per-layer (k_new, v_new)
+
+    # -- accept scan: replay the plain update along the drafted tree ----------
+    run_seqs = com_seqs = state["beam_seqs"]
+    run_logps = com_logps = state["beam_logps"]
+    run_prefix = com_prefix = state["prefix_idx"]
+    run_ck = com_ck = [c["k"] for c in caches]
+    run_cv = com_cv = [c["v"] for c in caches]
+    cur_local = torch.arange(K, device=dev)[None].expand(S, K)
+    ok = torch.ones((S,), dtype=torch.bool, device=dev)
+    accept = torch.zeros((S,), dtype=torch.int64, device=dev)
+    V = logits_all.shape[-1]
+    for j in range(depth + 1):
+        applied = ok & (steps + j <= D - 1)  # (S,) per-slot acceptance
+        step_j = (steps + j).clamp_max(D - 1)
+        flat_idx = int(topo.level_offsets[j]) + cur_local  # (S, K) node ids
+        logits_j = torch.gather(logits_all, 1, flat_idx[..., None].expand(S, K, V))
+        new_seqs, new_logps, new_prefix, sel_parent, sel_tok = _tiger_beam_update(
+            model, trie, logits_j, run_seqs, run_logps, run_prefix, step_j,
+            temperature, sample_factor,
+        )
+        new_ck, new_cv = commit_level_kv(node_kvs, run_ck, run_cv, flat_idx, sel_parent, step_j)
+        ap2 = applied[:, None]
+        ap5 = applied[:, None, None, None, None]
+        com_seqs = torch.where(applied[:, None, None], new_seqs, com_seqs)
+        com_logps = torch.where(ap2, new_logps, com_logps)
+        com_prefix = torch.where(ap2, new_prefix, com_prefix)
+        com_ck = [torch.where(ap5, n, c) for n, c in zip(new_ck, com_ck)]
+        com_cv = [torch.where(ap5, n, c) for n, c in zip(new_cv, com_cv)]
+        accept = accept + applied.long()
+        if j < depth:
+            parent_local = torch.gather(cur_local, 1, sel_parent)
+            matched, child_f = match_drafted(draft_toks[j], parent_local, sel_tok)
+            ok = applied & matched
+            cur_local = parent_local * topo.fanouts[j] + child_f
+            run_seqs, run_logps, run_prefix = new_seqs, new_logps, new_prefix
+            run_ck, run_cv = new_ck, new_cv
+
+    new_state = dict(state)
+    new_state.update(
+        beam_seqs=com_seqs,
+        beam_logps=com_logps,
+        prefix_idx=com_prefix,
+        cache_k=torch.stack(com_ck, dim=1),
+        cache_v=torch.stack(com_cv, dim=1),
+    )
+    return new_state, accept
+
+
+@torch.no_grad()
 def tiger_prefill_paged(model: Tiger, user_input_ids, item_input_ids,
-                        token_type_ids, seq_mask, block_tables, k_pools, v_pools):
+                        token_type_ids, seq_mask, block_tables, k_pools, v_pools,
+                        trie=None, draft_hint: bool = False):
     """Bucketed prefill that writes its cross-attention K/V into the page
-    pools (in place). Returns (k_pools, v_pools, seq_lens (B,) int32): the
-    valid KV length per row, user token + real sem-id tokens, which
-    assumes a CONTIGUOUS valid prefix in seq_mask. Rows padded past their
-    page allocation scatter into the null page 0."""
+    pools (in place). Returns (k_pools, v_pools, seq_lens (B,) int32,
+    extras): seq_lens is the valid KV length per row, user token + real
+    sem-id tokens, which assumes a CONTIGUOUS valid prefix in seq_mask.
+    Rows padded past their page allocation scatter into the null page 0.
+
+    ``draft_hint`` (the speculative engine) also runs the BOS decoder
+    position against the fresh encoder memory and returns
+    ``extras["logits0"]`` (B, K_cb): the step-0 logit window, trie-masked
+    to -inf where ``trie`` is given, which the drafter ranks the first
+    speculated level by. It only ranks candidates, so the dense pass's
+    float association is harmless."""
     if model.dtype != torch.float32:
         raise NotImplementedError(
             f"paged decode of a {model.dtype} TIGER: B1 and B2 read float32 or int8 "
@@ -535,11 +695,22 @@ def tiger_prefill_paged(model: Tiger, user_input_ids, item_input_ids,
         user_input_ids, item_input_ids, token_type_ids, seq_mask
     )
     seq_lens = (~pad).sum(dim=1).to(torch.int32)
+    extras = {}
+    if draft_hint:
+        B = pad.shape[0]
+        caches = init_decode_caches(len(cross_kvs), B, 1, model.sem_id_dim, model.num_heads,
+                                    model.attn_dim, model.dtype, device=pad.device)
+        logits, _ = model.decode_step_cached(None, caches, cross_kvs, pad, 0)  # (B, 1, V)
+        window = logits[:, 0, : model.num_item_embeddings]
+        if trie is not None:
+            legal = trie.legal_mask(torch.zeros((B,), dtype=torch.long, device=pad.device), 0)
+            window = window.masked_fill(~legal, float("-inf"))
+        extras["logits0"] = window.to(torch.float32)
     for pool, kv in zip(k_pools, cross_kvs):
         write_pages(pool, block_tables, kv[0])
     for pool, kv in zip(v_pools, cross_kvs):
         write_pages(pool, block_tables, kv[1])
-    return k_pools, v_pools, seq_lens
+    return k_pools, v_pools, seq_lens, extras
 
 
 @torch.no_grad()
@@ -575,7 +746,7 @@ def tiger_generate_paged(model: Tiger, trie, user_input_ids, item_input_ids,
         raise ValueError(f"kv_dtype {kv_dtype!r} not supported; choose one of {KV_DTYPES}")
     k_pools = tuple(zeros() for _ in range(nl))
     v_pools = tuple(zeros() for _ in range(nl))
-    k_pools, v_pools, seq_lens = tiger_prefill_paged(
+    k_pools, v_pools, seq_lens, _ = tiger_prefill_paged(
         model, user_input_ids, item_input_ids, token_type_ids, seq_mask,
         block_tables, k_pools, v_pools,
     )

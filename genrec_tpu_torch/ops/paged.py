@@ -40,7 +40,7 @@ NEG = -1e9
 
 __all__ = [
     "NEG", "gather_pages", "write_pages", "paged_attention_stats",
-    "merge_attention_stats", "paged_attention", "_stats_fallback",
+    "tree_suffix_stats", "merge_attention_stats", "paged_attention", "_stats_fallback",
 ]
 
 
@@ -107,6 +107,31 @@ def paged_attention_stats(q, k_pool, v_pool, block_tables, seq_lens):
     else:
         fn = paged_attention_stats_cuda if q.is_cuda else _stats_fallback
     return fn(q, k_pool, v_pool, block_tables, seq_lens)
+
+
+def tree_suffix_stats(q, vc_k, vc_v, node_steps):
+    """Flash statistics of per-NODE queries over per-node virtual suffix
+    caches with the tree-causal mask: the speculative tree's twin of the
+    dense suffix partial of COBRA's paged step (plain torch, no kernel, as
+    in JAX).
+
+    q (S, N, H, hd): one query per tree node. vc_k / vc_v (S, N, Sc, H,
+    hd): each node's virtual cache (``ops.spec_tree.tree_virtual_cache``).
+    node_steps (S, N): the node's own cache slot; later slots score -1e9
+    inside the softmax, as in the plain step. Returns (acc, m, l) fp32,
+    to merge with the paged history partial through
+    ``merge_attention_stats``.
+    """
+    hd = q.shape[-1]
+    Sc = vc_k.shape[2]
+    s = torch.einsum("bkhd,bkshd->bkhs", q, vc_k).to(torch.float32) * (hd**-0.5)
+    slots = torch.arange(Sc, device=q.device)
+    s = s.masked_fill(slots[None, None, None, :] > node_steps.long()[:, :, None, None], NEG)
+    m = s.amax(dim=-1)
+    e = torch.exp(s - m[..., None])
+    l = e.sum(dim=-1)
+    acc = torch.einsum("bkhs,bkshd->bkhd", e, vc_v.to(torch.float32))
+    return acc, m, l
 
 
 def merge_attention_stats(acc_a, m_a, l_a, acc_b, m_b, l_b) -> torch.Tensor:

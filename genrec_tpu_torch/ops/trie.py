@@ -14,8 +14,9 @@ while the deepest fits in ``dense_max_bits`` bools.
 
 The tables are built on the host with numpy and held as torch tensors on
 ``device`` (int64 keys, the index type torch gathers take).
-``legal_mask_ragged`` / ``advance_ragged`` serve rows at different depths
-in one call: ``catalog.TensorTrie`` does it with one gather, the two tries
+``legal_mask_ragged`` / ``advance_ragged`` (and ``legal_topk_ragged``, the
+speculative drafter's expansion) serve rows at different depths in one
+call: ``catalog.TensorTrie`` does it with one gather, the two tries
 here by computing every depth and selecting per row (depth is 3-4).
 """
 
@@ -155,6 +156,28 @@ def advance_ragged(trie, prefix_idx: torch.Tensor, token: torch.Tensor,
         adv_t = trie.advance(_clip_prefix(trie, prefix_idx, t), token, t)
         out = adv_t if out is None else torch.where((steps == t).reshape(sel_shape), adv_t, out)
     return out
+
+
+def legal_topk_ragged(trie, prefix_idx: torch.Tensor, steps: torch.Tensor,
+                      k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-``k`` trie-legal child codes per prefix, each row at its own
+    depth: the expansion the speculative drafter (``ops.spec_tree``)
+    builds its candidate tree from.
+
+    Ranked by descending draft weight where the trie carries one
+    (``catalog.TensorTrie.child_weights_ragged``), ties, and tries without
+    weights, by ascending code (a stable sort, as ``jax.lax.top_k``
+    breaks ties). prefix_idx (S, ...), steps (S,) -> (tokens (S, ..., k)
+    int64, legal (S, ..., k) bool); a prefix with fewer than ``k`` legal
+    children pads with illegal codes flagged False.
+    """
+    legal = legal_mask_ragged(trie, prefix_idx, steps)  # (S, ..., K)
+    weigher = getattr(trie, "child_weights_ragged", None)
+    score = (weigher(prefix_idx, steps) if weigher is not None
+             else torch.zeros(legal.shape, device=legal.device))
+    score = score.masked_fill(~legal, float("-inf"))
+    tok = torch.sort(-score, dim=-1, stable=True).indices[..., :k]
+    return tok, torch.gather(legal, -1, tok)
 
 
 def tuples_are_valid(trie, seqs: torch.Tensor) -> torch.Tensor:

@@ -40,6 +40,17 @@ Paged heads add the hooks the engine's `_PagedRunner` composes:
 - ``paged_finalize(rows, req)``: the finished slot's host rows (only
   ``paged_output_keys``) -> response payload.
 
+Paged heads with ``supports_spec`` also serve the speculative tree decode
+(``spec_depth`` levels past the exact root step):
+``enable_spec_drafting()`` runs before the runner builds state and
+prefill, so the head may add drafter hints to both (TIGER's step-0 logit
+window), and ``make_spec_decode_paged_fn(fanout)`` takes the plain decode
+function's arguments and returns (state, accept (S,)). For the prefix
+cache, ``prefix_key_tokens(req, max_history)`` is the token key of the
+history the prefill encodes (None: the head takes no part), and
+``paged_warm_state(init, n_tokens, L_bucket)`` the state rows a warm
+admission restores from the donor's post-prefill rows.
+
 The JAX heads are pure functions of a params tree; here the weights live
 in the head's ``nn.Module``, so the functions take no params argument.
 """
@@ -55,6 +66,7 @@ from genrec_tpu_torch.catalog.snapshot import CatalogSnapshot
 from genrec_tpu_torch.models.cobra import (
     cobra_paged_decode_step,
     cobra_prefill_paged,
+    cobra_spec_tree_step,
     init_cobra_paged_state,
 )
 from genrec_tpu_torch.models.embeddings import quantize_item_table
@@ -62,6 +74,7 @@ from genrec_tpu_torch.models.tiger import (
     init_tiger_paged_state,
     tiger_paged_decode_step,
     tiger_prefill_paged,
+    tiger_spec_tree_step,
 )
 from genrec_tpu_torch.parallel.shardings import item_topk
 
@@ -72,10 +85,38 @@ class Head:
     name: str
     top_k: int
     supports_paged = False
+    supports_spec = False
 
     @property
     def device(self) -> torch.device:
         raise NotImplementedError
+
+    @property
+    def spec_depth(self) -> int:
+        return 0
+
+    def enable_spec_drafting(self) -> None:
+        return None
+
+    def make_spec_decode_paged_fn(self, fanout):
+        raise NotImplementedError(f"head {self.name!r} has no speculative decode")
+
+    def prefix_key_tokens(self, req, max_history: int):
+        """Token key of the history this head's prefill encodes (bucket-
+        clipped to the newest ``max_history`` items, dead ids dropped as
+        ``make_batch`` drops them, plus any per-request conditioning):
+        equal keys prefill equal pages, so a full-key prefix-cache hit is
+        exact. None: the head takes no part in the prefix cache."""
+        del req, max_history
+        return None
+
+    def paged_warm_state(self, init, n_tokens: int, L_bucket: int):
+        """State rows a warm admission restores in place of the prefill:
+        the donor's post-prefill rows ``init`` (None when the prefill
+        leaves the state zeroed), patched where they depend on the
+        admission's bucket rather than the history."""
+        del n_tokens, L_bucket
+        return init
 
     def runtime_operands(self) -> tuple:
         """Device-side operands passed ahead of the batch to every paged
@@ -191,12 +232,14 @@ class TigerGenerativeHead(_CatalogHead):
 
     #: State keys ``paged_finalize`` reads: only these leave the device.
     paged_output_keys = ("beam_seqs", "beam_logps")
+    supports_spec = True
 
     def __init__(self, model, item_sem_ids: Optional[np.ndarray] = None,
                  top_k: int = 10, name: str = "tiger", catalog=None):
         self.model = model
         self.name = name
         self.top_k = top_k
+        self._spec_draft_hint = False
         if catalog is None:
             if item_sem_ids is None:
                 raise ValueError("need item_sem_ids or catalog=")
@@ -248,16 +291,39 @@ class TigerGenerativeHead(_CatalogHead):
         # user token + D sem-id tokens per (bucket-clipped) history item
         return 1 + min(int(n_items), L_bucket) * self.model.sem_id_dim
 
+    @property
+    def spec_depth(self) -> int:
+        # The root level is exact; the rest of the tuple is speculated.
+        return self.model.sem_id_dim - 1
+
+    def enable_spec_drafting(self) -> None:
+        """Add the step-0 logit window to the prefill and to the slot state:
+        the drafter's signal at the root codebook, where trie popularity
+        says nothing."""
+        self._spec_draft_hint = True
+
     def paged_state_zeros(self, n_slots: int) -> dict:
-        return init_tiger_paged_state(self.model, n_slots, self.top_k)
+        return init_tiger_paged_state(self.model, n_slots, self.top_k,
+                                      draft_hint=self._spec_draft_hint)
 
     def make_prefill_paged_fn(self, B: int, L: int):
         del B, L  # shapes come from make_batch / block_tables
 
         def fn(trie, user, ids, types, mask, block_tables, k_pools, v_pools):
-            del trie  # TIGER's prefill is trie-free
-            tiger_prefill_paged(self.model, user, ids, types, mask,
-                                block_tables, k_pools, v_pools)
+            # The plain prefill is trie-free; the speculative one masks its
+            # step-0 draft window with it.
+            return tiger_prefill_paged(self.model, user, ids, types, mask, block_tables,
+                                       k_pools, v_pools, trie=trie,
+                                       draft_hint=self._spec_draft_hint)[3]
+
+        return fn
+
+    def make_spec_decode_paged_fn(self, fanout):
+        def fn(trie, state, steps, block_tables, seq_lens, k_pools, v_pools):
+            return tiger_spec_tree_step(
+                self.model, trie, state, steps, block_tables, seq_lens, k_pools, v_pools,
+                fanout=fanout, depth=self.spec_depth,
+            )
 
         return fn
 
@@ -274,6 +340,14 @@ class TigerGenerativeHead(_CatalogHead):
         sem = rows["beam_seqs"]
         return dict(items=self.lookup(sem), scores=rows["beam_logps"], sem_ids=sem)
 
+    def prefix_key_tokens(self, req, max_history: int):
+        """The user token is encoder position 0 and the encoder is
+        bidirectional, so the key carries the user and only a full-key
+        match reuses pages."""
+        h = _clip_history(req.history, max_history)
+        h = h[h < len(self.item_sem_ids)]  # make_batch's drop rule
+        return (int(req.user_id) % self.model.num_user_embeddings, *(int(x) for x in h))
+
 
 class CobraGenerativeHead(_CatalogHead):
     """COBRA trie-constrained beam search through the paged decode path.
@@ -285,12 +359,12 @@ class CobraGenerativeHead(_CatalogHead):
     ``set_catalog`` encode only when the version changed;
     ``tower_encodes`` counts the encodes). Codebook 0 resolves at prefill,
     so decode steps cover codebooks 1 .. C - 1. Beam search runs at
-    temperature 1 and is deterministic. Speculative decode and the prefix
-    cache's warm state are not ported (ROADMAP A23, A11).
+    temperature 1 and is deterministic.
     """
 
     #: State keys ``paged_finalize`` reads: only these leave the device.
     paged_output_keys = ("beam_tokens", "beam_scores")
+    supports_spec = True
     #: Rows a tower encode takes at once (bounds its activations).
     tower_chunk = 2048
 
@@ -405,9 +479,42 @@ class CobraGenerativeHead(_CatalogHead):
 
         return fn
 
+    @property
+    def spec_depth(self) -> int:
+        # Codebook 0 resolves at prefill, the first suffix step is the exact
+        # root: the other C - 2 codebooks are speculated.
+        return max(self.model.n_codebooks - 2, 0)
+
+    def make_spec_decode_paged_fn(self, fanout):
+        def fn(trie, state, steps, block_tables, seq_lens, k_pools, v_pools):
+            return cobra_spec_tree_step(
+                self.model, trie, state, steps, block_tables, seq_lens, k_pools, v_pools,
+                fanout=fanout, depth=self.spec_depth, temperature=1.0,
+            )
+
+        return fn
+
     def paged_finalize(self, rows: dict, req) -> dict:
         sem = rows["beam_tokens"]
         return dict(items=self.lookup(sem), scores=rows["beam_scores"], sem_ids=sem)
+
+    def prefix_key_tokens(self, req, max_history: int):
+        """The effective item history alone (the decoder input has no user
+        token). The prefill also resolves codebook 0 from the history's
+        last position, so only a full-key match reuses pages."""
+        h = _clip_history(req.history, max_history)
+        h = h[h < len(self.item_sem_ids)]  # make_batch's drop rule
+        return tuple(int(x) for x in h)
+
+    def paged_warm_state(self, init, n_tokens: int, L_bucket: int):
+        """The donor's rows, but ``full`` ("does the history fill its
+        prefill bucket") judged at the admission's own bucket, from the
+        donor's ``base_pos`` (the prefill's pad-masked valid length, not
+        ``n_tokens``, which counts ids ``make_batch`` drops)."""
+        del n_tokens
+        patched = dict(init)
+        patched["full"] = init["base_pos"] == L_bucket * (self.model.n_codebooks + 1)
+        return patched
 
 
 class RetrievalHead(Head):

@@ -1,7 +1,9 @@
 """Serving instrumentation (port of genrec_tpu/serving/metrics.py, the
 counters the paged engine records): latency histograms with p50/p95/p99,
 lifetime and recent-window QPS, per-(head, batch, history) bucket hits,
-admit/evict churn and per-head KV-pool gauges.
+admit/evict churn, deferred admissions, per-head KV-pool gauges, the
+prefix cache's lookups and churn, and the speculative decode's drafted
+and accepted codes.
 
 Histograms are fixed log-spaced buckets, so recording allocates nothing;
 percentiles report the upper edge of the containing bucket (<= 25%
@@ -75,7 +77,30 @@ class ServingMetrics:
         self.admits = 0
         self.evictions = 0
         self.decode_steps = 0
+        self.oom_deferred_admits = 0
         self.pool_gauges: dict[str, dict] = {}
+        # Prefix cache, per head: lookup outcomes (a partial hit matched a
+        # shorter retained history and admitted cold), KV tokens served
+        # warm (prefill not paid), index churn, and the index's gauges.
+        self.prefix_lookups: collections.Counter = collections.Counter()
+        self.prefix_hits: collections.Counter = collections.Counter()
+        self.prefix_partial_hits: collections.Counter = collections.Counter()
+        self.prefix_misses: collections.Counter = collections.Counter()
+        self.prefix_warm_tokens: collections.Counter = collections.Counter()
+        self.prefix_insertions: collections.Counter = collections.Counter()
+        self.prefix_evictions: collections.Counter = collections.Counter()
+        self.prefix_invalidations: collections.Counter = collections.Counter()
+        self.prefix_gauges: dict[str, dict] = {}
+        # Speculative decode, per head: ``decode_steps`` keeps counting
+        # decoder invocations (a spec call is one, however many codes it
+        # commits); these count the speculated tokens drafted, the codes
+        # committed, the slot-steps (one an active slot a call) and the
+        # accept lengths.
+        self.spec_steps: collections.Counter = collections.Counter()
+        self.spec_drafted: collections.Counter = collections.Counter()
+        self.spec_accepted: collections.Counter = collections.Counter()
+        self.spec_slot_steps: collections.Counter = collections.Counter()
+        self.spec_accept_hist: dict[str, collections.Counter] = {}
         self._recent = collections.deque(maxlen=recent_window)
         self._started = time.monotonic()
 
@@ -103,6 +128,54 @@ class ServingMetrics:
     def record_decode_step(self) -> None:
         with self._lock:
             self.decode_steps += 1
+
+    def record_oom_admit(self, n: int = 1) -> None:
+        """Admissions deferred because the pool had no free pages even
+        after reclaiming retained prefix pages; the requests stay queued."""
+        with self._lock:
+            self.oom_deferred_admits += n
+
+    def record_spec(self, head: str, drafted: int, accept_lens) -> None:
+        """One speculative invocation: ``drafted`` tokens speculated over
+        the active slots, ``accept_lens`` the codes each active slot
+        committed (>= 1). The invocation itself is `record_decode_step`."""
+        lens = [int(x) for x in accept_lens]
+        with self._lock:
+            self.spec_steps[head] += 1
+            self.spec_drafted[head] += int(drafted)
+            self.spec_slot_steps[head] += len(lens)
+            self.spec_accepted[head] += sum(lens)
+            self.spec_accept_hist.setdefault(head, collections.Counter()).update(lens)
+
+    def record_prefix_lookup(self, head: str, outcome: str, tokens: int = 0) -> None:
+        """One lookup, ``outcome`` "hit", "partial" or "miss"; ``tokens``
+        the KV tokens a hit serves warm."""
+        with self._lock:
+            self.prefix_lookups[head] += 1
+            if outcome == "hit":
+                self.prefix_hits[head] += 1
+                self.prefix_warm_tokens[head] += int(tokens)
+            elif outcome == "partial":
+                self.prefix_partial_hits[head] += 1
+            else:
+                self.prefix_misses[head] += 1
+
+    def record_prefix_insert(self, head: str, n: int = 1) -> None:
+        with self._lock:
+            self.prefix_insertions[head] += n
+
+    def record_prefix_evict(self, head: str, n: int = 1, invalidation: bool = False) -> None:
+        """Entries dropped: by reclaim (pool pressure) or, apart, by a
+        wholesale invalidation (drain)."""
+        with self._lock:
+            if invalidation:
+                self.prefix_invalidations[head] += n
+            else:
+                self.prefix_evictions[head] += n
+
+    def set_prefix_gauges(self, head: str, gauges: dict) -> None:
+        with self._lock:
+            self.prefix_gauges[head] = dict(gauges)
 
     def set_pool_gauges(self, head: str, gauges: dict) -> None:
         with self._lock:
@@ -154,8 +227,37 @@ class ServingMetrics:
                 admits=self.admits,
                 evictions=self.evictions,
                 decode_steps=self.decode_steps,
+                oom_deferred_admits=self.oom_deferred_admits,
             )
             kv_pool = {h: dict(g) for h, g in sorted(self.pool_gauges.items())}
+            prefix_cache = {
+                h: {
+                    "lookups": self.prefix_lookups[h],
+                    "hits": self.prefix_hits[h],
+                    "partial_hits": self.prefix_partial_hits[h],
+                    "misses": self.prefix_misses[h],
+                    "warm_tokens": self.prefix_warm_tokens[h],
+                    "insertions": self.prefix_insertions[h],
+                    "evictions": self.prefix_evictions[h],
+                    "invalidations": self.prefix_invalidations[h],
+                    **self.prefix_gauges.get(h, {}),
+                }
+                for h in sorted(set(self.prefix_lookups) | set(self.prefix_gauges))
+            }
+            spec = {}
+            for h in sorted(self.spec_steps):
+                slot_steps = self.spec_slot_steps[h]
+                spec[h] = {
+                    "spec_steps": self.spec_steps[h],
+                    "drafted": self.spec_drafted[h],
+                    "accepted": self.spec_accepted[h],
+                    "slot_steps": slot_steps,
+                    # Codes a slot commits a decoder call (plain decode: 1.0).
+                    "codes_per_invocation": round(self.spec_accepted[h] / slot_steps, 4)
+                    if slot_steps else 0.0,
+                    "accept_len_hist": {f"accept_len_{n}": c
+                                        for n, c in sorted(self.spec_accept_hist[h].items())},
+                }
         return {
             **counts,
             "qps": round(self.qps(), 3),
@@ -165,4 +267,6 @@ class ServingMetrics:
             "total_ms": self.total.summary(),
             "bucket_hits": bucket_hits,
             "kv_pool": kv_pool,
+            "prefix_cache": prefix_cache,
+            "spec": spec,
         }

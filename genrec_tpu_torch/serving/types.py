@@ -1,6 +1,6 @@
 """Typed request/response surface of the serving engine (port of
-genrec_tpu/serving/types.py, the fields the paged TIGER path and the
-retrieval heads fill).
+genrec_tpu/serving/types.py, the fields the paged heads and the
+retrieval heads fill, and ``normalize_spec_config``).
 
 A `Request` names a head and carries the user's item-id history (oldest
 first); the engine answers with a `Response` holding the top-k items,
@@ -14,6 +14,29 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+
+
+def normalize_spec_config(spec_decode, spec_fanout, head_names):
+    """The speculative-decode opt-in of `ServingEngine`: ``spec_decode``
+    is True/False or a set of head names (checked against
+    ``head_names``), ``spec_fanout`` one int or a per-level tuple. Returns
+    (spec_decode, spec_fanout) as (bool | frozenset, int | tuple[int,
+    ...])."""
+    spec = (
+        frozenset(spec_decode)
+        if isinstance(spec_decode, (set, frozenset, list, tuple))
+        else bool(spec_decode)
+    )
+    if isinstance(spec, frozenset):
+        unknown = [n for n in spec if n not in head_names]
+        if unknown:
+            raise ValueError(f"spec_decode names unknown heads {unknown}")
+    fanout = (
+        tuple(int(f) for f in spec_fanout)
+        if isinstance(spec_fanout, (tuple, list))
+        else int(spec_fanout)
+    )
+    return spec, fanout
 
 
 class ServingError(RuntimeError):

@@ -81,7 +81,7 @@ def _inputs(dev, S, K, H, hd, page, Pm, seq_lens, null_tail=False, seed=0):
     ((64, 10, 6, 64, 16, 4), "random", False),
     ((64, 10, 6, 64, 16, 4), "random", True),
     ((5, 3, 2, 8, 8, 3), [24, 0, 9, 1, 17], True),  # a fully masked slot
-    ((3, 32, 1, 128, 40, 2), [80, 41, 0], False),  # K and hd at their limits
+    ((3, 32, 1, 128, 40, 2), [80, 41, 0], False),  # a full block of 32 beams, hd at its limit
 ])
 def test_kernel_matches_plain_version(card, shape, lens, null_tail):
     S, K, H, hd, page, Pm = shape
@@ -105,11 +105,14 @@ def test_kernel_wrapper_refuses_what_it_does_not_take(card):
         dict(x, block_tables=x["block_tables"].long()),
         dict(x, k_pool=x["k_pool"].transpose(0, 1).contiguous().transpose(0, 1)),
         dict(x, k_pool=x["k_pool"].cpu()),
-        dict(x, q=torch.zeros((2, 33, 2, 8), device=card)),  # K > 32
+        dict(x, q=torch.zeros((2, 0, 2, 8), device=card)),  # K = 0
     ]
     for kwargs in bad:
         with pytest.raises(ValueError):
             paged_attention_stats_cuda(**kwargs)
+    wide = _inputs(card, 2, 3, 2, 129, 8, 2, [5, 9])  # hd > 128
+    with pytest.raises(ValueError):
+        paged_attention_stats_cuda(**wide)
     assert paged_attention_stats_cuda.launches == before
 
 
@@ -542,7 +545,7 @@ def _quantized(x):
     ((64, 10, 6, 64, 16, 4), "random", True),     # the serving shapes
     ((5, 3, 2, 8, 8, 3), [24, 0, 9, 1, 17], True),  # seq_len 0, partial pages
     ((4, 1, 3, 6, 8, 2), [3, 16, 0, 9], False),    # K = 1; hd % 4 != 0: bytewise loads
-    ((3, 32, 1, 128, 40, 2), [80, 41, 0], False),  # K and hd at their limits
+    ((3, 32, 1, 128, 40, 2), [80, 41, 0], False),  # a full block of 32 beams, hd at its limit
 ])
 def test_quantized_kernel_matches_plain_version(card, shape, lens, null_tail):
     S, K, H, hd, page, Pm = shape
@@ -712,6 +715,68 @@ def test_paged_kernels_edge_cases_match_plain_versions(card, case, int8):
     assert kernel.launches == before + 1
     want = plain(**x)
     for name, g, w in zip(("acc", "m", "l"), got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5, msg=name)
+
+
+# The speculative tree's node axis where the beams were: K past the 32 a
+# block holds, spread over ceil(K / 32) blocks along z. K 33 and 90 (one
+# and two blocks past a full one) and COBRA's 180 at hd 128, TIGER's 730
+# (10 beams, fanout 8, depth 2) at hd 64, at the serving shapes (page 16,
+# Pm 5 and 4) with free slots at seq_len 0 beside full ones.
+TREE_SHAPES = {
+    "k33_hd128": (8, 33, 6, 128, 16, 5),
+    "k90_hd128": (8, 90, 6, 128, 16, 5),
+    "k180_hd128": (16, 180, 6, 128, 16, 5),
+    "k730_hd64": (16, 730, 6, 64, 16, 4),
+}
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("name", sorted(TREE_SHAPES))
+def test_paged_kernels_take_the_tree_node_axis(card, name, int8):
+    kernel, plain = _b1_b2(int8)
+    S, K, H, hd, page, Pm = TREE_SHAPES[name]
+    lens = np.random.default_rng(K).integers(4, Pm * page + 1, S)
+    lens[::5], lens[1::5] = 0, Pm * page
+    x = _maybe_int8(_inputs(card, S, K, H, hd, page, Pm, lens, null_tail=True, seed=K), int8)
+    before = kernel.launches
+    got = kernel(**x)
+    again = kernel(**x)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    want = plain(**x)
+    for out, g, w in zip(("acc", "m", "l"), got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5, msg=out)
+    # Each node's row is the one it gets alone in a block of <= 32.
+    part = kernel(**dict(x, q=x["q"][:, 32:64].contiguous()))
+    torch.testing.assert_close(part[0], got[0][:, 32:64], rtol=0, atol=0)
+
+
+# The edge cases above with the node axis of a tree: near -1e9 at K 90,
+# block-table entries outside [0, P) at K 180, S = 1 at K 730, the ring
+# streaming at K 33.
+TREE_EDGE_CASES = {
+    "near_neg_k90": lambda dev, int8: _near_neg(dev, 3, 90, 2, 16, 4, [40, 5, 17], int8),
+    "seq_len_over_cap_bt_outside_k180": lambda dev, int8: _out_of_range(
+        _inputs(dev, 3, 180, 6, 128, 16, 4, [100, 7, 64], seed=4), int8),
+    "s1_k730": lambda dev, int8: _maybe_int8(
+        _inputs(dev, 1, 730, 6, 64, 16, 4, [61], null_tail=True, seed=5), int8),
+    "multi_stage_k33": lambda dev, int8: _maybe_int8(
+        _inputs(dev, 2, 33, 2, 128, 16, 16, [256, 130], seed=7), int8),
+}
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("case", sorted(TREE_EDGE_CASES))
+def test_paged_kernels_tree_edge_cases_match_plain_versions(card, case, int8):
+    kernel, plain = _b1_b2(int8)
+    x = TREE_EDGE_CASES[case](card, int8)
+    before = kernel.launches
+    got = kernel(**x)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    for name, g, w in zip(("acc", "m", "l"), got, plain(**x)):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5, msg=name)
 
 

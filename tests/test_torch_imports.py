@@ -44,7 +44,8 @@ from genrec_tpu_torch.serving.heads import (
     RetrievalHead,
     TigerGenerativeHead,
 )
-from genrec_tpu_torch.serving.kv_pool import KVPagePool, PagedConfig
+from genrec_tpu_torch.ops.spec_tree import TreeTopology, tree_topology
+from genrec_tpu_torch.serving.kv_pool import KVPagePool, PagedConfig, PrefixIndex
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "genrec_tpu")
@@ -73,6 +74,7 @@ names = ["genrec_tpu_torch"] + [
 ]
 for name in names:
     importlib.import_module(name)
+assert "genrec_tpu_torch.ops.spec_tree" in names, names
 leaked = sorted(
     n for n, m in sys.modules.items()
     if m is not None and n.split(".")[0] in FORBIDDEN
@@ -180,7 +182,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     )
     assert proc.returncode == 0, proc.stderr
     # Every module of the slice was reached (models, ops, kernels, catalog,
-    # serving and their packages).
+    # serving and their packages), the speculative tree's among them.
     assert int(proc.stdout.split()[-1]) >= 20
 
 
@@ -282,8 +284,17 @@ def test_default_device_entry_points_raise_without_a_card(no_card):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine([cobra_head])
     assert ServingEngine([cobra_head, head], device="cpu").device == torch.device("cpu")
-    # Asked for explicitly, the CPU serves.
+    # Asked for explicitly, the CPU serves; the speculative engine too, and
+    # its scratch pages and the prefix index live on the pool it builds.
     assert ServingEngine([head], device="cpu").device == torch.device("cpu")
+    spec = ServingEngine([head], device="cpu", spec_decode=True).start()
+    runner = spec.runner(head.name)
+    assert runner.pool.k_pools[0].device.type == "cpu"
+    assert runner.spec_topology.n_nodes == TreeTopology(head.top_k, 8, 1).n_nodes
+    assert isinstance(runner.prefix, PrefixIndex) and runner.pool.scratch_page_count > 0
+    spec.stop()
+    assert runner.pool.scratch_page_count == 0
+    assert tree_topology(2, 3, 1).on("cpu")["anc"].device.type == "cpu"
     assert ServingEngine([retrieval, head], device="cpu").device == torch.device("cpu")
 
 

@@ -291,7 +291,7 @@ def test_prefill_int8_pools_match_jax(models):
         params, *[jnp.asarray(b[k], jnp.int32) for k in keys], jnp.asarray(bt),
         tuple(jquant.QuantizedKVPool.zeros(shape) for _ in range(nl)),
         tuple(jquant.QuantizedKVPool.zeros(shape) for _ in range(nl)))
-    tk, tv, tsl = ttiger.tiger_prefill_paged(
+    tk, tv, tsl, _ = ttiger.tiger_prefill_paged(
         tmodel, *[torch.as_tensor(b[k]) for k in keys], torch.as_tensor(bt),
         tuple(QuantizedKVPool.zeros(shape) for _ in range(nl)),
         tuple(QuantizedKVPool.zeros(shape) for _ in range(nl)))

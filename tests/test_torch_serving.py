@@ -174,7 +174,9 @@ def test_engine_fails_the_slots_of_a_decode_call_that_raises(served):
     assert calls and engine.stats()["failed"] == 3
     runner.pool.check_invariants()
     assert runner.idle and runner.pool.active_slot_count == 0
-    assert runner.pool.allocator.pages_in_use == 0
+    # The failed slots' pages are free; only the prefix cache's retained
+    # runs of the three prefills (which succeeded) still hold pages.
+    assert runner.pool.allocator.pages_in_use == runner.prefix.retained_pages == 3
 
     runner._decode = decode
     resp = engine.serve(Request(head="tiger", history=np.asarray([0, 1]), user_id=3))
@@ -182,6 +184,7 @@ def test_engine_fails_the_slots_of_a_decode_call_that_raises(served):
     stats = engine.stop()
     assert stats["completed"] == 1 and stats["failed"] == 3
     assert stats["kv_pool"]["tiger"]["slots_active"] == 0
+    assert runner.pool.allocator.pages_in_use == 0  # the drain released the retained runs
 
 
 def test_engine_refuses_a_pool_smaller_than_the_largest_bucket(served):

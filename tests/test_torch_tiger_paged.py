@@ -246,7 +246,7 @@ def test_paged_decode_step_at_mixed_steps_matches_jax(models):
     )
     tk = tuple(torch.zeros(shape) for _ in range(nl))
     tv = tuple(torch.zeros(shape) for _ in range(nl))
-    _, _, t_len = ttiger.tiger_prefill_paged(tmodel, *_torch(b), torch.as_tensor(bt), tk, tv)
+    _, _, t_len, _ = ttiger.tiger_prefill_paged(tmodel, *_torch(b), torch.as_tensor(bt), tk, tv)
     np.testing.assert_array_equal(t_len.numpy(), np.asarray(j_len))
     for a, c in zip(tk + tv, tuple(jk) + tuple(jv)):
         np.testing.assert_allclose(a.numpy(), np.asarray(c), atol=1e-5)
