@@ -174,6 +174,36 @@ line each; any failure ends the run with a traceback and a non-zero exit:
             a verify call), fp32 pages; a repeat prefilled at a larger
             bucket than its own is held to offline cobra_generate_paged at
             its own bucket (its warm admit judges `full` there).
+17. serve_live the serving engine operated live, TIGER at the serve phase's
+            widths, catalog and fp32 pages (B1): an engine whose
+            hbm_budget_bytes is below its KV pool is refused at start(),
+            naming kv_page_pool; then 3 x --requests requests as one burst
+            on an engine with the checkpoint and catalog watchers, an
+            enabled SpanTracer and a budget of the ledger's total plus 10%,
+            during which step 2 (a second seeded init) is published after a
+            third of the answers and a snapshot without 1% of the items
+            after two thirds: every response names one params step and one
+            catalog version, is legal under that version (no removed item
+            after the swap), one swap each, B1 4 times every decode call
+            and no other kernel, a complete span tree a request, 2 answers
+            (admitted cold) of each (step, catalog) pair against offline
+            tiger_generate_paged under that pair's weights and trie; then a
+            step 3 damaged before publication is quarantined while step 2
+            serves, a pre-swap request admits cold then warm, the ledger's
+            operands equal the bytes they name, and the Prometheus text
+            parses with the swap counters and the ledger gauges; reported:
+            the longest gap between answers at each swap, the ledger's
+            total over the allocator's peak, qps with the tracer on and off
+            (alternately, twice); then an engine with a p99 target of 1 ms
+            sheds (OverloadError) while accepted work completes and un-sheds
+            when traffic stops, and one with handle_signals=True drains on
+            a SIGTERM sent mid-burst (every accepted request answered, then
+            DrainingError, the previous handler restored); last
+            (cobra_live) COBRA at the cobra_serve phase's widths and users:
+            a text-only snapshot staged on this thread while the engine
+            serves (the tower encoded here, its seconds reported), B1 8
+            times every decode call before and after the swap, 2 post-swap
+            answers against offline cobra_generate_paged.
 
 Each phase that drives a main path sets every kernel's launch counter to 0
 just before and reads it just after. Then the kernels line, the card's
@@ -187,6 +217,7 @@ CPU reference computes.
 from __future__ import annotations
 
 import argparse
+import collections
 import functools
 import gc
 import json
@@ -2107,7 +2138,6 @@ def retrieve_phase(dev, seed, profile=False) -> dict:
     head and the first open-loop answer of every (head, bucket) must equal
     offline scoring on the card; int8 answers keep a per-request recall of
     INT8_RECALL_FLOOR against fp32 in the same bucket."""
-    import collections
 
     from genrec_tpu_torch.models.hstu import HSTU
     from genrec_tpu_torch.models.sasrec import SASRec
@@ -3012,6 +3042,438 @@ def cobra_spec_serve_phase(dev, seed, n_requests) -> dict:
                         solo=lambda req, L: cobra_offline_answer(model, head, head.trie, req, L),
                         ladder=ladder)
     return emit("cobra_spec_serve", kv_dtype="float32", **fields)
+
+
+# ---- phase 17: the serving engine's live planes -------------------------------
+
+LIVE_BURST_FACTOR = 3  # the live burst is 3 x --requests, so both swaps land mid-burst
+LIVE_POLL_S = 0.01  # the checkpoint and catalog watchers' poll
+LIVE_DROP_SHARE = 0.01  # items snapshot b removes
+LIVE_TRACE_CAPACITY = 1 << 17
+LIVE_SPANS = ("request", "queue_wait", "admission", "finalize")
+
+
+def live_reference(tiger_cls, dev, state):
+    """A second TIGER on the card holding ``state`` (offline references)."""
+    ref = tiger_cls(**TIGER_AMAZON, device=dev).eval()
+    ref.load_state_dict(state)
+    return ref
+
+
+class LaunchesPerCall:
+    """Wraps a paged runner's decode call: the kernel wrapper's launch count
+    over every call must be ``per_call`` (the count read on the batcher
+    thread, which alone launches)."""
+
+    def __init__(self, runner, fn, per_call):
+        self.runner, self.fn, self.decode, self.per_call = runner, fn, runner._decode, per_call
+        self.calls, self.bad = 0, []
+        runner._decode = self
+
+    def __call__(self, *args):
+        before = self.fn.launches
+        out = self.decode(*args)
+        if self.fn.launches - before != self.per_call:
+            self.bad.append(self.fn.launches - before)
+        self.calls += 1
+        return out
+
+
+def span_names(tracer, request_id) -> list:
+    return [s.name for s in tracer.spans(request_id)]
+
+
+def check_span_tree(tracer, resp, steps) -> str:
+    """One request's tree: one `request` root, its children `queue_wait`,
+    `admission`, `prefill` or `warm_admit`, ``steps`` `decode_step`s and
+    `finalize`, each inside the root. Returns "prefill" or "warm_admit"."""
+    spans = tracer.spans(resp.request_id)
+    roots = [s for s in spans if s.name == "request"]
+    check(len(roots) == 1 and roots[0].parent_id is None, (resp.request_id, "root"))
+    root = roots[0]
+    names = [s.name for s in spans]
+    check(all(n in names for n in LIVE_SPANS) and names.count("decode_step") == steps
+          and ("prefill" in names) != ("warm_admit" in names), (resp.request_id, names))
+    check(all(s.parent_id == root.span_id and root.t0 - 1e-6 <= s.t0 <= s.t1 <= root.t1 + 1e-6
+              for s in spans if s is not root), (resp.request_id, "nesting"))
+    return "prefill" if "prefill" in names else "warm_admit"
+
+
+def swap_gap_ms(done, key) -> dict:
+    """The longest gap between consecutive answers around the change of
+    ``key(response)`` (the drain barrier's cost: the last answer of the
+    old version to the first of the new), beside the median gap."""
+    done = sorted(done, key=lambda x: x[0])
+    gaps = np.diff([t for t, _ in done]) * 1e3
+    at = [i for i in range(1, len(done)) if key(done[i][1]) != key(done[i - 1][1])]
+    check(len(at) == 1, ("one version change in answer order", len(at)))
+    i = at[0]
+    return dict(gap_ms=float(gaps[i - 1]), median_gap_ms=float(np.median(gaps)),
+                answers_before=i, answers_after=len(done) - i)
+
+
+def prometheus_metrics(path) -> dict:
+    """Parse the exposition text: '# TYPE name kind' / 'name value' pairs."""
+    lines = Path(path).read_text().splitlines()
+    check(len(lines) % 2 == 0 and lines, "prometheus text")
+    out = {}
+    for i in range(0, len(lines), 2):
+        _, typ, name, kind = lines[i].split()
+        val_name, val = lines[i + 1].split()
+        check(typ == "TYPE" and val_name == name and kind in ("counter", "gauge"), lines[i])
+        out[name] = float(val)
+    return out
+
+
+def serve_live_phase(dev, seed, n_requests) -> dict:
+    """TIGER at the serve phase's widths, catalog and page type (fp32, B1)
+    served live: the budget refusal, a burst through a params swap (step 2
+    from the checkpoint watcher), a catalog swap (snapshot b, about 1% of
+    the items removed, from the catalog watcher) and a damaged step 3, with
+    spans traced; then the tracer's cost, SLO shedding, the SIGTERM drain,
+    and COBRA's tower-encoding catalog swap (``cobra_live``)."""
+    import os
+    import signal
+
+    from genrec_tpu_torch.catalog.snapshot import CatalogSnapshot
+    from genrec_tpu_torch.core.checkpoint import TENSORS, CheckpointManager
+    from genrec_tpu_torch.kernels.paged_attention import paged_attention_stats_cuda
+    from genrec_tpu_torch.models.tiger import Tiger
+    from genrec_tpu_torch.obs import SLOTarget, SpanTracer, get_flight_recorder, write_prometheus
+    from genrec_tpu_torch.serving.buckets import BucketLadder
+    from genrec_tpu_torch.serving.engine import ServingEngine
+    from genrec_tpu_torch.serving.heads import TigerGenerativeHead
+    from genrec_tpu_torch.serving.kv_pool import PagedConfig
+    from genrec_tpu_torch.serving.types import DrainingError, HBMBudgetError, OverloadError
+
+    rng = np.random.default_rng(seed)
+    catalog = tiger_catalog(rng)  # the serve phase's
+    K, D = TIGER_AMAZON["num_item_embeddings"], TIGER_AMAZON["sem_id_dim"]
+    layers = TIGER_AMAZON["n_layers"] // 2
+    snap_a = CatalogSnapshot.build(catalog, K)
+    keep = np.sort(rng.permutation(CATALOG_ITEMS)[: CATALOG_ITEMS - int(
+        LIVE_DROP_SHARE * CATALOG_ITEMS)])
+    snap_b = CatalogSnapshot.build(catalog[keep], K, capacity=snap_a.capacity)
+    removed = {tuple(t) for t in catalog.tolist()} - {tuple(t) for t in snap_b.item_sem_ids.tolist()}
+    legal = {snap_a.version: snap_a.item_index(), snap_b.version: snap_b.item_index()}
+    ladder = BucketLadder((1, 2, 4, 8, 16), (4, 8, 16, MAX_ITEMS))
+    cfg = PagedConfig(**PAGED)
+    flight = get_flight_recorder()
+    flight.clear()
+    work = Path(tempfile.mkdtemp(prefix="serve_live."))
+    ckpt, cat_dir = work / "ckpt", work / "catalogs"
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base_bytes = torch.cuda.memory_allocated(dev)
+    model = Tiger(**TIGER_AMAZON, device=dev, seed=seed).eval()
+    states = {1: {k: v.cpu().clone() for k, v in model.state_dict().items()},
+              2: Tiger(**TIGER_AMAZON, device="cpu", seed=seed + 1).state_dict()}
+    head = TigerGenerativeHead(model, catalog=snap_a, top_k=BEAMS)
+    mgr = CheckpointManager(str(ckpt))
+    mgr.save(1, states[1])
+    snap_a.save(str(cat_dir))
+
+    def engine(**kw):
+        kw.setdefault("handle_signals", False)
+        return ServingEngine([head], device=dev, ladder=ladder, max_batch=16, max_wait_ms=2.0,
+                             paged_config=cfg, **kw).start()
+
+    # Start: the first calls (cuBLAS, allocator) on an engine that also
+    # gives the ledger's total; one with a budget below its pool is refused.
+    probe = engine()
+    serve(probe, make_requests(rng, 32, CATALOG_ITEMS))
+    ledger_total = probe.stats()["hbm"]["total_bytes"]
+    pool_bytes = probe.stats()["hbm"]["heads"]["tiger"]["operands"]["kv_page_pool"]
+    probe.stop()
+    del probe
+    try:
+        engine(hbm_budget_bytes=pool_bytes - 1)
+        check(False, "an engine under its KV pool's bytes started")
+    except HBMBudgetError as e:
+        refusal = str(e)
+    check("kv_page_pool" in refusal and "budget" in refusal, refusal)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tracer = SpanTracer(capacity=LIVE_TRACE_CAPACITY)
+    budget = int(1.1 * ledger_total)
+    eng = engine(ckpt_dir=str(ckpt), ckpt_poll_secs=LIVE_POLL_S, params_step=1,
+                 catalog_dirs={"tiger": str(cat_dir)}, catalog_poll_secs=LIVE_POLL_S,
+                 tracer=tracer, hbm_budget_bytes=budget)
+    runner = eng.runner(head.name)
+    per_call = LaunchesPerCall(runner, paged_attention_stats_cuda, layers)
+    reqs = make_requests(rng, LIVE_BURST_FACTOR * n_requests, CATALOG_ITEMS)
+    done = []
+    reset_counters()
+    t0 = time.perf_counter()
+    futures = []
+    for r in reqs:
+        f = eng.submit(r)
+        f.add_done_callback(lambda f: done.append((time.perf_counter(), f.result())))
+        futures.append(f)
+    published = {}
+    while len(done) < len(reqs):
+        if "step2" not in published and len(done) >= len(reqs) // 3:
+            mgr.save(2, states[2])
+            published["step2"] = len(done)
+        if "b" not in published and len(done) >= 2 * len(reqs) // 3:
+            snap_b.save(str(cat_dir))
+            published["b"] = len(done)
+        time.sleep(0.001)
+    responses = [f.result(timeout=300) for f in futures]
+    wall_s = time.perf_counter() - t0
+    counts = read_counters()
+    peak_bytes = torch.cuda.max_memory_allocated(dev)
+    stats = eng.stats()
+
+    check(stats["failed"] == 0 and stats["completed"] == len(reqs), stats)
+    check(stats["params_swaps"] == 1 and stats["catalog_swaps"] == 1, stats)
+    others = {k: v for k, v in counts.items() if k != "paged_attention_stats" and v}
+    check(not others, f"serve_live launched other kernels: {others}")
+    check(not per_call.bad and counts["paged_attention_stats"] == layers * per_call.calls
+          == layers * stats["decode_steps"], (per_call.bad, counts, stats["decode_steps"]))
+    pairs = collections.Counter((r.params_step, r.catalog_version) for r in responses)
+    check(set(pairs) <= {(s, v) for s in (1, 2) for v in legal}, pairs)
+    check({s for s, _ in pairs} == {1, 2} and {v for _, v in pairs} == set(legal),
+          ("both swaps landed mid-burst", pairs))
+    for resp in responses:
+        index = legal[resp.catalog_version]
+        tuples = [tuple(int(c) for c in t) for t in resp.sem_ids]
+        check(resp.sem_ids.shape == (BEAMS, D) and np.isfinite(resp.scores).all()
+              and all(t in index for t in tuples), ("illegal under its version", tuples))
+        check(resp.catalog_version == snap_a.version or not removed & set(tuples),
+              "a removed item served after the swap")
+    admitted = {r.request_id: check_span_tree(tracer, r, D) for r in responses}
+    gaps = {"params": swap_gap_ms(done, lambda r: r.params_step),
+            "catalog": swap_gap_ms(done, lambda r: r.catalog_version)}
+
+    # Two sampled answers of each (params, catalog) pair seen, admitted cold,
+    # against offline decoding under that pair's weights and trie.
+    sample_err = 0.0
+    for (step, version), _n in sorted(pairs.items()):
+        ref = live_reference(Tiger, dev, states[step])
+        snap = snap_a if version == snap_a.version else snap_b
+        ref_head = TigerGenerativeHead(ref, catalog=snap, top_k=BEAMS)
+        cold = [i for i, r in enumerate(responses) if (r.params_step, r.catalog_version)
+                == (step, version) and admitted[r.request_id] == "prefill"]
+        check(len(cold) >= 2, ("cold answers of", step, version))
+        for i in rng.choice(cold, 2, replace=False):
+            resp = responses[i]
+            sem, scores = offline_answer(ref, ref_head, ref_head.trie, reqs[i], resp.bucket[1])
+            check((sem == resp.sem_ids).all(), (step, version, i, sem, resp.sem_ids))
+            sample_err = max(sample_err, float(np.abs(scores - resp.scores).max()))
+        del ref, ref_head
+    check(sample_err <= SAMPLE_ATOL, ("live sample", sample_err))
+
+    # A damaged step 3 (one tensor's bytes flipped before it is published,
+    # so the watcher never sees it whole): quarantined, step 2 keeps serving.
+    step3 = {k: v * 0.5 for k, v in states[2].items()}
+    CheckpointManager(str(work / "unpublished")).save(3, step3)
+    raw = bytearray((work / "unpublished" / "3" / TENSORS).read_bytes())
+    at = raw.find(step3["bos_embedding"].numpy().tobytes())
+    check(at >= 0, "step 3's tensor bytes")
+    raw[at + 7] ^= 0x20
+    (work / "unpublished" / "3" / TENSORS).write_bytes(bytes(raw))
+    os.replace(work / "unpublished" / "3", ckpt / "3")
+    def verdicts():
+        return [(e["step"], e["verdict"]) for e in flight.events("integrity_ladder")]
+
+    deadline = time.monotonic() + 60
+    while verdicts()[-2:] != [(3, "corrupt"), (2, "valid")]:  # the ladder walked past it
+        check(time.monotonic() < deadline, ("step 3's ladder", verdicts()))
+        time.sleep(0.01)
+    check((ckpt / "quarantine" / "p0" / "3").is_dir(), "step 3 was not quarantined")
+    # Each swap emptied the prefix index: a pre-swap request admits cold,
+    # then a repeat of it admits warm.
+    first = next(i for i, r in enumerate(responses)
+                 if r.params_step == 1 and reqs[i].history.max() < snap_b.n_items)
+    again = [eng.serve(reqs[first], timeout=60) for _ in range(2)]
+    check([check_span_tree(tracer, r, D) for r in again] == ["prefill", "warm_admit"],
+          "a pre-swap request after the swaps")
+    check(all(r.params_step == 2 and r.catalog_version == snap_b.version for r in again),
+          [(r.params_step, r.catalog_version) for r in again])
+    invalidated = [e["reason"] for e in flight.events("prefix_cache_invalidated")
+                   if e["reason"] != "drain"]
+    check(invalidated[:2] == ["params_swap", "catalog_swap"], invalidated)
+
+    # The ledger: each resident operand equals the bytes of what it names.
+    st = eng.stats()
+    h = st["hbm"]["heads"]["tiger"]
+    want = {"params": nbytes(*model.state_dict().values()),
+            "catalog_operands": nbytes(head.trie.keys, head.trie.offsets, head.trie.weights,
+                                       head._item_sem_ids_dev),
+            "kv_page_pool": nbytes(*runner.pool.k_pools, *runner.pool.v_pools),
+            "paged_slot_state": nbytes(*runner.state.values())}
+    check(h["operands"] == want, (h["operands"], want))
+    check(dev.type != "cuda" or h["transient_peak_executable"] in (  # measured on the card
+        f"prefill/B16/L{MAX_ITEMS}", f"decode/S{PAGED['max_slots']}"), h)
+    prom = prometheus_metrics(write_prometheus(str(work / "serve_live.prom"), st))
+    check(prom["genrec_params_swaps"] == 1 and prom["genrec_catalog_swaps"] == 1
+          and prom["genrec_hbm_total_bytes"] == st["hbm"]["total_bytes"]
+          and prom["genrec_hbm_heads_tiger_operands_kv_page_pool"] == want["kv_page_pool"]
+          and prom["genrec_params_step"] == 2, prom)
+    check(st["params_step"] == 2 and st["failed"] == 0 and st["watcher_errors"] == 0, st)
+
+    # The tracer's cost: bursts with it on and off, alternately, twice.
+    qps = {True: [], False: []}
+    for on in (True, False, True, False):
+        eng.set_tracer(tracer if on else None)
+        burst = make_requests(rng, n_requests, snap_b.n_items)
+        _, wall = serve(eng, burst)
+        qps[on].append(len(burst) / wall)
+    eng.stop()
+    del eng
+    live = emit(
+        "serve_live", card=torch.cuda.get_device_name(dev), requests=len(reqs), wall_s=wall_s,
+        qps=len(reqs) / wall_s, published_after_answers=published, pairs={
+            f"step{s}/{v}": n for (s, v), n in sorted(pairs.items())},
+        catalog_items={"a": snap_a.n_items, "b": snap_b.n_items}, removed_items=len(removed),
+        params_swaps=stats["params_swaps"], catalog_swaps=stats["catalog_swaps"],
+        swap_gap_ms=gaps, decode_steps=stats["decode_steps"],
+        paged_attention_launches=counts["paged_attention_stats"],
+        launches_per_decode_step=counts["paged_attention_stats"] / stats["decode_steps"],
+        cold_admits=sum(a == "prefill" for a in admitted.values()),
+        warm_admits=sum(a == "warm_admit" for a in admitted.values()),
+        sample_checked=2 * len(pairs), sample_max_abs_score_err=sample_err,
+        sample_atol=SAMPLE_ATOL, quarantined=[3], refusal_names_kv_page_pool=True,
+        hbm_budget_bytes=budget, ledger=h, ledger_total_bytes=st["hbm"]["total_bytes"],
+        peak_allocated_bytes=peak_bytes - base_bytes,
+        ledger_over_peak=st["hbm"]["total_bytes"] / (peak_bytes - base_bytes),
+        qps_traced=qps[True], qps_untraced=qps[False],
+        tracer_cost=1 - float(np.mean(qps[True])) / float(np.mean(qps[False])),
+        spans_recorded=tracer.stats()["spans_recorded"],
+    )
+
+    # SLO: a p99 target below the burst's sheds; in-flight work completes;
+    # it un-sheds once traffic stops.
+    target = SLOTarget(p99_ms=1.0, window_s=1.0, breach_s=0.0, recover_s=0.2)
+    eng = engine(slo_targets=target, slo_poll_secs=0.005)
+    accepted, shed_at = [], None
+    deadline = time.monotonic() + 60
+    while shed_at is None:
+        check(time.monotonic() < deadline, "the SLO guard never shed")
+        try:
+            accepted.append(eng.submit(make_requests(rng, 1, snap_b.n_items)[0]))
+        except OverloadError as e:
+            shed_at = len(accepted)
+            check("p99_ms" in str(e), str(e))
+        time.sleep(0.0005)
+    check(all(f.result(timeout=120).sem_ids.shape == (BEAMS, D) for f in accepted), "in flight")
+    t_idle = time.monotonic()
+    recovered_s = None
+    while recovered_s is None:
+        check(time.monotonic() - t_idle < 60, "the SLO guard never un-shed")
+        try:
+            eng.serve(make_requests(rng, 1, snap_b.n_items)[0], timeout=60)
+            recovered_s = time.monotonic() - t_idle
+        except OverloadError:
+            time.sleep(0.05)
+    slo_stats = eng.stop()
+    check(slo_stats["overload_rejected"] >= 1 and slo_stats["failed"] == 0
+          and slo_stats["rejected"] == 0 and slo_stats["slo"]["heads"]["tiger"]["breaches"] >= 1,
+          slo_stats)
+
+    # SIGTERM mid-burst: every accepted request answered, later submissions
+    # refused, the previous handler restored, and this script goes on.
+    prev = signal.getsignal(signal.SIGTERM)
+    eng = engine(handle_signals=True)
+    drain_reqs = make_requests(rng, n_requests, snap_b.n_items)
+    drain_futures = [eng.submit(r) for r in drain_reqs]
+    os.kill(os.getpid(), signal.SIGTERM)
+    check(eng.join(120), "the engine did not drain on SIGTERM")
+    drained = [f.result(timeout=60) for f in drain_futures]
+    try:
+        eng.submit(drain_reqs[0])
+        check(False, "a submission after SIGTERM was accepted")
+    except DrainingError:
+        pass
+    drain_stats = eng.stop()
+    check(signal.getsignal(signal.SIGTERM) == prev, "the guard kept its handler")
+    check(len(drained) == len(drain_reqs) and drain_stats["failed"] == 0
+          and drain_stats["rejected"] == 1, drain_stats)
+    live.update(emit(
+        "serve_live_guards", slo_target_p99_ms=target.p99_ms, shed_after_submissions=shed_at,
+        overload_rejected=slo_stats["overload_rejected"], unshed_after_idle_s=recovered_s,
+        slo_breaches=slo_stats["slo"]["heads"]["tiger"]["breaches"],
+        drained_on_sigterm=len(drained), rejected_after_sigterm=drain_stats["rejected"]))
+    del model, head, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    live["cobra"] = cobra_live_phase(dev, seed, n_requests)
+    live["paged_attention_launches_cobra"] = live["cobra"]["paged_attention_launches"]
+    return live
+
+
+def cobra_live_phase(dev, seed, n_requests) -> dict:
+    """COBRA at the cobra_serve phase's widths, tower, users and fp32 pages:
+    a text-only snapshot (new item text, no vectors) staged through
+    ``stage_catalog`` on this thread while the engine serves, its tower
+    encoded here; B1 8 times every decode call before and after the swap;
+    two post-swap answers against offline cobra_generate_paged under the
+    new catalog."""
+    from genrec_tpu_torch.catalog.snapshot import CatalogSnapshot
+    from genrec_tpu_torch.kernels.paged_attention import paged_attention_stats_cuda
+    from genrec_tpu_torch.models.cobra import Cobra
+    from genrec_tpu_torch.serving.buckets import BucketLadder
+    from genrec_tpu_torch.serving.engine import ServingEngine
+    from genrec_tpu_torch.serving.heads import CobraGenerativeHead
+    from genrec_tpu_torch.serving.kv_pool import PagedConfig
+
+    catalog, text = cobra_catalog(seed)
+    rng = np.random.default_rng(seed + 2)
+    ds = beauty_dataset(seed)
+    model = Cobra(**COBRA_AMAZON, device=dev, seed=seed).eval()
+    head = CobraGenerativeHead(model, item_sem_ids=catalog, item_text_tokens=text,
+                               top_k=COBRA_BEAMS)
+    text_b = rng.integers(1, COBRA_AMAZON["encoder_vocab_size"], text.shape)
+    snap_b = CatalogSnapshot.build(catalog, COBRA_AMAZON["id_vocab_size"],
+                                   item_text_tokens=text_b)
+    layers = COBRA_AMAZON["decoder_n_layers"]
+    eng = ServingEngine([head], device=dev, ladder=BucketLadder((1, 2, 4, 8, 16),
+                                                                (4, 8, 16, MAX_ITEMS)),
+                        max_batch=16, max_wait_ms=2.0, paged_config=PagedConfig(**COBRA_PAGED),
+                        prefix_cache=False, handle_signals=False).start()
+    serve(eng, cobra_requests(ds, rng, 32))  # first calls
+    per_call = LaunchesPerCall(eng.runner(head.name), paged_attention_stats_cuda, layers)
+    reqs = cobra_requests(ds, rng, n_requests)
+    reset_counters()
+    futures = [eng.submit(r) for r in reqs]
+    encodes = head.tower_encodes
+    t0 = time.perf_counter()
+    check(eng.stage_catalog(head.name, snap_b), "the snapshot was not staged")
+    torch.cuda.synchronize(dev)
+    stage_s = time.perf_counter() - t0
+    check(head.tower_encodes == encodes + 1, "the staging thread did not encode the tower")
+    pre = [f.result(timeout=300) for f in futures]
+    deadline = time.monotonic() + 60
+    while eng.catalog_version(head.name) != snap_b.version:
+        check(time.monotonic() < deadline, "the COBRA catalog swap never applied")
+        time.sleep(0.005)
+    post_reqs = cobra_requests(ds, rng, n_requests // 4)
+    post, _ = serve(eng, post_reqs)
+    counts = read_counters()
+    stats = eng.stop()
+    versions = collections.Counter(r.catalog_version for r in pre + post)
+    check(all(r.catalog_version == snap_b.version for r in post), versions)
+    check(stats["catalog_swaps"] == 1 and stats["failed"] == 0 and head.tower_encodes == encodes + 1,
+          stats)
+    others = {k: v for k, v in counts.items() if k != "paged_attention_stats" and v}
+    check(not others and not per_call.bad
+          and counts["paged_attention_stats"] == layers * per_call.calls, (others, per_call.bad))
+    sample_err = 0.0
+    for i in rng.choice(len(post), 2, replace=False):
+        sem, scores = cobra_offline_answer(model, head, head.trie, post_reqs[i], post[i].bucket[1])
+        check((sem == post[i].sem_ids).all(), ("cobra post-swap", i, sem, post[i].sem_ids))
+        sample_err = max(sample_err, float(np.abs(scores - post[i].scores).max()))
+    check(sample_err <= SAMPLE_ATOL, ("cobra live sample", sample_err))
+    return emit("cobra_live", card=torch.cuda.get_device_name(dev), requests=len(pre + post),
+                versions=dict(versions), stage_catalog_s=stage_s, tower_encodes=head.tower_encodes,
+                catalog_swaps=stats["catalog_swaps"], decode_steps=stats["decode_steps"],
+                decode_calls_checked=per_call.calls,
+                paged_attention_launches=counts["paged_attention_stats"],
+                launches_per_decode_step=counts["paged_attention_stats"] / per_call.calls,
+                sample_checked=2, sample_max_abs_score_err=sample_err)
 
 
 # ---- phases 12-14: TIGER and COBRA training, TIGER's dense decode ------------
@@ -3988,6 +4450,7 @@ def main(argv=None) -> int:
     phases["tiger_spec_serve_int8"] = tiger_spec_serve_phase(dev, args.seed, args.requests,
                                                              kv_dtype="int8")
     phases["cobra_spec_serve"] = cobra_spec_serve_phase(dev, args.seed, args.requests)
+    phases["serve_live"] = serve_live_phase(dev, args.seed, args.requests)
     phases["tiger_train"], tiger = tiger_train_phase(dev, args.seed, args.profile)
     phases["tiger_decode"] = tiger_decode_phase(dev, args.seed, tiger, args.profile)
     del tiger
@@ -4000,7 +4463,8 @@ def main(argv=None) -> int:
     phases["wall_s"] = time.perf_counter() - t_start
 
     launches = {"paged_attention_stats": (phases["serve"]["paged_attention_launches"]
-                                          + phases["tiger_decode"]["paged_attention_launches"]),
+                                          + phases["tiger_decode"]["paged_attention_launches"]
+                                          + phases["serve_live"]["paged_attention_launches"]),
                 "paged_attention_stats_quantized":
                     phases["serve_int8"]["paged_attention_launches"],
                 "rq_cascade": phases["rqvae"]["export"]["rq_cascade_launches"],
@@ -4009,7 +4473,9 @@ def main(argv=None) -> int:
                    for k in LCREC_LAUNCHES_PER_STEP},
                 **{k + "_sasrec": phases["sasrec"]["launches"][k]
                    for k in SASREC_LAUNCHES_PER_STEP},
-                "paged_attention_stats_cobra": phases["cobra_serve"]["paged_attention_launches"],
+                "paged_attention_stats_cobra": (
+                    phases["cobra_serve"]["paged_attention_launches"]
+                    + phases["serve_live"]["paged_attention_launches_cobra"]),
                 "paged_attention_stats_quantized_cobra":
                     phases["cobra_serve_int8"]["paged_attention_launches"],
                 "hstu_attention_fwd_retrieve": phases["retrieve"]["launches"]["hstu_attention_fwd"],

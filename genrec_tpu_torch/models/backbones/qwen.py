@@ -15,9 +15,12 @@ any kernel: fp32 scores, an additive -1e9 bias kept inside the softmax.
 The decode cache is written in place at its index (the JAX
 ``dynamic_update_slice`` returns a new array).
 
+``params_from_hf_state_dict`` maps a Hugging Face Qwen2 state dict onto
+the port's parameter names (dense models).
+
 Not ported: the mixture of experts (``QwenMoEMLP``; ROADMAP A14), ring
-attention (sequence parallelism; A15), the pipeline stage body (A16) and
-``params_from_hf_state_dict`` (A18); ``num_experts > 0`` raises.
+attention (sequence parallelism; A15) and the pipeline stage body (A16);
+``num_experts > 0`` raises.
 """
 
 from __future__ import annotations
@@ -295,3 +298,27 @@ def qwen_init_params(cfg: QwenConfig, seed: int = 0, device="cuda") -> dict:
             t.fill_(1.0 if kind == "ones" else 0.0)
         full[name] = t
     return full
+
+
+def params_from_hf_state_dict(sd: dict, cfg: QwenConfig) -> dict[str, torch.Tensor]:
+    """An HF ``Qwen2ForCausalLM`` state dict (numpy arrays or tensors) ->
+    the full (unsharded) state dict of ``QwenLM(cfg)``, float32 CPU
+    tensors. HF names its parameters as the port does under ``model.``
+    (and ``lm_head.weight``), with ``nn.Linear``'s (out, in) layout, so
+    the map renames and checks every shape against ``qwen_param_specs``;
+    the tied head (``tie_word_embeddings``) takes no ``lm_head``. Dense
+    models only: Qwen2-MoE keys are not mapped (ROADMAP A14)."""
+    if cfg.num_experts > 0:
+        raise NotImplementedError(
+            "params_from_hf_state_dict maps dense Qwen2 checkpoints; the MoE key mapping "
+            "(cfg.num_experts > 0) is ROADMAP A14")
+    out = {}
+    for name, (shape, _) in qwen_param_specs(cfg).items():
+        hf = "lm_head.weight" if name == "lm_head" else f"model.{name}"
+        if hf not in sd:
+            raise KeyError(f"HF state dict has no {hf!r} (for the port's {name!r})")
+        t = torch.as_tensor(sd[hf]).to(torch.float32)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{hf}: shape {tuple(t.shape)} != the port's {shape}")
+        out[name] = t
+    return out

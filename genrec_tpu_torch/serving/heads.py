@@ -8,8 +8,9 @@ A head owns a model + its item corpus. Every head has
   at the (B, L) bucket (rows past the requests are zero-filled, longer
   histories keep their newest items);
 - ``on_params()``: refresh tables derived from the weights (the retrieval
-  heads' int8 table), called by the engine when it starts, never per
-  batch (the port has no hot reload yet, ROADMAP A11).
+  heads' int8 table), called by the engine when it starts and after
+  every hot params swap (the weights are copied into the model in
+  place), never per batch.
 
 Dense heads (``supports_paged = False``) add the hooks of the engine's
 micro-batch path:
@@ -51,6 +52,16 @@ history the prefill encodes (None: the head takes no part), and
 ``paged_warm_state(init, n_tokens, L_bucket)`` the state rows a warm
 admission restores from the donor's post-prefill rows.
 
+Catalog heads (``supports_catalog``: TIGER and COBRA) serve a swappable
+`CatalogSnapshot`: ``validate_snapshot(snap)`` raises ValueError for a
+snapshot the model cannot decode against, ``prepare_snapshot(snap)``
+runs on the staging thread (device trie, item index, COBRA's tower
+encode), so that ``set_catalog(snap)``, which the engine's batcher calls
+between micro-batches, only swaps pointers; ``snapshot_operands(snap)``
+is the operand tuple the snapshot would install, and ``catalog_tensors()``
+the device tensors the live catalog holds (the memory ledger's
+``catalog_operands``).
+
 The JAX heads are pure functions of a params tree; here the weights live
 in the head's ``nn.Module``, so the functions take no params argument.
 """
@@ -86,6 +97,7 @@ class Head:
     top_k: int
     supports_paged = False
     supports_spec = False
+    supports_catalog = False
 
     @property
     def device(self) -> torch.device:
@@ -129,6 +141,16 @@ class Head:
     @property
     def catalog_version(self) -> Optional[str]:
         return None
+
+    def catalog_tensors(self) -> tuple:
+        """The device tensors the live catalog holds (none by default)."""
+        return ()
+
+    def set_catalog(self, snapshot) -> None:
+        raise NotImplementedError(f"head {self.name!r} has no swappable catalog")
+
+    def validate_snapshot(self, snapshot) -> None:
+        raise NotImplementedError(f"head {self.name!r} has no swappable catalog")
 
     def validate(self, req) -> None:
         """Reject malformed requests AT SUBMIT TIME, so the error goes to
@@ -174,6 +196,18 @@ class _CatalogHead(Head):
     and histories laid out left-aligned at the (B, L) bucket."""
 
     supports_paged = True
+    supports_catalog = True
+
+    def prepare_snapshot(self, snapshot) -> None:
+        """Staging-thread hook (``ServingEngine.stage_catalog``): upload the
+        trie and the sem-id table and build the item index, so that
+        ``set_catalog`` on the batcher is pointer swaps."""
+        snapshot.device_trie(self.device)
+        snapshot.device_item_sem_ids(self.device)
+        snapshot.item_index()
+
+    def snapshot_operands(self, snapshot) -> tuple:
+        return (snapshot.device_trie(self.device),)
 
     def _serve_catalog(self, catalog) -> None:
         dev = self.device
@@ -181,7 +215,10 @@ class _CatalogHead(Head):
         self.item_sem_ids = catalog.item_sem_ids
         self.trie = catalog.device_trie(dev)
         self._item_index = catalog.item_index()
-        self._item_sem_ids_dev = torch.as_tensor(self.item_sem_ids, device=dev)
+        self._item_sem_ids_dev = catalog.device_item_sem_ids(dev)
+
+    def catalog_tensors(self) -> tuple:
+        return (self.trie, self._item_sem_ids_dev)
 
     @property
     def device(self) -> torch.device:
@@ -246,16 +283,21 @@ class TigerGenerativeHead(_CatalogHead):
             catalog = CatalogSnapshot.build(
                 np.asarray(item_sem_ids, np.int64), model.num_item_embeddings
             )
-        if catalog.depth != model.sem_id_dim:
-            raise ValueError(
-                f"catalog depth {catalog.depth} != model sem_id_dim {model.sem_id_dim}"
-            )
-        if catalog.codebook_size != model.num_item_embeddings:
-            raise ValueError(
-                f"catalog codebook {catalog.codebook_size} != model "
-                f"num_item_embeddings {model.num_item_embeddings}"
-            )
-        self._serve_catalog(catalog)
+        self.set_catalog(catalog)
+
+    def validate_snapshot(self, snapshot) -> None:
+        if snapshot.depth != self.model.sem_id_dim:
+            raise ValueError(f"catalog depth {snapshot.depth} != model sem_id_dim "
+                             f"{self.model.sem_id_dim}")
+        if snapshot.codebook_size != self.model.num_item_embeddings:
+            raise ValueError(f"catalog codebook {snapshot.codebook_size} != model "
+                             f"num_item_embeddings {self.model.num_item_embeddings}")
+
+    def set_catalog(self, snapshot) -> None:
+        """Serve ``snapshot``: trie, sem-id table and item index swap
+        together (the engine calls this after the paged slots drain)."""
+        self.validate_snapshot(snapshot)
+        self._serve_catalog(snapshot)
 
     def make_batch(self, reqs, B: int, L: int):
         """(user (B,), ids (B, L*D), types (B, L*D), mask (B, L*D)) int64
@@ -382,6 +424,7 @@ class CobraGenerativeHead(_CatalogHead):
         self.tower_encodes = 0
         self.item_vecs = None  # (N, d) device tensor, the dense item tower
         self._vecs_version = None  # catalog version the tower belongs to
+        self._prepared_tower = None  # (version, vecs) from prepare_snapshot
         if catalog is None:
             if item_sem_ids is None:
                 raise ValueError("need item_sem_ids or catalog=")
@@ -405,32 +448,57 @@ class CobraGenerativeHead(_CatalogHead):
             raise ValueError(f"snapshot tower dim {snapshot.item_vecs.shape[-1]} != model "
                              f"d_model {self.model.d_model}")
 
+    def prepare_snapshot(self, snapshot) -> None:
+        """Staging-thread hook: besides the trie, sem-id table and index,
+        the tower of a text-only snapshot is encoded HERE, so that
+        ``set_catalog`` on the batcher swaps pointers. The encode runs on
+        the device's current stream, which the batcher's calls share, so
+        no decode call reads the tower before its kernels finish."""
+        super().prepare_snapshot(snapshot)
+        if snapshot.item_vecs is None and (self._prepared_tower is None
+                                           or self._prepared_tower[0] != snapshot.version):
+            self._prepared_tower = (snapshot.version, self._encode_text(snapshot))
+
     def set_catalog(self, snapshot) -> None:
         """Serve ``snapshot``: its trie on the device, its tower taken from
-        ``item_vecs`` or encoded from its text if this version has none yet."""
+        ``item_vecs``, from ``prepare_snapshot``, or encoded here from its
+        text if this version has none yet."""
         self.validate_snapshot(snapshot)
         self._serve_catalog(snapshot)
         if snapshot.item_vecs is not None:
             self.item_vecs = torch.as_tensor(snapshot.item_vecs, dtype=torch.float32,
                                              device=self.device)
             self._vecs_version = snapshot.version
+        elif self._prepared_tower is not None and self._prepared_tower[0] == snapshot.version:
+            self.item_vecs = self._prepared_tower[1]
+            self._vecs_version = snapshot.version
         else:
             self._encode_tower()
+        self._prepared_tower = None
+
+    def catalog_tensors(self) -> tuple:
+        return (*super().catalog_tensors(), self.item_vecs)
 
     def on_params(self) -> None:
-        """Encode the tower if the catalog's version has none (a weights
-        refresh alone never re-encodes it)."""
+        """Encode the tower if the catalog's version has none. The tower is
+        a catalog artifact: a params swap alone never re-encodes it (as in
+        the JAX head, it is re-encoded with the next catalog version)."""
         self._encode_tower()
 
-    @torch.no_grad()
     def _encode_tower(self) -> None:
         if self._vecs_version == self.catalog.version:
             return
-        text = torch.as_tensor(self.catalog.item_text_tokens, device=self.device)
-        self.item_vecs = torch.cat([self.model.encode_items(chunk)
-                                    for chunk in text.split(self.tower_chunk)])
+        self.item_vecs = self._encode_text(self.catalog)
         self._vecs_version = self.catalog.version
+
+    @torch.no_grad()
+    def _encode_text(self, snapshot) -> torch.Tensor:
+        """One full-corpus tower encode from ``snapshot``'s item text."""
+        text = torch.as_tensor(snapshot.item_text_tokens, device=self.device)
+        vecs = torch.cat([self.model.encode_items(chunk)
+                          for chunk in text.split(self.tower_chunk)])
         self.tower_encodes += 1
+        return vecs
 
     def make_batch(self, reqs, B: int, L: int):
         """(ids (B, L*C) int64 with ``pad_id`` padding, vecs (B, L, d) fp32)

@@ -1,9 +1,13 @@
 """Serving instrumentation (port of genrec_tpu/serving/metrics.py, the
-counters the paged engine records): latency histograms with p50/p95/p99,
-lifetime and recent-window QPS, per-(head, batch, history) bucket hits,
-admit/evict churn, deferred admissions, per-head KV-pool gauges, the
-prefix cache's lookups and churn, and the speculative decode's drafted
-and accepted codes.
+counters the port's engine records): latency histograms with
+p50/p95/p99, lifetime and recent-window QPS, per-head windowed latency
+rings (the SLO monitor's p99, the slow-request exemplar threshold),
+per-(head, batch, history) bucket hits, admit/evict churn, deferred
+admissions, per-head submissions / rejections / overload sheds, hot-swap
+and watcher-error counts, per-head KV-pool gauges, the prefix cache's
+lookups and churn, and the speculative decode's drafted and accepted
+codes. The engine adds the memory ledger's gauges, the tracer's and the
+SLO monitor's state to its ``stats()``.
 
 Histograms are fixed log-spaced buckets, so recording allocates nothing;
 percentiles report the upper edge of the containing bucket (<= 25%
@@ -78,6 +82,18 @@ class ServingMetrics:
         self.evictions = 0
         self.decode_steps = 0
         self.oom_deferred_admits = 0
+        # Hot params reload / catalog swap, and failed watcher passes.
+        self.params_swaps = 0
+        self.catalog_swaps = 0
+        self.watcher_errors = 0
+        # Per-head attribution: the SLO monitor differences submissions
+        # and deferrals per head, so one head's pool pressure never sheds
+        # a healthy co-hosted head.
+        self.submitted_by_head: collections.Counter = collections.Counter()
+        self.rejected_by_head: collections.Counter = collections.Counter()
+        self.oom_deferred_by_head: collections.Counter = collections.Counter()
+        self.overload_rejected = 0
+        self.overload_by_head: collections.Counter = collections.Counter()
         self.pool_gauges: dict[str, dict] = {}
         # Prefix cache, per head: lookup outcomes (a partial hit matched a
         # shorter retained history and admitted cold), KV tokens served
@@ -102,6 +118,9 @@ class ServingMetrics:
         self.spec_slot_steps: collections.Counter = collections.Counter()
         self.spec_accept_hist: dict[str, collections.Counter] = {}
         self._recent = collections.deque(maxlen=recent_window)
+        self._recent_window = recent_window
+        # head -> deque of (monotonic t, total latency s), the windowed p99.
+        self._recent_lat: dict = {}
         self._started = time.monotonic()
 
     def mark_warm(self) -> None:
@@ -109,13 +128,36 @@ class ServingMetrics:
         with self._lock:
             self._started = time.monotonic()
 
-    def record_submit(self) -> None:
+    def record_submit(self, head: str | None = None) -> None:
         with self._lock:
             self.submitted += 1
+            if head is not None:
+                self.submitted_by_head[head] += 1
 
-    def record_reject(self) -> None:
+    def record_reject(self, head: str | None = None) -> None:
+        """A draining rejection (``DrainingError`` at submit)."""
         with self._lock:
             self.rejected += 1
+            if head is not None:
+                self.rejected_by_head[head] += 1
+
+    def record_overload(self, head: str) -> None:
+        """An SLO load-shed rejection (``OverloadError`` at submit)."""
+        with self._lock:
+            self.overload_rejected += 1
+            self.overload_by_head[head] += 1
+
+    def record_swap(self) -> None:
+        with self._lock:
+            self.params_swaps += 1
+
+    def record_catalog_swap(self) -> None:
+        with self._lock:
+            self.catalog_swaps += 1
+
+    def record_watcher_error(self) -> None:
+        with self._lock:
+            self.watcher_errors += 1
 
     def record_admit(self, n: int = 1) -> None:
         with self._lock:
@@ -129,11 +171,13 @@ class ServingMetrics:
         with self._lock:
             self.decode_steps += 1
 
-    def record_oom_admit(self, n: int = 1) -> None:
+    def record_oom_admit(self, n: int = 1, head: str | None = None) -> None:
         """Admissions deferred because the pool had no free pages even
         after reclaiming retained prefix pages; the requests stay queued."""
         with self._lock:
             self.oom_deferred_admits += n
+            if head is not None:
+                self.oom_deferred_by_head[head] += n
 
     def record_spec(self, head: str, drafted: int, accept_lens) -> None:
         """One speculative invocation: ``drafted`` tokens speculated over
@@ -190,7 +234,8 @@ class ServingMetrics:
             self.batches += 1
             self.bucket_hits[(head, *bucket)] += 1
 
-    def record_response(self, queue_wait: float, compute: float, total: float) -> None:
+    def record_response(self, queue_wait: float, compute: float, total: float,
+                        head: str | None = None) -> None:
         now = time.monotonic()
         with self._lock:
             self.queue_wait.record(queue_wait)
@@ -198,6 +243,38 @@ class ServingMetrics:
             self.total.record(total)
             self.completed += 1
             self._recent.append(now)
+            ring = self._recent_lat.get(head)
+            if ring is None:
+                ring = self._recent_lat[head] = collections.deque(maxlen=self._recent_window)
+            ring.append((now, float(total)))
+
+    def recent_p99_ms(self, window_s: float, head: str | None = None, q: float = 0.99,
+                      min_count: int = 20) -> float | None:
+        """Total-latency quantile over the responses completed within the
+        last ``window_s`` seconds — one head's ring, or every head's
+        pooled — or None below ``min_count`` samples (an empty window must
+        not read as 'SLO met at 0 ms': the SLO monitor skips the
+        dimension instead)."""
+        cut = time.monotonic() - window_s
+        with self._lock:
+            if head is None:
+                samples = [s for ring in self._recent_lat.values() for s in ring]
+            else:
+                ring = self._recent_lat.get(head)
+                samples = list(ring) if ring else []
+        vals = sorted(v for t, v in samples if t >= cut)
+        if len(vals) < min_count:
+            return None
+        return vals[min(len(vals) - 1, int(q * len(vals)))] * 1e3
+
+    def slow_threshold_s(self, q: float = 0.99, min_count: int = 64) -> float | None:
+        """Latency at or above which a request is a slow outlier (the
+        total-latency q-quantile), None until ``min_count`` responses: an
+        empty histogram's p99 is 0 and would flag every early request."""
+        with self._lock:
+            if self.total.count < min_count:
+                return None
+            return self.total.percentile(q)
 
     def qps(self) -> float:
         """Lifetime QPS since the engine started."""
@@ -228,7 +305,16 @@ class ServingMetrics:
                 evictions=self.evictions,
                 decode_steps=self.decode_steps,
                 oom_deferred_admits=self.oom_deferred_admits,
+                params_swaps=self.params_swaps,
+                catalog_swaps=self.catalog_swaps,
+                watcher_errors=self.watcher_errors,
+                overload_rejected=self.overload_rejected,
             )
+            by_head = {name: dict(sorted(c.items())) for name, c in (
+                ("submitted_by_head", self.submitted_by_head),
+                ("rejected_by_head", self.rejected_by_head),
+                ("overload_by_head", self.overload_by_head),
+                ("oom_deferred_by_head", self.oom_deferred_by_head))}
             kv_pool = {h: dict(g) for h, g in sorted(self.pool_gauges.items())}
             prefix_cache = {
                 h: {
@@ -266,6 +352,7 @@ class ServingMetrics:
             "compute_ms": self.compute.summary(),
             "total_ms": self.total.summary(),
             "bucket_hits": bucket_hits,
+            **by_head,
             "kv_pool": kv_pool,
             "prefix_cache": prefix_cache,
             "spec": spec,

@@ -48,7 +48,14 @@ from genrec_tpu_torch.ops.spec_tree import TreeTopology, tree_topology
 from genrec_tpu_torch.serving.kv_pool import KVPagePool, PagedConfig, PrefixIndex
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "genrec_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "genrec_tpu")
+#: The live planes' modules, each a port of a JAX module that imports jax
+#: or orbax (checkpoint) or that the JAX engine reaches through them.
+LIVE_MODULES = ("genrec_tpu_torch.obs", "genrec_tpu_torch.obs.spans",
+                "genrec_tpu_torch.obs.flight_recorder", "genrec_tpu_torch.obs.slo",
+                "genrec_tpu_torch.obs.export", "genrec_tpu_torch.obs.memory",
+                "genrec_tpu_torch.core.checkpoint", "genrec_tpu_torch.core.preemption",
+                "genrec_tpu_torch.serving.catalog")
 
 # Runs in a fresh interpreter: jax and friends are poisoned in
 # sys.modules, and a meta-path hook refuses genrec_tpu and genrec_tpu.*
@@ -57,6 +64,7 @@ _IMPORT_EVERY_MODULE = r"""
 import importlib, importlib.abc, pkgutil, sys
 
 FORBIDDEN = %r
+LIVE_MODULES = %r
 for name in FORBIDDEN[:-1]:
     sys.modules[name] = None
 
@@ -75,13 +83,15 @@ names = ["genrec_tpu_torch"] + [
 for name in names:
     importlib.import_module(name)
 assert "genrec_tpu_torch.ops.spec_tree" in names, names
+missing = [m for m in LIVE_MODULES if m not in names]
+assert not missing, missing
 leaked = sorted(
     n for n, m in sys.modules.items()
     if m is not None and n.split(".")[0] in FORBIDDEN
 )
 assert not leaked, leaked
 print(len(names))
-""" % (FORBIDDEN,)
+""" % (FORBIDDEN, LIVE_MODULES)
 
 
 # Parse a gin file that names the JAX package through the port's

@@ -11,6 +11,11 @@ the module) against the port at tensor_parallel=1 from the same full
 parameters: logits, hidden states and gradients, the shards put back
 together.
 
+``params_from_hf_state_dict`` holds the port to the HF golden
+(tests/data/qwen_golden.npz) as tests/test_qwen.py holds the JAX model:
+logits at the valid positions, positions from the mask, atol 3e-4 and
+rtol 1e-3.
+
 Tiny size: 2 layers, hidden 32, 4 heads / 2 KV heads, FFN 64, vocab 96.
 Tolerance, fp32 on both sides: logits and hidden states 1e-5 absolute
 plus 1e-5 relative; a gradient 1e-5 of its largest element (each element
@@ -20,6 +25,7 @@ two halves).
 """
 
 import signal
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -30,7 +36,12 @@ import torch
 from genrec_tpu.models.backbones.qwen import QwenConfig as JaxQwenConfig
 from genrec_tpu.models.backbones.qwen import QwenLM as JaxQwenLM
 from genrec_tpu_torch.convert import qwen_params_from_flax
-from genrec_tpu_torch.models.backbones.qwen import QwenConfig, QwenLM, qwen_init_params
+from genrec_tpu_torch.models.backbones.qwen import (
+    QwenConfig,
+    QwenLM,
+    params_from_hf_state_dict,
+    qwen_init_params,
+)
 from genrec_tpu_torch.parallel.mesh import TPGroup, spawn
 from genrec_tpu_torch.parallel.shardings import shard_dim, shard_qwen_params
 
@@ -213,3 +224,36 @@ def test_unported_and_indivisible_layouts_raise():
         QwenLM(QwenConfig(**{**CFG, "vocab_size": 96}), group=four, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A14"):
         QwenLM(QwenConfig(**CFG, num_experts=4), device="cpu")
+
+
+GOLDEN = Path(__file__).resolve().parent / "data" / "qwen_golden.npz"
+
+
+def test_hf_state_dict_matches_the_golden_logits():
+    g = np.load(GOLDEN)
+    cfg = QwenConfig(**CFG, rms_norm_eps=1e-6, tie_word_embeddings=False)
+    sd = {k: g[k] for k in g.files if k not in ("ids", "mask", "logits")}
+    model = QwenLM(cfg, device="cpu")
+    model.load_state_dict(params_from_hf_state_dict(sd, cfg))
+    mask = torch.as_tensor(g["mask"])
+    positions = torch.clamp(torch.cumsum(mask, dim=1) - 1, min=0)  # HF: left-pad aware
+    with torch.no_grad():
+        logits = model(torch.as_tensor(g["ids"]).long(), attention_mask=mask,
+                       positions=positions)
+    valid = g["mask"].astype(bool)
+    np.testing.assert_allclose(logits.numpy()[valid], g["logits"][valid], atol=3e-4, rtol=1e-3)
+
+
+def test_hf_state_dict_refuses_what_it_cannot_map():
+    g = np.load(GOLDEN)
+    sd = {k: g[k] for k in g.files if k not in ("ids", "mask", "logits")}
+    cfg = QwenConfig(**CFG, tie_word_embeddings=False)
+    with pytest.raises(NotImplementedError, match="A14"):
+        params_from_hf_state_dict(sd, QwenConfig(**CFG, num_experts=4))
+    with pytest.raises(KeyError, match="lm_head"):
+        params_from_hf_state_dict({k: v for k, v in sd.items() if k != "lm_head.weight"}, cfg)
+    with pytest.raises(ValueError, match="shape"):
+        params_from_hf_state_dict({**sd, "model.norm.weight": np.zeros(5, np.float32)}, cfg)
+    # The tied head takes no lm_head.
+    tied = params_from_hf_state_dict(sd, QwenConfig(**CFG, tie_word_embeddings=True))
+    assert "lm_head" not in tied
