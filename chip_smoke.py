@@ -204,6 +204,26 @@ line each; any failure ends the run with a traceback and a non-zero exit:
             serves (the tower encoded here, its seconds reported), B1 8
             times every decode call before and after the swap, 2 post-swap
             answers against offline cobra_generate_paged.
+18. resume   the trainers' fault tolerance: (a) hstu_trainer.train through
+            config/hstu/amazon.gin on the Beauty set (bf16, dropout 0.2,
+            kernels on, 2 epochs, a resume point an epoch) uninterrupted,
+            then killed by SIGTERM (core.chaos) inside epoch 1 and resumed:
+            the same steps logged once each, the per-step losses and the
+            final resume point (parameters, moments, counters, generator)
+            bit for bit, B5, B6, B3, B4 dx, B4 dW 2, 2, 1, 1, 1 times a
+            resumed step; (b) SASRec likewise, signalled between the
+            epochs (B3/B4 once a step); (c) the killed HSTU run's newest
+            resume point garbled: the resume quarantines it, falls back to
+            the epoch-0 one and ends bit-equal; (d) lcrec_trainer.train at
+            tp=2 (2 layers at the Qwen2.5-1.5B widths and vocab, B8) with
+            only rank 1 signalled: both ranks save at the same step, resume
+            bit-equal, B8 once a step a rank, and eval_only of the final
+            point gives the resumed run's valid metrics; (e) three NaN
+            batches in a row through the HSTU loop: the parameters unchanged,
+            three dumps, NonFiniteLossError at the third. Reported: the
+            resume points' bytes, the seconds of an asynchronous save
+            (what the loop waits for), of a wait=True preemption save and
+            of a restore, and the goodput buckets of the resumed epoch.
 
 Each phase that drives a main path sets every kernel's launch counter to 0
 just before and reads it just after. Then the kernels line, the card's
@@ -218,11 +238,14 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import functools
 import gc
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1722,7 +1745,7 @@ def timed_steps(dev, seed, state, step_fn, repack, rows, warm=3, n=TRAIN_STEPS,
 
     events, losses, tokens = [], [], []
 
-    def hook(state, m, global_step):
+    def hook(state, m, global_step, *_):
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         events.append(ev)
@@ -2358,7 +2381,7 @@ def rqvae_phase(dev, seed, profile=False) -> dict:
     state = TrainState.create(model, optimizer, seed)
     events, losses = [], []
 
-    def hook(state, m, global_step):
+    def hook(state, m, global_step, *_):
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         events.append(ev)
@@ -3775,7 +3798,7 @@ def cobra_train_phase(dev, seed, profile) -> dict:
     state = TrainState.create(model, optimizer, seed)
     events, parts = [], []
 
-    def hook(state, m, global_step):
+    def hook(state, m, global_step, *_):
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         events.append(ev)
@@ -4353,6 +4376,479 @@ def lcrec_tp_phase(dev, seed, profile, rank_fn=None) -> dict:
     )
 
 
+# ---- phase 18: resume (the trainers' fault tolerance) -------------------------
+
+# (a)-(c): each trainer through its own amazon.gin on the Beauty set, 2 epochs,
+# a resume point after each epoch and the loss logged every step.
+RESUME_BINDINGS = ('train.dataset = "synthetic"', "train.wandb_logging = False",
+                   "train.do_eval = False", "train.epochs = 2", "train.save_every_epoch = 1",
+                   "train.wandb_log_interval = 1")
+# A resumed run is held bit for bit. The ops of a train step known to give
+# other bits run to run on the card go here, by name (none: every resumed
+# run was bit-equal); a run that is not bit-equal fails unless one is named,
+# and is then held at the JAX tests' _assert_parity tolerance on its losses,
+# parameters and Adam moments, with the ops and tensors named in its line.
+RESUME_NONDETERMINISTIC_OPS: tuple = ()
+RESUME_FALLBACK_TOL = 1e-5
+# (d): lcrec_trainer.train at tp=2 through config/lcrec/synthetic.gin, 2
+# layers at the Qwen2.5-1.5B widths, amazon lcrec.gin's 5 x 256 codebooks,
+# bf16, batch 4 x 128, 2 epochs of 12 steps, no periodic save (the final
+# point only); only rank 1 is signalled, at step 13, and the trainer's loop
+# ORs the guards every 8 steps, so both save at 16.
+RESUME_LCREC = dict(layers=2, batch=4, seq=128, steps_per_epoch=12, epochs=2, kill=13, poll=8,
+                    eval_samples=16)
+RESUME_NAN_STEPS = frozenset({4, 5, 6})  # (e): three poisoned HSTU steps in a row
+
+
+@contextlib.contextmanager
+def timed_saves(log: list):
+    """Time every CheckpointManager.save of the block, ``{step, wait, s}``
+    (an asynchronous save returns once the state is in host memory), and
+    every restore through the ladder's consensus, ``{restore, s}``."""
+    from genrec_tpu_torch.core.checkpoint import CheckpointManager
+
+    save_, restore_ = CheckpointManager.save, CheckpointManager.restore_latest_valid_consensus
+
+    def save(self, step, state, *, wait=True):
+        t0 = time.perf_counter()
+        save_(self, step, state, wait=wait)
+        log.append(dict(step=int(step), wait=wait, s=time.perf_counter() - t0))
+
+    def restore(self, *args, **kw):
+        t0 = time.perf_counter()
+        out = restore_(self, *args, **kw)
+        log.append(dict(restore=out[1], s=time.perf_counter() - t0))
+        return out
+
+    CheckpointManager.save = save
+    CheckpointManager.restore_latest_valid_consensus = restore
+    try:
+        yield log
+    finally:
+        CheckpointManager.save = save_
+        CheckpointManager.restore_latest_valid_consensus = restore_
+
+
+def resume_train(dev, seed, trainer, gin, save_dir, plan=None, **kw):
+    """One ``trainers.<trainer>.train`` run through ``gin`` on the Beauty set
+    (the trainer's synthetic dataset swapped for `beauty_dataset`), under
+    the chaos ``plan``. Returns (what train returned, wall seconds)."""
+    import importlib
+
+    from genrec_tpu_torch import configlib
+    from genrec_tpu_torch.core import chaos
+
+    mod = importlib.import_module(f"genrec_tpu_torch.trainers.{trainer}")
+    configlib.clear_bindings()
+    configlib.clear_macros()
+    configlib.parse_file(str(HERE / gin), substitutions={"split": "beauty"})
+    for binding in (*RESUME_BINDINGS, f"train.num_items = {BEAUTY_ITEMS}",
+                    f"train.seed = {seed}", f'train.device = "{dev}"',
+                    f'train.save_dir_root = "{save_dir}"'):
+        configlib.parse_binding(binding)
+    synthetic = mod.SyntheticSeqDataset
+    mod.SyntheticSeqDataset = lambda max_seq_len, seed: beauty_dataset(seed)
+    try:
+        with chaos.inject(plan):
+            t0 = time.perf_counter()
+            out = mod.train(**kw)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+    finally:
+        mod.SyntheticSeqDataset = synthetic
+        configlib.clear_bindings()
+        configlib.clear_macros()
+
+
+def run_log(save_dir) -> tuple[dict, list, list]:
+    """A run directory's metrics.jsonl: the loss by global step (a later
+    run's line wins), the steps logged more than once, the goodput reports."""
+    losses, twice, goodput = {}, [], []
+    for line in open(f"{save_dir}/metrics.jsonl"):
+        rec = json.loads(line)
+        if "train/loss" in rec and "global_step" in rec:
+            g = int(rec["global_step"])
+            if g in losses:
+                twice.append(g)
+            losses[g] = rec["train/loss"]
+        if "goodput/pct" in rec:
+            goodput.append({k.removeprefix("goodput/"): v for k, v in rec.items()
+                            if k.startswith("goodput/")})
+    return losses, twice, goodput
+
+
+def ckpt_dir(save_dir, rank=None) -> Path:
+    """A trainer's resume points: ``checkpoints/`` or a rank's ``p<rank>``."""
+    return Path(save_dir, "checkpoints", *(() if rank is None else (f"p{rank}",)))
+
+
+def ckpt_steps(save_dir, rank=None) -> list:
+    return sorted(int(p.name) for p in ckpt_dir(save_dir, rank).iterdir() if p.name.isdigit())
+
+
+def final_point(save_dir, rank=None) -> tuple[int, dict, int]:
+    """(step, the state's tensors, tensor file bytes) of the newest resume
+    point (of ``rank``'s shard in a per-rank tree)."""
+    from genrec_tpu_torch.core.checkpoint import TENSORS, read_record
+
+    step = ckpt_steps(save_dir, rank)[-1]
+    path = ckpt_dir(save_dir, rank) / str(step)
+    flat = read_record(str(path))
+    return step, {k: v for k, v in flat.items() if k.startswith("state/")}, \
+        (path / TENSORS).stat().st_size
+
+
+def held_equal(what, losses_a: dict, losses_b: dict, state_a: dict, state_b: dict) -> dict:
+    """Losses and final state of run b against run a: bit for bit, else,
+    where RESUME_NONDETERMINISTIC_OPS names the ops at fault, every float
+    tensor within RESUME_FALLBACK_TOL; the generator state and the step
+    counters always exactly."""
+    check(sorted(losses_a) == sorted(losses_b),
+          (what, "replayed or skipped steps", sorted(set(losses_a) ^ set(losses_b))))
+    check(state_a.keys() == state_b.keys(), (what, "resume point layouts differ"))
+    loss_diff = max(abs(losses_a[g] - losses_b[g]) for g in losses_a)
+    differ = sorted(k for k in state_a if not torch.equal(state_a[k], state_b[k]))
+    out = dict(steps=len(losses_a), bit_equal=loss_diff == 0 and not differ,
+               max_loss_diff=loss_diff, tensors=len(state_a), tensors_differ=differ[:20])
+    if out["bit_equal"]:
+        return out
+    check(RESUME_NONDETERMINISTIC_OPS, (what, "not bit for bit and no op is named in "
+                                              "RESUME_NONDETERMINISTIC_OPS", out))
+    exact = [k for k in differ if not state_a[k].is_floating_point()
+             or k.endswith(("/step", "/nonfinite_count", "/count"))]
+    check(not exact, (what, "generator or counters differ", exact))
+    diffs = {k: float((state_a[k].double() - state_b[k].double()).abs().max()) for k in differ}
+    check(loss_diff <= RESUME_FALLBACK_TOL and max(diffs.values(), default=0.0)
+          <= RESUME_FALLBACK_TOL,
+          (what, "resumed run diverged", loss_diff, sorted(diffs.items(), key=lambda x: -x[1])[:5]))
+    return {**out, "max_param_diff": max((v for k, v in diffs.items()
+                                          if k.startswith("state/model/")), default=0.0),
+            "max_opt_diff": max((v for k, v in diffs.items() if k.startswith("state/opt/")),
+                                default=0.0),
+            "nondeterministic_ops": list(RESUME_NONDETERMINISTIC_OPS),
+            "held_at": RESUME_FALLBACK_TOL}
+
+
+def resume_parity(what, dir_a, dir_b, replayed=(), rank=None) -> tuple[dict, int, int]:
+    """run b (killed, then resumed) against run a (uninterrupted): the logged
+    step set, the per-step losses and the final resume point (``rank``'s
+    shard in a per-rank tree; the losses are rank 0's log). ``replayed``:
+    the steps b may log twice (a fall back to an older resume point)."""
+    losses_a, twice_a, _ = run_log(dir_a)
+    losses_b, twice_b, _ = run_log(dir_b)
+    check(not twice_a and sorted(twice_b) == sorted(replayed),
+          (what, "steps logged twice", twice_b, "allowed", list(replayed)))
+    step_a, state_a, _ = final_point(dir_a, rank)
+    step_b, state_b, nbytes = final_point(dir_b, rank)
+    check(step_a == step_b, (what, "final resume points at", step_a, step_b))
+    return held_equal(what, losses_a, losses_b, state_a, state_b), step_a, nbytes
+
+
+def hstu_resume(dev, seed, work) -> dict:
+    """(a) HSTU through hstu_trainer.train killed inside epoch 1 and resumed
+    (the resume crosses a repack), and (c) the ladder: the killed run's
+    newest resume point garbled, the resume falls back to the epoch-0 one."""
+    from genrec_tpu_torch.core import chaos
+
+    gin = "config/hstu/amazon.gin"
+    a, b, c = (str(work / f"hstu_{x}") for x in "abc")
+    saves: list = []
+    with timed_saves(saves):
+        _, a_s = resume_train(dev, seed, "hstu_trainer", gin, a)
+        n = max(run_log(a)[0])
+        per_epoch = n // 2
+        kill = per_epoch + per_epoch // 2
+        out, b_s = resume_train(dev, seed, "hstu_trainer", gin, b,
+                                chaos.ChaosPlan(kill_at_step=kill))
+        check(out == ({}, {}), ("preempted HSTU run returned", out))
+        check(ckpt_steps(b) == [per_epoch, kill], ("HSTU resume points", ckpt_steps(b)))
+        shutil.copytree(b, c)
+        killed_saves = list(saves)
+        reset_counters()
+        _, resumed_s = resume_train(dev, seed, "hstu_trainer", gin, b,
+                                    resume_from_checkpoint=True)
+        launches = read_counters()
+    parity, final_step, nbytes = resume_parity("HSTU", a, b)
+    steps = n - kill
+    ds = beauty_dataset(seed)
+    eval_batches = sum(-(-len(ds.eval_arrays_with_time(split)["input_ids"]) // 256)
+                       for split in ("valid", "test"))
+    want = {"hstu_attention_fwd": 2 * steps + 2 * eval_batches,
+            "hstu_attention_bwd": 2 * steps, "fused_linear_ce_fwd": steps,
+            "fused_linear_ce_bwd_dx": steps, "fused_linear_ce_bwd_dw": steps}
+    for name, count in launches.items():
+        check(count == want.get(name, 0), f"resumed HSTU run: {name} launched {count} times, "
+                                          f"want {want.get(name, 0)}")
+    goodput = run_log(b)[2][-1]  # the resumed run's epoch (1)
+
+    chaos.garble_checkpoint(f"{c}/checkpoints", kill)
+    _, ladder_s = resume_train(dev, seed, "hstu_trainer", gin, c, resume_from_checkpoint=True)
+    check(kill not in ckpt_steps(c) and Path(c, "checkpoints", "quarantine", "p0",
+                                             str(kill)).is_dir(),
+          ("the garbled step is not quarantined", ckpt_steps(c)))
+    ladder, _, _ = resume_parity("HSTU ladder", a, c, replayed=range(per_epoch + 1, kill + 1))
+    return dict(
+        steps_per_epoch=per_epoch, kill_at_step=kill, final_step=final_step,
+        resumed_steps=steps, parity=parity, launches=launches,
+        launches_per_step={k: (v - (2 * eval_batches if k == "hstu_attention_fwd" else 0))
+                           / steps for k, v in launches.items() if v},
+        eval_batches=eval_batches, resume_point_bytes=nbytes,
+        async_save_s=[x["s"] for x in killed_saves if not x["wait"]],
+        preemption_save_s=[x["s"] for x in killed_saves if x["wait"]],
+        restore_s=goodput["restore_s"], goodput_epoch1=goodput,
+        run_s=dict(uninterrupted=a_s, killed=b_s, resumed=resumed_s),
+        ladder=dict(garbled_step=kill, fell_back_to=per_epoch, parity=ladder, run_s=ladder_s),
+    )
+
+
+def sasrec_resume(dev, seed, work) -> dict:
+    """(b) SASRec through sasrec_trainer.train signalled between the epochs
+    (kill_at_epoch=0): the next epoch's first poll writes (1, 0)."""
+    from genrec_tpu_torch.core import chaos
+
+    gin = "config/sasrec/amazon.gin"
+    a, b = (str(work / f"sasrec_{x}") for x in "ab")
+    resume_train(dev, seed, "sasrec_trainer", gin, a)
+    per_epoch = max(run_log(a)[0]) // 2
+    out, _ = resume_train(dev, seed, "sasrec_trainer", gin, b, chaos.ChaosPlan(kill_at_epoch=0))
+    check(out == ({}, {}), ("preempted SASRec run returned", out))
+    check(ckpt_steps(b) == [per_epoch], ("SASRec resume points", ckpt_steps(b)))
+    reset_counters()
+    _, resumed_s = resume_train(dev, seed, "sasrec_trainer", gin, b,
+                                resume_from_checkpoint=True)
+    launches = read_counters()
+    for name, count in launches.items():
+        want = per_epoch if name in SASREC_LAUNCHES_PER_STEP else 0
+        check(count == want, f"resumed SASRec run: {name} launched {count} times, want {want}")
+    parity, final_step, nbytes = resume_parity("SASRec", a, b)
+    return dict(steps_per_epoch=per_epoch, final_step=final_step, parity=parity,
+                launches=launches, resume_point_bytes=nbytes, resumed_s=resumed_s)
+
+
+@contextlib.contextmanager
+def qwen_vocab():
+    """The synthetic LCRec tokenizer's words padded with unused ones to
+    Qwen2.5's LCREC["base_vocab"] ids: lcrec_trainer.train sizes the
+    backbone's vocabulary by its tokenizer, and the synthetic data names a
+    few hundred words."""
+    from genrec_tpu_torch.data import lcrec_tasks
+
+    base = lcrec_tasks.WordTokenizer
+
+    class QwenSizedTokenizer(base):
+        def __init__(self, words, num_codebooks, codebook_size):
+            unused = [f"unused{i}" for i in range(LCREC["base_vocab"] - 3 - len(words))]
+            super().__init__([*words, *unused], num_codebooks, codebook_size)
+
+    lcrec_tasks.WordTokenizer = QwenSizedTokenizer
+    try:
+        yield
+    finally:
+        lcrec_tasks.WordTokenizer = base
+
+
+def lcrec_resume_rank(group, seed) -> dict:
+    """(d) one rank: lcrec_trainer.train at tensor_parallel=2, 2 layers at
+    the Qwen2.5-1.5B widths and vocab: uninterrupted (a), with only rank 1
+    signalled (b), b resumed, then b's final point evaluated (eval_only)."""
+    from genrec_tpu_torch import configlib
+    from genrec_tpu_torch.core import chaos
+    from genrec_tpu_torch.trainers import lcrec_trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as in main(): a fresh process
+    c = RESUME_LCREC
+    cfg = lcrec_cfg(c["layers"])
+    work = HERE / "build" / "resume" / "lcrec"
+    bindings = (
+        "train.tensor_parallel = 2", f'train.device = "{group.device}"',
+        f"train.seed = {seed}", f"train.n_layers = {c['layers']}",
+        f"train.hidden_size = {cfg.hidden_size}",
+        f"train.intermediate_size = {cfg.intermediate_size}",
+        f"train.num_heads = {cfg.num_attention_heads}",
+        f"train.num_kv_heads = {cfg.num_key_value_heads}",
+        f"train.num_codebooks = {LCREC['codebooks']}",
+        f"train.codebook_size = {LCREC['codebook_size']}",
+        f"train.batch_size = {c['batch']}", f"train.max_text_len = {c['seq']}",
+        f"train.max_train_samples = {c['batch'] * c['steps_per_epoch']}",
+        f"train.epochs = {c['epochs']}", f"train.save_every_epoch = {c['epochs'] + 1}",
+        "train.do_eval = False", "train.eval_item_tasks = False",
+        f"train.max_eval_samples = {c['eval_samples']}", "train.wandb_log_interval = 1")
+
+    def run(name, plan=None, **kw):
+        configlib.clear_bindings()
+        configlib.clear_macros()
+        configlib.parse_file(str(HERE / "config/lcrec/synthetic.gin"))
+        for binding in (*bindings, f'train.save_dir_root = "{work / name}"'):
+            configlib.parse_binding(binding)
+        log: list = []
+        reset_counters()
+        try:
+            with qwen_vocab(), timed_saves(log), chaos.inject(plan):
+                t0 = time.perf_counter()
+                out = lcrec_trainer.train(**kw)
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t0
+        finally:
+            configlib.clear_bindings()
+            configlib.clear_macros()
+        launches = read_counters()
+        gc.collect()
+        torch.cuda.empty_cache()
+        return dict(out=out, wall_s=wall_s, launches=launches,
+                    saves=[x for x in log if "step" in x],
+                    restores=[x for x in log if "restore" in x],
+                    steps=ckpt_steps(work / name, group.rank),
+                    final_model=(work / name / f"final_model.rank{group.rank}").exists())
+
+    return dict(a=run("a"), b=run("b", chaos.ChaosPlan(kill_at_step=c["kill"], only_process=1)),
+                resumed=run("b", resume_from_checkpoint=True),
+                eval_only=run("b", eval_only=True))
+
+
+def lcrec_resume(dev, seed, rank_fn=None) -> dict:
+    """(d) two ranks through parallel.mesh.spawn on the card; ``rank_fn``
+    stands in for ``lcrec_resume_rank`` in a rehearsal on the CPU. The
+    losses are rank 0's log; each rank's final point is held apart."""
+    from genrec_tpu_torch.parallel.mesh import spawn
+
+    c = RESUME_LCREC
+    work = HERE / "build" / "resume" / "lcrec"
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks share this card
+    ranks = spawn(rank_fn or lcrec_resume_rank, LCREC_TP, (seed,), device=dev.type,
+                  timeout_s=LCREC_TIMEOUT_S)
+    save_at = -(-c["kill"] // c["poll"]) * c["poll"]
+    total = c["epochs"] * c["steps_per_epoch"]
+    parity, nbytes = [], []
+    for rank, r in enumerate(ranks):
+        a, b, b2, ev = r["a"], r["b"], r["resumed"], r["eval_only"]
+        check(b["out"] == ({}, {}), (f"rank {rank}: the preempted run returned", b["out"]))
+        check(b["steps"] == [save_at] and [x["step"] for x in b["saves"] if x["wait"]]
+              == [save_at], (f"rank {rank} preempted at", b["steps"], b["saves"], "want",
+                             save_at))
+        check([x["restore"] for x in b2["restores"]] == [save_at]
+              and [x["restore"] for x in ev["restores"]] == [total],
+              (f"rank {rank} restored", b2["restores"], ev["restores"]))
+        check(a["steps"] == b2["steps"][-1:] == [total] and a["final_model"]
+              and b2["final_model"], (f"rank {rank}: final points", a["steps"], b2["steps"]))
+        n = total - save_at
+        for name, count in b2["launches"].items():
+            want = n if name in LCREC_LAUNCHES_PER_STEP or name == "sharded_fused_linear_ce" \
+                else 0
+            check(count == want, f"resumed LCRec rank {rank}: {name} {count}, want {want}")
+        valid, test = b2["out"]
+        check(all(np.isfinite(v) for v in (*valid.values(), *test.values())), b2["out"])
+        check(ev["out"] == (valid, valid), (f"rank {rank}: eval_only of the final point",
+                                            ev["out"][0], "resumed run's valid", valid))
+        p, _, size = resume_parity(f"LCRec rank {rank}", work / "a", work / "b", rank=rank)
+        parity.append(p)
+        nbytes.append(size)
+    losses = run_log(work / "b")[0]
+    check(sorted(losses) == list(range(1, total + 1)), ("LCRec logged steps", sorted(losses)))
+    r0, r1 = ranks
+    return dict(config=RESUME_LCREC, saved_at=save_at, parity=parity,
+                launches_resumed=[r["resumed"]["launches"] for r in ranks],
+                resume_point_bytes=nbytes,
+                async_save_s=[[x["s"] for x in r[k]["saves"] if not x["wait"]]
+                              for r in ranks for k in ("a", "resumed")],
+                preemption_save_s=[[x["s"] for x in r["b"]["saves"] if x["wait"]]
+                                   for r in ranks],
+                restore_s=[r["resumed"]["restores"][0]["s"] for r in ranks],
+                eval_only_restore_s=[r["eval_only"]["restores"][0]["s"] for r in ranks],
+                eval_only_valid=r0["eval_only"]["out"][0],
+                run_s={k: [r[k]["wall_s"] for r in ranks]
+                       for k in ("a", "b", "resumed", "eval_only")},
+                rank1_valid=r1["resumed"]["out"][0])
+
+
+def nonfinite_resume(dev, seed, work) -> dict:
+    """(e) three poisoned HSTU steps in a row through PackedTrainLoop (a
+    float per-row weight on the batch carries the NaN into the loss): the
+    parameters stay as they were across the skipped steps, three batches
+    are dumped, and NonFiniteLossError is raised at the third."""
+    from genrec_tpu_torch.core import chaos
+    from genrec_tpu_torch.core.fault_tolerance import NonFiniteLossError
+    from genrec_tpu_torch.core.harness import make_train_step
+    from genrec_tpu_torch.core.logging import Tracker, setup_logger
+    from genrec_tpu_torch.core.optim import Adam
+    from genrec_tpu_torch.core.state import TrainState
+    from genrec_tpu_torch.models.hstu import HSTU
+    from genrec_tpu_torch.trainers.hstu_trainer import make_loss_fn
+    from genrec_tpu_torch.trainers.packed_loop import PackedTrainLoop
+
+    model = HSTU(num_items=BEAUTY_ITEMS, dropout=0.2, use_pallas=True, fused_ce=True,
+                 dtype=torch.bfloat16, device=dev, seed=seed, **HSTU_AMAZON)
+    optimizer = Adam(1e-3, b2=0.98)
+    hstu_loss = make_loss_fn()
+
+    def loss_fn(m, batch, gen):
+        loss, aux = hstu_loss(m, batch, gen)
+        return loss * batch["weight"].mean(), aux
+
+    step_fn = make_train_step(loss_fn, optimizer, clip_norm=None)
+    state = TrainState.create(model, optimizer, seed)
+    _, repack = beauty_data(seed)
+
+    def weighted(epoch):
+        arrays, rep = repack(epoch)
+        return {**arrays, "weight": np.ones(len(arrays["input_ids"]), np.float32)}, rep
+
+    first, last = min(RESUME_NAN_STEPS), max(RESUME_NAN_STEPS)
+    snaps = {}
+
+    def hook(st, m, g, *_):
+        if g in (first - 1, last):
+            snaps[g] = [p.detach().clone() for p in st.params]
+
+    out = str(work / "nonfinite")
+    loop = PackedTrainLoop(logger=setup_logger(None), tracker=Tracker(), device=dev,
+                           rows_per_step=HSTU_BATCH, row_len=HSTU_AMAZON["max_seq_len"],
+                           seed=seed, pack_sequences=True, repack=weighted,
+                           save_dir_root=out, step_hook=hook)
+    raised = None
+    with chaos.inject(chaos.ChaosPlan(nan_at_steps=RESUME_NAN_STEPS)):
+        try:
+            loop.run_epoch(state, step_fn, 0, 0)
+        except NonFiniteLossError as e:
+            raised = str(e)
+    check(raised is not None and f"step {last}" in raised, ("no abort at the third", raised))
+    check(all(torch.equal(x, y) for x, y in zip(snaps[first - 1], snaps[last])),
+          "parameters moved across the skipped steps")
+    dumps = sorted(p.name for p in Path(out, "nonfinite").iterdir())
+    want = sorted(f"nonfinite_step{g}.npz" for g in RESUME_NAN_STEPS)
+    check(dumps == want, ("dumps", dumps))
+    # The check is one step late: the step after the third ran (and applied)
+    # where the epoch has one.
+    applied = first - 1 + (loop.pack_report.n_rows // HSTU_BATCH > last)
+    check(int(state.step) == applied, ("applied updates", int(state.step), applied))
+    return dict(poisoned_steps=sorted(RESUME_NAN_STEPS), dumps=dumps, error=raised,
+                skipped=loop.monitor.skipped_steps, applied_updates=int(state.step))
+
+
+def resume_phase(dev, seed, rank_fn=None) -> dict:
+    """(a)-(e) of the trainers' fault tolerance on the card: exact resume
+    of HSTU and SASRec through their trainers, the integrity ladder
+    through a trainer, LCRec at tp=2 with one rank signalled, non-finite
+    batches; the resume points' bytes, save and restore seconds, goodput."""
+    work = HERE / "build" / "resume"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    try:
+        out = dict(hstu=hstu_resume(dev, seed, work))
+        out["sasrec"] = sasrec_resume(dev, seed, work)
+        out["nonfinite"] = nonfinite_resume(dev, seed, work)
+        out["lcrec_tp2"] = lcrec_resume(dev, seed, rank_fn)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return emit("resume", card=torch.cuda.get_device_name(dev), wall_s=time.perf_counter() - t0,
+                config=("HSTU and SASRec at config/{hstu,sasrec}/amazon.gin widths (bf16, "
+                        "dropout 0.2, kernels on) on the synthetic Amazon-Beauty set, 2 "
+                        "epochs, a resume point an epoch; LCRec tp=2: "
+                        f"{RESUME_LCREC}"), **out)
+
+
+
 def build_all() -> dict:
     """Every kernel library, one nvcc per source, all started together."""
     from genrec_tpu_torch.kernels.build import LIBRARIES, NVCC_FLAGS, build_library
@@ -4460,6 +4956,7 @@ def main(argv=None) -> int:
     phases["retrieve"] = retrieve_phase(dev, args.seed, args.profile)
     phases["lcrec_tp"] = lcrec_tp_phase(dev, args.seed, args.profile)
     kernels["sharded_fused_linear_ce"] = phases["lcrec_tp"]["b8"]
+    phases["resume"] = resume_phase(dev, args.seed)
     phases["wall_s"] = time.perf_counter() - t_start
 
     launches = {"paged_attention_stats": (phases["serve"]["paged_attention_launches"]

@@ -1,14 +1,16 @@
-"""Step-numbered params checkpoints with an integrity ladder (port of the
-params half of genrec_tpu/core/checkpoint.py: ``CheckpointManager``,
-``save_params`` / ``load_params``, ``CheckpointCorruptError`` /
-``CheckpointMismatchError``).
+"""Step-numbered checkpoints with an integrity ladder, resume helpers and
+best-model tracking (port of genrec_tpu/core/checkpoint.py:
+``CheckpointManager`` with its consensus restore, ``save_params`` /
+``load_params``, ``maybe_resume``, ``BestTracker``, the stale-record
+refusal, ``CheckpointCorruptError`` / ``CheckpointMismatchError``).
 
 The JAX package writes orbax records, which PyTorch cannot read, so the
 port keeps a format of its own. A record is one directory:
 
 - ``tensors.pt`` — ``torch.save`` of a flat name -> tensor dict, read back
   with ``weights_only=True``. A nested tree (a multi-head engine's
-  ``{head: state_dict}``) is flattened with ``/`` between the levels;
+  ``{head: state_dict}``, a resume point's ``{state, cursor}``) is
+  flattened with ``/`` between the levels;
 - ``manifest.json`` — for every tensor its name, shape, dtype and the
   CRC32 of its bytes, and the CRC32 of ``tensors.pt`` as a whole (damage
   anywhere in the file, its container bytes included);
@@ -16,7 +18,12 @@ port keeps a format of its own. A record is one directory:
 
 A step is written into a temporary directory beside the others and
 renamed to ``<directory>/<step>`` once its marker is in, so a step that
-discovery lists was written whole.
+discovery lists was written whole. ``CheckpointManager.save(...,
+wait=False)`` is asynchronous, as orbax's saves are: the state is copied
+to host memory before the call returns (the trainers' steps then update
+parameters and moments in place), and the write and commit run on a
+background thread; `wait` joins it, and every read of the manager joins
+it first.
 
 The manifest decides the ladder's verdicts, which the JAX ladder takes
 from orbax's metadata read:
@@ -25,7 +32,8 @@ from orbax's metadata read:
   manifest does not list (or the other way round), a checksum mismatch
   (the file's or a tensor's) or a non-finite float tensor is CORRUPT (`CheckpointCorruptError`): the
   ladder quarantines the step to ``<directory>/quarantine/p<rank>/<step>``
-  and walks to the next one;
+  (``<directory>/quarantine/<step>`` in a per-rank tree, whose directory
+  names its rank already) and walks to the next one;
 - names, shapes or dtypes that differ from the live state are a MISMATCH
   (`CheckpointMismatchError`): the record is intact but not this state's
   (another model, an older layout), so it stays on disk for a rollback and
@@ -34,10 +42,12 @@ from orbax's metadata read:
 The layout is compared against the manifest before any tensor bytes are
 read, so damaged bytes are told from a foreign layout whatever the
 damage: the JAX ladder reads garbled orbax array bytes behind intact
-metadata as a mismatch and leaves them in discovery (ROADMAP C).
+metadata as a mismatch and leaves them in discovery (ROADMAP C3).
 
-Not ported here (ROADMAP A12): resume points, ``maybe_resume``,
-``BestTracker``, the per-host and consensus restores and the chaos hooks.
+Ranks of a tensor-parallel group each hold a shard: ``per_host=True``
+gives each rank its own record tree ``<directory>/p<rank>/`` (the JAX
+per-host layout), and `restore_latest_valid_consensus` makes every rank
+restore the same step or abort with a per-rank report.
 """
 
 from __future__ import annotations
@@ -47,11 +57,13 @@ import logging
 import os
 import shutil
 import tempfile
+import threading
 import zlib
 from typing import Mapping
 
 import torch
 
+from genrec_tpu_torch.core import chaos
 from genrec_tpu_torch.obs.flight_recorder import get_flight_recorder, process_rank
 
 logger = logging.getLogger("genrec_tpu_torch")
@@ -126,11 +138,19 @@ def _describe(flat: Mapping[str, torch.Tensor]) -> list[dict]:
             for n, t in flat.items()]
 
 
-def write_record(path: str, tree: Mapping) -> None:
+def host_copy(tree: Mapping) -> dict[str, torch.Tensor]:
+    """A flat copy of ``tree`` in host memory that no later in-place update
+    of the tree's tensors reaches (a CPU tensor is cloned too)."""
+    return {n: t.detach().to("cpu", copy=True).contiguous()
+            for n, t in flatten_tree(tree).items()}
+
+
+def write_record(path: str, tree: Mapping, before_commit=None) -> None:
     """Write ``tree`` as one committed record directory at ``path``:
     tensors and manifest into a temporary directory beside it, the commit
     marker last, then one rename into place (an existing ``path`` is
-    replaced)."""
+    replaced). ``before_commit()`` runs between the tensor file and the
+    marker (the chaos hook of a process lost mid-save)."""
     flat = {n: t.detach().to("cpu").contiguous() for n, t in flatten_tree(tree).items()}
     manifest = {"format": FORMAT, "tensors": [
         {**d, "crc32": _crc32(flat[d["name"]])} for d in _describe(flat)]}
@@ -142,6 +162,8 @@ def write_record(path: str, tree: Mapping) -> None:
         manifest["file_crc32"] = _file_crc32(os.path.join(tmp, TENSORS))
         with open(os.path.join(tmp, MANIFEST), "w") as f:
             json.dump(manifest, f)
+        if before_commit is not None:
+            before_commit()
         with open(os.path.join(tmp, COMMIT_MARKER), "w") as f:
             f.write(FORMAT + "\n")
         for name in (TENSORS, MANIFEST, COMMIT_MARKER):
@@ -228,15 +250,24 @@ class CheckpointManager:
     step is quarantined and a mismatched one left in place, and the ladder
     falls through to the previous step.
 
-    Discovery lists the step directories on disk when asked (`all_steps`),
-    so a manager sees steps another process published; `reload` is kept
-    for the JAX manager's API and rescans nothing extra."""
+    ``per_host=True`` in a process group of more than one rank keeps this
+    rank's records under ``<directory>/p<rank>/`` (each rank the sole
+    writer of its own tree); restores then go through
+    `restore_latest_valid_consensus`. Discovery lists the step
+    directories on disk when asked (`all_steps`), so a manager sees steps
+    another process published; `reload` is kept for the JAX manager's API
+    and rescans nothing extra."""
 
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3, *, per_host: bool = False):
         if max_to_keep < 1:
             raise ValueError(f"max_to_keep must be >= 1, got {max_to_keep}")
-        self.directory = os.path.abspath(directory)
+        rank, world = process_rank()
+        self.per_host = bool(per_host and world > 1)
+        root = os.path.abspath(directory)
+        self.directory = os.path.join(root, f"p{rank}") if self.per_host else root
         self.max_to_keep = int(max_to_keep)
+        self._writer: threading.Thread | None = None
+        self._write_error: BaseException | None = None
         os.makedirs(self.directory, exist_ok=True)
 
     def _step_dir(self, step: int) -> str:
@@ -244,11 +275,12 @@ class CheckpointManager:
 
     def all_steps(self) -> list[int]:
         """Every step directory under ``directory``, ascending (quarantined
-        and in-flight temporary directories are not steps)."""
+        and in-flight temporary directories are not steps). Joins an
+        in-flight save first."""
+        self.wait()
         if not os.path.isdir(self.directory):
             return []
-        return sorted(int(n) for n in os.listdir(self.directory)
-                      if n.isdigit() and os.path.isdir(os.path.join(self.directory, n)))
+        return self._listed_steps()
 
     def latest_step(self) -> int | None:
         steps = self.all_steps()
@@ -258,18 +290,29 @@ class CheckpointManager:
         """Discovery reads the directory on every call: nothing to refresh."""
 
     def wait(self) -> None:
-        """Saves are synchronous: nothing is in flight."""
+        """Join the in-flight asynchronous save (the durability barrier);
+        a failure of its write is raised here."""
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = None
+        if self._write_error is not None:
+            err, self._write_error = self._write_error, None
+            raise RuntimeError(f"asynchronous checkpoint save in {self.directory} "
+                               f"failed: {err!r}") from err
 
     def close(self) -> None:
-        """Nothing is held open."""
+        """Join the in-flight save; nothing else is held open."""
+        self.wait()
 
-    def save(self, step: int, state: Mapping) -> None:
+    def save(self, step: int, state: Mapping, *, wait: bool = True) -> None:
         """Write ``state`` as step ``step``, then drop the oldest steps past
-        ``max_to_keep``. Re-saving the latest step is a no-op and a step
-        below it is refused (as orbax's ``should_save`` refuses it; here
-        loudly)."""
+        ``max_to_keep``. With ``wait=False`` the call returns once the
+        state is copied to host memory and the write and commit run on a
+        background thread (one save in flight: a new save joins the last).
+        Re-saving the latest step is a no-op and a step below it is
+        refused (as orbax's ``should_save`` refuses it; here loudly)."""
         step = int(step)
-        latest = self.latest_step()
+        latest = self.latest_step()  # joins the previous save
         if latest is not None and step <= latest:
             if step == latest:
                 return
@@ -277,9 +320,29 @@ class CheckpointManager:
                 f"refusing to save checkpoint step {step} below the latest retained step "
                 f"{latest} in {self.directory}")
         _flight().record("checkpoint_save", step=step, directory=self.directory)
-        write_record(self._step_dir(step), state)
-        for old in self.all_steps()[:-self.max_to_keep]:
+        if wait:
+            self._write(step, state)
+            return
+        flat = host_copy(state)
+        self._writer = threading.Thread(target=self._write_async, args=(step, flat),
+                                        name=f"ckpt-save-{step}")
+        self._writer.start()
+
+    def _write(self, step: int, state: Mapping) -> None:
+        write_record(self._step_dir(step), state,
+                     before_commit=lambda: chaos.maybe_die_in_save(step))
+        for old in self._listed_steps()[:-self.max_to_keep]:
             shutil.rmtree(self._step_dir(old), ignore_errors=True)
+
+    def _write_async(self, step: int, flat: dict) -> None:
+        try:
+            self._write(step, flat)
+        except BaseException as e:  # noqa: BLE001 — raised by wait()
+            self._write_error = e
+
+    def _listed_steps(self) -> list[int]:
+        return sorted(int(n) for n in os.listdir(self.directory)
+                      if n.isdigit() and os.path.isdir(os.path.join(self.directory, n)))
 
     def restore(self, state_like: Mapping | None = None, step: int | None = None):
         """The record of ``step`` (default: the latest), laid out as
@@ -293,14 +356,17 @@ class CheckpointManager:
     def validate_and_restore(self, state_like: Mapping | None, step: int):
         """One ladder rung: restore ``step`` or raise CheckpointCorruptError
         (damaged) / CheckpointMismatchError (intact, foreign layout)."""
+        self.wait()
         return read_record(self._step_dir(step), state_like)
 
     def quarantine(self, step: int) -> None:
         """Move a corrupt step out of discovery, keeping it on disk under
-        ``quarantine/p<rank>/`` (``<step>.<n>`` if that name is taken). A
-        step another process moved first is out of discovery already."""
+        ``quarantine/p<rank>/`` of a shared directory, ``quarantine/`` of a
+        per-rank one (``<step>.<n>`` if that name is taken). A step another
+        process moved first is out of discovery already."""
         _flight().record("checkpoint_quarantine", step=step, directory=self.directory)
-        qdir = os.path.join(self.directory, "quarantine", f"p{process_rank()[0]}")
+        qdir = os.path.join(self.directory, "quarantine",
+                            *(() if self.per_host else (f"p{process_rank()[0]}",)))
         os.makedirs(qdir, exist_ok=True)
         dst = os.path.join(qdir, str(step))
         n = 0
@@ -338,3 +404,170 @@ class CheckpointManager:
                                  error=str(e)[:500])
         _flight().record("integrity_ladder", step=None, verdict="nothing_valid")
         return None, None
+
+    def restore_latest_valid_consensus(self, state_like: Mapping | None, extra_validate=None):
+        """`restore_latest_valid` that every rank of the process group
+        agrees on: every rank restores the SAME step, or the job aborts.
+
+        Each rank first runs the ladder locally (quarantining its corrupt
+        steps), then the ranks agree through `parallel.mesh`:
+
+        1. allgather each rank's newest-valid step (-1 = nothing valid);
+        2. all equal -> done (all -1 = every rank starts fresh);
+        3. some ranks valid, some with nothing -> abort with a per-rank
+           validity report (restored-vs-fresh shards would fork the model);
+        4. disagreeing steps -> every rank re-validates the minimum (ranks
+           whose local newest is newer fall back and quarantine the
+           abandoned newer steps), a second allgather confirms every rank
+           holds it, and any failure aborts with the report.
+
+        A final `barrier` pins the agreement. A single process: identical
+        to `restore_latest_valid`."""
+        restored, step = self.restore_latest_valid(state_like, extra_validate)
+        if process_rank()[1] == 1:
+            return restored, step
+        from genrec_tpu_torch.parallel.mesh import allgather_host_ints, barrier
+
+        steps = allgather_host_ints([-1 if step is None else step])[:, 0]
+        report = ", ".join(f"p{i}={'none' if s < 0 else int(s)}" for i, s in enumerate(steps))
+        if (steps < 0).all():
+            barrier("ckpt-consensus-fresh")
+            return None, None
+        if (steps < 0).any():
+            raise RuntimeError(
+                "checkpoint consensus: some ranks have NO valid checkpoint while others do "
+                f"(newest-valid per rank: {report}). Restoring would fork the model's "
+                "shards; restore or clear the affected ranks' checkpoint directories and "
+                "relaunch.")
+        target = int(steps.min())
+        ok = 1
+        if step != target:
+            logger.warning(f"checkpoint consensus: local newest-valid step {step} != group "
+                           f"minimum {target} (per rank: {report}) — falling back to step "
+                           f"{target}")
+            try:
+                restored = self.validate_and_restore(state_like, target)
+                if extra_validate is not None:
+                    extra_validate(restored, target)
+                step = target
+                # Valid here but abandoned by the agreed restore: retained,
+                # they would refuse every later save below them. Quarantine
+                # them (on disk for a rollback, out of discovery).
+                for s in [s for s in self.all_steps() if s > target]:
+                    logger.warning(f"checkpoint consensus: quarantining locally-valid step {s} "
+                                   f"abandoned by the agreed restore at step {target}")
+                    self.quarantine(s)
+            except (CheckpointCorruptError, CheckpointMismatchError) as e:
+                logger.error(f"checkpoint consensus: cannot restore the agreed step {target} "
+                             f"locally: {e}")
+                ok = 0
+        all_ok = allgather_host_ints([ok])[:, 0]
+        if not (all_ok > 0).all():
+            failed = [f"p{i}" for i, o in enumerate(all_ok) if not o]
+            raise RuntimeError(
+                f"checkpoint consensus: ranks {failed} cannot restore the agreed step {target} "
+                f"(newest-valid per rank: {report}). No step is valid on every rank — "
+                "refusing a forked restore; inspect the per-rank quarantine dirs.")
+        barrier("ckpt-consensus")
+        return restored, step
+
+
+def stale_refusal_message(directory: str, what: str, at: str) -> str:
+    """The one stale-record refusal narrative, shared by the one-process
+    refusal below and the collective one in
+    `core.fault_tolerance.resume_exact`."""
+    return (
+        f"checkpoint directory {directory} holds records this run cannot resume ({what}). "
+        f"Refusing to {at} — CheckpointManager.save refuses every step at or below the "
+        "stale latest one, so the run would checkpoint nothing. Move or delete those step "
+        "dirs (the records are intact; epoch-keyed bare records can still be restored from "
+        "a script via genrec_tpu_torch.core.checkpoint.maybe_resume) and relaunch.")
+
+
+def _refuse_resume_below_stale_steps(ckpt: CheckpointManager, resumed_step: int | None) -> None:
+    """Intact foreign records retained ABOVE the restore point (or with
+    nothing restorable at all) are a trap: every later save keyed at or
+    below the stale latest is refused, so the run would checkpoint
+    nothing and every relaunch would restore the same old step. Fail
+    loudly instead. Foreign records BELOW the restore point are harmless
+    (later saves key above them) and stay on disk for rollbacks."""
+    stale = [s for s in ckpt.all_steps() if resumed_step is None or s > resumed_step]
+    if stale:
+        at = ("start fresh on top of them" if resumed_step is None
+              else f"resume below them (at step {resumed_step})")
+        raise RuntimeError(stale_refusal_message(
+            ckpt.directory, f"steps {stale}: written by a different code version or trainer",
+            at))
+
+
+def maybe_resume(ckpt: CheckpointManager | None, state: Mapping):
+    """Epoch-keyed resume of bare state records (``TrainState.as_tree()``
+    saved at step = epoch), a migration helper: no trainer calls it, every
+    trainer resumes step-exactly through `core.fault_tolerance.resume_exact`.
+
+    Returns ``(state, start_epoch, global_step)``: the restored tree (laid
+    out as ``state``), epoch + 1 and its ``step``, or ``state`` and fresh
+    values when nothing valid is there. Goes through the integrity ladder
+    (a damaged latest step is quarantined and the previous one restored)
+    and the stale-record refusal."""
+    if ckpt is None or ckpt.latest_step() is None:
+        return state, 0, 0
+    restored, step = ckpt.restore_latest_valid(state)
+    _refuse_resume_below_stale_steps(ckpt, step)
+    if restored is None:
+        return state, 0, 0
+    return restored, step + 1, int(restored["step"])
+
+
+class BestTracker:
+    """Best-metric parameter snapshots that survive resume.
+
+    The best parameters are written to ``<save_dir>/<name>`` (one record,
+    `save_params`) the moment a new best appears, with the metric value in
+    a sidecar ``<name>.json``, so an interrupted run never loses an
+    earlier, better model and a resumed run competes against the true
+    best so far. Ranks of a tensor-parallel group each keep their shard
+    under a name of their own (and a sidecar of their own)."""
+
+    def __init__(self, save_dir: str | None, metric: str = "Recall@10",
+                 name: str = "best_model"):
+        self.dir = os.path.join(save_dir, name) if save_dir else None
+        self.meta = self.dir + ".json" if self.dir else None
+        self.metric = metric
+        self.value = -1.0
+        if self.meta and os.path.exists(self.meta):
+            try:
+                with open(self.meta) as f:
+                    self.value = float(json.load(f)["value"])
+            except (ValueError, KeyError, TypeError, OSError) as e:
+                # A sidecar truncated by a crash mid-write must not break
+                # resume: forget the best-so-far value (the next
+                # improvement re-saves model and sidecar).
+                logger.warning(f"corrupt best-model sidecar {self.meta} ({e}): resetting "
+                               "best-metric tracking")
+                self.value = -1.0
+
+    def update(self, value: float, params: Mapping) -> bool:
+        if value <= self.value:
+            return False
+        self.value = value
+        if self.dir:
+            # Synchronous on purpose: the sidecar must only ever describe a
+            # durable record (an asynchronous write could leave value=X on
+            # disk with no params after a crash, and nothing below X would
+            # ever be saved again).
+            save_params(self.dir, params)
+            tmp = self.meta + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump({"metric": self.metric, "value": value}, f)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, self.meta)
+        return True
+
+    def best_params(self, like: Mapping):
+        """The best parameters seen across all runs (from disk), laid out
+        as ``like``, or None if none were saved."""
+        if self.dir and os.path.exists(self.dir) and self.value > -1.0:
+            return load_params(self.dir, like=like)
+        return None

@@ -1,6 +1,6 @@
 """Logging and experiment tracking (port of genrec_tpu/core/logging.py,
 the part the trainers and the serving engine run): ``setup_logger``,
-``log_occupancy``, ``log_serving_stats`` and ``Tracker``. The port's Tracker writes ``<save_dir>/metrics.jsonl`` only:
+``log_occupancy``, ``log_goodput``, ``log_serving_stats`` and ``Tracker``. The port's Tracker writes ``<save_dir>/metrics.jsonl`` only:
 forwarding to wandb is not ported, and asking for it logs a warning."""
 
 from __future__ import annotations
@@ -57,6 +57,35 @@ def log_occupancy(logger, tracker, epoch: int, real_tokens: float,
         "perf/slot_tokens": float(slot_tokens),
     })
     return occ
+
+
+def log_goodput(logger, tracker, epoch: int, report: Mapping[str, Any],
+                fleet: bool = False) -> None:
+    """Per-epoch goodput line + tracker forwarding (obs/goodput.py).
+
+    One operator-readable line (goodput % + the top overhead buckets) and
+    the full bucket breakdown under the ``goodput/`` tracker namespace
+    (``goodput/fleet/`` for the process group's aggregate)."""
+    buckets = report.get("buckets", {})
+    wall = max(float(report.get("wall_s", 0.0)), 1e-9)
+    overheads = sorted(((k, v) for k, v in buckets.items() if k != "compute" and v > 0),
+                       key=lambda kv: -kv[1])[:3]
+    detail = ", ".join(f"{k} {100 * v / wall:.1f}%" for k, v in overheads)
+    scope = "fleet goodput" if fleet else "goodput"
+    logger.info(f"epoch {epoch} {scope} {report.get('goodput_pct', 0.0):.1f}% "
+                f"of {wall:.1f}s wall" + (f" [{detail}]" if detail else ""))
+    ns = "goodput/fleet" if fleet else "goodput"
+    payload = {
+        "epoch": epoch,
+        f"{ns}/pct": float(report.get("goodput_pct", 0.0)),
+        f"{ns}/wall_s": wall,
+        **{f"{ns}/{k}_s": float(v) for k, v in buckets.items()},
+    }
+    # Peak device bytes (obs.memory.device_memory_stats, folded in by the
+    # packed loop where the allocator exposes it: the card, not the CPU).
+    if report.get("peak_device_bytes"):
+        payload[f"{ns}/peak_device_bytes"] = float(report["peak_device_bytes"])
+    tracker.log(payload)
 
 
 def log_serving_stats(logger, tracker, stats: Mapping[str, Any]) -> None:

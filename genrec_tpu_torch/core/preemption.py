@@ -6,7 +6,7 @@ with a grace window. The guard latches that signal so the owner can end
 at its next poll point instead of dying mid-work: the serving engine
 (serving/engine.py, ``handle_signals=True``) drains — every accepted
 request is answered, new submissions raise ``DrainingError`` — and a
-trainer would checkpoint and exit (its resume points are ROADMAP A12).
+trainer writes a resume point and exits (trainers/packed_loop.py).
 
 Polling `fired` is a lock-free Event read — cheap enough for per-step
 checks even at millisecond step times.

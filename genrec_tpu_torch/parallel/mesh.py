@@ -1,6 +1,7 @@
 """Tensor-parallel process groups over torch.distributed (port of
 genrec_tpu/parallel/mesh.py: ``distributed_init`` :33, ``metric_allreduce``
-:237).
+:237, ``barrier``, ``allgather_host_ints`` :259 and
+``any_across_processes`` :277).
 
 The JAX package lays a named device mesh over the chips of one program
 and lets GSPMD insert the collectives. The port runs one process per
@@ -27,6 +28,12 @@ and issues every collective itself through a ``TPGroup``.
 
 ``TPGroup`` counts its collectives and their bytes (``calls``,
 ``bytes``), which the smoke reads per train step.
+
+The fault-tolerance layer agrees across ranks through three small
+collectives over the joined group (the JAX package's run across hosts):
+``allgather_host_ints`` (checkpoint consensus, goodput sums),
+``any_across_processes`` (the preemption OR) and a named ``barrier``.
+Each is a plain return without a collective in a single process.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import tempfile
 import time
 import traceback
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -167,6 +175,38 @@ def distributed_init(device="cuda") -> TPGroup | None:
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         return init_group(device=device)
     return None
+
+
+def joined_group() -> TPGroup | None:
+    """The group this process joined (`init_group`), or None."""
+    return _JOINED[0] if _JOINED and dist.is_initialized() else None
+
+
+def allgather_host_ints(values, group: TPGroup | None = None) -> np.ndarray:
+    """Gather a small int vector from every rank: a ``(world, len(values))``
+    int64 array whose row r is rank r's vector. Every rank calls it in
+    lockstep with a vector of the same length. ``group`` defaults to the
+    joined one; without one, a (1, N) reshape and no collective."""
+    row = np.asarray(list(values), np.int64).reshape(-1)
+    group = group if group is not None else joined_group()
+    if group is None or group.size == 1:
+        return row[None, :]
+    t = torch.as_tensor(row, device=group.device)[None]
+    return group.all_gather(t, dim=0).cpu().numpy()
+
+
+def any_across_processes(flag: bool, group: TPGroup | None = None) -> bool:
+    """True iff ``flag`` is True on at least one rank: every rank polls its
+    own PreemptionGuard and acts on the OR, so all save their resume point
+    at the same global step. A single process returns ``flag``."""
+    return bool(allgather_host_ints([1 if flag else 0], group).max())
+
+
+def barrier(name: str = "barrier", group: TPGroup | None = None) -> None:
+    """Every rank waits here for the others (a one-int all-gather, so the
+    same on gloo and NCCL). ``name`` labels the point in the debug log."""
+    log.debug("barrier %s", name)
+    allgather_host_ints([0], group)
 
 
 def metric_allreduce(values: dict, group: TPGroup | None) -> dict:

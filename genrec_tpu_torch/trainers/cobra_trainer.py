@@ -15,23 +15,33 @@ and test runs take the best-valid-Recall@10 snapshot (``test_on_best``).
 trainer's hook for injected data). ``amp`` with
 ``mixed_precision_type="bf16"`` computes in bf16 (parameters float32).
 
+Fault tolerance as the JAX trainer's: resume points under
+``<save_dir_root>/checkpoints`` every ``save_every_epoch`` epochs, on
+SIGTERM/SIGINT (the run then returns ``({}, {})``) and, unconditionally,
+after the last epoch; exact resume with ``resume_from_checkpoint=True``;
+the best parameters under ``best_model`` (`core.checkpoint.BestTracker`);
+``profile_steps`` steps under torch.profiler in
+``<save_dir_root>/profile``.
+
 Runs on one device, ``device="cuda"`` by default (it raises without a
 card unless given ``device="cpu"``). Not ported yet: the ``amazon``
-dataset branch (ROADMAP A18), resume and periodic checkpoints, profiling
-windows (A12) -- including the JAX trainer's final unconditional resume
-point (``loop.save`` after the last epoch), which is a resume point like
-the others -- and wandb forwarding.
+dataset branch (ROADMAP A18) and wandb forwarding.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from genrec_tpu_torch import configlib
+from genrec_tpu_torch.core.checkpoint import BestTracker, CheckpointManager, save_params
 from genrec_tpu_torch.core.harness import make_train_step
 from genrec_tpu_torch.core.logging import Tracker, setup_logger
 from genrec_tpu_torch.core.optim import Adam
+from genrec_tpu_torch.core.preemption import PreemptionGuard
+from genrec_tpu_torch.core.profiling import ProfileWindow
 from genrec_tpu_torch.core.state import TrainState
 from genrec_tpu_torch.data.batching import batch_iterator, prefetch_to_device
 from genrec_tpu_torch.data.cobra_seq import synthetic_cobra_data
@@ -39,7 +49,6 @@ from genrec_tpu_torch.device import resolve_device
 from genrec_tpu_torch.models.cobra import Cobra, beam_fusion
 from genrec_tpu_torch.ops.metrics import TopKAccumulator
 from genrec_tpu_torch.ops.schedules import cosine_schedule_with_warmup
-from genrec_tpu_torch.trainers.evaluation import BestTracker
 from genrec_tpu_torch.trainers.packed_loop import PackedTrainLoop
 
 
@@ -169,11 +178,6 @@ def train(
             f"dataset={dataset!r}: amazon_cobra_data reads the review files and a "
             "sentence-transformers tokenizer, neither in the repository (ROADMAP A18); "
             "use dataset='synthetic' or a callable dataset")
-    if resume_from_checkpoint or profile_steps or (save_dir_root and save_every_epoch <= epochs):
-        raise NotImplementedError(
-            "resume_from_checkpoint, profile_steps and periodic checkpoints "
-            f"(save_every_epoch={save_every_epoch} <= epochs={epochs}) are not ported "
-            "yet (ROADMAP A12)")
     logger = setup_logger(save_dir_root)
     tracker = Tracker(wandb_logging, wandb_project, save_dir=save_dir_root, logger=logger)
 
@@ -209,35 +213,57 @@ def train(
     # The reference's eval: 10 candidates of n_beam beams, clamped for
     # small-beam runs.
     fusion_fn = make_fusion_fn(model, item_sem_ids, min(10, n_beam), n_beam, fusion_alpha)
+    ckpt = CheckpointManager(os.path.join(save_dir_root, "checkpoints")) if save_dir_root else None
     best = BestTracker(save_dir_root)
+    prof = ProfileWindow(os.path.join(save_dir_root, "profile") if save_dir_root else "",
+                         profile_steps)
     loop = PackedTrainLoop(
-        logger=logger, tracker=tracker, device=dev, rows_per_step=batch_size,
-        row_len=(max_items + 1) * n_codebooks, seed=seed, pack_sequences=False,
-        train_arrays=train_arrays, wandb_log_interval=wandb_log_interval, step_log=step_log,
+        logger=logger, tracker=tracker, device=dev, prof=prof, guard=PreemptionGuard(logger),
+        ckpt=ckpt, rows_per_step=batch_size, row_len=(max_items + 1) * n_codebooks, seed=seed,
+        pack_sequences=False, train_arrays=train_arrays, wandb_log_interval=wandb_log_interval,
+        save_dir_root=save_dir_root, step_log=step_log,
     )
 
     def run_eval(arrays, item_vecs):
         return evaluate(fusion_fn, arrays, item_vecs, eval_batch_size, dev, n_codebooks)
 
-    global_step = 0
-    for epoch in range(epochs):
-        res = loop.run_epoch(state, step_fn, epoch, global_step)
+    start_epoch, start_batch, global_step = 0, 0, 0
+    if resume_from_checkpoint:
+        # Step-granular exact resume: continues at the exact next batch of a
+        # possibly mid-epoch resume point.
+        state, start_epoch, start_batch, global_step = loop.resume(state)
+    for epoch in range(start_epoch, epochs):
+        res = loop.run_epoch(state, step_fn, epoch, global_step,
+                             start_batch=start_batch if epoch == start_epoch else 0)
         state, global_step = res.state, res.global_step
+        if res.preempted:
+            # The loop wrote a durable resume point (mid-final-epoch too):
+            # exit cleanly so that the scheduler restarts the run with
+            # resume_from_checkpoint.
+            loop.shutdown(preempted_epoch=epoch)
+            return {}, {}
+        if ckpt is not None and (epoch + 1) % save_every_epoch == 0:
+            # Epoch-boundary resume point: cursor = (next epoch, batch 0).
+            loop.save(state, epoch=epoch + 1, next_batch=0, global_step=global_step)
         if do_eval and (epoch + 1) % eval_every_epoch == 0:
             m = run_eval(valid_arrays, compute_item_dense_vecs(model, data.item_texts))
             logger.info(f"epoch {epoch} valid " + ", ".join(f"{k}={v:.4f}" for k, v in m.items()))
             tracker.log({"epoch": epoch, **{f"eval/{k}": v for k, v in m.items()}})
-            best.update(m["Recall@10"], model)
+            best.update(m["Recall@10"], model.state_dict())
 
-    if test_on_best and best.params is not None:
-        model.load_state_dict(best.params)
-    if save_dir_root and best.value < 0:  # no eval ran: snapshot the final params
-        best.update(np.inf, model)
+    # Unconditional final resume point: a save_every_epoch cadence that
+    # never fires must not leave a finished run with nothing to resume from.
+    loop.save(state, epoch=epochs, next_batch=0, global_step=global_step)
+    best_params = best.best_params(like=model.state_dict()) if test_on_best else None
+    if best_params is not None:
+        model.load_state_dict(best_params)
     item_vecs = compute_item_dense_vecs(model, data.item_texts)
     valid_metrics = run_eval(valid_arrays, item_vecs)
     test_metrics = run_eval(test_arrays, item_vecs)
     logger.info("test " + ", ".join(f"{k}={v:.4f}" for k, v in test_metrics.items()))
     tracker.log({f"test/{k}": v for k, v in test_metrics.items()})
+    if save_dir_root and best.value < 0:  # no eval ran: snapshot the final params
+        save_params(os.path.join(save_dir_root, "best_model"), model.state_dict())
     loop.shutdown()
     return valid_metrics, test_metrics
 

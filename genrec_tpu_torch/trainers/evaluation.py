@@ -1,9 +1,6 @@
-"""Evaluation and best-snapshot helpers shared by the sequential
-trainers (HSTU, SASRec; LCRec keeps the snapshot only)."""
+"""Evaluation helpers shared by the sequential trainers (HSTU, SASRec)."""
 
 from __future__ import annotations
-
-import os
 
 import torch
 
@@ -46,22 +43,3 @@ def evaluate(eval_step, arrays, batch_size, device):
         **{f"Recall@{k}": sums[f"recall_sum@{k}"] / total for k in KS},
         **{f"NDCG@{k}": sums[f"ndcg_sum@{k}"] / total for k in KS},
     }
-
-
-class BestTracker:
-    """Best-metric snapshot of the parameters, kept on the host and
-    written to ``<save_dir>/<name>``."""
-
-    def __init__(self, save_dir: str | None, name: str = "best_model.pt"):
-        self.path = os.path.join(save_dir, name) if save_dir else None
-        self.value = -1.0
-        self.params = None
-
-    def update(self, value: float, model) -> bool:
-        if value <= self.value:
-            return False
-        self.value = value
-        self.params = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
-        if self.path:
-            torch.save(self.params, self.path)
-        return True

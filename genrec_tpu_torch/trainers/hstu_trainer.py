@@ -10,28 +10,38 @@ segment-masked attention. ``use_pallas`` and ``use_fused_ce`` keep their
 JAX names; ``"auto"`` means True: the CUDA kernels on the card, their
 plain versions on the CPU.
 
+Fault tolerance as the JAX trainer's: resume points under
+``<save_dir_root>/checkpoints`` every ``save_every_epoch`` epochs and on
+SIGTERM/SIGINT (the run then returns ``({}, {})``), exact resume with
+``resume_from_checkpoint=True``, the best parameters under
+``best_model`` (`core.checkpoint.BestTracker`), ``profile_steps`` steps
+under torch.profiler in ``<save_dir_root>/profile``.
+
 Runs on one device, ``device="cuda"`` by default (it raises without a
 card unless given ``device="cpu"``). Not ported yet: the ``amazon``
-dataset branch (its files are not in the repository), resume and
-periodic checkpoints, preemption, profiling windows, wandb forwarding
-(ROADMAP A18 and A12).
+dataset branch (its files are not in the repository, ROADMAP A18) and
+wandb forwarding.
 """
 
 from __future__ import annotations
 
-import numpy as np
+import os
+
 import torch
 
 from genrec_tpu_torch import configlib
+from genrec_tpu_torch.core.checkpoint import BestTracker, CheckpointManager, save_params
 from genrec_tpu_torch.core.harness import make_train_step
 from genrec_tpu_torch.core.logging import Tracker, setup_logger
 from genrec_tpu_torch.core.optim import Adam
+from genrec_tpu_torch.core.preemption import PreemptionGuard
+from genrec_tpu_torch.core.profiling import ProfileWindow
 from genrec_tpu_torch.core.state import TrainState
 from genrec_tpu_torch.data.batching import pack_examples
 from genrec_tpu_torch.data.synthetic import SyntheticSeqDataset
 from genrec_tpu_torch.device import resolve_device
 from genrec_tpu_torch.models.hstu import HSTU
-from genrec_tpu_torch.trainers.evaluation import BestTracker, evaluate, topk_sums
+from genrec_tpu_torch.trainers.evaluation import evaluate, topk_sums
 from genrec_tpu_torch.trainers.packed_loop import PackedTrainLoop
 
 
@@ -110,11 +120,6 @@ def train(
             f"dataset={dataset!r}: the port's Amazon loader (data/amazon.py) waits "
             "for the review files to be in the repository (ROADMAP A18); use "
             "dataset='synthetic'")
-    if resume_from_checkpoint or profile_steps or (save_dir_root and save_every_epoch <= epochs):
-        raise NotImplementedError(
-            "resume_from_checkpoint, profile_steps and periodic checkpoints "
-            f"(save_every_epoch={save_every_epoch} <= epochs={epochs}) are not ported "
-            "yet (ROADMAP A12)")
     logger = setup_logger(save_dir_root)
     tracker = Tracker(wandb_logging, wandb_project, save_dir=save_dir_root, logger=logger)
 
@@ -152,30 +157,47 @@ def train(
     step_fn = make_train_step(make_loss_fn(), optimizer, clip_norm=None)
     state = TrainState.create(model, optimizer, seed)
     eval_step = make_eval_step(model)
+    ckpt = CheckpointManager(os.path.join(save_dir_root, "checkpoints")) if save_dir_root else None
     best = BestTracker(save_dir_root)
+    prof = ProfileWindow(os.path.join(save_dir_root, "profile") if save_dir_root else "",
+                         profile_steps)
     loop = PackedTrainLoop(
-        logger=logger, tracker=tracker, device=dev, rows_per_step=batch_size,
-        row_len=max_seq_len, seed=seed, pack_sequences=pack_sequences, repack=repack,
-        train_arrays=train_arrays, wandb_log_interval=wandb_log_interval,
+        logger=logger, tracker=tracker, device=dev, prof=prof, guard=PreemptionGuard(logger),
+        ckpt=ckpt, rows_per_step=batch_size, row_len=max_seq_len, seed=seed,
+        pack_sequences=pack_sequences, repack=repack, train_arrays=train_arrays,
+        wandb_log_interval=wandb_log_interval, save_dir_root=save_dir_root,
     )
-    global_step = 0
-    for epoch in range(epochs):
-        res = loop.run_epoch(state, step_fn, epoch, global_step)
+    start_epoch, start_batch, global_step = 0, 0, 0
+    if resume_from_checkpoint:
+        # Step-granular exact resume through the integrity ladder.
+        state, start_epoch, start_batch, global_step = loop.resume(state)
+    for epoch in range(start_epoch, epochs):
+        res = loop.run_epoch(state, step_fn, epoch, global_step,
+                             start_batch=start_batch if epoch == start_epoch else 0)
         state, global_step = res.state, res.global_step
+        if res.preempted:
+            # The loop wrote a durable resume point: exit cleanly so that the
+            # scheduler restarts the run with resume_from_checkpoint.
+            loop.shutdown(preempted_epoch=epoch)
+            return {}, {}
+        if ckpt is not None and (epoch + 1) % save_every_epoch == 0:
+            # Epoch-boundary resume point: cursor = (next epoch, batch 0).
+            loop.save(state, epoch=epoch + 1, next_batch=0, global_step=global_step)
         if do_eval and (epoch + 1) % eval_every_epoch == 0:
             m = evaluate(eval_step, valid_arrays, eval_batch_size, dev)
             logger.info(f"epoch {epoch} valid " + ", ".join(f"{k}={v:.4f}" for k, v in m.items()))
             tracker.log({"epoch": epoch, **{f"eval/{k}": v for k, v in m.items()}})
-            best.update(m["Recall@10"], model)
+            best.update(m["Recall@10"], model.state_dict())
 
-    if best.params is not None:
-        model.load_state_dict(best.params)
-    elif save_dir_root:  # no eval ran: snapshot the final params
-        best.update(np.inf, model)
+    best_params = best.best_params(like=model.state_dict())
+    if best_params is not None:
+        model.load_state_dict(best_params)
     valid_metrics = evaluate(eval_step, valid_arrays, eval_batch_size, dev)
     test_metrics = evaluate(eval_step, test_arrays, eval_batch_size, dev)
     logger.info("test " + ", ".join(f"{k}={v:.4f}" for k, v in test_metrics.items()))
     tracker.log({f"test/{k}": v for k, v in test_metrics.items()})
+    if save_dir_root and best.value < 0:  # no eval ran: snapshot the final params
+        save_params(os.path.join(save_dir_root, "best_model"), model.state_dict())
     loop.shutdown()
     return valid_metrics, test_metrics
 

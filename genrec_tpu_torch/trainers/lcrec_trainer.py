@@ -20,25 +20,41 @@ from ``seed`` and sliced. Runs on ``device="cuda"`` by default (it raises
 without a card unless given ``device="cpu"``); the ranks share ``cuda:0``
 when the host has fewer cards than ranks.
 
+Fault tolerance as the JAX trainer's: resume points every
+``save_every_epoch`` epochs, on SIGTERM/SIGINT (the run then returns
+``({}, {})``) and, unconditionally, after the last epoch; exact resume
+with ``resume_from_checkpoint=True``; ``eval_only`` evaluates the newest
+valid checkpoint (`core.fault_tolerance.restore_for_eval`);
+``profile_steps`` steps under torch.profiler in ``<save_dir_root>/profile``.
+Each rank keeps its own shard: its records under
+``<save_dir_root>/checkpoints/p<rank>`` (the ranks agree on the step they
+restore and, through the OR of their guards, on the step they save at
+when one is signalled), ``best_model.rank<r>`` and ``final_model.rank<r>``
+(``best_model`` and ``final_model`` at tensor_parallel=1).
+
 Not ported yet, each raising with its ROADMAP item: LoRA (A13),
 ``num_experts``/``expert_parallel`` (A14), ``sequence_parallel`` (A15),
 ``pipeline_parallel`` (A16), data parallelism beside tensor parallelism
 (A17), ``dataset="amazon"`` and an HF ``pretrained_path`` (A18, waiting
-for their files), resume points, periodic checkpoints, ``eval_only`` and
-the profiling window (A12). wandb forwarding logs a warning.
+for their files). wandb forwarding logs a warning.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
 
 from genrec_tpu_torch import configlib
+from genrec_tpu_torch.core.checkpoint import BestTracker, CheckpointManager, save_params
+from genrec_tpu_torch.core.fault_tolerance import restore_for_eval
 from genrec_tpu_torch.core.harness import make_train_step
 from genrec_tpu_torch.core.logging import Tracker, setup_logger
 from genrec_tpu_torch.core.optim import Adam
+from genrec_tpu_torch.core.preemption import PreemptionGuard
+from genrec_tpu_torch.core.profiling import ProfileWindow
 from genrec_tpu_torch.core.state import TrainState
 from genrec_tpu_torch.data.batching import batch_iterator
 from genrec_tpu_torch.data.lcrec_tasks import synthetic_lcrec_data
@@ -55,7 +71,6 @@ from genrec_tpu_torch.ops.metrics import TopKAccumulator
 from genrec_tpu_torch.ops.schedules import cosine_schedule_with_warmup
 from genrec_tpu_torch.parallel.mesh import distributed_init
 from genrec_tpu_torch.parallel.shardings import shard_qwen_params
-from genrec_tpu_torch.trainers.evaluation import BestTracker
 from genrec_tpu_torch.trainers.packed_loop import PackedTrainLoop
 
 TORCHRUN = ("torchrun --standalone --nproc_per_node=2 -m genrec_tpu_torch.trainers."
@@ -132,9 +147,7 @@ def evaluate(gen_fn, arrays, batch_size, device, num_codebooks):
 
 
 def _refuse(tensor_parallel, world, *, use_lora, num_experts, expert_parallel,
-            sequence_parallel, pipeline_parallel, dataset, pretrained_path,
-            resume_from_checkpoint, eval_only, profile_steps, save_dir_root,
-            save_every_epoch, epochs):
+            sequence_parallel, pipeline_parallel, dataset, pretrained_path):
     """Raise on what the port does not run yet, naming the ROADMAP item."""
     if tensor_parallel > 1 and world == 1:
         raise RuntimeError(f"tensor_parallel={tensor_parallel} runs one process per rank: "
@@ -152,10 +165,6 @@ def _refuse(tensor_parallel, world, *, use_lora, num_experts, expert_parallel,
         (dataset != "synthetic", f"dataset={dataset!r} (its files are not in the "
          "repository)", "A18"),
         (bool(pretrained_path), "pretrained_path (the HF checkpoint and tokenizer)", "A18"),
-        (resume_from_checkpoint or eval_only or profile_steps
-         or (save_dir_root and save_every_epoch <= epochs),
-         "resume_from_checkpoint, eval_only, profile_steps and periodic checkpoints",
-         "A12"),
     ]
     for bad, what, item in refused:
         if bad:
@@ -228,9 +237,7 @@ def train(
     _refuse(tensor_parallel, world, use_lora=use_lora, num_experts=num_experts,
             expert_parallel=expert_parallel, sequence_parallel=sequence_parallel,
             pipeline_parallel=pipeline_parallel, dataset=dataset,
-            pretrained_path=pretrained_path, resume_from_checkpoint=resume_from_checkpoint,
-            eval_only=eval_only, profile_steps=profile_steps, save_dir_root=save_dir_root,
-            save_every_epoch=save_every_epoch, epochs=epochs)
+            pretrained_path=pretrained_path)
     rank = 0 if group is None else group.rank
     tp_group = group if tensor_parallel > 1 else None
     dev = group.device if group is not None else resolve_device(device)
@@ -298,27 +305,61 @@ def train(
     state = TrainState.create(model, optimizer, seed)
     gen_fn = make_generate_fn(model, base_vocab, num_codebooks, codebook_size, beam_width,
                               max_cache=max_text_len + num_codebooks + 1)
-    loop = PackedTrainLoop(
-        logger=logger, tracker=tracker, device=dev, rows_per_step=batch_size,
-        row_len=max_text_len, seed=seed, pack_sequences=False, train_arrays=train_arrays,
-        wandb_log_interval=wandb_log_interval,
-    )
     # Each rank keeps (and writes) its own shard.
-    best = BestTracker(save_dir_root, "best_model.pt" if tp_group is None
-                       else f"best_model.rank{rank}.pt")
-    global_step = 0
-    for epoch in range(epochs):
-        res = loop.run_epoch(state, step_fn, epoch, global_step)
+    ckpt = (CheckpointManager(os.path.join(save_dir_root, "checkpoints"), per_host=True)
+            if save_dir_root else None)
+    prof = ProfileWindow(os.path.join(save_dir_root, "profile") if save_dir_root else "",
+                         profile_steps)
+    loop = PackedTrainLoop(
+        logger=logger, tracker=tracker, device=dev, prof=prof, guard=PreemptionGuard(logger),
+        ckpt=ckpt, rows_per_step=batch_size, row_len=max_text_len, seed=seed,
+        pack_sequences=False, train_arrays=train_arrays,
+        wandb_log_interval=wandb_log_interval, save_dir_root=save_dir_root,
+    )
+    suffix = "" if tp_group is None else f".rank{rank}"
+
+    # eval_only restores the newest checkpoint WITHOUT the exact-resume
+    # preconditions: a pure evaluation consumes no training data, so another
+    # data seed or a bare state record must not refuse it.
+    start_epoch, start_batch, global_step = 0, 0, 0
+    if eval_only:
+        state, ckpt_step = restore_for_eval(ckpt, state, logger=logger)
+        if ckpt_step is None:
+            logger.warning("eval_only without a checkpoint: evaluating the INITIAL model")
+        m = evaluate(gen_fn, valid_arrays, eval_batch_size, dev, num_codebooks)
+        logger.info("eval_only " + ", ".join(f"{k}={v:.4f}" for k, v in m.items()))
+        loop.shutdown()
+        return m, m
+    if resume_from_checkpoint:
+        state, start_epoch, start_batch, global_step = loop.resume(state)
+
+    best = BestTracker(save_dir_root, name=f"best_model{suffix}")
+    for epoch in range(start_epoch, epochs):
+        res = loop.run_epoch(state, step_fn, epoch, global_step,
+                             start_batch=start_batch if epoch == start_epoch else 0)
         state, global_step = res.state, res.global_step
+        if res.preempted:
+            # The loop wrote a durable resume point (mid-final-epoch too):
+            # exit cleanly so that the scheduler restarts the run with
+            # resume_from_checkpoint.
+            loop.shutdown(preempted_epoch=epoch)
+            return {}, {}
+        if ckpt is not None and (epoch + 1) % save_every_epoch == 0:
+            # Epoch-boundary resume point: cursor = (next epoch, batch 0).
+            loop.save(state, epoch=epoch + 1, next_batch=0, global_step=global_step)
         if do_eval and (epoch + 1) % eval_every_epoch == 0:
             m = evaluate(gen_fn, valid_arrays, eval_batch_size, dev, num_codebooks)
             logger.info(f"epoch {epoch} valid "
                         + ", ".join(f"{k}={v:.4f}" for k, v in m.items()))
             tracker.log({"epoch": epoch, **{f"eval/{k}": v for k, v in m.items()}})
-            best.update(m["Recall@10"], model)
+            best.update(m["Recall@10"], model.state_dict())
 
-    if test_on_best and best.params is not None:
-        model.load_state_dict(best.params)
+    # Unconditional final resume point: a save_every_epoch cadence that
+    # never fires must not leave a finished run with nothing to resume from.
+    loop.save(state, epoch=epochs, next_batch=0, global_step=global_step)
+    best_params = best.best_params(like=model.state_dict()) if test_on_best else None
+    if best_params is not None:
+        model.load_state_dict(best_params)
     valid_metrics = evaluate(gen_fn, valid_arrays, eval_batch_size, dev, num_codebooks)
     test_metrics = evaluate(gen_fn, test_arrays, eval_batch_size, dev, num_codebooks)
     if eval_item_tasks:
@@ -340,8 +381,8 @@ def train(
                                                 eval_batch_size, dev, tok))
     logger.info("test " + ", ".join(f"{k}={v:.4f}" for k, v in test_metrics.items()))
     tracker.log({f"test/{k}": v for k, v in test_metrics.items()})
-    if save_dir_root and best.params is None:
-        best.update(np.inf, model)  # no eval ran: snapshot the final params
+    if save_dir_root:
+        save_params(os.path.join(save_dir_root, f"final_model{suffix}"), model.state_dict())
     loop.shutdown()
     return valid_metrics, test_metrics
 

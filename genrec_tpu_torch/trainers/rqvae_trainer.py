@@ -27,10 +27,14 @@ card unless given ``device="cpu"``). Only ``dataset="synthetic"`` and the
 cached-embedding branch (``<dataset_folder>/processed/<split>_item_emb.npy``)
 are ported; ``dataset="p5"`` raises and names the files it needs.
 ``num_items`` sizes the synthetic item set (default 2,000, as the JAX
-trainer's). Not ported (ROADMAP A12): resume points and periodic
-checkpoints (they raise), the profiling window and wandb forwarding; the
-final parameters go to ``<save_dir_root>/final_params.pt`` with
-``torch.save``.
+trainer's). Fault tolerance as the JAX trainer's: resume points under
+``<save_dir_root>/checkpoints`` every ``save_model_every`` epochs (or
+iterations, in iteration mode), after the last epoch and on
+SIGTERM/SIGINT (the run then returns ``(model, None)``); exact resume
+with ``resume_from_checkpoint=True``; ``profile_steps`` steps under
+torch.profiler in ``<save_dir_root>/profile``. The final parameters also
+go to ``<save_dir_root>/final_params.pt`` with ``torch.save``. wandb
+forwarding is not ported.
 """
 
 from __future__ import annotations
@@ -41,9 +45,12 @@ import numpy as np
 import torch
 
 from genrec_tpu_torch import configlib
+from genrec_tpu_torch.core.checkpoint import CheckpointManager
 from genrec_tpu_torch.core.harness import make_train_step
 from genrec_tpu_torch.core.logging import Tracker, setup_logger
 from genrec_tpu_torch.core.optim import Adam
+from genrec_tpu_torch.core.preemption import PreemptionGuard
+from genrec_tpu_torch.core.profiling import ProfileWindow
 from genrec_tpu_torch.core.state import TrainState
 from genrec_tpu_torch.data.batching import pad_to_batch
 from genrec_tpu_torch.data.items import ItemEmbeddingData, SyntheticItemEmbeddings
@@ -155,13 +162,6 @@ def train(
             f"reads the P5 review and meta files under {dataset_folder}/raw/{split}/ "
             "and the item embeddings under processed/, which are not in the "
             "repository; use dataset='synthetic'")
-    horizon = epochs if use_epochs else iterations
-    if resume_from_checkpoint or profile_steps or (save_dir_root
-                                                   and save_model_every < horizon):
-        raise NotImplementedError(
-            "resume_from_checkpoint, profile_steps and periodic checkpoints "
-            f"(save_model_every={save_model_every} < {horizon}) are not ported yet "
-            "(ROADMAP A12)")
     logger = setup_logger(save_dir_root)
     tracker = Tracker(wandb_logging, wandb_project, save_dir=save_dir_root, logger=logger)
 
@@ -214,23 +214,50 @@ def train(
                      "eval_rqvae_loss": float(le.rqvae_loss),
                      "collision_rate": cr, "unique_semantic_ids": uniq})
 
-    def step_hook(hook_state, metrics, g):
-        # Iteration mode gates eval on iterations, not derived epochs.
-        if not use_epochs and do_eval and g % eval_every == 0:
+    ckpt = CheckpointManager(os.path.join(save_dir_root, "checkpoints")) if save_dir_root else None
+    prof = ProfileWindow(os.path.join(save_dir_root, "profile") if save_dir_root else "",
+                         profile_steps)
+
+    def step_hook(hook_state, metrics, g, epoch, next_batch):
+        if use_epochs:
+            return
+        # Iteration mode gates eval and save on iterations, not derived
+        # epochs.
+        if do_eval and g % eval_every == 0:
             evaluate(f"iter {g}")
+        if g % save_model_every == 0:
+            loop.save(hook_state, epoch=epoch, next_batch=next_batch, global_step=g)
 
     loop = PackedTrainLoop(
-        logger=logger, tracker=tracker, device=dev, rows_per_step=batch_size, row_len=1,
-        seed=seed, pack_sequences=False, train_arrays={"x": train_x},
-        wandb_log_interval=wandb_log_interval, step_hook=step_hook,
+        logger=logger, tracker=tracker, device=dev, prof=prof, guard=PreemptionGuard(logger),
+        ckpt=ckpt, rows_per_step=batch_size, row_len=1, seed=seed, pack_sequences=False,
+        train_arrays={"x": train_x}, wandb_log_interval=wandb_log_interval,
+        save_dir_root=save_dir_root, step_hook=step_hook,
     )
-    global_step = 0
-    for epoch in range(epochs):
+    start_epoch, start_batch, global_step = 0, 0, 0
+    if resume_from_checkpoint:
+        # Step-granular exact resume: continues at the exact next batch of a
+        # possibly mid-epoch resume point.
+        state, start_epoch, start_batch, global_step = loop.resume(state)
+    for epoch in range(start_epoch, epochs):
         res = loop.run_epoch(state, step_fn, epoch, global_step,
+                             start_batch=start_batch if epoch == start_epoch else 0,
                              max_steps=None if use_epochs else total_steps)
         state, global_step = res.state, res.global_step
+        if res.preempted:
+            # The loop wrote a durable resume point: exit cleanly so that the
+            # scheduler restarts the run with resume_from_checkpoint.
+            loop.shutdown(preempted_epoch=epoch)
+            return model, None
         if use_epochs and do_eval and ((epoch + 1) % eval_every == 0 or epoch + 1 == epochs):
             evaluate(f"epoch {epoch + 1}")
+        if ckpt is not None and (
+                (use_epochs and ((epoch + 1) % save_model_every == 0 or epoch + 1 == epochs))
+                or (not use_epochs and epoch + 1 == epochs)):
+            # Epoch-boundary resume point (cursor = next epoch, batch 0); the
+            # last epoch always saves, so a signal in its eval window still
+            # leaves a resumable record.
+            loop.save(state, epoch=epoch + 1, next_batch=0, global_step=global_step)
 
     if save_dir_root:
         torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},

@@ -13,23 +13,33 @@ NDCG@5/10, with the best-valid-Recall@10 snapshot for the final valid and
 test runs (``test_on_best``). ``amp`` with ``mixed_precision_type="bf16"``
 computes in bf16 (parameters float32, as the Flax model's ``dtype``).
 
+Fault tolerance as the JAX trainer's: resume points under
+``<save_dir_root>/checkpoints`` every ``save_every_epoch`` epochs and on
+SIGTERM/SIGINT (the run then returns ``({}, {})``), exact resume with
+``resume_from_checkpoint=True``, the best parameters under
+``best_model`` (`core.checkpoint.BestTracker`), ``profile_steps`` steps
+under torch.profiler in ``<save_dir_root>/profile``.
+
 Runs on one device, ``device="cuda"`` by default (it raises without a
 card unless given ``device="cpu"``). The step's dropout bits come from the
 train state's generator, the eval's Gumbel noise from a generator seeded
 ``seed + 1``. Not ported yet: the ``amazon`` dataset branch (ROADMAP
-A18), resume, periodic checkpoints and profiling windows (A12), tensor
-parallelism (A29), wandb forwarding.
+A18), tensor parallelism (A29), wandb forwarding.
 """
 
 from __future__ import annotations
 
-import numpy as np
+import os
+
 import torch
 
 from genrec_tpu_torch import configlib
+from genrec_tpu_torch.core.checkpoint import BestTracker, CheckpointManager, save_params
 from genrec_tpu_torch.core.harness import make_train_step
 from genrec_tpu_torch.core.logging import Tracker, setup_logger
 from genrec_tpu_torch.core.optim import Adam
+from genrec_tpu_torch.core.preemption import PreemptionGuard
+from genrec_tpu_torch.core.profiling import ProfileWindow
 from genrec_tpu_torch.core.state import TrainState
 from genrec_tpu_torch.data.batching import batch_iterator, pack_examples, prefetch_to_device
 from genrec_tpu_torch.data.tiger_seq import synthetic_tiger_data
@@ -38,7 +48,6 @@ from genrec_tpu_torch.models.tiger import Tiger, tiger_generate
 from genrec_tpu_torch.ops.metrics import TopKAccumulator
 from genrec_tpu_torch.ops.schedules import cosine_schedule_with_warmup
 from genrec_tpu_torch.ops.trie import build_trie
-from genrec_tpu_torch.trainers.evaluation import BestTracker
 from genrec_tpu_torch.trainers.packed_loop import PackedTrainLoop
 
 
@@ -152,11 +161,6 @@ def train(
             f"dataset={dataset!r}: the port's Amazon loader (data/amazon.py) waits "
             "for the review files to be in the repository (ROADMAP A18); use "
             "dataset='synthetic'")
-    if resume_from_checkpoint or profile_steps or (save_dir_root and save_every_epoch <= epochs):
-        raise NotImplementedError(
-            "resume_from_checkpoint, profile_steps and periodic checkpoints "
-            f"(save_every_epoch={save_every_epoch} <= epochs={epochs}) are not ported "
-            "yet (ROADMAP A12)")
     if tensor_parallel > 1:
         raise NotImplementedError(
             f"tensor_parallel={tensor_parallel}: TIGER under tensor parallelism (JAX "
@@ -181,12 +185,16 @@ def train(
     else:
         train_arrays = data.train_arrays()
 
+    ckpt = CheckpointManager(os.path.join(save_dir_root, "checkpoints")) if save_dir_root else None
+    prof = ProfileWindow(os.path.join(save_dir_root, "profile") if save_dir_root else "",
+                         profile_steps)
     rows_per_step = batch_size * gradient_accumulate_every
     loop = PackedTrainLoop(
-        logger=logger, tracker=tracker, device=dev, rows_per_step=rows_per_step,
-        row_len=pack_row_len, seed=seed, pack_sequences=pack_sequences, repack=repack,
-        train_arrays=train_arrays, tokens_scale=float(gradient_accumulate_every),
-        wandb_log_interval=wandb_log_interval,
+        logger=logger, tracker=tracker, device=dev, prof=prof, guard=PreemptionGuard(logger),
+        ckpt=ckpt, rows_per_step=rows_per_step, row_len=pack_row_len, seed=seed,
+        pack_sequences=pack_sequences, repack=repack, train_arrays=train_arrays,
+        tokens_scale=float(gradient_accumulate_every), wandb_log_interval=wandb_log_interval,
+        save_dir_root=save_dir_root,
     )
     pack_report = loop.pack_report
 
@@ -213,26 +221,38 @@ def train(
     state = TrainState.create(model, optimizer, seed)
     gen_fn = make_generate_fn(model, trie, generate_temperature, 10)
     eval_gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    start_epoch, start_batch, global_step = 0, 0, 0
+    if resume_from_checkpoint:
+        # Step-granular exact resume through the integrity ladder.
+        state, start_epoch, start_batch, global_step = loop.resume(state)
     best = BestTracker(save_dir_root)
-
-    global_step = 0
-    for epoch in range(epochs):
-        res = loop.run_epoch(state, step_fn, epoch, global_step)
+    for epoch in range(start_epoch, epochs):
+        res = loop.run_epoch(state, step_fn, epoch, global_step,
+                             start_batch=start_batch if epoch == start_epoch else 0)
         state, global_step = res.state, res.global_step
+        if res.preempted:
+            # The loop wrote a durable resume point: exit cleanly so that the
+            # scheduler restarts the run with resume_from_checkpoint.
+            loop.shutdown(preempted_epoch=epoch)
+            return {}, {}
         if do_eval and (epoch + 1) % eval_every_epoch == 0:
             m = evaluate(gen_fn, valid_arrays, eval_batch_size, dev, eval_gen)
             logger.info(f"epoch {epoch} valid " + ", ".join(f"{k}={v:.4f}" for k, v in m.items()))
             tracker.log({"epoch": epoch, **{f"eval/{k}": v for k, v in m.items()}})
-            best.update(m["Recall@10"], model)
+            best.update(m["Recall@10"], model.state_dict())
+        if ckpt is not None and (epoch + 1) % save_every_epoch == 0:
+            # Epoch-boundary resume point: cursor = (next epoch, batch 0).
+            loop.save(state, epoch=epoch + 1, next_batch=0, global_step=global_step)
 
-    if test_on_best and best.params is not None:
-        model.load_state_dict(best.params)
-    if save_dir_root and best.value < 0:  # no eval ran: snapshot the final params
-        best.update(np.inf, model)
+    best_params = best.best_params(like=model.state_dict()) if test_on_best else None
+    if best_params is not None:
+        model.load_state_dict(best_params)
     valid_metrics = evaluate(gen_fn, valid_arrays, eval_batch_size, dev, eval_gen)
     test_metrics = evaluate(gen_fn, test_arrays, eval_batch_size, dev, eval_gen)
     logger.info("test " + ", ".join(f"{k}={v:.4f}" for k, v in test_metrics.items()))
     tracker.log({f"test/{k}": v for k, v in test_metrics.items()})
+    if save_dir_root and best.value < 0:  # no eval ran: snapshot the final params
+        save_params(os.path.join(save_dir_root, "best_model"), model.state_dict())
     loop.shutdown()
     return valid_metrics, test_metrics
 

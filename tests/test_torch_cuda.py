@@ -955,3 +955,61 @@ def test_sasrec_fused_ce_on_the_card_matches_the_plain_path(card):
             w = got[False][1][name]
             err = float((g - w).abs().max())
             assert err <= 1e-4 * float(w.abs().max()) + 1e-6, (name, err)
+
+
+def test_hstu_trainer_resumes_exactly_on_the_card(card, tmp_path):
+    """The trainers' fault tolerance on the card (chip_smoke's resume phase,
+    (a), at a small size): hstu_trainer.train at config/hstu/amazon.gin's
+    widths (bf16, dropout 0.2, B3-B6) on the default synthetic set, batch
+    16 (9 steps an epoch), killed by SIGTERM at step 13 and resumed. Held
+    exactly: the logged steps (none twice), the per-step losses and the
+    final resume point (parameters, moments, counters, the generator's
+    state); the resumed steps launch B5, B6, B3, B4 dx, B4 dW 2, 2, 1, 1, 1
+    times each (B5 also twice an eval batch of the final evaluation)."""
+    import json
+    import os
+
+    from genrec_tpu_torch.core import chaos
+    from genrec_tpu_torch.core.checkpoint import read_record
+    from genrec_tpu_torch.data.synthetic import SyntheticSeqDataset
+    from genrec_tpu_torch.trainers import hstu_trainer
+
+    cfg = dict(epochs=2, batch_size=16, max_seq_len=50, embed_dim=64, num_heads=2,
+               num_blocks=2, dropout=0.2, do_eval=False, save_every_epoch=1,
+               wandb_log_interval=1, amp=True, seed=0, device=str(card))
+
+    def losses(d):
+        out = {}
+        for line in open(os.path.join(d, "metrics.jsonl")):
+            rec = json.loads(line)
+            if "train/loss" in rec and "global_step" in rec:
+                assert rec["global_step"] not in out, "a step logged twice"
+                out[rec["global_step"]] = rec["train/loss"]
+        return out
+
+    def final(d):
+        ck = os.path.join(d, "checkpoints")
+        step = max(int(s) for s in os.listdir(ck) if s.isdigit())
+        flat = read_record(os.path.join(ck, str(step)))
+        return step, {k: v for k, v in flat.items() if k.startswith("state/")}
+
+    a, b = str(tmp_path / "a"), str(tmp_path / "b")
+    hstu_trainer.train(**cfg, save_dir_root=a)
+    with chaos.inject(chaos.ChaosPlan(kill_at_step=13)):
+        assert hstu_trainer.train(**cfg, save_dir_root=b) == ({}, {})
+    counters = (ha.hstu_attention_fwd_cuda, ha.hstu_attention_bwd_cuda,
+                fc.fused_linear_ce_fwd_cuda, fc.fused_linear_ce_dx_cuda,
+                fc.fused_linear_ce_dw_cuda)
+    before = [f.launches for f in counters]
+    hstu_trainer.train(**cfg, save_dir_root=b, resume_from_checkpoint=True)
+    torch.cuda.synchronize()
+    launched = [f.launches - n for f, n in zip(counters, before)]
+    assert losses(a) == losses(b) and len(losses(a)) == 18
+    (step_a, fa), (step_b, fb) = final(a), final(b)
+    assert step_a == step_b == 18 and fa.keys() == fb.keys()
+    differ = [k for k in fa if not torch.equal(fa[k], fb[k])]
+    assert not differ, differ
+    ds = SyntheticSeqDataset(max_seq_len=50, seed=0)
+    eval_batches = sum(-(-len(ds.eval_arrays_with_time(s)["input_ids"]) // 256)
+                       for s in ("valid", "test"))
+    assert launched == [2 * 5 + 2 * eval_batches, 2 * 5, 5, 5, 5]

@@ -49,13 +49,17 @@ from genrec_tpu_torch.serving.kv_pool import KVPagePool, PagedConfig, PrefixInde
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "genrec_tpu")
-#: The live planes' modules, each a port of a JAX module that imports jax
-#: or orbax (checkpoint) or that the JAX engine reaches through them.
+#: The live planes' and the trainers' fault-tolerance modules, each a port
+#: of a JAX module that imports jax or orbax (checkpoint) or that the JAX
+#: engine or trainers reach through them.
 LIVE_MODULES = ("genrec_tpu_torch.obs", "genrec_tpu_torch.obs.spans",
                 "genrec_tpu_torch.obs.flight_recorder", "genrec_tpu_torch.obs.slo",
                 "genrec_tpu_torch.obs.export", "genrec_tpu_torch.obs.memory",
                 "genrec_tpu_torch.core.checkpoint", "genrec_tpu_torch.core.preemption",
-                "genrec_tpu_torch.serving.catalog")
+                "genrec_tpu_torch.serving.catalog",
+                # The trainers' fault tolerance (ports of JAX modules importing jax).
+                "genrec_tpu_torch.core.fault_tolerance", "genrec_tpu_torch.core.chaos",
+                "genrec_tpu_torch.obs.goodput")
 
 # Runs in a fresh interpreter: jax and friends are poisoned in
 # sys.modules, and a meta-path hook refuses genrec_tpu and genrec_tpu.*
