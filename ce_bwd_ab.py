@@ -43,10 +43,11 @@ logits scaled by log2 e); 128-column tiles; 8 and 32 splits; the splits
 as the fast axis (at the chosen count and at 32); expf on unscaled
 logits; one ex2.approx.ftz instruction instead of exp2f.
 
-`--mode paged`, B1 (fp32 pages) and B2 (int8 pages) of
-genrec_tpu_torch/csrc/paged_attention.cu at the TIGER serving shape (K 10,
-H 6, hd 64, page 16, Pm 4, chip_smoke.py's served lengths) with S 64 and
-S 16 slots: the source (live positions only, cp.async, 8 warps a block,
+`--mode paged`, B1 (fp32 pages, and bf16 pages with a bf16 q) and B2
+(int8 pages) of genrec_tpu_torch/csrc/paged_attention.cu at the TIGER
+serving shape (K 10, H 6, hd 64, page 16, Pm 4, chip_smoke.py's served
+lengths) with S 64 and S 16 slots, at COBRA's (K 20, hd 128, Pm 5) and
+over TIGER's 730-node speculative tree with S 64: the source (live positions only, cp.async, 8 warps a block,
 one block per (slot, head) unless that leaves SMs idle, then the beams
 split over enough blocks, head dim a template parameter, the slot's
 block-table row read once into shared memory); `all_pages` (every
@@ -59,7 +60,8 @@ block-table entry from global memory, the first design's way);
 `compact_pairs` (scores of the live pairs only, spread evenly, a pair a
 thread at a time, the dot in four partial sums); `breaks` (the beam
 loops leave at the first beam past the block's, as the first design's
-did); and,
+did); `lb_1`, `lb_2`, `lb_3` (`__launch_bounds__` asking for 1, 2, 3
+blocks an SM); and,
 timed only, `empty` (the kernel returns at once: a launch inside the
 graph), `copies_only` (the copies and their wait, no math),
 `scores_only` (no softmax, no e.V) and `no_ev` (no e.V). Each other
@@ -337,6 +339,8 @@ PAGED_VARIANTS = {
                   "const int n_live = cap;"),
     "splits_2": ("p.beams_per_block = min(p.K, kMaxBeams);",
                  "p.beams_per_block = min((p.K + 1) / 2, kMaxBeams);"),
+    "lb_1": ("__global__ void __launch_bounds__(kThreads)",
+             "__global__ void __launch_bounds__(kThreads, 1)"),
     "lb_2": ("__global__ void __launch_bounds__(kThreads)",
              "__global__ void __launch_bounds__(kThreads, 2)"),
     "lb_3": ("__global__ void __launch_bounds__(kThreads)",
@@ -350,13 +354,14 @@ PAGED_VARIANTS = {
          "const size_t at = (size_t)min(max(__ldg(p.block_tables + (size_t)blockIdx.x * p.Pm + pi),"
          " 0), p.P - 1) * p.page + (pos - pi * p.page);")],
     "runtime_hd": [
-        ("  if (p.hd <= 32) return launch_hd<T, 32>(p, S, st);\n"
-         "  if (p.hd <= 64) return launch_hd<T, 64>(p, S, st);\n", ""),
+        ("  if (p.hd <= 32) return launch_hd<T, TQ, 32>(p, S, st);\n"
+         "  if (p.hd <= 64) return launch_hd<T, TQ, 64>(p, S, st);\n", ""),
         ("float scale, int tid) {", "float scale, int tid, int hd) {"),
         ("seq_len, p.scale, tid);", "seq_len, p.scale, tid, p.hd);"),
         ("for (int d = 0; d < HD; d += 4) {", "for (int d = 0; d < hd; d += 4) {")],
     "compact_pairs": [
-        ("template <typename T, int HD>\n__global__", _COMPACT_SCORES + "template <typename T, int HD>\n__global__"),
+        ("template <typename T, typename TQ, int HD>\n__global__",
+         _COMPACT_SCORES + "template <typename T, typename TQ, int HD>\n__global__"),
         ("stage_scores<HD>(rows,", "stage_scores_compact<HD>(rows,")],
     "tma_bulk": [
         ("#include <type_traits>", _BULK_HELPERS),
@@ -500,10 +505,12 @@ RQ_VARIANTS["cp_async"] = ("  int tma = staged == L && D == 32 && K <= 256 && K 
 RQ_TIMING_ONLY = {"empty", "staging_only"}
 _RQ = ["source", "cp_async", "per_level", "tile_1x8", "tile_8x8", "rows_16", "empty",
        "staging_only", "source"]
-# B1 and B2 at the serving shape with S slots (chip_smoke.py's served lengths).
-PAGED_CELLS = {"s64": 64, "s16": 16}
+# B1 and B2 cells: name -> (S slots, shape): TIGER's serving shape, COBRA's
+# and TIGER's speculative tree (chip_smoke.py's, with its served lengths).
+PAGED_CELLS = {"s64": (64, "tiger"), "s16": (16, "tiger"), "cobra_s64": (64, "cobra"),
+               "tree_s64": (64, "tree")}
 _PAGED = ["source", "all_pages", "tma_bulk", "splits_2", "warps_4", "runtime_hd",
-          "pages_from_global", "compact_pairs", "warp_per_beam", "lb_2", "lb_3", "empty",
+          "pages_from_global", "compact_pairs", "warp_per_beam", "lb_1", "lb_2", "lb_3", "empty",
           "copies_only", "no_ev", "source"]
 _FWD = ["source", "fwd_cols_128", "fwd_splits_8", "fwd_splits_32", "fwd_splits_fast",
         "fwd_splits_32_fast", "fwd_expf", "fwd_ex2_approx", "source"]
@@ -702,6 +709,17 @@ def served_lens(seed: int = 0):
                                                           cs.PAGED["max_slots"])
 
 
+def paged_cell(cell):
+    """(S, K, H, hd, page, Pm) and the served lengths of a PAGED_CELLS cell."""
+    import chip_smoke as cs
+
+    S, which = PAGED_CELLS[cell]
+    if which == "cobra":
+        return (S, *cs.COBRA_SHAPE), cs.cobra_served_lens(0, S)
+    K = cs.tree_nodes("tiger") if which == "tree" else cs.BEAMS
+    return (S, K, 6, 64, 16, 4), served_lens()[:S]
+
+
 def paged_ab(dev, libs, order, reps, add) -> None:
     """Check every variant of the paged kernels, then time them in turns."""
     import chip_smoke as cs
@@ -710,7 +728,9 @@ def paged_ab(dev, libs, order, reps, add) -> None:
     kinds = {"f32": (cs.paged_inputs, pa.paged_attention_stats_cuda,
                      pa.paged_attention_stats_ref),
              "int8": (cs.quantized_inputs, pa.paged_attention_stats_quantized_cuda,
-                      pa.paged_attention_stats_quantized_ref)}
+                      pa.paged_attention_stats_quantized_ref),
+             "bf16": (cs.bf16_inputs, pa.paged_attention_stats_bf16_cuda,
+                      pa.paged_attention_stats_ref)}
     original = pa._library
     failed = set()
     try:
@@ -735,17 +755,16 @@ def paged_ab(dev, libs, order, reps, add) -> None:
         if "source" in failed:
             raise RuntimeError("the source disagrees with the plain versions")
         order = [n for n in order if n not in failed]
-        for cell, S in PAGED_CELLS.items():
-            lens = served_lens()[:S]
+        for cell in PAGED_CELLS:
+            shape, lens = paged_cell(cell)
             for kind, (make, fn, _) in kinds.items():
-                shape = (S, cs.BEAMS, 6, 64, 16, 4)
                 base = make(dev, 0, *shape, lens, True)
                 per_copy = cs.nbytes(*(t for v in base.values()
                                        for t in (getattr(v, "data", v), getattr(v, "scale", None))))
                 copies = [base] + cs.cold_copies(
                     lambda c: make(dev, 100 + c, *shape, lens, True), per_copy)[1:]
-                bound_ms, bound_by, work = (cs.paged_attention_bound if kind == "f32"
-                                            else cs.quantized_bound)(base)
+                bound_ms, bound_by, work = (cs.quantized_bound if kind == "int8"
+                                            else cs.paged_attention_bound)(base)
                 for turn, name in enumerate(order):
                     pa._library = lambda lib=libs[name]: lib
                     add(phase="time", cell=cell, kind=kind, variant=name, turn=turn,

@@ -17,7 +17,13 @@ line each; any failure ends the run with a traceback and a non-zero exit:
             128, page 16, Pm 5: the `_cobra` rows, each with free slots
             at seq_len 0 beside full ones), and over the speculative
             tree's node axis (the `_tree` rows: B1 and B2 at TIGER's 730
-            nodes, hd 64, B1 at COBRA's 180 nodes, hd 128); B3-B6 at the HSTU training
+            nodes, hd 64, B1 at COBRA's 180 nodes, hd 128), and a bf16
+            model's variants (B1 over bf16 pages with a bf16 q at TIGER's
+            and COBRA's shapes and over TIGER's tree: the `_bf16`,
+            `_bf16_cobra` and `_bf16_tree` rows; B2 with a bf16 q at
+            both shapes: the `_quantized_bf16q` and
+            `_quantized_bf16q_cobra` rows, each held at the fp32 rows'
+            1e-5); B3-B6 at the HSTU training
             shapes, B5 also at the retrieval serving buckets with
             right-aligned rows, all-padding rows exactly 0; B7 at the
             RQ-VAE export's), then timed by device time
@@ -78,7 +84,13 @@ line each; any failure ends the run with a traceback and a non-zero exit:
             tiger_generate_paged of the same page type on the card (fp32:
             also on the CPU). With --profile the traffic is served once
             more under torch.profiler, and the RQ-VAE runs one more epoch
-            under it;
+            under it. Then serve_bf16: the same seeded weights computing in
+            bf16, the same requests with bf16 pages (B1 over bf16 pages, 4
+            launches a decode step, no fp32 B1) then int8 pages (B2 with a
+            bf16 q), each burst's top-10 agreement with the fp32 burst,
+            its pool bytes (bf16 exactly half fp32's), 12 answers matched
+            tuple by tuple to offline bf16 tiger_generate_paged on the card
+            within 1e-3 (SAMPLE_ATOL);
 9. cobra    COBRA at the widths of config/cobra/amazon.gin (tower: 1
             layer, hidden 768, 8 heads, vocab 32,128; 256 x 3 codebooks,
             d_model 768 over 6 heads of 128, 8 decoder layers, FFN 2,048),
@@ -94,7 +106,13 @@ line each; any failure ends the run with a traceback and a non-zero exit:
             page type on the card, 8 of them rows whose history fills its
             bucket (only those read the decode steps' attention), 4 of
             those also on the CPU (the kernels' plain versions); with
-            --profile the traffic once more under torch.profiler;
+            --profile the traffic once more under torch.profiler. With
+            float32 pages a burst of 128 more requests under torch.profiler
+            gives the prefill's share of the device's busy time (marker
+            kernels around every prefill call). Then cobra_serve_bf16: the
+            same for the same weights computing in bf16 (bf16 pages, then
+            int8 pages under a bf16 q; 8 launches a decode step; the
+            sample on the card only, matched as serve_bf16's);
 10. retrieve SASRec (fp32) and HSTU (bf16, B5) retrieval heads at their
             Amazon widths in one ServingEngine, random weights from --seed,
             one engine with the fp32 item table and one with the int8 one,
@@ -162,10 +180,13 @@ line each; any failure ends the run with a traceback and a non-zero exit:
             phase's widths, catalog and requests plus a quarter of them
             again, beside the plain engine on the same traffic, both
             served in waves of 64 (the slots), fp32 pages then int8
-            (tiger_spec_serve_int8): every answer's sem-ids equal the plain
-            engine's and its scores within 1e-4 / T (5e-4 at TIGER's T
-            0.2, 1e-4 for COBRA at T 1); every repeat admits warm
-            from the prefix cache and answers as its original; B1 (B2) 4
+            (tiger_spec_serve_int8), then the serve phase's weights
+            computing in bf16 over bf16 pages (tiger_spec_serve_bf16):
+            every answer's sem-ids equal the plain engine's and its scores
+            within 1e-4 / T (5e-4 at TIGER's T 0.2, 1e-4 for COBRA at T 1);
+            every repeat admits warm from the prefix cache and answers as
+            its original (bf16: tuple by tuple within BF16_SPEC_ATOL, and
+            at most a tenth of the answers beyond 1e-4 / T); B1 (B2) 4
             times a verify call and no other kernel; the pool, the scratch
             pages and the prefix index empty after the drain; verify calls
             a request, mean accept length, prefix hits, qps and p50 beside
@@ -292,6 +313,7 @@ COBRA_AMAZON = dict(encoder_n_layers=1, encoder_hidden_dim=768, encoder_num_head
 COBRA_BEAMS = 20
 COBRA_TEXT_LEN = 32
 COBRA_PAGED = dict(max_slots=64, page_size=16, pages_per_slot=5)
+PREFILL_SHARE_REQUESTS = 128  # the profiled burst that splits COBRA's device time
 COBRA_SHAPE = (COBRA_BEAMS, COBRA_AMAZON["decoder_num_heads"],
                COBRA_AMAZON["d_model"] // COBRA_AMAZON["decoder_num_heads"],
                COBRA_PAGED["page_size"], COBRA_PAGED["pages_per_slot"])
@@ -310,6 +332,17 @@ SPEC_WAVE = 64
 # plain step runs S x K, so cuBLAS sums in other orders (~1e-5 in the
 # logits); the sem-ids are held exactly.
 SPEC_SCORE_TOL = 1e-4
+# A bf16 model's speculative engine against its plain one: the tree pass
+# runs its GEMMs over S x N rows where the plain step runs S x K, and an
+# fp32 sum in another order can round a bf16 activation one step (2^-8)
+# apart; that moved one answer of 64 by 0.312 at T = 0.2 on the H100 (the
+# other 63 by 0). So answers are matched tuple by tuple within
+# BF16_SPEC_ATOL, and at most BF16_SPEC_MAX_SHARE of them may differ by more
+# than SPEC_SCORE_TOL / T: a wrong kernel moves every answer, a rounding
+# flip a few. (The burst against offline decoding runs the same tree-free
+# step and is held at SAMPLE_ATOL.)
+BF16_SPEC_ATOL = 0.5
+BF16_SPEC_MAX_SHARE = 0.1
 SPEC_MAX_WAIT_MS = 20.0  # coalesces a wave into full prefill groups
 
 # HSTU, config/hstu/amazon.gin; depth not cut. Amazon-Beauty (2014 5-core):
@@ -433,12 +466,34 @@ KERNELS = {
                                          "genrec_tpu/kernels/paged_attention.py:182",
                                          "paged_attention_stats_pallas, over COBRA's 180-node "
                                          "speculative tree"),
+    "paged_attention_stats_bf16": ("genrec_tpu_torch/csrc/paged_attention.cu",
+                                   "genrec_tpu/kernels/paged_attention.py:182",
+                                   "paged_attention_stats_pallas over bf16 pages with a bf16 q, "
+                                   "at TIGER's serving shape"),
+    "paged_attention_stats_bf16_cobra": ("genrec_tpu_torch/csrc/paged_attention.cu",
+                                         "genrec_tpu/kernels/paged_attention.py:182",
+                                         "paged_attention_stats_pallas over bf16 pages, at "
+                                         "COBRA's serving shape"),
+    "paged_attention_stats_bf16_tree": ("genrec_tpu_torch/csrc/paged_attention.cu",
+                                        "genrec_tpu/kernels/paged_attention.py:182",
+                                        "paged_attention_stats_pallas over bf16 pages, over "
+                                        "TIGER's 730-node speculative tree"),
+    "paged_attention_stats_quantized_bf16q": ("genrec_tpu_torch/csrc/paged_attention.cu",
+                                              "genrec_tpu/kernels/paged_attention.py:112",
+                                              "paged_attention_stats_pallas_quantized with a "
+                                              "bf16 q, at TIGER's serving shape"),
+    "paged_attention_stats_quantized_bf16q_cobra": (
+        "genrec_tpu_torch/csrc/paged_attention.cu", "genrec_tpu/kernels/paged_attention.py:112",
+        "paged_attention_stats_pallas_quantized with a bf16 q, at COBRA's serving shape"),
     "sharded_fused_linear_ce": ("genrec_tpu_torch/kernels/fused_ce.py",
                                 "genrec_tpu/kernels/fused_ce.py:329",
                                 "sharded_fused_linear_ce (_tp_vjp_fwd :350, _tp_vjp_bwd :375, "
                                 "B4 at :387)"),
 }
 LIBRARY_ATOL = 1e-4  # the library call normalises; checked, never used
+# SDPA on bf16 operands returns bf16 (2^-9 relative) after rounding its
+# weights to bf16 inside the product: 3e-2 on outputs of |v| <~ 4.
+LIBRARY_BF16_ATOL = 3e-2
 # Scores are sums of 3 log-softmaxes of logits / 0.2. Across batch shapes
 # and devices the full-width logits differ by ~1e-5 (GEMM blocking and
 # summation order), which moves the scores by up to ~1e-4 (measured on the
@@ -536,9 +591,10 @@ def check(ok, what) -> None:
 
 
 def emit(phase: str, **fields) -> dict:
-    """Print a phase's line, with the seconds since the script started."""
-    print(json.dumps({"phase": phase, "at_s": time.perf_counter() - _STARTED, **fields}),
-          flush=True)
+    """Print a phase's line, with the seconds since the script started
+    (``at_s``, also in the returned fields, so --out keeps it)."""
+    fields = {"at_s": time.perf_counter() - _STARTED, **fields}
+    print(json.dumps({"phase": phase, **fields}), flush=True)
     return fields
 
 
@@ -700,6 +756,33 @@ def paged_inputs(dev, seed, S, K, H, hd, page, Pm, seq_lens, null_tail):
                 seq_lens=seq_lens)
 
 
+def to_bf16(x, pools=True):
+    """``x`` with q, and (``pools``) the float pools, in bf16: a bf16
+    model's operands."""
+    x = dict(x, q=x["q"].to(torch.bfloat16))
+    if pools:
+        x["k_pool"], x["v_pool"] = x["k_pool"].to(torch.bfloat16), x["v_pool"].to(torch.bfloat16)
+    return x
+
+
+def bf16_inputs(dev, seed, S, K, H, hd, page, Pm, seq_lens, null_tail):
+    """``paged_inputs`` in bf16: B1 over bf16 pages with a bf16 q."""
+    return to_bf16(paged_inputs(dev, seed, S, K, H, hd, page, Pm, seq_lens, null_tail))
+
+
+def bf16_terms(x, n=4):
+    """``n`` bf16-exact float32 arrays summing exactly to ``x`` (multiples
+    of 512 below 2^33 in magnitude), greedily, each the nearest bf16 value
+    to what is left."""
+    terms, rest = [], x.astype(np.float64)
+    for _ in range(n):
+        t = torch.as_tensor(rest, dtype=torch.float32).to(torch.bfloat16).float().numpy()
+        terms.append(t)
+        rest = rest - t.astype(np.float64)
+    check(bool((rest == 0).all()), "bf16 split of the near -1e9 offset")
+    return terms
+
+
 def to_int8(x):
     """``x`` with its pools as int8 pools (QuantizedKVPool, quantised as the
     serving path's write_pages quantises); every third row of page 1 is all
@@ -714,31 +797,39 @@ def to_int8(x):
     return x
 
 
-def near_neg_inputs(dev, seed, S, K, H, page, Pm, seq_lens, int8):
+def near_neg_inputs(dev, seed, S, K, H, page, Pm, seq_lens, int8, bf16=False):
     """Inputs whose scores are exact in any summation order (integer K, q a
     multiple of 512, hd 64 so hd^-0.5 = 1/8) and put each beam's max over
     its live positions at -1e9 - 64, -1e9 or -1e9 + 64: every beam is
     within 128 of -1e9, so the kernels must walk the masked positions too,
-    and where the max is -1e9 or below those carry real weight."""
+    and where the max is -1e9 or below those carry real weight. With
+    ``bf16`` q (and the float pools) are bf16, every value exact: the
+    -8e9 offset is split over q's first 4 dims (K 1 there), and every
+    partial sum is a multiple of 512 below 2^33, exact in fp32."""
     from genrec_tpu_torch.ops.quant import QuantizedKVPool
 
-    hd = 64
+    hd, lead = 64, 4 if bf16 else 1
     x = paged_inputs(dev, seed, S, K, H, hd, page, Pm, seq_lens, False)
     rng = np.random.default_rng(seed)
     bt = x["block_tables"].cpu().numpy()
     P, cap = x["k_pool"].shape[0], Pm * page
     k = rng.integers(-1, 2, size=(P, page, H, hd)).astype(np.float32)
-    k[..., 0] = 1.0
+    k[..., :lead] = 1.0
     qn = rng.integers(-1, 2, size=(S, K, H, hd)).astype(np.float32)
-    qn[..., 0] = 0.0
+    qn[..., :lead] = 0.0
     sums = np.einsum("skhd,slhd->skhl", qn, k[bt].reshape(S, cap, H, hd))
     lens = np.asarray(seq_lens)
     live = np.arange(cap)[None, :] < np.where(lens > 0, np.minimum(lens, cap), cap)[:, None]
     top = np.where(live[:, None, None, :], sums, -(10**6)).max(-1)
     q = 512.0 * qn
-    q[..., 0] = -8e9 - 512.0 * (top - rng.integers(-1, 2, size=top.shape))
+    target = -8e9 - 512.0 * (top - rng.integers(-1, 2, size=top.shape))
+    for i, t in enumerate(bf16_terms(target) if bf16 else [target]):
+        q[..., i] = t
     x["q"] = torch.as_tensor(q.astype(np.float32), device=dev)
     x["k_pool"] = torch.as_tensor(k, device=dev)
+    if bf16:
+        x = to_bf16(x, pools=not int8)
+        check(bool(torch.equal(x["q"].float(), torch.as_tensor(q, device=dev))), "bf16 q exact")
     if int8:
         x = to_int8(x)
         x["k_pool"] = QuantizedKVPool(torch.as_tensor(k.astype(np.int8), device=dev),
@@ -746,15 +837,21 @@ def near_neg_inputs(dev, seed, S, K, H, page, Pm, seq_lens, int8):
     return x
 
 
-def paged_edge_inputs(dev, seed, served_lens, int8) -> dict:
+def paged_edge_inputs(dev, seed, served_lens, int8, bf16=False) -> dict:
     """The redesigned B1/B2's edges: scores within 128 of -1e9 (the walk
     past the live positions; a partial and a full slot), seq_len above
     Pm * page with block-table entries outside [0, P), S = 1 and S = 16 at
     the serving widths, and a shape that streams 4 stages through the
-    ring."""
+    ring (bf16: 8, the ring holding 4). ``bf16``: a bf16 q, over bf16
+    pages (or int8 ones)."""
     H, hd = TIGER_AMAZON["num_heads"], TIGER_AMAZON["attn_dim"] // TIGER_AMAZON["num_heads"]
     page, Pm = PAGED["page_size"], PAGED["pages_per_slot"]
-    conv = to_int8 if int8 else (lambda x: x)
+
+    def conv(x):
+        x = to_int8(x) if int8 else x
+        return to_bf16(x, pools=not int8) if bf16 else x
+
+    long_pm, long_lens = (32, [400, 130]) if bf16 else (16, [256, 130])
     outside = paged_inputs(dev, seed + 30, 3, BEAMS, H, hd, page, Pm, [100, 7, Pm * page],
                            False)
     P = outside["k_pool"].shape[0]
@@ -763,22 +860,22 @@ def paged_edge_inputs(dev, seed, served_lens, int8) -> dict:
     outside["block_tables"][2, 1] = P
     return {"seq_len_over_cap_bt_outside": conv(outside),
            "near_neg_partial": near_neg_inputs(dev, seed + 31, 3, BEAMS, 2, page, Pm,
-                                               [40, 5, 17], int8),
+                                               [40, 5, 17], int8, bf16),
            "near_neg_full": near_neg_inputs(dev, seed + 32, 2, BEAMS, 2, page, Pm,
-                                            [Pm * page, Pm * page + 16], int8),
+                                            [Pm * page, Pm * page + 16], int8, bf16),
            "s1": conv(paged_inputs(dev, seed + 33, 1, BEAMS, H, hd, page, Pm,
                                    served_lens[:1], True)),
            "s16": conv(paged_inputs(dev, seed + 34, 16, BEAMS, H, hd, page, Pm,
                                     served_lens[:16], True)),
-           "multi_stage": conv(paged_inputs(dev, seed + 35, 2, BEAMS, 2, 128, 16, 16,
-                                            [256, 130], False))}
+           "multi_stage": conv(paged_inputs(dev, seed + 35, 2, BEAMS, 2, 128, 16, long_pm,
+                                            long_lens, False))}
 
 
-def check_paged_edges(dev, seed, served_lens, kernel, plain, int8) -> dict:
+def check_paged_edges(dev, seed, served_lens, kernel, plain, int8, bf16=False) -> dict:
     """Each edge case through ``kernel`` (its launch count must rise by
     exactly one) against ``plain``: max |error| <= 1e-5 x max |plain|."""
     errs = {}
-    for name, x in paged_edge_inputs(dev, seed, served_lens, int8).items():
+    for name, x in paged_edge_inputs(dev, seed, served_lens, int8, bf16).items():
         before = kernel.launches
         got = kernel(**x)
         torch.cuda.synchronize()
@@ -788,14 +885,22 @@ def check_paged_edges(dev, seed, served_lens, kernel, plain, int8) -> dict:
     return errs
 
 
+# Mangled page and q types of paged_attention_stats_kernel<T, TQ, HD>.
+_PAGED_TYPES = {"f": "fp32", "a": "int8", "13__nv_bfloat16": "bf16", "S1_": "bf16"}
+
+
 def paged_ptxas(ptxas: dict) -> dict:
-    """ptxas -v numbers of the B1 (fp32) and B2 (int8) instantiations, by
-    page type and head width."""
+    """ptxas -v numbers of every B1 and B2 instantiation, by page type, q
+    type (a bf16 q adds ``_bf16q`` to fp32-q names' int8 pages; bf16 pages
+    take a bf16 q) and head width."""
     out = {}
     for name, v in ptxas.items():
-        m = re.search(r"paged_attention_stats_kernelI([fa])Li(\d+)E", name)
+        m = re.search(r"paged_attention_stats_kernelI(f|a|13__nv_bfloat16)(f|13__nv_bfloat16|S1_)"
+                      r"Li(\d+)E", name)
         if m:
-            out[f"{'fp32' if m.group(1) == 'f' else 'int8'}_hd{m.group(2)}"] = v
+            pages, q = _PAGED_TYPES[m.group(1)], _PAGED_TYPES[m.group(2)]
+            key = pages + ("_bf16q" if q == "bf16" and pages == "int8" else "")
+            out[f"{key}_hd{m.group(3)}"] = v
     return out
 
 
@@ -803,20 +908,27 @@ def paged_attention_bound(x) -> tuple[float, str, dict]:
     """Least time for one call on these inputs: each input byte the
     function needs read once, each output written once. A slot needs the
     K/V rows of its first seq_len positions (masked positions weigh
-    exactly 0); a fully masked slot needs all Pm*page of them."""
+    exactly 0); a fully masked slot needs all Pm*page of them. K/V and q
+    bytes at their own types (fp32 or bf16); the outputs are fp32. With
+    bf16 q and K, q.k's products are exact in fp32, so its half of the
+    operations is priced at the bf16 tensor-core peak (fp32 accumulation);
+    p.v multiplies fp32 weights and stays at the fp32 peak."""
     S, K, H, hd = x["q"].shape
     Pm, page = x["block_tables"].shape[1], x["k_pool"].shape[1]
     sl = x["seq_lens"].long()
     tokens = int(torch.where(sl > 0, sl.clamp_max(Pm * page), Pm * page).sum())
     f32 = 4
-    bytes_ = (tokens * H * hd * 2 * f32                 # K and V rows
-              + S * K * H * hd * f32                    # q
-              + S * (Pm + 1) * 4                        # block tables, seq_lens
-              + S * K * H * (hd + 2) * f32)             # acc, m, l
-    flops = 4 * K * H * hd * tokens                     # q.k and p.v
-    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    bytes_ = (tokens * H * hd * 2 * x["k_pool"].element_size()  # K and V rows
+              + S * K * H * hd * x["q"].element_size()          # q
+              + S * (Pm + 1) * 4                                # block tables, seq_lens
+              + S * K * H * (hd + 2) * f32)                     # acc, m, l
+    qk = pv = 2 * K * H * hd * tokens
+    bf16 = x["q"].dtype == x["k_pool"].dtype == torch.bfloat16
+    t_bytes = bytes_ / HBM_BYTES_PER_S
+    t_ops = qk / (BF16_FLOPS if bf16 else FP32_FLOPS) + pv / FP32_FLOPS
     by = "bytes" if t_bytes >= t_ops else "operations"
-    return 1e3 * max(t_bytes, t_ops), by, dict(bytes=bytes_, flops=flops,
+    return 1e3 * max(t_bytes, t_ops), by, dict(bytes=bytes_, flops=qk + pv,
+                                               qk_flops_at="bf16" if bf16 else "fp32",
                                                kv_tokens=tokens)
 
 
@@ -827,24 +939,31 @@ def library_paged_attention(q, k, v, mask):
 
 
 def library_inputs(x):
+    """SDPA's operands in q's type: pre-gathered (int8: dequantised) K/V,
+    an additive mask of -1e9."""
     from genrec_tpu_torch.ops.paged import NEG, gather_pages
 
     S, K, H, hd = x["q"].shape
-    k = gather_pages(x["k_pool"], x["block_tables"]).permute(0, 2, 1, 3).contiguous()
-    v = gather_pages(x["v_pool"], x["block_tables"]).permute(0, 2, 1, 3).contiguous()
+    dt = x["q"].dtype
+    k = gather_pages(x["k_pool"], x["block_tables"]).permute(0, 2, 1, 3).to(dt).contiguous()
+    v = gather_pages(x["v_pool"], x["block_tables"]).permute(0, 2, 1, 3).to(dt).contiguous()
     tok = torch.arange(k.shape[2], device=k.device)
-    mask = torch.zeros((S, 1, 1, k.shape[2]), device=k.device)
+    mask = torch.zeros((S, 1, 1, k.shape[2]), dtype=dt, device=k.device)
     mask = mask.masked_fill(tok >= x["seq_lens"].long()[:, None, None, None], NEG)
     return dict(q=x["q"].permute(0, 2, 1, 3).contiguous(), k=k, v=v, mask=mask)
 
 
-def kernel_phase(dev, seed, ptxas) -> dict:
-    from genrec_tpu_torch.kernels.paged_attention import (
-        block_smem_bytes,
-        paged_attention_stats_cuda,
-        paged_attention_stats_ref,
-    )
+def kernel_phase(dev, seed, ptxas, bf16=False) -> dict:
+    """B1 at the TIGER serving shape (S 64, K 10, H 6, hd 64, page 16, Pm
+    4) against its plain version, its edge cases, equal bits over two
+    calls, then timed at S 64 and S 16. ``bf16``: the
+    ``paged_attention_stats_bf16`` row, B1 over bf16 pages with a bf16 q
+    (``paged_attention_stats_bf16_cuda``)."""
+    from genrec_tpu_torch.kernels import paged_attention as pa
 
+    kernel, make = ((pa.paged_attention_stats_bf16_cuda, bf16_inputs) if bf16 else
+                    (pa.paged_attention_stats_cuda, paged_inputs))
+    plain = pa.paged_attention_stats_ref
     S, K = PAGED["max_slots"], BEAMS
     H = TIGER_AMAZON["num_heads"]
     hd = TIGER_AMAZON["attn_dim"] // H
@@ -861,38 +980,37 @@ def kernel_phase(dev, seed, ptxas) -> dict:
     }
     errs = {}
     for i, (name, (lens, null_tail)) in enumerate(cases.items()):
-        x = paged_inputs(dev, seed + i, S, K, H, hd, page, Pm, lens, null_tail)
-        got = paged_attention_stats_cuda(**x)
+        x = make(dev, seed + i, S, K, H, hd, page, Pm, lens, null_tail)
+        got = kernel(**x)
         torch.cuda.synchronize()
-        want = paged_attention_stats_ref(**x)
+        want = plain(**x)
         for out, g, w in zip(("acc", "m", "l"), got, want):
             torch.testing.assert_close(g, w, rtol=KERNEL_RTOL, atol=KERNEL_ATOL,
                                        msg=lambda m, c=name, o=out: f"{c}/{o}: {m}")
         errs[name] = max(float((g - w).abs().max()) for g, w in zip(got, want))
 
-    errs.update(check_paged_edges(dev, seed, served_lens, paged_attention_stats_cuda,
-                                  paged_attention_stats_ref, False))
+    errs.update(check_paged_edges(dev, seed, served_lens, kernel, plain, False, bf16))
 
     # Timing at the serving case, each call on inputs cold in L2; S = 16
     # beside S = 64 (the engine steps any slot prefix).
-    base = paged_inputs(dev, seed, S, K, H, hd, page, Pm, served_lens, True)
-    bit_equal_twice(paged_attention_stats_cuda, base, "B1 at the serving shape")
-    t64 = paged_times(dev, seed, S, served_lens, paged_inputs, paged_attention_stats_cuda,
-                      paged_attention_stats_ref, paged_attention_bound)
-    ms_again = device_ms(paged_attention_stats_cuda, t64.pop("copies"))
-    t16 = paged_times(dev, seed, 16, served_lens, paged_inputs, paged_attention_stats_cuda,
-                      paged_attention_stats_ref, paged_attention_bound)
+    base = make(dev, seed, S, K, H, hd, page, Pm, served_lens, True)
+    bit_equal_twice(kernel, base, f"B1{' bf16' if bf16 else ''} at the serving shape")
+    t64 = paged_times(dev, seed, S, served_lens, make, kernel, plain, paged_attention_bound)
+    ms_again = device_ms(kernel, t64.pop("copies"))
+    t16 = paged_times(dev, seed, 16, served_lens, make, kernel, plain, paged_attention_bound)
     t16.pop("copies")
     clocks = nvidia_smi_line("clocks.sm,clocks.mem,power.draw,temperature.gpu")
     return emit(
-        "kernel", name="paged_attention_stats",
-        shape=dict(S=S, K=K, H=H, hd=hd, page=page, Pm=Pm),
+        "kernel", name="paged_attention_stats_bf16" if bf16 else "paged_attention_stats",
+        shape=dict(S=S, K=K, H=H, hd=hd, page=page, Pm=Pm,
+                   pools="bf16, bf16 q" if bf16 else "fp32"),
         max_abs_err=max(errs.values()), max_abs_err_by_case=errs,
         tolerance=dict(rtol=KERNEL_RTOL, atol=KERNEL_ATOL, edge_cases="1e-5 of max|plain|"),
         **t64, ms_repeat=ms_again, s16=t16, bit_equal_twice=True,
         timed_by="cuda_graph",
         library="torch.nn.functional.scaled_dot_product_attention on pre-gathered K/V",
-        ptxas=paged_ptxas(ptxas), block_smem_bytes=block_smem_bytes(K, hd, page, Pm, False),
+        ptxas=paged_ptxas(ptxas),
+        block_smem_bytes=pa.block_smem_bytes(K, hd, page, Pm, "bfloat16" if bf16 else "float32"),
         clocks_after_timing=clocks,
     )
 
@@ -915,15 +1033,17 @@ def paged_times(dev, seed, S, served_lens, make, kernel, plain, bound_fn,
         lambda c: make(dev, seed + 100 + c, S, K, H, hd, page, Pm, lens, True), per_copy)[1:]
     lib = [library_inputs(x) for x in copies]  # gather_pages dequantises int8
     acc, _, l = kernel(**base)
-    torch.testing.assert_close(library_paged_attention(**lib[0]),
+    bf16 = base["q"].dtype == torch.bfloat16
+    torch.testing.assert_close(library_paged_attention(**lib[0]).float(),
                                (acc / l[..., None]).permute(0, 2, 1, 3),
-                               rtol=0, atol=LIBRARY_ATOL)
+                               rtol=0, atol=LIBRARY_BF16_ATOL if bf16 else LIBRARY_ATOL)
     ms = device_ms(kernel, copies)
     plain_ms = device_ms(plain, copies)
     library_ms = device_ms(library_paged_attention, lib)
     bound_ms, bound_by, work = bound_fn(base)
     # K or V bytes of one position, all heads: int8 rows carry a 4-byte scale.
-    row = H * hd + 4 if hasattr(base["k_pool"], "scale") else H * hd * 4
+    pool = base["k_pool"]
+    row = H * hd + 4 if hasattr(pool, "scale") else H * hd * pool.element_size()
     return dict(S=S, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by, share_of_bound=bound_ms / ms, work=work,
                 kv_bytes_live=2 * row * work["kv_tokens"],
@@ -938,6 +1058,12 @@ def quantized_inputs(dev, seed, S, K, H, hd, page, Pm, seq_lens, null_tail):
     return to_int8(paged_inputs(dev, seed, S, K, H, hd, page, Pm, seq_lens, null_tail))
 
 
+def quantized_bf16q_inputs(dev, seed, S, K, H, hd, page, Pm, seq_lens, null_tail):
+    """``quantized_inputs`` with a bf16 q: a bf16 model over int8 pages."""
+    return to_bf16(quantized_inputs(dev, seed, S, K, H, hd, page, Pm, seq_lens, null_tail),
+                   pools=False)
+
+
 def quantized_bound(x) -> tuple[float, str, dict]:
     """``paged_attention_bound`` for int8 pools: a K or V row is H*hd bytes
     plus its 4-byte scale, and each element is dequantised (one convert and
@@ -946,20 +1072,23 @@ def quantized_bound(x) -> tuple[float, str, dict]:
     Pm, page = x["block_tables"].shape[1], x["k_pool"].data.shape[1]
     sl = x["seq_lens"].long()
     tokens = int(torch.where(sl > 0, sl.clamp_max(Pm * page), Pm * page).sum())
-    bytes_ = (tokens * (H * hd + 4) * 2 + S * K * H * hd * 4 + S * (Pm + 1) * 4
-              + S * K * H * (hd + 2) * 4)
+    bytes_ = (tokens * (H * hd + 4) * 2 + S * K * H * hd * x["q"].element_size()
+              + S * (Pm + 1) * 4 + S * K * H * (hd + 2) * 4)
     flops = 4 * K * H * hd * tokens + 2 * 2 * H * hd * tokens
     ms, by = bound(bytes_, flops, FP32_FLOPS)
     return ms, by, dict(bytes=bytes_, flops=flops, kv_tokens=tokens)
 
 
-def quantized_kernel_phase(dev, seed, ptxas) -> dict:
-    """B2 against its plain version (dequantise after the gather) and timed."""
-    from genrec_tpu_torch.kernels.paged_attention import (
-        block_smem_bytes,
-        paged_attention_stats_quantized_cuda,
-        paged_attention_stats_quantized_ref,
-    )
+def quantized_kernel_phase(dev, seed, ptxas, bf16q=False) -> dict:
+    """B2 against its plain version (dequantise after the gather) and timed.
+    ``bf16q``: the ``paged_attention_stats_quantized_bf16q`` row, a bf16 q
+    (``paged_attention_stats_quantized_bf16q_cuda``)."""
+    from genrec_tpu_torch.kernels import paged_attention as pa
+
+    plain = pa.paged_attention_stats_quantized_ref
+    kernel, make = (
+        (pa.paged_attention_stats_quantized_bf16q_cuda, quantized_bf16q_inputs) if bf16q else
+        (pa.paged_attention_stats_quantized_cuda, quantized_inputs))
 
     S, K = PAGED["max_slots"], BEAMS
     H = TIGER_AMAZON["num_heads"]
@@ -977,36 +1106,32 @@ def quantized_kernel_phase(dev, seed, ptxas) -> dict:
     }
     errs = {}
     for i, (name, (k, lens, null_tail)) in enumerate(cases.items()):
-        x = quantized_inputs(dev, seed + 10 + i, S, k, H, hd, page, Pm, lens, null_tail)
-        got = paged_attention_stats_quantized_cuda(**x)
+        x = make(dev, seed + 10 + i, S, k, H, hd, page, Pm, lens, null_tail)
+        got = kernel(**x)
         torch.cuda.synchronize()
-        want = paged_attention_stats_quantized_ref(**x)
+        want = plain(**x)
         errs[name] = max(assert_near(f"B2 {name}/{out}", g, w, FP32_TOL)
                          for out, g, w in zip(("acc", "m", "l"), got, want))
 
-    errs.update(check_paged_edges(dev, seed, served_lens,
-                                  paged_attention_stats_quantized_cuda,
-                                  paged_attention_stats_quantized_ref, True))
+    errs.update(check_paged_edges(dev, seed, served_lens, kernel, plain, True, bf16q))
 
-    base = quantized_inputs(dev, seed, S, K, H, hd, page, Pm, served_lens, True)
-    bit_equal_twice(paged_attention_stats_quantized_cuda, base, "B2 at the serving shape")
-    t64 = paged_times(dev, seed, S, served_lens, quantized_inputs,
-                      paged_attention_stats_quantized_cuda, paged_attention_stats_quantized_ref,
-                      quantized_bound)
-    t16 = paged_times(dev, seed, 16, served_lens, quantized_inputs,
-                      paged_attention_stats_quantized_cuda, paged_attention_stats_quantized_ref,
-                      quantized_bound)
+    base = make(dev, seed, S, K, H, hd, page, Pm, served_lens, True)
+    bit_equal_twice(kernel, base, f"B2{' bf16 q' if bf16q else ''} at the serving shape")
+    t64 = paged_times(dev, seed, S, served_lens, make, kernel, plain, quantized_bound)
+    t16 = paged_times(dev, seed, 16, served_lens, make, kernel, plain, quantized_bound)
     t64.pop("copies")
     t16.pop("copies")
     return emit(
-        "kernel", name="paged_attention_stats_quantized",
-        shape=dict(S=S, K=K, H=H, hd=hd, page=page, Pm=Pm, pools="int8 + fp32 row scales"),
+        "kernel", name="paged_attention_stats_quantized_bf16q" if bf16q
+        else "paged_attention_stats_quantized",
+        shape=dict(S=S, K=K, H=H, hd=hd, page=page, Pm=Pm,
+                   pools="int8 + fp32 row scales" + (", bf16 q" if bf16q else "")),
         max_abs_err=max(errs.values()), max_abs_err_by_case=errs,
         tolerance=dict(rel=FP32_TOL, relative_to="max|plain|"),
         **t64, s16=t16, bit_equal_twice=True, timed_by="cuda_graph",
         library="torch.nn.functional.scaled_dot_product_attention on pre-gathered, "
                 "dequantised K/V",
-        ptxas=paged_ptxas(ptxas), block_smem_bytes=block_smem_bytes(K, hd, page, Pm, True),
+        ptxas=paged_ptxas(ptxas), block_smem_bytes=pa.block_smem_bytes(K, hd, page, Pm, "int8"),
     )
 
 
@@ -1017,18 +1142,26 @@ def cobra_served_lens(seed, S):
     return np.asarray([4 * len(r.history) for r in reqs])
 
 
-def cobra_kernel_phase(dev, seed, ptxas, int8) -> dict:
+def cobra_kernel_phase(dev, seed, ptxas, int8, bf16=False) -> dict:
     """B1 (``int8`` False) or B2 at COBRA's serving shape (K 20, H 6, hd
     128, page 16, Pm 5) against its plain version: the served lengths,
     free slots at seq_len 0 beside full slots, equal bits over two calls;
-    then timed at S 64 and S 16 with its bound and the SDPA yardstick."""
+    then timed at S 64 and S 16 with its bound and the SDPA yardstick.
+    ``bf16``: a bf16 model's q, the ``paged_attention_stats_bf16_cobra``
+    row (B1 over bf16 pages) or, with ``int8``, the
+    ``paged_attention_stats_quantized_bf16q_cobra`` row (B2 with a bf16 q)."""
     from genrec_tpu_torch.kernels import paged_attention as pa
 
     kernel, plain, make, bound_fn = (
+        (pa.paged_attention_stats_quantized_bf16q_cuda, pa.paged_attention_stats_quantized_ref,
+         quantized_bf16q_inputs, quantized_bound) if int8 and bf16 else
         (pa.paged_attention_stats_quantized_cuda, pa.paged_attention_stats_quantized_ref,
          quantized_inputs, quantized_bound) if int8 else
+        (pa.paged_attention_stats_bf16_cuda, pa.paged_attention_stats_ref, bf16_inputs,
+         paged_attention_bound) if bf16 else
         (pa.paged_attention_stats_cuda, pa.paged_attention_stats_ref, paged_inputs,
          paged_attention_bound))
+    pages = "int8" if int8 else "bfloat16" if bf16 else "float32"
     K, H, hd, page, Pm = COBRA_SHAPE
     S = COBRA_PAGED["max_slots"]
     served_lens = cobra_served_lens(seed, S)
@@ -1045,22 +1178,26 @@ def cobra_kernel_phase(dev, seed, ptxas, int8) -> dict:
         errs[name] = max(assert_near(f"cobra {name}/{out}", g, w, FP32_TOL)
                          for out, g, w in zip(("acc", "m", "l"), got, plain(**x)))
     base = make(dev, seed, S, K, H, hd, page, Pm, served_lens, True)
-    bit_equal_twice(kernel, base, f"{'B2' if int8 else 'B1'} at COBRA's serving shape")
+    bit_equal_twice(kernel, base, f"{'B2' if int8 else 'B1'} {pages}{' bf16 q' if bf16 else ''} "
+                                  "at COBRA's serving shape")
     t64 = paged_times(dev, seed, S, served_lens, make, kernel, plain, bound_fn, COBRA_SHAPE)
     t16 = paged_times(dev, seed, 16, served_lens, make, kernel, plain, bound_fn, COBRA_SHAPE)
     t64.pop("copies")
     t16.pop("copies")
     return emit(
-        "kernel", name="paged_attention_stats_quantized_cobra" if int8
-        else "paged_attention_stats_cobra",
+        "kernel", name=("paged_attention_stats_quantized_bf16q_cobra" if int8 and bf16
+                        else "paged_attention_stats_quantized_cobra" if int8
+                        else "paged_attention_stats_bf16_cobra" if bf16
+                        else "paged_attention_stats_cobra"),
         shape=dict(S=S, K=K, H=H, hd=hd, page=page, Pm=Pm,
-                   pools="int8 + fp32 row scales" if int8 else "fp32"),
+                   pools=("int8 + fp32 row scales" + (", bf16 q" if bf16 else "")) if int8
+                   else "bf16, bf16 q" if bf16 else "fp32"),
         max_abs_err=max(errs.values()), max_abs_err_by_case=errs,
         tolerance=dict(rel=FP32_TOL, relative_to="max|plain|"),
         **t64, s16=t16, bit_equal_twice=True, timed_by="cuda_graph",
         library="torch.nn.functional.scaled_dot_product_attention on pre-gathered"
                 + (", dequantised" if int8 else "") + " K/V",
-        ptxas=paged_ptxas(ptxas), block_smem_bytes=pa.block_smem_bytes(K, hd, page, Pm, int8),
+        ptxas=paged_ptxas(ptxas), block_smem_bytes=pa.block_smem_bytes(K, hd, page, Pm, pages),
     )
 
 
@@ -1081,17 +1218,21 @@ def tree_kernel_phase(dev, seed, ptxas, name) -> dict:
     hd 64, page 16, Pm 4, the serve phase's served lengths),
     ``paged_attention_stats_quantized_tree`` (B2, the same shape) and
     ``paged_attention_stats_cobra_tree`` (B1, COBRA: N 180, hd 128, Pm 5,
-    ``cobra_served_lens``). Held to the twin on the served lengths and on
+    ``cobra_served_lens``) and ``paged_attention_stats_bf16_tree`` (B1 over
+    bf16 pages with a bf16 q, TIGER's tree). Held to the twin on the served lengths and on
     free slots beside full ones, equal bits over two calls, then timed at S
     64 with its bound and SDPA on pre-gathered K/V."""
     from genrec_tpu_torch.kernels import paged_attention as pa
 
-    int8 = "quantized" in name
+    int8, bf16 = "quantized" in name, "bf16" in name
     kernel, plain, make, bound_fn = (
         (pa.paged_attention_stats_quantized_cuda, pa.paged_attention_stats_quantized_ref,
          quantized_inputs, quantized_bound) if int8 else
+        (pa.paged_attention_stats_bf16_cuda, pa.paged_attention_stats_ref, bf16_inputs,
+         paged_attention_bound) if bf16 else
         (pa.paged_attention_stats_cuda, pa.paged_attention_stats_ref, paged_inputs,
          paged_attention_bound))
+    pages = "int8" if int8 else "bfloat16" if bf16 else "float32"
     S = PAGED["max_slots"]
     if name.endswith("cobra_tree"):
         N = tree_nodes("cobra")
@@ -1127,14 +1268,15 @@ def tree_kernel_phase(dev, seed, ptxas, name) -> dict:
         "kernel", name=name,
         shape=dict(S=S, K=N, H=H, hd=hd, page=page, Pm=Pm, tree_nodes=N,
                    blocks_per_slot_head=-(-N // 32),
-                   pools="int8 + fp32 row scales" if int8 else "fp32"),
+                   pools="int8 + fp32 row scales" if int8 else "bf16, bf16 q" if bf16
+                   else "fp32"),
         max_abs_err=max(errs.values()), max_abs_err_by_case=errs,
         tolerance=dict(rel=FP32_TOL, relative_to="max|plain|"),
         **t64, bit_equal_twice=True, timed_by="cuda_graph",
         library="torch.nn.functional.scaled_dot_product_attention on pre-gathered"
                 + (", dequantised" if int8 else "") + " K/V",
         ptxas=paged_ptxas(ptxas),
-        block_smem_bytes=pa.block_smem_bytes(min(N, 32), hd, page, Pm, int8),
+        block_smem_bytes=pa.block_smem_bytes(min(N, 32), hd, page, Pm, pages),
     )
 
 
@@ -1628,6 +1770,9 @@ def kernel_counters() -> dict:
     return {
         "paged_attention_stats": paged_attention.paged_attention_stats_cuda,
         "paged_attention_stats_quantized": paged_attention.paged_attention_stats_quantized_cuda,
+        "paged_attention_stats_bf16": paged_attention.paged_attention_stats_bf16_cuda,
+        "paged_attention_stats_quantized_bf16q":
+            paged_attention.paged_attention_stats_quantized_bf16q_cuda,
         "rq_cascade": rq_cascade.rq_cascade_cuda,
         "hstu_attention_fwd": hstu_attention.hstu_attention_fwd_cuda,
         "hstu_attention_bwd": hstu_attention.hstu_attention_bwd_cuda,
@@ -2540,9 +2685,12 @@ def device_profile(serve_once) -> dict:
     )
 
 
-def burst_kernel(kv_dtype) -> str:
-    """The paged-attention kernel a burst with ``kv_dtype`` pages runs."""
-    return "paged_attention_stats_quantized" if kv_dtype == "int8" else "paged_attention_stats"
+def burst_kernel(kv_dtype, bf16=False) -> str:
+    """The paged-attention kernel a burst with ``kv_dtype`` pages runs, of
+    a bf16 model where ``bf16``."""
+    if kv_dtype == "int8":
+        return "paged_attention_stats_quantized" + ("_bf16q" if bf16 else "")
+    return "paged_attention_stats" + ("_bf16" if bf16 else "")
 
 
 def check_burst(eng, head, reqs, responses, stats, counts, kernel, layers, shape) -> int:
@@ -2567,13 +2715,16 @@ def check_burst(eng, head, reqs, responses, stats, counts, kernel, layers, shape
     return launches
 
 
-def check_sample(rng, reqs, responses, kv_dtype, refs, answer, beams, full=None) -> dict:
+def check_sample(rng, reqs, responses, kv_dtype, refs, answer, beams, full=None,
+                 bf16=False) -> dict:
     """12 sampled answers against offline decoding of the same page type,
     ``answer(model, trie, req, L) -> (sem, scores)``: with ``refs[0]``
     (the card: the same kernel, one request a batch) and, for the first
     4, every other ref (the CPU: the plain version, CPU GEMMs). fp32: equal
     sem-ids, scores within SAMPLE_ATOL; int8: tuples matched within
-    INT8_SAMPLE_ATOL. With ``full`` (the indices of the requests whose
+    INT8_SAMPLE_ATOL; a bf16 model (``bf16``) over bf16 pages: tuples
+    matched within SAMPLE_ATOL (two beams nearer than that may trade
+    ranks). With ``full`` (the indices of the requests whose
     history fills their bucket), the first 8 are drawn from those and the
     other 4 from the rest. Returns the line's sample fields."""
     on_cpu = 4 if len(refs) > 1 else 0
@@ -2585,23 +2736,24 @@ def check_sample(rng, reqs, responses, kv_dtype, refs, answer, beams, full=None)
         check(len(full) >= 8 and len(rest) >= 4, ("full rows", len(full), len(rest)))
         sample = np.concatenate([rng.choice(full, 8, replace=False),
                                  rng.choice(rest, 4, replace=False)])
-    sample_err, moved = 0.0, 0
+    errs, moved = [], 0
     for i, j in enumerate(sample):
         req, resp = reqs[j], responses[j]
         for where, m, trie in refs if i < on_cpu else refs[:1]:
             sem, scores = answer(m, trie, req, resp.bucket[1])
-            if kv_dtype == "int8":
+            if kv_dtype == "int8" or bf16:
                 err, n = int8_answers_agree(sem, scores, resp.sem_ids, resp.scores, atol, beams)
                 moved += n
             else:
                 check((sem == resp.sem_ids).all(), (where, j, sem, resp.sem_ids))
                 err = float(np.abs(scores - resp.scores).max())
                 check(err <= atol, (where, j, scores, resp.scores))
-            sample_err = max(sample_err, err)
+            errs.append(err)
     return dict(sample_checked=len(sample), sample_checked_on_cpu=on_cpu,
                 sample_full_rows=0 if full is None else 8,
-                sample_max_abs_score_err=sample_err, sample_atol=atol,
-                sample_beams_in_another_rank=moved)
+                sample_max_abs_score_err=max(errs),
+                sample_median_request_err=float(np.median(errs)),
+                sample_atol=atol, sample_beams_in_another_rank=moved)
 
 
 def burst_fields(reqs, responses, wall_s, stats, fp32_answers, beams) -> dict:
@@ -2634,22 +2786,38 @@ def tiger_catalog(rng):
     return catalog
 
 
+def compute_in(model, cls, config, dev, dtype):
+    """``model`` itself, or (``dtype`` bf16) a copy computing in bf16 with
+    the same parameters: Flax-style, parameters stay float32 and are cast
+    where used."""
+    if dtype == torch.float32:
+        return model
+    copy = cls(**config, device=dev, dtype=dtype).eval()
+    copy.load_state_dict(model.state_dict())
+    return copy
+
+
 def serve_phase(dev, seed, n_requests, profile=False, kv_dtype="float32",
-                fp32_answers=None) -> tuple[dict, dict | None, list]:
+                fp32_answers=None, dtype=torch.float32) -> tuple[dict, dict | None, list]:
     """The serving burst with ``kv_dtype`` pages. The same seed gives the
     same catalog, weights and requests for both page types; with
     ``fp32_answers`` (the float32 burst's responses) the int8 answers'
-    top-10 agreement with them is reported. Returns (the phase's line, the
-    profile's line or None, the responses)."""
+    top-10 agreement with them is reported. ``dtype`` bf16: the same
+    seeded weights computing in bf16 (pages of the model's dtype, or int8),
+    the ``serve_bf16`` lines. Returns (the phase's line,
+    the profile's line or None, the responses)."""
     from genrec_tpu_torch.models.tiger import Tiger
+    from genrec_tpu_torch.obs.memory import tree_nbytes
     from genrec_tpu_torch.serving.buckets import BucketLadder
     from genrec_tpu_torch.serving.engine import ServingEngine
     from genrec_tpu_torch.serving.heads import TigerGenerativeHead
     from genrec_tpu_torch.serving.kv_pool import PagedConfig
 
+    bf16 = dtype == torch.bfloat16
     rng = np.random.default_rng(seed)
     catalog = tiger_catalog(rng)
-    model = Tiger(**TIGER_AMAZON, device=dev, seed=seed).eval()
+    model = compute_in(Tiger(**TIGER_AMAZON, device=dev, seed=seed).eval(), Tiger,
+                       TIGER_AMAZON, dev, dtype)
     head = TigerGenerativeHead(model, item_sem_ids=catalog, top_k=BEAMS)
     ladder = BucketLadder((1, 2, 4, 8, 16), (4, 8, 16, MAX_ITEMS))
 
@@ -2672,33 +2840,41 @@ def serve_phase(dev, seed, n_requests, profile=False, kv_dtype="float32",
     responses, wall_s = serve(eng, reqs)
     counts = read_counters()
     stats = eng.stop()
-    kernel = burst_kernel(kv_dtype)
+    kernel = burst_kernel(kv_dtype, bf16)
     decode_layers = TIGER_AMAZON["n_layers"] // 2
     launches = check_burst(eng, head, reqs, responses, stats, counts, kernel, decode_layers,
                            (BEAMS, TIGER_AMAZON["sem_id_dim"]))
+    pools = eng.runner(head.name).pool
+    pool_bytes = tree_nbytes((pools.k_pools, pools.v_pools))
 
     refs = [("cuda", model, head.trie)]
-    if kv_dtype == "float32":
+    if kv_dtype == "float32" and not bf16:
         cpu_model = Tiger(**TIGER_AMAZON, device="cpu").eval()
         cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
         refs.append(("cpu", cpu_model, head.catalog.device_trie("cpu")))
     sampled = check_sample(
         rng, reqs, responses, kv_dtype, refs,
-        lambda m, trie, req, L: offline_answer(m, head, trie, req, L, kv_dtype), BEAMS)
+        lambda m, trie, req, L: offline_answer(m, head, trie, req, L, kv_dtype), BEAMS,
+        bf16=bf16)
 
     geometry = (decode_layers, TIGER_AMAZON["num_heads"],
                 TIGER_AMAZON["attn_dim"] // TIGER_AMAZON["num_heads"])
+    pool_bytes_fp32 = PagedConfig(**PAGED).hbm_bytes(*geometry)
+    # The pools as allocated: bf16 pages exactly half fp32's; int8 the
+    # geometry's int8 bytes whatever the model's dtype.
+    check(pool_bytes == (pool_bytes_fp32 // 2 if bf16 and kv_dtype == "float32"
+                         else cfg.hbm_bytes(*geometry)), (pool_bytes, pool_bytes_fp32))
     served = emit(
-        "serve" if kv_dtype == "float32" else "serve_int8", kv_dtype=kv_dtype,
+        ("serve_bf16" if bf16 else "serve") + ("_int8" if kv_dtype == "int8" else ""),
+        kv_dtype=kv_dtype, dtype=str(dtype).replace("torch.", ""),
         card=torch.cuda.get_device_name(dev),
         **burst_fields(reqs, responses, wall_s, stats, fp32_answers, BEAMS),
         kernel=kernel, paged_attention_launches=launches,
         launches_per_decode_step=launches / stats["decode_steps"],
         catalog_items=CATALOG_ITEMS, catalog_version=head.catalog_version, **sampled,
-        pool_bytes=cfg.hbm_bytes(*geometry),
-        pool_bytes_fp32=PagedConfig(**PAGED).hbm_bytes(*geometry),
+        pool_bytes=pool_bytes, pool_bytes_fp32=pool_bytes_fp32,
     )
-    if not profile:
+    if not profile or bf16:
         return served, None, responses
     # The same traffic again, a fresh request set, under the profiler.
     again = make_requests(rng, n_requests, CATALOG_ITEMS)
@@ -2763,8 +2939,56 @@ class CountingDecode:
         return self.fn(*args)
 
 
+def prefill_device_share(head, make_engine, reqs) -> dict:
+    """The prefill's share of the device's busy time in a burst of
+    ``reqs``, under torch.profiler: a marker kernel (``torch.cuda._sleep``,
+    ATen's ``spin_kernel``) just before and just after every prefill call,
+    all on one stream, so the kernels that ran between a pair, in device
+    order, are the prefill's. The profiler slows the host; the shares of
+    the device's busy time are what it measures."""
+    from torch.profiler import ProfilerActivity, profile
+
+    make_prefill = head.make_prefill_paged_fn
+
+    def marked(B, L):
+        fn = make_prefill(B, L)
+
+        def call(*args):
+            torch.cuda._sleep(1)
+            out = fn(*args)
+            torch.cuda._sleep(1)
+            return out
+
+        return call
+
+    head.make_prefill_paged_fn = marked
+    try:
+        eng = make_engine()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            serve(eng, reqs)
+            torch.cuda.synchronize()
+        eng.stop()
+    finally:
+        del head.make_prefill_paged_fn
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    inside, total, prefill, markers = False, 0.0, 0.0, 0
+    for e in kernels:
+        if "spin_kernel" in e.name:
+            inside, markers = not inside, markers + 1
+            continue
+        us = e.time_range.elapsed_us()
+        total += us
+        prefill += us if inside else 0.0
+    check(markers > 0 and markers % 2 == 0 and total > 0, ("prefill markers", markers, total))
+    return dict(prefill_share_of_device_time=prefill / total, prefill_device_ms=prefill / 1e3,
+                burst_device_ms=total / 1e3, prefill_calls=markers // 2,
+                prefill_share_requests=len(reqs))
+
+
 def cobra_serve_phase(dev, seed, n_requests, profile=False, kv_dtype="float32",
-                      fp32_answers=None) -> tuple[dict, dict | None, list]:
+                      fp32_answers=None, dtype=torch.float32) -> tuple[dict, dict | None, list]:
     """COBRA at config/cobra/amazon.gin widths behind ServingEngine +
     CobraGenerativeHead: the tower encoded once on the card from the
     catalog's item text, then ``n_requests`` requests (``cobra_requests``)
@@ -2773,17 +2997,25 @@ def cobra_serve_phase(dev, seed, n_requests, profile=False, kv_dtype="float32",
     kernel; 2 decode steps a request (codebook 0 resolves at prefill); a
     sample, mostly of rows whose history fills its bucket, against offline
     cobra_generate_paged of the same page type on the card and on the CPU.
-    Returns (line, profile line or None, responses)."""
+    ``dtype`` bf16: the same seeded weights computing in bf16 (the tower
+    too), the ``cobra_serve_bf16`` lines, the sample on the card only. With
+    float32 pages (either dtype) a further burst under torch.profiler
+    gives the prefill's share of the device time
+    (``prefill_device_share``). Returns (line, profile line or None,
+    responses)."""
     from genrec_tpu_torch.models.cobra import Cobra
+    from genrec_tpu_torch.obs.memory import tree_nbytes
     from genrec_tpu_torch.serving.buckets import BucketLadder
     from genrec_tpu_torch.serving.engine import ServingEngine
     from genrec_tpu_torch.serving.heads import CobraGenerativeHead
     from genrec_tpu_torch.serving.kv_pool import PagedConfig
 
+    bf16 = dtype == torch.bfloat16
     catalog, text = cobra_catalog(seed)
     rng = np.random.default_rng(seed + 1)
     ds = beauty_dataset(seed)
-    model = Cobra(**COBRA_AMAZON, device=dev, seed=seed).eval()
+    model = compute_in(Cobra(**COBRA_AMAZON, device=dev, seed=seed).eval(), Cobra,
+                       COBRA_AMAZON, dev, dtype)
     t0 = time.perf_counter()
     head = CobraGenerativeHead(model, item_sem_ids=catalog, item_text_tokens=text,
                                top_k=COBRA_BEAMS)
@@ -2814,7 +3046,7 @@ def cobra_serve_phase(dev, seed, n_requests, profile=False, kv_dtype="float32",
     responses, wall_s = serve(eng, reqs)
     counts = read_counters()
     stats = eng.stop()
-    kernel = burst_kernel(kv_dtype)
+    kernel = burst_kernel(kv_dtype, bf16)
     layers, C = COBRA_AMAZON["decoder_n_layers"], COBRA_AMAZON["n_codebooks"]
     launches = check_burst(eng, head, reqs, responses, stats, counts, kernel, layers,
                            (COBRA_BEAMS, C))
@@ -2826,18 +3058,29 @@ def cobra_serve_phase(dev, seed, n_requests, profile=False, kv_dtype="float32",
     # most of the sample, and every CPU check, is drawn from those.
     items = np.asarray([len(r.history) for r in reqs])
     full = np.flatnonzero(items == np.asarray([r.bucket[1] for r in responses]))
-    cpu_model = Cobra(**COBRA_AMAZON, device="cpu").eval()
-    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    refs = [("cuda", model, head.trie), ("cpu", cpu_model, head.catalog.device_trie("cpu"))]
+    refs = [("cuda", model, head.trie)]
+    if not bf16:
+        cpu_model = Cobra(**COBRA_AMAZON, device="cpu").eval()
+        cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        refs.append(("cpu", cpu_model, head.catalog.device_trie("cpu")))
     sampled = check_sample(
         rng, reqs, responses, kv_dtype, refs,
         lambda m, trie, req, L: cobra_offline_answer(m, head, trie, req, L, kv_dtype),
-        COBRA_BEAMS, full)
-    del cpu_model, refs
+        COBRA_BEAMS, full, bf16=bf16)
+    refs.clear()
 
     geometry = (layers, COBRA_AMAZON["decoder_num_heads"], COBRA_SHAPE[2])
+    pools = eng.runner(head.name).pool
+    pool_bytes = tree_nbytes((pools.k_pools, pools.v_pools))
+    pool_bytes_fp32 = PagedConfig(**COBRA_PAGED).hbm_bytes(*geometry)
+    check(pool_bytes == (pool_bytes_fp32 // 2 if bf16 and kv_dtype == "float32"
+                         else cfg.hbm_bytes(*geometry)), (pool_bytes, pool_bytes_fp32))
+    share = {}
+    if kv_dtype == "float32":
+        share = prefill_device_share(head, engine, cobra_requests(ds, rng, PREFILL_SHARE_REQUESTS))
     served = emit(
-        "cobra_serve" if kv_dtype == "float32" else "cobra_serve_int8", kv_dtype=kv_dtype,
+        ("cobra_serve_bf16" if bf16 else "cobra_serve") + ("_int8" if kv_dtype == "int8" else ""),
+        kv_dtype=kv_dtype, dtype=str(dtype).replace("torch.", ""),
         card=torch.cuda.get_device_name(dev),
         **burst_fields(reqs, responses, wall_s, stats, fp32_answers, COBRA_BEAMS),
         traffic="valid-split histories of the synthetic Amazon-Beauty users, newest "
@@ -2851,11 +3094,10 @@ def cobra_serve_phase(dev, seed, n_requests, profile=False, kv_dtype="float32",
         params=sum(p.numel() for p in model.parameters()),
         tower_encodes=head.tower_encodes, tower_encode_s=tower_s,
         catalog_items=CATALOG_ITEMS, catalog_version=head.catalog_version, **sampled,
-        pool_bytes=cfg.hbm_bytes(*geometry),
-        pool_bytes_fp32=PagedConfig(**COBRA_PAGED).hbm_bytes(*geometry),
-        suffix_cache_bytes=2 * nbytes(eng.runner(head.name).state["cache_k"]),
+        pool_bytes=pool_bytes, pool_bytes_fp32=pool_bytes_fp32,
+        suffix_cache_bytes=2 * nbytes(eng.runner(head.name).state["cache_k"]), **share,
     )
-    if not profile:
+    if not profile or bf16:
         return served, None, responses
     again = cobra_requests(ds, rng, n_requests)
     eng = engine()
@@ -2890,8 +3132,21 @@ def spec_traffic(seed, reqs):
     return list(reqs) + [reqs[i] for i in again], again
 
 
+def bf16_answers_agree(what, want, got, tol) -> tuple[float, int]:
+    """A bf16 model's engine answers ``got`` against ``want`` (responses,
+    one for one): each pair matched tuple by tuple within BF16_SPEC_ATOL
+    (``int8_answers_agree``), and at most BF16_SPEC_MAX_SHARE of the pairs
+    further apart than ``tol``. Returns (the largest error, the pairs
+    beyond ``tol``)."""
+    errs = [int8_answers_agree(b.sem_ids, b.scores, a.sem_ids, a.scores, BF16_SPEC_ATOL)[0]
+            for a, b in zip(got, want)]
+    beyond = sum(e > tol for e in errs)
+    check(beyond <= BF16_SPEC_MAX_SHARE * len(errs), (what, "answers beyond", tol, errs))
+    return max(errs, default=0.0), beyond
+
+
 def spec_burst(phase, head, make_engine, warm_reqs, reqs, seed, kernel, layers, shape,
-               temperature, solo=None, ladder=None) -> dict:
+               temperature, solo=None, ladder=None, bf16=False) -> dict:
     """One speculative engine (``make_engine(True)``) against one plain
     engine (``make_engine(False)``) on the same traffic (``spec_traffic``
     of ``reqs``, served in waves). For every request: sem-ids equal the
@@ -2902,7 +3157,9 @@ def spec_burst(phase, head, make_engine, warm_reqs, reqs, seed, kernel, layers, 
     scores)`` is given (COBRA, whose ``full`` flag depends on the bucket),
     the warm answer is held instead to the request served alone at its own
     bucket ``L``, as a cold engine serving it alone answers (offline on the
-    card, within SAMPLE_ATOL); ``kernel`` launched
+    card, within SAMPLE_ATOL). A bf16 model (``bf16``) is held by
+    ``bf16_answers_agree`` in place of equal sem-ids and the score
+    tolerance. ``kernel`` launched
     exactly ``layers`` times a verify call and no other kernel; pools
     clean, scratch released and the prefix index empty after the drain.
     Reports verify calls a request, the mean accept length, prefix hits,
@@ -2941,12 +3198,18 @@ def spec_burst(phase, head, make_engine, warm_reqs, reqs, seed, kernel, layers, 
     index = head.catalog.item_index()
     score_err = 0.0
     for i, (a, b) in enumerate(zip(responses, plain)):
-        check(a.sem_ids.shape == shape and (a.sem_ids == b.sem_ids).all(),
-              (phase, "spec != plain sem-ids", i, a.sem_ids, b.sem_ids))
+        check(a.sem_ids.shape == shape, (phase, a.sem_ids.shape))
         check(all(tuple(int(c) for c in t) in index for t in a.sem_ids), a.sem_ids)
-        score_err = max(score_err, float(np.abs(a.scores - b.scores).max()))
-    check(score_err <= tol, (phase, "spec vs plain scores", score_err))
+        if not bf16:
+            check((a.sem_ids == b.sem_ids).all(),
+                  (phase, "spec != plain sem-ids", i, a.sem_ids, b.sem_ids))
+            score_err = max(score_err, float(np.abs(a.scores - b.scores).max()))
+    if bf16:
+        score_err, beyond = bf16_answers_agree(phase + " spec vs plain", plain, responses, tol)
+    else:
+        check(score_err <= tol, (phase, "spec vs plain scores", score_err))
     warm_err, solo_err, n_solo = 0.0, 0.0, 0
+    warm, cold = [], []  # bf16: the repeats held to their originals
     for k, i in enumerate(again):
         a, b = responses[n + k], responses[i]
         own_L = ladder.history_bucket(max(len(reqs[i].history), 1)) if solo else None
@@ -2956,9 +3219,16 @@ def spec_burst(phase, head, make_engine, warm_reqs, reqs, seed, kernel, layers, 
             solo_err = max(solo_err, float(np.abs(a.scores - scores).max()))
             n_solo += 1
             continue
+        if bf16:
+            warm.append(a)
+            cold.append(b)
+            continue
         check((a.sem_ids == b.sem_ids).all(), (phase, "warm != cold sem-ids", i))
         warm_err = max(warm_err, float(np.abs(a.scores - b.scores).max()))
-    check(warm_err <= tol, (phase, "warm vs cold scores", warm_err))
+    if bf16:
+        warm_err, warm_beyond = bf16_answers_agree(phase + " warm vs cold", cold, warm, tol)
+    else:
+        check(warm_err <= tol, (phase, "warm vs cold scores", warm_err))
     check(solo_err <= SAMPLE_ATOL, (phase, "warm vs solo cold scores", solo_err))
     pc, spec = stats["prefix_cache"][head.name], stats["spec"][head.name]
     check(pc["hits"] >= len(again), (phase, "repeats admitted cold", pc))
@@ -2989,26 +3259,34 @@ def spec_burst(phase, head, make_engine, warm_reqs, reqs, seed, kernel, layers, 
         max_abs_score_err_warm_vs_cold=warm_err, score_tol=tol, temperature=temperature,
         repeats_held_to_solo_cold=n_solo, max_abs_score_err_warm_vs_solo_cold=solo_err,
         solo_tol=SAMPLE_ATOL,
+        **(dict(bf16_atol=BF16_SPEC_ATOL, bf16_max_share_beyond_score_tol=BF16_SPEC_MAX_SHARE,
+                answers_beyond_score_tol_vs_plain=beyond,
+                repeats_beyond_score_tol_warm_vs_cold=warm_beyond) if bf16 else {}),
         pool_pages=runner.cfg.num_pages, scratch_pages_reserved=runner._scratch_demand,
         card=torch.cuda.get_device_name(0),
     )
 
 
-def tiger_spec_serve_phase(dev, seed, n_requests, kv_dtype="float32") -> dict:
+def tiger_spec_serve_phase(dev, seed, n_requests, kv_dtype="float32",
+                           dtype=torch.float32) -> dict:
     """TIGER's speculative engine at the serve phase's widths, catalog and
     requests (the same seed), pages of ``kv_dtype``: ``spec_burst``
     against the plain engine. The page budget retains every run of the
     traffic (the full budget plus pages_per_slot a request), so no repeat
-    is reclaimed before it arrives; the engine adds the tree's scratch."""
+    is reclaimed before it arrives; the engine adds the tree's scratch.
+    ``dtype`` bf16: the same seeded weights computing in bf16 over pages of
+    the model's dtype (``tiger_spec_serve_bf16``, B1 over bf16 pages)."""
     from genrec_tpu_torch.models.tiger import Tiger
     from genrec_tpu_torch.serving.buckets import BucketLadder
     from genrec_tpu_torch.serving.engine import ServingEngine
     from genrec_tpu_torch.serving.heads import TigerGenerativeHead
     from genrec_tpu_torch.serving.kv_pool import PagedConfig
 
+    bf16 = dtype == torch.bfloat16
     rng = np.random.default_rng(seed)
     catalog = tiger_catalog(rng)
-    model = Tiger(**TIGER_AMAZON, device=dev, seed=seed).eval()
+    model = compute_in(Tiger(**TIGER_AMAZON, device=dev, seed=seed).eval(), Tiger,
+                       TIGER_AMAZON, dev, dtype)
     head = TigerGenerativeHead(model, item_sem_ids=catalog, top_k=BEAMS)
     warm_reqs = make_requests(rng, 32, CATALOG_ITEMS)
     reqs = make_requests(rng, n_requests, CATALOG_ITEMS)  # the serve phase's burst
@@ -3024,11 +3302,12 @@ def tiger_spec_serve_phase(dev, seed, n_requests, kv_dtype="float32") -> dict:
                              max_wait_ms=SPEC_MAX_WAIT_MS, paged_config=cfg,
                              spec_decode=spec).start()
 
-    fields = spec_burst("tiger_spec_serve", head, make_engine, warm_reqs, reqs, seed,
-                        burst_kernel(kv_dtype), TIGER_AMAZON["n_layers"] // 2,
-                        (BEAMS, TIGER_AMAZON["sem_id_dim"]), temperature=0.2)
-    return emit("tiger_spec_serve" if kv_dtype == "float32" else "tiger_spec_serve_int8",
-                kv_dtype=kv_dtype, **fields)
+    name = ("tiger_spec_serve" + ("_bf16" if bf16 else "")
+            + ("_int8" if kv_dtype == "int8" else ""))
+    fields = spec_burst(name, head, make_engine, warm_reqs, reqs, seed,
+                        burst_kernel(kv_dtype, bf16), TIGER_AMAZON["n_layers"] // 2,
+                        (BEAMS, TIGER_AMAZON["sem_id_dim"]), temperature=0.2, bf16=bf16)
+    return emit(name, kv_dtype=kv_dtype, dtype=str(dtype).replace("torch.", ""), **fields)
 
 
 def cobra_spec_serve_phase(dev, seed, n_requests) -> dict:
@@ -4914,6 +5193,17 @@ def main(argv=None) -> int:
     for name in ("paged_attention_stats_tree", "paged_attention_stats_quantized_tree",
                  "paged_attention_stats_cobra_tree"):
         kernels[name] = tree_kernel_phase(dev, args.seed, paged_ptx, name)
+    # The bf16 variants (a bf16 model's serving): B1 over bf16 pages at
+    # TIGER's and COBRA's shapes and over TIGER's tree, B2 with a bf16 q.
+    kernels["paged_attention_stats_bf16"] = kernel_phase(dev, args.seed, paged_ptx, bf16=True)
+    kernels["paged_attention_stats_quantized_bf16q"] = quantized_kernel_phase(
+        dev, args.seed, paged_ptx, bf16q=True)
+    kernels["paged_attention_stats_bf16_cobra"] = cobra_kernel_phase(
+        dev, args.seed, paged_ptx, False, bf16=True)
+    kernels["paged_attention_stats_quantized_bf16q_cobra"] = cobra_kernel_phase(
+        dev, args.seed, paged_ptx, True, bf16=True)
+    kernels["paged_attention_stats_bf16_tree"] = tree_kernel_phase(
+        dev, args.seed, paged_ptx, "paged_attention_stats_bf16_tree")
     kernels["hstu_attention_fwd_retrieve"] = hstu_serving_kernel_phase(dev, args.seed)
     ptxas = phases["build"]["libraries"]["fused_ce"]["ptxas"]
     kernels.update(ce_kernel_phase(dev, args.seed, ptxas))
@@ -4933,6 +5223,10 @@ def main(argv=None) -> int:
                                                     fp32_answers=fp32_answers)
     if profiled:
         phases["serve_int8_profile"] = profiled
+    for kv_dtype in ("float32", "int8"):  # serve_bf16: the same weights computing in bf16
+        phases["serve_bf16" + ("_int8" if kv_dtype == "int8" else "")] = serve_phase(
+            dev, args.seed, args.requests, kv_dtype=kv_dtype, fp32_answers=fp32_answers,
+            dtype=torch.bfloat16)[0]
     phases["cobra_serve"], profiled, fp32_answers = cobra_serve_phase(
         dev, args.seed, args.requests, args.profile)
     if profiled:
@@ -4942,9 +5236,15 @@ def main(argv=None) -> int:
         fp32_answers=fp32_answers)
     if profiled:
         phases["cobra_serve_int8_profile"] = profiled
+    for kv_dtype in ("float32", "int8"):  # cobra_serve_bf16
+        phases["cobra_serve_bf16" + ("_int8" if kv_dtype == "int8" else "")] = cobra_serve_phase(
+            dev, args.seed, args.requests, kv_dtype=kv_dtype, fp32_answers=fp32_answers,
+            dtype=torch.bfloat16)[0]
     phases["tiger_spec_serve"] = tiger_spec_serve_phase(dev, args.seed, args.requests)
     phases["tiger_spec_serve_int8"] = tiger_spec_serve_phase(dev, args.seed, args.requests,
                                                              kv_dtype="int8")
+    phases["tiger_spec_serve_bf16"] = tiger_spec_serve_phase(dev, args.seed, args.requests,
+                                                             dtype=torch.bfloat16)
     phases["cobra_spec_serve"] = cobra_spec_serve_phase(dev, args.seed, args.requests)
     phases["serve_live"] = serve_live_phase(dev, args.seed, args.requests)
     phases["tiger_train"], tiger = tiger_train_phase(dev, args.seed, args.profile)
@@ -4982,6 +5282,15 @@ def main(argv=None) -> int:
                     phases["tiger_spec_serve_int8"]["paged_attention_launches"],
                 "paged_attention_stats_cobra_tree":
                     phases["cobra_spec_serve"]["paged_attention_launches"],
+                "paged_attention_stats_bf16": phases["serve_bf16"]["paged_attention_launches"],
+                "paged_attention_stats_bf16_cobra":
+                    phases["cobra_serve_bf16"]["paged_attention_launches"],
+                "paged_attention_stats_bf16_tree":
+                    phases["tiger_spec_serve_bf16"]["paged_attention_launches"],
+                "paged_attention_stats_quantized_bf16q":
+                    phases["serve_bf16_int8"]["paged_attention_launches"],
+                "paged_attention_stats_quantized_bf16q_cobra":
+                    phases["cobra_serve_bf16_int8"]["paged_attention_launches"],
                 "sharded_fused_linear_ce": phases["lcrec_tp"]["steps"]["b8_calls"]}
     line = {"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,

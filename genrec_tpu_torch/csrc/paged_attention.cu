@@ -1,5 +1,7 @@
 // Paged decode attention, flash statistics, for Hopper (sm_90a): over
-// float32 pools (B1) and over int8 pools dequantised in the kernel (B2).
+// float32 or bfloat16 pools (B1) and over int8 pools dequantised in the
+// kernel (B2), with a float32 or, where the model computes in bf16, a
+// bfloat16 q (B1 over bf16 pages takes a bf16 q, B2 either).
 //
 // B1 replaces the TPU kernel genrec_tpu/kernels/paged_attention.py::
 // paged_attention_stats_pallas (pallas_call at :227, body _kernel at :43);
@@ -16,16 +18,23 @@
 //   m = max_t score_t,  l = sum_t exp(score_t - m),
 //   acc = sum_t exp(score_t - m) * V[t,h,:]
 //
-// all in fp32. For int8 pools each element is dequantised first,
-// k = float(int8) * scale[page, row], then the dot, then hd^-0.5, in the
-// plain version's order; the pool is never upcast outside the kernel.
+// all in fp32, as the Pallas bodies compute it: they cast q, K and V to
+// fp32 after the load (genrec_tpu/kernels/paged_attention.py:57-59 and
+// :93-95), so the TPU kernel serves a pool of any float type. Here a
+// bfloat16 q or bf16 K/V element is converted exactly to fp32, and for
+// int8 pools each element is dequantised, k = float(int8) * scale[page,
+// row]; then the dot, then hd^-0.5, in the plain version's order. No pool
+// is ever upcast outside the kernel. (JAX's CPU fallback takes the score
+// einsum in the input type, so with bf16 inputs it rounds every score to
+// bf16; the port follows the kernel it replaces, not the fallback.)
 //
 // Bound on an H100: memory. A call must read the K and V rows of the
 // positions the result depends on: a slot's first min(seq_len, Pm*page)
 // positions, or all Pm*page when seq_len <= 0. At the TIGER serving shape
 // (S 64, K 10, H 6, hd 64, page 16, Pm 4, served histories) that is ~6.5
-// MB of fp32 K/V (8.5 MB with q and the outputs: 2.5 us at 3.35 TB/s), or
-// ~1.6 MB of int8 rows and scales (3.6 MB: 1.1 us). The arithmetic,
+// MB of fp32 K/V (8.5 MB with q and the outputs: 2.5 us at 3.35 TB/s),
+// ~3.3 MB of bf16 K/V (4.7 MB with a bf16 q and the fp32 outputs: 1.4 us),
+// or ~1.6 MB of int8 rows and scales (3.6 MB: 1.1 us). The arithmetic,
 // 4*K*H*hd flops a position, is ~0.5 us at the 67 TFLOP/s of fp32 FFMA;
 // tensor cores do not apply (fp32, no TF32).
 //
@@ -61,7 +70,11 @@
 //     online softmax running across stages only.
 //   - B2 copies the raw int8 rows and their row scales, and dequantises a
 //     landed stage once, for all beams, into fp32 rows in shared memory;
-//     from there B1 and B2 run the same math.
+//     bf16 pages take the same path with the scale fixed at 1: the raw
+//     rows are copied (16 bytes a thread: 8 values), and a landed stage is
+//     widened once into fp32 rows (bf16 -> fp32 is exact). From there
+//     every page type runs the same math. A bf16 q is widened as it is
+//     staged into shared memory.
 //   - Scores: a thread owns one position of the stage and every fourth
 //     beam, four at a time, its K row (a 16-byte padded, conflict-free
 //     layout) read once for the four, q broadcast from shared memory.
@@ -76,6 +89,7 @@
 // lane-replicated m/l blocks and its (P, page, 128) scale plane are tiling
 // artefacts and are gone.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -99,7 +113,7 @@ constexpr float kSkipMargin = 128.f;  // m > kNeg + this: exp(kNeg - m) is exact
 constexpr int kScRow = kStageTokens + 4;
 
 struct Params {
-  const float* q;
+  const void* q;  // float or __nv_bfloat16
   const void* k_pool;
   const void* v_pool;
   const float* k_scale;  // int8 pools: (P, page) row scales; nullptr for fp32
@@ -116,10 +130,12 @@ struct Params {
   float scale;
 };
 
-// Shared-memory layout of one stage for pages of type T at head width HD.
+// Shared-memory layout of one stage for pages of type T (float,
+// __nv_bfloat16 or int8_t) at head width HD.
 template <typename T, int HD>
 struct Stage {
-  static constexpr bool kInt8 = !std::is_same<T, float>::value;
+  static constexpr bool kFloat = std::is_same<T, float>::value;  // read as they land
+  static constexpr bool kInt8 = std::is_same<T, int8_t>::value;  // rows carry a scale
   static constexpr int kRowBytes = HD * (int)sizeof(T);
   // K rows padded by 16 bytes: in the fp32 rows the dot reads, 8 lanes
   // reading 16 bytes of 8 rows hit 8 distinct 4-bank groups.
@@ -237,6 +253,46 @@ __device__ __forceinline__ void lane_floats(const float* row, int lane, float (&
     }
   }
 }
+
+// bf16 pages: a landed stage of bf16 rows into fp32 rows, exactly, once
+// for all beams (B2's dequantisation with the scale fixed at 1), 8 values
+// (16 bytes) an item where the row allows.
+template <int HD>
+__device__ __forceinline__ void widen_stage(const unsigned char* raw, unsigned char* out,
+                                            int n, int hd, int tid) {
+  using R = Stage<__nv_bfloat16, HD>;
+  using F = Stage<float, HD>;
+  constexpr int kOcts = HD / 8;  // 8 elements an item
+  for (int i = tid; i < n * kOcts; i += kThreads) {
+    const int r = i / kOcts;
+    const int c = 8 * (i - r * kOcts);
+    if (c >= hd) continue;
+    const __nv_bfloat16* k = reinterpret_cast<const __nv_bfloat16*>(raw + r * R::kKRow) + c;
+    const __nv_bfloat16* v =
+        reinterpret_cast<const __nv_bfloat16*>(raw + R::kV + r * R::kVRow) + c;
+    float* kd = reinterpret_cast<float*>(out + r * F::kKRow) + c;
+    float* vd = reinterpret_cast<float*>(out + F::kV + r * F::kVRow) + c;
+    if (c + 8 <= hd) {  // pairs straight from shared memory (4-byte aligned)
+      const __nv_bfloat162* kp = reinterpret_cast<const __nv_bfloat162*>(k);
+      const __nv_bfloat162* vp = reinterpret_cast<const __nv_bfloat162*>(v);
+#pragma unroll
+      for (int j = 0; j < 4; j += 2) {
+        const float2 k0 = __bfloat1622float2(kp[j]), k1 = __bfloat1622float2(kp[j + 1]);
+        const float2 v0 = __bfloat1622float2(vp[j]), v1 = __bfloat1622float2(vp[j + 1]);
+        *reinterpret_cast<float4*>(kd + 2 * j) = make_float4(k0.x, k0.y, k1.x, k1.y);
+        *reinterpret_cast<float4*>(vd + 2 * j) = make_float4(v0.x, v0.y, v1.x, v1.y);
+      }
+    } else {
+      for (int e = 0; c + e < hd; ++e) {
+        kd[e] = __bfloat162float(k[e]);
+        vd[e] = __bfloat162float(v[e]);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // B2: a landed stage of int8 rows into fp32 rows, k = float(int8) *
 // scale[row] (the plain version's product), once for all beams.
@@ -435,7 +491,7 @@ struct HalfWarpBeams {
 template <int HD>
 using Beams = HalfWarpBeams<HD>;
 
-template <typename T, int HD>
+template <typename T, typename TQ, int HD>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_stats_kernel(const Params p) {
   using L = Stage<T, HD>;
@@ -452,9 +508,9 @@ paged_attention_stats_kernel(const Params p) {
   float* q_s = reinterpret_cast<float*>(smem);  // [Kb][HD], zero past hd
   float* sc_s = q_s + Kb * HD;                   // [Kb][kScRow] scores, then weights
   unsigned char* ring = reinterpret_cast<unsigned char*>(sc_s + Kb * kScRow);
-  // int8: the landed stage dequantised, as fp32 rows
+  // int8 and bf16: the landed stage dequantised (widened), as fp32 rows
   unsigned char* deq = ring + p.stages * L::kBytes;
-  int* pages = reinterpret_cast<int*>(deq + (L::kInt8 ? F::kBytes : 0));  // [Pm], clamped
+  int* pages = reinterpret_cast<int*>(deq + (L::kFloat ? 0 : F::kBytes));  // [Pm], clamped
 
   // The slot's block-table row and seq_len: one round trip, before any copy.
   for (int i = tid; i < p.Pm; i += kThreads)
@@ -475,18 +531,19 @@ paged_attention_stats_kernel(const Params p) {
     cp_async_commit();
   }
 
-  // While the copies fly: q into shared memory, and the columns past hd
-  // of the fp32 K rows the dot reads zeroed (no copy writes them; the dot
-  // runs over all HD).
+  // While the copies fly: q into shared memory (a bf16 q widened to
+  // fp32), and the columns past hd of the fp32 K rows the dot reads
+  // zeroed (no copy writes them; the dot runs over all HD).
+  const TQ* q = static_cast<const TQ*>(p.q);
   for (int i = tid; i < Kb * HD; i += kThreads) {
     const int b = i / HD;
     const int d = i - b * HD;
-    q_s[i] = d < p.hd ? p.q[((size_t)(s * p.K + b_lo + b) * p.H + h) * p.hd + d] : 0.f;
+    q_s[i] = d < p.hd ? to_float(q[((size_t)(s * p.K + b_lo + b) * p.H + h) * p.hd + d]) : 0.f;
   }
   if (p.hd < HD) {
-    unsigned char* rows = L::kInt8 ? deq : ring;
-    const int bufs = L::kInt8 ? 1 : p.stages;
-    const int buf_bytes = L::kInt8 ? F::kBytes : L::kBytes;
+    unsigned char* rows = L::kFloat ? ring : deq;
+    const int bufs = L::kFloat ? p.stages : 1;
+    const int buf_bytes = L::kFloat ? L::kBytes : F::kBytes;
     const int pad = HD - p.hd;
     for (int i = tid; i < bufs * kStageTokens * pad; i += kThreads) {
       const int r = i / pad;
@@ -519,8 +576,11 @@ paged_attention_stats_kernel(const Params p) {
       const int n = min(kStageTokens, end - t0);
 
       const unsigned char* rows = stage;  // the stage as fp32 rows
-      if constexpr (L::kInt8) {
-        dequantize_stage<HD>(stage, deq, n, p.hd, tid);
+      if constexpr (!L::kFloat) {
+        if constexpr (L::kInt8)
+          dequantize_stage<HD>(stage, deq, n, p.hd, tid);
+        else
+          widen_stage<HD>(stage, deq, n, p.hd, tid);
         __syncthreads();
         rows = deq;
       }
@@ -547,30 +607,31 @@ int ring_stages(int page, int Pm) {
   return max(1, min(need, fit));
 }
 
-// Dynamic shared memory of a block: q, the scores, the ring, for int8 one
-// stage of dequantised rows, the slot's block-table row.
+// Dynamic shared memory of a block: q, the scores, the ring, for int8 and
+// bf16 pages one stage of dequantised (widened) rows, the slot's
+// block-table row.
 template <typename T, int HD>
 size_t block_smem(int beams, int stages, int Pm) {
   return (size_t)beams * (HD + kScRow) * 4 + (size_t)stages * Stage<T, HD>::kBytes +
-         (Stage<T, HD>::kInt8 ? Stage<float, HD>::kBytes : 0) + (size_t)Pm * 4;
+         (Stage<T, HD>::kFloat ? 0 : Stage<float, HD>::kBytes) + (size_t)Pm * 4;
 }
 
-template <typename T, int HD>
+template <typename T, typename TQ, int HD>
 int launch_hd(Params p, int S, cudaStream_t stream) {
   p.stages = ring_stages<T, HD>(p.page, p.Pm);
   const size_t smem = block_smem<T, HD>(p.beams_per_block, p.stages, p.Pm);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_stats_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        paged_attention_stats_kernel<T, TQ, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid(S, p.H, (p.K + p.beams_per_block - 1) / p.beams_per_block);
-  paged_attention_stats_kernel<T, HD><<<grid, kThreads, smem, stream>>>(p);
+  paged_attention_stats_kernel<T, TQ, HD><<<grid, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename TQ>
 int launch(Params p, int S, void* stream, int device) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -583,16 +644,16 @@ int launch(Params p, int S, void* stream, int device) {
                  : row_bytes % 4 == 0 && pools % 4 == 0 ? 4
                                                          : 1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p.hd <= 32) return launch_hd<T, 32>(p, S, st);
-  if (p.hd <= 64) return launch_hd<T, 64>(p, S, st);
-  return launch_hd<T, 128>(p, S, st);
+  if (p.hd <= 32) return launch_hd<T, TQ, 32>(p, S, st);
+  if (p.hd <= 64) return launch_hd<T, TQ, 64>(p, S, st);
+  return launch_hd<T, TQ, 128>(p, S, st);
 }
 
 Params params(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
               const void* v_scale, const void* block_tables, const void* seq_lens, void* acc,
               void* m, void* l, int K, int H, int hd, int P, int page, int Pm, float scale) {
   Params p{};
-  p.q = static_cast<const float*>(q);
+  p.q = q;
   p.k_pool = k_pool;
   p.v_pool = v_pool;
   p.k_scale = static_cast<const float*>(k_scale);
@@ -620,9 +681,22 @@ extern "C" int paged_attention_stats_f32(
     void* acc, void* m, void* l,
     int S, int K, int H, int hd, int P, int page, int Pm, float scale,
     void* stream, int device) {
-  return launch<float>(params(q, k_pool, v_pool, nullptr, nullptr, block_tables, seq_lens,
-                              acc, m, l, K, H, hd, P, page, Pm, scale),
-                       S, stream, device);
+  return launch<float, float>(params(q, k_pool, v_pool, nullptr, nullptr, block_tables,
+                                     seq_lens, acc, m, l, K, H, hd, P, page, Pm, scale),
+                              S, stream, device);
+}
+
+// B1 over bf16 pools (P, page, H, hd) with a bf16 q.
+extern "C" int paged_attention_stats_bf16(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* block_tables, const void* seq_lens,
+    void* acc, void* m, void* l,
+    int S, int K, int H, int hd, int P, int page, int Pm, float scale,
+    void* stream, int device) {
+  return launch<__nv_bfloat16, __nv_bfloat16>(
+      params(q, k_pool, v_pool, nullptr, nullptr, block_tables, seq_lens, acc, m, l, K, H,
+             hd, P, page, Pm, scale),
+      S, stream, device);
 }
 
 // B2: int8 pools (P, page, H, hd) with fp32 scales (P, page).
@@ -632,21 +706,35 @@ extern "C" int paged_attention_stats_q8(
     void* acc, void* m, void* l,
     int S, int K, int H, int hd, int P, int page, int Pm, float scale,
     void* stream, int device) {
-  return launch<int8_t>(params(q, k_data, v_data, k_scale, v_scale, block_tables, seq_lens,
-                               acc, m, l, K, H, hd, P, page, Pm, scale),
-                        S, stream, device);
+  return launch<int8_t, float>(params(q, k_data, v_data, k_scale, v_scale, block_tables,
+                                      seq_lens, acc, m, l, K, H, hd, P, page, Pm, scale),
+                               S, stream, device);
+}
+
+// B2 with a bf16 q (a bf16 model over int8 pools).
+extern "C" int paged_attention_stats_q8_bf16q(
+    const void* q, const void* k_data, const void* k_scale, const void* v_data,
+    const void* v_scale, const void* block_tables, const void* seq_lens,
+    void* acc, void* m, void* l,
+    int S, int K, int H, int hd, int P, int page, int Pm, float scale,
+    void* stream, int device) {
+  return launch<int8_t, __nv_bfloat16>(
+      params(q, k_data, v_data, k_scale, v_scale, block_tables, seq_lens, acc, m, l, K, H,
+             hd, P, page, Pm, scale),
+      S, stream, device);
 }
 
 // Dynamic shared memory a block of the kernel takes for these shapes, with
-// `beams` beams a block.
-extern "C" long long paged_attention_block_smem(int beams, int hd, int page, int Pm, int int8) {
+// `beams` beams a block, over pages of `kind`: 0 float32, 1 int8, 2 bf16
+// (q's type does not change it).
+extern "C" long long paged_attention_block_smem(int beams, int hd, int page, int Pm, int kind) {
   const auto of = [&](auto t) -> long long {
     using T = decltype(t);
     if (hd <= 32) return block_smem<T, 32>(beams, ring_stages<T, 32>(page, Pm), Pm);
     if (hd <= 64) return block_smem<T, 64>(beams, ring_stages<T, 64>(page, Pm), Pm);
     return block_smem<T, 128>(beams, ring_stages<T, 128>(page, Pm), Pm);
   };
-  return int8 ? of(int8_t{}) : of(float{});
+  return kind == 1 ? of(int8_t{}) : kind == 2 ? of(__nv_bfloat16{}) : of(float{});
 }
 
 extern "C" const char* paged_attention_error_string(int code) {

@@ -15,9 +15,11 @@ position). Parameters carry the Flax names (``layer_<i>`` ->
 compute dtype, as Flax's: parameters stay float32 and are cast where used,
 LayerNorms and softmax compute in float32, activations are ``dtype``; the
 decode paths apply the sparse heads in float32 (JAX's ``x @ kernel +
-bias`` promotes a bf16 ``x``). The paged path is float32 only: the paged
-kernels (B1, B2) take float32 queries and pages. Dropout draws from the
-``generator`` a training forward is given.
+bias`` promotes a bf16 ``x``). The paged path runs in the model's dtype
+as JAX's does: a bf16 COBRA serves bf16 pages and bf16 queries (B1), or
+int8 pages under bf16 queries (B2), its suffix caches bf16, its history
+and suffix partials in fp32. Dropout draws from the ``generator`` a
+training forward is given.
 
 The decode paths:
 
@@ -27,7 +29,8 @@ The decode paths:
 - ``cobra_prefill_paged`` / ``cobra_paged_decode_step`` /
   ``cobra_generate_paged``: the history K/V written into page pools, each
   suffix step reading them through ``ops.paged.paged_attention_stats``
-  (the B1 kernel over float32 pages, B2 over int8 pages, on the card) and
+  (the B1 kernel over pages of the model's dtype, B2 over int8 pages, on
+  the card) and
   merging that partial with the dense suffix partial
   (``ops.paged.merge_attention_stats``);
 - ``cobra_spec_tree_step``: the speculative tree decode of the suffix
@@ -163,12 +166,14 @@ class _TorchMHA(nn.Module):
         ck = torch.where(hit, k_new[:, :, None], cache["k"])
         cv = torch.where(hit, v_new[:, :, None], cache["v"])
         acc_h, m_h, l_h = paged_attention_stats(q, k_pool, v_pool, block_tables, seq_lens)
-        s_suf = torch.einsum("bkhd,bkshd->bkhs", q, ck) * (hd**-0.5)
+        # The dense suffix partial as JAX computes it: the scores' einsum in
+        # the compute dtype, then fp32; V upcast, so e.V sums in fp32.
+        s_suf = torch.einsum("bkhd,bkshd->bkhs", q, ck).to(torch.float32) * (hd**-0.5)
         s_suf = s_suf.masked_fill(slots[None, None, None, :] > steps[:, None, None, None], NEG)
         m_s = s_suf.amax(dim=-1)
         e = torch.exp(s_suf - m_s[..., None])
         l_s = e.sum(dim=-1)
-        acc_s = torch.einsum("bkhs,bkshd->bkhd", e, cv)
+        acc_s = torch.einsum("bkhs,bkshd->bkhd", e, cv.to(torch.float32))
         out = merge_attention_stats(acc_h, m_h, l_h, acc_s, m_s, l_s).reshape(B, K, D)
         return self.out_proj(out), {"k": ck, "v": cv}
 
@@ -797,7 +802,8 @@ def beam_fusion(model: Cobra, input_ids, encoder_input_ids, item_dense_vecs, ite
 
 def init_cobra_paged_state(model: Cobra, n_slots: int, beams: int) -> dict:
     """Zeroed slot-major decode state on the model's device. cache_k and
-    cache_v stack the per-layer suffix caches on axis 1."""
+    cache_v stack the per-layer suffix caches on axis 1, in the model's
+    dtype; the hidden states (tail_hidden, h_last) are float32."""
     C, nl, H, hd, d = (model.n_codebooks, model.decoder_n_layers, model.decoder_num_heads,
                        model.head_dim, model.d_model)
     dev = model.device
@@ -806,8 +812,8 @@ def init_cobra_paged_state(model: Cobra, n_slots: int, beams: int) -> dict:
         "beam_tokens": torch.zeros((n_slots, beams, C), dtype=torch.long, device=dev),
         "beam_scores": torch.zeros((n_slots, beams), dtype=torch.float32, device=dev),
         "prefix_idx": torch.zeros((n_slots, beams), dtype=torch.long, device=dev),
-        "cache_k": torch.zeros(cache, device=dev),
-        "cache_v": torch.zeros(cache, device=dev),
+        "cache_k": torch.zeros(cache, dtype=model.dtype, device=dev),
+        "cache_v": torch.zeros(cache, dtype=model.dtype, device=dev),
         "tail_hidden": torch.zeros((n_slots, C, d), device=dev),
         "full": torch.zeros((n_slots,), dtype=torch.bool, device=dev),
         "base_pos": torch.zeros((n_slots,), dtype=torch.int32, device=dev),
@@ -835,7 +841,7 @@ def cobra_prefill_paged(model: Cobra, input_ids, vecs, block_tables, k_pools, v_
     n_valid = seq_mask.sum(dim=1).to(torch.int32)
     rows = torch.arange(B, device=dev)
     tail = torch.stack([h_pre[rows, (n_valid.long() + c - 1).clamp(0, Lint - 1)]
-                        for c in range(C)], dim=1)  # c = 0 feeds the head below
+                        for c in range(C)], dim=1).to(torch.float32)  # c = 0 feeds the head
     logits = model.sparse_head(0, tail[:, 0]) / temperature
     zero = torch.zeros((B,), dtype=torch.long, device=dev)
     beam_scores, tok = _top_k(_constrained_logp(logits, trie, zero, 0), n_candidates)
@@ -894,7 +900,7 @@ def cobra_paged_decode_step(model: Cobra, trie, state: dict, steps, block_tables
         caches)
     c_idx = steps.clamp(0, C - 1).long()
     h_tail = state["tail_hidden"][torch.arange(S, device=steps.device), c_idx]
-    h_c = torch.where(state["full"][:, None, None], h_new, h_tail[:, None, :])
+    h_c = torch.where(state["full"][:, None, None], h_new, h_tail[:, None, :].to(h_new.dtype))
     logits = model.sparse_head(0, h_c)
     for c in range(1, C):  # every sparse head computed, row-selected (C is tiny)
         logits = torch.where((steps == c)[:, None, None], model.sparse_head(c, h_c), logits)
@@ -911,7 +917,7 @@ def cobra_paged_decode_step(model: Cobra, trie, state: dict, steps, block_tables
         "tail_hidden": state["tail_hidden"],
         "full": state["full"],
         "base_pos": state["base_pos"],
-        "h_last": _take_beams(h_c, parent),
+        "h_last": _take_beams(h_c, parent).to(torch.float32),
     }
 
 
@@ -975,7 +981,7 @@ def cobra_spec_tree_step(model: Cobra, trie, state: dict, steps, block_tables, s
     d = h_nodes.shape[-1]
     # Rows whose history does not fill the bucket read their prefill tail.
     h_tail = torch.gather(state["tail_hidden"], 1, c_idx[..., None].expand(*c_idx.shape, d))
-    h_c_nodes = torch.where(state["full"][:, None, None], h_nodes, h_tail)
+    h_c_nodes = torch.where(state["full"][:, None, None], h_nodes, h_tail.to(h_nodes.dtype))
     logits_nodes = model.sparse_head(0, h_c_nodes)
     for c in range(1, C):  # every sparse head computed, node-selected (C is tiny)
         logits_nodes = torch.where((node_steps == c)[..., None],
@@ -1004,7 +1010,7 @@ def cobra_spec_tree_step(model: Cobra, trie, state: dict, steps, block_tables, s
         new_ck, new_cv = commit_level_kv(node_kvs, run_ck, run_cv, flat_idx, parent,
                                          step_j - 1)
         h_c_sel = _take_beams(h_c_nodes, flat_idx)
-        new_h_last = _take_beams(h_c_sel, parent)
+        new_h_last = _take_beams(h_c_sel, parent).to(torch.float32)
         ap2 = applied[:, None]
         ap3 = applied[:, None, None]
         ap5 = applied[:, None, None, None, None]
@@ -1042,7 +1048,8 @@ def cobra_generate_paged(model: Cobra, input_ids, encoder_input_ids, n_candidate
     """``cobra_generate(use_cache=True)`` through the paged path: prefill
     into a fresh pool (contiguous block tables), then the suffix step with
     every row in lockstep. The offline reference for serving.
-    ``kv_dtype="int8"`` stores the pools quantised."""
+    ``kv_dtype="float32"`` means pools not quantised, in the model's dtype
+    (float32 or bf16, as JAX's); ``"int8"`` stores them quantised."""
     C = model.n_codebooks
     B = input_ids.shape[0]
     dev = input_ids.device
@@ -1058,7 +1065,7 @@ def cobra_generate_paged(model: Cobra, input_ids, encoder_input_ids, n_candidate
     if kv_dtype == "int8":
         zeros = lambda: QuantizedKVPool.zeros(shape, device=dev)  # noqa: E731
     elif kv_dtype == "float32":
-        zeros = lambda: torch.zeros(shape, device=dev)  # noqa: E731
+        zeros = lambda: torch.zeros(shape, dtype=model.dtype, device=dev)  # noqa: E731
     else:
         raise ValueError(f"kv_dtype {kv_dtype!r} not supported; choose one of {KV_DTYPES}")
     nl = model.decoder_n_layers

@@ -21,9 +21,10 @@ Decoding:
   a beam without replacement by Gumbel-top-k (noise from a
   ``torch.Generator``), then dedup by full sequence and the top K;
 - ``tiger_prefill_paged`` / ``tiger_paged_decode_step`` /
-  ``tiger_generate_paged``: the serving engine's paged decode (float32
-  only: B1 and B2 read float32 or int8 pages), its cross-attention read
-  from the pools by the paged-attention kernel;
+  ``tiger_generate_paged``: the serving engine's paged decode, in the
+  model's dtype as JAX's: a float32 or bf16 model over pages of its own
+  dtype (B1) or int8 pages (B2), its cross-attention read from the pools
+  by the paged-attention kernel;
 - ``tiger_spec_tree_step``: the speculative tree decode (``ops.
   spec_tree``): a tree of trie-legal drafts verified in one decoder pass
   (``Tiger.decode_tree_paged``, every node through B1/B2), then the plain
@@ -324,7 +325,7 @@ class Tiger(nn.Module):
         """
         S, N = node_tok.shape
         node_steps = steps[:, None] + topo.on(node_tok.device)["level"][None, :]
-        bos = self.bos_embedding.expand(S, N, self.embedding_dim)
+        bos = self.bos_embedding.to(self.dtype).expand(S, N, self.embedding_dim)
         tok_type = (node_steps - 1).clamp(0, self.sem_id_dim - 1)
         # A drafted code outside the codebook (only a test's forced draft
         # makes one) is never accepted; clamped, its embedding row exists.
@@ -345,7 +346,7 @@ class Tiger(nn.Module):
         start from BOS. caches: per-layer {"k", "v"} (S, K, D, H, hd).
         Returns (logits (S, K, V) fp32, new_caches)."""
         S, K = last_tok.shape
-        bos = self.bos_embedding.expand(S, K, self.embedding_dim)
+        bos = self.bos_embedding.to(self.dtype).expand(S, K, self.embedding_dim)
         tok_type = (steps - 1).clamp(0, self.sem_id_dim - 1)[:, None].expand(S, K)
         emb = self.sem_id_embedding(last_tok, tok_type)
         x = torch.where((steps == 0)[:, None, None], bos, emb)
@@ -383,9 +384,10 @@ def _dedup_top_k(scores: torch.Tensor, keys: torch.Tensor, k: int):
 def init_tiger_paged_state(model: Tiger, n_slots: int, beams: int,
                            draft_hint: bool = False) -> dict:
     """Zeroed slot-major decode state on the model's device. cache_k and
-    cache_v stack the per-layer suffix caches on axis 1. ``draft_hint``
-    (speculative engines) adds ``logits0``, the slot's step-0 logit
-    window that the prefill computes for the drafter."""
+    cache_v stack the per-layer suffix caches on axis 1, in the model's
+    dtype. ``draft_hint`` (speculative engines) adds ``logits0`` (float32),
+    the slot's step-0 logit window that the prefill computes for the
+    drafter."""
     nl = model.n_layers // 2
     H = model.num_heads
     hd = model.attn_dim // H
@@ -395,8 +397,8 @@ def init_tiger_paged_state(model: Tiger, n_slots: int, beams: int,
         "beam_seqs": torch.zeros((n_slots, beams, D), dtype=torch.int64, device=dev),
         "beam_logps": torch.zeros((n_slots, beams), dtype=torch.float32, device=dev),
         "prefix_idx": torch.zeros((n_slots, beams), dtype=torch.int64, device=dev),
-        "cache_k": torch.zeros((n_slots, nl, beams, D, H, hd), device=dev),
-        "cache_v": torch.zeros((n_slots, nl, beams, D, H, hd), device=dev),
+        "cache_k": torch.zeros((n_slots, nl, beams, D, H, hd), dtype=model.dtype, device=dev),
+        "cache_v": torch.zeros((n_slots, nl, beams, D, H, hd), dtype=model.dtype, device=dev),
     }
     if draft_hint:
         state["logits0"] = torch.zeros((n_slots, model.num_item_embeddings), device=dev)
@@ -687,10 +689,6 @@ def tiger_prefill_paged(model: Tiger, user_input_ids, item_input_ids,
     to -inf where ``trie`` is given, which the drafter ranks the first
     speculated level by. It only ranks candidates, so the dense pass's
     float association is harmless."""
-    if model.dtype != torch.float32:
-        raise NotImplementedError(
-            f"paged decode of a {model.dtype} TIGER: B1 and B2 read float32 or int8 "
-            "pages; bf16 pools are ROADMAP queue B (B1/B2 over bf16 pools)")
     cross_kvs, pad = model.encode_for_decode(
         user_input_ids, item_input_ids, token_type_ids, seq_mask
     )
@@ -723,8 +721,9 @@ def tiger_generate_paged(model: Tiger, trie, user_input_ids, item_input_ids,
     prefill into a fresh pool (contiguous block tables), then the decode
     step with every row in lockstep. The offline reference for serving.
     Inputs are tensors on the model's device; seq_mask rows must be
-    contiguous valid prefixes (the serving layout). ``kv_dtype="int8"``
-    stores the pools quantised (``ops.quant.QuantizedKVPool``)."""
+    contiguous valid prefixes (the serving layout). ``kv_dtype="float32"``
+    means pools not quantised, in the model's dtype (float32 or bf16, as
+    JAX's); ``"int8"`` stores them quantised (``ops.quant.QuantizedKVPool``)."""
     B = item_input_ids.shape[0]
     K = n_top_k_candidates
     D = model.sem_id_dim
@@ -741,7 +740,7 @@ def tiger_generate_paged(model: Tiger, trie, user_input_ids, item_input_ids,
     if kv_dtype == "int8":
         zeros = lambda: QuantizedKVPool.zeros(shape, device=dev)  # noqa: E731
     elif kv_dtype == "float32":
-        zeros = lambda: torch.zeros(shape, device=dev)  # noqa: E731
+        zeros = lambda: torch.zeros(shape, dtype=model.dtype, device=dev)  # noqa: E731
     else:
         raise ValueError(f"kv_dtype {kv_dtype!r} not supported; choose one of {KV_DTYPES}")
     k_pools = tuple(zeros() for _ in range(nl))

@@ -80,9 +80,12 @@ def tree_nbytes(tree: Any) -> int:
             return sum(walk(v) for v in x.values())
         if isinstance(x, (list, tuple)):
             return sum(walk(v) for v in x)
-        if hasattr(x, "__dict__") and not isinstance(x, type):
-            return sum(walk(v) for v in vars(x).values())
-        return 0
+        if isinstance(x, type):
+            return 0
+        n = sum(walk(v) for v in vars(x).values()) if hasattr(x, "__dict__") else 0
+        # Slotted holders (a quantized pool) keep their tensors in slots.
+        return n + sum(walk(getattr(x, k)) for k in getattr(type(x), "__slots__", ())
+                       if hasattr(x, k))
 
     return walk(tree)
 

@@ -12,16 +12,22 @@ shared by the plain version and the CUDA kernel:
   ``Pm * page`` positions, null page included;
 - valid tokens are a CONTIGUOUS prefix of the slot's pages.
 
-A pool is an fp32 (P, page, H, hd) tensor or an ``ops.quant.
-QuantizedKVPool`` (int8 rows + one fp32 scale per page row): the int8
-pool is quantised where it is written (``write_pages``) and dequantised
-after the gather (``gather_pages``, the plain versions) or inside the
-kernel (B2), never as a whole.
+A pool is a (P, page, H, hd) tensor in the model's compute dtype
+(float32 or bfloat16, as the JAX engine builds it) or an ``ops.quant.
+QuantizedKVPool`` (int8 rows + one fp32 scale per page row). Rows are
+cast to the pool's dtype where they are written (``write_pages``); the
+int8 pool is quantised there and dequantised after the gather
+(``gather_pages``, the plain versions) or inside the kernel (B2), never
+as a whole. q comes in the model's dtype; the statistics are fp32 for
+every pool type, computed as the Pallas kernel computes them (q, K and V
+upcast after the load, then fp32 arithmetic).
 
 Routing: ``paged_attention_stats`` takes the plain versions
 (``_stats_fallback``, ``paged_attention_stats_quantized_ref``) only for
 CPU tensors. For CUDA tensors it launches the kernel of the pool's type
-(B1 fp32, B2 int8) or raises; there is no fallback on the card.
+(B1 over float32 or bfloat16 pages, B2 over int8 pages with a float32 or
+bfloat16 q) or raises; there is no fallback on the card, and no pool is
+upcast to reach another kernel.
 """
 
 from __future__ import annotations
@@ -96,7 +102,8 @@ def write_pages(pool, block_tables: torch.Tensor, kv: torch.Tensor):
 def paged_attention_stats(q, k_pool, v_pool, block_tables, seq_lens):
     """Flash-stats attention of per-slot queries over paged K/V.
 
-    q (S, K, H, hd); pools (P, page, H, hd) fp32 or ``QuantizedKVPool``s;
+    q (S, K, H, hd) float32 or bfloat16; pools (P, page, H, hd) of q's
+    dtype, or ``QuantizedKVPool``s;
     block_tables (S, Pm) int32; seq_lens (S,) int32. Returns (acc (S, K, H, hd), m (S, K, H),
     l (S, K, H)), all fp32: the unnormalised accumulator, running max and
     running sum over ALL Pm*page positions with masked ones at -1e9.

@@ -202,8 +202,10 @@ class _PagedRunner:
         self._oom_counted: set[int] = set()
         self.prefix = (PrefixIndex(self.pool.allocator, max_entries=engine._prefix_cache_entries)
                        if engine._prefix_cache else None)
-        # Device bytes a page pins over all layers' K and V pools.
-        self._page_nbytes = cfg.hbm_bytes(n_layers, n_heads, head_dim) // cfg.num_pages
+        # Device bytes a page pins over all layers' K and V pools, measured
+        # on the pools themselves (their dtype: fp32, bf16, or int8 rows and
+        # their scales), as JAX measures them.
+        self._page_nbytes = tree_nbytes((self.pool.k_pools, self.pool.v_pools)) // cfg.num_pages
 
     @property
     def idle(self) -> bool:

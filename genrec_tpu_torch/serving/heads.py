@@ -24,7 +24,8 @@ micro-batch path:
 Paged heads add the hooks the engine's `_PagedRunner` composes:
 
 - ``paged_layout() -> (n_layers, n_heads, head_dim, dtype)``: page-pool
-  geometry; ``paged_kv_tokens(n_items, L_bucket)``: KV tokens a request
+  geometry, ``dtype`` the model's compute dtype (the pools' unless they
+  are int8); ``paged_kv_tokens(n_items, L_bucket)``: KV tokens a request
   occupies after prefill;
 - ``paged_init_step`` / ``paged_total_steps``: a slot enters decode at
   init_step and finishes when its step counter reaches total_steps;
@@ -326,8 +327,7 @@ class TigerGenerativeHead(_CatalogHead):
 
     def paged_layout(self):
         m = self.model
-        return (m.n_layers // 2, m.num_heads, m.attn_dim // m.num_heads,
-                m.bos_embedding.dtype)
+        return m.n_layers // 2, m.num_heads, m.attn_dim // m.num_heads, m.dtype
 
     def paged_kv_tokens(self, n_items: int, L_bucket: int) -> int:
         # user token + D sem-id tokens per (bucket-clipped) history item
@@ -414,10 +414,6 @@ class CobraGenerativeHead(_CatalogHead):
                  item_vecs: Optional[np.ndarray] = None,
                  item_text_tokens: Optional[np.ndarray] = None,
                  top_k: int = 10, name: str = "cobra", catalog=None):
-        if model.dtype != torch.float32:
-            raise NotImplementedError(
-                f"a {model.dtype} COBRA cannot serve paged: B1 and B2 read float32 or int8 "
-                "pages; bf16 pools are ROADMAP queue B (B1/B2 over bf16 pools)")
         self.model = model
         self.name = name
         self.top_k = top_k
@@ -521,7 +517,7 @@ class CobraGenerativeHead(_CatalogHead):
 
     def paged_layout(self):
         m = self.model
-        return m.decoder_n_layers, m.decoder_num_heads, m.head_dim, torch.float32
+        return m.decoder_n_layers, m.decoder_num_heads, m.head_dim, m.dtype
 
     def paged_kv_tokens(self, n_items: int, L_bucket: int) -> int:
         # C sparse + 1 dense token per (bucket-clipped) history item

@@ -22,9 +22,10 @@ that finds no pages is refused (``PoolExhausted``), never over-allocated.
   reads it unmasked.
 - ``PagedConfig``: the static shapes of the paged decode path, the page
   budget ``num_pages`` (0: every slot's full budget) and the page type,
-  ``kv_dtype`` "float32" or "int8" (``ops.quant.QuantizedKVPool``: int8
-  rows plus one fp32 scale per page row, dequantised in the attention
-  kernel).
+  ``kv_dtype`` "float32" (not quantised: pages in the model's compute
+  dtype, float32 or bfloat16, as in JAX) or "int8"
+  (``ops.quant.QuantizedKVPool``: int8 rows plus one fp32 scale per page
+  row, dequantised in the attention kernel).
 - ``PrefixIndex``: the cross-request prefix cache, a token radix trie
   whose entries hold a reference on a finished prefill's page run, so a
   repeated history shares those pages instead of paying prefill again.
@@ -189,7 +190,9 @@ class PageAllocator:
 
 class KVPagePool:
     """Device page pools + slot bindings for ONE head's decode layers.
-    ``dtype`` is the fp32 pools' type; ``cfg.kv_dtype="int8"`` builds
+    ``dtype`` is the pools' type, the model's compute dtype from the head's
+    ``paged_layout`` (float32 or bfloat16; ``cfg.kv_dtype="float32"``
+    means "not quantised", as in JAX); ``cfg.kv_dtype="int8"`` builds
     ``QuantizedKVPool``s instead."""
 
     def __init__(self, cfg: PagedConfig, n_layers: int, n_heads: int,

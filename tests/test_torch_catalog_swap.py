@@ -205,12 +205,15 @@ def test_catalog_watcher_stages_new_snapshots_and_quarantines_bad_ones(tmp_path)
         assert resp.catalog_version == snap_b.version
         assert_answers_jax(resp, jm, params, valid_b, req)
 
-        # A garbled newer file: quarantined, serving goes on under B.
-        path_c = CatalogSnapshot.build(valid_a[:-1], K_CB).save(cat_dir)
-        raw = bytearray(open(path_c, "rb").read())
+        # A garbled newer file: quarantined, serving goes on under B. It is
+        # garbled outside the watched directory and moved in whole, so the
+        # watcher never sees it intact or half written.
+        staged = CatalogSnapshot.build(valid_a[:-1], K_CB).save(str(tmp_path / "staging"))
+        raw = bytearray(open(staged, "rb").read())
         raw[len(raw) // 2] ^= 0xFF
-        open(path_c, "wb").write(bytes(raw))
-        os.utime(path_c, None)
+        open(staged, "wb").write(bytes(raw))
+        path_c = os.path.join(cat_dir, os.path.basename(staged))
+        os.replace(staged, path_c)
         qdir = os.path.join(cat_dir, "quarantine")
         wait_for(lambda: os.path.exists(os.path.join(qdir, os.path.basename(path_c))),
                  "the garbled file's quarantine")

@@ -260,10 +260,15 @@ def test_unported_options_raise(tmp_path):
 
 
 def test_bf16_model_does_not_serve_paged():
+    """A bf16 COBRA (the trainer's amp) once could not serve paged (the
+    name predates bf16 pages); now its head takes it and lays its pools out
+    in bf16, as JAX's does. tests/test_torch_bf16_serving.py serves it."""
     from genrec_tpu_torch.serving.heads import CobraGenerativeHead
 
     g = _gin()
     model = Cobra(**_cfg(g), dtype=torch.bfloat16, device="cpu")
-    with pytest.raises(NotImplementedError, match="bf16 pools"):
-        CobraGenerativeHead(model, item_sem_ids=np.asarray([[0, 1, 2]]),
-                            item_vecs=np.zeros((1, g["d_model"]), np.float32))
+    head = CobraGenerativeHead(model, item_sem_ids=np.asarray([[0, 1, 2]]),
+                               item_vecs=np.zeros((1, g["d_model"]), np.float32))
+    assert head.paged_layout()[3] == torch.bfloat16
+    state = head.paged_state_zeros(2)
+    assert state["cache_k"].dtype == torch.bfloat16 and state["h_last"].dtype == torch.float32

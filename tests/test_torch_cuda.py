@@ -20,7 +20,8 @@ cores, ~16 bits of each, so the same holds; the bf16 HSTU forward rounds
 silu(S) once to bf16, as its plain version does, and is also held within
 1e-2 of max |plain|). The int8 paged
 kernel dequantises with the same product as its plain version, so it
-too is held at 1e-5. The residual cascade's ids are held exactly outside
+too is held at 1e-5, and so are B1 over bf16 pages and both with a bf16 q:
+each bf16 value converts exactly to fp32, then the fp32 arithmetic. The residual cascade's ids are held exactly outside
 near ties (rows whose two nearest codewords are within 1e-5 x max |dist|,
 where another summation order may pick the other one), and at most 2%
 of the rows may be near ties; qsum 1e-5 of its largest element. The
@@ -37,6 +38,7 @@ import torch
 
 from genrec_tpu_torch.kernels import fused_ce as fc
 from genrec_tpu_torch.kernels import hstu_attention as ha
+from genrec_tpu_torch.kernels import paged_attention as pa
 from genrec_tpu_torch.kernels import rq_cascade as rq
 from genrec_tpu_torch.kernels.paged_attention import (
     paged_attention_stats_cuda,
@@ -790,6 +792,189 @@ def test_paged_kernels_give_equal_bits_over_two_calls(card, int8):
     torch.cuda.synchronize()
     assert kernel.launches == before + 2
     assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+# ---- B1 over bf16 pages, B2 with a bf16 q -------------------------------------
+#
+# A bf16 model serves bf16 pages with a bf16 q (paged_attention_stats_bf16_cuda)
+# or int8 pages with a bf16 q (paged_attention_stats_quantized_bf16q_cuda).
+# The kernels convert each bf16 value exactly to fp32 and then run the fp32
+# variants' arithmetic, which the plain versions repeat on the same bf16
+# values: held at the fp32 variants' 1e-5.
+
+
+def _bf16(x, q8):
+    """The fp32 inputs with q in bf16, and the pools in bf16 or (``q8``)
+    as int8 pools."""
+    out = _quantized(x) if q8 else dict(x, k_pool=x["k_pool"].to(torch.bfloat16),
+                                         v_pool=x["v_pool"].to(torch.bfloat16))
+    out["q"] = x["q"].to(torch.bfloat16)
+    return out
+
+
+def _bf16_variant(q8):
+    if q8:
+        return (pa.paged_attention_stats_quantized_bf16q_cuda,
+                paged_attention_stats_quantized_ref)
+    return pa.paged_attention_stats_bf16_cuda, paged_attention_stats_ref
+
+
+def _bf16_terms(x, n=4):
+    """``n`` bf16-exact float32 arrays summing exactly to ``x`` (multiples
+    of 512 below 2^33 in magnitude), greedily: each the nearest bf16 value
+    to what is left."""
+    terms, rest = [], x.astype(np.float64)
+    for _ in range(n):
+        t = torch.as_tensor(rest, dtype=torch.float32).to(torch.bfloat16).float().numpy()
+        terms.append(t)
+        rest = rest - t.astype(np.float64)
+    assert (rest == 0).all()
+    return terms
+
+
+def _near_neg_bf16(dev, S, K, H, page, Pm, lens, q8, seed=0):
+    """``_near_neg`` with every q and K value exact in bf16: the -8e9 offset
+    split over q's first 4 dims (K 1 there), so each beam's live max again
+    lands at -1e9 - 64, -1e9 or -1e9 + 64, and every partial sum is a
+    multiple of 512 below 2^33, exact in fp32 in any order."""
+    hd = 64
+    x = _inputs(dev, S, K, H, hd, page, Pm, lens, seed=seed)
+    rng = np.random.default_rng(seed)
+    bt = x["block_tables"].cpu().numpy()
+    P, cap = x["k_pool"].shape[0], Pm * page
+    k = rng.integers(-1, 2, size=(P, page, H, hd)).astype(np.float32)
+    k[..., :4] = 1.0
+    qn = rng.integers(-1, 2, size=(S, K, H, hd)).astype(np.float32)
+    qn[..., :4] = 0.0
+    sums = np.einsum("skhd,slhd->skhl", qn, k[bt].reshape(S, cap, H, hd))
+    lens = np.asarray(lens)
+    live = np.arange(cap)[None, :] < np.where(lens > 0, np.minimum(lens, cap), cap)[:, None]
+    top = np.where(live[:, None, None, :], sums, -(10**6)).max(-1)
+    q = 512.0 * qn
+    target = -8e9 - 512.0 * (top - rng.integers(-1, 2, size=top.shape))
+    for i, t in enumerate(_bf16_terms(target)):
+        q[..., i] = t
+    x["q"] = torch.as_tensor(q, device=dev)
+    x["k_pool"] = torch.as_tensor(k, device=dev)
+    out = _bf16(x, q8)
+    if q8:
+        out["k_pool"] = QuantizedKVPool(torch.as_tensor(k.astype(np.int8), device=dev),
+                                        torch.ones((P, page), device=dev))
+    assert torch.equal(out["q"].float(), x["q"])  # exact in bf16
+    return out
+
+
+BF16_SHAPES = {  # name: (S, K, H, hd, page, Pm), seq_lens, null tail
+    "tiger_serving": ((64, 10, 6, 64, 16, 4), "random", True),
+    "cobra_serving": ((64, 20, 6, 128, 16, 5), "cobra", True),
+    "seq_len_0_partial_pages": ((5, 3, 2, 8, 8, 3), [24, 0, 9, 1, 17], True),
+    "k1_hd5_bytewise": ((4, 1, 3, 5, 8, 2), [3, 16, 0, 9], False),
+    "hd10_4_byte_copies": ((3, 4, 2, 10, 8, 2), [7, 16, 11], False),
+    "full_block_hd128": ((3, 32, 1, 128, 40, 2), [80, 41, 0], False),
+    "streams_8_stages": ((2, 10, 2, 128, 16, 32), [400, 130], False),
+}
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16_pages", "int8_pages_bf16q"])
+@pytest.mark.parametrize("name", sorted(BF16_SHAPES))
+def test_bf16_kernels_match_plain_versions(card, name, q8):
+    kernel, plain = _bf16_variant(q8)
+    (S, K, H, hd, page, Pm), lens, null_tail = BF16_SHAPES[name]
+    if lens == "random":
+        lens = np.random.default_rng(1).integers(4, Pm * page + 1, S)
+    elif lens == "cobra":
+        lens = _cobra_lens()
+    x = _bf16(_inputs(card, S, K, H, hd, page, Pm, lens, null_tail, seed=11), q8)
+    before = kernel.launches
+    got = kernel(**x)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    for out, g, w in zip(("acc", "m", "l"), got, plain(**x)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5, msg=out)
+
+
+BF16_EDGE_CASES = {
+    "near_neg_partial": lambda dev, q8: _near_neg_bf16(dev, 3, 10, 2, 16, 4, [40, 5, 17], q8),
+    "near_neg_full": lambda dev, q8: _near_neg_bf16(dev, 2, 10, 2, 16, 4, [64, 80], q8),
+    "seq_len_over_cap_bt_outside": lambda dev, q8: _bf16(_out_of_range(
+        _inputs(dev, 3, 10, 6, 64, 16, 4, [100, 7, 64], seed=4), False), q8),
+    "s1_serving_widths": lambda dev, q8: _bf16(
+        _inputs(dev, 1, 10, 6, 64, 16, 4, [61], null_tail=True, seed=5), q8),
+    "s16_serving_widths": lambda dev, q8: _bf16(
+        _inputs(dev, 16, 10, 6, 64, 16, 4, np.random.default_rng(6).integers(4, 62, 16),
+                null_tail=True, seed=6), q8),
+    "multi_stage": lambda dev, q8: _bf16(
+        _inputs(dev, 2, 10, 2, 128, 16, 16, [256, 130], seed=7), q8),
+}
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16_pages", "int8_pages_bf16q"])
+@pytest.mark.parametrize("case", sorted(BF16_EDGE_CASES))
+def test_bf16_kernels_edge_cases_match_plain_versions(card, case, q8):
+    kernel, plain = _bf16_variant(q8)
+    x = BF16_EDGE_CASES[case](card, q8)
+    before = kernel.launches
+    got = kernel(**x)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    for name, g, w in zip(("acc", "m", "l"), got, plain(**x)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5, msg=name)
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16_pages", "int8_pages_bf16q"])
+@pytest.mark.parametrize("name", sorted(TREE_SHAPES))
+def test_bf16_kernels_take_the_tree_node_axis(card, name, q8):
+    """TIGER's 730 nodes at hd 64, COBRA's 180 at hd 128, and K 33 / 90:
+    equal bits over two calls, each node's row the one it gets alone."""
+    kernel, plain = _bf16_variant(q8)
+    S, K, H, hd, page, Pm = TREE_SHAPES[name]
+    lens = np.random.default_rng(K).integers(4, Pm * page + 1, S)
+    lens[::5], lens[1::5] = 0, Pm * page
+    x = _bf16(_inputs(card, S, K, H, hd, page, Pm, lens, null_tail=True, seed=K), q8)
+    before = kernel.launches
+    got, again = kernel(**x), kernel(**x)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    for out, g, w in zip(("acc", "m", "l"), got, plain(**x)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5, msg=out)
+    part = kernel(**dict(x, q=x["q"][:, 32:64].contiguous()))
+    torch.testing.assert_close(part[0], got[0][:, 32:64], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16_pages", "int8_pages_bf16q"])
+def test_bf16_kernels_give_equal_bits_over_two_calls(card, q8):
+    kernel, _ = _bf16_variant(q8)
+    lens = np.random.default_rng(8).integers(4, 62, 64)
+    x = _bf16(_inputs(card, 64, 10, 6, 64, 16, 4, lens, null_tail=True, seed=8), q8)
+    a, b = kernel(**x), kernel(**x)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def test_paged_wrappers_route_bf16_and_refuse_mixed_types(card):
+    """The fp32 entry points hand a bf16 q to the bf16 variants (which
+    count those launches, the fp32 counters none); a bf16 q over fp32
+    pools, an fp32 q over bf16 pools, or fp16 anywhere raises and counts
+    nothing."""
+    x = _inputs(card, 2, 3, 2, 8, 8, 2, [5, 9])
+    counters = (paged_attention_stats_cuda, pa.paged_attention_stats_bf16_cuda,
+                paged_attention_stats_quantized_cuda, pa.paged_attention_stats_quantized_bf16q_cuda)
+    before = [c.launches for c in counters]
+    paged_attention_stats_cuda(**_bf16(x, False))
+    paged_attention_stats_quantized_cuda(**_bf16(x, True))
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [0, 1, 0, 1]
+    bf = _bf16(x, False)
+    for fn, kwargs in ((paged_attention_stats_cuda, dict(x, q=bf["q"])),
+                       (paged_attention_stats_cuda, dict(bf, q=x["q"])),
+                       (pa.paged_attention_stats_bf16_cuda, x),
+                       (paged_attention_stats_cuda, dict(x, q=x["q"].half())),
+                       (paged_attention_stats_quantized_cuda,
+                        dict(_bf16(x, True), q=x["q"].half()))):
+        with pytest.raises(ValueError):
+            fn(**kwargs)
+    assert [c.launches - b for c, b in zip(counters, before)] == [0, 1, 0, 1]
 
 
 @pytest.mark.parametrize("B,L,K,D,dup", [

@@ -210,13 +210,21 @@ def test_gumbel_top_k_draws_as_multinomial_without_replacement():
 
 
 def test_bf16_model_decodes_dense_but_not_paged(setup):
-    """A bf16 TIGER (the trainers' amp) decodes through tiger_generate; the
-    paged path refuses it (B1 and B2 read float32 or int8 pages)."""
+    """A bf16 TIGER (the trainers' amp) decodes through tiger_generate and,
+    now that B1 reads bf16 pages, through tiger_generate_paged as well
+    (the name predates that): bf16 and int8 pages give catalog tuples with
+    finite, descending scores. tests/test_torch_bf16_serving.py holds the
+    bf16 paged decode to JAX's."""
     _, _, tmodel, valid, b = setup
     bf16 = ttiger.Tiger(device="cpu", dtype=torch.bfloat16, **CFG).eval()
     bf16.load_state_dict(tmodel.state_dict())
     trie = ttrie.DenseTrie.build(valid, K_CB, device="cpu")
     out = ttiger.tiger_generate(bf16, trie, *_tb(b), n_top_k_candidates=5, deterministic=True)
     assert bool(ttrie.tuples_are_valid(trie, out.sem_ids).all())
-    with pytest.raises(NotImplementedError, match="bf16 pools"):
-        ttiger.tiger_generate_paged(bf16, trie, *_tb(b), n_top_k_candidates=5)
+    for kv_dtype in ("float32", "int8"):
+        paged = ttiger.tiger_generate_paged(bf16, TensorTrie.build(valid, K_CB).to("cpu"),
+                                            *_tb(b), n_top_k_candidates=5, kv_dtype=kv_dtype)
+        assert bool(ttrie.tuples_are_valid(trie, paged.sem_ids).all())
+        scores = paged.log_probas
+        assert scores.dtype == torch.float32 and bool(torch.isfinite(scores).all())
+        assert bool((scores[:, 1:] <= scores[:, :-1]).all())
