@@ -43,33 +43,46 @@ logits scaled by log2 e); 128-column tiles; 8 and 32 splits; the splits
 as the fast axis (at the chosen count and at 32); expf on unscaled
 logits; one ex2.approx.ftz instruction instead of exp2f.
 
-`--mode paged`, B1 (fp32 pages, and bf16 pages with a bf16 q) and B2
-(int8 pages) of genrec_tpu_torch/csrc/paged_attention.cu at the TIGER
-serving shape (K 10, H 6, hd 64, page 16, Pm 4, chip_smoke.py's served
-lengths) with S 64 and S 16 slots, at COBRA's (K 20, hd 128, Pm 5) and
-over TIGER's 730-node speculative tree with S 64: the source (live positions only, cp.async, 8 warps a block,
-one block per (slot, head) unless that leaves SMs idle, then the beams
-split over enough blocks, head dim a template parameter, the slot's
-block-table row read once into shared memory); `all_pages` (every
-position walked); `tma_bulk` (K/V rows by TMA bulk copies, one mbarrier
-a stage, where rows are 16-byte multiples); `splits_1` and `splits_2`
-(always one, always two blocks a (slot, head)); `warps_4` (4 warps a
+`--mode paged [--kinds f32,int8,bf16,int8_bf16q]`, B1 (fp32 pages, and
+bf16 pages with a bf16 q) and B2 (int8 pages, with an fp32 or a bf16 q)
+of genrec_tpu_torch/csrc/paged_attention.cu at the TIGER serving shape (K
+10, H 6, hd 64, page 16, Pm 4, chip_smoke.py's served lengths) with S 64
+and S 16 slots, at COBRA's (K 20, hd 128, Pm 5) and over TIGER's
+730-node speculative tree with S 64. Variants of the fp32-q kernel
+(`paged_attention_stats_kernel`): the source (live positions only,
+cp.async, 8 warps a block, one block per (slot, head) unless that leaves
+SMs idle, then the beams split over enough blocks, head dim a template
+parameter, the slot's block-table row read once into shared memory);
+`all_pages` (every position walked); `tma_bulk` (K/V rows by TMA bulk
+copies, one mbarrier a stage, where rows are 16-byte multiples);
+`splits_2` (always two blocks a (slot, head)); `warps_4` (4 warps a
 block); `runtime_hd` (one instantiation at width 128, the dot's loop
 bound hd at run time); `pages_from_global` (each copy reads its
 block-table entry from global memory, the first design's way);
 `compact_pairs` (scores of the live pairs only, spread evenly, a pair a
-thread at a time, the dot in four partial sums); `breaks` (the beam
-loops leave at the first beam past the block's, as the first design's
-did); `lb_1`, `lb_2`, `lb_3` (`__launch_bounds__` asking for 1, 2, 3
-blocks an SM); and,
-timed only, `empty` (the kernel returns at once: a launch inside the
-graph), `copies_only` (the copies and their wait, no math),
-`scores_only` (no softmax, no e.V) and `no_ev` (no e.V). Each other
-variant is held to the plain versions at 1e-5 of max
-|plain| (serving, a multi-stage shape, hd 6 and 8; a variant that
-disagrees is reported and not timed), then timed as
-chip_smoke.py times B1 and B2: CUDA-graph replay over input copies that
-together exceed L2 three times.
+thread at a time, the dot in four partial sums); `warp_per_beam`; `lb_1`,
+`lb_2`, `lb_3` (`__launch_bounds__` asking for 1, 2, 3 blocks an SM);
+and, timed only, `empty` (the kernel returns at once: a launch inside
+the graph), `copies_only` (the copies and their wait, no math) and
+`no_ev` (no e.V). Variants of the bf16-q kernel
+(`paged_attention_mma_kernel`, the `bf16` and `int8_bf16q` kinds):
+`planes_2` (e in two bf16 planes, not three: ~16 bits of it),
+`mma_lb_3` and `mma_lb_5` (`__launch_bounds__` asking for 3 or 5 blocks
+an SM at hd <= 64, not 4 and 3), `mma_stcs` (acc stored by
+`st.global.cs`), `mma_warps_8`
+and `mma_warps_2` (at most 8, two blocks an SM asked for, or 2 warps
+holding tiles, not 4),
+`mma_nodes_64`, `_192`, `_256` and `_1024` (at most that many nodes a
+block, not 128), `mma_fast_exp` (`__expf` for the weights) and `mma_min_warps_1` (no helper warps issuing copies); timed only,
+`mma_empty`, `mma_copies_only` (q, the stages and the stores, no math)
+and `mma_no_stores` (no acc stores). Each other variant is held to the
+plain versions at 1e-5 of max |plain| (serving, a multi-stage shape, hd 6
+and 8; a variant that disagrees is reported and not timed), then timed
+as chip_smoke.py times B1 and B2: CUDA-graph replay over input copies
+that together exceed L2 three times. With `--burst N`, chip_smoke.py's
+bf16 COBRA burst (`cobra_serve_phase`, bf16 pages) is then served with
+the source's library, the parent's and the source's again, each profiled
+for the paged attention kernel's share of the burst's device time.
 
 `--mode hstu`, the bf16 backward of genrec_tpu_torch/csrc/hstu_attention.cu
 (`hstu_bwd_tc_kernel` and its table sums) at the HSTU trainer's shape (B
@@ -354,14 +367,14 @@ PAGED_VARIANTS = {
          "const size_t at = (size_t)min(max(__ldg(p.block_tables + (size_t)blockIdx.x * p.Pm + pi),"
          " 0), p.P - 1) * p.page + (pos - pi * p.page);")],
     "runtime_hd": [
-        ("  if (p.hd <= 32) return launch_hd<T, TQ, 32>(p, S, st);\n"
-         "  if (p.hd <= 64) return launch_hd<T, TQ, 64>(p, S, st);\n", ""),
+        ("  if (p.hd <= 32) return launch_hd<T, 32>(p, S, st);\n"
+         "  if (p.hd <= 64) return launch_hd<T, 64>(p, S, st);\n", ""),
         ("float scale, int tid) {", "float scale, int tid, int hd) {"),
         ("seq_len, p.scale, tid);", "seq_len, p.scale, tid, p.hd);"),
         ("for (int d = 0; d < HD; d += 4) {", "for (int d = 0; d < hd; d += 4) {")],
     "compact_pairs": [
-        ("template <typename T, typename TQ, int HD>\n__global__",
-         _COMPACT_SCORES + "template <typename T, typename TQ, int HD>\n__global__"),
+        ("template <typename T, int HD>\n__global__",
+         _COMPACT_SCORES + "template <typename T, int HD>\n__global__"),
         ("stage_scores<HD>(rows,", "stage_scores_compact<HD>(rows,")],
     "tma_bulk": [
         ("#include <type_traits>", _BULK_HELPERS),
@@ -412,7 +425,42 @@ PAGED_VARIANTS = {
 }
 PAGED_VARIANTS["no_ev"] = ("      if (b < Kb) {\n        const float* e = sc_s",
                            "      if (b < Kb && Kb < 0) {\n        const float* e = sc_s")
-PAGED_TIMING_ONLY = {"empty", "copies_only", "no_ev"}
+# The bf16-q kernel (paged_attention_mma_kernel): e in two bf16 planes,
+# not three; __launch_bounds__ asking for 3 or 5 blocks an SM at hd <= 64
+# (not 4 over bf16 pages and 3 over int8); acc by streaming stores
+# (st.global.cs); at most 8 warps holding tiles (2 blocks an SM asked
+# for) or 2, not 4; at most 64, 192, 256 or 1,024 nodes a block, not 128;
+# __expf (ex2.approx) for the weights; no helper warps issuing copies;
+# and, timed only, the kernel returning at once, or copying q and the
+# stages and storing with no math, or with no acc stores.
+_MMA_WARPS = "constexpr int kMmaWarps = 4;"
+_MMA_NODES = "constexpr int kMmaNodes = 128;"
+PAGED_VARIANTS.update({
+    "planes_2": ("constexpr int kEPlanes = 3;", "constexpr int kEPlanes = 2;"),
+    "mma_lb_3": ("return hd > 64 ? 1 : int8 ? 3 : 4;", "return hd > 64 ? 1 : 3;"),
+    "mma_lb_5": ("return hd > 64 ? 1 : int8 ? 3 : 4;", "return hd > 64 ? 1 : 5;"),
+    "mma_warps_8": [(_MMA_WARPS, "constexpr int kMmaWarps = 8;"),
+                    ("return hd > 64 ? 1 : int8 ? 3 : 4;", "return hd > 64 ? 1 : 2;")],
+    "mma_warps_2": (_MMA_WARPS, "constexpr int kMmaWarps = 2;"),
+    "mma_nodes_64": (_MMA_NODES, "constexpr int kMmaNodes = 64;"),
+    "mma_nodes_256": (_MMA_NODES, "constexpr int kMmaNodes = 256;"),
+    "mma_fast_exp": ("        sc[j][e] = expf(sc[j][e] - m[e >> 1]);",
+                     "        sc[j][e] = __expf(sc[j][e] - m[e >> 1]);"),
+    "mma_nodes_192": (_MMA_NODES, "constexpr int kMmaNodes = 192;"),
+    "mma_nodes_1024": (_MMA_NODES, "constexpr int kMmaNodes = 1024;"),
+    "mma_min_warps_1": ("return hd > 64 ? 2 : 4;", "return hd > 64 ? 1 : 1;"),
+    "mma_empty": ("  if (Kb < 1) return;", "  if (Kb < 1 || p.K > 0) return;"),
+    "mma_no_stores": ("          *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);",
+                      "          if (src[0] == 12345.f)\n"
+                      "            *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);"),
+    "mma_stcs": ("          *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);",
+                 "          __stcs(reinterpret_cast<float4*>(dst), *reinterpret_cast<const float4*>(src));"),
+    "mma_copies_only": ("    const int mi = lane >> 3, rr = lane & 7;\n    float sc[kSTiles][4];",
+                        "    if (scale > 0.f) { m[0] = m[1] = 0.f; return; }\n"
+                        "    const int mi = lane >> 3, rr = lane & 7;\n    float sc[kSTiles][4];"),
+})
+PAGED_TIMING_ONLY = {"empty", "copies_only", "no_ev", "mma_empty", "mma_copies_only",
+                     "mma_no_stores"}
 # The time bucket with a log (int32 wrap, the float32 log taken in double and
 # rounded), as the kernels read it before the edge table: put in before
 # sigmoid() by the log_every_pair variants.
@@ -511,7 +559,10 @@ PAGED_CELLS = {"s64": (64, "tiger"), "s16": (16, "tiger"), "cobra_s64": (64, "co
                "tree_s64": (64, "tree")}
 _PAGED = ["source", "all_pages", "tma_bulk", "splits_2", "warps_4", "runtime_hd",
           "pages_from_global", "compact_pairs", "warp_per_beam", "lb_1", "lb_2", "lb_3", "empty",
-          "copies_only", "no_ev", "source"]
+          "copies_only", "no_ev", "planes_2", "mma_lb_3", "mma_lb_5", "mma_stcs", "mma_warps_8", "mma_warps_2",
+          "mma_nodes_64", "mma_nodes_192", "mma_nodes_256", "mma_nodes_1024", "mma_fast_exp",
+          "mma_min_warps_1", "mma_empty", "mma_copies_only",
+          "mma_no_stores", "source"]
 _FWD = ["source", "fwd_cols_128", "fwd_splits_8", "fwd_splits_32", "fwd_splits_fast",
         "fwd_splits_32_fast", "fwd_expf", "fwd_ex2_approx", "source"]
 AT = {"bwd": {"shard": ["source", "chunk_32mb", "chunk_128mb", "coeff_128x128",
@@ -720,8 +771,9 @@ def paged_cell(cell):
     return (S, K, 6, 64, 16, 4), served_lens()[:S]
 
 
-def paged_ab(dev, libs, order, reps, add) -> None:
-    """Check every variant of the paged kernels, then time them in turns."""
+def paged_ab(dev, libs, order, reps, add, only_kinds=None) -> None:
+    """Check every variant of the paged kernels, then time them in turns
+    (``only_kinds``: these of the page and q types alone)."""
     import chip_smoke as cs
     from genrec_tpu_torch.kernels import paged_attention as pa
 
@@ -730,7 +782,11 @@ def paged_ab(dev, libs, order, reps, add) -> None:
              "int8": (cs.quantized_inputs, pa.paged_attention_stats_quantized_cuda,
                       pa.paged_attention_stats_quantized_ref),
              "bf16": (cs.bf16_inputs, pa.paged_attention_stats_bf16_cuda,
-                      pa.paged_attention_stats_ref)}
+                      pa.paged_attention_stats_ref),
+             "int8_bf16q": (cs.quantized_bf16q_inputs,
+                            pa.paged_attention_stats_quantized_bf16q_cuda,
+                            pa.paged_attention_stats_quantized_ref)}
+    kinds = {k: v for k, v in kinds.items() if only_kinds is None or k in only_kinds}
     original = pa._library
     failed = set()
     try:
@@ -763,7 +819,7 @@ def paged_ab(dev, libs, order, reps, add) -> None:
                                        for t in (getattr(v, "data", v), getattr(v, "scale", None))))
                 copies = [base] + cs.cold_copies(
                     lambda c: make(dev, 100 + c, *shape, lens, True), per_copy)[1:]
-                bound_ms, bound_by, work = (cs.quantized_bound if kind == "int8"
+                bound_ms, bound_by, work = (cs.quantized_bound if kind.startswith("int8")
                                             else cs.paged_attention_bound)(base)
                 for turn, name in enumerate(order):
                     pa._library = lambda lib=libs[name]: lib
@@ -773,6 +829,28 @@ def paged_ab(dev, libs, order, reps, add) -> None:
                         bound_by=bound_by, kv_tokens=work["kv_tokens"], timed_by="cuda_graph")
                 del base, copies
                 torch.cuda.empty_cache()
+    finally:
+        pa._library = original
+
+
+def paged_burst(dev, libs, n, add) -> None:
+    """chip_smoke.py's cobra_serve_bf16 phase (the bf16 COBRA burst over
+    bf16 pages, n requests) with the source's library, then the parent's
+    (where given), then the source's again: B1's share of the profiled
+    burst's device time (``prefill_device_share``) under each."""
+    import chip_smoke as cs
+    from genrec_tpu_torch.kernels import paged_attention as pa
+
+    original = pa._library
+    try:
+        for name in [n_ for n_ in ("source", "parent", "source") if n_ in libs]:
+            pa._library = lambda lib=libs[name]: lib
+            line = cs.cobra_serve_phase(dev, 0, n, dtype=torch.bfloat16)[0]
+            add(phase="burst", variant=name, requests=n, **{
+                k: line[k] for k in ("paged_attention_share_of_device_time",
+                                     "paged_attention_device_ms", "burst_device_ms",
+                                     "prefill_share_of_device_time", "paged_attention_launches",
+                                     "qps")})
     finally:
         pa._library = original
 
@@ -929,6 +1007,12 @@ def main(argv=None) -> int:
     ap.add_argument("--out", type=Path)
     ap.add_argument("--variants", help="comma-separated: only these of the mode's variants "
                                        "(the source is always built and timed first and last)")
+    ap.add_argument("--kinds", help="--mode paged: comma-separated, only these of f32, int8, "
+                                    "bf16, int8_bf16q")
+    ap.add_argument("--burst", type=int, default=0,
+                    help="--mode paged: then serve chip_smoke.py's bf16 COBRA burst of this many "
+                         "requests with the source's library and the parent's, each profiled: "
+                         "the paged attention kernel's share of the burst's device time")
     ap.add_argument("--parent", type=Path,
                     help="another checkout (e.g. the parent commit's): its source of the "
                          "mode's kernel is built, checked and timed as variant `parent`, "
@@ -977,7 +1061,10 @@ def main(argv=None) -> int:
             k: v for k, v in ptxas_by_kernel(log).items()
             if any(f in k for f in PTXAS_OF[args.mode])})
     if paged:
-        paged_ab(dev, libs, at["s64"], args.reps, add)
+        paged_ab(dev, libs, at["s64"], args.reps, add,
+                 args.kinds.split(",") if args.kinds else None)
+        if args.burst:
+            paged_burst(dev, libs, args.burst, add)
     if args.mode in ("hstu", "hstu_fwd"):
         hstu_ab(dev, libs, at["trainer_bf16"], args.reps, add,
                 "fwd" if args.mode == "hstu_fwd" else "bwd")

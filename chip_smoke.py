@@ -23,7 +23,9 @@ line each; any failure ends the run with a traceback and a non-zero exit:
             `_bf16_cobra` and `_bf16_tree` rows; B2 with a bf16 q at
             both shapes: the `_quantized_bf16q` and
             `_quantized_bf16q_cobra` rows, each held at the fp32 rows'
-            1e-5); B3-B6 at the HSTU training
+            1e-5; their bf16-q kernel spills nothing at hd 32, 64 and
+            128, and COBRA's bf16 block fits three times or more an SM);
+            B3-B6 at the HSTU training
             shapes, B5 also at the retrieval serving buckets with
             right-aligned rows, all-padding rows exactly 0; B7 at the
             RQ-VAE export's), then timed by device time
@@ -42,7 +44,9 @@ line each; any failure ends the run with a traceback and a non-zero exit:
             launching exactly once, give equal bits over two calls, are
             timed at S = 16 beside S = 64, and report the K/V bytes the
             call needs against those of every position, the share of the
-            bound, and the ptxas numbers and shared memory of a block; the
+            bound, and the ptxas numbers and launch shape of a block
+            (threads, nodes, blocks along z, shared memory, blocks an
+            SM); the
             bf16 B6 and B7 give equal bits over two calls and report their
             ptxas numbers, B6's time is also split by kernel (its own, the
             table sums), and the time-bucket sweep runs through B5 and the
@@ -885,23 +889,27 @@ def check_paged_edges(dev, seed, served_lens, kernel, plain, int8, bf16=False) -
     return errs
 
 
-# Mangled page and q types of paged_attention_stats_kernel<T, TQ, HD>.
-_PAGED_TYPES = {"f": "fp32", "a": "int8", "13__nv_bfloat16": "bf16", "S1_": "bf16"}
-
-
 def paged_ptxas(ptxas: dict) -> dict:
-    """ptxas -v numbers of every B1 and B2 instantiation, by page type, q
-    type (a bf16 q adds ``_bf16q`` to fp32-q names' int8 pages; bf16 pages
-    take a bf16 q) and head width."""
+    """ptxas -v numbers of every B1 and B2 instantiation by page type and
+    head width: the fp32-q kernel's (``fp32_hd64``, ``int8_hd64``) and the
+    bf16-q mma kernel's (``bf16_hd64``, ``int8_bf16q_hd64``)."""
     out = {}
     for name, v in ptxas.items():
-        m = re.search(r"paged_attention_stats_kernelI(f|a|13__nv_bfloat16)(f|13__nv_bfloat16|S1_)"
-                      r"Li(\d+)E", name)
+        m = re.search(r"paged_attention_(stats|mma)_kernelI(f|a|13__nv_bfloat16)Li(\d+)E", name)
         if m:
-            pages, q = _PAGED_TYPES[m.group(1)], _PAGED_TYPES[m.group(2)]
-            key = pages + ("_bf16q" if q == "bf16" and pages == "int8" else "")
+            pages = {"f": "fp32", "a": "int8", "13__nv_bfloat16": "bf16"}[m.group(2)]
+            key = pages + ("_bf16q" if m.group(1) == "mma" and pages == "int8" else "")
             out[f"{key}_hd{m.group(3)}"] = v
     return out
+
+
+def check_mma_ptxas(ptxas: dict) -> None:
+    """The bf16-q kernel spills nothing at hd 32, 64 and 128 (where ptxas
+    printed its numbers: a build reused from an earlier run prints none)."""
+    for key, v in paged_ptxas(ptxas).items():
+        if key.startswith(("bf16_", "int8_bf16q_")):
+            check(v.get("spill_stores", 0) == 0 and v.get("spill_loads", 0) == 0
+                  and v.get("stack_frame", 0) == 0, f"the bf16-q kernel {key} spills: {v}")
 
 
 def paged_attention_bound(x) -> tuple[float, str, dict]:
@@ -990,6 +998,8 @@ def kernel_phase(dev, seed, ptxas, bf16=False) -> dict:
         errs[name] = max(float((g - w).abs().max()) for g, w in zip(got, want))
 
     errs.update(check_paged_edges(dev, seed, served_lens, kernel, plain, False, bf16))
+    if bf16:
+        check_mma_ptxas(ptxas)
 
     # Timing at the serving case, each call on inputs cold in L2; S = 16
     # beside S = 64 (the engine steps any slot prefix).
@@ -1010,7 +1020,8 @@ def kernel_phase(dev, seed, ptxas, bf16=False) -> dict:
         timed_by="cuda_graph",
         library="torch.nn.functional.scaled_dot_product_attention on pre-gathered K/V",
         ptxas=paged_ptxas(ptxas),
-        block_smem_bytes=pa.block_smem_bytes(K, hd, page, Pm, "bfloat16" if bf16 else "float32"),
+        block=pa.block_shape(K, hd, page, Pm, "bfloat16" if bf16 else "float32",
+                             "bfloat16" if bf16 else "float32"),
         clocks_after_timing=clocks,
     )
 
@@ -1114,6 +1125,8 @@ def quantized_kernel_phase(dev, seed, ptxas, bf16q=False) -> dict:
                          for out, g, w in zip(("acc", "m", "l"), got, want))
 
     errs.update(check_paged_edges(dev, seed, served_lens, kernel, plain, True, bf16q))
+    if bf16q:
+        check_mma_ptxas(ptxas)
 
     base = make(dev, seed, S, K, H, hd, page, Pm, served_lens, True)
     bit_equal_twice(kernel, base, f"B2{' bf16 q' if bf16q else ''} at the serving shape")
@@ -1131,7 +1144,8 @@ def quantized_kernel_phase(dev, seed, ptxas, bf16q=False) -> dict:
         **t64, s16=t16, bit_equal_twice=True, timed_by="cuda_graph",
         library="torch.nn.functional.scaled_dot_product_attention on pre-gathered, "
                 "dequantised K/V",
-        ptxas=paged_ptxas(ptxas), block_smem_bytes=pa.block_smem_bytes(K, hd, page, Pm, "int8"),
+        ptxas=paged_ptxas(ptxas),
+        block=pa.block_shape(K, hd, page, Pm, "int8", "bfloat16" if bf16q else "float32"),
     )
 
 
@@ -1163,6 +1177,9 @@ def cobra_kernel_phase(dev, seed, ptxas, int8, bf16=False) -> dict:
          paged_attention_bound))
     pages = "int8" if int8 else "bfloat16" if bf16 else "float32"
     K, H, hd, page, Pm = COBRA_SHAPE
+    block = pa.block_shape(K, hd, page, Pm, pages, "bfloat16" if bf16 else "float32")
+    if bf16:  # the bf16-q kernel's block fits three times an SM: one wave of 384
+        check(block["blocks_per_sm"] >= 3, f"COBRA bf16 block: {block}")
     S = COBRA_PAGED["max_slots"]
     served_lens = cobra_served_lens(seed, S)
     edges = served_lens.copy()
@@ -1197,7 +1214,7 @@ def cobra_kernel_phase(dev, seed, ptxas, int8, bf16=False) -> dict:
         **t64, s16=t16, bit_equal_twice=True, timed_by="cuda_graph",
         library="torch.nn.functional.scaled_dot_product_attention on pre-gathered"
                 + (", dequantised" if int8 else "") + " K/V",
-        ptxas=paged_ptxas(ptxas), block_smem_bytes=pa.block_smem_bytes(K, hd, page, Pm, pages),
+        ptxas=paged_ptxas(ptxas), block=block,
     )
 
 
@@ -1267,7 +1284,6 @@ def tree_kernel_phase(dev, seed, ptxas, name) -> dict:
     return emit(
         "kernel", name=name,
         shape=dict(S=S, K=N, H=H, hd=hd, page=page, Pm=Pm, tree_nodes=N,
-                   blocks_per_slot_head=-(-N // 32),
                    pools="int8 + fp32 row scales" if int8 else "bf16, bf16 q" if bf16
                    else "fp32"),
         max_abs_err=max(errs.values()), max_abs_err_by_case=errs,
@@ -1276,7 +1292,7 @@ def tree_kernel_phase(dev, seed, ptxas, name) -> dict:
         library="torch.nn.functional.scaled_dot_product_attention on pre-gathered"
                 + (", dequantised" if int8 else "") + " K/V",
         ptxas=paged_ptxas(ptxas),
-        block_smem_bytes=pa.block_smem_bytes(min(N, 32), hd, page, Pm, pages),
+        block=pa.block_shape(N, hd, page, Pm, pages, "bfloat16" if bf16 else "float32"),
     )
 
 
@@ -2944,8 +2960,9 @@ def prefill_device_share(head, make_engine, reqs) -> dict:
     ``reqs``, under torch.profiler: a marker kernel (``torch.cuda._sleep``,
     ATen's ``spin_kernel``) just before and just after every prefill call,
     all on one stream, so the kernels that ran between a pair, in device
-    order, are the prefill's. The profiler slows the host; the shares of
-    the device's busy time are what it measures."""
+    order, are the prefill's; and the paged attention kernels' share (B1
+    or B2, by name). The profiler slows the host; the shares of the
+    device's busy time are what it measures."""
     from torch.profiler import ProfilerActivity, profile
 
     make_prefill = head.make_prefill_paged_fn
@@ -2973,7 +2990,7 @@ def prefill_device_share(head, make_engine, reqs) -> dict:
     kernels = sorted((e for e in prof.events()
                       if e.device_type == torch.autograd.DeviceType.CUDA),
                      key=lambda e: e.time_range.start)
-    inside, total, prefill, markers = False, 0.0, 0.0, 0
+    inside, total, prefill, paged, markers = False, 0.0, 0.0, 0.0, 0
     for e in kernels:
         if "spin_kernel" in e.name:
             inside, markers = not inside, markers + 1
@@ -2981,10 +2998,12 @@ def prefill_device_share(head, make_engine, reqs) -> dict:
         us = e.time_range.elapsed_us()
         total += us
         prefill += us if inside else 0.0
+        paged += us if "paged_attention" in e.name else 0.0
     check(markers > 0 and markers % 2 == 0 and total > 0, ("prefill markers", markers, total))
     return dict(prefill_share_of_device_time=prefill / total, prefill_device_ms=prefill / 1e3,
                 burst_device_ms=total / 1e3, prefill_calls=markers // 2,
-                prefill_share_requests=len(reqs))
+                paged_attention_share_of_device_time=paged / total,
+                paged_attention_device_ms=paged / 1e3, prefill_share_requests=len(reqs))
 
 
 def cobra_serve_phase(dev, seed, n_requests, profile=False, kv_dtype="float32",
@@ -3000,8 +3019,8 @@ def cobra_serve_phase(dev, seed, n_requests, profile=False, kv_dtype="float32",
     ``dtype`` bf16: the same seeded weights computing in bf16 (the tower
     too), the ``cobra_serve_bf16`` lines, the sample on the card only. With
     float32 pages (either dtype) a further burst under torch.profiler
-    gives the prefill's share of the device time
-    (``prefill_device_share``). Returns (line, profile line or None,
+    gives the prefill's and the paged attention kernel's shares of the
+    device time (``prefill_device_share``). Returns (line, profile line or None,
     responses)."""
     from genrec_tpu_torch.models.cobra import Cobra
     from genrec_tpu_torch.obs.memory import tree_nbytes

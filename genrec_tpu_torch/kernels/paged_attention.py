@@ -4,16 +4,22 @@ versions.
 ``paged_attention_stats_cuda`` (B1) launches the hand-written Hopper
 kernel of ``genrec_tpu_torch/csrc/paged_attention.cu`` over float32 pools
 with a float32 q, and hands a bfloat16 q over bfloat16 pools to
-``paged_attention_stats_bf16_cuda``, the same kernel over bf16 pages.
-``paged_attention_stats_quantized_cuda`` (B2: int8 pools with one fp32
-scale per page row, dequantised inside the kernel) takes a float32 q and
-hands a bfloat16 one to ``paged_attention_stats_quantized_bf16q_cuda``.
+``paged_attention_stats_bf16_cuda``, which launches the source's bf16-q
+kernel (bf16 ``mma.sync``). ``paged_attention_stats_quantized_cuda`` (B2:
+int8 pools with one fp32 scale per page row, dequantised inside the
+kernel) takes a float32 q and hands a bfloat16 one to
+``paged_attention_stats_quantized_bf16q_cuda``, the bf16-q kernel over
+int8 pages.
 They replace the TPU kernels ``paged_attention_stats_pallas`` and
 ``paged_attention_stats_pallas_quantized`` of
 ``genrec_tpu/kernels/paged_attention.py``, whose bodies cast q, K and V to
 fp32 after the load and so serve a pool of any float type. Every variant
 computes what the Pallas body computes: q, K and V converted exactly to
-fp32 (int8 rows times their scale), then fp32 arithmetic.
+fp32 (int8 rows times their scale), then fp32 arithmetic. The bf16-q
+kernel gets there on the tensor cores: bf16 products are exact in fp32,
+an int8 row's scale multiplies the fp32 dot, and the fp32 weights enter
+e.V as three bf16 planes that carry all their bits; only the order of the
+fp32 sums differs.
 ``paged_attention_stats_ref`` and ``paged_attention_stats_quantized_ref``
 are the plain PyTorch versions (gather, upcast — for int8 dequantise —
 after the gather, einsum, mask, softmax statistics) and the numerics
@@ -71,8 +77,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
         ]
         fn.restype = ctypes.c_int
-    lib.paged_attention_block_smem.argtypes = [ctypes.c_int] * 5
-    lib.paged_attention_block_smem.restype = ctypes.c_longlong
+    if hasattr(lib, "paged_attention_block_shape"):  # builds before it lack the query
+        lib.paged_attention_block_shape.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.paged_attention_block_shape.restype = ctypes.c_int
     lib.paged_attention_error_string.argtypes = [ctypes.c_int]
     lib.paged_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -83,16 +90,24 @@ def _library() -> ctypes.CDLL:
     return bind(load_library("paged_attention"))
 
 
-# The page types of csrc/paged_attention.cu's paged_attention_block_smem.
-_PAGE_KINDS = {"float32": 0, "int8": 1, "bfloat16": 2}
+# (pages, q) -> the kind of csrc/paged_attention.cu's paged_attention_block_shape.
+_KINDS = {("float32", "float32"): 0, ("int8", "float32"): 1, ("bfloat16", "bfloat16"): 2,
+          ("int8", "bfloat16"): 3}
 
 
-def block_smem_bytes(beams: int, hd: int, page: int, Pm: int, pages: str) -> int:
-    """Dynamic shared memory a block takes at these shapes with ``beams``
-    beams a block (``min(K, 32)``: a wider query axis spreads over
-    several blocks), for ``pages`` "float32" (B1), "bfloat16" (B1 over
-    bf16 pages) or "int8" (B2)."""
-    return int(_library().paged_attention_block_smem(beams, hd, page, Pm, _PAGE_KINDS[pages]))
+def block_shape(K: int, hd: int, page: int, Pm: int, pages: str, q: str = "float32") -> dict:
+    """The launch shape of the kernel that serves these shapes, ``K`` the
+    query axis (beams or tree nodes), over ``pages`` "float32", "bfloat16"
+    or "int8" with a q of type ``q``: threads and nodes a block, blocks
+    along z a (slot, head), dynamic shared memory a block, and blocks an
+    SM on the current card (the occupancy calculator). bf16 pages take a
+    bf16 q."""
+    out = (ctypes.c_longlong * 5)()
+    lib = _library()
+    rc = lib.paged_attention_block_shape(K, hd, page, Pm, _KINDS[pages, q], out)
+    raise_on_error(lib, "paged_attention", "block_shape", rc)
+    return dict(zip(("threads", "nodes_per_block", "blocks_z", "smem_bytes", "blocks_per_sm"),
+                    (int(v) for v in out)))
 
 
 def _check_shapes(q, k_shape, v_shape, block_tables, seq_lens):
@@ -155,7 +170,8 @@ def paged_attention_stats_cuda(q, k_pool, v_pool, block_tables, seq_lens):
     bfloat16 (handed to ``paged_attention_stats_bf16_cuda``, which counts
     those launches); block_tables (S, Pm) int32; seq_lens (S,) int32; all
     contiguous on one CUDA device, any K >= 1 (beams, or a speculative
-    tree's nodes: a block takes 32 of them, more spread over blocks), hd
+    tree's nodes: a block takes 32 of them, 128 in the bf16-q kernel,
+    more spread over blocks), hd
     <= 128, any page size and Pm. Raises on anything else, and when the
     build or the launch fails. Launches on the current stream and does not
     synchronise.
@@ -172,10 +188,10 @@ paged_attention_stats_cuda.launches = 0
 
 def paged_attention_stats_bf16_cuda(q, k_pool, v_pool, block_tables, seq_lens):
     """``paged_attention_stats_cuda`` over bfloat16 pages with a bfloat16
-    q: each element converted exactly to fp32 in the kernel, then B1's
-    fp32 arithmetic; the pools are never upcast. Raises unless q and both
-    pools are bfloat16. ``paged_attention_stats_bf16_cuda.launches``
-    counts the launches."""
+    q: the bf16-q kernel (q.k and e.V on bf16 ``mma.sync`` with fp32
+    sums, e in three bf16 planes); the pools are never upcast. Raises
+    unless q and both pools are bfloat16.
+    ``paged_attention_stats_bf16_cuda.launches`` counts the launches."""
     return _b1(q, k_pool, v_pool, block_tables, seq_lens, torch.bfloat16,
                "paged_attention_stats_bf16", paged_attention_stats_bf16_cuda)
 
@@ -238,7 +254,9 @@ paged_attention_stats_quantized_cuda.launches = 0
 
 def paged_attention_stats_quantized_bf16q_cuda(q, k_pool, v_pool, block_tables, seq_lens):
     """``paged_attention_stats_quantized_cuda`` with a bfloat16 q (a bf16
-    model over int8 pages): q converted exactly to fp32 as it is staged.
+    model over int8 pages): the bf16-q kernel, each int8 value converted
+    exactly to bf16 in registers, the row's scale applied to the fp32 dot
+    and folded into e.V's weight.
     ``paged_attention_stats_quantized_bf16q_cuda.launches`` counts the
     launches."""
     return _b2(q, k_pool, v_pool, block_tables, seq_lens, torch.bfloat16,

@@ -20,8 +20,9 @@ cores, ~16 bits of each, so the same holds; the bf16 HSTU forward rounds
 silu(S) once to bf16, as its plain version does, and is also held within
 1e-2 of max |plain|). The int8 paged
 kernel dequantises with the same product as its plain version, so it
-too is held at 1e-5, and so are B1 over bf16 pages and both with a bf16 q:
-each bf16 value converts exactly to fp32, then the fp32 arithmetic. The residual cascade's ids are held exactly outside
+too is held at 1e-5, and so are B1 over bf16 pages and B2 with a bf16 q:
+bf16 mma.sync whose products are exact in fp32, the weights in three bf16
+planes that carry all their bits (tests/test_torch_paged_bf16_mma.py). The residual cascade's ids are held exactly outside
 near ties (rows whose two nearest codewords are within 1e-5 x max |dist|,
 where another summation order may pick the other one), and at most 2%
 of the rows may be near ties; qsum 1e-5 of its largest element. The
@@ -798,9 +799,11 @@ def test_paged_kernels_give_equal_bits_over_two_calls(card, int8):
 #
 # A bf16 model serves bf16 pages with a bf16 q (paged_attention_stats_bf16_cuda)
 # or int8 pages with a bf16 q (paged_attention_stats_quantized_bf16q_cuda).
-# The kernels convert each bf16 value exactly to fp32 and then run the fp32
-# variants' arithmetic, which the plain versions repeat on the same bf16
-# values: held at the fp32 variants' 1e-5.
+# Both run the mma kernel: q.k as bf16 products, exact in fp32, summed in
+# fp32 on the tensor cores (int8 K converted exactly to bf16, its row scale
+# applied to the dot); e.V with e in three bf16 planes that carry all of
+# its fp32 bits. Only the order of the fp32 sums differs from the plain
+# versions: held at the fp32 variants' 1e-5.
 
 
 def _bf16(x, q8):
@@ -872,6 +875,9 @@ BF16_SHAPES = {  # name: (S, K, H, hd, page, Pm), seq_lens, null tail
     "hd10_4_byte_copies": ((3, 4, 2, 10, 8, 2), [7, 16, 11], False),
     "full_block_hd128": ((3, 32, 1, 128, 40, 2), [80, 41, 0], False),
     "streams_8_stages": ((2, 10, 2, 128, 16, 32), [400, 130], False),
+    "hd32": ((8, 10, 6, 32, 16, 4), "random", True),
+    "hd48_not_a_multiple_of_16": ((8, 20, 6, 48, 16, 5), "random", True),
+    "k37_hd48_tree_not_a_multiple_of_16": ((6, 37, 6, 48, 16, 4), "random", True),
 }
 
 
@@ -940,6 +946,21 @@ def test_bf16_kernels_take_the_tree_node_axis(card, name, q8):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5, msg=out)
     part = kernel(**dict(x, q=x["q"][:, 32:64].contiguous()))
     torch.testing.assert_close(part[0], got[0][:, 32:64], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16_pages", "int8_pages_bf16q"])
+def test_bf16_kernels_fit_three_blocks_an_sm_at_cobra_shape(card, q8):
+    """The bf16-q kernel keeps COBRA's block (K 20: two warps of 16 nodes)
+    in a raw ring of the slot's 80 positions: three or more blocks an SM,
+    so the 384 (slot, head) blocks run in one wave. TIGER's tree (730
+    nodes) takes 6 blocks of <= 128 nodes along z, each walking the slot's
+    pages once, its 4 warps taking 16-node tiles in turn."""
+    pages = "int8" if q8 else "bfloat16"
+    cobra = pa.block_shape(20, 128, 16, 5, pages, "bfloat16")
+    assert cobra["nodes_per_block"] == 32 and cobra["blocks_z"] == 1
+    assert cobra["smem_bytes"] <= 75 * 1024 and cobra["blocks_per_sm"] >= 3
+    tree = pa.block_shape(730, 64, 16, 4, pages, "bfloat16")
+    assert tree["blocks_z"] == 6 and tree["nodes_per_block"] <= 128
 
 
 @pytest.mark.parametrize("q8", [False, True], ids=["bf16_pages", "int8_pages_bf16q"])
