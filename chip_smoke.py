@@ -249,6 +249,31 @@ line each; any failure ends the run with a traceback and a non-zero exit:
             resume points' bytes, the seconds of an asynchronous save
             (what the loop waits for), of a wait=True preemption save and
             of a restore, and the goodput buckets of the resumed epoch.
+19. amazon   the Amazon data paths over one seeded dump in the SNAP 2014
+            layout at Amazon-Beauty 5-core's counts (22,363 users, 12,101
+            items, 198,502 reviews; write_amazon_dump), its P5-layout copy
+            and 12,101 x 768 clustered item embeddings standing in for
+            sentence-T5's: (a) load_sequences through the native parser
+            (built from genrec_tpu_torch/native into build/), then through
+            Python: the caches equal, each parse's host seconds, which
+            parser ran and, if the build failed, why; (b) hstu_trainer and
+            sasrec_trainer through config/{hstu,sasrec}/amazon.gin (2
+            epochs, eval on): B5 x2, B6 x2, B3, B4 dx, B4 dW an HSTU step
+            (B5 also x2 an eval batch), B3, B4 dx, B4 dW a SASRec step and
+            nothing else, epoch losses falling, steps/s and p50 step;
+            (c) pipelines.run_two_stage TIGER (config/tiger/amazon/{rqvae,
+            tiger}.gin; RQ-VAE 20 epochs, TIGER 1 epoch, eval on 512
+            seeded users): B7 once a chunk of each collision eval and of
+            the export, a 12,101 x 3 artifact, no kernel in a TIGER step,
+            the loss falling; (d) the same for LCRec (config/lcrec/amazon/
+            {rqvae,lcrec_debug}.gin, 5 levels; random Qwen2.5-1.5B widths
+            at 2 layers over the dump's words, tp=1, 2 epochs of 12 steps):
+            a 12,101 x 5 artifact, B3, B4 dx, B4 dW once a step, no
+            non-finite step, the epoch loss falling; (e) rqvae_trainer
+            through config/rqvae/p5_amazon.gin on the P5 copy (200
+            iterations), the export through B7; and B7 at LCRec's 5 levels
+            against its plain version on one export chunk. The cuts are in
+            its `reduced` field; its launches join the kernels line's.
 
 Each phase that drives a main path sets every kernel's launch counter to 0
 just before and reads it just after. Then the kernels line, the card's
@@ -266,6 +291,7 @@ import collections
 import contextlib
 import functools
 import gc
+import gzip
 import json
 import math
 import os
@@ -5146,6 +5172,487 @@ def resume_phase(dev, seed, rank_fn=None) -> dict:
                         f"{RESUME_LCREC}"), **out)
 
 
+# ---- phase 19: the Amazon data paths ---------------------------------------
+
+BEAUTY_REVIEWS = 198502  # reviews of Amazon-Beauty's 2014 5-core dump
+# Cuts of the amazon phase (each in its `reduced` field): the trainers'
+# epochs, RQ-VAE's epochs and iterations (warm-ups cut in proportion where
+# the file's would outlast the run), TIGER's eval users, LCRec's depth (2 of
+# the 28 layers, as lcrec_tp's parity run and resume (d) cut it), its train
+# and eval samples.
+AMAZON = dict(epochs=2, rqvae_epochs=20, tiger_epochs=1, tiger_eval_users=512,
+              lcrec_layers=2, lcrec_epochs=2, lcrec_train_samples=96, lcrec_eval_samples=16,
+              p5_iterations=200, p5_warmup_iters=7, emb_dim=768, loss_window=20,
+              lcrec_widths=dict(hidden_size=1536, intermediate_size=8960, num_heads=12,
+                                num_kv_heads=2))
+AMAZON_TITLE_WORDS = ("hydrating", "matte", "gentle", "daily", "organic", "vitamin",
+                      "rose", "argan", "charcoal", "silk", "volume", "repair", "tinted",
+                      "mineral", "coconut", "lavender")
+AMAZON_NOUNS = ("cream", "serum", "shampoo", "lipstick", "mascara", "cleanser", "toner",
+                "mask", "lotion", "polish", "brush", "oil", "balm", "conditioner")
+AMAZON_CATEGORIES = (("Skin Care", "Face", "Creams & Moisturizers"), ("Hair Care", "Shampoos"),
+                     ("Makeup", "Lips", "Lipstick"), ("Makeup", "Eyes", "Mascara"),
+                     ("Skin Care", "Body", "Cleansers"), ("Fragrance", "Women"),
+                     ("Tools & Accessories", "Makeup Brushes & Tools"),
+                     ("Skin Care", "Face", "Treatments & Masks"))
+
+
+def _base36(values, width) -> list:
+    digits = "0123456789ABCDEFGHIJKLMNOPQRSTUVWXYZ"
+    out = []
+    for v in values.tolist():
+        s = []
+        for _ in range(width):
+            v, r = divmod(v, 36)
+            s.append(digits[r])
+        out.append("".join(reversed(s)))
+    return out
+
+
+def write_amazon_dump(root, *, users=BEAUTY_USERS, items=BEAUTY_ITEMS, reviews=BEAUTY_REVIEWS,
+                      seed=0, split="beauty", emb_dim=AMAZON["emb_dim"]) -> dict:
+    """A seeded dump in the SNAP 2014 layout under ``<root>/raw/<split>/``:
+    ``reviews_*_5.json.gz`` (JSON lines grouped by asin, as the 5-core files
+    are; every user and every item reviewed 5 times or more, item popularity
+    Zipf-like, a user's reviews daily over up to 14 years with gaps of ~40
+    days, some on the same day; 1% of the texts quote the timestamp key) and
+    ``meta_*.json.gz`` (one python-repr line an item, the 2014 meta's
+    literal style, with title, brand, categories, price and description),
+    plus ``<root>/processed/<split>_item_emb.npy``: clustered unit-norm
+    embeddings (`SyntheticItemEmbeddings`) standing in for sentence-T5's.
+    Returns the counts, bytes and host seconds."""
+    from genrec_tpu_torch.data.amazon import DATASET_FILES
+    from genrec_tpu_torch.data.items import SyntheticItemEmbeddings
+
+    t0 = time.perf_counter()
+    check(reviews >= 5 * max(users, items), ("a 5-core dump needs 5 reviews a user and item",
+                                             users, items, reviews))
+    rng = np.random.default_rng(seed)
+    raw = Path(root, "raw", split)
+    raw.mkdir(parents=True, exist_ok=True)
+    lens = 5 + rng.multinomial(reviews - 5 * users, (w := rng.lognormal(0.0, 1.0, users)) / w.sum())
+    pop = (np.arange(items) + 10.0) ** -0.9
+    pop = pop[rng.permutation(items)]
+    occ = np.concatenate([np.repeat(np.arange(items), 5),
+                          rng.choice(items, reviews - 5 * items, p=pop / pop.sum())])
+    rng.shuffle(occ)
+    user_of = np.repeat(np.arange(users), lens)
+    offsets = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    gaps = rng.geometric(1 / 40, reviews) - 1
+    gaps[offsets] = 0
+    run = np.cumsum(gaps)
+    run = run - run[offsets][user_of]  # days since the user's first review
+    span = np.maximum.reduceat(run, offsets)
+    day = (rng.random(users) * np.maximum(14 * 365 - span, 1)).astype(np.int64)[user_of] + run
+    ts = 946684800 + 86400 * day  # from 2000-01-01, whole days as the dumps have
+    dates = np.datetime_as_string(ts.astype("datetime64[s]"), unit="D")
+    # asins ascending with the item index, so grouping by item is asin order.
+    asins = ["B" + a for a in _base36(np.sort(rng.choice(36 ** 9, items, replace=False)), 9)]
+    uids = ["A" + u for u in _base36(rng.choice(36 ** 12, users, replace=False), 12)]
+    order = np.lexsort((rng.random(reviews), occ))
+    helpful = rng.integers(0, 5, (reviews, 2))
+    stars = rng.integers(1, 6, reviews)
+    quote = rng.random(reviews) < 0.01
+    words = rng.integers(0, len(AMAZON_TITLE_WORDS), (reviews, 3))
+    lines = []
+    for r in order.tolist():
+        y, m, d = dates[r].split("-")
+        w0, w1, w2 = (AMAZON_TITLE_WORDS[i] for i in words[r])
+        text = (f'it said \\"unixReviewTime\\": {r % 997} on the box' if quote[r]
+                else f"{w0} and {w1}, {w2} enough")
+        lines.append(
+            f'{{"reviewerID": "{uids[user_of[r]]}", "asin": "{asins[occ[r]]}", '
+            f'"reviewerName": "buyer {user_of[r]}", "helpful": [{helpful[r, 0]}, '
+            f'{helpful[r, 0] + helpful[r, 1]}], "reviewText": "{text}", "overall": '
+            f'{stars[r]}.0, "summary": "{w1} {w2}", "unixReviewTime": {ts[r]}, '
+            f'"reviewTime": "{m} {int(d)}, {y}"}}\n')
+    reviews_path = raw / DATASET_FILES[split]["reviews"]
+    with gzip.open(reviews_path, "wt", encoding="utf-8", compresslevel=1) as f:
+        f.writelines(lines)
+    meta_path = raw / DATASET_FILES[split]["meta"]
+    with gzip.open(meta_path, "wt", encoding="utf-8", compresslevel=1) as f:
+        for i, asin in enumerate(asins):
+            cats = AMAZON_CATEGORIES[i % len(AMAZON_CATEGORIES)]
+            adj = AMAZON_TITLE_WORDS[int(rng.integers(len(AMAZON_TITLE_WORDS)))]
+            noun = AMAZON_NOUNS[i % len(AMAZON_NOUNS)]
+            meta = {"asin": asin, "description": f"A {adj} {noun} for every day.",
+                    "title": f"{adj.title()} {noun.title()} No. {i}",
+                    "imUrl": f"http://ecx.images-amazon.com/images/I/{asin}.jpg",
+                    "salesRank": {"Beauty": int(rng.integers(1, 300000))},
+                    "categories": [["Beauty", *cats]],
+                    "price": round(float(rng.uniform(1, 80)), 2),
+                    "brand": f"Brand{i % 97}"}
+            f.write(repr(meta) + "\n")
+    emb_path = Path(root, "processed", f"{split}_item_emb.npy")
+    emb_path.parent.mkdir(parents=True, exist_ok=True)
+    np.save(emb_path, SyntheticItemEmbeddings(num_items=items, dim=emb_dim,
+                                              seed=seed).embeddings)
+    return dict(users=users, items=items, reviews=reviews, seconds=time.perf_counter() - t0,
+                reviews_bytes=reviews_path.stat().st_size, meta_bytes=meta_path.stat().st_size,
+                embeddings=[items, emb_dim])
+
+
+def write_p5_copy(amazon_root, p5_root, split="beauty") -> dict:
+    """The P5 layout of an Amazon root whose sequences are parsed:
+    ``sequential_data.txt`` (one line a user, "uid item ...", 1-based ids in
+    time order), ``datamaps.json`` (``item2id``), ``meta.json.gz`` (the meta
+    dump) and ``processed/<split>_item_emb.npy`` (row i = item id i + 1)."""
+    from genrec_tpu_torch.data.amazon import DATASET_FILES, load_item_asins, load_sequences
+
+    seqs, _, _ = load_sequences(str(amazon_root), split, download=False)
+    asins = load_item_asins(str(amazon_root), split)
+    raw = Path(p5_root, "raw", split)
+    raw.mkdir(parents=True, exist_ok=True)
+    with open(raw / "sequential_data.txt", "w") as f:
+        f.writelines(f"{u + 1} {' '.join(map(str, s.tolist()))}\n" for u, s in enumerate(seqs))
+    (raw / "datamaps.json").write_text(
+        json.dumps({"item2id": {a: str(i + 1) for i, a in enumerate(asins)}}))
+    shutil.copyfile(Path(amazon_root, "raw", split, DATASET_FILES[split]["meta"]),
+                    raw / "meta.json.gz")
+    emb = Path(p5_root, "processed", f"{split}_item_emb.npy")
+    emb.parent.mkdir(parents=True, exist_ok=True)
+    shutil.copyfile(Path(amazon_root, "processed", f"{split}_item_emb.npy"), emb)
+    return dict(users=len(seqs), items=len(asins))
+
+
+def amazon_parse(root, split="beauty") -> dict:
+    """(a) ``load_sequences(download=False)`` through the native parser,
+    then through the Python path: the caches' arrays equal (asins too), the
+    cache read back equal to the parse; host seconds of each, and of the
+    parser's build (0 when this checkout had built it)."""
+    from genrec_tpu_torch import native
+    from genrec_tpu_torch.data.amazon import load_sequences
+
+    cache = Path(root, "processed", f"{split}_seqs_min5.npz")
+    t0 = time.perf_counter()
+    ran = native.native_available()  # builds the parser at first use
+    out, caches = {"native_build_s": time.perf_counter() - t0}, {}
+    parse = native.parse_reviews_native
+    for use_native in (True, False):
+        cache.unlink(missing_ok=True)
+        # Without the native parser load_sequences reads the file in Python.
+        native.parse_reviews_native = parse if use_native else (lambda *a, **k: None)
+        try:
+            t0 = time.perf_counter()
+            seqs, tss, n_items = load_sequences(str(root), split, download=False)
+            out[f"{'native' if use_native else 'python'}_s"] = time.perf_counter() - t0
+        finally:
+            native.parse_reviews_native = parse
+        caches[use_native] = dict(np.load(cache))
+        again, tss2, n2 = load_sequences(str(root), split, download=False)
+        check(n2 == n_items and len(again) == len(seqs)
+              and all(np.array_equal(a, b) for a, b in zip(again, seqs))
+              and all(np.array_equal(a, b) for a, b in zip(tss2, tss)),
+              "the cache read back differs from the parse")
+    for key in caches[False]:
+        check(np.array_equal(caches[True][key], caches[False][key]),
+              f"native and Python parses differ in {key}")
+    check(set(caches[True]) == set(caches[False]) == {"items", "timestamps", "lengths",
+                                                      "num_items", "asins"}, sorted(caches[True]))
+    z = caches[False]
+    return dict(out, parser="native" if ran else "python (native build failed)",
+                native_build_error=native.build_error(), users=len(z["lengths"]),
+                items=int(z["num_items"]), reviews=int(z["lengths"].sum()),
+                min_user_reviews=int(z["lengths"].min()),
+                timestamp_years=float((z["timestamps"].max() - z["timestamps"].min())
+                                      / (365.25 * 86400)))
+
+
+@contextlib.contextmanager
+def step_events():
+    """Every PackedTrainLoop built inside the block records a CUDA event
+    after each step (beside any hook of its own); yields the list of
+    (epoch, event, the step's loss on the device)."""
+    from genrec_tpu_torch.trainers.packed_loop import PackedTrainLoop
+
+    init, events = PackedTrainLoop.__init__, []
+
+    def hooked(self, *args, **kw):
+        init(self, *args, **kw)
+        own = self.step_hook
+
+        def hook(state, m, global_step, epoch, consumed):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append((epoch, ev, m["loss"].detach()))
+            if own is not None:
+                own(state, m, global_step, epoch, consumed)
+
+        self.step_hook = hook
+
+    PackedTrainLoop.__init__ = hooked
+    try:
+        yield events
+    finally:
+        PackedTrainLoop.__init__ = init
+
+
+def step_stats(events) -> dict:
+    """Steps; steps/s, p50 / p90 step ms over the intervals between
+    consecutive steps of one epoch (evals and repacks between epochs left
+    out)."""
+    torch.cuda.synchronize()
+    ms = [a[1].elapsed_time(b[1]) for a, b in zip(events, events[1:]) if a[0] == b[0]]
+    return dict(steps=len(events), steps_per_s=1e3 * len(ms) / sum(ms),
+                step_ms_p50=float(np.percentile(ms, 50)),
+                step_ms_p90=float(np.percentile(ms, 90)))
+
+
+def logged(save_dir) -> list:
+    return [json.loads(line) for line in open(Path(save_dir, "metrics.jsonl"))]
+
+
+def epoch_losses(records, what) -> list:
+    out = [m["train/loss"] for m in records if "epoch" in m and "train/loss" in m]
+    check(len(out) >= 2 and np.isfinite(out).all(), (what, out))
+    check(out[-1] < out[0], (f"{what}: the epoch loss did not fall", out))
+    return out
+
+
+def step_losses_fall(records, what) -> list:
+    """Per-step losses (logged every step): finite, the last
+    AMAZON["loss_window"] below the first on average."""
+    n = AMAZON["loss_window"]
+    out = [m["train/loss"] for m in records if "global_step" in m and "train/loss" in m]
+    check(len(out) >= 2 * n and np.isfinite(out).all(), (what, len(out)))
+    check(np.mean(out[-n:]) < np.mean(out[:n]), (f"{what}: loss did not fall", out[:n], out[-n:]))
+    return out
+
+
+def check_exact_launches(what, launches, want) -> dict:
+    for name, count in launches.items():
+        check(count == want.get(name, 0),
+              f"{what}: {name} launched {count} times, want {want.get(name, 0)}")
+    return {k: v for k, v in launches.items() if v}
+
+
+def amazon_trainer(dev, seed, trainer, gin, bindings, save_dir) -> tuple:
+    """``trainers.<trainer>.train`` through ``gin`` and ``bindings``: (what
+    it returned, wall seconds, launches, step stats, the run's records)."""
+    import importlib
+
+    from genrec_tpu_torch import configlib
+
+    train = importlib.import_module(f"genrec_tpu_torch.trainers.{trainer}").train
+    configlib.clear_bindings()
+    configlib.clear_macros()
+    configlib.parse_file(str(HERE / gin), substitutions={"split": "beauty"})
+    try:
+        for binding in ("train.wandb_logging = False", f'train.save_dir_root = "{save_dir}"',
+                        f"train.seed = {seed}", f'train.device = "{dev}"', *bindings):
+            configlib.parse_binding(binding)
+        with step_events() as events:
+            reset_counters()
+            t0 = time.perf_counter()
+            out = train()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = read_counters()
+    finally:
+        configlib.clear_bindings()
+        configlib.clear_macros()
+    return out, wall_s, launches, step_stats(events), logged(save_dir)
+
+
+def amazon_seq_trainers(dev, seed, root, work) -> dict:
+    """(b) HSTU and SASRec through their amazon.gin (dataset_folder the
+    dump's, epochs cut to AMAZON["epochs"], eval on): B5 x2, B6 x2, B3, B4
+    dx, B4 dW an HSTU step (B5 also x2 an eval batch), B3, B4 dx, B4 dW a
+    SASRec step, no other kernel; epoch losses fall; metrics finite."""
+    from genrec_tpu_torch.data.amazon import AmazonSASRecData
+
+    ds = AmazonSASRecData(root=str(root), split="beauty", download=False)
+    n_eval = len(ds.eval_arrays("valid")["targets"])
+    out = {}
+    for trainer, per_step, per_eval_batch in (
+            ("hstu_trainer", LAUNCHES_PER_STEP, {"hstu_attention_fwd": 2}),
+            ("sasrec_trainer", SASREC_LAUNCHES_PER_STEP, {})):
+        gin = f"config/{trainer.split('_')[0]}/amazon.gin"
+        (valid, test), wall_s, launches, stats, records = amazon_trainer(
+            dev, seed, trainer, gin, (f'train.dataset_folder = "{root}"',
+                                      f"train.epochs = {AMAZON['epochs']}"),
+            work / trainer)
+        # The evals: one a epoch (valid), then the best parameters' valid and test.
+        eval_batches = (AMAZON["epochs"] + 2) * -(-n_eval // 256)
+        n = stats["steps"]
+        want = {k: v * n + per_eval_batch.get(k, 0) * eval_batches for k, v in per_step.items()}
+        check_exact_launches(f"{trainer} (amazon)", launches, want)
+        check(all(np.isfinite(v) for v in (*valid.values(), *test.values())), (valid, test))
+        perf = [m["perf/steps_per_sec"] for m in records if "perf/steps_per_sec" in m]
+        out[trainer.split("_")[0]] = dict(
+            config=gin, wall_s=wall_s, **stats, steps_per_s_by_epoch=perf,
+            epoch_loss=epoch_losses(records, trainer), eval_batches=eval_batches,
+            launches=launches, launches_per_step={k: (launches[k] - per_eval_batch.get(k, 0)
+                                                      * eval_batches) / n for k in per_step},
+            valid=valid, test=test)
+    return out
+
+
+def rqvae_export_launches(what, records, items, launches) -> int:
+    """B7 once a 4,096-item chunk in every collision eval and in the export;
+    no other kernel. Returns the evals."""
+    evals = sum("collision_rate" in m for m in records)
+    chunks = -(-items // SEM_ID_CHUNK)
+    check_exact_launches(what, launches, {"rq_cascade": chunks * (1 + evals)})
+    return evals
+
+
+def amazon_pipelines(dev, seed, root, work) -> dict:
+    """(c) and (d): pipelines.run_two_stage for TIGER (config/tiger/amazon/
+    {rqvae,tiger}.gin) and LCRec (config/lcrec/amazon/{rqvae,lcrec_debug}.gin)
+    on the dump, epochs, eval sets and LCRec's depth cut (AMAZON)."""
+    from genrec_tpu_torch import pipelines
+    from genrec_tpu_torch.data.sem_ids import load_sem_ids
+    from genrec_tpu_torch.trainers import tiger_trainer
+
+    base = (f'train.dataset_folder = "{root}"', "train.wandb_logging = False",
+            f"train.seed = {seed}")
+    rq_bindings = (f"train.epochs = {AMAZON['rqvae_epochs']}", "train.wandb_log_interval = 1")
+    out = {}
+    # (c) TIGER: the eval sets cut to a seeded AMAZON["tiger_eval_users"] rows.
+    full = tiger_trainer.TigerSeqData
+
+    class EvalCut(full):
+        def eval_arrays(self, split="valid"):
+            arrays = super().eval_arrays(split)
+            n = len(arrays["user_ids"])
+            keep = np.sort(np.random.default_rng(seed).permutation(n)[:AMAZON["tiger_eval_users"]])
+            return {k: v[keep] for k, v in arrays.items()}
+
+    runs = {
+        "tiger": ("tiger_trainer", "config/tiger/amazon/rqvae.gin",
+                  "config/tiger/amazon/tiger.gin", 3,
+                  (f"train.epochs = {AMAZON['tiger_epochs']}",), {}),
+        # LCRec writes no checkpoint here (the file's one an epoch, and the
+        # final point: resume is the resume phase's); its losses come from
+        # the steps.
+        "lcrec": ("lcrec_trainer", "config/lcrec/amazon/rqvae.gin",
+                  "config/lcrec/amazon/lcrec_debug.gin", 5,
+                  ("train.pretrained_path = None", "train.tensor_parallel = 1",
+                   *(f"train.{k} = {v}" for k, v in AMAZON["lcrec_widths"].items()),
+                   f"train.n_layers = {AMAZON['lcrec_layers']}",
+                   f"train.epochs = {AMAZON['lcrec_epochs']}",
+                   f"train.max_train_samples = {AMAZON['lcrec_train_samples']}",
+                   f"train.max_eval_samples = {AMAZON['lcrec_eval_samples']}"),
+                  LCREC_LAUNCHES_PER_STEP),
+    }
+    for name, (trainer, rq_gin, model_gin, levels, model_bindings, per_step) in runs.items():
+        wd, rq_dir, model_dir = work / f"{name}_wd", work / f"{name}_rq", work / name
+        with step_events() as events, contextlib.ExitStack() as stack:
+            if name == "tiger":
+                tiger_trainer.TigerSeqData = EvalCut
+                stack.callback(setattr, tiger_trainer, "TigerSeqData", full)
+            reset_counters()
+            t0 = time.perf_counter()
+            valid, test = pipelines.run_two_stage(
+                trainer, str(HERE / rq_gin), str(HERE / model_gin), "beauty", list(base),
+                [*rq_bindings, f'train.save_dir_root = "{rq_dir}"'],
+                [*model_bindings, 'train.save_dir_root = "{}"'.format(
+                    model_dir if name == "tiger" else "")],
+                workdir=str(wd), device=str(dev))
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = read_counters()
+        sem_ids, K = load_sem_ids(str(wd / "beauty" / "sem_ids.npz"))
+        check(sem_ids.shape == (BEAUTY_ITEMS, levels) and K == 256, (name, sem_ids.shape, K))
+        rq_records = logged(rq_dir)
+        # Stage 2's steps: the events after stage 1's (every step of both is one).
+        rq_steps = len([m for m in rq_records if "global_step" in m])
+        steps = len(events) - rq_steps
+        evals = sum("collision_rate" in m for m in rq_records)
+        want = {"rq_cascade": -(-BEAUTY_ITEMS // SEM_ID_CHUNK) * (1 + evals),
+                **{k: v * steps for k, v in per_step.items()}}
+        check_exact_launches(f"{name} pipeline", launches, want)
+        check(all(np.isfinite(v) for v in (*valid.values(), *test.values())), (valid, test))
+        step_loss = [float(x[2]) for x in events[rq_steps:]]
+        # A skipped (non-finite) step shows its loss.
+        check(np.isfinite(step_loss).all(), f"{name}: a non-finite step")
+        if name == "tiger":
+            model_losses = step_losses_fall(logged(model_dir), name)
+        else:
+            by_epoch = [float(np.mean([float(x[2]) for x in events[rq_steps:] if x[0] == e]))
+                        for e in range(AMAZON["lcrec_epochs"])]
+            check(by_epoch[-1] < by_epoch[0], ("lcrec: the epoch loss did not fall", by_epoch))
+            model_losses = step_loss
+        out[name] = dict(
+            config=f"{rq_gin} then {model_gin}", wall_s=wall_s, sem_ids=list(sem_ids.shape),
+            codebook_size=K, collision_rate=1 - len({tuple(r) for r in sem_ids.tolist()})
+            / len(sem_ids), rqvae=dict(steps=rq_steps, collision_evals=evals,
+                                       epoch_loss=epoch_losses(rq_records, f"{name} RQ-VAE")),
+            **step_stats(events[rq_steps:]),
+            loss_first=model_losses[0], loss_last=model_losses[-1], launches=launches,
+            valid=valid, test=test)
+    return out
+
+
+def amazon_p5(dev, seed, p5_root, work) -> dict:
+    """(e) rqvae_trainer.train through config/rqvae/p5_amazon.gin on the P5
+    copy, iterations cut: per-step losses fall; the export runs B7."""
+    save = work / "p5"
+    (model, sem_ids), wall_s, launches, stats, records = amazon_trainer(
+        dev, seed, "rqvae_trainer", "config/rqvae/p5_amazon.gin",
+        (f'train.dataset_folder = "{p5_root}"', f'train.sem_ids_path = "{save}/sem_ids.npz"',
+         f"train.iterations = {AMAZON['p5_iterations']}",
+         f"train.warmup_iters = {AMAZON['p5_warmup_iters']}", "train.wandb_log_interval = 1"),
+        save)
+    check(sem_ids.shape == (BEAUTY_ITEMS, 3), sem_ids.shape)
+    evals = rqvae_export_launches("p5 RQ-VAE", records, BEAUTY_ITEMS, launches)
+    losses = step_losses_fall(records, "p5 RQ-VAE")
+    return dict(config="config/rqvae/p5_amazon.gin", wall_s=wall_s, **stats,
+                loss_first=losses[0], loss_last=losses[-1], collision_evals=evals,
+                launches=launches)
+
+
+def amazon_phase(dev, seed) -> dict:
+    """Phase 19: the Amazon data paths over a seeded dump at Amazon-Beauty's
+    counts: (a) the parse, native and Python; (b) HSTU and SASRec; (c) the
+    TIGER pipeline; (d) the LCRec pipeline; (e) RQ-VAE on the P5 copy; B7 at
+    LCRec's 5 levels against its plain version."""
+    from genrec_tpu_torch.kernels import rq_cascade as rq
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root, p5_root, work = Path(tmp, "amazon"), Path(tmp, "p5_amazon"), Path(tmp, "runs")
+        dump = write_amazon_dump(root, seed=seed)
+        parse = amazon_parse(root)
+        check((parse["users"], parse["items"], parse["reviews"])
+              == (BEAUTY_USERS, BEAUTY_ITEMS, BEAUTY_REVIEWS), parse)
+        emit("amazon_parse", dump=dump, **parse)
+        t0 = time.perf_counter()
+        p5 = write_p5_copy(root, p5_root)
+        p5["seconds"] = time.perf_counter() - t0
+        seq = amazon_seq_trainers(dev, seed, root, work)
+        emit("amazon_train", **seq)
+        pipes = amazon_pipelines(dev, seed, root, work)
+        emit("amazon_pipelines", **pipes)
+        p5_run = amazon_p5(dev, seed, p5_root, work)
+    # B7 at LCRec's levels (5 x 256, D 64), one export chunk, on the card.
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((SEM_ID_CHUNK, 64), device=dev, generator=g)
+    cb = 0.7 * torch.randn((5, 256, 64), device=dev, generator=g)
+    ids, _ = rq.rq_cascade_cuda(x, cb)
+    ties = check_sem_ids("B7 at 5 levels", x, cb, ids, rq.rq_cascade_ref(x, cb)[0])
+    return emit(
+        "amazon", card=torch.cuda.get_device_name(dev), wall_s=time.perf_counter() - t_phase,
+        parse=parse, p5_copy=p5, p5=p5_run, b7_five_levels=ties,
+        launches={**{k: v["launches"] for k, v in (*seq.items(), *pipes.items())},
+                  "p5": p5_run["launches"]},
+        reduced=dict(epochs=f"hstu, sasrec 10 -> {AMAZON['epochs']}",
+                     rqvae=f"tiger and lcrec rqvae.gin 5,000 -> {AMAZON['rqvae_epochs']} epochs",
+                     tiger=f"100 -> {AMAZON['tiger_epochs']} epoch; eval "
+                           f"{AMAZON['tiger_eval_users']} seeded users of {BEAUTY_USERS}",
+                     lcrec=f"Qwen2.5-1.5B widths at {AMAZON['lcrec_layers']} of 28 layers, "
+                           "random init over the dump's words (no checkpoint, no resume "
+                           f"points); epochs 5 -> {AMAZON['lcrec_epochs']}, "
+                           f"max_train_samples 500 -> {AMAZON['lcrec_train_samples']}, "
+                           f"max_eval_samples 100 -> {AMAZON['lcrec_eval_samples']}",
+                     p5=f"iterations 300,000 -> {AMAZON['p5_iterations']}, warmup_iters 10,000 "
+                        f"-> {AMAZON['p5_warmup_iters']}"),
+        config=f"a seeded SNAP-layout dump at Amazon-Beauty's {BEAUTY_USERS} users, "
+               f"{BEAUTY_ITEMS} items, {BEAUTY_REVIEWS} reviews; item embeddings "
+               f"{BEAUTY_ITEMS} x {AMAZON['emb_dim']} (SyntheticItemEmbeddings)",
+    )
+
 
 def build_all() -> dict:
     """Every kernel library, one nvcc per source, all started together."""
@@ -5276,18 +5783,26 @@ def main(argv=None) -> int:
     phases["lcrec_tp"] = lcrec_tp_phase(dev, args.seed, args.profile)
     kernels["sharded_fused_linear_ce"] = phases["lcrec_tp"]["b8"]
     phases["resume"] = resume_phase(dev, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases["amazon"] = amazon_phase(dev, args.seed)
     phases["wall_s"] = time.perf_counter() - t_start
+    amazon = phases["amazon"]["launches"]
 
     launches = {"paged_attention_stats": (phases["serve"]["paged_attention_launches"]
                                           + phases["tiger_decode"]["paged_attention_launches"]
                                           + phases["serve_live"]["paged_attention_launches"]),
                 "paged_attention_stats_quantized":
                     phases["serve_int8"]["paged_attention_launches"],
-                "rq_cascade": phases["rqvae"]["export"]["rq_cascade_launches"],
-                **{k: phases["train"]["launches"][k] for k in LAUNCHES_PER_STEP},
-                **{k + "_lcrec": phases["lcrec_tp"]["steps"]["launches"][k]
+                # The amazon phase's launches join those of each kernel's
+                # synthetic main path: HSTU's rows, SASRec's, LCRec's, B7's.
+                "rq_cascade": (phases["rqvae"]["export"]["rq_cascade_launches"]
+                               + sum(amazon[k]["rq_cascade"] for k in ("tiger", "lcrec", "p5"))),
+                **{k: phases["train"]["launches"][k] + amazon["hstu"][k]
+                   for k in LAUNCHES_PER_STEP},
+                **{k + "_lcrec": phases["lcrec_tp"]["steps"]["launches"][k] + amazon["lcrec"][k]
                    for k in LCREC_LAUNCHES_PER_STEP},
-                **{k + "_sasrec": phases["sasrec"]["launches"][k]
+                **{k + "_sasrec": phases["sasrec"]["launches"][k] + amazon["sasrec"][k]
                    for k in SASREC_LAUNCHES_PER_STEP},
                 "paged_attention_stats_cobra": (
                     phases["cobra_serve"]["paged_attention_launches"]

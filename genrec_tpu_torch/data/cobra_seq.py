@@ -89,13 +89,28 @@ def amazon_cobra_data(
     max_text_len: int = 32,
     max_items: int = 20,
 ):
-    """Amazon wiring: sequences + sem-id artifact + HF-tokenized item text.
-    Not ported: it loads the review dumps and a sentence-transformers
-    tokenizer, neither in the repository (ROADMAP A18)."""
-    raise NotImplementedError(
-        "amazon_cobra_data: the Amazon review files and the sentence-transformers "
-        f"tokenizer {tokenizer_name!r} are not in the repository (ROADMAP A18); "
-        "use dataset='synthetic' or a callable dataset")
+    """Amazon wiring: sequences + sem-id artifact + HF-tokenized item text
+    (reference amazon_cobra.py:217-227). Needs a local HF tokenizer."""
+    from transformers import AutoTokenizer
+
+    from genrec_tpu_torch.data.amazon import load_sequences
+    from genrec_tpu_torch.data.items import load_item_texts
+    from genrec_tpu_torch.data.sem_ids import load_sem_ids
+
+    seqs, _, num_items = load_sequences(root, split)
+    sem_ids, codebook_size = load_sem_ids(sem_ids_path)
+    if len(sem_ids) != num_items:
+        raise ValueError(
+            f"sem-id artifact {sem_ids_path} has {len(sem_ids)} rows but the "
+            f"{split} split has {num_items} items — artifact from a different "
+            "split or a stale parse"
+        )
+    texts = load_item_texts(root, split)
+
+    tok = AutoTokenizer.from_pretrained(tokenizer_name)
+    enc = tok(texts, padding="max_length", truncation=True, max_length=max_text_len)
+    item_texts = np.asarray(enc["input_ids"], np.int32)
+    return CobraSeqData(seqs, sem_ids, item_texts, codebook_size, max_items=max_items)
 
 
 def synthetic_cobra_data(

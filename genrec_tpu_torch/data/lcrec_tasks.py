@@ -1,9 +1,6 @@
 """LCRec SFT task factory + tokenizers (word-level fallback and HF adapter)
-(copy of genrec_tpu/data/lcrec_tasks.py; numpy only).
-
-Copied as it is except the Amazon branch: ``amazon_lcrec_data`` and
-``load_lcrec_item_meta`` read the Amazon review and meta files, which are
-not in the repository, and raise (ROADMAP A18).
+(copy of genrec_tpu/data/lcrec_tasks.py; numpy only, ``transformers``
+only through a tokenizer the caller passes).
 
 Parity target: reference genrec/data/amazon_lcrec.py — six SFT task
 families (seqrec, item2index, index2item, fusionseqrec, itemsearch,
@@ -608,14 +605,89 @@ def synthetic_lcrec_data(
     return data, tok
 
 
-_WAITS = ("the Amazon review and meta files (dataset/amazon/raw/<split>/reviews_*_5.json.gz, "
-          "meta_*.json.gz) are not in the repository; ROADMAP A18 ports the amazon branch "
-          "when they are")
-
-
 def load_lcrec_item_meta(root: str, split: str):
-    raise NotImplementedError(_WAITS)
+    """Per-item (titles, texts, categories), item id i+1 -> row i.
+
+    Text assembly matches the reference's LCRec fields
+    (amazon_lcrec.py:283-305): text = "<title> by <brand> (<cats>)" with
+    absent parts dropped; category = first three entries of the LAST
+    categories list, comma-joined; missing items render as item_<i>."""
+    from genrec_tpu_torch.data.amazon import DATASET_FILES, load_item_asins, parse_gzip_json
+    import os
+
+    asins = load_item_asins(root, split)
+    meta_path = os.path.join(root, "raw", split, DATASET_FILES[split]["meta"])
+    metas = {}
+    if os.path.exists(meta_path):
+        metas = {r.get("asin"): r for r in parse_gzip_json(meta_path) if r.get("asin")}
+    titles, texts, cats = [], [], []
+    for i, a in enumerate(asins):
+        meta = metas.get(a, {})
+        title = (meta.get("title") or "").strip()
+        brand = (meta.get("brand") or "").strip()
+        cat_lists = meta.get("categories") or []
+        cat = ", ".join(cat_lists[-1][:3]) if cat_lists else ""
+        text = title
+        if brand:
+            text += f" by {brand}"
+        if cat:
+            text += f" ({cat})"
+        text = text.strip() or f"item_{i}"
+        titles.append(title or f"item_{i}")
+        texts.append(text)
+        cats.append(cat)
+    return titles, texts, cats
 
 
-def amazon_lcrec_data(root: str, split: str, sem_ids_path: str, **kwargs):
-    raise NotImplementedError(_WAITS)
+def amazon_lcrec_data(
+    root: str,
+    split: str,
+    sem_ids_path: str,
+    tokenizer=None,
+    max_len: int = 256,
+    max_history: int = 20,
+    task_weights=DEFAULT_TASK_WEIGHTS,
+    seed: int = 0,
+):
+    """Real-data LCRec task source: sequences + meta text from the Amazon
+    dump, sem ids from the RQ-VAE artifact, HF tokenizer when provided
+    (WordTokenizer fallback otherwise). Returns (data, tok)."""
+    from genrec_tpu_torch.data.amazon import load_sequences
+    from genrec_tpu_torch.data.sem_ids import load_sem_ids
+
+    seqs, _, num_items = load_sequences(root, split, download=False)
+    sem_ids, codebook_size = load_sem_ids(sem_ids_path)
+    if len(sem_ids) < num_items:
+        raise ValueError(
+            f"sem-id artifact covers {len(sem_ids)} items but the sequence "
+            f"data has {num_items}"
+        )
+    num_codebooks = sem_ids.shape[1]
+    titles, texts, cats = load_lcrec_item_meta(root, split)
+
+    if tokenizer is None:
+        words = sorted(
+            {w for t in texts for w in t.split()}
+            | {w for t in cats for w in t.split()}
+            | _template_words()
+        )
+        tok = WordTokenizer(words, num_codebooks, codebook_size)
+    elif isinstance(tokenizer, (WordTokenizer, HFTokenizerAdapter)):
+        tok = tokenizer
+    else:
+        tok = HFTokenizerAdapter(tokenizer, num_codebooks, codebook_size)
+
+    data = LCRecTaskData(
+        seqs,
+        sem_ids,
+        texts,
+        tok,
+        max_len=max_len,
+        max_history=max_history,
+        task_weights=task_weights,
+        seed=seed,
+        item_titles=titles,
+        item_categories=cats,
+        numbered_history=True,
+    )
+    return data, tok

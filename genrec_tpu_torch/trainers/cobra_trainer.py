@@ -23,9 +23,14 @@ the best parameters under ``best_model`` (`core.checkpoint.BestTracker`);
 ``profile_steps`` steps under torch.profiler in
 ``<save_dir_root>/profile``.
 
+``dataset="amazon"`` reads the review and meta dumps under
+``<dataset_folder>/raw/<split>/`` and the RQ-VAE's sem-id artifact
+(``sem_ids_path``) through `data.cobra_seq.amazon_cobra_data`, whose item
+text takes the sentence-T5 tokenizer by its hub name: it loads where that
+tokenizer is cached locally (``transformers`` is imported only there).
+
 Runs on one device, ``device="cuda"`` by default (it raises without a
-card unless given ``device="cpu"``). Not ported yet: the ``amazon``
-dataset branch (ROADMAP A18) and wandb forwarding.
+card unless given ``device="cpu"``). Not ported yet: wandb forwarding.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ from genrec_tpu_torch.core.preemption import PreemptionGuard
 from genrec_tpu_torch.core.profiling import ProfileWindow
 from genrec_tpu_torch.core.state import TrainState
 from genrec_tpu_torch.data.batching import batch_iterator, prefetch_to_device
-from genrec_tpu_torch.data.cobra_seq import synthetic_cobra_data
+from genrec_tpu_torch.data.cobra_seq import amazon_cobra_data, synthetic_cobra_data
 from genrec_tpu_torch.device import resolve_device
 from genrec_tpu_torch.models.cobra import Cobra, beam_fusion
 from genrec_tpu_torch.ops.metrics import TopKAccumulator
@@ -173,11 +178,6 @@ def train(
     """Train COBRA; returns (valid metrics, test metrics) of the best
     parameters by valid Recall@10 (``test_on_best``) or of the last."""
     dev = resolve_device(device)
-    if not callable(dataset) and dataset != "synthetic":
-        raise NotImplementedError(
-            f"dataset={dataset!r}: amazon_cobra_data reads the review files and a "
-            "sentence-transformers tokenizer, neither in the repository (ROADMAP A18); "
-            "use dataset='synthetic' or a callable dataset")
     logger = setup_logger(save_dir_root)
     tracker = Tracker(wandb_logging, wandb_project, save_dir=save_dir_root, logger=logger)
 
@@ -185,10 +185,16 @@ def train(
         data = dataset()
         id_vocab_size = data.id_vocab_size
         n_codebooks = data.C
-    else:
+    elif dataset == "synthetic":
         data = synthetic_cobra_data(id_vocab_size=id_vocab_size, n_codebooks=n_codebooks,
                                     text_vocab=encoder_vocab_size, max_items=max_items,
                                     seed=seed)
+    else:
+        if sem_ids_path is None:
+            raise ValueError("amazon dataset needs sem_ids_path (RQ-VAE artifact)")
+        data = amazon_cobra_data(dataset_folder, split, sem_ids_path, max_items=max_items)
+        id_vocab_size = data.id_vocab_size
+        n_codebooks = data.C
     train_arrays = data.train_arrays()
     valid_arrays = data.eval_arrays("valid")
     test_arrays = data.eval_arrays("test")

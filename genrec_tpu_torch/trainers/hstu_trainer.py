@@ -1,7 +1,7 @@
 """HSTU trainer (port of genrec_tpu/trainers/hstu_trainer.py).
 
     python -m genrec_tpu_torch.trainers.hstu_trainer config/hstu/amazon.gin \
-        --gin 'train.dataset="synthetic"' [--gin 'train.device="cpu"']
+        [--gin 'train.dataset="synthetic"'] [--gin 'train.device="cpu"']
 
 The same config files drive both packages. Epoch loop, Adam(b2=0.98) (or
 AdamW with weight decay), no LR schedule, full-vocab eval, timestamps
@@ -17,14 +17,17 @@ SIGTERM/SIGINT (the run then returns ``({}, {})``), exact resume with
 ``best_model`` (`core.checkpoint.BestTracker`), ``profile_steps`` steps
 under torch.profiler in ``<save_dir_root>/profile``.
 
+``dataset="amazon"`` reads the review dump under
+``<dataset_folder>/raw/<split>/`` (`data.amazon.AmazonSASRecData` with
+timestamps; the ``num_items`` binding is then ignored, as in JAX).
+
 Runs on one device, ``device="cuda"`` by default (it raises without a
-card unless given ``device="cpu"``). Not ported yet: the ``amazon``
-dataset branch (its files are not in the repository, ROADMAP A18) and
-wandb forwarding.
+card unless given ``device="cpu"``). Not ported yet: wandb forwarding.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 
 import torch
@@ -37,6 +40,7 @@ from genrec_tpu_torch.core.optim import Adam
 from genrec_tpu_torch.core.preemption import PreemptionGuard
 from genrec_tpu_torch.core.profiling import ProfileWindow
 from genrec_tpu_torch.core.state import TrainState
+from genrec_tpu_torch.data.amazon import AmazonSASRecData
 from genrec_tpu_torch.data.batching import pack_examples
 from genrec_tpu_torch.data.synthetic import SyntheticSeqDataset
 from genrec_tpu_torch.device import resolve_device
@@ -115,22 +119,28 @@ def train(
     """Train HSTU; returns (valid metrics, test metrics) of the best
     parameters (by valid Recall@10), as the JAX trainer does."""
     dev = resolve_device(device)
-    if dataset != "synthetic":
-        raise NotImplementedError(
-            f"dataset={dataset!r}: the port's Amazon loader (data/amazon.py) waits "
-            "for the review files to be in the repository (ROADMAP A18); use "
-            "dataset='synthetic'")
     logger = setup_logger(save_dir_root)
     tracker = Tracker(wandb_logging, wandb_project, save_dir=save_dir_root, logger=logger)
 
-    ds = SyntheticSeqDataset(max_seq_len=max_seq_len, seed=seed)
-    n_items = num_items or ds.num_items
-    valid_arrays = ds.eval_arrays_with_time("valid")
-    test_arrays = ds.eval_arrays_with_time("test")
+    if dataset == "synthetic":
+        ds = SyntheticSeqDataset(max_seq_len=max_seq_len, seed=seed)
+        n_items = num_items or ds.num_items
+        valid_arrays = ds.eval_arrays_with_time("valid")
+        test_arrays = ds.eval_arrays_with_time("test")
+        train_examples = functools.partial(ds.train_examples, with_time=True)
+        padded_train = ds.train_arrays_with_time
+    else:
+        ds = AmazonSASRecData(root=dataset_folder, split=split, max_seq_len=max_seq_len,
+                              with_timestamps=True)
+        n_items = ds.num_items
+        valid_arrays = ds.eval_arrays("valid")
+        test_arrays = ds.eval_arrays("test")
+        train_examples = ds.train_examples
+        padded_train = ds.train_arrays
 
     repack, train_arrays = None, None
     if pack_sequences:
-        examples = ds.train_examples(with_time=True)
+        examples = train_examples()
 
         def repack(epoch: int):
             arrays, rep = pack_examples(examples, row_len=max_seq_len, seed=(seed, epoch))
@@ -140,7 +150,7 @@ def train(
             arrays.pop("segment_valid")
             return arrays, rep
     else:
-        train_arrays = ds.train_arrays_with_time()
+        train_arrays = padded_train()
 
     compute_dtype = (torch.bfloat16 if (amp and mixed_precision_type == "bf16")
                      else torch.float32)

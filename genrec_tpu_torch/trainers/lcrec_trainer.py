@@ -32,11 +32,22 @@ restore and, through the OR of their guards, on the step they save at
 when one is signalled), ``best_model.rank<r>`` and ``final_model.rank<r>``
 (``best_model`` and ``final_model`` at tensor_parallel=1).
 
+``dataset="amazon"`` reads the review and meta dumps under
+``<dataset_folder>/raw/<split>/`` and the RQ-VAE's sem-id artifact
+(``sem_ids_path``, whose shape sets the codebooks) through
+`data.lcrec_tasks.amazon_lcrec_data`. Its ``pretrained_path`` is None (the
+dump's words make a `WordTokenizer`; the backbone is random at the
+configured widths), a tokenizer-only HF directory (the backbone as for
+None, its vocabulary sized to the tokenizer) or a local HF Qwen2
+checkpoint (``config.json`` + weights, read with
+``AutoModelForCausalLM.from_pretrained`` into
+`models.backbones.qwen.params_from_hf_state_dict`); ``transformers`` is
+imported only when a ``pretrained_path`` is given.
+
 Not ported yet, each raising with its ROADMAP item: LoRA (A13),
 ``num_experts``/``expert_parallel`` (A14), ``sequence_parallel`` (A15),
 ``pipeline_parallel`` (A16), data parallelism beside tensor parallelism
-(A17), ``dataset="amazon"`` and an HF ``pretrained_path`` (A18, waiting
-for their files). wandb forwarding logs a warning.
+(A17). wandb forwarding logs a warning.
 """
 
 from __future__ import annotations
@@ -57,9 +68,14 @@ from genrec_tpu_torch.core.preemption import PreemptionGuard
 from genrec_tpu_torch.core.profiling import ProfileWindow
 from genrec_tpu_torch.core.state import TrainState
 from genrec_tpu_torch.data.batching import batch_iterator
-from genrec_tpu_torch.data.lcrec_tasks import synthetic_lcrec_data
+from genrec_tpu_torch.data.lcrec_tasks import amazon_lcrec_data, synthetic_lcrec_data
 from genrec_tpu_torch.device import resolve_device
-from genrec_tpu_torch.models.backbones.qwen import QwenConfig, QwenLM, qwen_init_params
+from genrec_tpu_torch.models.backbones.qwen import (
+    QwenConfig,
+    QwenLM,
+    params_from_hf_state_dict,
+    qwen_init_params,
+)
 from genrec_tpu_torch.models.lcrec import (
     extend_vocab,
     generate_greedy,
@@ -146,8 +162,43 @@ def evaluate(gen_fn, arrays, batch_size, device, num_codebooks):
     return m
 
 
+def backbone_params(tok, pretrained_path, widths: dict, seed: int, device, max_pos: int,
+                    logger=None):
+    """(QwenConfig, full state dict on ``device``) of the amazon branch's
+    backbone before the codebook tokens: a local HF Qwen2 checkpoint's
+    weights when ``pretrained_path`` holds a ``config.json``, else a random
+    init from ``seed`` at ``widths`` with the vocabulary sized to ``tok``."""
+    hf_config = os.path.join(pretrained_path or "", "config.json")
+    if not (pretrained_path and os.path.exists(hf_config)):
+        cfg = QwenConfig(vocab_size=tok.base_vocab, **widths, max_position_embeddings=max_pos,
+                         rope_theta=10000.0, tie_word_embeddings=False)
+        return cfg, qwen_init_params(cfg, seed, device)
+    import json
+
+    from transformers import AutoModelForCausalLM
+
+    with open(hf_config) as f:
+        hc = json.load(f)
+    cfg = QwenConfig(
+        vocab_size=hc["vocab_size"], hidden_size=hc["hidden_size"],
+        intermediate_size=hc["intermediate_size"],
+        num_hidden_layers=hc["num_hidden_layers"],
+        num_attention_heads=hc["num_attention_heads"],
+        num_key_value_heads=hc.get("num_key_value_heads", hc["num_attention_heads"]),
+        max_position_embeddings=max(max_pos, hc.get("max_position_embeddings", max_pos)),
+        rope_theta=hc.get("rope_theta", 1e6), rms_norm_eps=hc.get("rms_norm_eps", 1e-6),
+        tie_word_embeddings=hc.get("tie_word_embeddings", True),
+    )
+    hf_model = AutoModelForCausalLM.from_pretrained(pretrained_path, torch_dtype=torch.float32)
+    full = params_from_hf_state_dict(hf_model.state_dict(), cfg)
+    del hf_model
+    if logger is not None:
+        logger.info(f"loaded HF backbone from {pretrained_path}")
+    return cfg, {k: v.to(device) for k, v in full.items()}
+
+
 def _refuse(tensor_parallel, world, *, use_lora, num_experts, expert_parallel,
-            sequence_parallel, pipeline_parallel, dataset, pretrained_path):
+            sequence_parallel, pipeline_parallel):
     """Raise on what the port does not run yet, naming the ROADMAP item."""
     if tensor_parallel > 1 and world == 1:
         raise RuntimeError(f"tensor_parallel={tensor_parallel} runs one process per rank: "
@@ -162,9 +213,6 @@ def _refuse(tensor_parallel, world, *, use_lora, num_experts, expert_parallel,
          "A14"),
         (sequence_parallel > 1, "sequence_parallel (ring attention)", "A15"),
         (pipeline_parallel > 1, "pipeline_parallel", "A16"),
-        (dataset != "synthetic", f"dataset={dataset!r} (its files are not in the "
-         "repository)", "A18"),
-        (bool(pretrained_path), "pretrained_path (the HF checkpoint and tokenizer)", "A18"),
     ]
     for bad, what, item in refused:
         if bad:
@@ -236,8 +284,7 @@ def train(
     world = 1 if group is None else group.size
     _refuse(tensor_parallel, world, use_lora=use_lora, num_experts=num_experts,
             expert_parallel=expert_parallel, sequence_parallel=sequence_parallel,
-            pipeline_parallel=pipeline_parallel, dataset=dataset,
-            pretrained_path=pretrained_path)
+            pipeline_parallel=pipeline_parallel)
     rank = 0 if group is None else group.rank
     tp_group = group if tensor_parallel > 1 else None
     dev = group.device if group is not None else resolve_device(device)
@@ -249,19 +296,36 @@ def train(
                      else torch.float32)
 
     tw_extra = {} if task_weights is None else {"task_weights": tuple(task_weights)}
-    data, tok = synthetic_lcrec_data(codebook_size=codebook_size,
-                                     num_codebooks=num_codebooks, seed=seed, **tw_extra)
-    data.max_len = max_text_len
-    # The backbone's vocab covers the words; extend_vocab appends the
-    # codebook tokens, as the HF resize path does.
-    cfg = QwenConfig(
-        vocab_size=tok.base_vocab, hidden_size=hidden_size,
-        intermediate_size=intermediate_size, num_hidden_layers=n_layers,
-        num_attention_heads=num_heads, num_key_value_heads=num_kv_heads,
-        max_position_embeddings=max_text_len + num_codebooks + 1, rope_theta=10000.0,
-        tie_word_embeddings=False,
-    )
-    full = qwen_init_params(cfg, seed, dev)
+    widths = dict(hidden_size=hidden_size, intermediate_size=intermediate_size,
+                  num_hidden_layers=n_layers, num_attention_heads=num_heads,
+                  num_key_value_heads=num_kv_heads)
+    if dataset == "synthetic":
+        data, tok = synthetic_lcrec_data(codebook_size=codebook_size,
+                                         num_codebooks=num_codebooks, seed=seed, **tw_extra)
+        data.max_len = max_text_len
+        # The backbone's vocab covers the words; extend_vocab appends the
+        # codebook tokens, as the HF resize path does.
+        cfg = QwenConfig(vocab_size=tok.base_vocab, **widths,
+                         max_position_embeddings=max_text_len + num_codebooks + 1,
+                         rope_theta=10000.0, tie_word_embeddings=False)
+        full = qwen_init_params(cfg, seed, dev)
+    else:
+        # Real-data path (reference amazon_lcrec.py:164-676).
+        if sem_ids_path is None:
+            raise ValueError("amazon LCRec needs sem_ids_path (RQ-VAE artifact)")
+        hf_tok = None
+        if pretrained_path:
+            from transformers import AutoTokenizer
+
+            hf_tok = AutoTokenizer.from_pretrained(pretrained_path)
+        data, tok = amazon_lcrec_data(dataset_folder, split, sem_ids_path, tokenizer=hf_tok,
+                                      max_len=max_text_len, max_history=max_history, seed=seed,
+                                      **tw_extra)
+        num_codebooks = int(data.sem_ids.shape[1])
+        codebook_size = int(tok.codebook_size)
+        cfg, full = backbone_params(
+            tok, pretrained_path, widths, seed, dev,
+            max_pos=max_text_len + max(num_codebooks, index2item_max_new) + 1, logger=logger)
     cfg, full, base_vocab = extend_vocab(
         cfg, full, num_codebooks, codebook_size,
         torch.Generator(device=dev).manual_seed(seed + 1), base=tok.base_vocab,

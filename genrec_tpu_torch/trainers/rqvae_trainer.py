@@ -23,9 +23,11 @@ fusion on a TPU v5e; on the H100 the card's numbers decide, and there
 the kernel takes about half the plain cascade's time (PERF.md, B7).
 
 Runs on one device, ``device="cuda"`` by default (it raises without a
-card unless given ``device="cpu"``). Only ``dataset="synthetic"`` and the
-cached-embedding branch (``<dataset_folder>/processed/<split>_item_emb.npy``)
-are ported; ``dataset="p5"`` raises and names the files it needs.
+card unless given ``device="cpu"``). ``dataset="synthetic"`` makes
+clustered item embeddings; ``"amazon"`` reads the cached
+``<dataset_folder>/processed/<split>_item_emb.npy`` (95/5 split by a seeded
+permutation); ``"p5"`` reads the same file beside a P5 directory
+(`data.p5_amazon.P5AmazonData`; split by the seed-42 item mask).
 ``num_items`` sizes the synthetic item set (default 2,000, as the JAX
 trainer's). Fault tolerance as the JAX trainer's: resume points under
 ``<save_dir_root>/checkpoints`` every ``save_model_every`` epochs (or
@@ -54,6 +56,7 @@ from genrec_tpu_torch.core.profiling import ProfileWindow
 from genrec_tpu_torch.core.state import TrainState
 from genrec_tpu_torch.data.batching import pad_to_batch
 from genrec_tpu_torch.data.items import ItemEmbeddingData, SyntheticItemEmbeddings
+from genrec_tpu_torch.data.p5_amazon import P5AmazonData, item_train_mask
 from genrec_tpu_torch.data.sem_ids import save_sem_ids
 from genrec_tpu_torch.device import resolve_device
 from genrec_tpu_torch.kernels.rq_cascade import rq_cascade
@@ -156,21 +159,20 @@ def train(
         raise ValueError("specify exactly one of 'epochs' or 'iterations'")
     use_epochs = epochs is not None
     dev = resolve_device(device)
-    if dataset == "p5":
-        raise NotImplementedError(
-            f"dataset='p5': the port's P5 loader (data/p5_amazon.py) is not ported; it "
-            f"reads the P5 review and meta files under {dataset_folder}/raw/{split}/ "
-            "and the item embeddings under processed/, which are not in the "
-            "repository; use dataset='synthetic'")
     logger = setup_logger(save_dir_root)
     tracker = Tracker(wandb_logging, wandb_project, save_dir=save_dir_root, logger=logger)
 
-    if dataset == "synthetic":
-        src = SyntheticItemEmbeddings(num_items=num_items, dim=vae_input_dim, seed=seed)
+    if dataset == "p5":
+        # The reference's default source (P5AmazonReviewsItemDataset): items
+        # split by the seed-42 train mask (p5_amazon.py:365-367).
+        all_x = P5AmazonData(dataset_folder, split).item_embeddings()
+        mask = item_train_mask(len(all_x))
+        train_x, eval_x = all_x[mask], all_x[~mask]
     else:
-        src = ItemEmbeddingData(root=dataset_folder, split=split)
-    train_x, eval_x = src.arrays()
-    all_x = src.embeddings
+        src = (SyntheticItemEmbeddings(num_items=num_items, dim=vae_input_dim, seed=seed)
+               if dataset == "synthetic" else ItemEmbeddingData(root=dataset_folder, split=split))
+        train_x, eval_x = src.arrays()
+        all_x = src.embeddings
 
     model = RqVae(
         input_dim=vae_input_dim, embed_dim=vae_embed_dim,

@@ -19,9 +19,12 @@ SIGTERM/SIGINT (the run then returns ``({}, {})``), exact resume with
 ``best_model`` (`core.checkpoint.BestTracker`), ``profile_steps`` steps
 under torch.profiler in ``<save_dir_root>/profile``.
 
+``dataset="amazon"`` reads the review dump under
+``<dataset_folder>/raw/<split>/`` (`data.amazon.AmazonSASRecData`; the
+``num_items`` binding is then ignored, as in JAX).
+
 Runs on one device, ``device="cuda"`` by default (it raises without a
-card unless given ``device="cpu"``). Not ported yet: the ``amazon``
-dataset branch (ROADMAP A18) and wandb forwarding.
+card unless given ``device="cpu"``). Not ported yet: wandb forwarding.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from genrec_tpu_torch.core.optim import Adam
 from genrec_tpu_torch.core.preemption import PreemptionGuard
 from genrec_tpu_torch.core.profiling import ProfileWindow
 from genrec_tpu_torch.core.state import TrainState
+from genrec_tpu_torch.data.amazon import AmazonSASRecData
 from genrec_tpu_torch.data.batching import pack_examples, right_align
 from genrec_tpu_torch.data.synthetic import SyntheticSeqDataset
 from genrec_tpu_torch.device import resolve_device
@@ -120,16 +124,15 @@ def train(
     """Train SASRec; returns (valid metrics, test metrics) of the best
     parameters (by valid Recall@10), as the JAX trainer does."""
     dev = resolve_device(device)
-    if dataset != "synthetic":
-        raise NotImplementedError(
-            f"dataset={dataset!r}: the port's Amazon loader (data/amazon.py) waits "
-            "for the review files to be in the repository (ROADMAP A18); use "
-            "dataset='synthetic'")
     logger = setup_logger(save_dir_root)
     tracker = Tracker(wandb_logging, wandb_project, save_dir=save_dir_root, logger=logger)
 
-    ds = SyntheticSeqDataset(max_seq_len=max_seq_len, seed=seed)
-    n_items = num_items or ds.num_items
+    if dataset == "synthetic":
+        ds = SyntheticSeqDataset(max_seq_len=max_seq_len, seed=seed)
+        n_items = num_items or ds.num_items
+    else:
+        ds = AmazonSASRecData(root=dataset_folder, split=split, max_seq_len=max_seq_len)
+        n_items = ds.num_items
     valid_arrays = ds.eval_arrays("valid")
     test_arrays = ds.eval_arrays("test")
 

@@ -23,8 +23,11 @@ under torch.profiler in ``<save_dir_root>/profile``.
 Runs on one device, ``device="cuda"`` by default (it raises without a
 card unless given ``device="cpu"``). The step's dropout bits come from the
 train state's generator, the eval's Gumbel noise from a generator seeded
-``seed + 1``. Not ported yet: the ``amazon`` dataset branch (ROADMAP
-A18), tensor parallelism (A29), wandb forwarding.
+``seed + 1``. ``dataset="amazon"`` reads the review dump under
+``<dataset_folder>/raw/<split>/`` and the RQ-VAE's sem-id artifact
+(``sem_ids_path``, whose codebook size it takes; ``add_disambiguation``
+appends the collision-resolving code). Not ported yet: tensor parallelism
+(A29), wandb forwarding.
 """
 
 from __future__ import annotations
@@ -41,8 +44,10 @@ from genrec_tpu_torch.core.optim import Adam
 from genrec_tpu_torch.core.preemption import PreemptionGuard
 from genrec_tpu_torch.core.profiling import ProfileWindow
 from genrec_tpu_torch.core.state import TrainState
+from genrec_tpu_torch.data.amazon import load_sequences
 from genrec_tpu_torch.data.batching import batch_iterator, pack_examples, prefetch_to_device
-from genrec_tpu_torch.data.tiger_seq import synthetic_tiger_data
+from genrec_tpu_torch.data.sem_ids import dedup_sem_ids, load_sem_ids
+from genrec_tpu_torch.data.tiger_seq import TigerSeqData, synthetic_tiger_data
 from genrec_tpu_torch.device import resolve_device
 from genrec_tpu_torch.models.tiger import Tiger, tiger_generate
 from genrec_tpu_torch.ops.metrics import TopKAccumulator
@@ -156,11 +161,6 @@ def train(
     """Train TIGER; returns (valid metrics, test metrics) of the best
     parameters by valid Recall@10 (``test_on_best``) or of the last."""
     dev = resolve_device(device)
-    if dataset != "synthetic":
-        raise NotImplementedError(
-            f"dataset={dataset!r}: the port's Amazon loader (data/amazon.py) waits "
-            "for the review files to be in the repository (ROADMAP A18); use "
-            "dataset='synthetic'")
     if tensor_parallel > 1:
         raise NotImplementedError(
             f"tensor_parallel={tensor_parallel}: TIGER under tensor parallelism (JAX "
@@ -168,8 +168,21 @@ def train(
     logger = setup_logger(save_dir_root)
     tracker = Tracker(wandb_logging, wandb_project, save_dir=save_dir_root, logger=logger)
 
-    data = synthetic_tiger_data(codebook_size=codebook_size, sem_id_dim=sem_id_dim,
-                                max_items=max_items, seed=seed, num_users=num_users)
+    if dataset == "synthetic":
+        data = synthetic_tiger_data(codebook_size=codebook_size, sem_id_dim=sem_id_dim,
+                                    max_items=max_items, seed=seed, num_users=num_users)
+    else:
+        seqs, _, _ = load_sequences(dataset_folder, split)
+        if sem_ids_path is None:
+            raise ValueError("amazon dataset needs sem_ids_path (RQ-VAE artifact)")
+        sem_ids, codebook_size = load_sem_ids(sem_ids_path)
+        if add_disambiguation:
+            # Optional 4th code resolving sem-id collisions (reference
+            # amazon.py:323-353; off in its shipped configs).
+            sem_ids = dedup_sem_ids(sem_ids, codebook_size)
+        data = TigerSeqData(seqs, sem_ids, max_items=max_items,
+                            user_hash_size=num_user_embeddings)
+        sem_id_dim = data.D
     valid_arrays = data.eval_arrays("valid")
     test_arrays = data.eval_arrays("test")
     trie = build_trie(data.valid_item_sem_ids(), codebook_size, device=dev)

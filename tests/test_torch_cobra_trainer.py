@@ -20,6 +20,9 @@ activation rounded to bf16, 2^-8, at different points of a sum); item
 vectors 1e-5; eval metrics exact (the same candidates).
 """
 
+import functools
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -49,10 +52,12 @@ from genrec_tpu_torch.data.sem_ids import random_unique_sem_ids
 from genrec_tpu_torch.models.cobra import Cobra
 from genrec_tpu_torch.ops.schedules import cosine_schedule_with_warmup
 from genrec_tpu_torch.trainers import cobra_trainer
+from tests._torch_amazon import tiny_amazon
 
 torch.set_num_threads(1)
 
 GIN = "config/cobra/synthetic.gin"
+TOK_DIR = os.path.join(os.path.dirname(__file__), "data", "tiny_hf_tokenizer")
 STEPS, TOTAL_STEPS = 5, 40
 
 
@@ -103,7 +108,7 @@ def _port(g, params, **kw):
     return model
 
 
-def test_synthetic_data_matches_jax():
+def test_synthetic_data_matches_jax(tmp_path):
     g = _gin()
     got = _data(g)
     want = jax_synthetic_cobra_data(id_vocab_size=g["id_vocab_size"],
@@ -117,8 +122,15 @@ def test_synthetic_data_matches_jax():
                  (got.eval_arrays("test"), want.eval_arrays("test"))):
         for k in b:
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
-    with pytest.raises(NotImplementedError, match="ROADMAP A18"):
-        amazon_cobra_data("dataset/amazon", "beauty", "sem_ids.npz")
+    # amazon_cobra_data is ported (A18; tests/test_torch_amazon.py holds it
+    # to JAX): a dump's histories, the artifact's tuples and the item text
+    # tokenized by a local tokenizer directory.
+    dump = tiny_amazon(tmp_path, levels=g["n_codebooks"], codebook_size=g["id_vocab_size"])
+    data = amazon_cobra_data(dump["root"], "beauty", dump["sem_ids"], tokenizer_name=TOK_DIR,
+                             max_text_len=6, max_items=g["max_items"])
+    assert (data.C, data.id_vocab_size) == (g["n_codebooks"], g["id_vocab_size"])
+    assert data.item_texts.shape == (dump["items"], 6) and (data.item_texts > 0).all()
+    assert len(data.train_arrays()["input_ids"]) > 0
 
 
 def test_train_steps_match_jax(setup):
@@ -246,17 +258,30 @@ def test_train_runs_on_the_synthetic_config(tmp_path):
     assert "train/loss_sparse" in logged and "train/codebook_entropy" in logged
 
 
-def test_unported_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A18"):
-        cobra_trainer.train(dataset="amazon", device="cpu", save_dir_root=str(tmp_path))
-    # Resume and periodic checkpoints are ported (A12): the Amazon refusal
-    # comes first whatever it is asked with.
-    with pytest.raises(NotImplementedError, match="ROADMAP A18"):
-        cobra_trainer.train(dataset="amazon", resume_from_checkpoint=True, device="cpu",
-                            save_dir_root="")
-    with pytest.raises(NotImplementedError, match="ROADMAP A18"):
-        cobra_trainer.train(dataset="amazon", epochs=4, save_every_epoch=2, device="cpu",
-                            save_dir_root=str(tmp_path))
+def test_unported_options_raise(tmp_path, monkeypatch):
+    """Nothing of COBRA's trainer is refused now: the amazon branch (A18)
+    trains over a dump and the sem-id artifact, whose tuples set the id
+    vocabulary and codebooks (here the fixture tokenizer's directory takes
+    the place of sentence-T5's, which is not in the repository), with
+    periodic checkpoints and a resumed run (A12); without the artifact it
+    refuses."""
+    g = _gin()
+    dump = tiny_amazon(tmp_path, levels=3, codebook_size=8)
+    monkeypatch.setattr(cobra_trainer, "amazon_cobra_data", functools.partial(
+        amazon_cobra_data, tokenizer_name=TOK_DIR, max_text_len=6))
+    kw = dict(_cfg(g), dataset="amazon", dataset_folder=dump["root"],
+              sem_ids_path=dump["sem_ids"], id_vocab_size=999, n_codebooks=5,
+              encoder_vocab_size=640, batch_size=16, num_warmup_steps=2, n_beam=4,
+              max_items=g["max_items"], eval_every_epoch=1, save_every_epoch=1, device="cpu",
+              save_dir_root=str(tmp_path / "run"))
+    kw.pop("decoder_dropout")
+    valid, test = cobra_trainer.train(epochs=1, **kw)
+    assert all(np.isfinite(v) and 0 <= v <= 1 for v in (*valid.values(), *test.values()))
+    assert {"codebook_acc_2"} <= set(valid) and "codebook_acc_3" not in valid
+    resumed, _ = cobra_trainer.train(epochs=2, resume_from_checkpoint=True, **kw)
+    assert set(resumed) == set(valid)
+    with pytest.raises(ValueError, match="sem_ids_path"):
+        cobra_trainer.train(**{**kw, "sem_ids_path": None, "save_dir_root": ""})
 
 
 def test_bf16_model_does_not_serve_paged():

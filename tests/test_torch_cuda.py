@@ -1002,6 +1002,7 @@ def test_paged_wrappers_route_bf16_and_refuse_mixed_types(card):
     (4096, 3, 256, 32, False),   # one export chunk at the RQ-VAE's widths
     (1000, 3, 256, 32, False),   # B not a multiple of the 32-row block
     (517, 3, 512, 64, False),    # codebooks past a block's shared memory: a level at a time
+    (4096, 5, 256, 64, False),   # LCRec's export chunk: 5 levels of 256 at D 64
     (100, 2, 70, 10, False),     # D not a multiple of 4
     (77, 1, 45, 16, False),      # L = 1, K not a multiple of 32
     (300, 3, 300, 40, False),    # K above a 256-codeword chunk, D above a warp
@@ -1219,3 +1220,18 @@ def test_hstu_trainer_resumes_exactly_on_the_card(card, tmp_path):
     eval_batches = sum(-(-len(ds.eval_arrays_with_time(s)["input_ids"]) // 256)
                        for s in ("valid", "test"))
     assert launched == [2 * 5 + 2 * eval_batches, 2 * 5, 5, 5, 5]
+
+
+def test_amazon_parse_on_the_card_host(card, tmp_path):
+    """chip_smoke's amazon phase, (a), at a small size on the machine with
+    the card: a seeded SNAP-layout dump parsed by the native parser (built
+    from the checkout's source into build/) and by Python, the caches
+    equal, the counts those written."""
+    import chip_smoke
+
+    chip_smoke.write_amazon_dump(tmp_path, users=300, items=200, reviews=2000, seed=0,
+                                 emb_dim=16)
+    out = chip_smoke.amazon_parse(tmp_path)
+    assert out["parser"] == "native", out["native_build_error"]
+    assert (out["users"], out["items"], out["reviews"]) == (300, 200, 2000)
+    assert out["min_user_reviews"] >= 5

@@ -31,6 +31,7 @@ from genrec_tpu.parallel import get_mesh
 from genrec_tpu.trainers import hstu_trainer as jtrainer
 from genrec_tpu_torch import configlib
 from genrec_tpu_torch.convert import hstu_params_from_flax
+from genrec_tpu_torch.core.checkpoint import load_params
 from genrec_tpu_torch.core.harness import make_train_step
 from genrec_tpu_torch.core.optim import Adam
 from genrec_tpu_torch.core.state import TrainState
@@ -40,6 +41,7 @@ from genrec_tpu_torch.kernels import fused_ce, hstu_attention
 from genrec_tpu_torch.models.hstu import HSTU
 from genrec_tpu_torch.trainers import hstu_trainer
 from genrec_tpu_torch.trainers.packed_loop import PackedTrainLoop
+from tests._torch_amazon import tiny_amazon
 
 torch.set_num_threads(1)
 
@@ -282,8 +284,16 @@ def test_packed_loop_max_steps_and_unported_options(tmp_path):
     # fresh start (resume points are ported, A12).
     loop.save(state, epoch=1, next_batch=0, global_step=3)
     assert loop.resume(state) == (state, 0, 0, 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A18"):
-        hstu_trainer.train(dataset="amazon", device="cpu", save_dir_root=str(tmp_path))
+    # The amazon branch (A18): AmazonSASRecData with timestamps over a dump,
+    # its item count taken from the dump (the num_items argument ignored).
+    dump = tiny_amazon(tmp_path)
+    valid, test = hstu_trainer.train(
+        dataset="amazon", dataset_folder=dump["root"], num_items=999, epochs=1, batch_size=4,
+        max_seq_len=16, embed_dim=16, num_heads=2, num_blocks=1, device="cpu",
+        save_dir_root=str(tmp_path / "amazon_run"))
+    assert all(np.isfinite(v) and 0 <= v <= 1 for v in (*valid.values(), *test.values()))
+    best = load_params(str(tmp_path / "amazon_run" / "best_model"))
+    assert best["item_embedding"].shape == (dump["items"] + 1, 16)
 
 
 def test_train_defaults_to_the_card(monkeypatch):

@@ -1,7 +1,8 @@
 """The port stands alone: genrec_tpu_torch imports neither jax nor the JAX
 package (nor does reading the repo's gin files through its configlib),
-its entry points default to the card, and chip_smoke.py refuses to
-report anything without one.
+importing it loads no ``transformers`` (the card has none; only a caller
+naming a tokenizer or checkpoint loads it), its entry points default to
+the card, and chip_smoke.py refuses to report anything without one.
 """
 
 import ast
@@ -59,7 +60,12 @@ LIVE_MODULES = ("genrec_tpu_torch.obs", "genrec_tpu_torch.obs.spans",
                 "genrec_tpu_torch.serving.catalog",
                 # The trainers' fault tolerance (ports of JAX modules importing jax).
                 "genrec_tpu_torch.core.fault_tolerance", "genrec_tpu_torch.core.chaos",
-                "genrec_tpu_torch.obs.goodput")
+                "genrec_tpu_torch.obs.goodput",
+                # The Amazon data paths (copies of framework-free JAX modules)
+                # and the two-stage runner.
+                "genrec_tpu_torch.native", "genrec_tpu_torch.native.loader",
+                "genrec_tpu_torch.data.amazon", "genrec_tpu_torch.data.p5_amazon",
+                "genrec_tpu_torch.pipelines")
 
 # Runs in a fresh interpreter: jax and friends are poisoned in
 # sys.modules, and a meta-path hook refuses genrec_tpu and genrec_tpu.*
@@ -94,6 +100,8 @@ leaked = sorted(
     if m is not None and n.split(".")[0] in FORBIDDEN
 )
 assert not leaked, leaked
+# transformers loads only where a caller names a tokenizer or checkpoint.
+assert "transformers" not in sys.modules
 print(len(names))
 """ % (FORBIDDEN, LIVE_MODULES)
 

@@ -269,14 +269,27 @@ def test_synthetic_lcrec_data_matches_jax():
     assert data.index2item_eval_arrays(16)[1] == jdata.index2item_eval_arrays(16)[1]
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP A15"):
         tl.make_sp_sft_loss(None, None)
     model = QwenLM(_port_cfg(), device="cpu")
     ids = torch.zeros((1, 3), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="ROADMAP A19"):
         tl.generate_topk_constrained(model, ids, torch.ones_like(ids), BASE, C, K, trie=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A18"):
-        from genrec_tpu_torch.data.lcrec_tasks import amazon_lcrec_data
+    # amazon_lcrec_data is ported (A18): a dump's sequences and meta text
+    # with the artifact's codebooks (tests/test_torch_amazon.py holds it to
+    # JAX); an artifact short of the dump's items is refused.
+    from genrec_tpu_torch.data.lcrec_tasks import WordTokenizer, amazon_lcrec_data
+    from tests._torch_amazon import tiny_amazon
 
-        amazon_lcrec_data("dataset/amazon", "beauty", "sem_ids.npz")
+    dump = tiny_amazon(tmp_path, levels=C, codebook_size=K)
+    data, tok = amazon_lcrec_data(dump["root"], "beauty", dump["sem_ids"], max_len=64)
+    assert isinstance(tok, WordTokenizer) and tok.codebook_size == K
+    assert data.sem_ids.shape == (dump["items"], C)
+    arrays = data.train_arrays(samples_per_user=1)
+    assert arrays["input_ids"].shape == arrays["labels"].shape
+    assert (arrays["labels"] == -100).any() and (arrays["labels"] >= 0).any()
+    short = tiny_amazon(tmp_path / "short", levels=C, codebook_size=K, items=20, users=20,
+                        reviews=100)
+    with pytest.raises(ValueError, match="covers 20 items"):
+        amazon_lcrec_data(dump["root"], "beauty", short["sem_ids"])

@@ -16,6 +16,7 @@ Adam carries that into the next step's weights).
 """
 
 import json
+import os
 import signal
 
 import jax
@@ -41,8 +42,11 @@ from genrec_tpu_torch.models.lcrec import make_tp_sharded_fused_sft_loss
 from genrec_tpu_torch.ops.schedules import cosine_schedule_with_warmup
 from genrec_tpu_torch.parallel.mesh import spawn
 from genrec_tpu_torch.trainers import lcrec_trainer
+from tests._torch_amazon import tiny_amazon
 
 torch.set_num_threads(1)
+
+TOK_DIR = os.path.join(os.path.dirname(__file__), "data", "tiny_hf_tokenizer")
 
 BASE, C, K = 90, 3, 8
 LIVE = BASE + C * K
@@ -162,7 +166,7 @@ def test_train_end_to_end_at_tp1_and_tp2(ranks, tmp_path):
     assert (tmp_path / "final_model").exists()
 
 
-def test_unported_options_name_their_roadmap_items(ranks):
+def test_unported_options_name_their_roadmap_items(ranks, tmp_path):
     (_, _, refused), _ = ranks[0]
     assert "data parallelism beside tensor parallelism" in refused
     assert "ROADMAP A17" in refused
@@ -170,8 +174,7 @@ def test_unported_options_name_their_roadmap_items(ranks):
         lcrec_trainer.train(tensor_parallel=2, **TRAIN)
     for kwargs, item in [(dict(use_lora=True), "A13"), (dict(num_experts=4), "A14"),
                          (dict(expert_parallel=2), "A14"), (dict(sequence_parallel=2), "A15"),
-                         (dict(pipeline_parallel=2), "A16"), (dict(dataset="amazon"), "A18"),
-                         (dict(pretrained_path="Qwen/Qwen2.5-1.5B"), "A18"),
+                         (dict(pipeline_parallel=2), "A16"),
                          # Resume, eval_only and profiling are ported (A12): the
                          # refusals that remain come first whatever they are asked with.
                          (dict(resume_from_checkpoint=True, use_lora=True), "A13"),
@@ -179,3 +182,18 @@ def test_unported_options_name_their_roadmap_items(ranks):
                          (dict(profile_steps=3, pipeline_parallel=2), "A16")]:
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             lcrec_trainer.train(save_dir_root=None, **{**TRAIN, **kwargs})
+    # The amazon branch and an HF pretrained_path are ported (A18): the
+    # dump's words (WordTokenizer) or a tokenizer-only directory, the
+    # codebooks from the artifact (its 3 x 8, whatever num_codebooks says).
+    dump = tiny_amazon(tmp_path, levels=C, codebook_size=K)
+    amazon = dict(TRAIN, epochs=1, max_train_samples=16, max_eval_samples=8, eval_items_limit=8,
+                  dataset="amazon", dataset_folder=dump["root"], num_codebooks=5,
+                  codebook_size=64, max_text_len=96, index2item_max_new=6)
+    with pytest.raises(ValueError, match="sem_ids_path"):
+        lcrec_trainer.train(save_dir_root=None, **amazon)
+    for path in (None, TOK_DIR):
+        valid, test = lcrec_trainer.train(save_dir_root=None, sem_ids_path=dump["sem_ids"],
+                                          pretrained_path=path, **amazon)
+        assert {f"codebook_acc_{c}" for c in range(C)} <= set(valid)
+        assert "codebook_acc_3" not in valid
+        assert all(np.isfinite(v) for v in (*valid.values(), *test.values()))

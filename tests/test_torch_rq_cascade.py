@@ -62,6 +62,7 @@ def _check(x, cb, ids, qsum, want_ids, want_qsum, max_near=0.02):
     (37, 3, 256, 32),   # ragged B (not a multiple of a block), the RQ-VAE's K and D
     (64, 1, 45, 16),    # L = 1, K not a multiple of 32
     (10, 3, 300, 8),    # K above one 256-codeword chunk
+    (40, 5, 256, 64),   # LCRec's RQ-VAE (config/lcrec/amazon/rqvae.gin): 5 levels, D 64
 ])
 def test_ref_matches_pallas_interpret(B, L, K, D):
     x, cb = _inputs(B + K, B, L, K, D)

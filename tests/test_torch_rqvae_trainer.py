@@ -25,6 +25,7 @@ import torch
 from genrec_tpu.core.harness import make_train_step as jax_make_train_step
 from genrec_tpu.core.state import TrainState as JaxTrainState
 from genrec_tpu.data import items as jitems
+from genrec_tpu.data import p5_amazon as jp5
 from genrec_tpu.data import sem_ids as jsem
 from genrec_tpu.models import rqvae as jrq
 from genrec_tpu.ops import schedules as jsched
@@ -40,6 +41,7 @@ from genrec_tpu_torch.kernels.rq_cascade import near_tie_rows
 from genrec_tpu_torch.models import rqvae as trq
 from genrec_tpu_torch.ops import schedules as tsched
 from genrec_tpu_torch.trainers import rqvae_trainer as ttrainer
+from tests._torch_amazon import tiny_amazon
 
 torch.set_num_threads(1)
 
@@ -173,14 +175,21 @@ def test_train_iteration_mode(tmp_path):
 
 def test_train_refuses_what_is_not_ported(tmp_path):
     kw = dict(device="cpu", save_dir_root=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="p5"):
-        ttrainer.train(epochs=1, dataset="p5", **kw)
-    # Periodic checkpoints and resume are ported (A12): the P5 refusal comes
-    # first whatever it is asked with.
-    with pytest.raises(NotImplementedError, match="p5"):
-        ttrainer.train(epochs=100, save_model_every=50, dataset="p5", **kw)
-    with pytest.raises(NotImplementedError, match="p5"):
-        ttrainer.train(epochs=1, resume_from_checkpoint=True, dataset="p5", **kw)
+    # dataset="p5" is ported (A18): the P5 layout's embeddings, split by the
+    # seed-42 item mask (the JAX trainer's), the export over every item.
+    dump = tiny_amazon(tmp_path, p5=True)
+    p5 = dict(dataset="p5", dataset_folder=dump["p5"], batch_size=8, vae_input_dim=24,
+              vae_hidden_dims=(16,), vae_embed_dim=8, vae_codebook_size=8,
+              kmeans_warmup_rows=100, do_eval=True, eval_every=2, device="cpu")
+    model, sem_ids = ttrainer.train(iterations=4, save_dir_root=str(tmp_path / "p5"), **p5)
+    assert sem_ids.shape == (dump["items"], 3)
+    mask = jp5.item_train_mask(dump["items"])
+    assert 0 < (~mask).sum() < mask.sum()
+    logged = (tmp_path / "p5" / "train.log").read_text()
+    assert f"kmeans init on {int(mask.sum())} rows" in logged
+    with pytest.raises(FileNotFoundError):
+        ttrainer.train(epochs=1, **{**p5, "dataset_folder": str(tmp_path / "none")},
+                       save_dir_root="")
     with pytest.raises(ValueError, match="exactly one"):
         ttrainer.train(**kw)
     with pytest.raises(FileNotFoundError):

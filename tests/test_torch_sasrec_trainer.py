@@ -34,6 +34,7 @@ import torch
 from genrec_tpu.core.harness import make_train_step as jax_make_train_step
 from genrec_tpu.core.state import TrainState as JaxTrainState
 from genrec_tpu.data import batching as jb
+from genrec_tpu.data.amazon import AmazonSASRecData as JaxAmazonSASRecData
 from genrec_tpu.data.synthetic import SyntheticSeqDataset as JaxSynthetic
 from genrec_tpu.models.sasrec import SASRec as JaxSASRec
 from genrec_tpu.parallel import get_mesh
@@ -44,10 +45,12 @@ from genrec_tpu_torch.core.harness import make_train_step
 from genrec_tpu_torch.core.optim import Adam
 from genrec_tpu_torch.core.state import TrainState
 from genrec_tpu_torch.data import batching as tb
+from genrec_tpu_torch.data.amazon import AmazonSASRecData
 from genrec_tpu_torch.data.synthetic import SyntheticSeqDataset
 from genrec_tpu_torch.kernels import fused_ce, hstu_attention
 from genrec_tpu_torch.models.sasrec import SASRec
 from genrec_tpu_torch.trainers import sasrec_trainer
+from tests._torch_amazon import tiny_amazon
 
 torch.set_num_threads(1)
 
@@ -85,8 +88,8 @@ def test_right_align_matches_jax():
     np.testing.assert_array_equal(only["targets"], arrays["targets"])
 
 
-def _batches(g, n):
-    ds = SyntheticSeqDataset(max_seq_len=g["max_seq_len"], seed=0)
+def _batches(g, n, ds=None):
+    ds = ds or SyntheticSeqDataset(max_seq_len=g["max_seq_len"], seed=0)
     arrays, _ = tb.pack_examples(ds.train_examples(), row_len=g["max_seq_len"], seed=(0, 0))
     arrays.pop("segment_valid")
     out = []
@@ -98,10 +101,24 @@ def _batches(g, n):
     raise AssertionError("not enough batches")
 
 
-@pytest.mark.parametrize("fused", [False, True], ids=["plain_ce", "fused_ce"])
-def test_five_train_steps_match_jax(fused):
+@pytest.mark.parametrize("fused,data", [(False, "synthetic"), (True, "synthetic"),
+                                        (True, "amazon")],
+                         ids=["plain_ce", "fused_ce", "amazon"])
+def test_five_train_steps_match_jax(fused, data, tmp_path):
+    """The synthetic set, or the amazon branch's data (a dump read by the
+    port's AmazonSASRecData, its train examples equal to the JAX loader's,
+    batched as the trainer batches them)."""
     g = _gin()
-    n_items = SyntheticSeqDataset(max_seq_len=g["max_seq_len"], seed=0).num_items
+    ds = None
+    if data == "amazon":
+        root = tiny_amazon(tmp_path, users=400, items=200, reviews=4000)["root"]
+        ds = AmazonSASRecData(root, "beauty", max_seq_len=g["max_seq_len"], download=False)
+        want = JaxAmazonSASRecData(root, "beauty", max_seq_len=g["max_seq_len"],
+                                   download=False).train_examples()
+        got = ds.train_examples()
+        assert len(got) == len(want) and all(
+            np.array_equal(a[k], b[k]) for a, b in zip(got, want) for k in b)
+    n_items = (ds or SyntheticSeqDataset(max_seq_len=g["max_seq_len"], seed=0)).num_items
     jm = JaxSASRec(num_items=n_items, **_cfg(g))
     params = jm.init(jax.random.key(0), jnp.zeros((1, g["max_seq_len"]), jnp.int32))["params"]
     opt = optax.adam(g["learning_rate"], b2=0.98)
@@ -122,7 +139,7 @@ def test_five_train_steps_match_jax(fused):
     state = TrainState.create(model, optimizer, seed=1)
     jgrad = jax.jit(jax.grad(lambda p, b: loss_fn(p, b, jax.random.key(2))[0]))
     grad_max = {}  # largest |JAX gradient| of each parameter over the steps
-    for i, b in enumerate(_batches(g, 5)):
+    for i, b in enumerate(_batches(g, 5, ds)):
         jb_ = {k: jnp.asarray(v) for k, v in b.items()}
         for name, gr in sasrec_params_from_flax(jax.device_get(jgrad(jstate.params, jb_))).items():
             grad_max[name] = max(grad_max.get(name, 0.0), float(gr.abs().max()))
@@ -205,12 +222,19 @@ def test_train_runs_end_to_end_on_the_cpu(tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A18"):
-        sasrec_trainer.train(dataset="amazon", device="cpu", save_dir_root=str(tmp_path))
-    # Resume is ported (A12): the Amazon refusal comes first.
-    with pytest.raises(NotImplementedError, match="ROADMAP A18"):
-        sasrec_trainer.train(dataset="amazon", resume_from_checkpoint=True, device="cpu",
-                             save_dir_root="")
+    """Nothing of SASRec's trainer is refused now: the amazon branch (A18)
+    trains over a dump, and a resumed run of it continues from the last
+    resume point (A12)."""
+    dump = tiny_amazon(tmp_path)
+    kw = dict(dataset="amazon", dataset_folder=dump["root"], batch_size=4, max_seq_len=16,
+              embed_dim=16, num_heads=2, num_blocks=1, ffn_dim=32, save_every_epoch=1,
+              device="cpu", save_dir_root=str(tmp_path / "run"))
+    valid, test = sasrec_trainer.train(epochs=1, **kw)
+    assert all(np.isfinite(v) and 0 <= v <= 1 for v in (*valid.values(), *test.values()))
+    resumed, _ = sasrec_trainer.train(epochs=2, resume_from_checkpoint=True, **kw)
+    assert set(resumed) == set(valid)
+    log = (tmp_path / "run" / "train.log").read_text()
+    assert "epoch 1 loss" in log and log.count("epoch 0 loss") == 1
 
 
 def test_train_defaults_to_the_card(monkeypatch):

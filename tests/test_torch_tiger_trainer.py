@@ -40,6 +40,7 @@ from genrec_tpu_torch.data.tiger_seq import synthetic_tiger_data
 from genrec_tpu_torch.models.tiger import Tiger
 from genrec_tpu_torch.ops.schedules import cosine_schedule_with_warmup
 from genrec_tpu_torch.trainers import tiger_trainer
+from tests._torch_amazon import tiny_amazon
 
 torch.set_num_threads(1)
 
@@ -197,13 +198,22 @@ def test_train_runs_end_to_end_on_the_cpu(tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A18"):
-        tiger_trainer.train(dataset="amazon", device="cpu", save_dir_root=str(tmp_path))
+    # The amazon branch is ported (A18): the dump's sequences and the sem-id
+    # artifact, whose codebook size it takes, with the collision-resolving
+    # fourth code where asked (4-code tuples, the trie over all of them).
+    dump = tiny_amazon(tmp_path, levels=3)
+    kw = dict(dataset="amazon", dataset_folder=dump["root"], sem_ids_path=dump["sem_ids"],
+              codebook_size=999, epochs=1, batch_size=16, num_warmup_steps=2,
+              embedding_dim=16, attn_dim=32, num_heads=4, n_layers=2, max_items=6,
+              num_user_embeddings=64, eval_batch_size=32, device="cpu")
+    for dedup in (False, True):
+        valid, test = tiger_trainer.train(add_disambiguation=dedup,
+                                          save_dir_root=str(tmp_path / f"run{dedup}"), **kw)
+        assert all(np.isfinite(v) and 0 <= v <= 1 for v in (*valid.values(), *test.values()))
+    with pytest.raises(ValueError, match="sem_ids_path"):
+        tiger_trainer.train(**{**kw, "sem_ids_path": None}, save_dir_root="")
     # Resume, profiling and periodic checkpoints are ported (A12): the
     # refusals that remain come first whatever they are asked with.
-    with pytest.raises(NotImplementedError, match="ROADMAP A18"):
-        tiger_trainer.train(dataset="amazon", resume_from_checkpoint=True, device="cpu",
-                            save_dir_root="")
     with pytest.raises(NotImplementedError, match="ROADMAP A29"):
         tiger_trainer.train(tensor_parallel=2, profile_steps=3, device="cpu", save_dir_root="")
     with pytest.raises(NotImplementedError, match="ROADMAP A29"):
