@@ -274,6 +274,38 @@ line each; any failure ends the run with a traceback and a non-zero exit:
             iterations), the export through B7; and B7 at LCRec's 5 levels
             against its plain version on one export chunk. The cuts are in
             its `reduced` field; its launches join the kernels line's.
+20. notellm  NoteLLM at QwenConfig()'s Qwen2.5-1.5B widths (28 layers, bf16,
+            the pair data's vocabulary): (a) the trainer's own model, loss
+            and optimizer (notellm_trainer.notellm_model / notellm_loss /
+            make_optimizer) on 32 rows of 128 a step, NOTELLM["steps"] timed
+            after NOTELLM["warm"] (p50, steps/s), 3 more under torch.profiler
+            (the device's busy ms a step), the peak allocated bytes; every
+            loss finite, tau moved, the paired top-5 accuracy over the eval
+            topics computed, no kernel of the port launched; (b)
+            notellm_trainer.train through config/notellm/synthetic.gin at 2
+            layers of the same widths, killed by SIGTERM mid-epoch and
+            resumed: losses and the final resume point bit for bit, the
+            same test metric.
+21. qwen_serve one ServingEngine serving LCRecGenerativeHead (5 x 256
+            codebooks, 10 beams, 12,101 items with distinct random sem-ids)
+            and NoteLLMRetrievalHead (12,101 random unit vectors of 1,536,
+            top 10), each model at the Qwen2.5-1.5B widths in bf16, ladder
+            (1, 2, 4, 8, 16) x (4, 8, 16): a burst of 256 requests a head
+            (qps, p50, p99), every LCRec answer a catalog item, 12 requests
+            a head served alone against offline generate_topk_constrained /
+            query2embedding_forward + item_topk (sem-ids and items equal,
+            scores within 1e-3), then a catalog swap each into the next
+            capacity rung (20,000 items): the answers name the new version
+            and come from the new catalog; no kernel of the port launched.
+22. lcrec_lora the LCRec SFT step under LoRA at tp=1 (rank 8, alpha 16 on
+            q_proj and v_proj; the lcrec_tp phase's 28 layers, bf16, batch
+            8 x 512): LORA["steps"] steps after LORA["warm"] launching B3
+            and B4 dx exactly once a step and B4 dW never (a frozen head),
+            the base bit-unchanged, every adapter moved, the loss fallen;
+            p50 step, the adapters' parameter count, an adapter resume
+            point's bytes; then lcrec_trainer.train with use_lora=True at 2
+            layers killed and resumed, held bit for bit. Its launches join
+            the kernels line's `_lcrec` rows (B4 dW 0 there).
 
 Each phase that drives a main path sets every kernel's launch counter to 0
 just before and reads it just after. Then the kernels line, the card's
@@ -4209,23 +4241,32 @@ def lcrec_cfg(layers: int):
     return QwenConfig(vocab_size=LCREC["base_vocab"], num_hidden_layers=layers)
 
 
-def lcrec_shard_inputs(dev, seed, *, R, V, d, vlim, dtype=torch.bfloat16):
+def lcrec_shard_inputs(dev, seed, *, R, V, d, vlim, ignore=-2, dtype=torch.bfloat16):
     """One rank's per-shard inputs of B3/B4 under B8: x (R, d) ~ N(0, 1)
     (the final RMSNorm's output), the shard's rows w (V, d) ~ N(0, 0.02)
     (the embedding's init), local targets below vlim or -1 (held on the
     other shard, half the rows), and g: the mean loss's 1 / valid, 0 on
-    the 20% of rows whose label is -100 (B8 zeroes their cotangent)."""
+    the 20% of rows whose label is -100 (B8 zeroes their cotangent).
+    With ``ignore`` -100 and no ``vlim``, the inputs of the whole head at
+    tensor_parallel=1 (``sft_loss``'s fused CE): targets over all V rows,
+    -100 on half the rows (the prompts), and g the mean's 1 / valid on
+    every row (the kernels zero the ignored ones)."""
     rng = np.random.default_rng(seed)
     t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
-    tgt = rng.integers(0, max(vlim, 1), R).astype(np.int32)
-    tgt[rng.random(R) < 0.5] = -1
-    if vlim == 0:
-        tgt[:] = -1
-    g = np.full(R, 1.0 / R, np.float32)
-    g[rng.random(R) < 0.2] = 0.0
+    if ignore == -100:
+        tgt = rng.integers(0, V, R).astype(np.int32)
+        tgt[rng.random(R) < 0.5] = ignore
+        g = np.full(R, 1.0 / max(int((tgt != ignore).sum()), 1), np.float32)
+    else:
+        tgt = rng.integers(0, max(vlim, 1), R).astype(np.int32)
+        tgt[rng.random(R) < 0.5] = -1
+        if vlim == 0:
+            tgt[:] = -1
+        g = np.full(R, 1.0 / R, np.float32)
+        g[rng.random(R) < 0.2] = 0.0
     return dict(x=t(rng.normal(size=(R, d)).astype(np.float32)).to(dtype),
                 w=t((rng.normal(size=(V, d)) * 0.02).astype(np.float32)).to(dtype),
-                targets=t(tgt), g=t(g), vlim=vlim)
+                targets=t(tgt), g=t(g), vlim=vlim, ignore=ignore)
 
 
 def lcrec_library_ce(x, w, targets):
@@ -4239,20 +4280,23 @@ def lcrec_library_ce(x, w, targets):
 def ce_lcrec_kernel_phase(dev, seed, ptxas) -> dict:
     """B3 and B4 (dx, dW) at an LCRec shard (R = 8 x 511 rows, 76,608
     vocab rows, d 1,536, bf16) with the full shard live and with a ragged
-    live-vocab limit, and at d in LCREC_DIMS at a small size, each against
-    its plain version and twice for equal bits; then timed at the shard
-    shape, with TFLOP/s, share of the bound, workspace and ptxas
-    numbers."""
+    live-vocab limit, over the whole head at tensor_parallel=1 (the LoRA
+    step's shape: all LCREC_LIVE rows, ignore_index -100, no vlim), and at
+    d in LCREC_DIMS at a small size, each against its plain version and
+    twice for equal bits; then timed at the shard shape, with TFLOP/s,
+    share of the bound, workspace and ptxas numbers."""
     from genrec_tpu_torch.kernels import fused_ce as fc
 
     R, V, d = LCREC["batch"] * (LCREC["seq"] - 1), LCREC_SHARD, lcrec_cfg(1).hidden_size
     cases = {"shard_full": dict(R=R, V=V, d=d, vlim=V),
              "shard_ragged": dict(R=R, V=V, d=d, vlim=V * 63 // 64)}
     cases.update({f"small_d{dd}": dict(R=300, V=2000, d=dd, vlim=1900) for dd in LCREC_DIMS})
+    cases["tp1_whole_head"] = dict(R=R, V=LCREC_LIVE, d=d, vlim=None, ignore=-100)
     errs = {"fwd": {}, "dx": {}, "dw": {}}
     for i, (name, shape) in enumerate(cases.items()):
         x = lcrec_shard_inputs(dev, seed + i, **shape)
-        fwd = dict(x=x["x"], w=x["w"], targets=x["targets"], ignore_index=-2, vlim=x["vlim"])
+        fwd = dict(x=x["x"], w=x["w"], targets=x["targets"], ignore_index=x["ignore"],
+                   vlim=x["vlim"])
         loss, lse = fc.fused_linear_ce_fwd_cuda(**fwd)
         torch.cuda.synchronize()
         want_loss, want_lse = fc.fused_linear_ce_ref(**fwd)
@@ -4271,7 +4315,8 @@ def ce_lcrec_kernel_phase(dev, seed, ptxas) -> dict:
         errs["dw"][name] = assert_near(f"ce dW {name}", dw, fc.fused_linear_ce_dw_ref(**bwd),
                                        BF16_TOL)
         bit_equal_twice(fc.fused_linear_ce_dw_cuda, bwd, f"ce dW {name}")
-        check(zero_tail(dw, x["vlim"]), f"{name}: pad rows past vlim must get exactly zero dW")
+        check(zero_tail(dw, shape["V"] if x["vlim"] is None else x["vlim"]),
+              f"{name}: pad rows past vlim must get exactly zero dW")
         del dw, x, fwd, bwd
         torch.cuda.empty_cache()
 
@@ -4971,21 +5016,14 @@ def qwen_vocab():
         lcrec_tasks.WordTokenizer = base
 
 
-def lcrec_resume_rank(group, seed) -> dict:
-    """(d) one rank: lcrec_trainer.train at tensor_parallel=2, 2 layers at
-    the Qwen2.5-1.5B widths and vocab: uninterrupted (a), with only rank 1
-    signalled (b), b resumed, then b's final point evaluated (eval_only)."""
-    from genrec_tpu_torch import configlib
-    from genrec_tpu_torch.core import chaos
-    from genrec_tpu_torch.trainers import lcrec_trainer
-
-    torch.backends.cuda.matmul.allow_tf32 = False  # as in main(): a fresh process
+def lcrec_resume_bindings(device, seed, extra=()) -> tuple:
+    """The gin bindings of lcrec_trainer.train in the resume runs: 2 layers
+    at the Qwen2.5-1.5B widths and vocab, RESUME_LCREC's batches and
+    epochs, no eval and no epoch-boundary save; ``extra`` after them."""
     c = RESUME_LCREC
     cfg = lcrec_cfg(c["layers"])
-    work = HERE / "build" / "resume" / "lcrec"
-    bindings = (
-        "train.tensor_parallel = 2", f'train.device = "{group.device}"',
-        f"train.seed = {seed}", f"train.n_layers = {c['layers']}",
+    return (
+        f'train.device = "{device}"', f"train.seed = {seed}", f"train.n_layers = {c['layers']}",
         f"train.hidden_size = {cfg.hidden_size}",
         f"train.intermediate_size = {cfg.intermediate_size}",
         f"train.num_heads = {cfg.num_attention_heads}",
@@ -4996,20 +5034,29 @@ def lcrec_resume_rank(group, seed) -> dict:
         f"train.max_train_samples = {c['batch'] * c['steps_per_epoch']}",
         f"train.epochs = {c['epochs']}", f"train.save_every_epoch = {c['epochs'] + 1}",
         "train.do_eval = False", "train.eval_item_tasks = False",
-        f"train.max_eval_samples = {c['eval_samples']}", "train.wandb_log_interval = 1")
+        f"train.max_eval_samples = {c['eval_samples']}", "train.wandb_log_interval = 1", *extra)
+
+
+def gin_train_run(gin, bindings, work, train_fn, ctx=contextlib.nullcontext, rank=None):
+    """``run(name, plan=None, **kw)``: ``train_fn(**kw)`` through ``gin`` and
+    ``bindings``, saving under work / name, inside ``ctx()`` and the chaos
+    ``plan``; the counters set to 0 before and read after, every save and
+    restore timed, the resume points (``rank``'s in a per-rank tree) listed."""
+    from genrec_tpu_torch import configlib
+    from genrec_tpu_torch.core import chaos
 
     def run(name, plan=None, **kw):
         configlib.clear_bindings()
         configlib.clear_macros()
-        configlib.parse_file(str(HERE / "config/lcrec/synthetic.gin"))
+        configlib.parse_file(str(HERE / gin))
         for binding in (*bindings, f'train.save_dir_root = "{work / name}"'):
             configlib.parse_binding(binding)
         log: list = []
         reset_counters()
         try:
-            with qwen_vocab(), timed_saves(log), chaos.inject(plan):
+            with ctx(), timed_saves(log), chaos.inject(plan):
                 t0 = time.perf_counter()
-                out = lcrec_trainer.train(**kw)
+                out = train_fn(**kw)
                 torch.cuda.synchronize()
                 wall_s = time.perf_counter() - t0
         finally:
@@ -5021,10 +5068,31 @@ def lcrec_resume_rank(group, seed) -> dict:
         return dict(out=out, wall_s=wall_s, launches=launches,
                     saves=[x for x in log if "step" in x],
                     restores=[x for x in log if "restore" in x],
-                    steps=ckpt_steps(work / name, group.rank),
-                    final_model=(work / name / f"final_model.rank{group.rank}").exists())
+                    steps=ckpt_steps(work / name, rank))
 
-    return dict(a=run("a"), b=run("b", chaos.ChaosPlan(kill_at_step=c["kill"], only_process=1)),
+    return run
+
+
+def lcrec_resume_rank(group, seed) -> dict:
+    """(d) one rank: lcrec_trainer.train at tensor_parallel=2, 2 layers at
+    the Qwen2.5-1.5B widths and vocab: uninterrupted (a), with only rank 1
+    signalled (b), b resumed, then b's final point evaluated (eval_only)."""
+    from genrec_tpu_torch.core import chaos
+    from genrec_tpu_torch.trainers import lcrec_trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as in main(): a fresh process
+    work = HERE / "build" / "resume" / "lcrec"
+    run_ = gin_train_run("config/lcrec/synthetic.gin",
+                         lcrec_resume_bindings(group.device, seed,
+                                               ("train.tensor_parallel = 2",)),
+                         work, lcrec_trainer.train, qwen_vocab, group.rank)
+
+    def run(name, plan=None, **kw):
+        r = run_(name, plan, **kw)
+        return dict(r, final_model=(work / name / f"final_model.rank{group.rank}").exists())
+
+    return dict(a=run("a"), b=run("b", chaos.ChaosPlan(kill_at_step=RESUME_LCREC["kill"],
+                                                       only_process=1)),
                 resumed=run("b", resume_from_checkpoint=True),
                 eval_only=run("b", eval_only=True))
 
@@ -5654,6 +5722,587 @@ def amazon_phase(dev, seed) -> dict:
     )
 
 
+# ---- phases 20-22: the Qwen families' rest (NoteLLM, LCRec serving, LoRA) ----
+
+# NoteLLM at QwenConfig()'s Qwen2.5-1.5B widths (hidden 1,536, FFN 8,960, 28
+# layers, 12 heads, 2 KV heads), bf16, random weights from --seed, over the
+# pair data's own vocabulary (config/notellm/synthetic.gin's 64 train and 16
+# eval topics), untied head, max_text_len 128 (125 words + [EMB] a row),
+# batch_pairs 16 (32 rows), AdamW (only 2-D tensors decayed, wd 0.01) on
+# the cosine warm-up, clip 1.0, tau from 3.0. Cut: the steps ("warm" +
+# "steps", then "profile_steps" under torch.profiler), lr 1e-4 (the file's
+# 1e-3 trains its 64-wide model); the trainer run at 2 layers, 2 of the
+# file's 6 epochs (16 steps each), killed at step "kill".
+NOTELLM = dict(layers=28, seq=128, batch_pairs=16, lr=1e-4, warmup=5, wd=0.01, tau=3.0,
+               warm=3, steps=20, profile_steps=1, topics=64, eval_topics=16,
+               pairs_per_topic=7, topk=5, trainer_layers=2, trainer_epochs=2, kill=20)
+# Both Qwen heads in one engine, each model at the Qwen2.5-1.5B widths in
+# bf16: LCRec with config/lcrec/amazon/lcrec.gin's 5 x 256 codebooks and
+# beam_width 10 as top_k, over Beauty's 12,101 items (distinct random
+# 5-level sem-ids); NoteLLM over 12,101 random unit vectors of 1,536, top
+# 10. The swaps go to 20,000 items: the trie's and the bank's next
+# capacity_for rung (16,384 -> 65,536).
+QWEN_SERVE = dict(layers=28, top_k=10, burst=256, sample=12, swap_items=20000,
+                  after_swap=32, batches=(1, 2, 4, 8, 16), histories=(4, 8, 16),
+                  max_wait_ms=2.0)
+# LoRA on the LCRec SFT step at tp=1: the lcrec_tp phase's model (all 28
+# layers, bf16, 5 x 256 codebook tokens) and batch (8 x 512), rank 8, alpha
+# 16 on q_proj and v_proj (lcrec_trainer's defaults), AdamW 1e-3 (a LoRA
+# rate) after a 1-step warm-up, wd 0.01, clip 1.0, one fixed batch (so the
+# loss can fall in 8 steps); the trainer run as the resume phase's (d) at
+# tp=1 (2 layers, batch 4 x 128, 2 epochs of 12 steps, killed at 13).
+LORA = dict(rank=8, alpha=16.0, targets=("q_proj", "v_proj"), lr=1e-3, warmup=1, wd=0.01,
+            warm=2, steps=6)
+LORA_LAUNCHES_PER_STEP = {"fused_linear_ce_fwd": 1, "fused_linear_ce_bwd_dx": 1,
+                          "fused_linear_ce_bwd_dw": 0}
+
+
+def qwen_widths(layers: int, **overrides):
+    """QwenConfig()'s Qwen2.5-1.5B widths at ``layers`` layers."""
+    from genrec_tpu_torch.models.backbones.qwen import QwenConfig
+
+    return QwenConfig(**{"num_hidden_layers": layers, **overrides})
+
+
+def notellm_cfg(layers: int, vocab: int):
+    """The NoteLLM trainer's QwenConfig at the Qwen2.5-1.5B widths."""
+    return qwen_widths(layers, vocab_size=vocab, max_position_embeddings=NOTELLM["seq"],
+                       rope_theta=10000.0, tie_word_embeddings=False)
+
+
+def notellm_steps(dev, seed) -> dict:
+    """(a) The trainer's own model, loss and optimizer at full width: warm
+    steps, then NOTELLM["steps"] timed (each synchronised), one more under
+    torch.profiler for the device's busy time, then the paired top-k
+    accuracy over the eval topics."""
+    from genrec_tpu_torch.core.harness import make_train_step
+    from genrec_tpu_torch.core.state import TrainState
+    from genrec_tpu_torch.data.batching import batch_iterator
+    from genrec_tpu_torch.data.notellm_pairs import NoteLLMPairData
+    from genrec_tpu_torch.trainers import notellm_trainer as nt
+
+    c = NOTELLM
+    data = NoteLLMPairData(num_topics=c["topics"], eval_topics=c["eval_topics"],
+                           max_len=c["seq"], seed=seed)
+    n = c["warm"] + c["steps"] + c["profile_steps"]
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+               for b, _ in batch_iterator(data.train_arrays(c["pairs_per_topic"]),
+                                          c["batch_pairs"], shuffle=True, seed=seed,
+                                          drop_last=True)][:n]
+    check(len(batches) == n, ("NoteLLM batches", len(batches), n))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = nt.notellm_model(notellm_cfg(c["layers"], data.tokenizer.vocab_size),
+                             torch.bfloat16, seed, c["tau"], dev)
+    opt = nt.make_optimizer(c["lr"], c["warmup"], n, c["wd"])
+    step = make_train_step(nt.notellm_loss, opt, clip_norm=1.0)
+    state = TrainState.create(model, opt, seed)
+    init_s = time.perf_counter() - t0
+    losses, stamps = [], []
+    reset_counters()
+    for b in batches[:c["warm"]]:
+        _, m = step(state, b)
+        losses.append(float(m["loss"]))
+    tau0 = model.tau.item()
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    for b in batches[c["warm"]:c["warm"] + c["steps"]]:
+        _, m = step(state, b)
+        losses.append(float(m["loss"]))  # waits for the step
+        stamps.append(time.perf_counter())
+    wall_s = time.perf_counter() - t_start
+
+    def more():
+        t = time.perf_counter()
+        for b in batches[c["warm"] + c["steps"]:]:
+            step(state, b)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    t0 = time.perf_counter()
+    prof = device_profile(more)
+    profile_s = time.perf_counter() - t0
+    launches = read_counters()
+    check(all(np.isfinite(losses)), ("NoteLLM losses", losses))
+    check(model.tau.item() != tau0, "tau did not move")
+    check(not any(launches.values()), ("NoteLLM runs no kernel of the port", launches))
+    t0 = time.perf_counter()
+    acc = nt.evaluate_retrieval(model, data.eval_arrays(), c["batch_pairs"], dev, topk=c["topk"])
+    eval_s = time.perf_counter() - t0
+    check(0.0 <= acc[f"top{c['topk']}_acc"] <= 1.0, acc)
+    step_ms = 1e3 * np.diff([t_start] + stamps)
+    out = dict(init_s=init_s, steps=c["steps"], rows_per_step=2 * c["batch_pairs"],
+               tokens_per_step=2 * c["batch_pairs"] * c["seq"], wall_s=wall_s,
+               steps_per_s=c["steps"] / wall_s, step_ms_p50=float(np.percentile(step_ms, 50)),
+               step_ms_p90=float(np.percentile(step_ms, 90)),
+               device_busy_ms_per_step=prof["device_busy_ms"] / c["profile_steps"],
+               device_idle_share=prof["device_idle_share"],
+               kernel_launches_per_step=prof["kernel_launches"] / c["profile_steps"],
+               top_kernels=prof["top_kernels"][:6], profile_s=profile_s,
+               peak_allocated_bytes=torch.cuda.max_memory_allocated(dev),
+               losses=losses, tau_first=tau0, tau_last=model.tau.item(), eval=acc,
+               eval_s=eval_s, eval_pairs=c["eval_topics"], launches=launches,
+               parameters=sum(p.numel() for p in model.parameters()))
+    del model, state, opt, step, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def notellm_resume(dev, seed) -> dict:
+    """(b) notellm_trainer.train through config/notellm/synthetic.gin at the
+    Qwen2.5-1.5B widths and 2 layers: uninterrupted, then killed by SIGTERM
+    mid-epoch 1 and resumed: held bit for bit (losses and the final resume
+    point), and the same test metric."""
+    from genrec_tpu_torch.core import chaos
+    from genrec_tpu_torch.trainers import notellm_trainer as nt
+
+    c = NOTELLM
+    cfg = qwen_widths(c["trainer_layers"])
+    work = HERE / "build" / "notellm_resume"
+    shutil.rmtree(work, ignore_errors=True)
+    run = gin_train_run(
+        "config/notellm/synthetic.gin",
+        (f'train.device = "{dev}"', f"train.seed = {seed}",
+         f"train.n_layers = {c['trainer_layers']}", f"train.hidden_size = {cfg.hidden_size}",
+         f"train.intermediate_size = {cfg.intermediate_size}",
+         f"train.num_heads = {cfg.num_attention_heads}",
+         f"train.num_kv_heads = {cfg.num_key_value_heads}",
+         f"train.max_text_len = {c['seq']}", f"train.batch_pairs = {c['batch_pairs']}",
+         f"train.learning_rate = {c['lr']}", f"train.epochs = {c['trainer_epochs']}",
+         "train.wandb_log_interval = 1"),
+        work, nt.train)
+
+    a = run("a")
+    b = run("b", chaos.ChaosPlan(kill_at_step=c["kill"]))
+    check(b["out"] == {} and b["steps"] == [c["kill"]],
+          ("the preempted NoteLLM run", b["out"], b["steps"]))
+    resumed = run("b", resume_from_checkpoint=True)
+    parity, final_step, nbytes = resume_parity("NoteLLM", work / "a", work / "b")
+    total = max(run_log(work / "a")[0])
+    # The file's 4 pairs a topic, in full batches.
+    want = c["trainer_epochs"] * (c["topics"] * 4 // c["batch_pairs"])
+    check(final_step == total == want, ("NoteLLM steps", final_step, total, want))
+    check(resumed["out"] == a["out"] and set(a["out"]) == {f"top{c['topk']}_acc"},
+          ("the resumed run's test metric", resumed["out"], a["out"]))
+    for r in (a, b, resumed):
+        check(not any(r["launches"].values()), ("NoteLLM runs no kernel", r["launches"]))
+    losses = run_log(work / "a")[0]
+    out = dict(config="config/notellm/synthetic.gin at the Qwen2.5-1.5B widths, "
+                      f"{c['trainer_layers']} layers, max_text_len {c['seq']}, "
+                      f"{c['trainer_epochs']} epochs", steps=total, kill_at_step=c["kill"],
+               parity=parity, resume_point_bytes=nbytes, test=a["out"],
+               loss_first=losses[1], loss_last=losses[total],
+               preemption_save_s=[x["s"] for x in b["saves"] if x["wait"]],
+               run_s={k: r["wall_s"] for k, r in (("a", a), ("b", b), ("resumed", resumed))})
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def notellm_phase(dev, seed) -> dict:
+    """Phase 20: NoteLLM trained at the Qwen2.5-1.5B widths: (a) the
+    trainer's step at full width, no saves; (b) the entry point killed and
+    resumed at 2 layers."""
+    t0 = time.perf_counter()
+    steps = notellm_steps(dev, seed)
+    resume = notellm_resume(dev, seed)
+    return emit("notellm", card=torch.cuda.get_device_name(dev), wall_s=time.perf_counter() - t0,
+                config=("QwenConfig() widths (hidden 1,536, FFN 8,960, 12 heads, 2 KV heads), "
+                        f"{NOTELLM['layers']} layers, bf16, untied head, the pair data's "
+                        f"vocabulary; max_text_len {NOTELLM['seq']}, batch_pairs "
+                        f"{NOTELLM['batch_pairs']}; random weights from --seed"),
+                reduced=dict(steps=f"{NOTELLM['warm']} warm + {NOTELLM['steps']} timed + "
+                                   f"{NOTELLM['profile_steps']} profiled",
+                             lr="1e-3 -> 1e-4 (the file's rate is its 64-wide model's)",
+                             trainer=f"{NOTELLM['trainer_layers']} of 28 layers, 6 -> "
+                                     f"{NOTELLM['trainer_epochs']} epochs"),
+                steps=steps, resume=resume)
+
+
+def qwen_catalog(rng, n):
+    """``n`` distinct 5-level sem-ids over 256 codes, drawn from ``rng``."""
+    codes = np.unique(rng.integers(0, LCREC["codebook_size"], (2 * n, LCREC["codebooks"])),
+                      axis=0)
+    out = codes[rng.permutation(len(codes))[:n]]
+    check(len(out) == n, len(out))
+    return out
+
+
+def unit_rows(rng, n, d):
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def qwen_heads(dev, seed, lc_catalog, nl_catalog):
+    """The LCRec and NoteLLM heads at full width, bf16, random weights."""
+    from genrec_tpu_torch.models.backbones.qwen import QwenLM, qwen_init_params
+    from genrec_tpu_torch.models.notellm import add_emb_token
+    from genrec_tpu_torch.serving.heads import LCRecGenerativeHead, NoteLLMRetrievalHead
+
+    c = QWEN_SERVE
+    lc_model, _ = lcrec_model(lcrec_cfg(c["layers"]), dev, seed, torch.bfloat16, None)
+    lc = LCRecGenerativeHead(lc_model.eval(), LCREC["base_vocab"], LCREC["codebooks"],
+                             LCREC["codebook_size"], catalog=lc_catalog, top_k=c["top_k"],
+                             name="lcrec")
+    cfg = lcrec_cfg(c["layers"])
+    full = qwen_init_params(cfg, seed + 2, dev)
+    cfg, full, emb_id = add_emb_token(cfg, full, torch.Generator(device=dev).manual_seed(seed + 3))
+    nl_model = QwenLM(cfg, dtype=torch.bfloat16, device=dev)
+    nl_model.load_state_dict(full)
+    del full
+    torch.cuda.empty_cache()
+    nl = NoteLLMRetrievalHead(nl_model.eval(), emb_id, catalog=nl_catalog, top_k=c["top_k"],
+                              name="notellm")
+    return lc, nl
+
+
+def qwen_requests(rng, n, head, lc_items, emb_id):
+    """Histories of 1 to 16 catalog items (LCRec) or query tokens (NoteLLM)."""
+    from genrec_tpu_torch.serving.types import Request
+
+    hi = max(QWEN_SERVE["histories"])
+    return [Request(head=head, history=(rng.integers(0, lc_items, int(L)) if head == "lcrec"
+                                        else rng.integers(3, emb_id, int(L))))
+            for L in rng.integers(1, hi + 1, n)]
+
+
+def qwen_offline(head, req, L):
+    """The offline answer of one request at bucket (1, L): LCRec's
+    constrained beam over the head's trie, NoteLLM's embedding -> top-k."""
+    from genrec_tpu_torch.models.lcrec import generate_topk_constrained
+    from genrec_tpu_torch.models.notellm import query2embedding_forward
+    from genrec_tpu_torch.parallel.shardings import item_topk
+
+    with torch.no_grad():
+        if head.name == "lcrec":
+            ids, mask = head.make_batch([req], 1, L)
+            Lc = head._clamp(L)
+            out = generate_topk_constrained(
+                head.model, ids, mask, head.base_vocab, head.num_codebooks, head.codebook_size,
+                beam_width=head.top_k, max_cache=Lc * head.num_codebooks + head.num_codebooks,
+                trie=head.trie)
+            sem = out.sem_ids[0].cpu().numpy()
+            return head.lookup(sem), out.log_probas[0].cpu().numpy(), sem
+        ids, mask, emb_idx = head.make_batch([req], 1, L)
+        emb = query2embedding_forward(head.model, ids, mask, emb_idx,
+                                      torch.zeros((), device=ids.device),
+                                      return_loss=False).sentence_embedding
+        scores, rows = item_topk(torch.cat([emb, torch.ones_like(emb[:, :1])], 1),
+                                 head._bank, head.top_k)
+        return rows[0].cpu().numpy() - 1, scores[0].cpu().numpy(), None
+
+
+def qwen_check_sample(name, eng, head, ladder, reqs) -> dict:
+    """Requests served alone (bucket (1, L)) against their offline answers."""
+    errs = []
+    for req in reqs:
+        resp = eng.serve(req, timeout=120)
+        L = ladder.history_bucket(max(len(req.history), 1))
+        check(resp.bucket == (1, L), (name, "served at", resp.bucket, "want", (1, L)))
+        items, scores, sem = qwen_offline(head, req, L)
+        check(np.array_equal(resp.items, items), (name, "items", resp.items, items))
+        if sem is not None:
+            check(np.array_equal(resp.sem_ids, sem), (name, "sem-ids", resp.sem_ids, sem))
+        errs.append(assert_near(f"{name} scores", torch.as_tensor(resp.scores),
+                                torch.as_tensor(scores), SAMPLE_ATOL))
+    return dict(requests=len(reqs), max_abs_score_diff=max(errs), tol=SAMPLE_ATOL)
+
+
+def qwen_burst(eng, reqs_by_head) -> dict:
+    """Every head's requests submitted at once (interleaved); qps, p50 and
+    p99 of each head's answers."""
+    futs = {h: [] for h in reqs_by_head}
+    done = {h: [] for h in reqs_by_head}
+    t0 = time.perf_counter()
+    for group in zip(*reqs_by_head.values()):
+        for h, req in zip(reqs_by_head, group):
+            futs[h].append(eng.submit(req))
+            futs[h][-1].add_done_callback(lambda _, h=h: done[h].append(time.perf_counter()))
+    out, responses = {}, {}
+    for h, fs in futs.items():
+        responses[h] = [f.result(timeout=300) for f in fs]
+    for h, fs in futs.items():
+        total = np.array([r.total_s for r in responses[h]])
+        out[h] = dict(requests=len(fs), qps=len(fs) / (max(done[h]) - t0),
+                      p50_ms=1e3 * float(np.percentile(total, 50)),
+                      p99_ms=1e3 * float(np.percentile(total, 99)),
+                      buckets=dict(collections.Counter(f"{r.bucket[0]}x{r.bucket[1]}"
+                                                       for r in responses[h])))
+    out["wall_s"] = time.perf_counter() - t0
+    return out, responses
+
+
+def check_lcrec_answers(what, responses, catalog) -> None:
+    """Every answer a catalog item: no -1, each tuple the item's sem-ids."""
+    for r in responses:
+        check((r.items >= 0).all(), (what, "an answer off the catalog", r.items))
+        check(np.array_equal(catalog.item_sem_ids[r.items], r.sem_ids),
+              (what, "items and tuples disagree", r.items, r.sem_ids))
+
+
+def qwen_serve_phase(dev, seed) -> dict:
+    """Phase 21: one ServingEngine on the card serving the LCRec head
+    (trie-constrained beams over 12,101 items) and the NoteLLM head (the
+    [EMB] embedding against a 12,101-row bank), both at the Qwen2.5-1.5B
+    widths in bf16: a burst of QWEN_SERVE["burst"] requests a head, 12
+    requests a head alone against their offline answers, then a catalog
+    swap each into the next capacity rung."""
+    from genrec_tpu_torch.catalog.snapshot import CatalogSnapshot
+    from genrec_tpu_torch.serving.buckets import BucketLadder
+    from genrec_tpu_torch.serving.engine import ServingEngine
+
+    c = QWEN_SERVE
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 19)
+    d = lcrec_cfg(1).hidden_size
+    sem = qwen_catalog(rng, CATALOG_ITEMS)
+    lc_cat = CatalogSnapshot.build(sem, LCREC["codebook_size"])
+    nl_cat = CatalogSnapshot.build(sem, LCREC["codebook_size"],
+                                   item_vecs=unit_rows(rng, CATALOG_ITEMS, d))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    lc, nl = qwen_heads(dev, seed, lc_cat, nl_cat)
+    init_s = time.perf_counter() - t0
+    ladder = BucketLadder(c["batches"], c["histories"])
+    eng = ServingEngine([lc, nl], device=dev, ladder=ladder, max_batch=max(c["batches"]),
+                        max_wait_ms=c["max_wait_ms"], handle_signals=False).start()
+    try:
+        reqs = {"lcrec": qwen_requests(rng, c["burst"], "lcrec", CATALOG_ITEMS, nl.emb_token_id),
+                "notellm": qwen_requests(rng, c["burst"], "notellm", CATALOG_ITEMS,
+                                         nl.emb_token_id)}
+        qwen_burst(eng, {h: r[:16] for h, r in reqs.items()})  # warm: cuBLAS, the allocator
+        reset_counters()
+        burst, responses = qwen_burst(eng, reqs)
+        launches = read_counters()
+        check(not any(launches.values()), ("the Qwen heads run no kernel of the port",
+                                           launches))
+        check_lcrec_answers("lcrec burst", responses["lcrec"], lc_cat)
+        # Where a micro-batch's time goes: one full batch a head alone.
+        profile = {h: device_profile(lambda h=h: qwen_burst(eng, {h: reqs[h][-16:]})[0]["wall_s"])
+                   for h in reqs}
+        profile = {h: {k: p[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share",
+                                          "kernel_launches", "top_kernels")}
+                   for h, p in profile.items()}
+        for r in responses["notellm"]:
+            check(((r.items >= 0) & (r.items < CATALOG_ITEMS)).all(), ("notellm", r.items))
+        pick = rng.choice(c["burst"], c["sample"], replace=False)
+        sample = {h: qwen_check_sample(h, eng, head, ladder, [reqs[h][i] for i in pick])
+                  for h, head in (("lcrec", lc), ("notellm", nl))}
+        # The swaps, each into the next capacity rung.
+        n2 = c["swap_items"]
+        sem2 = qwen_catalog(rng, n2)
+        lc2 = CatalogSnapshot.build(sem2, LCREC["codebook_size"])
+        nl2 = CatalogSnapshot.build(sem2, LCREC["codebook_size"], item_vecs=unit_rows(rng, n2, d))
+        rungs = {"lcrec": [lc.trie.capacity], "notellm": [nl._bank.shape[0]]}
+        t0 = time.perf_counter()
+        check(eng.stage_catalog("lcrec", lc2) and eng.stage_catalog("notellm", nl2),
+              "both swaps staged")
+        stage_s = time.perf_counter() - t0
+        deadline = time.monotonic() + 60
+        while (eng.catalog_version("lcrec"), eng.catalog_version("notellm")) != (lc2.version,
+                                                                                 nl2.version):
+            check(time.monotonic() < deadline, "the catalog swaps never landed")
+            time.sleep(0.01)
+        rungs["lcrec"].append(lc.trie.capacity)
+        rungs["notellm"].append(nl._bank.shape[0])
+        check(all(new > old for old, new in rungs.values()), ("the swaps' rungs", rungs))
+        after = {"lcrec": qwen_requests(rng, c["after_swap"], "lcrec", n2, nl.emb_token_id),
+                 "notellm": qwen_requests(rng, c["after_swap"], "notellm", n2, nl.emb_token_id)}
+        _, responses2 = qwen_burst(eng, after)
+        for h, snap in (("lcrec", lc2), ("notellm", nl2)):
+            check(all(r.catalog_version == snap.version for r in responses2[h]),
+                  (h, "an answer after the swap names another version"))
+        check_lcrec_answers("lcrec after the swap", responses2["lcrec"], lc2)
+        check(any((r.items >= CATALOG_ITEMS).any() for r in responses2["notellm"]),
+              "no NoteLLM answer reached the new items")
+        swapped = {h: qwen_check_sample(h + " after the swap", eng, head, ladder, after[h][:2])
+                   for h, head in (("lcrec", lc), ("notellm", nl))}
+        stats = eng.stats()
+    finally:
+        eng.stop()
+    peak = torch.cuda.max_memory_allocated(dev)
+    del lc, nl, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return emit(
+        "qwen_serve", card=torch.cuda.get_device_name(dev), wall_s=time.perf_counter() - t_phase,
+        config=("LCRecGenerativeHead + NoteLLMRetrievalHead in one ServingEngine, each model "
+                f"QwenConfig() widths, {c['layers']} layers, bf16, random weights from --seed; "
+                f"LCRec {LCREC['codebooks']} x {LCREC['codebook_size']} codebooks, "
+                f"{c['top_k']} beams; NoteLLM {CATALOG_ITEMS} x {d} unit vectors, top "
+                f"{c['top_k']}; {CATALOG_ITEMS} items; ladder {list(c['batches'])} x "
+                f"{list(c['histories'])}"),
+        init_s=init_s, burst=burst, sample=sample, launches=launches, profile=profile,
+        swap=dict(items=n2, rungs=rungs, stage_s=stage_s, after=swapped,
+                  catalog_swaps=stats.get("catalog_swaps")),
+        peak_allocated_bytes=peak,
+        reduced=dict(weights="random (no Qwen2.5-1.5B checkpoint or note corpus in the "
+                             "repository)"))
+
+
+def lcrec_lora_steps(dev, seed) -> dict:
+    """(a) The LoRA SFT step at full width: warm steps, then LORA["steps"]
+    with the launch counters at 0 before and read after; the base checked
+    bit for bit, the adapters moved, the loss fallen; an adapter resume
+    point written and measured."""
+    from genrec_tpu_torch.core.checkpoint import CheckpointManager, read_record
+    from genrec_tpu_torch.core.fault_tolerance import save_resume_point
+    from genrec_tpu_torch.core.harness import make_train_step
+    from genrec_tpu_torch.core.lora import LoraAdapters, lora_init, lora_param_count
+    from genrec_tpu_torch.core.optim import Adam
+    from genrec_tpu_torch.core.state import TrainState
+    from genrec_tpu_torch.models.lcrec import sft_loss
+    from genrec_tpu_torch.ops.schedules import cosine_schedule_with_warmup
+    from genrec_tpu_torch.trainers.lcrec_trainer import lora_loss_fn
+
+    c = LORA
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model, live = lcrec_model(lcrec_cfg(LCREC["layers"]), dev, seed, torch.bfloat16, None)
+    for p in model.parameters():
+        p.requires_grad_(False)
+    base = {k: v.clone() for k, v in model.state_dict().items()}
+    adapters = LoraAdapters(lora_init(dict(model.named_parameters()),
+                                      torch.Generator(device=dev).manual_seed(seed + 7),
+                                      c["rank"], c["targets"]))
+    start = {k: v.clone() for k, v in adapters.state_dict().items()}
+
+    def base_loss(m, b):
+        return sft_loss(m, b["input_ids"], b["attention_mask"], b["labels"], valid_vocab=live,
+                        use_fused_ce=True)
+
+    n = c["warm"] + c["steps"]
+    opt = Adam(cosine_schedule_with_warmup(c["lr"], c["warmup"], n), weight_decay=c["wd"])
+    step = make_train_step(lora_loss_fn(model, base_loss, c["alpha"], c["rank"]), opt,
+                           clip_norm=1.0)
+    state = TrainState.create(adapters, opt, seed)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in lcrec_tokens(seed + 300, LCREC["batch"], LCREC["seq"], live).items()}
+    init_s = time.perf_counter() - t0
+    losses = []
+    for _ in range(c["warm"]):
+        _, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    reset_counters()
+    stamps, t_start = [], time.perf_counter()
+    for _ in range(c["steps"]):
+        _, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        check(float(m["nonfinite"]) == 0.0, "a non-finite LoRA step")
+        stamps.append(time.perf_counter())
+    wall_s = time.perf_counter() - t_start
+    launches = read_counters()
+    for name, count in launches.items():
+        want = c["steps"] * LORA_LAUNCHES_PER_STEP.get(name, 0)
+        check(count == want, f"LoRA step: {name} launched {count} times in {c['steps']} "
+                             f"steps, want {want}")
+    differ = [k for k, v in model.state_dict().items() if not torch.equal(v, base[k])]
+    check(not differ, ("the frozen base changed", differ[:5]))
+    moved = [k for k, v in adapters.state_dict().items() if not torch.equal(v, start[k])]
+    check(len(moved) == len(start), ("adapters that did not move",
+                                     sorted(set(start) - set(moved))[:5]))
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], ("LoRA loss", losses))
+    (HERE / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        mgr = CheckpointManager(tmp)
+        t0 = time.perf_counter()
+        save_resume_point(mgr, state, epoch=0, next_batch=n, global_step=n, data_seed=seed,
+                          wait=True)
+        save_s = time.perf_counter() - t0
+        mgr.close()
+        point = Path(tmp, str(n))
+        point_bytes = sum(f.stat().st_size for f in point.rglob("*") if f.is_file())
+        keys = [k for k in read_record(str(point)) if k.startswith("state/model/")]
+    check(keys and all(k.startswith(("state/model/a.", "state/model/b.")) for k in keys),
+          ("an adapter resume point holds", keys[:5]))
+    step_ms = 1e3 * np.diff([t_start] + stamps)
+    out = dict(init_s=init_s, steps=c["steps"], wall_s=wall_s, steps_per_s=c["steps"] / wall_s,
+               step_ms_p50=float(np.percentile(step_ms, 50)),
+               tokens_per_s=c["steps"] * LCREC["batch"] * LCREC["seq"] / wall_s,
+               losses=losses, launches=launches,
+               adapter_parameters=lora_param_count(adapters.tree()),
+               base_parameters=sum(v.numel() for v in base.values()),
+               resume_point_bytes=point_bytes, resume_point_tensors=len(keys),
+               resume_point_save_s=save_s, base_bit_equal=True,
+               peak_allocated_bytes=torch.cuda.max_memory_allocated(dev))
+    del model, base, adapters, state, step, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lcrec_lora_resume(dev, seed) -> dict:
+    """(b) lcrec_trainer.train with use_lora=True at tp=1 through
+    config/lcrec/synthetic.gin, 2 layers at the Qwen2.5-1.5B widths and
+    vocab: uninterrupted, killed by SIGTERM mid-epoch and resumed: held bit
+    for bit; B3 and B4 dx once a resumed step, B4 dW never."""
+    from genrec_tpu_torch.core import chaos
+    from genrec_tpu_torch.trainers import lcrec_trainer
+
+    c = RESUME_LCREC
+    work = HERE / "build" / "lora_resume"
+    shutil.rmtree(work, ignore_errors=True)
+    run = gin_train_run("config/lcrec/synthetic.gin", lcrec_resume_bindings(dev, seed, (
+        "train.use_lora = True", f"train.lora_rank = {LORA['rank']}",
+        f"train.lora_alpha = {LORA['alpha']}")), work, lcrec_trainer.train, qwen_vocab)
+
+    total = c["epochs"] * c["steps_per_epoch"]
+    a = run("a")
+    b = run("b", chaos.ChaosPlan(kill_at_step=c["kill"]))
+    check(b["out"] == ({}, {}) and b["steps"] == [c["kill"]],
+          ("the preempted LoRA run", b["out"], b["steps"]))
+    resumed = run("b", resume_from_checkpoint=True)
+    check(a["steps"] == resumed["steps"][-1:] == [total], ("final points", a["steps"],
+                                                           resumed["steps"]))
+    n = total - c["kill"]
+    for name, count in resumed["launches"].items():
+        want = n * LORA_LAUNCHES_PER_STEP.get(name, 0)
+        check(count == want, f"resumed LoRA run: {name} {count}, want {want}")
+    check(resumed["out"] == a["out"], ("the resumed run's metrics", resumed["out"], a["out"]))
+    parity, _, nbytes = resume_parity("LCRec LoRA", work / "a", work / "b")
+    _, point, _ = final_point(work / "a")
+    model_keys = [k for k in point if k.startswith("state/model/")]
+    check(all(k.startswith(("state/model/a.", "state/model/b.")) for k in model_keys),
+          ("the LoRA resume point holds", model_keys[:5]))
+    check((work / "a" / "final_model").exists(), "no final_model")
+    losses = run_log(work / "a")[0]
+    out = dict(steps=total, kill_at_step=c["kill"], parity=parity, resume_point_bytes=nbytes,
+               launches_resumed=resumed["launches"], loss_first=losses[1],
+               loss_last=losses[total], valid=a["out"][0],
+               run_s={k: r["wall_s"] for k, r in (("a", a), ("b", b), ("resumed", resumed))})
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def lcrec_lora_phase(dev, seed) -> dict:
+    """Phase 22: LoRA SFT of LCRec at tp=1: (a) the step at full width (B3 and
+    B4 dx once a step, B4 dW never; the base bit-unchanged); (b) the
+    trainer's entry point killed and resumed at 2 layers."""
+    t0 = time.perf_counter()
+    steps = lcrec_lora_steps(dev, seed)
+    resume = lcrec_lora_resume(dev, seed)
+    return emit("lcrec_lora", card=torch.cuda.get_device_name(dev),
+                wall_s=time.perf_counter() - t0,
+                config=(f"QwenConfig() widths, {LCREC['layers']} layers, bf16, tied head, "
+                        f"{LCREC['codebooks']} x {LCREC['codebook_size']} codebook tokens, "
+                        f"batch {LCREC['batch']} x {LCREC['seq']}; LoRA rank {LORA['rank']}, "
+                        f"alpha {LORA['alpha']} on {', '.join(LORA['targets'])}; AdamW "
+                        f"{LORA['lr']}, random weights from --seed"),
+                reduced=dict(steps=f"{LORA['warm']} warm + {LORA['steps']} timed on one batch",
+                             trainer=f"{RESUME_LCREC['layers']} of 28 layers, batch "
+                                     f"{RESUME_LCREC['batch']} x {RESUME_LCREC['seq']}, "
+                                     f"{RESUME_LCREC['epochs']} epochs of "
+                                     f"{RESUME_LCREC['steps_per_epoch']} steps"),
+                steps=steps, resume=resume, launches=steps["launches"])
+
+
 def build_all() -> dict:
     """Every kernel library, one nvcc per source, all started together."""
     from genrec_tpu_torch.kernels.build import LIBRARIES, NVCC_FLAGS, build_library
@@ -5786,6 +6435,11 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phases["amazon"] = amazon_phase(dev, args.seed)
+    for name, phase in (("notellm", notellm_phase), ("qwen_serve", qwen_serve_phase),
+                        ("lcrec_lora", lcrec_lora_phase)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        phases[name] = phase(dev, args.seed)
     phases["wall_s"] = time.perf_counter() - t_start
     amazon = phases["amazon"]["launches"]
 
@@ -5800,7 +6454,9 @@ def main(argv=None) -> int:
                                + sum(amazon[k]["rq_cascade"] for k in ("tiger", "lcrec", "p5"))),
                 **{k: phases["train"]["launches"][k] + amazon["hstu"][k]
                    for k in LAUNCHES_PER_STEP},
-                **{k + "_lcrec": phases["lcrec_tp"]["steps"]["launches"][k] + amazon["lcrec"][k]
+                # The LoRA phase's: B3 and B4 dx once a step, B4 dW never.
+                **{k + "_lcrec": (phases["lcrec_tp"]["steps"]["launches"][k] + amazon["lcrec"][k]
+                                  + phases["lcrec_lora"]["launches"][k])
                    for k in LCREC_LAUNCHES_PER_STEP},
                 **{k + "_sasrec": phases["sasrec"]["launches"][k] + amazon["sasrec"][k]
                    for k in SASREC_LAUNCHES_PER_STEP},

@@ -35,7 +35,6 @@ _MACROS: dict[str, Any] = {}
 # JAX-package modules a config file may import that the port has not
 # ported yet, and the ROADMAP item that ports each.
 _ROADMAP_ITEM = {
-    "trainers.notellm_trainer": "A22 (NoteLLM)",
     "trainers.stream_trainer": "A24 (streaming training and rollout)",
 }
 

@@ -2,10 +2,12 @@
 
 ``tiger_params_from_flax``, ``hstu_params_from_flax``,
 ``sasrec_params_from_flax``, ``rqvae_params_from_flax``,
-``cobra_params_from_flax`` and ``qwen_params_from_flax`` map a Flax param
-tree (nested dicts of numpy arrays, as ``jax.device_get(params)`` gives
-it) onto the state dict of the port's ``Tiger``, ``HSTU``, ``SASRec``,
-``RqVae``, ``Cobra`` and ``QwenLM``, so
+``cobra_params_from_flax``, ``qwen_params_from_flax`` and
+``notellm_params_from_flax`` map a Flax param tree (nested dicts of numpy
+arrays, as ``jax.device_get(params)`` gives it) onto the state dict of the
+port's ``Tiger``, ``HSTU``, ``SASRec``, ``RqVae``, ``Cobra``, ``QwenLM`` and
+``NoteLLM``, and ``lora_from_flax`` maps JAX LoRA adapters onto the port's
+(``core.lora``), so
 both packages compute the same function from the same weights. The names
 follow the Flax module names one for one, with these rewrites:
 
@@ -128,3 +130,39 @@ def qwen_params_from_flax(params_np, cfg, rank: int = 0, tp: int = 1) -> dict[st
     bad = {n: (tuple(t.shape), want[n]) for n, t in full.items() if tuple(t.shape) != want[n]}
     assert not bad, f"shape mismatches (flax -> port, port): {bad}"
     return shard_qwen_params(full, rank, tp)
+
+
+def notellm_params_from_flax(params_np, cfg) -> dict[str, torch.Tensor]:
+    """The JAX NoteLLM trainer's params ``{"backbone": Flax QwenLM params,
+    "tau": ()}`` -> the port's ``NoteLLM`` state dict: ``backbone.<name>``
+    through ``qwen_params_from_flax`` (every leaf consumed, every parameter
+    filled, both asserted) and the fp32 scalar ``tau``."""
+    extra = sorted(set(params_np) - {"backbone", "tau"})
+    assert not extra, f"NoteLLM leaves with no port parameter: {extra}"
+    out = {f"backbone.{k}": v for k, v in qwen_params_from_flax(params_np["backbone"], cfg).items()}
+    out["tau"] = torch.tensor(np.asarray(params_np["tau"], np.float32))
+    assert out["tau"].ndim == 0, f"tau must be a scalar, got shape {tuple(out['tau'].shape)}"
+    return out
+
+
+def lora_from_flax(lora_np, cfg) -> dict[str, dict[str, torch.Tensor]]:
+    """JAX ``core.lora`` adapters ``{"<flax path>/kernel": {"a": (in, r),
+    "b": (r, out)}}`` -> the port's ``{"<name>.weight": {"a", "b"}}`` over
+    ``QwenLM(cfg)``'s parameters (A and B keep their layout; the port's
+    merge adds (A B)ᵀ to its (out, in) weight). Every adapter and factor is
+    consumed once and fits its weight's shape; both are asserted."""
+    from genrec_tpu_torch.models.backbones.qwen import qwen_param_specs
+
+    specs = qwen_param_specs(cfg)
+    out: dict[str, dict[str, torch.Tensor]] = {}
+    for path, factors in lora_np.items():
+        name, is_kernel = _torch_name(tuple(str(path).split("/")), {})
+        assert is_kernel and name in specs, f"LoRA adapter {path} names no port Dense weight"
+        assert name not in out, f"two LoRA adapters map to {name}"
+        assert set(factors) == {"a", "b"}, f"{path}: factors {sorted(factors)}, want a and b"
+        a, b = (torch.from_numpy(np.array(factors[k])) for k in ("a", "b"))
+        d_out, d_in = specs[name][0]
+        assert a.shape[0] == d_in and b.shape[1] == d_out and a.shape[1] == b.shape[0], \
+            f"{path}: a {tuple(a.shape)}, b {tuple(b.shape)} against weight {(d_out, d_in)}"
+        out[name] = {"a": a, "b": b}
+    return out

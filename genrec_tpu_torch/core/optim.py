@@ -13,6 +13,8 @@ False, with no host synchronisation: the non-finite step guard of
 ``learning_rate`` is a number or a schedule (``ops/schedules.py``: count
 -> rate), which is evaluated, as optax evaluates it, at the update count
 before its increment: the first update runs at ``schedule(0)``.
+``decay_mask(param) -> bool`` restricts the decoupled decay to the
+parameters it accepts (optax ``adamw(mask=...)``; None decays every one).
 """
 
 from __future__ import annotations
@@ -22,9 +24,10 @@ import torch
 
 class Adam:
     def __init__(self, learning_rate, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8, weight_decay: float = 0.0):
+                 eps: float = 1e-8, weight_decay: float = 0.0, decay_mask=None):
         self.learning_rate, self.b1, self.b2, self.eps = learning_rate, b1, b2, eps
         self.weight_decay = weight_decay
+        self.decay_mask = decay_mask
 
     def init(self, params: list[torch.Tensor]) -> dict:
         dev = params[0].device
@@ -57,7 +60,11 @@ class Adam:
         torch._foreach_div_(upd, denom)
         del denom
         if self.weight_decay:
-            torch._foreach_add_(upd, torch._foreach_mul(params, self.weight_decay))
+            decayed = [i for i, p in enumerate(params)
+                       if self.decay_mask is None or self.decay_mask(p)]
+            if decayed:
+                torch._foreach_add_([upd[i] for i in decayed], torch._foreach_mul(
+                    [params[i] for i in decayed], self.weight_decay))
         lr = self.learning_rate
         if callable(lr):
             lr = lr(state["count"])

@@ -302,10 +302,14 @@ class _FusedLinearCE(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        # A gradient nobody asked for (a frozen head under LoRA) launches
+        # nothing: XLA drops the JAX backward's dead dW body likewise.
         x, w, targets, lse = ctx.saved_tensors
         _, dx_fn, dw_fn = _versions(x.is_cuda)
         args = (x, w, targets, lse, g.float().contiguous(), ctx.ignore_index)
-        return dx_fn(*args), dw_fn(*args), None, None
+        want_dx, want_dw = ctx.needs_input_grad[:2]
+        return (dx_fn(*args) if want_dx else None), (dw_fn(*args) if want_dw else None), \
+            None, None
 
 
 def fused_linear_ce(x, w, targets, ignore_index: int = 0):
@@ -371,8 +375,11 @@ class _ShardedFusedLinearCE(torch.autograd.Function):
         _, dx_fn, dw_fn = _versions(ctx.kernels)
         g = torch.where(ignored, 0.0, g.float()).contiguous()
         args = (x, w_shard, local, lse, g, -2, ctx.vlim)
-        dx = ctx.group.all_reduce(dx_fn(*args), "sum")
-        return dx, dw_fn(*args), None, None, None, None, None
+        want_dx, want_dw = ctx.needs_input_grad[:2]
+        # Every rank asks for the same gradients, so the all-reduce is
+        # issued on all of them or on none.
+        dx = ctx.group.all_reduce(dx_fn(*args), "sum") if want_dx else None
+        return dx, (dw_fn(*args) if want_dw else None), None, None, None, None, None
 
 
 def _sharded(x, w_shard, targets, group, ignore_index, valid_vocab, kernels):

@@ -16,11 +16,15 @@ module and a param tree:
   group; ``make_tp_sharded_fused_sft_loss`` for a model with one (B8);
 - ``generate_greedy`` and ``generate_topk_constrained`` on either: under
   tensor parallelism every rank gathers the whole vocabulary's logits
-  and runs the same search.
+  and runs the same search. ``generate_topk_constrained(trie=...)`` keeps
+  every beam inside the catalog with any trie of the port
+  (``ops.trie.DenseTrie``, ``PackedTrie``, ``catalog.tensor_trie.
+  TensorTrie``): a beam's prefix rank follows its parent through
+  ``trie.advance`` and each step's codebook slice is masked with
+  ``trie.legal_mask``.
 
 Not ported: ``make_sp_sft_loss`` (sequence parallelism with ring
-attention; raises, ROADMAP A15) and the trie constraint of
-``generate_topk_constrained`` (``trie`` must be None; ROADMAP A19).
+attention; raises, ROADMAP A15).
 """
 
 from __future__ import annotations
@@ -180,10 +184,14 @@ def generate_topk_constrained(model: QwenLM, input_ids, attention_mask, base_voc
     the static slice [base + c K, base + (c + 1) K) of a log-softmax over
     the whole (padded) vocabulary, pad rows included, as the JAX search
     does. With beam_width > codebook_size the first step fills the extra
-    beams with -inf."""
-    if trie is not None:
-        raise NotImplementedError("the trie-constrained LCRec search is not ported; "
-                                  "ROADMAP A19 ports it")
+    beams with -inf.
+
+    ``trie`` (optional) restricts every step to catalog tuples: the root's
+    legal mask before step 0's top-k, then each beam's prefix rank
+    (``trie.advance``, following its parent) masks the next slice; a dead
+    beam carries the trie's sentinel rank, whose mask is all False, so its
+    score stays -inf. Ties rank the lower index first, -inf ones too
+    (``jax.lax.top_k``'s order), so dead beams match the JAX search's."""
     B, L = input_ids.shape
     W, K, C = beam_width, codebook_size, num_codebooks
     S = max_cache or (L + C)
@@ -204,6 +212,9 @@ def generate_topk_constrained(model: QwenLM, input_ids, attention_mask, base_voc
         logp = torch.log_softmax(logits.to(torch.float32) / temperature, dim=-1)
         logp_w = logp[:, lo:lo + K]
         if c == 0:
+            if trie is not None:
+                root = torch.zeros(B, dtype=torch.int64, device=dev)
+                logp_w = torch.where(trie.legal_mask(root, 0), logp_w, -torch.inf)
             W0 = min(W, K)
             scores, toks = _top_k(logp_w, W0)
             if W0 < W:
@@ -211,12 +222,19 @@ def generate_topk_constrained(model: QwenLM, input_ids, attention_mask, base_voc
                 toks = torch.cat([toks, toks.new_zeros((B, W - W0))], dim=1)
             beam_scores = scores
             beam_tokens[:, :, 0] = toks
+            if trie is not None:
+                beam_rank = trie.advance(torch.zeros_like(toks), toks, 0)
         else:
-            combined = (beam_scores[..., None] + logp_w.reshape(B, W, K)).reshape(B, W * K)
+            logp_w = logp_w.reshape(B, W, K)
+            if trie is not None:
+                logp_w = torch.where(trie.legal_mask(beam_rank, c), logp_w, -torch.inf)
+            combined = (beam_scores[..., None] + logp_w).reshape(B, W * K)
             beam_scores, idx = _top_k(combined, W)
             parent, tok = idx // K, idx % K
             beam_tokens = beam_tokens.gather(1, parent[..., None].expand(B, W, C)).clone()
             beam_tokens[:, :, c] = tok
+            if trie is not None:
+                beam_rank = trie.advance(beam_rank.gather(1, parent), tok, c)
             flat_parent = (parent + torch.arange(B, device=dev)[:, None] * W).reshape(B * W)
             caches = [{"k": cc["k"][flat_parent], "v": cc["v"][flat_parent], "idx": cc["idx"]}
                       for cc in caches]

@@ -32,7 +32,8 @@ The dense path: a head's queue is flushed as one micro-batch when it
 holds ``max_batch`` requests, when its oldest request has waited
 ``max_wait_ms``, or when the engine drains (queues scanned round-robin, so
 one busy head cannot starve another). The batch is padded to its (batch,
-history) bucket, run as one call (``head.make_fn``), read back with one
+history) bucket, run as one call (``head.make_fn``, given the head's
+runtime operands: LCRec's trie, NoteLLM's bank), read back with one
 host sync, and split by ``head.finalize``; a batch that raises fails its
 own futures only.
 
@@ -132,6 +133,12 @@ def is_transient_fs_error(e: BaseException) -> bool:
     a listing racing a writer's rename) rather than on a bug: retried with
     backoff, never read as "no new step"."""
     return isinstance(e, OSError)
+
+
+def _operand_rung(op):
+    """The capacity rung of a catalog operand: a trie's capacity, a
+    tensor's (a NoteLLM bank's) shape."""
+    return op.capacity if hasattr(op, "capacity") else tuple(op.shape)
 
 
 def _tree_to(tree, device):
@@ -952,7 +959,7 @@ class ServingEngine:
         B = self._ladder.batch_bucket(self._max_batch)
         L = self._ladder.history_buckets[-1]
         reqs = [Request(head=head.name, history=np.ones(L, np.int64)) for _ in range(B)]
-        batch = head.make_batch(reqs, B, L)
+        batch = (*head.runtime_operands(), *head.make_batch(reqs, B, L))
         return {f"dense/B{B}/L{L}": self._measure(lambda: head.make_fn(B, L)(*batch))}
 
     def _ledger_head(self, head) -> None:
@@ -1082,7 +1089,7 @@ class ServingEngine:
         L = self._ladder.history_bucket(max(max(head.natural_len(r) for r in reqs), 1))
         B = self._ladder.batch_bucket(len(reqs))
         try:
-            out = head.make_fn(B, L)(*head.make_batch(reqs, B, L))
+            out = head.make_fn(B, L)(*head.runtime_operands(), *head.make_batch(reqs, B, L))
             out = tuple(o.cpu().numpy() for o in out)  # the host sync
             t_done = time.monotonic()
             payloads = head.finalize(out, reqs)
@@ -1358,9 +1365,10 @@ class ServingEngine:
             with self._params_lock, torch.no_grad():
                 head.prepare_snapshot(snapshot)
             prepare_s = time.monotonic() - t0
-            # The trie the snapshot installs, against the live one.
-            rung_changed = (head.snapshot_operands(snapshot)[0].capacity
-                            != head.runtime_operands()[0].capacity)
+            # The operand the snapshot installs (a trie, a bank), against
+            # the live one.
+            rung_changed = (_operand_rung(head.snapshot_operands(snapshot)[0])
+                            != _operand_rung(head.runtime_operands()[0]))
             with self._lock:
                 self._pending_catalog[head_name] = snapshot
                 self._work.notify()

@@ -1,6 +1,7 @@
 """Engine heads (port of genrec_tpu/serving/heads.py: ``Head``,
 ``TigerGenerativeHead`` and ``CobraGenerativeHead`` with the paged decode
-protocol, and ``RetrievalHead`` with the dense micro-batch protocol).
+protocol, and ``RetrievalHead``, ``LCRecGenerativeHead`` and
+``NoteLLMRetrievalHead`` with the dense micro-batch protocol).
 
 A head owns a model + its item corpus. Every head has
 
@@ -15,9 +16,9 @@ A head owns a model + its item corpus. Every head has
 Dense heads (``supports_paged = False``) add the hooks of the engine's
 micro-batch path:
 
-- ``make_fn(B, L)``: ``fn(*batch) -> outputs`` for one (B, L) bucket
-  (the JAX engine compiles one a bucket; eager PyTorch needs none, so a
-  head may return one function for every bucket);
+- ``make_fn(B, L)``: ``fn(*runtime_operands, *batch) -> outputs`` for one
+  (B, L) bucket (the JAX engine compiles one a bucket; eager PyTorch needs
+  none, so a head may return one function for every bucket);
 - ``finalize(outputs, reqs)``: the host outputs split into one payload a
   request.
 
@@ -53,15 +54,17 @@ history the prefill encodes (None: the head takes no part), and
 ``paged_warm_state(init, n_tokens, L_bucket)`` the state rows a warm
 admission restores from the donor's post-prefill rows.
 
-Catalog heads (``supports_catalog``: TIGER and COBRA) serve a swappable
-`CatalogSnapshot`: ``validate_snapshot(snap)`` raises ValueError for a
+Catalog heads (``supports_catalog``: TIGER, COBRA, LCRec and NoteLLM)
+serve a swappable `CatalogSnapshot`: ``validate_snapshot(snap)`` raises ValueError for a
 snapshot the model cannot decode against, ``prepare_snapshot(snap)``
 runs on the staging thread (device trie, item index, COBRA's tower
 encode), so that ``set_catalog(snap)``, which the engine's batcher calls
 between micro-batches, only swaps pointers; ``snapshot_operands(snap)``
 is the operand tuple the snapshot would install, and ``catalog_tensors()``
 the device tensors the live catalog holds (the memory ledger's
-``catalog_operands``).
+``catalog_operands``). LCRec decodes densely against the snapshot's trie;
+NoteLLM scores against the snapshot's ``item_vecs`` as a bank padded to
+a ``capacity_for`` rung.
 
 The JAX heads are pure functions of a params tree; here the weights live
 in the head's ``nn.Module``, so the functions take no params argument.
@@ -75,6 +78,7 @@ import numpy as np
 import torch
 
 from genrec_tpu_torch.catalog.snapshot import CatalogSnapshot
+from genrec_tpu_torch.catalog.tensor_trie import capacity_for
 from genrec_tpu_torch.models.cobra import (
     cobra_paged_decode_step,
     cobra_prefill_paged,
@@ -82,6 +86,8 @@ from genrec_tpu_torch.models.cobra import (
     init_cobra_paged_state,
 )
 from genrec_tpu_torch.models.embeddings import quantize_item_table
+from genrec_tpu_torch.models.lcrec import generate_topk_constrained
+from genrec_tpu_torch.models.notellm import query2embedding_forward
 from genrec_tpu_torch.models.tiger import (
     init_tiger_paged_state,
     tiger_paged_decode_step,
@@ -132,8 +138,8 @@ class Head:
         return init
 
     def runtime_operands(self) -> tuple:
-        """Device-side operands passed ahead of the batch to every paged
-        call: catalog heads return ``(trie,)``."""
+        """Device-side operands passed ahead of the batch to every call:
+        the generative catalog heads return ``(trie,)``, NoteLLM its bank."""
         return ()
 
     def on_params(self) -> None:
@@ -194,9 +200,9 @@ def _clip_history(history, L: int) -> np.ndarray:
 class _CatalogHead(Head):
     """What the generative heads share: a CatalogSnapshot served from the
     model's device (its trie, the sem-id table, the tuple -> item index)
-    and histories laid out left-aligned at the (B, L) bucket."""
+    and histories laid out left-aligned at the (B, L) bucket (TIGER and
+    COBRA, the paged ones; LCRec lays out its own prompts)."""
 
-    supports_paged = True
     supports_catalog = True
 
     def prepare_snapshot(self, snapshot) -> None:
@@ -270,6 +276,7 @@ class TigerGenerativeHead(_CatalogHead):
 
     #: State keys ``paged_finalize`` reads: only these leave the device.
     paged_output_keys = ("beam_seqs", "beam_logps")
+    supports_paged = True
     supports_spec = True
 
     def __init__(self, model, item_sem_ids: Optional[np.ndarray] = None,
@@ -406,6 +413,7 @@ class CobraGenerativeHead(_CatalogHead):
 
     #: State keys ``paged_finalize`` reads: only these leave the device.
     paged_output_keys = ("beam_tokens", "beam_scores")
+    supports_paged = True
     supports_spec = True
     #: Rows a tower encode takes at once (bounds its activations).
     tower_chunk = 2048
@@ -661,3 +669,248 @@ class RetrievalHead(Head):
         scores, items = outputs
         return [dict(items=items[i], scores=scores[i], sem_ids=None)
                 for i in range(len(reqs))]
+
+
+class LCRecGenerativeHead(_CatalogHead):
+    """LCRec's constrained beam search over the extended-vocab LLM, on the
+    dense micro-batch path (not paged).
+
+    Requests carry ITEM ids into the catalog; ``make_batch`` maps each
+    history item to its C codebook tokens (``base_vocab + c K + code``, the
+    ``extend_vocab`` layout) and LEFT-pads the prompt: the KV-cached decode
+    reads the last position, so the newest item sits at the right edge.
+    Items a smaller swapped-in catalog no longer holds are dropped, as
+    TIGER drops them. Decoding runs ``generate_topk_constrained`` with the
+    snapshot's trie as a runtime operand and ``top_k`` beams: every tuple
+    is a catalog item, mapped back to its id by ``lookup``. History
+    buckets are clamped so that a prompt of L C tokens plus C decode steps
+    fits the model's position table."""
+
+    def __init__(self, model, base_vocab: int, num_codebooks: int, codebook_size: int,
+                 item_sem_ids: Optional[np.ndarray] = None, top_k: int = 10,
+                 name: str = "lcrec", catalog=None):
+        self.model = model
+        self.name = name
+        self.top_k = top_k
+        self.base_vocab = int(base_vocab)
+        self.num_codebooks = int(num_codebooks)
+        self.codebook_size = int(codebook_size)
+        cfg = model.cfg
+        if self.base_vocab + self.num_codebooks * self.codebook_size > cfg.vocab_size:
+            raise ValueError(
+                f"codebook region [{self.base_vocab}, "
+                f"{self.base_vocab + self.num_codebooks * self.codebook_size}) exceeds model "
+                f"vocab {cfg.vocab_size}")
+        max_pos = int(cfg.max_position_embeddings or 0)
+        self._max_len = (max(1, (max_pos - self.num_codebooks) // self.num_codebooks)
+                         if max_pos else None)
+        if catalog is None:
+            if item_sem_ids is None:
+                raise ValueError("need item_sem_ids or catalog=")
+            catalog = CatalogSnapshot.build(np.asarray(item_sem_ids, np.int64),
+                                            self.codebook_size)
+        self.validate_snapshot(catalog)
+        self.set_catalog(catalog)
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.norm.weight.device
+
+    def validate_snapshot(self, snapshot) -> None:
+        if snapshot.depth != self.num_codebooks:
+            raise ValueError(f"catalog depth {snapshot.depth} != head num_codebooks "
+                             f"{self.num_codebooks}")
+        if snapshot.codebook_size != self.codebook_size:
+            raise ValueError(f"catalog codebook {snapshot.codebook_size} != head "
+                             f"codebook_size {self.codebook_size}")
+
+    def set_catalog(self, snapshot) -> None:
+        self._serve_catalog(snapshot)
+
+    def _clamp(self, L: int) -> int:
+        return min(L, self._max_len) if self._max_len else L
+
+    def make_batch(self, reqs, B: int, L: int):
+        """(ids, mask) (B, L C) int32: each history's newest L catalog items
+        as codebook tokens, left-padded; the last position attended in
+        every row (an emptied history or a padding row keeps a finite
+        softmax)."""
+        L = self._clamp(L)
+        C = self.num_codebooks
+        tok_base = self.base_vocab + np.arange(C, dtype=np.int64) * self.codebook_size
+        ids = np.zeros((B, L * C), np.int32)
+        mask = np.zeros((B, L * C), np.int32)
+        for i, r in enumerate(reqs):
+            h = _clip_history(r.history, L)
+            h = h[h < len(self.item_sem_ids)]
+            if len(h):
+                toks = (self.item_sem_ids[h] + tok_base).reshape(-1)
+                ids[i, L * C - len(toks):] = toks
+                mask[i, L * C - len(toks):] = 1
+        mask[:, -1] = 1
+        return torch.as_tensor(ids, device=self.device), torch.as_tensor(mask, device=self.device)
+
+    def make_fn(self, B: int, L: int):
+        L = self._clamp(L)
+        C = self.num_codebooks
+
+        def fn(trie, ids, mask):
+            out = generate_topk_constrained(
+                self.model, ids, mask, self.base_vocab, C, self.codebook_size,
+                beam_width=self.top_k, max_cache=L * C + C, trie=trie)
+            return out.sem_ids, out.log_probas
+
+        return fn
+
+    def finalize(self, outputs, reqs) -> list[dict]:
+        sem_ids, logp = outputs
+        return [dict(items=self.lookup(sem_ids[i]), scores=logp[i], sem_ids=sem_ids[i])
+                for i in range(len(reqs))]
+
+
+class NoteLLMRetrievalHead(Head):
+    """NoteLLM Query2Embedding retrieval: the ``[EMB]`` hidden state -> the
+    top-k items of a bank, on the dense micro-batch path.
+
+    Requests carry query TOKEN ids (``Request.history``); ``make_batch``
+    appends the ``[EMB]`` token after the clipped query, and the call
+    scores its L2-normalised hidden state (``query2embedding_forward``)
+    against the catalog's item-note embeddings through the unchanged
+    ``item_topk``.
+
+    The bank is a CATALOG artifact and a RUNTIME OPERAND: the snapshot's
+    ``item_vecs`` (N, d) as an AUGMENTED (cap, d+1) fp32 table padded to a
+    ``capacity_for`` rung. Row i+1 holds item i and a bias column of 0;
+    row 0 (the pad row ``item_topk`` masks) and the capacity rows hold a
+    -1e9 bias, and the query side appends a 1, so no pad row reaches the
+    top-k. A returned row r is item r-1. ``prepare_snapshot`` uploads a
+    snapshot's bank on the staging thread, so ``set_catalog`` swaps a
+    pointer. The JAX head's mesh placement is not ported (ROADMAP A26)."""
+
+    supports_catalog = True
+
+    #: Bias of the pad rows, which no real row's cosine-bounded score earns.
+    _PAD_BIAS = -1e9
+
+    def __init__(self, model, emb_token_id: int, item_sem_ids: Optional[np.ndarray] = None,
+                 item_vecs: Optional[np.ndarray] = None, codebook_size: Optional[int] = None,
+                 top_k: int = 10, name: str = "notellm", catalog=None):
+        self.model = model
+        self.name = name
+        self.top_k = top_k
+        self.emb_token_id = int(emb_token_id)
+        self._bank = None
+        self._bank_cache: dict = {}  # version -> augmented bank (staging)
+        max_pos = int(model.cfg.max_position_embeddings or 0)
+        self._max_len = max(1, max_pos - 1) if max_pos else None
+        if catalog is None:
+            if item_sem_ids is None or item_vecs is None:
+                raise ValueError("need (item_sem_ids, item_vecs) or catalog=")
+            item_sem_ids = np.asarray(item_sem_ids, np.int64)
+            if codebook_size is None:
+                codebook_size = int(item_sem_ids.max()) + 1
+            catalog = CatalogSnapshot.build(item_sem_ids, codebook_size,
+                                            item_vecs=np.asarray(item_vecs))
+        self.validate_snapshot(catalog)
+        self.set_catalog(catalog)
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.norm.weight.device
+
+    def validate_snapshot(self, snapshot) -> None:
+        if snapshot.item_vecs is None:
+            raise ValueError(
+                "NoteLLM catalog snapshot needs item_vecs (the precomputed item-note "
+                "embeddings — the retrieval bank has to come from somewhere)")
+        d = int(snapshot.item_vecs.shape[-1])
+        if d != self.model.cfg.hidden_size:
+            raise ValueError(f"snapshot item_vecs dim {d} != model hidden_size "
+                             f"{self.model.cfg.hidden_size}")
+        cur = getattr(self, "catalog", None)
+        if cur is not None and d != int(cur.item_vecs.shape[-1]):
+            raise ValueError(f"snapshot item_vecs dim {d} != serving bank dim "
+                             f"{int(cur.item_vecs.shape[-1])} — operand avals would drift")
+
+    def _augmented_bank(self, snapshot) -> torch.Tensor:
+        """(cap, d+1) fp32 on the head's device: row i+1 = [item_vecs[i], 0],
+        row 0 and the capacity rows carry the pad bias."""
+        vecs = np.asarray(snapshot.item_vecs, np.float32)
+        n, d = vecs.shape
+        bank = np.zeros((capacity_for(n + 1), d + 1), np.float32)
+        bank[1:n + 1, :d] = vecs
+        bank[0, d] = self._PAD_BIAS
+        bank[n + 1:, d] = self._PAD_BIAS
+        return torch.as_tensor(bank, device=self.device)
+
+    def prepare_snapshot(self, snapshot) -> None:
+        """Staging-thread hook: build and upload the bank ahead of the swap
+        (the snapshot's trie, which JAX also uploads, serves no NoteLLM
+        call and stays on the host)."""
+        if snapshot.version not in self._bank_cache:
+            self._bank_cache[snapshot.version] = self._augmented_bank(snapshot)
+
+    def snapshot_operands(self, snapshot) -> tuple:
+        """The bank this snapshot would install (its rung is its row count)."""
+        self.prepare_snapshot(snapshot)
+        return (self._bank_cache[snapshot.version],)
+
+    def set_catalog(self, snapshot) -> None:
+        self.catalog = snapshot
+        bank = self._bank_cache.get(snapshot.version)
+        if bank is None:
+            bank = self._augmented_bank(snapshot)
+        self._bank = bank
+        self._bank_cache = {snapshot.version: bank}
+
+    @property
+    def catalog_version(self) -> Optional[str]:
+        return self.catalog.version
+
+    def catalog_tensors(self) -> tuple:
+        return (self._bank,)
+
+    def runtime_operands(self) -> tuple:
+        return (self._bank,)
+
+    def max_item_id(self):
+        # History ids are query TOKEN ids: anything below [EMB] (appended by
+        # make_batch, never by the caller) is legal.
+        return self.emb_token_id - 1
+
+    def _clamp(self, L: int) -> int:
+        return min(L, self._max_len) if self._max_len else L
+
+    def make_batch(self, reqs, B: int, L: int):
+        """(ids, mask) (B, L+1) int32 and emb_idx (B, 1): each query's
+        newest L tokens then [EMB]; padding rows hold [EMB] at position 0."""
+        L = self._clamp(L)
+        ids = np.zeros((B, L + 1), np.int32)
+        mask = np.zeros((B, L + 1), np.int32)
+        emb_idx = np.zeros((B, 1), np.int32)
+        for i, r in enumerate(reqs):
+            h = _clip_history(r.history, L)
+            ids[i, :len(h)] = h
+            ids[i, len(h)] = self.emb_token_id
+            mask[i, :len(h) + 1] = 1
+            emb_idx[i, 0] = len(h)
+        ids[len(reqs):, 0] = self.emb_token_id
+        mask[len(reqs):, 0] = 1
+        return tuple(torch.as_tensor(a, device=self.device) for a in (ids, mask, emb_idx))
+
+    def make_fn(self, B: int, L: int):
+        del B, L  # one function serves every bucket: shapes come from make_batch
+        return self._score
+
+    def _score(self, bank, ids, mask, emb_idx):
+        emb = query2embedding_forward(self.model, ids, mask, emb_idx,
+                                      tau=torch.zeros((), device=ids.device),
+                                      return_loss=False).sentence_embedding
+        ones = torch.ones((emb.shape[0], 1), dtype=emb.dtype, device=emb.device)
+        return item_topk(torch.cat([emb, ones], dim=1), bank, self.top_k)
+
+    def finalize(self, outputs, reqs) -> list[dict]:
+        scores, rows = outputs
+        # Rows only the pad bias could fill (top_k > items) report item -1.
+        return [dict(items=np.where(scores[i] < self._PAD_BIAS / 2, -1, rows[i] - 1),
+                     scores=scores[i], sem_ids=None) for i in range(len(reqs))]

@@ -44,7 +44,16 @@ checkpoint (``config.json`` + weights, read with
 `models.backbones.qwen.params_from_hf_state_dict`); ``transformers`` is
 imported only when a ``pretrained_path`` is given.
 
-Not ported yet, each raising with its ROADMAP item: LoRA (A13),
+``use_lora`` trains rank-``lora_rank`` adapters on ``lora_targets``
+(`core.lora`) at tensor_parallel=1: the base stays frozen and is never
+written (the step runs the loss under merged weights through
+``torch.func.functional_call``), the optimizer, the resume points and
+``best_model`` hold the adapters, ``final_model`` the merged parameters;
+the frozen head's fused CE launches no dW kernel. LoRA with
+``tensor_parallel`` or ``expert_parallel`` > 1 raises ValueError, as in
+JAX.
+
+Not ported yet, each raising with its ROADMAP item:
 ``num_experts``/``expert_parallel`` (A14), ``sequence_parallel`` (A15),
 ``pipeline_parallel`` (A16), data parallelism beside tensor parallelism
 (A17). wandb forwarding logs a warning.
@@ -62,6 +71,13 @@ from genrec_tpu_torch import configlib
 from genrec_tpu_torch.core.checkpoint import BestTracker, CheckpointManager, save_params
 from genrec_tpu_torch.core.fault_tolerance import restore_for_eval
 from genrec_tpu_torch.core.harness import make_train_step
+from genrec_tpu_torch.core.lora import (
+    LoraAdapters,
+    call_merged,
+    lora_init,
+    lora_merge,
+    lora_param_count,
+)
 from genrec_tpu_torch.core.logging import Tracker, setup_logger
 from genrec_tpu_torch.core.optim import Adam
 from genrec_tpu_torch.core.preemption import PreemptionGuard
@@ -197,9 +213,34 @@ def backbone_params(tok, pretrained_path, widths: dict, seed: int, device, max_p
     return cfg, {k: v.to(device) for k, v in full.items()}
 
 
+def lora_loss_fn(model, base_loss, alpha: float, rank: int):
+    """``loss_fn(adapters, batch, generator)`` of the LoRA step:
+    ``base_loss(model, batch)`` under W + (alpha / rank) A B at the adapted
+    weights (``adapters``: a `LoraAdapters`); the frozen base is read,
+    never written."""
+    base = dict(model.named_parameters())
+
+    def loss_fn(adapters, batch, generator):
+        merged = lora_merge(base, adapters.tree(), alpha, rank)
+        return call_merged(model, merged, base_loss, batch), {}
+
+    return loss_fn
+
+
 def _refuse(tensor_parallel, world, *, use_lora, num_experts, expert_parallel,
             sequence_parallel, pipeline_parallel):
-    """Raise on what the port does not run yet, naming the ROADMAP item."""
+    """Raise on what the port does not run yet, naming the ROADMAP item,
+    and on LoRA beside model parallelism, as the JAX trainer does."""
+    if expert_parallel > 1 and use_lora:
+        # The trainable tree is the adapters: an expert axis would shard
+        # nothing of it.
+        raise ValueError("expert_parallel with use_lora is not wired; run LoRA "
+                         "data-parallel")
+    if tensor_parallel > 1 and use_lora:
+        # The step merges from the whole base on every rank, so tensor
+        # parallelism would shard nothing.
+        raise ValueError("tensor_parallel with use_lora is not wired; run LoRA "
+                         "data-parallel (it is already memory-light)")
     if tensor_parallel > 1 and world == 1:
         raise RuntimeError(f"tensor_parallel={tensor_parallel} runs one process per rank: "
                            f"{TORCHRUN}")
@@ -208,7 +249,6 @@ def _refuse(tensor_parallel, world, *, use_lora, num_experts, expert_parallel,
             f"{world} processes with tensor_parallel={tensor_parallel}: data parallelism "
             "beside tensor parallelism is not ported; ROADMAP A17")
     refused = [
-        (use_lora, "use_lora (LoRA)", "A13"),
         (num_experts > 0 or expert_parallel > 1, "num_experts / expert_parallel (MoE)",
          "A14"),
         (sequence_parallel > 1, "sequence_parallel (ring attention)", "A15"),
@@ -356,19 +396,45 @@ def train(
     optimizer = Adam(schedule, weight_decay=weight_decay)
     fused = use_fused_ce == "auto" or bool(use_fused_ce)
     if tp_group is not None and fused:
-        base_loss = make_tp_sharded_fused_sft_loss(model, valid_vocab=live_vocab)
+        tp_loss = make_tp_sharded_fused_sft_loss(model, valid_vocab=live_vocab)
+
+        def base_loss(m, batch):
+            return tp_loss(batch)
     else:
-        def base_loss(batch):
-            return sft_loss(model, batch["input_ids"], batch["attention_mask"],
+        def base_loss(m, batch):
+            return sft_loss(m, batch["input_ids"], batch["attention_mask"],
                             batch["labels"], valid_vocab=live_vocab, use_fused_ce=fused)
 
-    def loss_fn(model, batch, generator):
-        return base_loss(batch), {}
+    if use_lora:
+        for p in model.parameters():
+            p.requires_grad_(False)
+        trainable = LoraAdapters(lora_init(
+            dict(model.named_parameters()), torch.Generator(device=dev).manual_seed(seed + 7),
+            lora_rank, tuple(lora_targets)))
+        logger.info(f"LoRA: {lora_param_count(trainable.tree())} trainable params")
+        loss_fn = lora_loss_fn(model, base_loss, lora_alpha, lora_rank)
+
+        def params_of():
+            """The merged parameters (state dict names) of the adapters now."""
+            with torch.no_grad():
+                return lora_merge(dict(model.named_parameters()), trainable.tree(),
+                                  lora_alpha, lora_rank)
+    else:
+        trainable = model
+
+        def loss_fn(model, batch, generator):
+            return base_loss(model, batch), {}
+
+    def _merged(fn):
+        """``fn(batch)`` of the model, under the merged weights under LoRA."""
+        if not use_lora:
+            return fn
+        return lambda batch: call_merged(model, params_of(), lambda _m: fn(batch))
 
     step_fn = make_train_step(loss_fn, optimizer, clip_norm=1.0, group=tp_group)
-    state = TrainState.create(model, optimizer, seed)
-    gen_fn = make_generate_fn(model, base_vocab, num_codebooks, codebook_size, beam_width,
-                              max_cache=max_text_len + num_codebooks + 1)
+    state = TrainState.create(trainable, optimizer, seed)
+    gen_fn = _merged(make_generate_fn(model, base_vocab, num_codebooks, codebook_size,
+                                      beam_width, max_cache=max_text_len + num_codebooks + 1))
     # Each rank keeps (and writes) its own shard.
     ckpt = (CheckpointManager(os.path.join(save_dir_root, "checkpoints"), per_host=True)
             if save_dir_root else None)
@@ -416,24 +482,25 @@ def train(
             logger.info(f"epoch {epoch} valid "
                         + ", ".join(f"{k}={v:.4f}" for k, v in m.items()))
             tracker.log({"epoch": epoch, **{f"eval/{k}": v for k, v in m.items()}})
-            best.update(m["Recall@10"], model.state_dict())
+            best.update(m["Recall@10"], trainable.state_dict())
 
     # Unconditional final resume point: a save_every_epoch cadence that
     # never fires must not leave a finished run with nothing to resume from.
     loop.save(state, epoch=epochs, next_batch=0, global_step=global_step)
-    best_params = best.best_params(like=model.state_dict()) if test_on_best else None
+    best_params = best.best_params(like=trainable.state_dict()) if test_on_best else None
     if best_params is not None:
-        model.load_state_dict(best_params)
+        trainable.load_state_dict(best_params)
     valid_metrics = evaluate(gen_fn, valid_arrays, eval_batch_size, dev, num_codebooks)
     test_metrics = evaluate(gen_fn, test_arrays, eval_batch_size, dev, num_codebooks)
     if eval_item_tasks:
-        greedy_fn = make_generate_fn(model, base_vocab, num_codebooks, codebook_size, 1,
-                                     max_cache=max_text_len + num_codebooks + 1)
+        greedy_fn = _merged(make_generate_fn(model, base_vocab, num_codebooks, codebook_size,
+                                             1, max_cache=max_text_len + num_codebooks + 1))
         i2i_arrays = data.item2index_eval_arrays(eval_items_limit)
         test_metrics.update(evaluate_item2index(greedy_fn, i2i_arrays, eval_batch_size, dev,
                                                 num_codebooks))
         idx2i_arrays, idx2i_texts = data.index2item_eval_arrays(eval_items_limit)
 
+        @_merged
         def free_fn(batch):
             # Argmax stays off vocab rows the tokenizer cannot decode.
             return generate_greedy(model, batch["input_ids"], batch["attention_mask"],
@@ -446,7 +513,9 @@ def train(
     logger.info("test " + ", ".join(f"{k}={v:.4f}" for k, v in test_metrics.items()))
     tracker.log({f"test/{k}": v for k, v in test_metrics.items()})
     if save_dir_root:
-        save_params(os.path.join(save_dir_root, f"final_model{suffix}"), model.state_dict())
+        # Under LoRA, the merged parameters (best_model holds the adapters).
+        final = {**model.state_dict(), **params_of()} if use_lora else model.state_dict()
+        save_params(os.path.join(save_dir_root, f"final_model{suffix}"), final)
     loop.shutdown()
     return valid_metrics, test_metrics
 

@@ -54,6 +54,7 @@ no counterpart.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import time
 from typing import Any, Callable
@@ -172,7 +173,10 @@ class PackedTrainLoop:
         if self.pack_sequences:
             rep = self.pack_report
             return self.rows_per_step * rep.n_examples / rep.n_rows
-        return float(self.rows_per_step)
+        # An unpacked row of (..., L) token ids holds prod(...) sequences
+        # (NoteLLM's (P, 2, L) pair rows hold 2).
+        ids = self._arrays.get("input_ids")
+        return float(self.rows_per_step * (1 if ids is None else math.prod(ids.shape[1:-1])))
 
     def fleet_preempted(self, global_step: int | None = None) -> bool:
         """True iff ANY rank's guard latched. A single process: the local

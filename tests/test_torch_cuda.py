@@ -1235,3 +1235,102 @@ def test_amazon_parse_on_the_card_host(card, tmp_path):
     assert out["parser"] == "native", out["native_build_error"]
     assert (out["users"], out["items"], out["reviews"]) == (300, 200, 2000)
     assert out["min_user_reviews"] >= 5
+
+
+def _tiny_qwen(dev, vocab, seed=0, tie=False):
+    from genrec_tpu_torch.models.backbones.qwen import QwenConfig, QwenLM, qwen_init_params
+
+    cfg = QwenConfig(vocab_size=vocab, hidden_size=64, intermediate_size=128,
+                     num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                     max_position_embeddings=96, rope_theta=10000.0, tie_word_embeddings=tie)
+    return cfg, qwen_init_params(cfg, seed, "cpu")
+
+
+def test_lora_step_launches_b3_and_b4_dx_never_dw(card):
+    """The LCRec LoRA step (fp32, fused CE) on the card: B3 and B4 dx once a
+    step, B4 dW never (the head is frozen), the base bit-unchanged, and the
+    losses of the CPU's plain versions within 1e-5."""
+    from genrec_tpu_torch.core.harness import make_train_step
+    from genrec_tpu_torch.core.lora import LoraAdapters, lora_init
+    from genrec_tpu_torch.core.optim import Adam
+    from genrec_tpu_torch.core.state import TrainState
+    from genrec_tpu_torch.models.backbones.qwen import QwenLM
+    from genrec_tpu_torch.models.lcrec import extend_vocab, sft_loss
+    from genrec_tpu_torch.trainers.lcrec_trainer import lora_loss_fn
+
+    cfg, full = _tiny_qwen("cpu", 90)
+    cfg, full, base = extend_vocab(cfg, full, 3, 8, torch.Generator().manual_seed(1), pad_to=8)
+    live = base + 24
+    lora = lora_init(full, torch.Generator().manual_seed(2), 4)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(3, live, (4, 40)).astype(np.int32)
+    labels = np.where(rng.random((4, 40)) < 0.4, -100, ids).astype(np.int32)
+    out = {}
+    for where in ("cpu", "cuda"):
+        model = QwenLM(cfg, device=where)
+        model.load_state_dict(full)
+        for p in model.parameters():
+            p.requires_grad_(False)
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        # A copy each: the adapters are trained in place.
+        adapters = LoraAdapters({n: {k: v.to(where, copy=True) for k, v in f.items()}
+                                 for n, f in lora.items()})
+        opt = Adam(1e-2, weight_decay=0.01)
+        step = make_train_step(lora_loss_fn(model, lambda m, b: sft_loss(
+            m, b["input_ids"], b["attention_mask"], b["labels"], valid_vocab=live,
+            use_fused_ce=True), 16.0, 4), opt, clip_norm=1.0)
+        state = TrainState.create(adapters, opt, 0)
+        batch = {"input_ids": torch.as_tensor(ids, device=where),
+                 "attention_mask": torch.ones((4, 40), dtype=torch.int32, device=where),
+                 "labels": torch.as_tensor(labels, device=where)}
+        counts = [fc.fused_linear_ce_fwd_cuda.launches, fc.fused_linear_ce_dx_cuda.launches,
+                  fc.fused_linear_ce_dw_cuda.launches]
+        out[where] = [float(step(state, batch)[1]["loss"]) for _ in range(3)]
+        launched = [fc.fused_linear_ce_fwd_cuda.launches - counts[0],
+                    fc.fused_linear_ce_dx_cuda.launches - counts[1],
+                    fc.fused_linear_ce_dw_cuda.launches - counts[2]]
+        assert launched == ([3, 3, 0] if where == "cuda" else [0, 0, 0])
+        for k, v in model.state_dict().items():
+            assert torch.equal(v, before[k]), k
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-5, atol=1e-5)
+
+
+def test_qwen_heads_on_the_card_match_the_cpu(card):
+    """One engine with an LCRec and a NoteLLM head on the card against the
+    same engine on the CPU, from the same weights and catalog: sem-ids and
+    items equal, scores within 1e-4."""
+    from genrec_tpu_torch.catalog.snapshot import CatalogSnapshot
+    from genrec_tpu_torch.models.backbones.qwen import QwenLM
+    from genrec_tpu_torch.models.lcrec import extend_vocab
+    from genrec_tpu_torch.models.notellm import add_emb_token
+    from genrec_tpu_torch.serving.buckets import BucketLadder
+    from genrec_tpu_torch.serving.engine import ServingEngine
+    from genrec_tpu_torch.serving.heads import LCRecGenerativeHead, NoteLLMRetrievalHead
+    from genrec_tpu_torch.serving.types import Request
+
+    cfg, full = _tiny_qwen("cpu", 60)
+    lc_cfg, lc_full, base = extend_vocab(cfg, full, 3, 8, torch.Generator().manual_seed(1))
+    nl_cfg, nl_full, emb_id = add_emb_token(cfg, full, torch.Generator().manual_seed(2))
+    rng = np.random.default_rng(0)
+    valid = np.unique(rng.integers(0, 8, (60, 3)), axis=0)
+    vecs = rng.standard_normal((len(valid), 64)).astype(np.float32)
+    reqs = [Request(head="lcrec", history=rng.integers(0, len(valid), n)) for n in (1, 3, 6)]
+    reqs += [Request(head="notellm", history=rng.integers(3, emb_id, n)) for n in (2, 5, 8)]
+    answers = {}
+    for where in ("cpu", "cuda"):
+        lc_model = QwenLM(lc_cfg, device=where)
+        lc_model.load_state_dict(lc_full)
+        nl_model = QwenLM(nl_cfg, device=where)
+        nl_model.load_state_dict(nl_full)
+        heads = [LCRecGenerativeHead(lc_model.eval(), base, 3, 8, item_sem_ids=valid, top_k=4),
+                 NoteLLMRetrievalHead(nl_model.eval(), emb_id, catalog=CatalogSnapshot.build(
+                     valid, 8, item_vecs=vecs), top_k=5)]
+        eng = ServingEngine(heads, device=where, ladder=BucketLadder((1,), (4, 8)), max_batch=1,
+                            handle_signals=False).start()
+        answers[where] = [eng.serve(r) for r in reqs]
+        eng.stop()
+    for got, want in zip(answers["cuda"], answers["cpu"]):
+        np.testing.assert_array_equal(got.items, want.items)
+        if want.sem_ids is not None:
+            np.testing.assert_array_equal(got.sem_ids, want.sem_ids)
+        np.testing.assert_allclose(got.scores, want.scores, rtol=1e-4, atol=1e-4)

@@ -42,9 +42,15 @@ from genrec_tpu_torch.models.sasrec import SASRec, SASRecBlock
 from genrec_tpu_torch.serving.engine import ServingEngine
 from genrec_tpu_torch.serving.heads import (
     CobraGenerativeHead,
+    LCRecGenerativeHead,
+    NoteLLMRetrievalHead,
     RetrievalHead,
     TigerGenerativeHead,
 )
+from genrec_tpu_torch.core.lora import LoraAdapters, lora_init, lora_merge
+from genrec_tpu_torch.data.notellm_pairs import NoteLLMPairData
+from genrec_tpu_torch.models.notellm import NoteLLM, query2embedding_forward
+from genrec_tpu_torch.trainers import notellm_trainer
 from genrec_tpu_torch.ops.spec_tree import TreeTopology, tree_topology
 from genrec_tpu_torch.serving.kv_pool import KVPagePool, PagedConfig, PrefixIndex
 
@@ -65,7 +71,11 @@ LIVE_MODULES = ("genrec_tpu_torch.obs", "genrec_tpu_torch.obs.spans",
                 # and the two-stage runner.
                 "genrec_tpu_torch.native", "genrec_tpu_torch.native.loader",
                 "genrec_tpu_torch.data.amazon", "genrec_tpu_torch.data.p5_amazon",
-                "genrec_tpu_torch.pipelines")
+                "genrec_tpu_torch.pipelines",
+                # The Qwen families' rest: NoteLLM (a copy of the JAX pair
+                # data, the model, the trainer) and LoRA.
+                "genrec_tpu_torch.models.notellm", "genrec_tpu_torch.data.notellm_pairs",
+                "genrec_tpu_torch.trainers.notellm_trainer", "genrec_tpu_torch.core.lora")
 
 # Runs in a fresh interpreter: jax and friends are poisoned in
 # sys.modules, and a meta-path hook refuses genrec_tpu and genrec_tpu.*
@@ -145,17 +155,17 @@ _GIN_IMPORTS = _IMPORT_EVERY_MODULE.split("import genrec_tpu_torch\n")[0] + r"""
 from genrec_tpu_torch import configlib
 from genrec_tpu_torch.configlib import registry
 
-for name in ("tiger_trainer", "cobra_trainer"):
+for name in ("tiger_trainer", "cobra_trainer", "notellm_trainer"):
     configlib.parse_string(f"import genrec_tpu.trainers.{name}")
     port = sys.modules[f"genrec_tpu_torch.trainers.{name}"]
     assert registry.lookup(f"genrec_tpu.trainers.{name}.train") is port.train
 configlib.parse_string("import genrec_tpu.models.cobra")
 try:
-    configlib.parse_string("import genrec_tpu.trainers.notellm_trainer")
+    configlib.parse_string("import genrec_tpu.trainers.stream_trainer")
 except ImportError as e:
-    assert "ROADMAP A22" in str(e), e
+    assert "ROADMAP A24" in str(e), e
 else:
-    raise AssertionError("the unported NoteLLM trainer imported")
+    raise AssertionError("the unported stream trainer imported")
 leaked = sorted(
     n for n, m in sys.modules.items()
     if m is not None and n.split(".")[0] in FORBIDDEN
@@ -166,9 +176,9 @@ print("ok")
 
 
 def test_gin_import_of_an_unported_module_names_its_roadmap_item():
-    """``import genrec_tpu.trainers.{tiger,cobra}_trainer`` in a gin file
-    resolves to the port's trainers; a module the port lacks
-    (``trainers.notellm_trainer``) raises naming its ROADMAP item; neither
+    """``import genrec_tpu.trainers.{tiger,cobra,notellm}_trainer`` in a gin
+    file resolves to the port's trainers; a module the port lacks
+    (``trainers.stream_trainer``) raises naming its ROADMAP item; neither
     jax nor genrec_tpu enters sys.modules (a fresh interpreter)."""
     proc = subprocess.run([sys.executable, "-c", _GIN_IMPORTS], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
@@ -266,6 +276,8 @@ def test_default_device_entry_points_raise_without_a_card(no_card):
         rqvae_trainer.train(epochs=1, save_dir_root=None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         lcrec_trainer.train(epochs=1, save_dir_root=None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        notellm_trainer.train(epochs=1, save_dir_root=None)
     from genrec_tpu_torch.models.backbones.qwen import QwenConfig, QwenLM
 
     with pytest.raises(RuntimeError, match="no CUDA device"):

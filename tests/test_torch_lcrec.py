@@ -12,6 +12,11 @@ genrec_tpu_torch/data/lcrec_tasks.py with its JAX original:
   conftest's virtual devices;
 - ``generate_topk_constrained`` (beam widths below and above the codebook
   size) and ``generate_greedy`` at tensor_parallel 1 and 2;
+- ``generate_topk_constrained(trie=...)`` over each trie of the port
+  (``DenseTrie``, ``PackedTrie``, ``TensorTrie``) against JAX's over its
+  own: a catalog with fewer legal first codes than beams, a one-item
+  catalog, and a wider one, each at beam widths below and above K (the
+  dead beams' tuples, scores and trie ranks included);
 - ``synthetic_lcrec_data``: identical arrays for one seed.
 
 One spawn serves the module's tensor-parallel cases. Tiny backbone: 2
@@ -19,7 +24,8 @@ layers, hidden 32, 4 heads / 2 KV heads, 90 base tokens + 3 x 8 codebook
 tokens padded to 120 (pad rows on the second shard). Tolerances, fp32 on
 both sides: losses 1e-5 absolute plus 1e-5 relative; a gradient 1e-5 of
 its largest element (sums over every token's path in another order);
-sem-ids and tokens equal; beam log-probabilities 1e-5 absolute.
+sem-ids, tokens and trie ranks equal; beam log-probabilities 1e-5
+absolute (-inf where a beam is dead, on both sides).
 """
 
 import signal
@@ -254,6 +260,62 @@ def test_generation_matches_jax_at_tp2(setup, tp_ranks):
         _assert_generations_equal(got, want)
 
 
+def _catalogs():
+    rng = np.random.default_rng(5)
+    few = np.unique(np.stack([rng.choice([2, 5], 12), rng.integers(0, K, 12),
+                              rng.integers(0, K, 12)], axis=1), axis=0)
+    return {"two_first_codes": few, "one_item": np.array([[6, 1, 3]]),
+            "wide": np.unique(rng.integers(0, K, (40, C)), axis=0)}
+
+
+def _tries(valid):
+    """{kind: (JAX trie, the port's trie)} over one catalog."""
+    from genrec_tpu.catalog.tensor_trie import TensorTrie as JaxTensorTrie
+    from genrec_tpu.ops import trie as jtrie
+    from genrec_tpu_torch.catalog.tensor_trie import TensorTrie
+    from genrec_tpu_torch.ops import trie as ttrie
+
+    return {"dense": (jtrie.DenseTrie.build(valid, K), ttrie.DenseTrie.build(valid, K, "cpu")),
+            "packed": (jtrie.PackedTrie.build(valid, K),
+                       ttrie.PackedTrie.build(valid, K, "cpu")),
+            "tensor": (JaxTensorTrie.build(valid, K).device(),
+                       TensorTrie.build(valid, K).to("cpu"))}
+
+
+def _beam_ranks(trie, sem_ids, lib):
+    """The trie rank of every beam's tuple, advanced from the root."""
+    xp = jnp if lib == "jax" else torch
+    rank = xp.zeros(sem_ids.shape[:2], dtype=xp.int32 if lib == "jax" else torch.int64)
+    for c in range(C):
+        tok = xp.asarray(sem_ids[..., c]) if lib == "jax" else torch.as_tensor(sem_ids[..., c])
+        rank = trie.advance(rank, tok, c)
+    return np.asarray(rank)
+
+
+@pytest.mark.parametrize("kind", ["dense", "packed", "tensor"])
+@pytest.mark.parametrize("catalog", ["two_first_codes", "one_item", "wide"])
+def test_trie_constrained_generation_matches_jax(setup, kind, catalog):
+    jm, _, gen_params = setup
+    ids, mask = _prompts()
+    valid = _catalogs()[catalog]
+    jtrie, ptrie = _tries(valid)[kind]
+    model = _port_model(gen_params)
+    corpus = {tuple(int(v) for v in row) for row in valid}
+    for W in WIDTHS:
+        want = jax.jit(lambda p, i, m, W=W: jl.generate_topk_constrained(
+            jm, p, i, m, BASE, C, K, beam_width=W, trie=jtrie))(gen_params, ids, mask)
+        got = tl.generate_topk_constrained(model, torch.as_tensor(ids), torch.as_tensor(mask),
+                                           BASE, C, K, beam_width=W, trie=ptrie)
+        sem, lp = got.sem_ids.numpy(), got.log_probas.numpy()
+        np.testing.assert_array_equal(sem, np.asarray(want.sem_ids))
+        np.testing.assert_allclose(lp, np.asarray(want.log_probas), atol=1e-5, rtol=0)
+        np.testing.assert_array_equal(_beam_ranks(ptrie, sem, "torch"),
+                                      _beam_ranks(jtrie, np.asarray(want.sem_ids), "jax"))
+        alive = np.isfinite(lp)
+        assert alive.sum(axis=1).tolist() == [min(W, len(valid))] * len(ids)
+        assert all(tuple(int(v) for v in t) in corpus for t in sem[alive])
+
+
 def test_synthetic_lcrec_data_matches_jax():
     data, tok = synthetic_lcrec_data(seed=3)
     jdata, jtok = jax_synthetic_lcrec_data(seed=3)
@@ -272,10 +334,6 @@ def test_synthetic_lcrec_data_matches_jax():
 def test_unported_paths_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP A15"):
         tl.make_sp_sft_loss(None, None)
-    model = QwenLM(_port_cfg(), device="cpu")
-    ids = torch.zeros((1, 3), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A19"):
-        tl.generate_topk_constrained(model, ids, torch.ones_like(ids), BASE, C, K, trie=object())
     # amazon_lcrec_data is ported (A18): a dump's sequences and meta text
     # with the artifact's codebooks (tests/test_torch_amazon.py holds it to
     # JAX); an artifact short of the dump's items is refused.

@@ -8,7 +8,9 @@
   same converted parameters on the same batches.
 - ``train()`` end to end on the CPU at tensor_parallel 1 and 2, from the
   same seed: the epochs' mean losses agree.
-- The options the port does not run yet raise, naming their ROADMAP item.
+- LoRA runs at tensor_parallel=1 and refuses tensor or expert
+  parallelism (ValueError, as in JAX); the options the port does not run
+  yet raise, naming their ROADMAP item.
 
 One spawn serves the module. Tolerance: losses 1e-5 relative, fp32 on
 both sides (each step's gradients differ by GEMM summation order, and
@@ -172,12 +174,21 @@ def test_unported_options_name_their_roadmap_items(ranks, tmp_path):
     assert "ROADMAP A17" in refused
     with pytest.raises(RuntimeError, match="torchrun --standalone --nproc_per_node=2"):
         lcrec_trainer.train(tensor_parallel=2, **TRAIN)
-    for kwargs, item in [(dict(use_lora=True), "A13"), (dict(num_experts=4), "A14"),
+    # LoRA is ported (A13): it runs at tensor_parallel=1 (tests/test_torch_lora.py
+    # holds it to JAX) and, as in JAX, refuses tensor or expert parallelism
+    # before anything else.
+    valid, test = lcrec_trainer.train(save_dir_root=None, use_lora=True,
+                                      **{**TRAIN, "epochs": 1})
+    assert all(np.isfinite(v) for v in (*valid.values(), *test.values()))
+    for kwargs in (dict(tensor_parallel=2), dict(expert_parallel=2),
+                   dict(tensor_parallel=2, resume_from_checkpoint=True)):
+        with pytest.raises(ValueError, match="with use_lora is not wired"):
+            lcrec_trainer.train(save_dir_root=None, use_lora=True, **{**TRAIN, **kwargs})
+    for kwargs, item in [(dict(num_experts=4), "A14"),
                          (dict(expert_parallel=2), "A14"), (dict(sequence_parallel=2), "A15"),
                          (dict(pipeline_parallel=2), "A16"),
                          # Resume, eval_only and profiling are ported (A12): the
                          # refusals that remain come first whatever they are asked with.
-                         (dict(resume_from_checkpoint=True, use_lora=True), "A13"),
                          (dict(eval_only=True, sequence_parallel=2), "A15"),
                          (dict(profile_steps=3, pipeline_parallel=2), "A16")]:
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
