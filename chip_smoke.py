@@ -306,6 +306,27 @@ line each; any failure ends the run with a traceback and a non-zero exit:
             point's bytes; then lcrec_trainer.train with use_lora=True at 2
             layers killed and resumed, held bit for bit. Its launches join
             the kernels line's `_lcrec` rows (B4 dW 0 there).
+23. pipeline scripts/check_pipeline.py's continuous loop at TIGER_AMAZON
+            widths over the serve phase's catalog: seeded records (the
+            trainer's rows: user id, 20 x 3 input and 3 target sem-ids)
+            appended to the CRC-framed stream log by a worker process
+            (this script with --pipeline-worker) SIGKILL'd mid-stream
+            (die_in_append_at_record) and rerun: none lost, none
+            duplicated; StreamTrainer over 3 chunks of 4 tiger_train steps
+            (unpacked rows), an uninterrupted oracle in this process and a
+            worker SIGKILL'd mid-commit (die_in_save_at_step) and rerun:
+            per-step losses and every published tree within 1e-5 of the
+            oracle's (the largest differences printed); then
+            RolloutController over two fp32 paged replicas (replica_id r0,
+            r1) under a background prober: the last trained step vetted,
+            canaried and promoted, a x60 tree vetoed and quarantined with
+            both replicas' weights bit-unchanged, a live chunk appended,
+            trained by a worker and promoted (freshness_s); no response on
+            an unvetted step, both pools clean after the drain, B1
+            launched (added to the kernels line) and no other kernel; last,
+            TIGER and COBRA (amazon.gin widths) each served by a paged=False
+            engine and a paged one, every request alone: sem-ids equal
+            (beams within the bound may trade ranks), scores within 1e-4 / T.
 
 Each phase that drives a main path sets every kernel's launch counter to 0
 just before and reads it just after. Then the kernels line, the card's
@@ -325,6 +346,7 @@ import functools
 import gc
 import gzip
 import json
+import logging
 import math
 import os
 import re
@@ -6303,6 +6325,507 @@ def lcrec_lora_phase(dev, seed) -> dict:
                 steps=steps, resume=resume, launches=steps["launches"])
 
 
+# ---- phase 23: the continuous pipeline ------------------------------------------
+
+# scripts/check_pipeline.py's scenario at TIGER_AMAZON widths over the serve
+# phase's catalog. A record is one of the trainer's unpacked rows, int32: the
+# user id, MAX_ITEMS catalog items' sem-ids (the history) and one more item's
+# (the target), items drawn from ``(seed, records_seed)``. A chunk is
+# ``chunk_steps`` steps of TIGER_TRAIN["batch"] rows; the step is the
+# tiger_train phase's (bf16, dropout 0.1, AdamW 1e-4 on the cosine warm-up of
+# 100 steps over TIGER_TRAIN["epochs"] chunks, weight decay 0.035, clip 1.0)
+# on those rows. A resume point every ``commit_every`` steps (the script's 1,
+# cut to halve the resume-point writes: 200 MB each at these widths); the
+# kill lands on one. The rollout as the script's: two fp32 paged replicas at
+# the serve phase's pools, a prober, the drift bound 1e6 (a trained step
+# moves the vet scores by far less; a x60 tree by orders more).
+PIPELINE = dict(chunk_steps=4, chunks=3, commit_every=2, records_seed=7,
+                garbage_scale=60.0, vet_requests=8, dense_requests=32,
+                worker_timeout_s=300, wait_s=120.0)
+PIPELINE_CHUNK = PIPELINE["chunk_steps"] * TIGER_TRAIN["batch"]
+#: Dense against paged answers: sem-ids equal (beams within the bound of
+#: each other may trade ranks: the tuple rule of int8_answers_agree), scores
+#: within 1e-4 / T (TIGER decodes at T 0.2, COBRA at 1).
+DENSE_SCORE_TOL = 1e-4
+#: The resumed trainer against the uninterrupted one, as check_pipeline.py
+#: holds them: losses and published parameters.
+PIPELINE_PARITY_TOL = 1e-5
+
+
+def pipeline_records(seed, n) -> list:
+    D = TIGER_AMAZON["sem_id_dim"]
+    catalog = tiger_catalog(np.random.default_rng(seed))  # the serve phase's
+    rng = np.random.default_rng((seed, PIPELINE["records_seed"]))
+    users = rng.integers(0, TIGER_AMAZON["num_user_embeddings"], n)
+    items = rng.integers(0, CATALOG_ITEMS, (n, MAX_ITEMS + 1))
+    rows = np.concatenate([users[:, None], catalog[items].reshape(n, (MAX_ITEMS + 1) * D)],
+                          axis=1).astype(np.int32)
+    return [r.tobytes() for r in rows]
+
+
+def pipeline_arrays(payloads, epoch) -> dict:
+    """A chunk's records as the TIGER loss's unpacked rows."""
+    del epoch  # the loop shuffles by (seed, epoch)
+    D = TIGER_AMAZON["sem_id_dim"]
+    L = MAX_ITEMS * D
+    rows = np.stack([np.frombuffer(p, np.int32) for p in payloads])
+    B = len(rows)
+    return {"user_ids": rows[:, 0].copy(), "item_input_ids": rows[:, 1:1 + L].copy(),
+            "token_type_ids": np.tile(np.arange(D, dtype=np.int32), (B, MAX_ITEMS)),
+            "target_ids": rows[:, 1 + L:].copy(), "seq_mask": np.ones((B, L), np.int32)}
+
+
+def pipeline_trainer(dev, seed, work, name, handle_signals=True):
+    """The StreamTrainer every stage builds (the oracle in this process,
+    the killed and resumed ones in workers): one definition, or the parity
+    means nothing. Trains into ``work/name``, publishes into
+    ``work/name_publish``."""
+    from genrec_tpu_torch.core.harness import make_train_step
+    from genrec_tpu_torch.core.optim import Adam
+    from genrec_tpu_torch.core.state import TrainState
+    from genrec_tpu_torch.models.tiger import Tiger
+    from genrec_tpu_torch.ops.schedules import cosine_schedule_with_warmup
+    from genrec_tpu_torch.trainers.stream_trainer import StreamTrainer
+    from genrec_tpu_torch.trainers.tiger_trainer import make_loss_fn
+
+    t = TIGER_TRAIN
+    model = Tiger(**TIGER_AMAZON, dropout=t["dropout"], dtype=torch.bfloat16, device=dev,
+                  seed=seed)
+    optimizer = Adam(cosine_schedule_with_warmup(t["lr"], t["warmup"],
+                                                 t["epochs"] * PIPELINE["chunk_steps"]),
+                     weight_decay=t["wd"])
+    step_fn = make_train_step(make_loss_fn(TIGER_AMAZON["sem_id_dim"], False), optimizer,
+                              clip_norm=1.0)
+    return StreamTrainer(
+        log_dir=str(work / "log"), save_dir_root=str(work / name),
+        state=TrainState.create(model, optimizer, seed), step_fn=step_fn,
+        make_arrays=pipeline_arrays, chunk_records=PIPELINE_CHUNK, rows_per_step=t["batch"],
+        row_len=1 + MAX_ITEMS * TIGER_AMAZON["sem_id_dim"], seed=seed,
+        publish_dir=str(work / f"{name}_publish"), commit_every_steps=PIPELINE["commit_every"],
+        handle_signals=handle_signals, logger=logging.getLogger(f"pipeline.{name}"))
+
+
+def pipeline_worker(mode, cfg_json) -> int:
+    """``chip_smoke.py --pipeline-worker append|train CFG``: a stage of the
+    pipeline phase in a process of its own, so a chaos plan can SIGKILL it.
+    Prints ``WORKER {json}`` on stderr when it returns."""
+    from genrec_tpu_torch.core import chaos
+    from genrec_tpu_torch.data.stream_log import StreamLogWriter
+
+    cfg = json.loads(cfg_json)
+    work = Path(cfg["work"])
+    if mode == "append":
+        records = pipeline_records(cfg["seed"], cfg["n"])[:cfg["upto"]]
+        plan = (chaos.ChaosPlan(die_in_append_at_record=cfg["die_at"])
+                if cfg.get("die_at") is not None else None)
+        with StreamLogWriter(str(work / "log")) as w:
+            start = w.records_committed
+            with chaos.inject(plan) if plan else contextlib.nullcontext():
+                w.append_many(records[start:])
+            out = {"resumed_from": start, "committed": w.records_committed}
+    else:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        plan = (chaos.ChaosPlan(die_in_save_at_step=cfg["die_in_save"])
+                if cfg.get("die_in_save") is not None else None)
+        trainer = pipeline_trainer(torch.device(cfg["device"]), cfg["seed"], work, "train")
+        with chaos.inject(plan) if plan else contextlib.nullcontext():
+            out = trainer.run(max_chunks=cfg["max_chunks"], idle_timeout_s=5.0)
+    print("WORKER " + json.dumps(out), file=sys.stderr, flush=True)
+    return 0
+
+
+def pipeline_worker_cmd(mode, cfg) -> list:
+    return [sys.executable, str(HERE / "chip_smoke.py"), "--pipeline-worker", mode,
+            json.dumps(cfg)]
+
+
+def pipeline_run_worker(mode, cfg, expect_sigkill=False):
+    """Run one worker stage to its end; returns (its summary or None, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(pipeline_worker_cmd(mode, cfg), capture_output=True, text=True,
+                          timeout=PIPELINE["worker_timeout_s"], cwd=HERE)
+    seconds = time.perf_counter() - t0
+    if expect_sigkill:
+        check(proc.returncode == -9, (f"{mode} worker survived its chaos kill", proc.returncode,
+                                      proc.stderr[-3000:]))
+        return None, seconds
+    check(proc.returncode == 0, (f"{mode} worker failed", proc.returncode, proc.stderr[-3000:]))
+    line = [l for l in proc.stderr.splitlines() if l.startswith("WORKER ")][-1]
+    return json.loads(line[len("WORKER "):]), seconds
+
+
+def pipeline_losses(save_dir, allow_replay=False) -> tuple[dict, float]:
+    """Step -> loss from metrics.jsonl, and the largest difference of a
+    replayed step (a SIGKILL'd run replays the steps after its last commit)."""
+    out, replay_err = {}, 0.0
+    with open(Path(save_dir) / "metrics.jsonl") as fh:
+        for line in fh:
+            rec = json.loads(line)
+            if "train/loss" in rec and "global_step" in rec:
+                step = int(rec["global_step"])
+                if step in out:
+                    check(allow_replay, f"step {step} logged twice")
+                    replay_err = max(replay_err, abs(out[step] - rec["train/loss"]))
+                out[step] = rec["train/loss"]
+    return out, replay_err
+
+
+def dense_paged_agree(what, dense, paged, tol) -> dict:
+    """Each request's dense answer against its paged one (both served
+    alone, at the same bucket): sem-ids and items equal and scores within
+    ``tol``; where two beams within ``tol`` of each other trade ranks, the
+    tuple rule of `int8_answers_agree` holds them instead (counted)."""
+    errs, swapped = [], 0
+    for i, (a, b) in enumerate(zip(dense, paged)):
+        check(a.bucket == b.bucket, (what, i, a.bucket, b.bucket))
+        if (a.sem_ids == b.sem_ids).all():
+            check((a.items == b.items).all(), (what, i, a.items, b.items))
+            errs.append(float(np.abs(a.scores - b.scores).max()))
+        else:
+            err, moved = int8_answers_agree(b.sem_ids, b.scores, a.sem_ids, a.scores, tol,
+                                            beams=len(b.sem_ids))
+            errs.append(err)
+            swapped += moved > 0
+        check(errs[-1] <= tol, (what, i, errs[-1], tol))
+        check(bool((a.items >= 0).all()), (what, i, "an answer outside the catalog"))
+    return dict(requests=len(dense), max_abs_score_diff=max(errs), tol=tol,
+                requests_with_rank_swaps=swapped)
+
+
+def dense_route_check(dev, seed) -> dict:
+    """TIGER and COBRA, each served by a paged engine and a ``paged=False``
+    one, every request alone: the dense answers equal the paged ones."""
+    from genrec_tpu_torch.models.cobra import Cobra
+    from genrec_tpu_torch.models.tiger import Tiger
+    from genrec_tpu_torch.serving.buckets import BucketLadder
+    from genrec_tpu_torch.serving.engine import ServingEngine
+    from genrec_tpu_torch.serving.heads import CobraGenerativeHead, TigerGenerativeHead
+    from genrec_tpu_torch.serving.kv_pool import PagedConfig
+    from genrec_tpu_torch.serving.types import Request
+
+    rng = np.random.default_rng(seed + 3)
+    ladder = BucketLadder((1, 2, 4, 8, 16), (4, 8, 16, MAX_ITEMS))
+    n = PIPELINE["dense_requests"]
+
+    def both_routes(head, cfg, reqs):
+        out = {}
+        for paged in (True, False):
+            eng = ServingEngine([head], device=dev, ladder=ladder, max_batch=16,
+                                max_wait_ms=2.0, paged=paged, paged_config=cfg,
+                                prefix_cache=False, handle_signals=False).start()
+            t0 = time.perf_counter()
+            out[paged] = [eng.serve(r, timeout=300) for r in reqs]
+            out[f"s_{paged}"] = time.perf_counter() - t0
+            stats = eng.stop()
+            check(stats["completed"] == len(reqs), stats["completed"])
+            check((stats["decode_steps"] > 0) == paged, ("decode steps", paged, stats))
+        return out
+
+    tiger = Tiger(**TIGER_AMAZON, device=dev, seed=seed).eval()
+    head = TigerGenerativeHead(tiger, item_sem_ids=tiger_catalog(np.random.default_rng(seed)),
+                               top_k=BEAMS)
+    got = both_routes(head, PagedConfig(**PAGED), make_requests(rng, n, CATALOG_ITEMS))
+    tiger_line = dense_paged_agree("TIGER dense vs paged", got[False], got[True],
+                                   DENSE_SCORE_TOL / TIGER_DECODE["temperature"])
+    tiger_line.update(dense_s=got["s_False"], paged_s=got["s_True"])
+    del tiger, head
+    catalog, text = cobra_catalog(seed)
+    cobra = Cobra(**COBRA_AMAZON, device=dev, seed=seed).eval()
+    head = CobraGenerativeHead(cobra, item_sem_ids=catalog, item_text_tokens=text,
+                               top_k=COBRA_BEAMS)
+    reqs = [Request(head="cobra", history=rng.integers(0, CATALOG_ITEMS, int(k)))
+            for k in rng.integers(1, MAX_ITEMS + 1, n)]
+    got = both_routes(head, PagedConfig(**COBRA_PAGED), reqs)
+    cobra_line = dense_paged_agree("COBRA dense vs paged", got[False], got[True],
+                                   DENSE_SCORE_TOL)
+    cobra_line.update(dense_s=got["s_False"], paged_s=got["s_True"])
+    return {"tiger": tiger_line, "cobra": cobra_line}
+
+
+class _Replicas:
+    """check_pipeline.py's MiniRouter: replica ids -> engines."""
+
+    def __init__(self, engines):
+        self._eng = engines
+
+    def replica_ids(self):
+        return list(self._eng)
+
+    def engine(self, rid):
+        return self._eng[rid]
+
+
+def pipeline_phase(dev, seed) -> dict:
+    """scripts/check_pipeline.py's scenario at TIGER_AMAZON widths on the
+    card: append (SIGKILL'd mid-stream, rerun), stream-train (an oracle in
+    this process; a worker SIGKILL'd mid-commit, rerun), guarded rollout
+    onto two paged replicas (promote the last step, veto a x60 tree, a live
+    chunk appended, trained and promoted) under a prober; then the dense
+    route against the paged one for TIGER and COBRA. B1 launches counted
+    over the rollout."""
+    import threading
+
+    from genrec_tpu_torch.core.checkpoint import COMMIT_MARKER, CheckpointManager
+    from genrec_tpu_torch.data.stream_log import StreamLogReader, StreamLogWriter
+    from genrec_tpu_torch.kernels.paged_attention import paged_attention_stats_cuda
+    from genrec_tpu_torch.models.tiger import Tiger
+    from genrec_tpu_torch.obs.flight_recorder import get_flight_recorder
+    from genrec_tpu_torch.serving.buckets import BucketLadder
+    from genrec_tpu_torch.serving.engine import ServingEngine
+    from genrec_tpu_torch.serving.heads import TigerGenerativeHead
+    from genrec_tpu_torch.serving.kv_pool import PagedConfig
+    from genrec_tpu_torch.serving.rollout import RolloutConfig, RolloutController
+    from genrec_tpu_torch.serving.types import Request
+
+    t_phase = time.perf_counter()
+    work = HERE / "build" / "pipeline"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    steps_per_chunk, n_chunks = PIPELINE["chunk_steps"], PIPELINE["chunks"]
+    n_records = n_chunks * PIPELINE_CHUNK
+    final_step = n_chunks * steps_per_chunk
+    cfg = {"work": str(work), "seed": seed, "device": str(dev)}
+    seconds = {}
+
+    # -- append, SIGKILL'd mid-stream, rerun --------------------------------------
+    reference = pipeline_records(seed, n_records + PIPELINE_CHUNK)  # the live chunk's too
+    die_at = n_records // 2
+    append = {**cfg, "n": len(reference), "upto": n_records}
+    _, seconds["append_killed"] = pipeline_run_worker("append", {**append, "die_at": die_at},
+                                                      expect_sigkill=True)
+    ap, seconds["append_rerun"] = pipeline_run_worker("append", append)
+    got = StreamLogReader(str(work / "log")).read()
+    lost = len(set(reference[:n_records]) - set(got))
+    dup = len(got) - len(set(got))
+    check(ap["resumed_from"] == die_at, ("appender resumed at", ap, die_at))
+    check(got == reference[:n_records] and lost == 0 and dup == 0,
+          ("recovered log != seeded reference", len(got), lost, dup))
+
+    # -- the oracle: uninterrupted, in this process, twice -----------------------
+    # (the second run measures what the card's own run-to-run order of
+    # summation moves, which a kill and resume cannot be held below)
+    for name in ("oracle", "oracle_again"):
+        t0 = time.perf_counter()
+        osum = pipeline_trainer(dev, seed, work, name, handle_signals=False).run(
+            max_chunks=n_chunks, idle_timeout_s=5.0)
+        seconds[name + "_train"] = time.perf_counter() - t0
+        check(osum["global_step"] == final_step, (name, "steps", osum))
+    oracle_losses, _ = pipeline_losses(work / "oracle")
+    init_sd = Tiger(**TIGER_AMAZON, device="cpu", seed=seed).state_dict()
+
+    # -- the trainer, SIGKILL'd mid-commit, rerun -------------------------------
+    die_in_save = final_step // 2
+    check(die_in_save % PIPELINE["commit_every"] == 0, "the kill must land on a commit")
+    _, seconds["train_killed"] = pipeline_run_worker(
+        "train", {**cfg, "max_chunks": n_chunks, "die_in_save": die_in_save},
+        expect_sigkill=True)
+    tsum, seconds["train_rerun"] = pipeline_run_worker("train", {**cfg, "max_chunks": n_chunks})
+    check(tsum["global_step"] == final_step, ("resumed trainer steps", tsum))
+    losses, replay_err = pipeline_losses(work / "train", allow_replay=True)
+    check(sorted(losses) == sorted(oracle_losses) == list(range(1, final_step + 1)),
+          ("trained step sets differ", sorted(losses), sorted(oracle_losses)))
+    loss_err = max(replay_err, max(abs(oracle_losses[s] - losses[s]) for s in oracle_losses))
+    published = [c * steps_per_chunk for c in range(1, n_chunks + 1)]
+    pub, opub = CheckpointManager(str(work / "train_publish")), CheckpointManager(
+        str(work / "oracle_publish"))
+    check(pub.all_steps() == opub.all_steps() == published, (pub.all_steps(), opub.all_steps()))
+    again = CheckpointManager(str(work / "oracle_again_publish"))
+    again_losses, _ = pipeline_losses(work / "oracle_again")
+
+    def tree_diff(mgr_a, mgr_b):
+        """Largest difference over the published trees, and the parameters
+        that differ at all."""
+        err, differ = 0.0, set()
+        for step in published:
+            a = mgr_a.validate_and_restore(init_sd, step)
+            b = mgr_b.validate_and_restore(init_sd, step)
+            for k in init_sd:
+                err = max(err, float((a[k].double() - b[k].double()).abs().max()))
+                if not torch.equal(a[k], b[k]):
+                    differ.add(k)
+        return err, sorted(differ)
+
+    param_err, resumed_differ = tree_diff(pub, opub)
+    rerun_err, rerun_differ = tree_diff(again, opub)
+    rerun_loss_err = max(abs(oracle_losses[s] - again_losses[s]) for s in oracle_losses)
+    check(loss_err <= PIPELINE_PARITY_TOL and param_err <= PIPELINE_PARITY_TOL,
+          ("resume drifted", loss_err, param_err))
+
+    # -- guarded rollout onto two paged replicas ---------------------------------
+    catalog = tiger_catalog(np.random.default_rng(seed))
+    ladder = BucketLadder((1, 2, 4, 8, 16), (4, 8, 16, MAX_ITEMS))
+
+    def replica(rid):
+        model = Tiger(**TIGER_AMAZON, device=dev, seed=seed).eval()
+        return ServingEngine([TigerGenerativeHead(model, item_sem_ids=catalog, top_k=BEAMS)],
+                             device=dev, ladder=ladder, max_batch=16, max_wait_ms=2.0,
+                             paged_config=PagedConfig(**PAGED), handle_signals=False,
+                             replica_id=rid).start()
+
+    rids = ("r0", "r1")
+    router = _Replicas({rid: replica(rid) for rid in rids})
+    rng = np.random.default_rng(seed + 2)
+    for rid in rids:  # first calls: cuBLAS handles, allocator
+        serve(router.engine(rid), make_requests(rng, 16, CATALOG_ITEMS))
+    probe_reqs = make_requests(rng, 4, CATALOG_ITEMS)
+    served, probe_errors = [], []
+    stop_probe = threading.Event()
+
+    def probe_loop():
+        i = 0
+        while not stop_probe.is_set():
+            for rid in rids:
+                try:
+                    r = router.engine(rid).submit(probe_reqs[i % len(probe_reqs)]).result(60)
+                    served.append((rid, r.params_step, r.replica_id))
+                except Exception as e:  # noqa: BLE001 — counted, and checked below
+                    probe_errors.append(f"{rid}: {type(e).__name__}: {e}")
+            i += 1
+            stop_probe.wait(0.02)
+
+    flight = get_flight_recorder()
+    t_events = time.time()  # the rollout's flight events are those recorded from here on
+    reset_counters()
+    t_rollout = time.perf_counter()
+    prober = threading.Thread(target=probe_loop, daemon=True)
+    prober.start()
+    vet_head = TigerGenerativeHead(Tiger(**TIGER_AMAZON, device=dev, seed=seed).eval(),
+                                   item_sem_ids=catalog, top_k=BEAMS)
+    ctrl = RolloutController(
+        router, vet_head, str(work / "train_publish"), params_like=router.engine("r0").params(),
+        vet_requests=make_requests(rng, PIPELINE["vet_requests"], CATALOG_ITEMS),
+        state_path=str(work / "rollout_state.json"), initial_step=0,
+        config=RolloutConfig(poll_secs=0.1, canary_window_s=0.3, canary_min_responses=2,
+                             vet_max_score_drift=1e6)).start()
+
+    def wait_for(pred, what):
+        deadline = time.monotonic() + PIPELINE["wait_s"]
+        while not pred():
+            check(ctrl.alive and time.monotonic() < deadline,
+                  (f"waiting for {what}", ctrl.stats(), probe_errors[-3:]))
+            time.sleep(0.05)
+
+    wait_for(lambda: ctrl.stats()["last_good_step"] == final_step, f"promote of {final_step}")
+    seconds["first_promote"] = time.perf_counter() - t_rollout
+    check(all(router.engine(r).params_step == final_step for r in rids),
+          "fleet not on the promoted step")
+    final_tree = pub.validate_and_restore(init_sd, final_step)
+    weights = {rid: {k: v.detach().clone() for k, v in router.engine(rid).params().items()}
+               for rid in rids}
+    for rid in rids:
+        check(all(torch.equal(weights[rid][k].cpu(), final_tree[k]) for k in init_sd),
+              (rid, "serves other weights than the promoted step's"))
+    # A x60 tree: finite, but its vet scores drift far past the bound.
+    garbage_step = final_step + 1
+    pub.save(garbage_step, {k: v * PIPELINE["garbage_scale"] if v.is_floating_point() else v
+                            for k, v in init_sd.items()})
+    wait_for(lambda: ctrl.stats()["vetoes"] >= 1, "the garbage veto")
+    s = ctrl.stats()
+    check(s["last_good_step"] == final_step and s["quarantined_steps"] == 1,
+          ("garbage moved the controller", s))
+    unchanged = all(router.engine(rid).params_step == final_step and all(
+        torch.equal(v, weights[rid][k]) for k, v in router.engine(rid).params().items())
+        for rid in rids)
+    check(unchanged, "a replica's weights moved on the garbage publish")
+    veto = flight.events("rollout_vetoed")[-1:]
+    # Live round: one more chunk appended, trained in a worker, promoted.
+    with StreamLogWriter(str(work / "log")) as w:
+        w.append_many(reference[n_records:])
+    live, seconds["train_live"] = pipeline_run_worker("train", {**cfg, "max_chunks": n_chunks + 1})
+    live_step = final_step + steps_per_chunk
+    check(live["global_step"] == live_step and live["published_steps"] == [live_step],
+          ("live round", live))
+    t_pub = time.monotonic()
+    wait_for(lambda: ctrl.stats()["last_good_step"] == live_step, f"live promote of {live_step}")
+    first_serve_s = None
+    while first_serve_s is None and time.monotonic() - t_pub < PIPELINE["wait_s"]:
+        r = router.engine("r0").serve(Request(head="tiger", history=np.array([6, 7])),
+                                      timeout=60)
+        if r.params_step == live_step:
+            first_serve_s = time.monotonic() - t_pub
+    check(first_serve_s is not None, "the live step never reached r0's answers")
+    stop_probe.set()
+    prober.join(timeout=120)
+    stats = ctrl.stop()
+    pages = slots = 0
+    for rid in rids:
+        eng = router.engine(rid)
+        st = eng.stop()
+        pool = eng.runner("tiger").pool
+        pages += pool.allocator.pages_in_use
+        slots += sum(g.get("slots_active", 0) for g in (st.get("kv_pool") or {}).values())
+    counts = read_counters()
+    seconds["rollout"] = time.perf_counter() - t_rollout
+    allowed = {None, 0, live_step, *published}
+    unvetted = [st for _, st, _ in served if st not in allowed]
+    check(not probe_errors, ("prober errors", probe_errors[:3]))
+    check(len(served) > 0 and not unvetted, ("unvetted params served", unvetted[:5]))
+    check(all(r == rid for rid, _, r in served), "a response named another replica")
+    check(stats["promotions"] == 2 and stats["vetoes"] == 1 and stats["rollbacks"] == 0
+          and stats["last_good_step"] == live_step, ("rollout stats", stats))
+    check(0.0 < stats["freshness_s"] < PIPELINE["wait_s"], ("freshness", stats))
+    check(pages == 0 and slots == 0, ("pools not clean", pages, slots))
+    b1 = counts["paged_attention_stats"]
+    check(b1 > 0 and b1 == paged_attention_stats_cuda.launches, ("B1 launches", counts))
+    check(all(v == 0 for k, v in counts.items() if k != "paged_attention_stats"),
+          ("another kernel launched", counts))
+    events = [e for e in flight.events() if e["t"] >= t_events]
+    engine_events = [e for e in events if e.get("component") == "engine"]
+
+    def event_t(kind, **match):
+        ts = [e["t"] for e in events
+              if e["kind"] == kind and all(e.get(k) == v for k, v in match.items())]
+        check(ts, (kind, match, "not in the flight recorder"))
+        return ts[0]
+
+    # Where the live step's freshness went, from the commit marker's mtime
+    # and the flight events of the controller and the replicas.
+    marks = [(work / "train_publish" / str(live_step) / COMMIT_MARKER).stat().st_mtime,
+             event_t("integrity_ladder", step=live_step, verdict="valid"),
+             event_t("rollout_staged", step=live_step),
+             event_t("hot_reload_swapped", step=live_step, replica_id=rids[-1]),
+             event_t("hot_reload_swapped", step=live_step, replica_id=rids[0]),
+             event_t("rollout_promoted", step=live_step)]
+    freshness_split = dict(zip(("poll_and_restore", "vet", "canary_swap", "canary_window",
+                                "promote"), np.diff(marks).tolist()))
+    check(engine_events and all(e.get("replica_id") in rids for e in engine_events),
+          "an engine flight event without its replica")
+    del router, ctrl, vet_head
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    dense = dense_route_check(dev, seed)
+    seconds["dense_route"] = time.perf_counter() - t0
+    return emit(
+        "pipeline", card=torch.cuda.get_device_name(dev), wall_s=time.perf_counter() - t_phase,
+        config=(f"scripts/check_pipeline.py's scenario at config/tiger/amazon/tiger.gin widths "
+                f"over the serve phase's {CATALOG_ITEMS:,}-item catalog: records of "
+                f"{MAX_ITEMS} x 3 input and 3 target sem-ids, chunks of {steps_per_chunk} steps "
+                f"of {TIGER_TRAIN['batch']} rows, the tiger_train step (bf16, dropout 0.1) on "
+                f"unpacked rows; two fp32 paged replicas ({PAGED})"),
+        reduced=dict(chunks=f"{n_chunks} + 1 live", commit_every=PIPELINE["commit_every"]),
+        records_appended=len(got), records_lost=lost, records_duplicated=dup,
+        appender_resumed_from=ap["resumed_from"], sigkills=2,
+        steps_trained=tsum["global_step"], published_steps=published + [live_step],
+        loss_parity_max_err=loss_err, param_parity_max_err=param_err,
+        published_trees_bit_equal=not resumed_differ, params_differing=resumed_differ,
+        oracle_rerun=dict(loss_max_err=rerun_loss_err, param_max_err=rerun_err,
+                          params_differing=rerun_differ),
+        losses={s: oracle_losses[s] for s in (1, final_step)},
+        promotions=stats["promotions"], vetoes=stats["vetoes"], rollbacks=stats["rollbacks"],
+        quarantined_steps=stats["quarantined_steps"], last_good_step=stats["last_good_step"],
+        garbage_vet=({k: veto[0].get(k) for k in ("finite", "trie_valid", "drift")}
+                     if veto else None),
+        replicas_bit_unchanged=bool(unchanged), responses_served=len(served),
+        unvetted_serves=len(unvetted), freshness_s=stats["freshness_s"],
+        freshness_split_s=freshness_split,
+        first_serve_s=first_serve_s, pages_in_use_final=pages, slots_active_final=slots,
+        paged_attention_launches=b1, dense_route=dense, seconds=seconds,
+    )
+
+
 def build_all() -> dict:
     """Every kernel library, one nvcc per source, all started together."""
     from genrec_tpu_torch.kernels.build import LIBRARIES, NVCC_FLAGS, build_library
@@ -6320,6 +6843,7 @@ def build_all() -> dict:
 
 
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=384)
@@ -6328,7 +6852,8 @@ def main(argv=None) -> int:
                     help="run more HSTU, TIGER, RQ-VAE and LCRec train steps and serve the TIGER "
                          "and COBRA traffic once more (fp32 and int8) under torch.profiler, "
                          "and report device time by kernel")
-    args = ap.parse_args(argv)
+    worker = argv[1:3] if argv[:1] == ["--pipeline-worker"] else None
+    args = ap.parse_args([] if worker else argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only",
@@ -6340,6 +6865,8 @@ def main(argv=None) -> int:
         print(f"chip_smoke: genrec_tpu_torch imported from {genrec_tpu_torch.__file__}, "
               f"not from the checkout beside this script", file=sys.stderr)
         return 2
+    if worker:
+        return pipeline_worker(*worker)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6440,12 +6967,16 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phases[name] = phase(dev, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases["pipeline"] = pipeline_phase(dev, args.seed)
     phases["wall_s"] = time.perf_counter() - t_start
     amazon = phases["amazon"]["launches"]
 
     launches = {"paged_attention_stats": (phases["serve"]["paged_attention_launches"]
                                           + phases["tiger_decode"]["paged_attention_launches"]
-                                          + phases["serve_live"]["paged_attention_launches"]),
+                                          + phases["serve_live"]["paged_attention_launches"]
+                                          + phases["pipeline"]["paged_attention_launches"]),
                 "paged_attention_stats_quantized":
                     phases["serve_int8"]["paged_attention_launches"],
                 # The amazon phase's launches join those of each kernel's

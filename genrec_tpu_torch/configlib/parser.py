@@ -32,10 +32,15 @@ from genrec_tpu_torch.configlib import registry
 
 _MACROS: dict[str, Any] = {}
 
-# JAX-package modules a config file may import that the port has not
-# ported yet, and the ROADMAP item that ports each.
+# JAX-package modules (or packages) a config file may import that the port
+# has not ported yet, and the ROADMAP item that ports each.
 _ROADMAP_ITEM = {
-    "trainers.stream_trainer": "A24 (streaming training and rollout)",
+    "disagg": "A25 (disaggregated serving)",
+    "fleet": "A26 (fleet)",
+    "tenancy": "A27 (tenancy)",
+    "parallel.ring_attention": "A15 (sequence parallelism)",
+    "parallel.pipeline": "A16 (the pipeline)",
+    "models.pp_sft": "A16 (the pipeline)",
 }
 
 _REF_RE = re.compile(r"@([A-Za-z_][\w\./]*)(\(\))?")
@@ -198,7 +203,8 @@ def import_port_module(name: str):
         if not (e.name and (port == e.name or port.startswith(e.name + "."))):
             raise  # a module that exists failed on one of its own imports
         rest = port.split(".", 1)[1] if "." in port else port
-        item = _ROADMAP_ITEM.get(rest, "no item yet: see ROADMAP.md queue A")
+        item = (_ROADMAP_ITEM.get(rest) or _ROADMAP_ITEM.get(rest.split(".")[0])
+                or "no item yet: see ROADMAP.md queue A")
         raise ImportError(
             f"config imports {name}, whose port {port} does not exist yet; "
             f"ROADMAP {item} ports it"

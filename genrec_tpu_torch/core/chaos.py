@@ -19,11 +19,15 @@ step/epoch it names —
   damage an on-disk step record (``tensors.pt``, ``manifest.json``,
   ``COMMITTED``; core/checkpoint.py) the way a crashed writer or a bad
   disk would, driving the integrity ladder.
+- the stream and rollout hooks: ``die_in_append_at_record`` (fired by
+  `data.stream_log.StreamLogWriter.append` after a torn frame is on
+  disk), ``die_in_publish_at_step`` (by the streaming trainer between a
+  publish's tensor file and its commit marker) and ``crash_rollout_at``
+  (the rollout controller's thread at its canary and promote
+  boundaries);
 - ``net_faults``: a seeded schedule of NETWORK faults at the frame
-  boundary of a cross-host serving tier, and the stream and rollout
-  hooks (``die_in_append``, ``die_in_publish``, ``crash_rollout_at``):
-  copied as they are; their consumers come with the serving planes and
-  the streaming trainer (ROADMAP A24/A25).
+  boundary of a cross-host serving tier, copied as it is; its consumers
+  come with disaggregated serving (ROADMAP A25).
 
 ``only_process`` names a rank of the ``torch.distributed`` group
 (`obs.flight_recorder.process_rank`): a tensor-parallel rank, where the
@@ -243,10 +247,10 @@ def maybe_die_in_append(record: int, partial_write=None) -> None:
 
 def maybe_die_in_publish(step: int) -> None:
     """Die HARD (SIGKILL) when the plan names this PUBLISHED step, while
-    the publish checkpoint's async write is still in flight — the
+    the publish checkpoint's write is still in flight — the
     serving-facing step must never end up committed. Called by the
-    streaming trainer between starting the publish save and waiting on
-    it."""
+    streaming trainer's publish between its tensor file and its commit
+    marker."""
     plan = _ACTIVE
     if plan is None or not _this_process_targeted(plan):
         return

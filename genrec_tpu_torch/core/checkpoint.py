@@ -304,11 +304,14 @@ class CheckpointManager:
         """Join the in-flight save; nothing else is held open."""
         self.wait()
 
-    def save(self, step: int, state: Mapping, *, wait: bool = True) -> None:
+    def save(self, step: int, state: Mapping, *, wait: bool = True,
+             before_commit=None) -> None:
         """Write ``state`` as step ``step``, then drop the oldest steps past
         ``max_to_keep``. With ``wait=False`` the call returns once the
         state is copied to host memory and the write and commit run on a
         background thread (one save in flight: a new save joins the last).
+        ``before_commit()`` runs after the tensor file, before the commit
+        marker (the streaming trainer's publish kill point).
         Re-saving the latest step is a no-op and a step below it is
         refused (as orbax's ``should_save`` refuses it; here loudly)."""
         step = int(step)
@@ -321,22 +324,27 @@ class CheckpointManager:
                 f"{latest} in {self.directory}")
         _flight().record("checkpoint_save", step=step, directory=self.directory)
         if wait:
-            self._write(step, state)
+            self._write(step, state, before_commit)
             return
         flat = host_copy(state)
-        self._writer = threading.Thread(target=self._write_async, args=(step, flat),
+        self._writer = threading.Thread(target=self._write_async,
+                                        args=(step, flat, before_commit),
                                         name=f"ckpt-save-{step}")
         self._writer.start()
 
-    def _write(self, step: int, state: Mapping) -> None:
-        write_record(self._step_dir(step), state,
-                     before_commit=lambda: chaos.maybe_die_in_save(step))
+    def _write(self, step: int, state: Mapping, before_commit=None) -> None:
+        def hook():
+            chaos.maybe_die_in_save(step)
+            if before_commit is not None:
+                before_commit()
+
+        write_record(self._step_dir(step), state, before_commit=hook)
         for old in self._listed_steps()[:-self.max_to_keep]:
             shutil.rmtree(self._step_dir(old), ignore_errors=True)
 
-    def _write_async(self, step: int, flat: dict) -> None:
+    def _write_async(self, step: int, flat: dict, before_commit) -> None:
         try:
-            self._write(step, flat)
+            self._write(step, flat, before_commit)
         except BaseException as e:  # noqa: BLE001 — raised by wait()
             self._write_error = e
 

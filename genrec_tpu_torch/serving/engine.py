@@ -28,12 +28,14 @@ The paged request path:
    they were admitted with. A prefill or decode call that raises fails
    the futures of the slots it ran for and frees those slots.
 
-The dense path: a head's queue is flushed as one micro-batch when it
-holds ``max_batch`` requests, when its oldest request has waited
+The dense path (the retrieval and Qwen heads, and every head of an engine
+built with ``paged=False``, TIGER's and COBRA's through their
+whole-generate ``make_fn``): a head's queue is flushed as one micro-batch
+when it holds ``max_batch`` requests, when its oldest request has waited
 ``max_wait_ms``, or when the engine drains (queues scanned round-robin, so
 one busy head cannot starve another). The batch is padded to its (batch,
 history) bucket, run as one call (``head.make_fn``, given the head's
-runtime operands: LCRec's trie, NoteLLM's bank), read back with one
+runtime operands: the catalog trie, NoteLLM's bank), read back with one
 host sync, and split by ``head.finalize``; a batch that raises fails its
 own futures only.
 
@@ -363,7 +365,8 @@ class _PagedRunner:
                 if tr is not None:
                     eng._tracer.record_span("prefix_lookup", tr[0], t0, time.monotonic(),
                                             parent_id=tr[1], outcome=outcome,
-                                            matched_tokens=int(matched), component="engine")
+                                            matched_tokens=int(matched),
+                                            **eng._span_ident())
             if centry is not None:
                 warm.append((e, centry, own_L))
             else:
@@ -396,11 +399,11 @@ class _PagedRunner:
             # The cold path's tree with `warm_admit` where `prefill` is.
             tracer = self.engine._tracer
             tracer.record_span("queue_wait", tr[0], e[2], t_pop, parent_id=tr[1],
-                               component="engine")
+                               **self.engine._span_ident())
             tracer.record_span("admission", tr[0], t_pop, t0, parent_id=tr[1],
-                               slot=int(slot), component="engine")
+                               slot=int(slot), **self.engine._span_ident())
             tracer.record_span("warm_admit", tr[0], t0, t_admit, parent_id=tr[1],
-                               warm_tokens=int(centry.n_tokens), component="engine")
+                               warm_tokens=int(centry.n_tokens), **self.engine._span_ident())
         self.engine.metrics.record_admit(1)
 
     def _admit_pages(self, n_tok: int) -> int:
@@ -519,11 +522,11 @@ class _PagedRunner:
                 # pages; prefill: the bucket call and the state rows.
                 tracer = eng._tracer
                 tracer.record_span("queue_wait", tr[0], t_enq, t_pop, parent_id=tr[1],
-                                   component="engine")
+                                   **eng._span_ident())
                 tracer.record_span("admission", tr[0], t_pop, t_start, parent_id=tr[1],
-                                   slot=int(slot), component="engine")
+                                   slot=int(slot), **eng._span_ident())
                 tracer.record_span("prefill", tr[0], t_start, t_prefilled, parent_id=tr[1],
-                                   bucket_b=B, bucket_l=L, component="engine")
+                                   bucket_b=B, bucket_l=L, **eng._span_ident())
         eng.metrics.record_admit(n)
         eng.metrics.record_batch(head.name, (B, L))
 
@@ -582,13 +585,13 @@ class _PagedRunner:
                 step = int(self.steps[slot])
                 if spec:
                     tracer.record_span("draft", tr[0], t_stage, t0, parent_id=tr[1],
-                                       step=step, drafted=drafted, component="engine")
+                                       step=step, drafted=drafted, **eng._span_ident())
                     tracer.record_span("tree_verify", tr[0], t0, t1, parent_id=tr[1],
                                        step=step, slots=S, accept_len=int(adv[i]),
-                                       component="engine")
+                                       **eng._span_ident())
                 else:
                     tracer.record_span("decode_step", tr[0], t0, t1, parent_id=tr[1],
-                                       step=step, slots=S, component="engine")
+                                       step=step, slots=S, **eng._span_ident())
         metrics = eng.metrics
         metrics.record_decode_step()
         if spec:
@@ -603,7 +606,7 @@ class _PagedRunner:
                     tr = self.entries[slot][3]
                     if tr is not None:
                         tracer.record_span("accept", tr[0], t1, t2, parent_id=tr[1],
-                                           accept_len=int(adv[i]), component="engine")
+                                           accept_len=int(adv[i]), **eng._span_ident())
         else:
             self.steps[self.active] += 1
         self._sweep_finished()
@@ -634,6 +637,7 @@ class _PagedRunner:
                     catalog_version=cat_version,
                     params_step=params_step,
                     request_id=tr[0] if tr is not None else None,
+                    replica_id=eng.replica_id,
                     bucket=self.buckets[slot],
                     queue_wait_s=t_admit - t_enq,
                     compute_s=now - t_admit,
@@ -649,10 +653,10 @@ class _PagedRunner:
                                             head=head.name)
                 if tr is not None and tr[1] is not None:
                     eng._tracer.record_span("finalize", tr[0], t_done, now, parent_id=tr[1],
-                                            component="engine")
+                                            **eng._span_ident())
                     eng._tracer.record_span("request", tr[0], t_enq, now, span_id=tr[1],
                                             parent_id=tr[2], head=head.name, slot=int(slot),
-                                            params_step=params_step, component="engine")
+                                            params_step=params_step, **eng._span_ident())
                     eng._maybe_exemplar(tr[0], resp)
                 if not fut.done():
                     fut.set_result(resp)
@@ -671,7 +675,9 @@ class ServingEngine:
 
     ``heads``: heads of serving/heads.py, each holding its model (and
     weights) on ``device``; paged heads (``supports_paged``) get a
-    `_PagedRunner`, the others the micro-batch path. ``device``
+    `_PagedRunner`, the others the micro-batch path; ``paged=False``
+    serves every head on the micro-batch path, the generative heads
+    through their whole-generate ``make_fn``. ``device``
     defaults to the card and raises when there is none; pass
     ``device="cpu"`` to serve on the CPU. ``paged_config`` sizes every
     head's page pool (default: ``4 * max_batch`` slots, pages covering the
@@ -696,7 +702,9 @@ class ServingEngine:
     (off: `NULL_TRACER`); ``hbm_budget_bytes``; ``slo_targets`` (one
     `SLOTarget` for every head, or {head name: SLOTarget}) /
     ``slo_poll_secs``; ``handle_signals`` (SIGTERM / SIGINT drain) or an
-    explicit ``guard``.
+    explicit ``guard``; ``replica_id`` (None: a standalone engine), the
+    identity a fleet gives the engine, stamped on every `Response`, every
+    flight event and every span.
     """
 
     def __init__(
@@ -707,6 +715,7 @@ class ServingEngine:
         ladder: Optional[BucketLadder] = None,
         max_batch: int = 16,
         max_wait_ms: float = 4.0,
+        paged: bool = True,
         paged_config: Optional[PagedConfig] = None,
         kv_dtype: str = "float32",
         prefix_cache: bool = True,
@@ -724,7 +733,12 @@ class ServingEngine:
         hbm_budget_bytes: Optional[int] = None,
         slo_targets=None,
         slo_poll_secs: float = 0.05,
+        replica_id: Optional[str] = None,
     ):
+        # Stamped into every Response, every flight event and every span;
+        # a fleet router may assign it after construction, so each of them
+        # reads it when it records.
+        self.replica_id = replica_id
         self.device = resolve_device(device)
         self._heads = {h.name: h for h in heads}
         if len(self._heads) != len(heads):
@@ -740,6 +754,9 @@ class ServingEngine:
             )
         self._max_batch = max_batch
         self._max_wait_s = max_wait_ms / 1e3
+        # paged=False serves every head, TIGER's and COBRA's too, on the
+        # dense micro-batch path (``make_fn``, whole-generate calls).
+        self._paged = bool(paged)
         self._paged_config = paged_config
         # A silent override would hold other bytes than the caller asked for.
         self._kv_dtype = str(kv_dtype)
@@ -772,7 +789,7 @@ class ServingEngine:
         self._guard = guard
         self._log = logging.getLogger("genrec_tpu_torch")
         self._tracer = tracer if tracer is not None else NULL_TRACER
-        self._flight = get_flight_recorder().scoped("engine")
+        self._flight = get_flight_recorder().scoped("engine", replica_id=lambda: self.replica_id)
         self.memory = MemoryLedger()
         self._hbm_budget = int(hbm_budget_bytes) if hbm_budget_bytes is not None else None
         # {head: {call name: stats}} measured at start (the card only).
@@ -823,7 +840,7 @@ class ServingEngine:
             raise RuntimeError("engine already started")
         for head in self._heads.values():
             head.on_params()
-            if head.supports_paged:
+            if self._paged and head.supports_paged:
                 self._runners[head.name] = _PagedRunner(
                     self, head, self._paged_config or self._default_paged_config(head)
                 )
@@ -858,7 +875,8 @@ class ServingEngine:
         self._started = True
         self.metrics.mark_warm()
         self._flight.record("serving_started", heads=sorted(self._heads),
-                            paged_heads=sorted(self._runners), params_step=self._step)
+                            paged_heads=sorted(self._runners), params_step=self._step,
+                            replica_id=self.replica_id)
         self._batcher.start()
         return self
 
@@ -916,6 +934,13 @@ class ServingEngine:
         """Swap the tracer live. Requests submitted before keep the trace
         context minted at their submit."""
         self._tracer = tracer if tracer is not None else NULL_TRACER
+
+    def _span_ident(self) -> dict:
+        """The identity every span of this engine carries: its component
+        lane, and its replica when it has one (read at record time)."""
+        if self.replica_id is not None:
+            return {"component": "engine", "replica": self.replica_id}
+        return {"component": "engine"}
 
     def _maybe_exemplar(self, trace_id: str, resp: Response) -> None:
         """A p99-outlier request keeps its span tree past ring eviction."""
@@ -1110,22 +1135,22 @@ class ServingEngine:
                 head=head.name, items=payload["items"], scores=payload["scores"],
                 sem_ids=payload.get("sem_ids"), catalog_version=cat_version,
                 params_step=step, request_id=tr[0] if tr is not None else None,
-                bucket=(B, L), queue_wait_s=t_start - t_enq, compute_s=t_done - t_start,
-                total_s=now - t_enq,
+                replica_id=self.replica_id, bucket=(B, L), queue_wait_s=t_start - t_enq,
+                compute_s=t_done - t_start, total_s=now - t_enq,
             )
             self.metrics.record_response(resp.queue_wait_s, resp.compute_s, resp.total_s,
                                          head=head.name)
             if tr is not None and tr[1] is not None:
                 tracer = self._tracer
                 tracer.record_span("queue_wait", tr[0], t_enq, t_start, parent_id=tr[1],
-                                   component="engine")
+                                   **self._span_ident())
                 tracer.record_span("compute", tr[0], t_start, t_done, parent_id=tr[1],
-                                   bucket_b=B, bucket_l=L, component="engine")
+                                   bucket_b=B, bucket_l=L, **self._span_ident())
                 tracer.record_span("finalize", tr[0], t_done, t_final, parent_id=tr[1],
-                                   component="engine")
+                                   **self._span_ident())
                 tracer.record_span("request", tr[0], t_enq, now, span_id=tr[1],
                                    parent_id=tr[2], head=head.name, params_step=step,
-                                   component="engine")
+                                   **self._span_ident())
                 self._maybe_exemplar(tr[0], resp)
             if not fut.done():  # a cancelled future must not kill the loop
                 fut.set_result(resp)

@@ -1,7 +1,7 @@
 """Engine heads (port of genrec_tpu/serving/heads.py: ``Head``,
 ``TigerGenerativeHead`` and ``CobraGenerativeHead`` with the paged decode
-protocol, and ``RetrievalHead``, ``LCRecGenerativeHead`` and
-``NoteLLMRetrievalHead`` with the dense micro-batch protocol).
+protocol and the dense micro-batch protocol, and ``RetrievalHead``,
+``LCRecGenerativeHead`` and ``NoteLLMRetrievalHead`` with the dense one).
 
 A head owns a model + its item corpus. Every head has
 
@@ -13,8 +13,9 @@ A head owns a model + its item corpus. Every head has
   every hot params swap (the weights are copied into the model in
   place), never per batch.
 
-Dense heads (``supports_paged = False``) add the hooks of the engine's
-micro-batch path:
+Every head has the hooks of the engine's dense micro-batch path (the
+only path of the heads with ``supports_paged = False``, and the path of
+TIGER's and COBRA's in an engine built with ``paged=False``):
 
 - ``make_fn(B, L)``: ``fn(*runtime_operands, *batch) -> outputs`` for one
   (B, L) bucket (the JAX engine compiles one a bucket; eager PyTorch needs
@@ -80,6 +81,7 @@ import torch
 from genrec_tpu_torch.catalog.snapshot import CatalogSnapshot
 from genrec_tpu_torch.catalog.tensor_trie import capacity_for
 from genrec_tpu_torch.models.cobra import (
+    cobra_generate,
     cobra_paged_decode_step,
     cobra_prefill_paged,
     cobra_spec_tree_step,
@@ -90,6 +92,7 @@ from genrec_tpu_torch.models.lcrec import generate_topk_constrained
 from genrec_tpu_torch.models.notellm import query2embedding_forward
 from genrec_tpu_torch.models.tiger import (
     init_tiger_paged_state,
+    tiger_generate,
     tiger_paged_decode_step,
     tiger_prefill_paged,
     tiger_spec_tree_step,
@@ -265,7 +268,9 @@ class _CatalogHead(Head):
 
 
 class TigerGenerativeHead(_CatalogHead):
-    """TIGER trie-constrained beam search through the paged decode path.
+    """TIGER trie-constrained beam search through the paged decode path
+(or, in an engine built with ``paged=False``, one ``tiger_generate`` call
+a micro-batch).
 
     The corpus comes either as a prebuilt ``catalog=`` CatalogSnapshot or
     as a raw ``item_sem_ids`` (N, D) table; requests carry item ids
@@ -321,6 +326,24 @@ class TigerGenerativeHead(_CatalogHead):
         mask = valid[..., None].expand(B, L, D).reshape(B, L * D).to(torch.int64)
         types = torch.arange(D, device=dev).repeat(B, L)
         return torch.as_tensor(user, device=dev), ids, types, mask
+
+    def make_fn(self, B: int, L: int):
+        del B, L  # one function serves every bucket: shapes come from make_batch
+
+        def fn(trie, user, ids, types, mask):
+            # Pure beam search (no noise) over the cached decode, the trie a
+            # runtime operand, as the paged path decodes.
+            out = tiger_generate(self.model, trie, user, ids, types, mask,
+                                 n_top_k_candidates=self.top_k, deterministic=True,
+                                 use_cache=True)
+            return out.sem_ids, out.log_probas
+
+        return fn
+
+    def finalize(self, outputs, reqs) -> list[dict]:
+        sem_ids, logp = outputs
+        return [dict(items=self.lookup(sem_ids[i]), scores=logp[i], sem_ids=sem_ids[i])
+                for i in range(len(reqs))]
 
     # ---- paged decode protocol ---------------------------------------------
 
@@ -399,7 +422,9 @@ class TigerGenerativeHead(_CatalogHead):
 
 
 class CobraGenerativeHead(_CatalogHead):
-    """COBRA trie-constrained beam search through the paged decode path.
+    """COBRA trie-constrained beam search through the paged decode path
+(or, in an engine built with ``paged=False``, one ``cobra_generate`` call
+a micro-batch).
 
     The sparse side of each history item comes from the catalog's
     ``item_sem_ids`` (N, C), the dense side from the item tower: the
@@ -512,6 +537,21 @@ class CobraGenerativeHead(_CatalogHead):
         ids = self._item_sem_ids_dev[hist_t].masked_fill(~valid[..., None], self.model.pad_id)
         vecs = self.item_vecs[hist_t].masked_fill(~valid[..., None], 0.0)
         return ids.reshape(B, L * C), vecs
+
+    def make_fn(self, B: int, L: int):
+        del B, L  # one function serves every bucket: shapes come from make_batch
+
+        def fn(trie, ids, vecs):
+            out = cobra_generate(self.model, ids, None, n_candidates=self.top_k,
+                                 temperature=1.0, item_vecs=vecs, use_cache=True, trie=trie)
+            return out.sem_ids, out.scores
+
+        return fn
+
+    def finalize(self, outputs, reqs) -> list[dict]:
+        sem_ids, scores = outputs
+        return [dict(items=self.lookup(sem_ids[i]), scores=scores[i], sem_ids=sem_ids[i])
+                for i in range(len(reqs))]
 
     # ---- paged decode protocol ---------------------------------------------
 

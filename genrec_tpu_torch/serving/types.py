@@ -1,12 +1,13 @@
 """Typed request/response surface of the serving engine (port of
-genrec_tpu/serving/types.py without the fleet and disaggregation fields,
-and ``normalize_spec_config``).
+genrec_tpu/serving/types.py without the disaggregation fields, and
+``normalize_spec_config``).
 
 A `Request` names a head and carries the user's item-id history (oldest
 first); the engine answers with a `Response` holding the top-k items,
 their scores, the params step and catalog version that served them, the
-bucket, the request id its spans are keyed by, and the per-request
-latency breakdown (queue wait / compute / total).
+bucket, the request id its spans are keyed by, the replica that
+answered, and the per-request latency breakdown (queue wait / compute /
+total).
 """
 
 from __future__ import annotations
@@ -107,3 +108,7 @@ class Response:
     #: Trace id minted at submit() when the engine traces (or adopted from
     #: ``Request.trace``): the key of the request's span tree.
     request_id: Optional[str] = None
+    #: The answering engine's ``replica_id`` (provenance beside
+    #: params_step and catalog_version: A/B across replicas, blame for a
+    #: degraded one); None for an engine built without one.
+    replica_id: Optional[str] = None

@@ -1334,3 +1334,53 @@ def test_qwen_heads_on_the_card_match_the_cpu(card):
         if want.sem_ids is not None:
             np.testing.assert_array_equal(got.sem_ids, want.sem_ids)
         np.testing.assert_allclose(got.scores, want.scores, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["tiger", "cobra"])
+def test_dense_route_on_the_card_matches_the_paged_route(card, name):
+    """TIGER and COBRA each served on the card by an engine built with
+    ``paged=False`` (one whole-generate call a micro-batch, no B1) and by a
+    paged engine (B1 in every decode step), every request alone: sem-ids
+    and items equal, scores within 1e-4 / T."""
+    from genrec_tpu_torch.kernels.paged_attention import paged_attention_stats_cuda
+    from genrec_tpu_torch.models.cobra import Cobra
+    from genrec_tpu_torch.models.tiger import Tiger
+    from genrec_tpu_torch.serving.buckets import BucketLadder
+    from genrec_tpu_torch.serving.engine import ServingEngine
+    from genrec_tpu_torch.serving.heads import CobraGenerativeHead, TigerGenerativeHead
+    from genrec_tpu_torch.serving.kv_pool import PagedConfig
+    from genrec_tpu_torch.serving.types import Request
+
+    rng = np.random.default_rng(0)
+    catalog = np.unique(rng.integers(0, 16, (80, 3)), axis=0)
+    if name == "tiger":
+        model = Tiger(embedding_dim=32, attn_dim=64, num_heads=2, n_layers=4,
+                      num_item_embeddings=16, num_user_embeddings=50, sem_id_dim=3,
+                      device=card, seed=0).eval()
+        head = TigerGenerativeHead(model, catalog, top_k=5)
+        paged_config, temperature = PagedConfig(max_slots=4, page_size=16, pages_per_slot=2), 0.2
+    else:
+        model = Cobra(encoder_n_layers=1, encoder_hidden_dim=32, encoder_num_heads=2,
+                      encoder_vocab_size=60, id_vocab_size=16, n_codebooks=3, d_model=64,
+                      max_len=64, temperature=0.2, decoder_n_layers=2, decoder_num_heads=2,
+                      decoder_dropout=0.0, device=card, seed=0).eval()
+        head = CobraGenerativeHead(model, item_sem_ids=catalog, top_k=5,
+                                   item_text_tokens=rng.integers(1, 60, (len(catalog), 6)))
+        paged_config, temperature = PagedConfig(max_slots=4, page_size=16, pages_per_slot=2), 1.0
+    reqs = [Request(head=name, history=rng.integers(0, len(catalog), n), user_id=i)
+            for i, n in enumerate((1, 3, 5, 8))]
+    answers, launches = {}, {}
+    for paged in (True, False):
+        eng = ServingEngine([head], device=card, ladder=BucketLadder((1, 2), (4, 8)), max_batch=2,
+                            handle_signals=False, paged=paged, paged_config=paged_config,
+                            prefix_cache=False).start()
+        paged_attention_stats_cuda.launches = 0
+        answers[paged] = [eng.serve(r) for r in reqs]
+        launches[paged] = paged_attention_stats_cuda.launches
+        eng.stop()
+    assert launches[True] > 0 and launches[False] == 0, launches
+    for got, want in zip(answers[False], answers[True]):
+        assert got.bucket == want.bucket
+        np.testing.assert_array_equal(got.sem_ids, want.sem_ids)
+        np.testing.assert_array_equal(got.items, want.items)
+        np.testing.assert_allclose(got.scores, want.scores, rtol=0, atol=1e-4 / temperature)

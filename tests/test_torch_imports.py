@@ -75,7 +75,12 @@ LIVE_MODULES = ("genrec_tpu_torch.obs", "genrec_tpu_torch.obs.spans",
                 # The Qwen families' rest: NoteLLM (a copy of the JAX pair
                 # data, the model, the trainer) and LoRA.
                 "genrec_tpu_torch.models.notellm", "genrec_tpu_torch.data.notellm_pairs",
-                "genrec_tpu_torch.trainers.notellm_trainer", "genrec_tpu_torch.core.lora")
+                "genrec_tpu_torch.trainers.notellm_trainer", "genrec_tpu_torch.core.lora",
+                # The continuous pipeline: the stream log (a copy of the JAX
+                # package's framework-free module), the streaming trainer and
+                # the rollout guard.
+                "genrec_tpu_torch.data.stream_log", "genrec_tpu_torch.trainers.stream_trainer",
+                "genrec_tpu_torch.serving.rollout")
 
 # Runs in a fresh interpreter: jax and friends are poisoned in
 # sys.modules, and a meta-path hook refuses genrec_tpu and genrec_tpu.*
@@ -160,12 +165,14 @@ for name in ("tiger_trainer", "cobra_trainer", "notellm_trainer"):
     port = sys.modules[f"genrec_tpu_torch.trainers.{name}"]
     assert registry.lookup(f"genrec_tpu.trainers.{name}.train") is port.train
 configlib.parse_string("import genrec_tpu.models.cobra")
+configlib.parse_string("import genrec_tpu.trainers.stream_trainer")
+assert "genrec_tpu_torch.trainers.stream_trainer" in sys.modules
 try:
-    configlib.parse_string("import genrec_tpu.trainers.stream_trainer")
+    configlib.parse_string("import genrec_tpu.fleet.router")
 except ImportError as e:
-    assert "ROADMAP A24" in str(e), e
+    assert "ROADMAP A26" in str(e), e
 else:
-    raise AssertionError("the unported stream trainer imported")
+    raise AssertionError("the unported fleet router imported")
 leaked = sorted(
     n for n, m in sys.modules.items()
     if m is not None and n.split(".")[0] in FORBIDDEN
@@ -176,10 +183,10 @@ print("ok")
 
 
 def test_gin_import_of_an_unported_module_names_its_roadmap_item():
-    """``import genrec_tpu.trainers.{tiger,cobra,notellm}_trainer`` in a gin
-    file resolves to the port's trainers; a module the port lacks
-    (``trainers.stream_trainer``) raises naming its ROADMAP item; neither
-    jax nor genrec_tpu enters sys.modules (a fresh interpreter)."""
+    """``import genrec_tpu.trainers.{tiger,cobra,notellm,stream}_trainer`` in
+    a gin file resolves to the port's modules; a module the port lacks
+    (``fleet.router``) raises naming its ROADMAP item; neither jax nor
+    genrec_tpu enters sys.modules (a fresh interpreter)."""
     proc = subprocess.run([sys.executable, "-c", _GIN_IMPORTS], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0 and proc.stdout.split()[-1] == "ok", proc.stderr
