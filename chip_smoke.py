@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (genrec_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--requests 384] [--out FILE] [--profile]
+                          [--phases a,b,...]
 
 Needs a CUDA device, nvcc (PATH or /usr/local/cuda/bin) and the repo
 checkout beside this script; it imports nothing of JAX. Phases, one JSON
@@ -28,7 +29,9 @@ line each; any failure ends the run with a traceback and a non-zero exit:
             B3-B6 at the HSTU training
             shapes, B5 also at the retrieval serving buckets with
             right-aligned rows, all-padding rows exactly 0; B7 at the
-            RQ-VAE export's), then timed by device time
+            RQ-VAE export's; table_grad, the port-only kernel of TIGER's
+            bias-grid gradient, at the TIGER step's 5.7 M reads against
+            fp64 sums), then timed by device time
             (CUDA-graph replay of calls on inputs cold in L2): the kernel,
             the plain version, one PyTorch library call computing the same
             function where there is one (a yardstick only), and the least
@@ -158,8 +161,10 @@ line each; any failure ends the run with a traceback and a non-zero exit:
             step on synthetic_tiger_data at Amazon-Beauty's 12,101 items and
             22,363 users (<= 4 segments a row of 61): p50 step, steps/s, real
             tokens/s, examples/s, packing occupancy, the last 5 losses below
-            the first 5, no kernel launched; with --profile 20 more steps
-            under torch.profiler;
+            the first 5, no TPU kernel launched and table_grad (the bias
+            grid's gradient) once a self-attention layer a step; 5 more
+            steps under torch.profiler give the device time a step (10
+            with --profile);
 13. tiger_decode the trained weights through the trainer's generate
             (cached, sampled, T 0.2, 10 beams, KK 60) over 2,048 valid
             users at batch 64: Recall/NDCG@10, ms a batch, every tuple a
@@ -327,6 +332,35 @@ line each; any failure ends the run with a traceback and a non-zero exit:
             TIGER and COBRA (amazon.gin widths) each served by a paged=False
             engine and a paged one, every request alone: sem-ids equal
             (beams within the bound may trade ranks), scores within 1e-4 / T.
+            The two uninterrupted oracle runs must publish bit-equal trees
+            (the TIGER step's bias-grid gradient sums in a fixed order:
+            table_grad);
+24. tiger_tp TIGER at tiger.gin widths under tensor parallelism (tp=2,
+            gloo ranks on the one card): 5 fp32 steps at dropout 0 on the
+            Beauty set's packed rows against tp=1 (<= 1e-4 relative);
+            tiger_trainer.train(tensor_parallel=2) through tiger.gin, bf16,
+            dropout 0.1 (batch 64, one epoch: enough steps for a kill),
+            the ranks' metrics equal, its p50 step and collectives a step; the same
+            run killed on rank 1 and resumed, bit for bit; no TPU kernel,
+            table_grad once a layer a step;
+25. qwen_tp4 LCRec at the Qwen2.5-1.5B widths (H 12, KV 2) at tp=4, each
+            KV head on two ranks, 2 of 28 layers: B8 over four shards
+            against its twin (the `sharded_fused_linear_ce_4` row), 5 fp32
+            steps against lcrec_tp's tp=1 side (<= 1e-4 relative), the
+            replicated k_proj / v_proj rows bit-equal on their holders,
+            bf16 steps at batch 8 x 512 with B3', B4' dx, B4' dW and B8
+            once a step a rank;
+26. moe      LCRec at the same widths with config/lcrec/synthetic_moe.gin's
+            MoE (4 experts, top 2, capacity 2.0, aux 0.01), 2 of 28 layers:
+            ep=1 here twice (equal bits) against ep=4 on four gloo ranks,
+            5 fp32 steps (<= 1e-4 relative); bf16 steps at batch 8 x 512
+            with B3, B4 dx, B4 dW once a step a rank, the loss falling,
+            the router loss and the dropped share reported; the cached
+            decode against the forward at ample capacity.
+
+``--phases a,b,...`` runs only the named phases (env and build always
+run; the kernels line is printed only by a run of every phase), e.g.
+``python3 chip_smoke.py --phases tiger_tp,qwen_tp4,moe``.
 
 Each phase that drives a main path sets every kernel's launch counter to 0
 just before and reads it just after. Then the kernels line, the card's
@@ -345,6 +379,7 @@ import contextlib
 import functools
 import gc
 import gzip
+import itertools
 import json
 import logging
 import math
@@ -398,6 +433,7 @@ COBRA_BEAMS = 20
 COBRA_TEXT_LEN = 32
 COBRA_PAGED = dict(max_slots=64, page_size=16, pages_per_slot=5)
 PREFILL_SHARE_REQUESTS = 128  # the profiled burst that splits COBRA's device time
+PROFILE_EDGE_S = 0.05  # idle time between the profiler's window edges and a marked burst
 COBRA_SHAPE = (COBRA_BEAMS, COBRA_AMAZON["decoder_num_heads"],
                COBRA_AMAZON["d_model"] // COBRA_AMAZON["decoder_num_heads"],
                COBRA_PAGED["page_size"], COBRA_PAGED["pages_per_slot"])
@@ -573,6 +609,12 @@ KERNELS = {
                                 "genrec_tpu/kernels/fused_ce.py:329",
                                 "sharded_fused_linear_ce (_tp_vjp_fwd :350, _tp_vjp_bwd :375, "
                                 "B4 at :387)"),
+    "sharded_fused_linear_ce_4": ("genrec_tpu_torch/kernels/fused_ce.py",
+                                  "genrec_tpu/kernels/fused_ce.py:329",
+                                  "sharded_fused_linear_ce over four shards (qwen_tp4)"),
+    # A port-only kernel: the TIGER step's deterministic bias-grid gradient.
+    "table_grad": ("genrec_tpu_torch/csrc/table_grad.cu", "none (port-only: replaces no TPU "
+                   "kernel)", "the backward of models/t5transformer._TableLookup"),
 }
 LIBRARY_ATOL = 1e-4  # the library call normalises; checked, never used
 # SDPA on bf16 operands returns bf16 (2^-9 relative) after rounding its
@@ -617,6 +659,9 @@ NEAR_TIE_MAX_SHARE = 0.02
 TIGER_TRAIN = dict(batch=256, lr=1e-4, warmup=100, wd=0.035, dropout=0.1, epochs=100,
                    max_segments=4, warm=3, steps=40)
 TIGER_TRAINER_EXTRA = ("train.num_warmup_steps = 10",)
+# The TIGER step runs no TPU kernel; the table-lookup gradient (C4) sums
+# the relative bias grid's gradient once a self-attention layer.
+TIGER_LAUNCHES_PER_STEP = {"table_grad": TIGER_AMAZON["n_layers"]}
 # TIGER's dense decode on the trained weights: trainer's eval settings
 # (sampled, T 0.2, 10 beams, sample_factor 6: KK 60) over a seeded 2,048 of
 # the Beauty users' valid rows at eval_batch_size 64; the deterministic
@@ -1861,7 +1906,13 @@ def ce_rows(copies, errs, ptxas, suffix="", **extra_fields) -> dict:
 
 def kernel_counters() -> dict:
     """Every kernel wrapper of the port, by its name in the kernels line."""
-    from genrec_tpu_torch.kernels import fused_ce, hstu_attention, paged_attention, rq_cascade
+    from genrec_tpu_torch.kernels import (
+        fused_ce,
+        hstu_attention,
+        paged_attention,
+        rq_cascade,
+        table_grad,
+    )
 
     return {
         "paged_attention_stats": paged_attention.paged_attention_stats_cuda,
@@ -1876,6 +1927,7 @@ def kernel_counters() -> dict:
         "fused_linear_ce_bwd_dx": fused_ce.fused_linear_ce_dx_cuda,
         "fused_linear_ce_bwd_dw": fused_ce.fused_linear_ce_dw_cuda,
         "sharded_fused_linear_ce": fused_ce.sharded_fused_linear_ce,
+        "table_grad": table_grad.table_grad_cuda,
     }
 
 
@@ -3042,15 +3094,21 @@ def prefill_device_share(head, make_engine, reqs) -> dict:
     all on one stream, so the kernels that ran between a pair, in device
     order, are the prefill's; and the paged attention kernels' share (B1
     or B2, by name). The profiler slows the host; the shares of the
-    device's busy time are what it measures."""
+    device's busy time are what it measures. The profiler keeps only the
+    kernels that lie inside its capture window, whose edges it takes from
+    the host's clock: the burst starts and ends ``PROFILE_EDGE_S`` away
+    from them, on an idle card, so no marker falls on an edge, and every
+    prefill call made inside the window must show both its markers."""
     from torch.profiler import ProfilerActivity, profile
 
     make_prefill = head.make_prefill_paged_fn
+    calls = [0]
 
     def marked(B, L):
         fn = make_prefill(B, L)
 
         def call(*args):
+            calls[0] += 1
             torch.cuda._sleep(1)
             out = fn(*args)
             torch.cuda._sleep(1)
@@ -3060,10 +3118,14 @@ def prefill_device_share(head, make_engine, reqs) -> dict:
 
     head.make_prefill_paged_fn = marked
     try:
-        eng = make_engine()
+        eng = make_engine()  # start() runs a prefill of its own, outside the profile
+        torch.cuda.synchronize()
+        calls[0] = 0
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_EDGE_S)
             serve(eng, reqs)
             torch.cuda.synchronize()
+            time.sleep(PROFILE_EDGE_S)
         eng.stop()
     finally:
         del head.make_prefill_paged_fn
@@ -3079,9 +3141,10 @@ def prefill_device_share(head, make_engine, reqs) -> dict:
         total += us
         prefill += us if inside else 0.0
         paged += us if "paged_attention" in e.name else 0.0
-    check(markers > 0 and markers % 2 == 0 and total > 0, ("prefill markers", markers, total))
+    check(calls[0] > 0 and markers == 2 * calls[0] and not inside and total > 0,
+          ("prefill markers", markers, "calls", calls[0], "device us", total))
     return dict(prefill_share_of_device_time=prefill / total, prefill_device_ms=prefill / 1e3,
-                burst_device_ms=total / 1e3, prefill_calls=markers // 2,
+                burst_device_ms=total / 1e3, prefill_calls=calls[0],
                 paged_attention_share_of_device_time=paged / total,
                 paged_attention_device_ms=paged / 1e3, prefill_share_requests=len(reqs))
 
@@ -3915,6 +3978,108 @@ def tiger_train_setup(dev, seed, n_rows, *, dtype, dropout):
     return model, step_fn, TrainState.create(model, optimizer, seed)
 
 
+# Of max |fp64 sums|: the kernel's fixed-order fp32 sums of ~3e4 terms a
+# bin against fp64 (one order, the same every run), and against the plain
+# version's fp32 atomics, whose order changes run to run (each side within
+# ~1e-6 of fp64; one plain run measured 1.03e-6).
+TABLE_GRAD_TOL = 1e-6
+TABLE_GRAD_PLAIN_TOL = 4e-6
+
+
+def table_grad_inputs(dev, seed, rows=256, segments=4):
+    """The TIGER train step's bias-grid gather at tiger.gin widths, as one
+    encoder layer of ``forward_packed`` builds it: ``rows`` packed rows of
+    61 positions, ``segments`` segments a row with positions restarting in
+    each, buckets of mem - ctx (32, max distance 128) plus the head offset:
+    idx (rows * 61 * 6 * 61,) int64 into 6 x 32 bins, and fp32 gradients."""
+    from genrec_tpu_torch.ops.buckets import t5_relative_position_bucket
+
+    L = 1 + MAX_ITEMS * TIGER_AMAZON["sem_id_dim"]
+    H = TIGER_AMAZON["num_heads"]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    cuts = torch.sort(torch.randint(1, L, (rows, segments - 1), generator=g), dim=1).values
+    starts = torch.zeros((rows, L), dtype=torch.int64)
+    starts.scatter_(1, cuts, 1)
+    seg = torch.cumsum(starts, dim=1)
+    first = torch.zeros((rows, L), dtype=torch.int64)
+    for r in range(rows):
+        b = torch.unique_consecutive(seg[r], return_counts=True)[1]
+        first[r] = torch.repeat_interleave(torch.cumsum(b, 0) - b, b)
+    positions = (torch.arange(L)[None, :] - first).to(dev)
+    rel = positions[:, None, :] - positions[:, :, None]
+    buckets = t5_relative_position_bucket(rel, 32, 128, bidirectional=True)
+    idx = (buckets[..., None, :] + (torch.arange(H, device=dev) * 32)[:, None]).reshape(-1)
+    grad = torch.randn(idx.shape, generator=torch.Generator(device=dev).manual_seed(seed),
+                       device=dev)
+    return dict(idx=idx.to(torch.int64).contiguous(), grad=grad, bins=H * 32)
+
+
+def event_ms(fn, arg_sets, reps: int = 10) -> float:
+    """Mean time of one ``fn(**args)`` in ms between two CUDA events, no
+    graph (for calls that wait on the host, as ``torch.bincount`` does)."""
+    for args in arg_sets:
+        fn(**args)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        for args in arg_sets:
+            fn(**args)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * len(arg_sets))
+
+
+def library_table_grad(idx, grad, bins):
+    return torch.zeros(bins, dtype=torch.float32, device=grad.device).index_add_(0, idx, grad)
+
+
+def table_grad_kernel_phase(dev, seed, ptxas) -> dict:
+    """The deterministic table-lookup gradient (TIGER's bias grid, C4)
+    against fp64 sums and against ``torch.bincount`` (its plain version,
+    on the card by atomics) at the TIGER step's operands and in edge
+    cases, equal bits over two calls, timed beside ``bincount`` (events:
+    it waits on the host) and ``index_add_`` (the library row)."""
+    from genrec_tpu_torch.kernels.table_grad import table_grad_cuda, table_grad_ref
+
+    cases = {"tiger_step": table_grad_inputs(dev, seed),
+             "one_row": table_grad_inputs(dev, seed + 1, rows=1, segments=1),
+             "n_below_a_block": dict(idx=torch.arange(100, device=dev) % 7,
+                                     grad=torch.randn(100, device=dev), bins=7),
+             "bins_1000": dict(idx=torch.randint(0, 1000, (300_001,), device=dev),
+                               grad=torch.randn(300_001, device=dev), bins=1000)}
+    errs, fp64_errs = {}, {}
+    for name, x in cases.items():
+        got = table_grad_cuda(**x)
+        torch.cuda.synchronize()
+        want = torch.bincount(x["idx"], weights=x["grad"].double(), minlength=x["bins"])
+        fp64_errs[name] = assert_near(f"table_grad {name} vs fp64", got, want, TABLE_GRAD_TOL)
+        errs[name] = assert_near(f"table_grad {name} vs plain", got, table_grad_ref(**x),
+                                 TABLE_GRAD_PLAIN_TOL)
+    base = cases["tiger_step"]
+    bit_equal_twice(table_grad_cuda, base, "table_grad at the TIGER step")
+    n = base["idx"].numel()
+    copies = [base] + cold_copies(lambda c: table_grad_inputs(dev, seed + 100 + c),
+                                  nbytes(base["idx"], base["grad"]))[1:]
+    ms = device_ms(table_grad_cuda, copies)
+    plain_ms = event_ms(table_grad_ref, copies)
+    library_ms = device_ms(library_table_grad, copies)
+    bytes_ = n * 12 + base["bins"] * 4
+    bound_ms, bound_by = bound(bytes_, n, FP32_FLOPS)
+    return emit(
+        "kernel", name="table_grad", shape=dict(n=n, bins=base["bins"], dtype="fp32"),
+        max_abs_err=max(errs.values()), max_abs_err_by_case=errs,
+        fp64_max_abs_err_by_case=fp64_errs,
+        tolerance=dict(plain_rel=TABLE_GRAD_PLAIN_TOL, fp64_rel=TABLE_GRAD_TOL,
+                       relative_to="max|sums|"),
+        ms=ms, plain_ms=plain_ms, plain_timed_by="cuda_events (bincount syncs)",
+        library_ms=library_ms, library="index_add_ (atomics)", timed_by="cuda_graph",
+        bound_ms=bound_ms, bound_by=bound_by, work=dict(bytes=bytes_, adds=n),
+        cold_copies=len(copies), bit_equal_twice=True,
+        ptxas={k: v for k, v in ptxas.items() if "table_grad" in k},
+    )
+
+
 def tiger_train_phase(dev, seed, profile) -> tuple[dict, object]:
     """TIGER at config/tiger/amazon/tiger.gin widths: ``tiger_trainer.train``
     through that file (synthetic data of the trainer's own size, 2
@@ -3924,7 +4089,7 @@ def tiger_train_phase(dev, seed, profile) -> tuple[dict, object]:
     from genrec_tpu_torch.data.batching import pack_examples
 
     trainer = trainer_run(dev, seed, "config/tiger/amazon/tiger.gin", "tiger_trainer",
-                          per_step={}, extra=TIGER_TRAINER_EXTRA)
+                          per_step=TIGER_LAUNCHES_PER_STEP, extra=TIGER_TRAINER_EXTRA)
     t0 = time.perf_counter()
     data = tiger_beauty_data(seed)
     examples = data.train_examples()
@@ -3944,7 +4109,7 @@ def tiger_train_phase(dev, seed, profile) -> tuple[dict, object]:
     loop, steps = timed_steps(dev, seed, state, step_fn,
                               lambda epoch: first if epoch == 0 else pack(epoch),
                               TIGER_TRAIN["batch"], warm=warm, n=n, row_len=row_len)
-    check_launches_per_step("TIGER step", steps["launches"], {}, n)
+    check_launches_per_step("TIGER step", steps["launches"], TIGER_LAUNCHES_PER_STEP, n)
     out = emit(
         "tiger_train", card=torch.cuda.get_device_name(dev), trainer=trainer,
         config=("config/tiger/amazon/tiger.gin widths, bf16, dropout 0.1, AdamW 1e-4 (cosine "
@@ -3953,9 +4118,11 @@ def tiger_train_phase(dev, seed, profile) -> tuple[dict, object]:
         params=sum(p.numel() for p in model.parameters()), data_build_s=data_s, pack_s=pack_s,
         **steps, launches_per_step={k: v / n for k, v in steps["launches"].items()},
     )
-    if profile:
-        out = {**out, "profile": profiled_steps("tiger_train_profile", loop, state, step_fn,
-                                                warm + n, more=10)}
+    # Device time a step (PERF.md's TIGER row): a few steps under the
+    # profiler, every run (more with --profile).
+    more = 10 if profile else 5
+    prof = profiled_steps("tiger_train_profile", loop, state, step_fn, warm + n, more=more)
+    out = {**out, "profile": prof, "device_ms_per_step": prof["device_busy_ms"] / more}
     return out, model
 
 
@@ -4435,17 +4602,18 @@ def lcrec_model(cfg, dev, seed, dtype, group):
                                    torch.Generator(device=dev).manual_seed(seed + 1),
                                    pad_to=math.lcm(8, tp))
     model = QwenLM(cfg, dtype=dtype, group=group, device=dev)
-    model.load_state_dict(shard_qwen_params(full, 0 if group is None else group.rank, tp))
+    model.load_state_dict(shard_qwen_params(full, 0 if group is None else group.rank, tp, cfg))
     del full
     torch.cuda.empty_cache()
     return model, base + LCREC["codebooks"] * LCREC["codebook_size"]
 
 
-def lcrec_stepper(model, live, group, lr, warmup, total, wd):
+def lcrec_stepper(model, live, group, lr, warmup, total, wd, expert_group=None):
     """``run(batches, hook=None) -> metrics per step``: train steps through
     the trainer's recipe, one optimizer state across calls: AdamW after a
-    cosine warm-up, clip 1.0 (its norm over the group), the SFT loss
-    through B8 (a group) or the fused CE (none)."""
+    cosine warm-up, clip 1.0 (its norm over the tensor or expert group),
+    the SFT loss through B8 (a tensor-parallel group) or the fused CE
+    (none: the whole head on every rank)."""
     from genrec_tpu_torch.core.harness import make_train_step
     from genrec_tpu_torch.core.optim import Adam
     from genrec_tpu_torch.core.state import TrainState
@@ -4459,7 +4627,8 @@ def lcrec_stepper(model, live, group, lr, warmup, total, wd):
     else:
         loss = make_tp_sharded_fused_sft_loss(model, live)
     opt = Adam(cosine_schedule_with_warmup(lr, warmup, total), weight_decay=wd)
-    step = make_train_step(lambda m, b, g: (loss(b), {}), opt, clip_norm=1.0, group=group)
+    step = make_train_step(lambda m, b, g: (loss(b), {}), opt, clip_norm=1.0,
+                           group=group or expert_group)
     state = TrainState.create(model, opt, 0)
     dev = model.norm.weight.device
 
@@ -4512,12 +4681,13 @@ def lcrec_b8_inputs(dev, seed):
 
 
 def lcrec_b8(group, seed) -> dict:
-    """(a) B8 against its plain twin on this rank, every case; B8 and the
-    twin timed (forward and backward, both ranks running) on "mixed"."""
+    """(a) B8 against its plain twin on this rank, every case, over the
+    group's shards of the head (2 in lcrec_tp, 4 in qwen_tp4); B8 and the
+    twin timed (forward and backward, every rank running) on "mixed"."""
     from genrec_tpu_torch.kernels import fused_ce as fc
 
     dev = group.device
-    Vs = LCREC_SHARD
+    Vs = LCREC_LIVE // group.size
     errs, times = {}, {}
     x, w, cases = lcrec_b8_inputs(dev, seed)
     w_shard = w[group.rank * Vs:(group.rank + 1) * Vs].contiguous()
@@ -5612,7 +5782,7 @@ def amazon_pipelines(dev, seed, root, work) -> dict:
     runs = {
         "tiger": ("tiger_trainer", "config/tiger/amazon/rqvae.gin",
                   "config/tiger/amazon/tiger.gin", 3,
-                  (f"train.epochs = {AMAZON['tiger_epochs']}",), {}),
+                  (f"train.epochs = {AMAZON['tiger_epochs']}",), TIGER_LAUNCHES_PER_STEP),
         # LCRec writes no checkpoint here (the file's one an epoch, and the
         # final point: resume is the resume phase's); its losses come from
         # the steps.
@@ -6651,6 +6821,11 @@ def pipeline_phase(dev, seed) -> dict:
     rerun_loss_err = max(abs(oracle_losses[s] - again_losses[s]) for s in oracle_losses)
     check(loss_err <= PIPELINE_PARITY_TOL and param_err <= PIPELINE_PARITY_TOL,
           ("resume drifted", loss_err, param_err))
+    # The TIGER step sums the bias grid's gradient in a fixed order
+    # (table_grad): two uninterrupted runs publish the same bits.
+    check(not rerun_differ and rerun_loss_err == 0.0,
+          ("the two oracle runs published different trees", rerun_err, rerun_differ,
+           rerun_loss_err))
 
     # -- guarded rollout onto two paged replicas ---------------------------------
     catalog = tiger_catalog(np.random.default_rng(seed))
@@ -6768,7 +6943,8 @@ def pipeline_phase(dev, seed) -> dict:
     check(pages == 0 and slots == 0, ("pools not clean", pages, slots))
     b1 = counts["paged_attention_stats"]
     check(b1 > 0 and b1 == paged_attention_stats_cuda.launches, ("B1 launches", counts))
-    check(all(v == 0 for k, v in counts.items() if k != "paged_attention_stats"),
+    check(all(v == 0 for k, v in counts.items()
+              if k not in ("paged_attention_stats", "table_grad")),
           ("another kernel launched", counts))
     events = [e for e in flight.events() if e["t"] >= t_events]
     engine_events = [e for e in events if e.get("component") == "engine"]
@@ -6826,6 +7002,495 @@ def pipeline_phase(dev, seed) -> dict:
     )
 
 
+# ---- model parallelism on one axis: TIGER tp=2, Qwen tp=4, MoE ep=4 ----------
+
+# tiger_tp: tiger.gin widths at tp=2, gloo ranks on the one card.
+# (a) 5 fp32 steps at dropout 0 on the Beauty set's packed rows against
+# tp=1; (b) tiger_trainer.train(tensor_parallel=2) through tiger.gin, bf16,
+# dropout 0.1; (c) the same run killed on rank 1 and resumed, bit for bit.
+# The trainer runs use batch 64 and one epoch (the file's 256 gives too few
+# steps on the synthetic set for a kill between two of the loop's polls;
+# two epochs took the phase to 117 s).
+TIGER_TP = dict(tp=2, parity_steps=5, parity_lr=1e-3, batch=64, epochs=1, poll=8)
+TIGER_TP_TIMEOUT_S = 600
+
+
+def tiger_tp_batches(seed) -> list:
+    """(a)'s batches: the first TIGER_TP["parity_steps"] packed batches of
+    the Beauty set at TIGER_TRAIN["batch"] rows (numpy, shipped to the
+    ranks)."""
+    from genrec_tpu_torch.data.batching import batch_iterator, pack_examples
+
+    arrays, _ = pack_examples(tiger_beauty_data(seed).train_examples(),
+                              row_len=1 + MAX_ITEMS * TIGER_AMAZON["sem_id_dim"],
+                              segment_keys=("target_ids",),
+                              max_segments=TIGER_TRAIN["max_segments"], seed=(seed, 0))
+    it = batch_iterator(arrays, TIGER_TRAIN["batch"], drop_last=True)
+    return [b for b, _ in itertools.islice(it, TIGER_TP["parity_steps"])]
+
+
+def tiger_tp_parity(dev, seed, batches, group=None) -> list:
+    """fp32 steps at dropout 0 (the trainer's packed loss, AdamW, clip 1.0,
+    the norm over the group): the losses. Every tp starts from tp = 1's
+    weights (Tiger draws the full model and keeps its slice)."""
+    from genrec_tpu_torch.core.harness import make_train_step
+    from genrec_tpu_torch.core.optim import Adam
+    from genrec_tpu_torch.core.state import TrainState
+    from genrec_tpu_torch.models.tiger import Tiger
+    from genrec_tpu_torch.ops.schedules import cosine_schedule_with_warmup
+    from genrec_tpu_torch.trainers.tiger_trainer import make_loss_fn
+
+    tp = 1 if group is None else group.size
+    model = Tiger(**TIGER_AMAZON, dropout=0.0, dtype=torch.float32, device=dev, seed=seed,
+                  pad_vocab_to=tp, group=group)
+    opt = Adam(cosine_schedule_with_warmup(TIGER_TP["parity_lr"], 1, len(batches)),
+               weight_decay=TIGER_TRAIN["wd"])
+    step = make_train_step(make_loss_fn(TIGER_AMAZON["sem_id_dim"], True), opt, clip_norm=1.0,
+                           group=group)
+    state = TrainState.create(model, opt, seed)
+    losses = []
+    for b in batches:
+        state, m = step(state, {k: torch.as_tensor(v, device=dev) for k, v in b.items()})
+        losses.append(float(m["loss"]))
+    del model, state
+    torch.cuda.empty_cache()
+    return losses
+
+
+def tiger_tp_rank(group, seed, batches) -> dict:
+    """One rank of tiger_tp: (a) the parity steps, (b) the trainer run a
+    with its step times and collectives, (c) run b killed on rank 1 and
+    resumed, held to a bit for bit."""
+    from genrec_tpu_torch.core import chaos
+    from genrec_tpu_torch.trainers import tiger_trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as in main(): a fresh process
+    out = {"parity_losses": tiger_tp_parity(group.device, seed, batches, group)}
+    work = HERE / "build" / "tiger_tp"
+    if group.rank == 0:
+        shutil.rmtree(work, ignore_errors=True)
+    from genrec_tpu_torch.parallel.mesh import barrier
+
+    barrier("tiger_tp work", group)
+    bindings = ('train.dataset = "synthetic"', "train.wandb_logging = False",
+                "train.do_eval = True", f"train.epochs = {TIGER_TP['epochs']}",
+                f"train.batch_size = {TIGER_TP['batch']}", "train.save_every_epoch = 1",
+                "train.wandb_log_interval = 1", f"train.seed = {seed}",
+                f'train.device = "{group.device}"', "train.tensor_parallel = 2",
+                *TIGER_TRAINER_EXTRA)
+    run = gin_train_run("config/tiger/amazon/tiger.gin", bindings, work, tiger_trainer.train,
+                        rank=group.rank)
+    per_step = []  # (collectives, bytes) of each train step of run a
+    make_step = tiger_trainer.make_train_step
+
+    def counting(*args, **kw):
+        step = make_step(*args, **kw)
+
+        def counted(state, batch):
+            c0, b0 = group.calls, group.bytes
+            out = step(state, batch)
+            per_step.append((group.calls - c0, group.bytes - b0))
+            return out
+
+        return counted
+
+    tiger_trainer.make_train_step = counting
+    try:
+        with step_events() as events:
+            out["a"] = run("a")
+            stats = step_stats(events)
+    finally:
+        tiger_trainer.make_train_step = make_step
+    out["a"]["collectives_per_step"] = float(np.median([c for c, _ in per_step]))
+    out["a"]["collective_bytes_per_step"] = float(np.median([b for _, b in per_step]))
+    out["a"]["step_stats"] = stats
+    n = stats["steps"]
+    kill = n // 2 + 1
+    out["kill"] = kill
+    out["b"] = run("b", chaos.ChaosPlan(kill_at_step=kill, only_process=1))
+    out["resumed"] = run("b", resume_from_checkpoint=True)
+    out["parity"], out["final_step"], _ = resume_parity(f"TIGER tp=2 rank {group.rank}",
+                                                        work / "a", work / "b",
+                                                        rank=group.rank)
+    if group.rank == 0:
+        out["losses"] = run_log(work / "a")[0]
+    return out
+
+
+def tiger_tp_phase(dev, seed, rank_fn=None) -> dict:
+    """TIGER at tiger.gin widths under tensor parallelism (A29), tp=2 over
+    gloo on the one card: (a) parity with tp = 1 here, (b) the trainer, (c)
+    its resume. No TPU kernel launches; the table-lookup gradient
+    (table_grad) launches once a layer a step."""
+    from genrec_tpu_torch.parallel.mesh import spawn
+
+    t0 = time.perf_counter()
+    batches = tiger_tp_batches(seed)
+    tp1 = tiger_tp_parity(dev, seed, batches)
+    tp1_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(rank_fn or tiger_tp_rank, TIGER_TP["tp"], (seed, batches), device=dev.type,
+                  timeout_s=TIGER_TP_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    r0, r1 = ranks
+    tp2 = r0["parity_losses"]
+    check(r1["parity_losses"] == tp2, ("TIGER ranks disagree on the parity losses", tp2,
+                                       r1["parity_losses"]))
+    rel = float(np.max(np.abs(np.asarray(tp2) - tp1) / np.abs(tp1)))
+    check(np.isfinite(tp2).all() and rel <= LCREC_PARITY_RTOL,
+          f"TIGER tp=1 vs tp=2 losses: max relative diff {rel} > {LCREC_PARITY_RTOL}")
+    layers = TIGER_AMAZON["n_layers"]  # every encoder and decoder self-attention's bias
+    for rank, r in enumerate(ranks):
+        a, b, b2 = r["a"], r["b"], r["resumed"]
+        check(a["out"] == r0["a"]["out"], ("TIGER ranks report other metrics", a["out"],
+                                           r0["a"]["out"]))
+        valid, test = a["out"]
+        check(all(np.isfinite(v) for v in (*valid.values(), *test.values())), a["out"])
+        check(b["out"] == ({}, {}), (f"rank {rank}: the preempted run returned", b["out"]))
+        save_at = -(-r["kill"] // TIGER_TP["poll"]) * TIGER_TP["poll"]
+        check(save_at < a["steps"][-1] and b["steps"][-1:] == [save_at],
+              (f"TIGER rank {rank} preempted at", b["steps"], "want", save_at))
+        check(r["parity"]["bit_equal"], (f"TIGER tp=2 rank {rank} resume", r["parity"]))
+        for run in (a, b2):
+            for name, count in run["launches"].items():
+                check((count > 0) == (name == "table_grad"),
+                      f"TIGER tp=2 rank {rank}: {name} launched {count} times")
+        steps = a["step_stats"]["steps"]
+        check(a["launches"]["table_grad"] >= steps * layers,
+              ("table_grad launches", a["launches"]["table_grad"], steps))
+    losses = [r0["losses"][g] for g in sorted(r0["losses"])]
+    check(np.isfinite(losses).all() and np.mean(losses[-3:]) < np.mean(losses[:3]),
+          ("TIGER tp=2 trainer loss did not fall", losses))
+    a = r0["a"]
+    return emit(
+        "tiger_tp", tp=TIGER_TP["tp"], backend="gloo (two ranks on one card)",
+        config=("config/tiger/amazon/tiger.gin widths (attn 384, 6 x 64 heads, 4 + 4 layers, "
+                "256 x 3 codes, FFN 1,024), vocab padded to 770 (pad_vocab_to=tp)"),
+        reduced=("none in depth or width; (b)/(c) at batch 64 over the trainer's synthetic "
+                 f"set, {TIGER_TP['epochs']} epoch (tiger.gin: 256 over Amazon-Beauty)"),
+        parity=dict(steps=TIGER_TP["parity_steps"], dtype="fp32", dropout=0.0,
+                    rows=TIGER_TRAIN["batch"], tp1_losses=tp1, tp2_losses=tp2,
+                    max_rel_diff=rel, rtol=LCREC_PARITY_RTOL, tp1_s=tp1_s),
+        trainer=dict(dtype="bf16", dropout=TIGER_TRAIN["dropout"], valid=a["out"][0],
+                     test=a["out"][1], losses=losses, wall_s=a["wall_s"], **a["step_stats"],
+                     collectives_per_step=a["collectives_per_step"],
+                     collective_bytes_per_step=a["collective_bytes_per_step"],
+                     launches=a["launches"]),
+        resume=dict(kill=r0["kill"], only_process=1, saved_at=r0["b"]["steps"],
+                    final_step=r0["final_step"], parity=[r["parity"] for r in ranks],
+                    nondeterministic_ops=list(RESUME_NONDETERMINISTIC_OPS),
+                    run_s={k: [r[k]["wall_s"] for r in ranks] for k in ("a", "b", "resumed")}),
+        spawn_s=spawn_s,
+    )
+
+
+# qwen_tp4: LCRec at Qwen2.5-1.5B widths (H 12, KV 2) at tp=4, so that each
+# KV head sits on two ranks; 2 of 28 layers.
+QWEN_TP4 = dict(tp=4, layers=2, warm=1, steps=4)
+
+
+def qwen_tp4_rank(group, seed) -> dict:
+    """One rank of qwen_tp4: B8 at 4 shards against its twin, the parity
+    steps (fp32) and the replicated KV rows after them, then bf16 steps
+    at batch 8 x 512 with every counter at 0 before them."""
+    from genrec_tpu_torch.kernels import fused_ce as fc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"b8": lcrec_b8(group, seed)}
+    model, live = lcrec_model(lcrec_cfg(LCREC["parity_layers"]), group.device, seed,
+                              torch.float32, group)
+    run = lcrec_stepper(model, live, group, LCREC["parity_lr"], 1, LCREC["parity_steps"],
+                        LCREC["wd"])
+    out["parity_losses"] = [m["loss"] for m in run(lcrec_parity_batches(seed))]
+    out["kv"] = {n: p.detach().cpu() for n, p in model.named_parameters()
+                 if n.split(".")[-2:-1] in (["k_proj"], ["v_proj"])}
+    del model, run
+    torch.cuda.empty_cache()
+    model, live = lcrec_model(lcrec_cfg(QWEN_TP4["layers"]), group.device, seed,
+                              torch.bfloat16, group)
+    n, warm = QWEN_TP4["steps"], QWEN_TP4["warm"]
+    batches = [lcrec_tokens(seed + 100 + i, LCREC["batch"], LCREC["seq"], live)
+               for i in range(warm + n)]
+    run = lcrec_stepper(model, live, group, LCREC["lr"], 1, warm + n, LCREC["wd"])
+    run(batches[:warm])
+    torch.cuda.synchronize()
+    stamps = []
+
+    def hook():
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    reset_counters()
+    calls0, bytes0 = group.calls, group.bytes
+    t0 = time.perf_counter()
+    metrics = run(batches[warm:], hook)
+    out["steps"] = dict(
+        steps=n, losses=[m["loss"] for m in metrics], nonfinite=sum(m["nonfinite"]
+                                                                   for m in metrics),
+        step_ms_p50=float(np.percentile(1e3 * np.diff([t0] + stamps), 50)),
+        launches=read_counters(), b8_calls=fc.sharded_fused_linear_ce.launches,
+        collectives_per_step=(group.calls - calls0) / n,
+        collective_bytes_per_step=(group.bytes - bytes0) / n,
+        peak_memory_gb=torch.cuda.max_memory_allocated(group.device) / 1e9)
+    del model, run
+    torch.cuda.empty_cache()
+    return out
+
+
+def qwen_tp4_phase(dev, seed, tp1_losses=None, library_ms=None, rank_fn=None) -> dict:
+    """Qwen KV heads that tp does not divide (A20): tp=4 over gloo on the one
+    card, held to tp = 1 (lcrec_tp's parity side, computed here when that
+    phase did not run); B8 over four shards, its row of the kernels line."""
+    from genrec_tpu_torch.parallel.mesh import spawn
+    from genrec_tpu_torch.parallel.shardings import kv_range
+
+    if tp1_losses is None:
+        tp1_losses = lcrec_parity_tp1(dev, seed)
+    if library_ms is None:
+        x, w, cases = lcrec_b8_inputs(dev, seed)
+        library_ms = device_ms(lcrec_library_b8, [dict(x=x, w=w, targets=torch.as_tensor(
+            cases["mixed"][0], device=dev))], reps=LCREC_REPS)
+        del x, w
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(rank_fn or qwen_tp4_rank, QWEN_TP4["tp"], (seed,), device=dev.type,
+                  timeout_s=LCREC_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    tp4 = r0["parity_losses"]
+    check(all(r["parity_losses"] == tp4 for r in ranks), "tp=4 ranks disagree on the losses")
+    rel = float(np.max(np.abs(np.asarray(tp4) - tp1_losses) / np.abs(tp1_losses)))
+    check(np.isfinite(tp4).all() and rel <= LCREC_PARITY_RTOL,
+          f"tp=1 vs tp=4 losses: max relative diff {rel} > {LCREC_PARITY_RTOL}")
+    cfg = lcrec_cfg(LCREC["parity_layers"])
+    H, KV, hd, tp = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim, len(ranks)
+    replicas = 0
+    for h in range(KV):
+        holders = [r for r in range(tp) if kv_range(H, KV, r, tp)[0] <= h < kv_range(
+            H, KV, r, tp)[1]]
+        for key in r0["kv"]:
+            rows = [ranks[r]["kv"][key][(h - kv_range(H, KV, r, tp)[0]) * hd:
+                                        (h - kv_range(H, KV, r, tp)[0] + 1) * hd]
+                    for r in holders]
+            check(all(torch.equal(rows[0], x) for x in rows[1:]),
+                  f"KV head {h} of {key} differs between its holders {holders}")
+            replicas += len(holders) - 1
+    check(replicas > 0, "no KV head is replicated at tp=4")
+    for rank, r in enumerate(ranks):
+        s = r["steps"]
+        check(s["nonfinite"] == 0 and all(np.isfinite(s["losses"])), s)
+        for name, count in s["launches"].items():
+            want = s["steps"] if name in LCREC_LAUNCHES_PER_STEP else 0
+            if name == "sharded_fused_linear_ce":
+                want = s["steps"]
+            check(count == want, f"qwen_tp4 rank {rank}: {name} launched {count}, want {want}")
+        check(s["b8_calls"] == s["steps"], ("B8 calls", s["b8_calls"]))
+        check(s["losses"] == r0["steps"]["losses"], "the tp=4 ranks' losses differ")
+    R, d, V = LCREC["batch"] * (LCREC["seq"] - 1), cfg.hidden_size, LCREC_LIVE
+    b8_bound_ms, b8_bound_by = bound(2 * R * d * 2 + V * d * 2 * 2, 5 * 2 * R * V * d,
+                                     BF16_FLOPS)
+    b8 = dict(r0["b8"], library_ms=library_ms, bound_ms=b8_bound_ms, bound_by=b8_bound_by,
+              shards=tp, launches=r0["steps"]["b8_calls"],
+              ms_by_rank=[r["b8"]["ms"] for r in ranks])
+    return emit(
+        "qwen_tp4", tp=tp, backend="gloo (four ranks on one card)",
+        config=(f"QwenConfig() (Qwen2.5-1.5B widths: H {H}, KV {KV}, hd {hd}), LCRec vocab "
+                f"{LCREC_LIVE} with {LCREC['codebooks']} x {LCREC['codebook_size']} codebook "
+                "tokens; each KV head on two ranks"),
+        reduced=f"{QWEN_TP4['layers']} of 28 layers (parity: {LCREC['parity_layers']})",
+        kv_replicas_checked=replicas, b8=b8,
+        parity=dict(steps=LCREC["parity_steps"], dtype="fp32",
+                    batch=[LCREC["parity_batch"], LCREC["parity_seq"]], tp1_losses=tp1_losses,
+                    tp4_losses=tp4, max_rel_diff=rel, rtol=LCREC_PARITY_RTOL),
+        steps=dict(r0["steps"], batch=[LCREC["batch"], LCREC["seq"]], dtype="bf16"),
+        spawn_s=spawn_s,
+    )
+
+
+# moe: LCRec at Qwen2.5-1.5B widths with config/lcrec/synthetic_moe.gin's
+# mixture of experts, 2 of 28 layers; ep=1 here, ep=4 on four gloo ranks.
+MOE = dict(experts=4, top_k=2, capacity=2.0, aux_coef=0.01, ep=4, layers=2, warm=1, steps=6,
+           lr=1e-4, decode_tokens=16)
+MOE_DECODE_TOL = 2e-4  # cached decode against the forward, fp32 (test_moe.py's)
+
+
+def moe_cfg(layers, capacity=None):
+    import dataclasses
+
+    return dataclasses.replace(lcrec_cfg(layers), num_experts=MOE["experts"],
+                               num_experts_per_tok=MOE["top_k"],
+                               moe_capacity_factor=capacity or MOE["capacity"],
+                               router_aux_coef=MOE["aux_coef"])
+
+
+def moe_model(dev, seed, dtype, group, layers, capacity=None):
+    """The MoE LCRec model (codebook tokens appended), this rank's experts."""
+    from genrec_tpu_torch.models.backbones.qwen import QwenLM, qwen_init_params
+    from genrec_tpu_torch.models.lcrec import extend_vocab
+    from genrec_tpu_torch.parallel.shardings import shard_expert_params
+
+    cfg = moe_cfg(layers, capacity)
+    full = qwen_init_params(cfg, seed, dev)
+    cfg, full, base = extend_vocab(cfg, full, LCREC["codebooks"],
+                                   LCREC["codebook_size"],
+                                   torch.Generator(device=dev).manual_seed(seed + 1), pad_to=8)
+    model = QwenLM(cfg, dtype=dtype, device=dev, expert_group=group)
+    model.load_state_dict(shard_expert_params(full, 0 if group is None else group.rank,
+                                              1 if group is None else group.size))
+    del full
+    torch.cuda.empty_cache()
+    return model, base + LCREC["codebooks"] * LCREC["codebook_size"]
+
+
+def moe_parity(dev, seed, group=None) -> tuple[list, dict]:
+    """The fp32 parity steps (lcrec_parity_batches, the fused CE whole on
+    every rank): losses and the final parameters (on the host)."""
+    model, live = moe_model(dev, seed, torch.float32, group, MOE["layers"])
+    run = lcrec_stepper(model, live, None, LCREC["parity_lr"], 1, LCREC["parity_steps"],
+                        LCREC["wd"], expert_group=group)
+    losses = [m["loss"] for m in run(lcrec_parity_batches(seed))]
+    params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    del model, run
+    torch.cuda.empty_cache()
+    return losses, params
+
+
+def moe_rank(group, seed) -> dict:
+    """One rank of the moe phase: the parity steps at ep=4, then bf16 steps
+    at batch 8 x 512 with every counter at 0 before them, the router loss
+    and the dropped share after them."""
+    from genrec_tpu_torch.models.backbones.qwen import collect_moe_aux
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    losses, params = moe_parity(group.device, seed, group)
+    out = {"parity_losses": losses,
+           "router": {n: p for n, p in params.items() if "router" in n}}
+    del params
+    model, live = moe_model(group.device, seed, torch.bfloat16, group, MOE["layers"])
+    n, warm = MOE["steps"], MOE["warm"]
+    batches = [lcrec_tokens(seed + 200 + i % 2, LCREC["batch"], LCREC["seq"], live)
+               for i in range(warm + n)]
+    run = lcrec_stepper(model, live, None, MOE["lr"], 1, warm + n, LCREC["wd"],
+                        expert_group=group)
+    run(batches[:warm])
+    torch.cuda.synchronize()
+    stamps = []
+
+    def hook():
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    reset_counters()
+    calls0, bytes0 = group.calls, group.bytes
+    t0 = time.perf_counter()
+    metrics = run(batches[warm:], hook)
+    launches = read_counters()
+    b = {k: torch.as_tensor(v, device=group.device) for k, v in batches[0].items()}
+    aux: list = []
+    with torch.no_grad():
+        model(b["input_ids"], attention_mask=b["attention_mask"], compute_logits=False,
+              moe_aux=aux)
+    out["steps"] = dict(
+        steps=n, losses=[m["loss"] for m in metrics],
+        nonfinite=sum(m["nonfinite"] for m in metrics),
+        step_ms_p50=float(np.percentile(1e3 * np.diff([t0] + stamps), 50)),
+        launches=launches, router_aux=float(collect_moe_aux(aux)),
+        dropped_share=[float(layer.moe.dropped) for layer in model.layers],
+        collectives_per_step=(group.calls - calls0) / n,
+        collective_bytes_per_step=(group.bytes - bytes0) / n,
+        peak_memory_gb=torch.cuda.max_memory_allocated(group.device) / 1e9)
+    del model, run
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_decode_check(dev, seed) -> float:
+    """decode_step against the forward on one batch (fp32, ep=1): the
+    logits at every position of a cached, token-by-token decode. The
+    capacity is ample (E, so C >= the tokens): the routed MLP is per token
+    only where nothing is dropped, as in tests/test_moe.py."""
+    model, live = moe_model(dev, seed, torch.float32, None, MOE["layers"],
+                            capacity=float(MOE["experts"]))
+    T = MOE["decode_tokens"]
+    ids = torch.as_tensor(lcrec_tokens(seed + 300, 2, T, live)["input_ids"],
+                          device=dev).long()
+    with torch.no_grad():
+        full = model(ids)
+        caches = model.init_cache(2, T)
+        pad = torch.zeros((2, T), dtype=torch.long, device=dev)
+        worst = 0.0
+        for t in range(T):
+            pad[:, t] = 1
+            logits, caches = model.decode_step(ids[:, t:t + 1], torch.full((2, 1), t, device=dev),
+                                               caches, pad)
+            worst = max(worst, assert_near(f"MoE decode step {t}", logits, full[:, t],
+                                           MOE_DECODE_TOL))
+    del model
+    torch.cuda.empty_cache()
+    return worst
+
+
+def moe_phase(dev, seed, rank_fn=None) -> dict:
+    """Mixture of experts (A14) at the Qwen2.5-1.5B widths: ep = 1 here
+    (twice: equal bits), ep = 4 over gloo on the one card (parity within
+    LCREC_PARITY_RTOL, the replicated router equal on every rank), bf16
+    steps with B3, B4 dx and B4 dW once a step a rank, and the cached
+    decode against the forward."""
+    from genrec_tpu_torch.parallel.mesh import spawn
+
+    t0 = time.perf_counter()
+    ep1, params1 = moe_parity(dev, seed)
+    ep1b, params1b = moe_parity(dev, seed)
+    differ = sorted(k for k in params1 if not torch.equal(params1[k], params1b[k]))
+    check(ep1 == ep1b and not differ, ("two ep=1 MoE runs differ", ep1, ep1b, differ[:5]))
+    decode_err = moe_decode_check(dev, seed)
+    ep1_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(rank_fn or moe_rank, MOE["ep"], (seed,), device=dev.type,
+                  timeout_s=LCREC_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    ep4 = r0["parity_losses"]
+    check(all(r["parity_losses"] == ep4 for r in ranks), "ep=4 ranks disagree on the losses")
+    rel = float(np.max(np.abs(np.asarray(ep4) - ep1) / np.abs(ep1)))
+    check(np.isfinite(ep4).all() and rel <= LCREC_PARITY_RTOL,
+          f"ep=1 vs ep=4 MoE losses: max relative diff {rel} > {LCREC_PARITY_RTOL}")
+    router_rel = 0.0
+    for name, w in r0["router"].items():
+        check(all(torch.equal(r["router"][name], w) for r in ranks), f"{name} differs by rank")
+        router_rel = max(router_rel, float((w - params1[name]).abs().max()
+                                           / params1[name].abs().max()))
+    for rank, r in enumerate(ranks):
+        s = r["steps"]
+        check(s["nonfinite"] == 0 and all(np.isfinite(s["losses"])), s)
+        check(np.isfinite(s["router_aux"]) and s["router_aux"] > 0, s["router_aux"])
+        check(s["losses"][-1] < s["losses"][0], ("MoE loss did not fall", s["losses"]))
+        for name, count in s["launches"].items():
+            want = s["steps"] if name in LCREC_LAUNCHES_PER_STEP else 0
+            check(count == want, f"moe rank {rank}: {name} launched {count}, want {want}")
+        check(s["losses"] == r0["steps"]["losses"], "the ep=4 ranks' losses differ")
+    return emit(
+        "moe", ep=MOE["ep"], backend="gloo (four ranks on one card)",
+        config=(f"QwenConfig() (Qwen2.5-1.5B widths) with config/lcrec/synthetic_moe.gin's MoE: "
+                f"{MOE['experts']} experts, top {MOE['top_k']}, capacity {MOE['capacity']}, "
+                f"aux {MOE['aux_coef']}; LCRec vocab {LCREC_LIVE}"),
+        reduced=f"{MOE['layers']} of 28 layers",
+        parity=dict(steps=LCREC["parity_steps"], dtype="fp32",
+                    batch=[LCREC["parity_batch"], LCREC["parity_seq"]], ep1_losses=ep1,
+                    ep4_losses=ep4, max_rel_diff=rel, rtol=LCREC_PARITY_RTOL,
+                    ep1_twice_bit_equal=True, router_max_rel_diff=router_rel, ep1_s=ep1_s),
+        decode=dict(tokens=MOE["decode_tokens"], max_abs_err=decode_err, tol=MOE_DECODE_TOL),
+        steps=dict(r0["steps"], batch=[LCREC["batch"], LCREC["seq"]], dtype="bf16",
+                   lr=MOE["lr"]),
+        spawn_s=spawn_s,
+    )
+
+
 def build_all() -> dict:
     """Every kernel library, one nvcc per source, all started together."""
     from genrec_tpu_torch.kernels.build import LIBRARIES, NVCC_FLAGS, build_library
@@ -6842,6 +7507,12 @@ def build_all() -> dict:
     )
 
 
+PHASES = ("kernels", "train", "parity", "sasrec", "rqvae", "serve", "cobra_serve",
+          "tiger_spec_serve", "cobra_spec_serve", "serve_live", "tiger_train", "cobra_train",
+          "retrieve", "lcrec_tp", "resume", "amazon", "notellm", "qwen_serve", "lcrec_lora",
+          "pipeline", "tiger_tp", "qwen_tp4", "moe")
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -6852,8 +7523,20 @@ def main(argv=None) -> int:
                     help="run more HSTU, TIGER, RQ-VAE and LCRec train steps and serve the TIGER "
                          "and COBRA traffic once more (fp32 and int8) under torch.profiler, "
                          "and report device time by kernel")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="run only these phases, comma-separated, in the script's order "
+                         f"(default: all of {','.join(PHASES)}); env and build always run, "
+                         "and the kernels line comes only from a run of all of them")
     worker = argv[1:3] if argv[:1] == ["--pipeline-worker"] else None
     args = ap.parse_args([] if worker else argv)
+    chosen = [p for p in args.phases.split(",") if p]
+    unknown = sorted(set(chosen) - set(PHASES))
+    if unknown:
+        ap.error(f"unknown phases {unknown}; known: {', '.join(PHASES)}")
+    full_run = set(chosen) == set(PHASES)
+
+    def want(name) -> bool:
+        return name in chosen
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only",
@@ -6878,101 +7561,148 @@ def main(argv=None) -> int:
         "env", nvidia_smi=smi, device=torch.cuda.get_device_name(dev),
         capability=list(torch.cuda.get_device_capability(dev)),
         device_count=torch.cuda.device_count(), torch=torch.__version__,
-        cuda=torch.version.cuda, python=sys.version.split()[0],
+        cuda=torch.version.cuda, python=sys.version.split()[0], phases=chosen,
     )}
     phases["build"] = emit("build", **build_all())
-    paged_ptx = phases["build"]["libraries"]["paged_attention"]["ptxas"]
-    kernels = {"paged_attention_stats": kernel_phase(dev, args.seed, paged_ptx),
-               "paged_attention_stats_quantized": quantized_kernel_phase(dev, args.seed,
-                                                                         paged_ptx),
-               "rq_cascade": rq_kernel_phase(
-                   dev, args.seed, phases["build"]["libraries"]["rq_cascade"]["ptxas"])}
-    kernels.update(hstu_kernel_phase(
-        dev, args.seed, phases["build"]["libraries"]["hstu_attention"]["ptxas"]))
-    for int8 in (False, True):
-        row = cobra_kernel_phase(dev, args.seed, paged_ptx, int8)
-        kernels[f"paged_attention_stats{'_quantized' if int8 else ''}_cobra"] = row
-    for name in ("paged_attention_stats_tree", "paged_attention_stats_quantized_tree",
-                 "paged_attention_stats_cobra_tree"):
-        kernels[name] = tree_kernel_phase(dev, args.seed, paged_ptx, name)
-    # The bf16 variants (a bf16 model's serving): B1 over bf16 pages at
-    # TIGER's and COBRA's shapes and over TIGER's tree, B2 with a bf16 q.
-    kernels["paged_attention_stats_bf16"] = kernel_phase(dev, args.seed, paged_ptx, bf16=True)
-    kernels["paged_attention_stats_quantized_bf16q"] = quantized_kernel_phase(
-        dev, args.seed, paged_ptx, bf16q=True)
-    kernels["paged_attention_stats_bf16_cobra"] = cobra_kernel_phase(
-        dev, args.seed, paged_ptx, False, bf16=True)
-    kernels["paged_attention_stats_quantized_bf16q_cobra"] = cobra_kernel_phase(
-        dev, args.seed, paged_ptx, True, bf16=True)
-    kernels["paged_attention_stats_bf16_tree"] = tree_kernel_phase(
-        dev, args.seed, paged_ptx, "paged_attention_stats_bf16_tree")
-    kernels["hstu_attention_fwd_retrieve"] = hstu_serving_kernel_phase(dev, args.seed)
-    ptxas = phases["build"]["libraries"]["fused_ce"]["ptxas"]
-    kernels.update(ce_kernel_phase(dev, args.seed, ptxas))
-    kernels.update(ce_lcrec_kernel_phase(dev, args.seed, ptxas))
-    phases["kernel_phases"] = kernels
-    phases["train"] = train_phase(dev, args.seed, args.profile)
-    phases["parity"] = parity_phase(dev, args.seed)
-    phases["sasrec"] = sasrec_phase(dev, args.seed, ptxas, args.profile)
-    kernels.update(phases["sasrec"]["kernels"])
-    phases["rqvae"] = rqvae_phase(dev, args.seed, args.profile)
-    phases["serve"], profiled, fp32_answers = serve_phase(dev, args.seed, args.requests,
-                                                          args.profile)
-    if profiled:
-        phases["serve_profile"] = profiled
-    phases["serve_int8"], profiled, _ = serve_phase(dev, args.seed, args.requests,
-                                                    args.profile, kv_dtype="int8",
-                                                    fp32_answers=fp32_answers)
-    if profiled:
-        phases["serve_int8_profile"] = profiled
-    for kv_dtype in ("float32", "int8"):  # serve_bf16: the same weights computing in bf16
-        phases["serve_bf16" + ("_int8" if kv_dtype == "int8" else "")] = serve_phase(
-            dev, args.seed, args.requests, kv_dtype=kv_dtype, fp32_answers=fp32_answers,
-            dtype=torch.bfloat16)[0]
-    phases["cobra_serve"], profiled, fp32_answers = cobra_serve_phase(
-        dev, args.seed, args.requests, args.profile)
-    if profiled:
-        phases["cobra_serve_profile"] = profiled
-    phases["cobra_serve_int8"], profiled, _ = cobra_serve_phase(
-        dev, args.seed, args.requests, args.profile, kv_dtype="int8",
-        fp32_answers=fp32_answers)
-    if profiled:
-        phases["cobra_serve_int8_profile"] = profiled
-    for kv_dtype in ("float32", "int8"):  # cobra_serve_bf16
-        phases["cobra_serve_bf16" + ("_int8" if kv_dtype == "int8" else "")] = cobra_serve_phase(
-            dev, args.seed, args.requests, kv_dtype=kv_dtype, fp32_answers=fp32_answers,
-            dtype=torch.bfloat16)[0]
-    phases["tiger_spec_serve"] = tiger_spec_serve_phase(dev, args.seed, args.requests)
-    phases["tiger_spec_serve_int8"] = tiger_spec_serve_phase(dev, args.seed, args.requests,
-                                                             kv_dtype="int8")
-    phases["tiger_spec_serve_bf16"] = tiger_spec_serve_phase(dev, args.seed, args.requests,
-                                                             dtype=torch.bfloat16)
-    phases["cobra_spec_serve"] = cobra_spec_serve_phase(dev, args.seed, args.requests)
-    phases["serve_live"] = serve_live_phase(dev, args.seed, args.requests)
-    phases["tiger_train"], tiger = tiger_train_phase(dev, args.seed, args.profile)
-    phases["tiger_decode"] = tiger_decode_phase(dev, args.seed, tiger, args.profile)
-    del tiger
-    phases["cobra_train"] = cobra_train_phase(dev, args.seed, args.profile)
+    libraries = phases["build"]["libraries"]
+    paged_ptx = libraries["paged_attention"]["ptxas"]
+    ptxas = libraries["fused_ce"]["ptxas"]
+    kernels = {}
+    if want("kernels"):
+        kernels.update({
+            "paged_attention_stats": kernel_phase(dev, args.seed, paged_ptx),
+            "paged_attention_stats_quantized": quantized_kernel_phase(dev, args.seed, paged_ptx),
+            "rq_cascade": rq_kernel_phase(dev, args.seed, libraries["rq_cascade"]["ptxas"]),
+            "table_grad": table_grad_kernel_phase(dev, args.seed,
+                                                  libraries["table_grad"]["ptxas"])})
+        kernels.update(hstu_kernel_phase(dev, args.seed, libraries["hstu_attention"]["ptxas"]))
+        for int8 in (False, True):
+            row = cobra_kernel_phase(dev, args.seed, paged_ptx, int8)
+            kernels[f"paged_attention_stats{'_quantized' if int8 else ''}_cobra"] = row
+        for name in ("paged_attention_stats_tree", "paged_attention_stats_quantized_tree",
+                     "paged_attention_stats_cobra_tree"):
+            kernels[name] = tree_kernel_phase(dev, args.seed, paged_ptx, name)
+        # The bf16 variants (a bf16 model's serving): B1 over bf16 pages at
+        # TIGER's and COBRA's shapes and over TIGER's tree, B2 with a bf16 q.
+        kernels["paged_attention_stats_bf16"] = kernel_phase(dev, args.seed, paged_ptx,
+                                                             bf16=True)
+        kernels["paged_attention_stats_quantized_bf16q"] = quantized_kernel_phase(
+            dev, args.seed, paged_ptx, bf16q=True)
+        kernels["paged_attention_stats_bf16_cobra"] = cobra_kernel_phase(
+            dev, args.seed, paged_ptx, False, bf16=True)
+        kernels["paged_attention_stats_quantized_bf16q_cobra"] = cobra_kernel_phase(
+            dev, args.seed, paged_ptx, True, bf16=True)
+        kernels["paged_attention_stats_bf16_tree"] = tree_kernel_phase(
+            dev, args.seed, paged_ptx, "paged_attention_stats_bf16_tree")
+        kernels["hstu_attention_fwd_retrieve"] = hstu_serving_kernel_phase(dev, args.seed)
+        kernels.update(ce_kernel_phase(dev, args.seed, ptxas))
+        kernels.update(ce_lcrec_kernel_phase(dev, args.seed, ptxas))
+        phases["kernel_phases"] = kernels
+    if want("train"):
+        phases["train"] = train_phase(dev, args.seed, args.profile)
+    if want("parity"):
+        phases["parity"] = parity_phase(dev, args.seed)
+    if want("sasrec"):
+        phases["sasrec"] = sasrec_phase(dev, args.seed, ptxas, args.profile)
+        kernels.update(phases["sasrec"]["kernels"])
+    if want("rqvae"):
+        phases["rqvae"] = rqvae_phase(dev, args.seed, args.profile)
+    if want("serve"):
+        phases["serve"], profiled, fp32_answers = serve_phase(dev, args.seed, args.requests,
+                                                              args.profile)
+        if profiled:
+            phases["serve_profile"] = profiled
+        phases["serve_int8"], profiled, _ = serve_phase(dev, args.seed, args.requests,
+                                                        args.profile, kv_dtype="int8",
+                                                        fp32_answers=fp32_answers)
+        if profiled:
+            phases["serve_int8_profile"] = profiled
+        for kv_dtype in ("float32", "int8"):  # serve_bf16: the same weights computing in bf16
+            phases["serve_bf16" + ("_int8" if kv_dtype == "int8" else "")] = serve_phase(
+                dev, args.seed, args.requests, kv_dtype=kv_dtype, fp32_answers=fp32_answers,
+                dtype=torch.bfloat16)[0]
+    if want("cobra_serve"):
+        phases["cobra_serve"], profiled, fp32_answers = cobra_serve_phase(
+            dev, args.seed, args.requests, args.profile)
+        if profiled:
+            phases["cobra_serve_profile"] = profiled
+        phases["cobra_serve_int8"], profiled, _ = cobra_serve_phase(
+            dev, args.seed, args.requests, args.profile, kv_dtype="int8",
+            fp32_answers=fp32_answers)
+        if profiled:
+            phases["cobra_serve_int8_profile"] = profiled
+        for kv_dtype in ("float32", "int8"):  # cobra_serve_bf16
+            phases["cobra_serve_bf16" + ("_int8" if kv_dtype == "int8" else "")] = \
+                cobra_serve_phase(dev, args.seed, args.requests, kv_dtype=kv_dtype,
+                                  fp32_answers=fp32_answers, dtype=torch.bfloat16)[0]
+    if want("tiger_spec_serve"):
+        phases["tiger_spec_serve"] = tiger_spec_serve_phase(dev, args.seed, args.requests)
+        phases["tiger_spec_serve_int8"] = tiger_spec_serve_phase(dev, args.seed, args.requests,
+                                                                 kv_dtype="int8")
+        phases["tiger_spec_serve_bf16"] = tiger_spec_serve_phase(dev, args.seed, args.requests,
+                                                                 dtype=torch.bfloat16)
+    if want("cobra_spec_serve"):
+        phases["cobra_spec_serve"] = cobra_spec_serve_phase(dev, args.seed, args.requests)
+    if want("serve_live"):
+        phases["serve_live"] = serve_live_phase(dev, args.seed, args.requests)
+    if want("tiger_train"):
+        phases["tiger_train"], tiger = tiger_train_phase(dev, args.seed, args.profile)
+        phases["tiger_decode"] = tiger_decode_phase(dev, args.seed, tiger, args.profile)
+        del tiger
+    if want("cobra_train"):
+        phases["cobra_train"] = cobra_train_phase(dev, args.seed, args.profile)
     gc.collect()
     torch.cuda.empty_cache()
-    phases["retrieve"] = retrieve_phase(dev, args.seed, args.profile)
-    phases["lcrec_tp"] = lcrec_tp_phase(dev, args.seed, args.profile)
-    kernels["sharded_fused_linear_ce"] = phases["lcrec_tp"]["b8"]
-    phases["resume"] = resume_phase(dev, args.seed)
-    gc.collect()
-    torch.cuda.empty_cache()
-    phases["amazon"] = amazon_phase(dev, args.seed)
-    for name, phase in (("notellm", notellm_phase), ("qwen_serve", qwen_serve_phase),
-                        ("lcrec_lora", lcrec_lora_phase)):
+    if want("retrieve"):
+        phases["retrieve"] = retrieve_phase(dev, args.seed, args.profile)
+    if want("lcrec_tp"):
+        phases["lcrec_tp"] = lcrec_tp_phase(dev, args.seed, args.profile)
+        kernels["sharded_fused_linear_ce"] = phases["lcrec_tp"]["b8"]
+    if want("resume"):
+        phases["resume"] = resume_phase(dev, args.seed)
+    for name, phase in (("amazon", amazon_phase), ("notellm", notellm_phase),
+                        ("qwen_serve", qwen_serve_phase), ("lcrec_lora", lcrec_lora_phase),
+                        ("pipeline", pipeline_phase), ("tiger_tp", tiger_tp_phase)):
+        if want(name):
+            gc.collect()
+            torch.cuda.empty_cache()
+            phases[name] = phase(dev, args.seed)
+    if want("qwen_tp4"):
         gc.collect()
         torch.cuda.empty_cache()
-        phases[name] = phase(dev, args.seed)
-    gc.collect()
-    torch.cuda.empty_cache()
-    phases["pipeline"] = pipeline_phase(dev, args.seed)
+        lcrec = phases.get("lcrec_tp")
+        phases["qwen_tp4"] = qwen_tp4_phase(
+            dev, args.seed, tp1_losses=lcrec["parity"]["tp1_losses"] if lcrec else None,
+            library_ms=lcrec["b8"]["library_ms"] if lcrec else None)
+        kernels["sharded_fused_linear_ce_4"] = phases["qwen_tp4"]["b8"]
+    if want("moe"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        phases["moe"] = moe_phase(dev, args.seed)
     phases["wall_s"] = time.perf_counter() - t_start
-    amazon = phases["amazon"]["launches"]
 
+    line = kernels_line(phases, kernels) if full_run else None
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps({**phases, **(line or {})}, indent=1))
+    if line is not None:
+        print(json.dumps(line), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+def kernels_line(phases, kernels) -> dict:
+    """The kernels line of a full run: every kernel's row, its launches on
+    the main paths that ran it (each read just after that path)."""
+    amazon = phases["amazon"]["launches"]
+    tiger_steps = (phases["tiger_train"]["trainer"]["launches"]["table_grad"]
+                   + phases["tiger_train"]["launches"]["table_grad"]
+                   + amazon["tiger"]["table_grad"]
+                   + sum(r["launches"]["table_grad"] for r in (phases["tiger_tp"]["trainer"],)))
     launches = {"paged_attention_stats": (phases["serve"]["paged_attention_launches"]
                                           + phases["tiger_decode"]["paged_attention_launches"]
                                           + phases["serve_live"]["paged_attention_launches"]
@@ -6986,8 +7716,12 @@ def main(argv=None) -> int:
                 **{k: phases["train"]["launches"][k] + amazon["hstu"][k]
                    for k in LAUNCHES_PER_STEP},
                 # The LoRA phase's: B3 and B4 dx once a step, B4 dW never.
+                # qwen_tp4's and moe's: B3, B4 dx, B4 dW once a step a rank
+                # (rank 0's counts).
                 **{k + "_lcrec": (phases["lcrec_tp"]["steps"]["launches"][k] + amazon["lcrec"][k]
-                                  + phases["lcrec_lora"]["launches"][k])
+                                  + phases["lcrec_lora"]["launches"][k]
+                                  + phases["qwen_tp4"]["steps"]["launches"][k]
+                                  + phases["moe"]["steps"]["launches"][k])
                    for k in LCREC_LAUNCHES_PER_STEP},
                 **{k + "_sasrec": phases["sasrec"]["launches"][k] + amazon["sasrec"][k]
                    for k in SASREC_LAUNCHES_PER_STEP},
@@ -7012,24 +7746,16 @@ def main(argv=None) -> int:
                     phases["serve_bf16_int8"]["paged_attention_launches"],
                 "paged_attention_stats_quantized_bf16q_cobra":
                     phases["cobra_serve_bf16_int8"]["paged_attention_launches"],
-                "sharded_fused_linear_ce": phases["lcrec_tp"]["steps"]["b8_calls"]}
-    line = {"kernels": [{
+                "sharded_fused_linear_ce": phases["lcrec_tp"]["steps"]["b8_calls"],
+                "sharded_fused_linear_ce_4": phases["qwen_tp4"]["b8"]["launches"],
+                "table_grad": tiger_steps}
+    return {"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "replaces_function": function, "launches": launches[name],
         "max_abs_err": kernels[name]["max_abs_err"], "ms": kernels[name]["ms"],
         "plain_ms": kernels[name]["plain_ms"], "bound_ms": kernels[name]["bound_ms"],
         "bound_by": kernels[name]["bound_by"], "library_ms": kernels[name]["library_ms"],
     } for name, (source, replaces, function) in KERNELS.items()]}
-    if args.out:
-        args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text(json.dumps({**phases, **line}, indent=1))
-    print(json.dumps(line), flush=True)
-    print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

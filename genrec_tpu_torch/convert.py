@@ -47,14 +47,31 @@ def _torch_name(path: tuple[str, ...], renames: dict[str, str]) -> tuple[str, bo
     return ".".join([*parts[:-1], renames.get(parts[-1], parts[-1])]), False
 
 
-def tiger_params_from_flax(params_np, model=None) -> dict[str, torch.Tensor]:
-    """Flax TIGER params -> the port's state dict (CPU float tensors).
+def tiger_params_from_flax(params_np, model=None, rank: int = 0,
+                           tp: int = 1) -> dict[str, torch.Tensor]:
+    """Flax TIGER params -> rank ``rank``'s shard of the port's state dict
+    at tensor_parallel ``tp`` (CPU float tensors; the whole state dict at
+    tp = 1).
 
-    Every Flax leaf is consumed exactly once. With ``model`` given, the
-    result must also fill every parameter of ``model`` at its shape; both
-    are asserted, so a renamed or reshaped parameter fails loudly here
-    instead of loading silently wrong."""
-    return _params_from_flax(params_np, model, {})
+    Every Flax leaf is consumed exactly once. With ``model`` given (a
+    ``Tiger``, whole or a rank's shard), the result must also fill every
+    parameter of ``model`` at its full shape before the shard is cut
+    (``parallel.shardings.shard_tiger_params``); both are asserted, so a
+    renamed or reshaped parameter fails loudly here instead of loading
+    silently wrong."""
+    from genrec_tpu_torch.parallel.shardings import shard_tiger_params, tiger_shard_dim
+
+    full = _params_from_flax(params_np, None, {})
+    if model is not None:
+        want = {}
+        for n, p in model.state_dict().items():
+            shape = list(p.shape)
+            dim = tiger_shard_dim(n)
+            if dim is not None:
+                shape[dim] *= tp
+            want[n] = tuple(shape)
+        _check_filled(full, want)
+    return shard_tiger_params(full, rank, tp)
 
 
 def hstu_params_from_flax(params_np, model=None) -> dict[str, torch.Tensor]:
@@ -100,15 +117,19 @@ def _params_from_flax(params_np, model, renames) -> dict[str, torch.Tensor]:
             raise AssertionError(f"two Flax leaves map to {name}")
         out[name] = torch.from_numpy(np.ascontiguousarray(arr))
     if model is not None:
-        want = {n: tuple(p.shape) for n, p in model.state_dict().items()}
-        unfilled = sorted(set(want) - set(out))
-        unused = sorted(set(out) - set(want))
-        assert not unfilled, f"port parameters with no Flax leaf: {unfilled}"
-        assert not unused, f"Flax leaves with no port parameter: {unused}"
-        bad = {n: (tuple(t.shape), want[n]) for n, t in out.items()
-               if tuple(t.shape) != want[n]}
-        assert not bad, f"shape mismatches (flax -> port, port): {bad}"
+        _check_filled(out, {n: tuple(p.shape) for n, p in model.state_dict().items()})
     return out
+
+
+def _check_filled(out: dict, want: dict) -> None:
+    """Assert that ``out`` fills every name of ``want`` at its shape and
+    holds nothing else."""
+    unfilled = sorted(set(want) - set(out))
+    unused = sorted(set(out) - set(want))
+    assert not unfilled, f"port parameters with no Flax leaf: {unfilled}"
+    assert not unused, f"Flax leaves with no port parameter: {unused}"
+    bad = {n: (tuple(t.shape), want[n]) for n, t in out.items() if tuple(t.shape) != want[n]}
+    assert not bad, f"shape mismatches (flax -> port, port): {bad}"
 
 
 def qwen_params_from_flax(params_np, cfg, rank: int = 0, tp: int = 1) -> dict[str, torch.Tensor]:
@@ -122,14 +143,8 @@ def qwen_params_from_flax(params_np, cfg, rank: int = 0, tp: int = 1) -> dict[st
     from genrec_tpu_torch.parallel.shardings import shard_qwen_params
 
     full = _params_from_flax(params_np, None, {"embed_tokens": "embed_tokens.weight"})
-    want = {n: shape for n, (shape, _) in qwen_param_specs(cfg).items()}
-    unfilled = sorted(set(want) - set(full))
-    unused = sorted(set(full) - set(want))
-    assert not unfilled, f"port parameters with no Flax leaf: {unfilled}"
-    assert not unused, f"Flax leaves with no port parameter: {unused}"
-    bad = {n: (tuple(t.shape), want[n]) for n, t in full.items() if tuple(t.shape) != want[n]}
-    assert not bad, f"shape mismatches (flax -> port, port): {bad}"
-    return shard_qwen_params(full, rank, tp)
+    _check_filled(full, {n: shape for n, (shape, _) in qwen_param_specs(cfg).items()})
+    return shard_qwen_params(full, rank, tp, cfg)
 
 
 def notellm_params_from_flax(params_np, cfg) -> dict[str, torch.Tensor]:

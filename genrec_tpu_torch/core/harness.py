@@ -10,7 +10,10 @@ rank holds its shards: the global norm of the clip sums the squares of
 the sharded parameters' gradients (``tp_sharded``) over the group, once
 per rank, and those of the replicated ones once, so every rank clips by
 the norm of the whole model's gradient and the non-finite guard decides
-the same on every rank.
+the same on every rank. A sharded parameter whose rows other ranks hold
+too (KV heads that tp does not divide) carries ``tp_row_weight``, 1 /
+holders a row: its rows' square sums are weighted so that each counts
+once over the group.
 """
 
 from __future__ import annotations
@@ -27,15 +30,22 @@ LossFn = Callable[[Any, dict, torch.Generator], tuple[torch.Tensor, dict]]
 
 
 def global_norm(grads: list[torch.Tensor], sharded: list[bool] | None = None,
-                group=None) -> torch.Tensor:
+                group=None, row_weights: list | None = None) -> torch.Tensor:
     """sqrt of the sum of squares of every gradient (optax.global_norm).
     With ``group``, the gradients flagged in ``sharded`` are this rank's
-    shards: their square sum is summed over the group (one all-reduce)."""
+    shards: their square sum is summed over the group (one all-reduce).
+    ``row_weights[i]`` (None or a tensor over gradient i's rows) weights
+    each row's square sum."""
     norms = torch.stack(torch._foreach_norm(grads))
     if group is None or not any(sharded):
         return torch.linalg.vector_norm(norms)
     flag = torch.tensor(sharded, device=norms.device)
     sq = norms.square()
+    if row_weights is not None and any(w is not None for w in row_weights):
+        sq = torch.stack([
+            s if w is None else (g.to(torch.float32).reshape(g.shape[0], -1).square().sum(1)
+                                 * w).sum()
+            for s, g, w in zip(sq, grads, row_weights)])
     whole = torch.where(flag, 0.0, sq).sum() + group.all_reduce(torch.where(flag, sq, 0.0).sum())
     return whole.sqrt()
 
@@ -88,7 +98,8 @@ def make_train_step(
             grads = torch._foreach_div(grads, accum_steps)
             aux = {k: v / accum_steps for k, v in aux.items()}
 
-        gnorm = global_norm(grads, [getattr(p, "tp_sharded", False) for p in params], group)
+        gnorm = global_norm(grads, [getattr(p, "tp_sharded", False) for p in params], group,
+                            [getattr(p, "tp_row_weight", None) for p in params])
         if clip_norm is not None:
             scale = torch.clamp(clip_norm / gnorm.clamp_min(1e-6), max=1.0)
             grads = torch._foreach_mul(grads, scale)

@@ -36,7 +36,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 # Every kernel library of the port, by source stem.
-LIBRARIES = ("paged_attention", "hstu_attention", "fused_ce", "rq_cascade")
+LIBRARIES = ("paged_attention", "hstu_attention", "fused_ce", "rq_cascade", "table_grad")
 
 
 def _nvcc() -> str:

@@ -72,13 +72,24 @@ class RMSNorm(nn.Module):
         return rms_norm(x, self.weight, self.eps)
 
 
-def dropout(x, rate: float, deterministic: bool, generator=None):
+def dropout(x, rate: float, deterministic: bool, generator=None, shard=None):
     """Flax ``nn.Dropout``: keep with probability 1 - rate, scale kept
-    values by 1 / (1 - rate); the bits come from ``generator``."""
+    values by 1 / (1 - rate); the bits come from ``generator``.
+
+    ``shard`` = (rank, tp): ``x`` is rank's block of a last axis tp times
+    wider (a tensor-parallel hidden layer). The mask is drawn at the full
+    width and this rank's block kept, so the generator advances and every
+    unit draws as it would at tp = 1."""
     if deterministic or rate == 0.0:
         return x
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    if shard is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    else:
+        rank, tp = shard
+        n = x.shape[-1]
+        full = torch.rand((*x.shape[:-1], n * tp), generator=generator, device=x.device)
+        keep = full[..., rank * n:(rank + 1) * n] < keep_prob
     return torch.where(keep, x / keep_prob, 0.0)
 
 

@@ -35,7 +35,7 @@ from typing import NamedTuple
 import torch
 
 from genrec_tpu_torch.kernels.fused_ce import fused_ce_mean_loss, sharded_fused_linear_ce
-from genrec_tpu_torch.models.backbones.qwen import QwenConfig, QwenLM
+from genrec_tpu_torch.models.backbones.qwen import QwenConfig, QwenLM, collect_moe_aux
 from genrec_tpu_torch.ops.losses import cross_entropy_with_ignore, mask_vocab_logits
 
 
@@ -83,21 +83,25 @@ def sft_loss(model: QwenLM, input_ids, attention_mask, labels, valid_vocab: int 
     rows out of the softmax. ``use_fused_ce`` routes the head through the
     fused CE (B3/B4 on the card), over the head's first ``valid_vocab``
     rows. A model with a tensor-parallel group takes
-    ``make_tp_sharded_fused_sft_loss`` for the fused CE."""
+    ``make_tp_sharded_fused_sft_loss`` for the fused CE. A MoE backbone adds
+    its layers' router load-balance losses (JAX ``collect_moe_aux``)."""
+    aux: list = []
     if use_fused_ce:
         if model.group is not None:
             raise ValueError("a tensor-parallel model takes the vocab-sharded fused CE: "
                              "make_tp_sharded_fused_sft_loss")
         _, h = model(input_ids, attention_mask=attention_mask, return_hidden=True,
-                     compute_logits=False)
+                     compute_logits=False, moe_aux=aux)
         w = model.head_weight.to(model.dtype)
         if valid_vocab is not None:
             w = w[:valid_vocab]
-        return fused_ce_mean_loss(h[:, :-1, :], w, labels[:, 1:], ignore_index=-100)
-    logits = mask_vocab_logits(model(input_ids, attention_mask=attention_mask), valid_vocab)
+        return (fused_ce_mean_loss(h[:, :-1, :], w, labels[:, 1:], ignore_index=-100)
+                + collect_moe_aux(aux))
+    logits = mask_vocab_logits(model(input_ids, attention_mask=attention_mask, moe_aux=aux),
+                               valid_vocab)
     per_tok, valid = cross_entropy_with_ignore(logits[:, :-1, :], labels[:, 1:],
                                                ignore_index=-100)
-    return per_tok.sum() / valid.sum().clamp_min(1.0)
+    return per_tok.sum() / valid.sum().clamp_min(1.0) + collect_moe_aux(aux)
 
 
 def make_tp_sharded_fused_sft_loss(model: QwenLM, valid_vocab: int):
@@ -108,21 +112,22 @@ def make_tp_sharded_fused_sft_loss(model: QwenLM, valid_vocab: int):
     whose backward already sums dx over the group (a second all-reduce on
     the way in would count it twice). With a tied head the embedding's
     shard is both the lookup table and B8's head shard, and its gradient
-    is the sum of both uses."""
+    is the sum of both uses. A MoE backbone adds its router losses."""
     if model.group is None:
         raise ValueError("make_tp_sharded_fused_sft_loss needs a model with a "
                          "tensor-parallel group")
     d = model.cfg.hidden_size
 
     def loss_fn(batch):
+        aux: list = []
         _, h = model(batch["input_ids"], attention_mask=batch["attention_mask"],
-                     return_hidden=True, compute_logits=False)
+                     return_hidden=True, compute_logits=False, moe_aux=aux)
         t = batch["labels"][:, 1:]
         per_row = sharded_fused_linear_ce(
             h[:, :-1, :].reshape(-1, d), model.head_weight.to(model.dtype), t.reshape(-1),
             model.group, -100, valid_vocab)
         valid = (t.reshape(-1) != -100).to(torch.float32)
-        return per_row.sum() / valid.sum().clamp_min(1.0)
+        return per_row.sum() / valid.sum().clamp_min(1.0) + collect_moe_aux(aux)
 
     return loss_fn
 

@@ -30,10 +30,18 @@ import torch
 from torch import nn
 
 from genrec_tpu_torch.device import resolve_device
+from genrec_tpu_torch.kernels.table_grad import table_grad
 from genrec_tpu_torch.models.layers import Dense, RMSNorm, dropout
 from genrec_tpu_torch.ops.buckets import t5_relative_position_bucket
 from genrec_tpu_torch.ops.paged import paged_attention
 from genrec_tpu_torch.ops.spec_tree import tree_virtual_cache
+from genrec_tpu_torch.parallel.shardings import (
+    copy_to_tp,
+    reduce_from_tp,
+    shard_count,
+    tp_rank,
+    tp_size,
+)
 
 _NEG = -1e9
 
@@ -44,11 +52,14 @@ def _linear(d_in: int, d_out: int, dtype, device) -> Dense:
 
 class _TableLookup(torch.autograd.Function):
     """``table.reshape(-1)[idx]`` whose backward sums the gradient of each
-    entry in one histogram pass (``torch.bincount``). Autograd's backward
+    entry in one histogram pass (``kernels.table_grad``: a fixed-order
+    kernel on the card, ``torch.bincount`` on the CPU). Autograd's backward
     of the plain gather sorts the indices and adds each entry's duplicates
     one after another: the packed encoder's bias grid reads 192 entries
     ~5.7 M times a layer, and that backward took ~9 ms a layer on an
-    H100."""
+    H100. ``bincount`` on CUDA adds through atomics, whose order changes
+    from run to run; the kernel keeps a TIGER step's bits the same on
+    every run."""
 
     @staticmethod
     def forward(ctx, table, idx):
@@ -59,8 +70,9 @@ class _TableLookup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         (idx,) = ctx.saved_tensors
-        g = torch.bincount(idx.reshape(-1), weights=grad.reshape(-1).to(torch.float32),
-                           minlength=math.prod(ctx.table_shape))
+        g = table_grad(idx.reshape(-1).to(torch.int64).contiguous(),
+                       grad.reshape(-1).to(torch.float32).contiguous(),
+                       math.prod(ctx.table_shape))
         return g.reshape(ctx.table_shape), None
 
 
@@ -274,24 +286,40 @@ class T5Attention(nn.Module):
 
 
 class T5FeedForward(nn.Module):
+    """relu(x wiᵀ) woᵀ with dropout on the hidden units. Under a
+    tensor-parallel ``group`` (JAX ``tiger_rules``) ``wi`` is column-parallel
+    (this rank's hidden_dim / tp units) and ``wo`` row-parallel: the input
+    enters through ``copy_to_tp`` and the partial outputs are summed over
+    the group. The dropout mask is drawn at the full hidden width and this
+    rank's block kept, as at tp = 1."""
+
     def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.1,
-                 dtype=torch.float32, device="cuda"):
+                 dtype=torch.float32, device="cuda", group=None):
         super().__init__()
         device = resolve_device(device)
         self.dropout = dropout
-        self.wi = _linear(dim, hidden_dim, dtype, device)
-        self.wo = _linear(hidden_dim, dim, dtype, device)
+        self.group = group
+        tp = tp_size(group)
+        local = shard_count(hidden_dim, tp, "dim_feedforward")
+        self.wi = _linear(dim, local, dtype, device)
+        self.wo = _linear(local, dim, dtype, device)
+        if tp > 1:
+            for w, axis in ((self.wi.weight, 0), (self.wo.weight, 1)):
+                w.tp_sharded, w.tp_dim = True, axis
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator=None) -> torch.Tensor:
-        h = dropout(torch.relu(self.wi(x)), self.dropout, deterministic, generator)
-        return self.wo(h)
+        tp = tp_size(self.group)
+        shard = None if tp == 1 else (tp_rank(self.group), tp)
+        h = torch.relu(self.wi(copy_to_tp(x, self.group)))
+        h = dropout(h, self.dropout, deterministic, generator, shard)
+        return reduce_from_tp(self.wo(h), self.group)
 
 
 class TransformerBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, ff_hidden_dim: int = 2048,
                  cross_attn: bool = False, dropout: float = 0.1, dtype=torch.float32,
-                 device="cuda"):
+                 device="cuda", group=None):
         super().__init__()
         device = resolve_device(device)
         self.dropout = dropout
@@ -305,7 +333,7 @@ class TransformerBlock(nn.Module):
                 dropout=dropout, dtype=dtype, device=device,
             )
             self.norm_cross = RMSNorm(dim, device=device)
-        self.ff = T5FeedForward(dim, ff_hidden_dim, dropout, dtype, device=device)
+        self.ff = T5FeedForward(dim, ff_hidden_dim, dropout, dtype, device=device, group=group)
         self.norm2 = RMSNorm(dim, device=device)
 
     def forward(self, x: torch.Tensor, context=None, attn_mask=None, key_padding_mask=None,
@@ -368,12 +396,12 @@ class TransformerBlock(nn.Module):
 class TransformerEncoder(nn.Module):
     def __init__(self, dim: int, depth: int, num_heads: int,
                  ff_hidden_dim: int = 2048, dropout: float = 0.1, dtype=torch.float32,
-                 device="cuda"):
+                 device="cuda", group=None):
         super().__init__()
         device = resolve_device(device)
         self.layers = nn.ModuleList(
             TransformerBlock(dim, num_heads, ff_hidden_dim, cross_attn=False,
-                             dropout=dropout, dtype=dtype, device=device)
+                             dropout=dropout, dtype=dtype, device=device, group=group)
             for _ in range(depth)
         )
 
@@ -389,12 +417,12 @@ class TransformerEncoder(nn.Module):
 class TransformerDecoder(nn.Module):
     def __init__(self, dim: int, depth: int, num_heads: int,
                  ff_hidden_dim: int = 2048, dropout: float = 0.1, dtype=torch.float32,
-                 device="cuda"):
+                 device="cuda", group=None):
         super().__init__()
         device = resolve_device(device)
         self.layers = nn.ModuleList(
             TransformerBlock(dim, num_heads, ff_hidden_dim, cross_attn=True,
-                             dropout=dropout, dtype=dtype, device=device)
+                             dropout=dropout, dtype=dtype, device=device, group=group)
             for _ in range(depth)
         )
 
@@ -457,20 +485,21 @@ def causal_mask(T: int, device=None) -> torch.Tensor:
 
 class TransformerEncoderDecoder(nn.Module):
     """The encoder and decoder under the Flax parameter names
-    (``transformer.encoder`` / ``transformer.decoder``)."""
+    (``transformer.encoder`` / ``transformer.decoder``); ``group`` shards
+    every FFN over a tensor-parallel group (``T5FeedForward``)."""
 
     def __init__(self, d_model: int, nhead: int, num_encoder_layers: int,
                  num_decoder_layers: int, dim_feedforward: int = 2048, dropout: float = 0.1,
-                 dtype=torch.float32, device="cuda"):
+                 dtype=torch.float32, device="cuda", group=None):
         super().__init__()
         device = resolve_device(device)
         self.encoder = TransformerEncoder(
             d_model, num_encoder_layers, nhead, dim_feedforward, dropout, dtype,
-            device=device,
+            device=device, group=group,
         )
         self.decoder = TransformerDecoder(
             d_model, num_decoder_layers, nhead, dim_feedforward, dropout, dtype,
-            device=device,
+            device=device, group=group,
         )
 
     def forward(self, src, tgt, src_key_padding_mask=None, memory_key_padding_mask=None,

@@ -59,6 +59,13 @@ from genrec_tpu_torch.ops.paged import write_pages
 from genrec_tpu_torch.ops.quant import KV_DTYPES, QuantizedKVPool
 from genrec_tpu_torch.ops.spec_tree import commit_level_kv, match_drafted, tree_topology
 from genrec_tpu_torch.ops.trie import advance_ragged, legal_mask_ragged, legal_topk_ragged
+from genrec_tpu_torch.parallel.shardings import (
+    copy_to_tp,
+    gather_from_tp,
+    shard_count,
+    tp_rank,
+    tp_size,
+)
 
 _ILLEGAL = -1e32
 
@@ -82,15 +89,23 @@ class TigerPackedOutput(NamedTuple):
 class Tiger(nn.Module):
     """TIGER encoder-decoder. Weights are drawn from ``seed`` (a CPU
     generator, so every device gets the same weights) or loaded with
-    ``load_state_dict``."""
+    ``load_state_dict``.
+
+    ``group`` (a ``parallel.mesh.TPGroup``) makes the module this rank's
+    shard under JAX ``tiger_rules``: the vocab head column-parallel over
+    ``padded_vocab_size`` (its logits gathered over the group before the
+    pad mask and the loss), the sem-id rows and every FFN split over the
+    group, attention and the rest replicated. ``pad_vocab_to`` must make
+    the vocabulary divide by the group's size (the trainer passes tp)."""
 
     def __init__(self, embedding_dim: int, attn_dim: int, num_heads: int,
                  n_layers: int, num_item_embeddings: int, num_user_embeddings: int,
                  sem_id_dim: int, max_pos: int = 2048, pad_vocab_to: int = 1,
                  dim_feedforward: int = 1024, dropout: float = 0.0,
-                 dtype=torch.float32, device="cuda", seed: int = 0):
+                 dtype=torch.float32, device="cuda", seed: int = 0, group=None):
         super().__init__()
         dev = resolve_device(device)
+        self.group = group
         self.dropout = dropout
         self.dtype = dtype
         self.embedding_dim = embedding_dim
@@ -106,7 +121,7 @@ class Tiger(nn.Module):
         self.norm_context = RMSNorm(embedding_dim, device=dev)
         self.sem_id_embedding = SemIdEmbedding(
             num_item_embeddings, sem_id_dim, embedding_dim,
-            rows_multiple=pad_vocab_to, dtype=dtype, device=dev,
+            rows_multiple=pad_vocab_to, dtype=dtype, device=dev, group=group,
         )
         self.user_id_embedding = UserIdEmbedding(
             num_user_embeddings, embedding_dim, dtype=dtype, device=dev
@@ -125,8 +140,13 @@ class Tiger(nn.Module):
             d_model=attn_dim, nhead=num_heads,
             num_encoder_layers=n_layers // 2, num_decoder_layers=n_layers // 2,
             dim_feedforward=dim_feedforward, dropout=dropout, dtype=dtype, device=dev,
+            group=group,
         )
-        self.output_head = Dense(attn_dim, self.padded_vocab_size, dtype, dev, bias=False)
+        tp = tp_size(group)
+        self.output_head = Dense(attn_dim, shard_count(self.padded_vocab_size, tp, "padded vocab"),
+                                 dtype, dev, bias=False)
+        if tp > 1:
+            self.output_head.weight.tp_sharded, self.output_head.weight.tp_dim = True, 0
         self.reset_parameters(seed)
 
     @property
@@ -145,19 +165,42 @@ class Tiger(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, seed: int = 0) -> None:
         """Seeded init with the Flax model's scales: embeddings N(0, 1),
-        relative biases N(0, 0.02), norms 1, projections N(0, 1/fan_in)."""
+        relative biases N(0, 0.02), norms 1, projections N(0, 1/fan_in).
+        Under a group every parameter is drawn at its full shape and this
+        rank's block kept. The vocab head and the sem-id table are drawn at
+        the natural vocabulary and their ``pad_vocab_to`` rows are zeros
+        (inert: masked logits, rows never read), so every tp starts from
+        tp = 1's weights."""
         gen = torch.Generator().manual_seed(seed)
+        tp, rank = tp_size(self.group), tp_rank(self.group)
         norms = {f"{n}.weight" for n, m in self.named_modules() if isinstance(m, RMSNorm)}
+        vocab_rows = ("output_head.weight", "sem_id_embedding.embedding")
         for name, p in self.named_parameters():
+            dim = getattr(p, "tp_dim", None)
+            shape = list(p.shape)
+            if dim is not None:
+                shape[dim] *= tp
+            padded = shape[0]
+            if name in vocab_rows:
+                shape[0] = self.vocab_size
             if name in norms:
-                w = torch.ones(p.shape)
+                w = torch.ones(shape)
             elif name.endswith("rel_bias"):
-                w = torch.randn(p.shape, generator=gen) * 0.02
+                w = torch.randn(shape, generator=gen) * 0.02
             elif name.endswith(".weight"):  # nn.Linear, (out, in)
-                w = torch.randn(p.shape, generator=gen) * p.shape[1] ** -0.5
+                w = torch.randn(shape, generator=gen) * shape[1] ** -0.5
             else:  # embedding tables and the BOS vector
-                w = torch.randn(p.shape, generator=gen)
+                w = torch.randn(shape, generator=gen)
+            if padded > shape[0]:
+                w = torch.cat([w, w.new_zeros((padded - shape[0], *shape[1:]))])
+            if dim is not None:
+                w = w.narrow(dim, rank * p.shape[dim], p.shape[dim])
             p.copy_(w)
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        """Logits over the whole padded vocabulary: this rank's columns of
+        the head, gathered over the group."""
+        return gather_from_tp(self.output_head(copy_to_tp(x, self.group)), self.group)
 
     def _mask_pad_logits(self, logits: torch.Tensor) -> torch.Tensor:
         if self.padded_vocab_size == self.vocab_size:
@@ -215,7 +258,7 @@ class Tiger(nn.Module):
         out = self.transformer(enc, dec, src_key_padding_mask=pad,
                                memory_key_padding_mask=pad, deterministic=deterministic,
                                generator=generator)
-        logits = self._mask_pad_logits(self.output_head(out))
+        logits = self._mask_pad_logits(self._head(out))
         loss = None
         if target_input_ids is not None and target_input_ids.shape[1] == self.sem_id_dim:
             per_tok = self._token_loss(logits, target_input_ids, target_token_type_ids)
@@ -262,7 +305,7 @@ class Tiger(nn.Module):
         out = self.transformer.decoder(dec, mem, attn_mask=causal_mask(D + 1, dev),
                                        memory_key_padding_mask=mem_pad,
                                        deterministic=deterministic, generator=generator)
-        logits = self._mask_pad_logits(self.output_head(out))
+        logits = self._mask_pad_logits(self._head(out))
         seq_loss = self._token_loss(logits, tgt_flat, tgt_types).sum(dim=1).reshape(R, S)
         valid = segment_valid.to(torch.float32)
         loss = (seq_loss * valid).sum() / valid.sum().clamp_min(1.0)
@@ -292,7 +335,7 @@ class Tiger(nn.Module):
         out = self.transformer.decoder(dec, memory,
                                        attn_mask=causal_mask(dec.shape[1], memory.device),
                                        memory_key_padding_mask=memory_pad)
-        return self._mask_pad_logits(self.output_head(out))[:, -1, :].to(torch.float32)
+        return self._mask_pad_logits(self._head(out))[:, -1, :].to(torch.float32)
 
     def decode_step_cached(self, last_tok, caches, cross_kvs, memory_pad, step: int):
         """Logits for decode position ``step`` from the PREVIOUS token only
@@ -308,7 +351,7 @@ class Tiger(nn.Module):
         x, new_caches = self.transformer.decoder.decode_step(
             x, caches, cross_kvs, memory_key_padding_mask=memory_pad, step=step
         )
-        logits = self._mask_pad_logits(self.output_head(x))
+        logits = self._mask_pad_logits(self._head(x))
         return logits.to(torch.float32), new_caches
 
     def decode_tree_paged(self, node_tok, topo, steps, caches, k_pools, v_pools,
@@ -336,7 +379,7 @@ class Tiger(nn.Module):
         x, node_kvs = self.transformer.decoder.decode_tree(
             x, caches, k_pools, v_pools, block_tables, seq_lens, topo, steps
         )
-        logits = self._mask_pad_logits(self.output_head(x))
+        logits = self._mask_pad_logits(self._head(x))
         return logits.to(torch.float32), node_kvs
 
     def decode_step_paged(self, last_tok, caches, k_pools, v_pools,
@@ -354,7 +397,7 @@ class Tiger(nn.Module):
         x, new_caches = self.transformer.decoder.decode_step_paged(
             x, caches, k_pools, v_pools, block_tables, seq_lens, steps
         )
-        logits = self._mask_pad_logits(self.output_head(x))
+        logits = self._mask_pad_logits(self._head(x))
         return logits.to(torch.float32), new_caches
 
 

@@ -44,6 +44,13 @@ checkpoint (``config.json`` + weights, read with
 `models.backbones.qwen.params_from_hf_state_dict`); ``transformers`` is
 imported only when a ``pretrained_path`` is given.
 
+``num_experts > 0`` makes the backbone's MLPs a routed mixture of
+experts (``models.backbones.qwen.QwenMoEMLP``; the SFT loss adds the
+router losses); ``expert_parallel`` is then 1 or the number of processes,
+each rank holding num_experts / expert_parallel experts of every layer and
+the rest of the model whole (tokens replicated; the head's fused CE runs
+whole on every rank).
+
 ``use_lora`` trains rank-``lora_rank`` adapters on ``lora_targets``
 (`core.lora`) at tensor_parallel=1: the base stays frozen and is never
 written (the step runs the loss under merged weights through
@@ -53,10 +60,10 @@ the frozen head's fused CE launches no dW kernel. LoRA with
 ``tensor_parallel`` or ``expert_parallel`` > 1 raises ValueError, as in
 JAX.
 
-Not ported yet, each raising with its ROADMAP item:
-``num_experts``/``expert_parallel`` (A14), ``sequence_parallel`` (A15),
-``pipeline_parallel`` (A16), data parallelism beside tensor parallelism
-(A17). wandb forwarding logs a warning.
+Not ported yet, each raising with its ROADMAP item: ``sequence_parallel``
+(A15), ``pipeline_parallel`` (A16), data parallelism beside tensor or
+expert parallelism and tensor x expert parallelism (A17). wandb forwarding
+logs a warning.
 """
 
 from __future__ import annotations
@@ -102,7 +109,7 @@ from genrec_tpu_torch.models.lcrec import (
 from genrec_tpu_torch.ops.metrics import TopKAccumulator
 from genrec_tpu_torch.ops.schedules import cosine_schedule_with_warmup
 from genrec_tpu_torch.parallel.mesh import distributed_init
-from genrec_tpu_torch.parallel.shardings import shard_qwen_params
+from genrec_tpu_torch.parallel.shardings import shard_expert_params, shard_qwen_params
 from genrec_tpu_torch.trainers.packed_loop import PackedTrainLoop
 
 TORCHRUN = ("torchrun --standalone --nproc_per_node=2 -m genrec_tpu_torch.trainers."
@@ -189,6 +196,9 @@ def backbone_params(tok, pretrained_path, widths: dict, seed: int, device, max_p
         cfg = QwenConfig(vocab_size=tok.base_vocab, **widths, max_position_embeddings=max_pos,
                          rope_theta=10000.0, tie_word_embeddings=False)
         return cfg, qwen_init_params(cfg, seed, device)
+    if widths.get("num_experts", 0) > 0:
+        raise ValueError("num_experts>0 with a full HF checkpoint is not wired (the HF "
+                         "MoE key mapping is not implemented), as in the JAX trainer")
     import json
 
     from transformers import AutoModelForCausalLM
@@ -230,27 +240,44 @@ def lora_loss_fn(model, base_loss, alpha: float, rank: int):
 def _refuse(tensor_parallel, world, *, use_lora, num_experts, expert_parallel,
             sequence_parallel, pipeline_parallel):
     """Raise on what the port does not run yet, naming the ROADMAP item,
-    and on LoRA beside model parallelism, as the JAX trainer does."""
+    and on the layouts the JAX trainer refuses (LoRA beside model
+    parallelism, MoE beside sequence or pipeline parallelism, an expert
+    count the expert axis does not divide)."""
+    if num_experts > 0 and (sequence_parallel > 1 or pipeline_parallel > 1):
+        # JAX's sp/pp run the blocks inside shard_map and do not collect
+        # the router loss.
+        raise ValueError("num_experts>0 is wired for dp / expert_parallel / "
+                         "tensor_parallel x expert_parallel runs only")
+    if num_experts > 0 and tensor_parallel > 1 and expert_parallel == 1:
+        raise ValueError("MoE with tensor_parallel needs expert_parallel>1 "
+                         "too (else the expert stacks stay replicated)")
     if expert_parallel > 1 and use_lora:
         # The trainable tree is the adapters: an expert axis would shard
         # nothing of it.
         raise ValueError("expert_parallel with use_lora is not wired; run LoRA "
                          "data-parallel")
+    if expert_parallel > 1 and (num_experts <= 0 or num_experts % expert_parallel):
+        raise ValueError(f"expert_parallel={expert_parallel} needs num_experts>0 "
+                         f"divisible by it (got {num_experts})")
     if tensor_parallel > 1 and use_lora:
         # The step merges from the whole base on every rank, so tensor
         # parallelism would shard nothing.
         raise ValueError("tensor_parallel with use_lora is not wired; run LoRA "
                          "data-parallel (it is already memory-light)")
-    if tensor_parallel > 1 and world == 1:
-        raise RuntimeError(f"tensor_parallel={tensor_parallel} runs one process per rank: "
-                           f"{TORCHRUN}")
-    if world > 1 and tensor_parallel != world:
+    if tensor_parallel > 1 and expert_parallel > 1:
         raise NotImplementedError(
-            f"{world} processes with tensor_parallel={tensor_parallel}: data parallelism "
-            "beside tensor parallelism is not ported; ROADMAP A17")
+            f"tensor_parallel={tensor_parallel} x expert_parallel={expert_parallel} needs a "
+            "2-D group layout, not ported; ROADMAP A17")
+    model_parallel = max(tensor_parallel, expert_parallel)
+    if model_parallel > 1 and world == 1:
+        raise RuntimeError(f"tensor_parallel={tensor_parallel} / expert_parallel="
+                           f"{expert_parallel} runs one process per rank: {TORCHRUN}")
+    if world > 1 and model_parallel != world:
+        raise NotImplementedError(
+            f"{world} processes with tensor_parallel={tensor_parallel}, expert_parallel="
+            f"{expert_parallel}: data parallelism beside tensor parallelism (or expert "
+            "parallelism) is not ported; ROADMAP A17")
     refused = [
-        (num_experts > 0 or expert_parallel > 1, "num_experts / expert_parallel (MoE)",
-         "A14"),
         (sequence_parallel > 1, "sequence_parallel (ring attention)", "A15"),
         (pipeline_parallel > 1, "pipeline_parallel", "A16"),
     ]
@@ -327,6 +354,7 @@ def train(
             pipeline_parallel=pipeline_parallel)
     rank = 0 if group is None else group.rank
     tp_group = group if tensor_parallel > 1 else None
+    ep_group = group if expert_parallel > 1 else None
     dev = group.device if group is not None else resolve_device(device)
     # Rank 0 writes the run's files; every rank logs to its own stdout.
     logger = setup_logger(save_dir_root if rank == 0 else None)
@@ -338,7 +366,8 @@ def train(
     tw_extra = {} if task_weights is None else {"task_weights": tuple(task_weights)}
     widths = dict(hidden_size=hidden_size, intermediate_size=intermediate_size,
                   num_hidden_layers=n_layers, num_attention_heads=num_heads,
-                  num_key_value_heads=num_kv_heads)
+                  num_key_value_heads=num_kv_heads, num_experts=num_experts,
+                  num_experts_per_tok=num_experts_per_tok)
     if dataset == "synthetic":
         data, tok = synthetic_lcrec_data(codebook_size=codebook_size,
                                          num_codebooks=num_codebooks, seed=seed, **tw_extra)
@@ -371,15 +400,18 @@ def train(
         torch.Generator(device=dev).manual_seed(seed + 1), base=tok.base_vocab,
         pad_to=math.lcm(8, tensor_parallel))
     model = QwenLM(cfg, dtype=compute_dtype, group=tp_group, device=dev,
-                   remat=gradient_checkpointing)
-    model.load_state_dict(shard_qwen_params(full, rank, tensor_parallel))
+                   remat=gradient_checkpointing, expert_group=ep_group)
+    model.load_state_dict(shard_expert_params(shard_qwen_params(full, rank, tensor_parallel, cfg),
+                                              rank, expert_parallel))
     del full
     live_vocab = base_vocab + num_codebooks * codebook_size
     logger.info(f"vocab {base_vocab} + {num_codebooks * codebook_size} codebook tokens"
                 + (f" (+{cfg.vocab_size - live_vocab} pad)" if cfg.vocab_size > live_vocab
                    else "")
                 + (f"; tensor_parallel={tensor_parallel} over {group.backend}"
-                   if tp_group is not None else ""))
+                   if tp_group is not None else "")
+                + (f"; {num_experts} experts, expert_parallel={expert_parallel}"
+                   if num_experts > 0 else ""))
 
     train_arrays = data.train_arrays(samples_per_user=samples_per_user)
     valid_arrays = data.eval_arrays("valid")
@@ -431,7 +463,7 @@ def train(
             return fn
         return lambda batch: call_merged(model, params_of(), lambda _m: fn(batch))
 
-    step_fn = make_train_step(loss_fn, optimizer, clip_norm=1.0, group=tp_group)
+    step_fn = make_train_step(loss_fn, optimizer, clip_norm=1.0, group=tp_group or ep_group)
     state = TrainState.create(trainable, optimizer, seed)
     gen_fn = _merged(make_generate_fn(model, base_vocab, num_codebooks, codebook_size,
                                       beam_width, max_cache=max_text_len + num_codebooks + 1))
@@ -446,7 +478,7 @@ def train(
         pack_sequences=False, train_arrays=train_arrays,
         wandb_log_interval=wandb_log_interval, save_dir_root=save_dir_root,
     )
-    suffix = "" if tp_group is None else f".rank{rank}"
+    suffix = "" if group is None else f".rank{rank}"
 
     # eval_only restores the newest checkpoint WITHOUT the exact-resume
     # preconditions: a pure evaluation consumes no training data, so another

@@ -2,6 +2,8 @@
 
     python -m genrec_tpu_torch.trainers.tiger_trainer config/tiger/synthetic.gin \
         [--gin 'train.device="cpu"']
+    torchrun --standalone --nproc_per_node=2 -m genrec_tpu_torch.trainers.tiger_trainer \
+        config/tiger/synthetic.gin --gin 'train.tensor_parallel=2'
 
 The same config files drive both packages. Epoch loop, AdamW on the
 cosine warm-up schedule, gradient accumulation and a global-norm clip of
@@ -23,11 +25,23 @@ under torch.profiler in ``<save_dir_root>/profile``.
 Runs on one device, ``device="cuda"`` by default (it raises without a
 card unless given ``device="cpu"``). The step's dropout bits come from the
 train state's generator, the eval's Gumbel noise from a generator seeded
-``seed + 1``. ``dataset="amazon"`` reads the review dump under
+``seed + 1``.
+
+``tensor_parallel`` is 1 or the number of processes: one process per
+rank, launched by torchrun (or ``parallel.mesh.spawn``), each holding its
+shard of the model under JAX ``tiger_rules`` (the vocab head, the sem-id
+rows and the FFNs; the vocabulary padded to a multiple of tp, as JAX's
+``pad_vocab_to=tensor_parallel``). Every rank starts from the same full
+parameters, made from ``seed`` and sliced, sees every batch and draws the
+same dropout bits, so the run computes what tensor_parallel=1 computes;
+the ranks report the same metrics. Each rank keeps its own resume points
+(``checkpoints/p<rank>``) and writes ``best_model.rank<r>`` and
+``final_model.rank<r>``. Data parallelism beside it raises (ROADMAP A17).
+
+``dataset="amazon"`` reads the review dump under
 ``<dataset_folder>/raw/<split>/`` and the RQ-VAE's sem-id artifact
 (``sem_ids_path``, whose codebook size it takes; ``add_disambiguation``
-appends the collision-resolving code). Not ported yet: tensor parallelism
-(A29), wandb forwarding.
+appends the collision-resolving code). Not ported yet: wandb forwarding.
 """
 
 from __future__ import annotations
@@ -53,7 +67,11 @@ from genrec_tpu_torch.models.tiger import Tiger, tiger_generate
 from genrec_tpu_torch.ops.metrics import TopKAccumulator
 from genrec_tpu_torch.ops.schedules import cosine_schedule_with_warmup
 from genrec_tpu_torch.ops.trie import build_trie
+from genrec_tpu_torch.parallel.mesh import distributed_init
 from genrec_tpu_torch.trainers.packed_loop import PackedTrainLoop
+
+TORCHRUN = ("torchrun --standalone --nproc_per_node=2 -m genrec_tpu_torch.trainers."
+            "tiger_trainer <config.gin> --gin 'train.tensor_parallel=2'")
 
 
 def make_generate_fn(model, trie, temperature, n_candidates):
@@ -160,13 +178,22 @@ def train(
 ):
     """Train TIGER; returns (valid metrics, test metrics) of the best
     parameters by valid Recall@10 (``test_on_best``) or of the last."""
-    dev = resolve_device(device)
-    if tensor_parallel > 1:
+    group = distributed_init(device)
+    world = 1 if group is None else group.size
+    if tensor_parallel > 1 and world == 1:
+        raise RuntimeError(f"tensor_parallel={tensor_parallel} runs one process per rank: "
+                           f"{TORCHRUN}")
+    if world > 1 and tensor_parallel != world:
         raise NotImplementedError(
-            f"tensor_parallel={tensor_parallel}: TIGER under tensor parallelism (JAX "
-            "parallel/shardings.tiger_rules) is not ported yet (ROADMAP A29)")
-    logger = setup_logger(save_dir_root)
-    tracker = Tracker(wandb_logging, wandb_project, save_dir=save_dir_root, logger=logger)
+            f"{world} processes with tensor_parallel={tensor_parallel}: data parallelism "
+            "beside tensor parallelism is not ported; ROADMAP A17")
+    rank = 0 if group is None else group.rank
+    tp_group = group if tensor_parallel > 1 else None
+    dev = group.device if group is not None else resolve_device(device)
+    # Rank 0 writes the run's files; every rank logs to its own stdout.
+    logger = setup_logger(save_dir_root if rank == 0 else None)
+    tracker = Tracker(wandb_logging and rank == 0, wandb_project,
+                      save_dir=save_dir_root if rank == 0 else None, logger=logger)
 
     if dataset == "synthetic":
         data = synthetic_tiger_data(codebook_size=codebook_size, sem_id_dim=sem_id_dim,
@@ -198,7 +225,9 @@ def train(
     else:
         train_arrays = data.train_arrays()
 
-    ckpt = CheckpointManager(os.path.join(save_dir_root, "checkpoints")) if save_dir_root else None
+    # Each rank keeps (and writes) its own shard.
+    ckpt = (CheckpointManager(os.path.join(save_dir_root, "checkpoints"),
+                              per_host=tp_group is not None) if save_dir_root else None)
     prof = ProfileWindow(os.path.join(save_dir_root, "profile") if save_dir_root else "",
                          profile_steps)
     rows_per_step = batch_size * gradient_accumulate_every
@@ -217,7 +246,8 @@ def train(
         embedding_dim=embedding_dim, attn_dim=attn_dim, num_heads=num_heads,
         n_layers=n_layers, num_item_embeddings=codebook_size,
         num_user_embeddings=num_user_embeddings, sem_id_dim=sem_id_dim, dropout=dropout,
-        dtype=compute_dtype, device=dev, seed=seed,
+        pad_vocab_to=tensor_parallel, dtype=compute_dtype, device=dev, seed=seed,
+        group=tp_group,
     )
     n_train_rows = (pack_report.n_rows if pack_sequences
                     else next(iter(train_arrays.values())).shape[0])
@@ -229,7 +259,7 @@ def train(
     step_fn = make_train_step(
         make_loss_fn(sem_id_dim, pack_sequences, gradient_accumulate_every,
                      expected_per_micro),
-        optimizer, accum_steps=gradient_accumulate_every, clip_norm=1.0,
+        optimizer, accum_steps=gradient_accumulate_every, clip_norm=1.0, group=tp_group,
     )
     state = TrainState.create(model, optimizer, seed)
     gen_fn = make_generate_fn(model, trie, generate_temperature, 10)
@@ -238,7 +268,8 @@ def train(
     if resume_from_checkpoint:
         # Step-granular exact resume through the integrity ladder.
         state, start_epoch, start_batch, global_step = loop.resume(state)
-    best = BestTracker(save_dir_root)
+    suffix = "" if tp_group is None else f".rank{rank}"
+    best = BestTracker(save_dir_root, name=f"best_model{suffix}")
     for epoch in range(start_epoch, epochs):
         res = loop.run_epoch(state, step_fn, epoch, global_step,
                              start_batch=start_batch if epoch == start_epoch else 0)
@@ -265,7 +296,9 @@ def train(
     logger.info("test " + ", ".join(f"{k}={v:.4f}" for k, v in test_metrics.items()))
     tracker.log({f"test/{k}": v for k, v in test_metrics.items()})
     if save_dir_root and best.value < 0:  # no eval ran: snapshot the final params
-        save_params(os.path.join(save_dir_root, "best_model"), model.state_dict())
+        save_params(os.path.join(save_dir_root, f"best_model{suffix}"), model.state_dict())
+    if save_dir_root and tp_group is not None:
+        save_params(os.path.join(save_dir_root, f"final_model{suffix}"), model.state_dict())
     loop.shutdown()
     return valid_metrics, test_metrics
 

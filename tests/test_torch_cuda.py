@@ -30,7 +30,12 @@ vocab-sharded CE (B8) runs on 2 ranks sharing the card over gloo and is
 held to its plain twin at 1e-5. The fused CE's loss and lse are fp32
 sums of exact bf16 products in either dtype: 1e-5, and two calls give
 equal bits. The fp32 CE at d = 2,048 with unscaled inputs is also held,
-with its plain version, to an fp64 evaluation of the same formulas.
+with its plain version, to an fp64 evaluation of the same formulas. The
+table-lookup gradient (TIGER's bias grid) is held to fp64 sums within
+1e-6 of their largest entry (fp32 sums of ~3e4 terms in another order),
+to its plain version's fp32 atomics within 4e-6 (their order varies run
+to run) and to its own bits over two calls; the MoE step and the KV-split step
+(4 gloo ranks on the card) give equal bits over two runs.
 """
 
 import numpy as np
@@ -41,6 +46,7 @@ from genrec_tpu_torch.kernels import fused_ce as fc
 from genrec_tpu_torch.kernels import hstu_attention as ha
 from genrec_tpu_torch.kernels import paged_attention as pa
 from genrec_tpu_torch.kernels import rq_cascade as rq
+from genrec_tpu_torch.kernels import table_grad as tg
 from genrec_tpu_torch.kernels.paged_attention import (
     paged_attention_stats_cuda,
     paged_attention_stats_quantized_cuda,
@@ -1384,3 +1390,84 @@ def test_dense_route_on_the_card_matches_the_paged_route(card, name):
         np.testing.assert_array_equal(got.sem_ids, want.sem_ids)
         np.testing.assert_array_equal(got.items, want.items)
         np.testing.assert_allclose(got.scores, want.scores, rtol=0, atol=1e-4 / temperature)
+
+
+@pytest.mark.parametrize("n, bins", [(5_715_456, 192), (100, 7), (300_001, 1000)])
+def test_table_grad_kernel_matches_fp64_sums_and_repeats_its_bits(card, n, bins):
+    g = torch.Generator(device=card).manual_seed(n)
+    idx = torch.randint(0, bins, (n,), device=card, generator=g)
+    grad = torch.randn(n, device=card, generator=g)
+    got = tg.table_grad_cuda(idx, grad, bins)
+    again = tg.table_grad_cuda(idx, grad, bins)
+    torch.cuda.synchronize()
+    want = torch.bincount(idx, weights=grad.double(), minlength=bins)
+    assert float((got.double() - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    plain = tg.table_grad_ref(idx, grad, bins)  # fp32 atomics: their order varies
+    assert float((plain - got).abs().max()) <= 4e-6 * float(want.abs().max())
+    assert torch.equal(got, again)
+
+
+def _moe_step_params(dev):
+    from genrec_tpu_torch.core.harness import make_train_step
+    from genrec_tpu_torch.core.optim import Adam
+    from genrec_tpu_torch.core.state import TrainState
+    from genrec_tpu_torch.models.backbones.qwen import QwenConfig, QwenLM, qwen_init_params
+    from genrec_tpu_torch.models.lcrec import sft_loss
+
+    cfg = QwenConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                     num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                     max_position_embeddings=64, num_experts=4, moe_capacity_factor=1.0)
+    model = QwenLM(cfg, dtype=torch.bfloat16, device=dev)
+    model.load_state_dict(qwen_init_params(cfg, 0, dev))
+    opt = Adam(1e-3)
+    step = make_train_step(lambda m, b, gen: (sft_loss(m, b["ids"], b["mask"], b["ids"],
+                                                        use_fused_ce=True), {}), opt)
+    state = TrainState.create(model, opt, 0)
+    rng = np.random.default_rng(0)
+    for _ in range(3):
+        ids = torch.as_tensor(rng.integers(0, 512, (4, 64)), device=dev)
+        step(state, {"ids": ids, "mask": torch.ones_like(ids)})
+    torch.cuda.synchronize()
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def test_moe_step_gives_equal_bits_over_two_runs(card):
+    a, b = _moe_step_params(card), _moe_step_params(card)
+    assert [k for k in a if not torch.equal(a[k], b[k])] == []
+
+
+def _kv_split_ranks(group):
+    from genrec_tpu_torch.core.harness import make_train_step
+    from genrec_tpu_torch.core.optim import Adam
+    from genrec_tpu_torch.core.state import TrainState
+    from genrec_tpu_torch.models.backbones.qwen import QwenConfig, QwenLM, qwen_init_params
+    from genrec_tpu_torch.models.lcrec import sft_loss
+    from genrec_tpu_torch.parallel.shardings import shard_qwen_params
+
+    cfg = QwenConfig(vocab_size=512, hidden_size=384, intermediate_size=512,
+                     num_hidden_layers=2, num_attention_heads=12, num_key_value_heads=2,
+                     max_position_embeddings=64)
+    runs = []
+    for _ in range(2):
+        model = QwenLM(cfg, dtype=torch.bfloat16, group=group, device=group.device)
+        model.load_state_dict(shard_qwen_params(qwen_init_params(cfg, 0, group.device),
+                                                group.rank, group.size, cfg))
+        opt = Adam(1e-3)
+        step = make_train_step(lambda m, b, gen: (sft_loss(m, b["ids"], b["mask"], b["ids"]),
+                                                  {}), opt, group=group)
+        state = TrainState.create(model, opt, 0)
+        rng = np.random.default_rng(0)
+        for _ in range(3):
+            ids = torch.as_tensor(rng.integers(0, 512, (4, 64)), device=group.device)
+            step(state, {"ids": ids, "mask": torch.ones_like(ids)})
+        torch.cuda.synchronize()
+        runs.append({k: v.detach().cpu() for k, v in model.state_dict().items()})
+    return [k for k in runs[0] if not torch.equal(runs[0][k], runs[1][k])]
+
+
+def test_kv_split_step_gives_equal_bits_over_two_runs(card, tmp_path):
+    """Qwen at H 12, KV 2, tp 4 (each KV head on two ranks), 4 gloo ranks
+    on the card: two identical runs of three bf16 steps give equal bits."""
+    for differ in spawn(_kv_split_ranks, 4, (), device="cuda", timeout_s=300,
+                        store_dir=tmp_path):
+        assert differ == []

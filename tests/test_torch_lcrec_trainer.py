@@ -184,8 +184,17 @@ def test_unported_options_name_their_roadmap_items(ranks, tmp_path):
                    dict(tensor_parallel=2, resume_from_checkpoint=True)):
         with pytest.raises(ValueError, match="with use_lora is not wired"):
             lcrec_trainer.train(save_dir_root=None, use_lora=True, **{**TRAIN, **kwargs})
-    for kwargs, item in [(dict(num_experts=4), "A14"),
-                         (dict(expert_parallel=2), "A14"), (dict(sequence_parallel=2), "A15"),
+    # MoE and expert parallelism are ported (A14; tests/test_torch_moe.py
+    # holds them to JAX): MoE runs at tensor_parallel=1, expert parallelism
+    # wants one process a rank, and without experts it is refused as in JAX.
+    valid, test = lcrec_trainer.train(save_dir_root=None, num_experts=4,
+                                      **{**TRAIN, "epochs": 1})
+    assert all(np.isfinite(v) for v in (*valid.values(), *test.values()))
+    with pytest.raises(RuntimeError, match="one process per rank"):
+        lcrec_trainer.train(save_dir_root=None, num_experts=4, expert_parallel=2, **TRAIN)
+    with pytest.raises(ValueError, match="needs num_experts>0"):
+        lcrec_trainer.train(save_dir_root=None, expert_parallel=2, **TRAIN)
+    for kwargs, item in [(dict(sequence_parallel=2), "A15"),
                          (dict(pipeline_parallel=2), "A16"),
                          # Resume, eval_only and profiling are ported (A12): the
                          # refusals that remain come first whatever they are asked with.

@@ -219,11 +219,21 @@ def test_converter_and_shards_check_their_inputs():
 
 
 def test_unported_and_indivisible_layouts_raise():
+    # KV heads that tp does not divide are ported (A20): each rank holds the
+    # KV heads its q heads use (tests/test_torch_qwen_kv_split.py holds it
+    # to JAX); q heads and the vocabulary still have to divide.
     four = TPGroup(0, 4, "gloo", torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A20"):
-        QwenLM(QwenConfig(**{**CFG, "vocab_size": 96}), group=four, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        QwenLM(QwenConfig(**CFG, num_experts=4), device="cpu")
+    model = QwenLM(QwenConfig(**{**CFG, "vocab_size": 96}), group=four, device="cpu")
+    assert model.layers[0].self_attn.kv_heads == 1
+    assert model.layers[0].self_attn.k_proj.weight.tp_row_weight.tolist() == [0.5] * 8
+    with pytest.raises(ValueError, match="num_attention_heads"):
+        QwenLM(QwenConfig(**{**CFG, "num_attention_heads": 2, "num_key_value_heads": 1,
+                             "vocab_size": 96}), group=four, device="cpu")
+    with pytest.raises(ValueError, match="vocab size"):
+        QwenLM(QwenConfig(**{**CFG, "vocab_size": 98}), group=four, device="cpu")
+    # MoE is ported (A14): its blocks hold a QwenMoEMLP and no dense MLP.
+    moe = QwenLM(QwenConfig(**CFG, num_experts=4), device="cpu")
+    assert hasattr(moe.layers[0], "moe") and not hasattr(moe.layers[0], "mlp")
 
 
 GOLDEN = Path(__file__).resolve().parent / "data" / "qwen_golden.npz"
@@ -248,7 +258,7 @@ def test_hf_state_dict_refuses_what_it_cannot_map():
     g = np.load(GOLDEN)
     sd = {k: g[k] for k in g.files if k not in ("ids", "mask", "logits")}
     cfg = QwenConfig(**CFG, tie_word_embeddings=False)
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(NotImplementedError, match="MoE key mapping"):
         params_from_hf_state_dict(sd, QwenConfig(**CFG, num_experts=4))
     with pytest.raises(KeyError, match="lm_head"):
         params_from_hf_state_dict({k: v for k, v in sd.items() if k != "lm_head.weight"}, cfg)

@@ -212,14 +212,15 @@ def test_unported_options_raise(tmp_path):
         assert all(np.isfinite(v) and 0 <= v <= 1 for v in (*valid.values(), *test.values()))
     with pytest.raises(ValueError, match="sem_ids_path"):
         tiger_trainer.train(**{**kw, "sem_ids_path": None}, save_dir_root="")
-    # Resume, profiling and periodic checkpoints are ported (A12): the
-    # refusals that remain come first whatever they are asked with.
-    with pytest.raises(NotImplementedError, match="ROADMAP A29"):
+    # Tensor parallelism is ported (A29; tests/test_torch_tiger_tp.py runs
+    # it on gloo ranks): one process a rank, so without a process group it
+    # names the torchrun line, whatever else it is asked with.
+    with pytest.raises(RuntimeError, match="torchrun --standalone --nproc_per_node=2"):
         tiger_trainer.train(tensor_parallel=2, profile_steps=3, device="cpu", save_dir_root="")
-    with pytest.raises(NotImplementedError, match="ROADMAP A29"):
+    with pytest.raises(RuntimeError, match="tensor_parallel=4 runs one process per rank"):
         tiger_trainer.train(tensor_parallel=4, epochs=4, save_every_epoch=2, device="cpu",
                             save_dir_root=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP A29"):
+    with pytest.raises(RuntimeError, match="tiger_trainer"):
         tiger_trainer.train(tensor_parallel=2, device="cpu", save_dir_root="")
 
 
