@@ -339,7 +339,7 @@ line each; any failure ends the run with a traceback and a non-zero exit:
             gloo ranks on the one card): 5 fp32 steps at dropout 0 on the
             Beauty set's packed rows against tp=1 (<= 1e-4 relative);
             tiger_trainer.train(tensor_parallel=2) through tiger.gin, bf16,
-            dropout 0.1 (batch 64, one epoch: enough steps for a kill),
+            dropout 0.1 (batch 128, one epoch: enough steps for a kill),
             the ranks' metrics equal, its p50 step and collectives a step; the same
             run killed on rank 1 and resumed, bit for bit; no TPU kernel,
             table_grad once a layer a step;
@@ -357,6 +357,25 @@ line each; any failure ends the run with a traceback and a non-zero exit:
             with B3, B4 dx, B4 dW once a step a rank, the loss falling,
             the router loss and the dropped share reported; the cached
             decode against the forward at ample capacity.
+27. dp       data parallelism and 2-D layouts (A17) over gloo ranks on
+            the one card, every layout from one init on the same global
+            batches, each rank keeping its rows: on two ranks at dp = 2,
+            (a) HSTU (amazon.gin widths, 128 packed rows, 5 fp32 steps,
+            dropout 0.2, B5 2, B6 2, B3 1, B4 dx 1, B4 dW 1 a step a
+            rank) and (b) SASRec (B3, B4 dx, B4 dW once a step a rank)
+            against one rank (<= 1e-4), then hstu_trainer.train for one
+            epoch: the loss falls, rank 1 signalled, both ranks stop at
+            the next poll, data rank 0 writes the one resume point, the
+            resume bit for bit; (c) RQ-VAE (rqvae.gin widths, Sinkhorn
+            last layer) 5 steps, its export's ids bit-equal to one rank's
+            with B7 once a chunk a rank; (f) COBRA and NoteLLM 3 steps
+            each; on four ranks, (d) LCRec at tp = 2 x dp = 2 (Qwen2.5-1.5B
+            widths, 2 layers, batch 8 x 512) against tp = 2 x dp = 1 in
+            fp32, bf16 steps with B8 once a step a rank, their p50 and
+            collectives and bytes a step by mesh axis; the MoE at tp = 2 x
+            ep = 2 against ep = 1 (<= 1e-5) and at dp = 2 (the router
+            loss within 1e-5, the dropped share equal); (e) TIGER at
+            tp = 2 x dp = 2 against tp = 1.
 
 ``--phases a,b,...`` runs only the named phases (env and build always
 run; the kernels line is printed only by a run of every phase), e.g.
@@ -705,6 +724,7 @@ LCREC_SHARD = LCREC_LIVE // LCREC_TP
 LCREC_DIMS = (64, 1000, 1536, 2048)  # B3/B4 checked at each d at a small size
 LCREC_REPS = 3  # graph replays per timing at the shard shape (each call takes ms)
 LCREC_TIMEOUT_S = 900  # the ranks' time limit, spawn included
+SPAWN_QUIET_TIMEOUT_S = 900  # a rank's wait for the work run beside its start-up
 # tp=1 against tp=2, fp32: the paths sum in other orders (the row-parallel
 # all-reduce, the sharded logsumexp merge) and Adam carries the differences.
 LCREC_PARITY_RTOL = 1e-4
@@ -4439,8 +4459,10 @@ def lcrec_shard_inputs(dev, seed, *, R, V, d, vlim, ignore=-2, dtype=torch.bfloa
     With ``ignore`` -100 and no ``vlim``, the inputs of the whole head at
     tensor_parallel=1 (``sft_loss``'s fused CE): targets over all V rows,
     -100 on half the rows (the prompts), and g the mean's 1 / valid on
-    every row (the kernels zero the ignored ones)."""
+    every row (the kernels zero the ignored ones). x and w are drawn on
+    ``dev`` (a host draw of a 118 M-element shard took seconds)."""
     rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
     if ignore == -100:
         tgt = rng.integers(0, V, R).astype(np.int32)
@@ -4453,8 +4475,8 @@ def lcrec_shard_inputs(dev, seed, *, R, V, d, vlim, ignore=-2, dtype=torch.bfloa
             tgt[:] = -1
         g = np.full(R, 1.0 / R, np.float32)
         g[rng.random(R) < 0.2] = 0.0
-    return dict(x=t(rng.normal(size=(R, d)).astype(np.float32)).to(dtype),
-                w=t((rng.normal(size=(V, d)) * 0.02).astype(np.float32)).to(dtype),
+    return dict(x=torch.randn((R, d), generator=gen, device=dev).to(dtype),
+                w=(torch.randn((V, d), generator=gen, device=dev) * 0.02).to(dtype),
                 targets=t(tgt), g=t(g), vlim=vlim, ignore=ignore)
 
 
@@ -4664,12 +4686,13 @@ def lcrec_parity_tp1(dev, seed) -> list:
 def lcrec_b8_inputs(dev, seed):
     """B8 at the full-width head, bf16: x (8 x 511 rows, 1,536), the whole
     padded head (153,216 rows) and, per case, (global targets, valid
-    vocab); -100 is ignored."""
+    vocab); -100 is ignored. x and w are drawn on ``dev`` (every rank draws
+    the same tensors from the seed)."""
     R, d = LCREC["batch"] * (LCREC["seq"] - 1), lcrec_cfg(1).hidden_size
     rng = np.random.default_rng(seed + 7)
-    x = torch.as_tensor(rng.normal(size=(R, d)).astype(np.float32), device=dev)
-    w = torch.as_tensor((rng.normal(size=(LCREC_LIVE, d)) * 0.02).astype(np.float32),
-                        device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    x = torch.randn((R, d), generator=gen, device=dev)
+    w = torch.randn((LCREC_LIVE, d), generator=gen, device=dev) * 0.02
     t = rng.integers(0, LCREC_LIVE, R).astype(np.int32)
     t[rng.random(R) < 0.2] = -100
     cases = {"mixed": (t, LCREC_LIVE),
@@ -4858,33 +4881,76 @@ def lcrec_library_b8(x, w, targets):
     return torch.autograd.grad(loss, (x, w))
 
 
+def wait_quiet(flag) -> float:
+    """Wait until this script's process writes ``flag`` (the work it runs
+    beside the ranks is done: they have the card to themselves). Returns
+    the seconds waited."""
+    t0 = time.perf_counter()
+    while not os.path.exists(flag):
+        check(time.perf_counter() - t0 < SPAWN_QUIET_TIMEOUT_S, f"{flag} never written")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def after_quiet(group, flag, fn, *args):
+    """A rank of ``spawn_beside``: ``fn(group, *args)`` once ``flag`` is
+    written."""
+    wait_quiet(flag)
+    return fn(group, *args)
+
+
+def spawn_beside(fn, world, args, reference, *, device, timeout_s) -> tuple:
+    """``spawn(fn, world, args)`` with ``reference()`` computed here while
+    the ranks start (a rank spends ~10 s importing torch): each rank runs
+    ``fn`` only once a flag says that the reference is done, so nothing of
+    this process shares the card with the ranks' work. Returns (the
+    reference's result, the ranks' results, the spawn's seconds)."""
+    from genrec_tpu_torch.parallel.mesh import spawn
+
+    flag = HERE / "build" / f"quiet_{fn.__name__}"
+    flag.parent.mkdir(parents=True, exist_ok=True)
+    flag.unlink(missing_ok=True)
+    with ThreadPoolExecutor(1) as pool:
+        t0 = time.perf_counter()
+        ranks = pool.submit(spawn, after_quiet, world, (str(flag), fn, *args), device=device,
+                            timeout_s=timeout_s)
+        try:
+            ref = reference()
+        finally:
+            flag.touch()  # a failed reference still releases the ranks
+        return ref, ranks.result(), time.perf_counter() - t0
+
+
 def lcrec_tp_phase(dev, seed, profile, rank_fn=None) -> dict:
     """LCRec SFT at tensor_parallel=2: the tp=1 side of the parity run and
-    the library yardstick of B8 here, then 2 ranks through parallel.spawn
-    (gloo on one card, NCCL where each rank has its own). ``rank_fn``
+    the library yardstick of B8 here while 2 ranks start through
+    parallel.spawn (gloo on one card, NCCL where each rank has its own). ``rank_fn``
     stands in for ``lcrec_rank`` in a rehearsal on the CPU, which must
     patch each fresh rank process itself."""
-    from genrec_tpu_torch.parallel.mesh import choose_backend, rank_device, spawn
+    from genrec_tpu_torch.parallel.mesh import choose_backend, rank_device
 
-    t0 = time.perf_counter()
-    tp1 = lcrec_parity_tp1(dev, seed)
-    parity_tp1_s = time.perf_counter() - t0
-    x, w, cases = lcrec_b8_inputs(dev, seed)
-    lib_sets = [dict(x=x, w=w, targets=torch.as_tensor(cases["mixed"][0], device=dev))]
-    library_ms = device_ms(lcrec_library_b8, lib_sets, reps=LCREC_REPS)
-    del x, w, lib_sets
-    gc.collect()
-    torch.cuda.empty_cache()  # the ranks share this card: hand back the cache
     backend = choose_backend(rank_device(0, LCREC_TP, dev.type), LCREC_TP)
-    emit("lcrec_tp_start", backend=backend, ranks=LCREC_TP,
-         device_count=torch.cuda.device_count(),
-         parent_allocated_gb=torch.cuda.memory_allocated(dev) / 1e9,
-         parent_reserved_gb=torch.cuda.memory_reserved(dev) / 1e9,
-         free_gb=torch.cuda.mem_get_info(dev)[0] / 1e9)
-    t0 = time.perf_counter()
-    ranks = spawn(rank_fn or lcrec_rank, LCREC_TP, (seed, profile), device=dev.type,
-                  timeout_s=LCREC_TIMEOUT_S)
-    spawn_s = time.perf_counter() - t0
+
+    def reference():  # while the ranks start
+        t0 = time.perf_counter()
+        tp1 = lcrec_parity_tp1(dev, seed)
+        parity_tp1_s = time.perf_counter() - t0
+        x, w, cases = lcrec_b8_inputs(dev, seed)
+        lib_sets = [dict(x=x, w=w, targets=torch.as_tensor(cases["mixed"][0], device=dev))]
+        library_ms = device_ms(lcrec_library_b8, lib_sets, reps=LCREC_REPS)
+        del x, w, lib_sets
+        gc.collect()
+        torch.cuda.empty_cache()  # the ranks share this card: hand back the cache
+        emit("lcrec_tp_start", backend=backend, ranks=LCREC_TP,
+             device_count=torch.cuda.device_count(),
+             parent_allocated_gb=torch.cuda.memory_allocated(dev) / 1e9,
+             parent_reserved_gb=torch.cuda.memory_reserved(dev) / 1e9,
+             free_gb=torch.cuda.mem_get_info(dev)[0] / 1e9)
+        return tp1, parity_tp1_s, library_ms
+
+    (tp1, parity_tp1_s, library_ms), ranks, spawn_s = spawn_beside(
+        rank_fn or lcrec_rank, LCREC_TP, (seed, profile), reference, device=dev.type,
+        timeout_s=LCREC_TIMEOUT_S)
     r0, r1 = ranks
     tp2 = r0["parity_losses"]
     check(r1["parity_losses"] == tp2, ("ranks disagree on the parity losses", tp2,
@@ -4953,10 +5019,11 @@ RESUME_NONDETERMINISTIC_OPS: tuple = ()
 RESUME_FALLBACK_TOL = 1e-5
 # (d): lcrec_trainer.train at tp=2 through config/lcrec/synthetic.gin, 2
 # layers at the Qwen2.5-1.5B widths, amazon lcrec.gin's 5 x 256 codebooks,
-# bf16, batch 4 x 128, 2 epochs of 12 steps, no periodic save (the final
-# point only); only rank 1 is signalled, at step 13, and the trainer's loop
-# ORs the guards every 8 steps, so both save at 16.
-RESUME_LCREC = dict(layers=2, batch=4, seq=128, steps_per_epoch=12, epochs=2, kill=13, poll=8,
+# bf16, batch 4 x 128, one epoch of 12 steps (two epochs before the dp
+# phase was added: cut to make room for it), no periodic save (the final point only); only
+# rank 1 is signalled, at step 5, and the trainer's loop ORs the guards
+# every 8 steps, so both save at 8.
+RESUME_LCREC = dict(layers=2, batch=4, seq=128, steps_per_epoch=12, epochs=1, kill=5, poll=8,
                     eval_samples=16)
 RESUME_NAN_STEPS = frozenset({4, 5, 6})  # (e): three poisoned HSTU steps in a row
 
@@ -5942,7 +6009,7 @@ QWEN_SERVE = dict(layers=28, top_k=10, burst=256, sample=12, swap_items=20000,
 # 16 on q_proj and v_proj (lcrec_trainer's defaults), AdamW 1e-3 (a LoRA
 # rate) after a 1-step warm-up, wd 0.01, clip 1.0, one fixed batch (so the
 # loss can fall in 8 steps); the trainer run as the resume phase's (d) at
-# tp=1 (2 layers, batch 4 x 128, 2 epochs of 12 steps, killed at 13).
+# tp=1 (2 layers, batch 4 x 128, one epoch of 12 steps, killed at 5).
 LORA = dict(rank=8, alpha=16.0, targets=("q_proj", "v_proj"), lr=1e-3, warmup=1, wd=0.01,
             warm=2, steps=6)
 LORA_LAUNCHES_PER_STEP = {"fused_linear_ce_fwd": 1, "fused_linear_ce_bwd_dx": 1,
@@ -7008,13 +7075,15 @@ def pipeline_phase(dev, seed) -> dict:
 # (a) 5 fp32 steps at dropout 0 on the Beauty set's packed rows against
 # tp=1; (b) tiger_trainer.train(tensor_parallel=2) through tiger.gin, bf16,
 # dropout 0.1; (c) the same run killed on rank 1 and resumed, bit for bit.
-# The trainer runs use batch 64 and one epoch (the file's 256 gives too few
+# The trainer runs use batch 128 and one epoch (the file's 256 gives too few
 # steps on the synthetic set for a kill between two of the loop's polls;
-# two epochs took the phase to 117 s).
-TIGER_TP = dict(tp=2, parity_steps=5, parity_lr=1e-3, batch=64, epochs=1, poll=8)
+# two epochs took the phase to 117 s; batch 64 gave way to 128 to make room
+# for the dp phase).
+TIGER_TP = dict(tp=2, parity_steps=5, parity_lr=1e-3, batch=128, epochs=1, poll=8)
 TIGER_TP_TIMEOUT_S = 600
 
 
+@functools.cache
 def tiger_tp_batches(seed) -> list:
     """(a)'s batches: the first TIGER_TP["parity_steps"] packed batches of
     the Beauty set at TIGER_TRAIN["batch"] rows (numpy, shipped to the
@@ -7029,15 +7098,17 @@ def tiger_tp_batches(seed) -> list:
     return [b for b, _ in itertools.islice(it, TIGER_TP["parity_steps"])]
 
 
-def tiger_tp_parity(dev, seed, batches, group=None) -> list:
+def tiger_tp_parity(dev, seed, batches, group=None, data_group=None) -> list:
     """fp32 steps at dropout 0 (the trainer's packed loss, AdamW, clip 1.0,
     the norm over the group): the losses. Every tp starts from tp = 1's
-    weights (Tiger draws the full model and keeps its slice)."""
+    weights (Tiger draws the full model and keeps its slice). Under a
+    ``data_group`` each rank steps on its rows of every batch."""
     from genrec_tpu_torch.core.harness import make_train_step
     from genrec_tpu_torch.core.optim import Adam
     from genrec_tpu_torch.core.state import TrainState
     from genrec_tpu_torch.models.tiger import Tiger
     from genrec_tpu_torch.ops.schedules import cosine_schedule_with_warmup
+    from genrec_tpu_torch.parallel.mesh import shard_batch
     from genrec_tpu_torch.trainers.tiger_trainer import make_loss_fn
 
     tp = 1 if group is None else group.size
@@ -7046,11 +7117,12 @@ def tiger_tp_parity(dev, seed, batches, group=None) -> list:
     opt = Adam(cosine_schedule_with_warmup(TIGER_TP["parity_lr"], 1, len(batches)),
                weight_decay=TIGER_TRAIN["wd"])
     step = make_train_step(make_loss_fn(TIGER_AMAZON["sem_id_dim"], True), opt, clip_norm=1.0,
-                           group=group)
+                           group=group, data_group=data_group)
     state = TrainState.create(model, opt, seed)
     losses = []
     for b in batches:
-        state, m = step(state, {k: torch.as_tensor(v, device=dev) for k, v in b.items()})
+        state, m = step(state, {k: torch.as_tensor(v, device=dev)
+                                for k, v in shard_batch(b, data_group).items()})
         losses.append(float(m["loss"]))
     del model, state
     torch.cuda.empty_cache()
@@ -7122,18 +7194,19 @@ def tiger_tp_phase(dev, seed, rank_fn=None) -> dict:
     gloo on the one card: (a) parity with tp = 1 here, (b) the trainer, (c)
     its resume. No TPU kernel launches; the table-lookup gradient
     (table_grad) launches once a layer a step."""
-    from genrec_tpu_torch.parallel.mesh import spawn
-
-    t0 = time.perf_counter()
     batches = tiger_tp_batches(seed)
-    tp1 = tiger_tp_parity(dev, seed, batches)
-    tp1_s = time.perf_counter() - t0
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    ranks = spawn(rank_fn or tiger_tp_rank, TIGER_TP["tp"], (seed, batches), device=dev.type,
-                  timeout_s=TIGER_TP_TIMEOUT_S)
-    spawn_s = time.perf_counter() - t0
+
+    def reference():  # while the ranks start
+        t0 = time.perf_counter()
+        tp1 = tiger_tp_parity(dev, seed, batches)
+        tp1_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        return tp1, tp1_s
+
+    (tp1, tp1_s), ranks, spawn_s = spawn_beside(
+        rank_fn or tiger_tp_rank, TIGER_TP["tp"], (seed, batches), reference, device=dev.type,
+        timeout_s=TIGER_TP_TIMEOUT_S)
     r0, r1 = ranks
     tp2 = r0["parity_losses"]
     check(r1["parity_losses"] == tp2, ("TIGER ranks disagree on the parity losses", tp2,
@@ -7168,7 +7241,8 @@ def tiger_tp_phase(dev, seed, rank_fn=None) -> dict:
         "tiger_tp", tp=TIGER_TP["tp"], backend="gloo (two ranks on one card)",
         config=("config/tiger/amazon/tiger.gin widths (attn 384, 6 x 64 heads, 4 + 4 layers, "
                 "256 x 3 codes, FFN 1,024), vocab padded to 770 (pad_vocab_to=tp)"),
-        reduced=("none in depth or width; (b)/(c) at batch 64 over the trainer's synthetic "
+        reduced=("none in depth or width; (b)/(c) at batch "
+                 f"{TIGER_TP['batch']} over the trainer's synthetic "
                  f"set, {TIGER_TP['epochs']} epoch (tiger.gin: 256 over Amazon-Beauty)"),
         parity=dict(steps=TIGER_TP["parity_steps"], dtype="fp32", dropout=0.0,
                     rows=TIGER_TRAIN["batch"], tp1_losses=tp1, tp2_losses=tp2,
@@ -7439,21 +7513,22 @@ def moe_phase(dev, seed, rank_fn=None) -> dict:
     LCREC_PARITY_RTOL, the replicated router equal on every rank), bf16
     steps with B3, B4 dx and B4 dW once a step a rank, and the cached
     decode against the forward."""
-    from genrec_tpu_torch.parallel.mesh import spawn
+    def reference():  # while the ranks start
+        t0 = time.perf_counter()
+        ep1, params1 = moe_parity(dev, seed)
+        ep1b, params1b = moe_parity(dev, seed)
+        differ = sorted(k for k in params1 if not torch.equal(params1[k], params1b[k]))
+        check(ep1 == ep1b and not differ, ("two ep=1 MoE runs differ", ep1, ep1b, differ[:5]))
+        decode_err = moe_decode_check(dev, seed)
+        ep1_s = time.perf_counter() - t0
+        del params1b
+        gc.collect()
+        torch.cuda.empty_cache()
+        return ep1, params1, decode_err, ep1_s
 
-    t0 = time.perf_counter()
-    ep1, params1 = moe_parity(dev, seed)
-    ep1b, params1b = moe_parity(dev, seed)
-    differ = sorted(k for k in params1 if not torch.equal(params1[k], params1b[k]))
-    check(ep1 == ep1b and not differ, ("two ep=1 MoE runs differ", ep1, ep1b, differ[:5]))
-    decode_err = moe_decode_check(dev, seed)
-    ep1_s = time.perf_counter() - t0
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    ranks = spawn(rank_fn or moe_rank, MOE["ep"], (seed,), device=dev.type,
-                  timeout_s=LCREC_TIMEOUT_S)
-    spawn_s = time.perf_counter() - t0
+    (ep1, params1, decode_err, ep1_s), ranks, spawn_s = spawn_beside(
+        rank_fn or moe_rank, MOE["ep"], (seed,), reference, device=dev.type,
+        timeout_s=LCREC_TIMEOUT_S)
     r0 = ranks[0]
     ep4 = r0["parity_losses"]
     check(all(r["parity_losses"] == ep4 for r in ranks), "ep=4 ranks disagree on the losses")
@@ -7491,6 +7566,570 @@ def moe_phase(dev, seed, rank_fn=None) -> dict:
     )
 
 
+# ---- phase 27: data parallelism and 2-D layouts (A17) ------------------------
+# Gloo ranks on the one card (NCCL refuses two ranks on one device): two
+# ranks at dp = 2 for (a)-(c) and (f), four at tp = 2 x dp = 2 (and tp = 2 x
+# ep = 2) for (d) and (e). Each layout is held to one rank (or tp = 2 x dp
+# = 1) in fp32 from the same init on the same global batches, every rank
+# keeping its contiguous rows (parallel.mesh.shard_batch). Cuts (the
+# phase's `reduced`): steps (LCRec's fp32 parity 3 steps at the global
+# batch 8 x 512), the trainer run's data (the trainer's own synthetic set,
+# 8 rows a step), COBRA's and NoteLLM's depth and widths as below, LCRec's
+# depth (2 of 28 layers).
+DP = dict(steps=5, ce_steps=3, hstu_trainer_batch=8, kill=5, poll=8, lcrec_parity_steps=3,
+          lcrec_warm=1, lcrec_timed=4, notellm_layers=2, notellm_batch_pairs=16,
+          notellm_seq=128, cobra_batch=64, rq_rows=1024, rq_lr=1e-3, ce_lr=1e-4)
+DP_RTOL = 1e-4  # 5 fp32 steps at dp = 2 against one rank (as the tp parity checks)
+DP_MOE_RTOL = 1e-5  # tp = 2 x ep = 2 against ep = 1; the MoE router loss at dp = 2
+DP_TIMEOUT_S = 900
+
+
+def dp_rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    check(got.shape == want.shape and np.isfinite(got).all(), (got, want))
+    return float(np.max(np.abs(got - want) / np.abs(want)))
+
+
+def dp_seq_batches(seed, rows, n) -> list:
+    """The first ``n`` global batches of ``rows`` packed rows of the Beauty
+    set's epoch 0 (numpy, shipped to the ranks): HSTU's keys (timestamps)
+    and SASRec's (positions) both."""
+    from genrec_tpu_torch.data.batching import batch_iterator, pack_examples
+
+    arrays, _ = pack_examples(beauty_dataset(seed).train_examples(with_time=True),
+                              row_len=HSTU_AMAZON["max_seq_len"], seed=(seed, 0))
+    arrays.pop("segment_valid")
+    it = batch_iterator(arrays, rows, shuffle=True, seed=seed, drop_last=True)
+    return [b for b, _ in itertools.islice(it, n)]
+
+
+def dp_keys(batches, keys) -> list:
+    return [{k: b[k] for k in keys} for b in batches]
+
+
+def dp_steps(dev, model, loss_fn, opt, batches, group, clip=None):
+    """fp32 steps of the trainer's step over ``batches`` (this rank's rows
+    of each under ``group``): the losses, the counters set to 0 before."""
+    from genrec_tpu_torch.core.harness import make_train_step
+    from genrec_tpu_torch.core.state import TrainState
+    from genrec_tpu_torch.parallel.mesh import shard_batch
+
+    step = make_train_step(loss_fn, opt, clip_norm=clip, data_group=group)
+    state = TrainState.create(model, opt, 0)
+    losses = []
+    reset_counters()
+    for b in batches:
+        state, m = step(state, {k: torch.as_tensor(v, device=dev)
+                                for k, v in shard_batch(b, group).items()})
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    return losses, read_counters()
+
+
+def dp_hstu(dev, seed, batches, group=None):
+    """(a) HSTU at amazon.gin widths, fp32, dropout 0.2, the kernel path."""
+    from genrec_tpu_torch.core.optim import Adam
+    from genrec_tpu_torch.models.hstu import HSTU
+    from genrec_tpu_torch.trainers.hstu_trainer import make_loss_fn
+
+    model = HSTU(num_items=BEAUTY_ITEMS, dropout=0.2, use_pallas=True, fused_ce=True,
+                 dtype=torch.float32, device=dev, seed=seed, **HSTU_AMAZON)
+    return dp_steps(dev, model, make_loss_fn(), Adam(1e-3, b2=0.98), batches, group)
+
+
+def dp_sasrec(dev, seed, batches, group=None):
+    """(b) SASRec at amazon.gin widths, fp32, dropout 0.2, the fused CE."""
+    from genrec_tpu_torch.core.optim import Adam
+    from genrec_tpu_torch.models.sasrec import SASRec
+    from genrec_tpu_torch.trainers.sasrec_trainer import make_loss_fn
+
+    model = SASRec(num_items=BEAUTY_ITEMS, dropout=0.2, fused_ce=True, dtype=torch.float32,
+                   device=dev, seed=seed, **SASREC_AMAZON)
+    return dp_steps(dev, model, make_loss_fn(), Adam(1e-3, b2=0.98), batches, group)
+
+
+def dp_rqvae_model(dev, seed):
+    """(c)'s RQ-VAE at rqvae.gin widths (STE, the Sinkhorn last layer) and
+    its item embeddings."""
+    from genrec_tpu_torch.data.items import SyntheticItemEmbeddings
+    from genrec_tpu_torch.models.rqvae import QuantizeForwardMode, RqVae
+
+    src = SyntheticItemEmbeddings(num_items=CATALOG_ITEMS, dim=768, seed=seed)
+    model = RqVae(input_dim=768, embed_dim=32, hidden_dims=(512, 256, 128, 64),
+                  codebook_size=256, codebook_mode=QuantizeForwardMode.STE,
+                  codebook_last_layer_mode=QuantizeForwardMode.SINKHORN, n_layers=3,
+                  commitment_weight=0.25, n_cat_features=0, device=dev, seed=seed)
+    return model, src
+
+
+def dp_rqvae_init(dev, seed) -> dict:
+    """(c)'s parameters after the k-means init, as numpy: made once here and
+    shipped to the ranks, so that one rank and dp = 2 start from one init
+    (k-means sums its clusters with index_add_, by atomics on CUDA: each
+    process would start from its own rounding of the codebooks)."""
+    from genrec_tpu_torch.models.rqvae import kmeans_init_params
+
+    model, src = dp_rqvae_model(dev, seed)
+    kmeans_init_params(model, torch.as_tensor(src.arrays()[0][:20000], device=dev),
+                       torch.Generator(device=dev).manual_seed(seed + 1))
+    return {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+
+
+def dp_rqvae(dev, seed, init, group=None):
+    """(c) RQ-VAE from the k-means init ``init`` (dp_rqvae_init), 5 fp32
+    steps of DP["rq_rows"] rows, then the export through B7 over ``group``
+    (its launches counted alone) and, of the same weights, on this rank
+    alone."""
+    from genrec_tpu_torch.core.optim import Adam
+    from genrec_tpu_torch.trainers.rqvae_trainer import compute_sem_ids, make_loss_fn
+
+    model, src = dp_rqvae_model(dev, seed)
+    model.load_state_dict({k: torch.as_tensor(v, device=dev) for k, v in init.items()})
+    train_x, _ = src.arrays()
+    rows = DP["rq_rows"]
+    batches = [{"x": train_x[i * rows:(i + 1) * rows]} for i in range(DP["steps"])]
+    losses, _ = dp_steps(dev, model, make_loss_fn(0.2), Adam(DP["rq_lr"], weight_decay=1e-4),
+                         batches, group, clip=1.0)
+    reset_counters()
+    ids = compute_sem_ids(model, src.embeddings, batch_size=SEM_ID_CHUNK, use_pallas=True,
+                          data_group=group)
+    launches = read_counters()["rq_cascade"]
+    alone = compute_sem_ids(model, src.embeddings, batch_size=SEM_ID_CHUNK, use_pallas=True)
+    return losses, ids, launches, alone
+
+
+def dp_cobra(dev, seed, batches, group=None):
+    """(f) COBRA at amazon.gin widths, fp32, its dropout, 3 steps."""
+    from genrec_tpu_torch.core.optim import Adam
+    from genrec_tpu_torch.models.cobra import Cobra
+    from genrec_tpu_torch.trainers.cobra_trainer import make_loss_fn
+
+    model = Cobra(**COBRA_AMAZON, dtype=torch.float32, device=dev, seed=seed)
+    return dp_steps(dev, model, make_loss_fn(), Adam(DP["ce_lr"], weight_decay=0.01),
+                    batches, group, clip=1.0)[0]
+
+
+def dp_notellm_data(seed):
+    from genrec_tpu_torch.data.notellm_pairs import NoteLLMPairData
+
+    data = NoteLLMPairData(num_topics=NOTELLM["topics"], eval_topics=NOTELLM["eval_topics"],
+                           max_len=DP["notellm_seq"], seed=seed)
+    arrays = data.train_arrays(NOTELLM["pairs_per_topic"])
+    n = DP["notellm_batch_pairs"]
+    return data.tokenizer.vocab_size, [{k: v[i * n:(i + 1) * n] for k, v in arrays.items()}
+                                       for i in range(DP["ce_steps"])]
+
+
+def dp_notellm(dev, seed, vocab, batches, group=None):
+    """(f) NoteLLM at the Qwen2.5-1.5B widths, 2 layers, fp32, 3 steps."""
+    from genrec_tpu_torch.trainers import notellm_trainer as nt
+
+    model = nt.notellm_model(notellm_cfg(DP["notellm_layers"], vocab), torch.float32, seed,
+                             NOTELLM["tau"], dev)
+    opt = nt.make_optimizer(DP["ce_lr"], 1, DP["ce_steps"], NOTELLM["wd"])
+    return dp_steps(dev, model, nt.notellm_loss, opt, batches, group, clip=1.0)[0]
+
+
+def dp_hstu_trainer(group, seed) -> dict:
+    """(a) hstu_trainer.train at dp = 2 through amazon.gin, one epoch of
+    the trainer's synthetic set: uninterrupted, killed by a signal on rank
+    1 only, resumed; the shared resume points (data rank 0 writes them)."""
+    from genrec_tpu_torch.core import chaos
+    from genrec_tpu_torch.parallel.mesh import barrier
+    from genrec_tpu_torch.trainers import hstu_trainer
+
+    work = HERE / "build" / "dp_hstu"
+    if group.rank == 0:
+        shutil.rmtree(work, ignore_errors=True)
+    barrier("dp_hstu work", group)
+    bindings = ('train.dataset = "synthetic"', "train.wandb_logging = False",
+                "train.do_eval = True", "train.epochs = 1", "train.save_every_epoch = 1",
+                f"train.batch_size = {DP['hstu_trainer_batch']}", "train.eval_batch_size = 256",
+                "train.wandb_log_interval = 1", f"train.seed = {seed}",
+                f'train.device = "{group.device}"')
+    run = gin_train_run("config/hstu/amazon.gin", bindings, work, hstu_trainer.train)
+    out = {"a": run("a")}
+    out["b"] = run("b", chaos.ChaosPlan(kill_at_step=DP["kill"], only_process=1))
+    barrier("dp_hstu saved", group)  # rank 1 returns while rank 0 writes the point
+    out["b"]["steps"] = ckpt_steps(work / "b")
+    out["resumed"] = run("b", resume_from_checkpoint=True)
+    barrier("dp_hstu logged", group)
+    out["parity"], out["final_step"], out["point_bytes"] = resume_parity(
+        f"HSTU dp=2 rank {group.rank}", work / "a", work / "b")
+    out["losses"] = run_log(work / "a")[0]
+    barrier("dp_hstu read", group)
+    return out
+
+
+def dp_rank(group, seed, batches) -> dict:
+    """One rank of dp's two-rank half: (a), (b), (c) and (f) at dp = 2."""
+    from genrec_tpu_torch.parallel.mesh import make_mesh
+
+    entered = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = group.device
+    data = make_mesh({"data": -1}, group, device="cuda").data
+    runs = dict(hstu=lambda: dp_hstu(dev, seed, batches["hstu"], data),
+                hstu_trainer=lambda: dp_hstu_trainer(group, seed),
+                sasrec=lambda: dp_sasrec(dev, seed, batches["sasrec"], data),
+                rqvae=lambda: dp_rqvae(dev, seed, batches["rqvae_init"], data),
+                cobra=lambda: dp_cobra(dev, seed, batches["cobra"], data),
+                notellm=lambda: dp_notellm(dev, seed, batches["notellm_vocab"],
+                                           batches["notellm"], data))
+    out = {"s": {}, "entered": entered}
+    for name, run in runs.items():
+        t0 = time.perf_counter()
+        out[name] = run()
+        out["s"][name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    out["left"] = time.time()
+    return out
+
+
+def dp_lcrec_model(dev, seed, dtype, tp, ep=None, moe=False):
+    """LCRec at the Qwen2.5-1.5B widths (2 layers, or the moe phase's MoE):
+    this rank's shard over the model group ``tp`` and expert group ``ep``."""
+    from genrec_tpu_torch.models.backbones.qwen import QwenLM, qwen_init_params
+    from genrec_tpu_torch.models.lcrec import extend_vocab
+    from genrec_tpu_torch.parallel.shardings import shard_expert_params, shard_qwen_params
+
+    cfg = moe_cfg(MOE["layers"]) if moe else lcrec_cfg(LCREC["parity_layers"])
+    full = qwen_init_params(cfg, seed, dev)
+    cfg, full, base = extend_vocab(cfg, full, LCREC["codebooks"], LCREC["codebook_size"],
+                                   torch.Generator(device=dev).manual_seed(seed + 1),
+                                   pad_to=math.lcm(8, 1 if tp is None else tp.size))
+    model = QwenLM(cfg, dtype=dtype, group=tp, expert_group=ep, device=dev)
+    model.load_state_dict(shard_expert_params(
+        shard_qwen_params(full, 0 if tp is None else tp.rank, 1 if tp is None else tp.size, cfg),
+        0 if ep is None else ep.rank, 1 if ep is None else ep.size))
+    del full
+    torch.cuda.empty_cache()
+    return model, base + LCREC["codebooks"] * LCREC["codebook_size"]
+
+
+def dp_lcrec_steps(model, live, tp, data, batches, lr, hook=None):
+    """The trainer's SFT step (AdamW after a 1-step warm-up, clip 1.0, B8
+    over ``tp``, or the fused CE whole) over this rank's rows of each
+    global batch under ``data``: metrics a step."""
+    from genrec_tpu_torch.core.harness import make_train_step
+    from genrec_tpu_torch.core.optim import Adam
+    from genrec_tpu_torch.core.state import TrainState
+    from genrec_tpu_torch.models.lcrec import make_tp_sharded_fused_sft_loss, sft_loss
+    from genrec_tpu_torch.ops.schedules import cosine_schedule_with_warmup
+    from genrec_tpu_torch.parallel.mesh import shard_batch
+
+    if tp is None:
+        def loss(b):
+            return sft_loss(model, b["input_ids"], b["attention_mask"], b["labels"],
+                            valid_vocab=live, use_fused_ce=True)
+    else:
+        loss = make_tp_sharded_fused_sft_loss(model, live)
+    opt = Adam(cosine_schedule_with_warmup(lr, 1, len(batches)), weight_decay=LCREC["wd"])
+    step = make_train_step(lambda m, b, g: (loss(b), {}), opt, clip_norm=1.0,
+                           group=tp or model.expert_group, data_group=data)
+    state = TrainState.create(model, opt, 0)
+    dev = model.norm.weight.device
+    out = []
+    for b in batches:
+        _, m = step(state, {k: torch.as_tensor(v, device=dev)
+                            for k, v in shard_batch(b, data).items()})
+        out.append({k: float(v) for k, v in m.items()})
+        if hook is not None:
+            hook()
+    return out
+
+
+def dp_moe_router(model, batch, data=None) -> tuple[float, list]:
+    """The router loss (summed over the layers) and each layer's dropped
+    share of one forward over the global batch (this rank's rows of it)."""
+    from genrec_tpu_torch.models.backbones.qwen import collect_moe_aux
+    from genrec_tpu_torch.parallel.mesh import data_parallel, shard_batch
+
+    dev = model.norm.weight.device
+    b = {k: torch.as_tensor(v, device=dev) for k, v in shard_batch(batch, data).items()}
+    aux: list = []
+    with torch.no_grad(), data_parallel(data, b["input_ids"].shape[0]):
+        model(b["input_ids"], attention_mask=b["attention_mask"], compute_logits=False,
+              moe_aux=aux)
+        total = collect_moe_aux(aux)
+    if data is not None:  # each rank holds its share (data_share): the sum is the loss
+        total = data.all_reduce(total)
+    return float(total), [float(layer.moe.dropped) for layer in model.layers]
+
+
+def dp_rank4(group, seed, tiger_batches, quiet) -> dict:
+    """One rank of dp's four-rank half: (d) LCRec at tp = 2 x dp = 2 in
+    fp32 against tp = 2 x dp = 1 (each model group alone on the global
+    batch), B8 counted; the MoE at tp = 2 x ep = 2 (fp32 parity steps) and
+    at dp = 2 (router loss, dropped share); (e) TIGER at tp = 2 x dp = 2;
+    then, once the ``quiet`` flag says that nothing else runs on the card,
+    LCRec's bf16 steps timed, collectives a step by axis."""
+    from genrec_tpu_torch.kernels import fused_ce as fc
+    from genrec_tpu_torch.parallel.mesh import make_mesh
+
+    entered = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = group.device
+    mesh = make_mesh({"data": -1, "model": 2}, group, device="cuda")
+    tp, data = mesh.group("model"), mesh.data
+    out = {"coords": mesh.coords, "s": {}, "entered": entered}
+    t0 = time.perf_counter()
+    model, live = dp_lcrec_model(dev, seed, torch.float32, tp)
+    batches = [lcrec_tokens(seed + 10 + i, LCREC["batch"], LCREC["seq"], live)
+               for i in range(DP["lcrec_parity_steps"])]
+    reset_counters()
+    fc.sharded_fused_linear_ce.launches = 0
+    out["tp_dp_losses"] = [m["loss"] for m in dp_lcrec_steps(
+        model, live, tp, data, batches, LCREC["parity_lr"])]
+    out["tp_dp_launches"] = read_counters()
+    del model
+    torch.cuda.empty_cache()
+    model, _ = dp_lcrec_model(dev, seed, torch.float32, tp)
+    out["tp_losses"] = [m["loss"] for m in dp_lcrec_steps(
+        model, live, tp, None, batches, LCREC["parity_lr"])]
+    del model
+    torch.cuda.empty_cache()
+    out["s"]["lcrec_fp32"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # The MoE: tp = 2 x ep = 2 (fp32 parity steps), then dp = 2 (router).
+    tp_ep = make_mesh({"data": -1, "model": 2, "expert": 2}, group, device="cuda")
+    model, live_moe = dp_lcrec_model(dev, seed, torch.float32, tp_ep.group("model"),
+                                     tp_ep.group("expert"), moe=True)
+    out["tp_ep_losses"] = [m["loss"] for m in dp_lcrec_steps(
+        model, live_moe, tp_ep.group("model"), None, lcrec_parity_batches(seed),
+        LCREC["parity_lr"])]
+    del model
+    torch.cuda.empty_cache()
+    model, _ = dp_lcrec_model(dev, seed, torch.float32, None, moe=True)
+    out["moe_dp"] = dp_moe_router(model, lcrec_tokens(seed + 200, LCREC["batch"], LCREC["seq"],
+                                                      live_moe), data)
+    del model
+    torch.cuda.empty_cache()
+    out["s"]["moe"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # (e) TIGER at tp = 2 x dp = 2.
+    reset_counters()
+    out["tiger_losses"] = tiger_tp_parity(dev, seed, tiger_batches, tp, data)
+    out["tiger_launches"] = read_counters()
+    out["s"]["tiger"] = time.perf_counter() - t0
+
+    # bf16 steps at batch 8 x 512 with the card to these ranks alone, every
+    # counter at 0 before the timed ones.
+    out["s"]["quiet_wait"] = wait_quiet(quiet)
+    t0 = time.perf_counter()
+    model, _ = dp_lcrec_model(dev, seed, torch.bfloat16, tp)
+    warm, n = DP["lcrec_warm"], DP["lcrec_timed"]
+    batches = [lcrec_tokens(seed + 100 + i, LCREC["batch"], LCREC["seq"], live)
+               for i in range(warm + n)]
+    stamps: list = []
+
+    def hook():
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    dp_lcrec_steps(model, live, tp, data, batches[:warm], LCREC["lr"])
+    torch.cuda.synchronize()
+    reset_counters()
+    fc.sharded_fused_linear_ce.launches = 0
+    before = mesh.counters()
+    t1 = time.perf_counter()
+    metrics = dp_lcrec_steps(model, live, tp, data, batches[warm:], LCREC["lr"], hook)
+    after = mesh.counters()
+    out["bf16"] = dict(
+        steps=n, losses=[m["loss"] for m in metrics],
+        nonfinite=sum(m["nonfinite"] for m in metrics),
+        step_ms=[1e3 * d for d in np.diff([t1] + stamps)],
+        step_ms_p50=float(np.percentile(1e3 * np.diff([t1] + stamps), 50)),
+        launches=read_counters(), b8_calls=fc.sharded_fused_linear_ce.launches,
+        collectives_per_step={a: (after[a][0] - before[a][0]) / n for a in after},
+        collective_bytes_per_step={a: (after[a][1] - before[a][1]) / n for a in after},
+        peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    del model
+    torch.cuda.empty_cache()
+    out["s"]["lcrec_bf16"] = time.perf_counter() - t0
+    out["left"] = time.time()
+    return out
+
+
+def dp_phase(dev, seed, tiger_tp1=None, moe_ep1=None, rank_fn=None, rank4_fn=None) -> dict:
+    """Data parallelism and 2-D layouts (A17) on the card over gloo ranks:
+    (a)-(c), (f) on two ranks, (d) and (e) on four, the two spawns at
+    once, each held to one rank computed here meanwhile (TIGER's tp = 1
+    and the MoE's ep = 1 losses taken from the tiger_tp and moe phases
+    when they ran)."""
+    from genrec_tpu_torch.data.batching import batch_iterator
+    from genrec_tpu_torch.parallel.mesh import spawn
+
+    def timed_spawn(fn, world, args):
+        t0, t0_wall = time.perf_counter(), time.time()
+        ranks = spawn(fn, world, args, device=dev.type, timeout_s=DP_TIMEOUT_S)
+        end = time.time()
+        # (start to fn, fn's end to join) of the spawn
+        edges = (min(r["entered"] for r in ranks) - t0_wall, end - max(r["left"] for r in ranks))
+        return ranks, time.perf_counter() - t0, edges
+
+    # The two halves run at once (six rank processes on the card), the four
+    # ranks' first; this process builds the two ranks' batches and then
+    # computes the one-rank references while they run (a rank spends most
+    # of its start-up importing torch). The four ranks time their bf16
+    # steps only after the quiet flag: the two ranks and the references done.
+    quiet = HERE / "build" / "dp_quiet"
+    quiet.parent.mkdir(parents=True, exist_ok=True)
+    quiet.unlink(missing_ok=True)
+    with ThreadPoolExecutor(2) as pool:
+        t0 = time.perf_counter()
+        tiger_batches = tiger_tp_batches(seed)  # the tiger_tp phase's, when it ran
+        four_f = pool.submit(timed_spawn, rank4_fn or dp_rank4, 4,
+                             (seed, tiger_batches, str(quiet)))
+        check(HSTU_BATCH == SASREC_BATCH, (HSTU_BATCH, SASREC_BATCH))  # one packing for both
+        seq = dp_seq_batches(seed, HSTU_BATCH, DP["steps"])
+        batches = dict(hstu=dp_keys(seq, ("input_ids", "timestamps", "targets", "segment_ids")),
+                       sasrec=dp_keys(seq, ("input_ids", "targets", "segment_ids", "positions")),
+                       cobra=[b for b, _ in itertools.islice(batch_iterator(
+                           cobra_beauty_data(seed).train_arrays(), DP["cobra_batch"],
+                           shuffle=True, seed=seed, drop_last=True), DP["ce_steps"])])
+        batches["notellm_vocab"], batches["notellm"] = dp_notellm_data(seed)
+        batches["rqvae_init"] = dp_rqvae_init(dev, seed)
+        two_f = pool.submit(timed_spawn, rank_fn or dp_rank, 2, (seed, batches))
+        batch_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        try:
+            one = dict(hstu=dp_hstu(dev, seed, batches["hstu"]),
+                       sasrec=dp_sasrec(dev, seed, batches["sasrec"]),
+                       rqvae=dp_rqvae(dev, seed, batches["rqvae_init"]),
+                       cobra=dp_cobra(dev, seed, batches["cobra"]),
+                       notellm=dp_notellm(dev, seed, batches["notellm_vocab"],
+                                          batches["notellm"]))
+            if tiger_tp1 is None:
+                tiger_tp1 = tiger_tp_parity(dev, seed, tiger_batches)
+            if moe_ep1 is None:
+                moe_ep1 = moe_parity(dev, seed)[0]
+            model, live = dp_lcrec_model(dev, seed, torch.float32, None, moe=True)
+            moe_dp1 = dp_moe_router(model, lcrec_tokens(seed + 200, LCREC["batch"],
+                                                        LCREC["seq"], live))
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+            one_s = time.perf_counter() - t0
+            two, two_s, two_edges = two_f.result()
+        finally:
+            quiet.touch()  # a failed half still releases the four ranks
+        four, four_s, four_edges = four_f.result()
+
+    n = DP["steps"]
+    rel = {}
+    for name in ("hstu", "sasrec"):
+        got = two[0][name][0]
+        check(two[1][name][0] == got, (f"dp {name}: the ranks' losses differ", two[1][name][0]))
+        rel[name] = dp_rel(got, one[name][0])
+        check(rel[name] <= DP_RTOL, f"dp {name}: dp=2 vs 1 losses {rel[name]} > {DP_RTOL}")
+    for r, rank in enumerate(two):
+        check_launches_per_step(f"dp HSTU rank {r}", rank["hstu"][1], LAUNCHES_PER_STEP, n)
+        check_launches_per_step(f"dp SASRec rank {r}", rank["sasrec"][1],
+                                SASREC_LAUNCHES_PER_STEP, n)
+    rq_losses, rq_ids, rq_b7, _ = two[0]["rqvae"]
+    rel["rqvae"] = dp_rel(rq_losses, one["rqvae"][0])
+    check(rel["rqvae"] <= DP_RTOL, f"dp RQ-VAE: dp=2 vs 1 losses {rel['rqvae']} > {DP_RTOL}")
+    chunks = -(-CATALOG_ITEMS // SEM_ID_CHUNK)
+    for r, rank in enumerate(two):
+        # B7 is row-wise: the gathered ids are one rank's ids of the same weights.
+        check(np.array_equal(rank["rqvae"][1], rank["rqvae"][3])
+              and np.array_equal(rank["rqvae"][1], rq_ids),
+              f"dp RQ-VAE rank {r}: the export's ids differ from one rank's")
+        check(rank["rqvae"][2] == chunks, (f"dp RQ-VAE rank {r}: B7 launches", rank["rqvae"][2],
+                                           "want", chunks))
+    for name in ("cobra", "notellm"):
+        check(two[1][name] == two[0][name], f"dp {name}: the ranks' losses differ")
+        rel[name] = dp_rel(two[0][name], one[name])
+        check(rel[name] <= DP_RTOL, f"dp {name}: dp=2 vs 1 losses {rel[name]} > {DP_RTOL}")
+    trainer = []
+    for r, rank in enumerate(two):
+        t = rank["hstu_trainer"]
+        check(t["b"]["out"] == ({}, {}), (f"dp HSTU trainer rank {r}: the preempted run "
+                                          "returned", t["b"]["out"]))
+        save_at = -(-DP["kill"] // DP["poll"]) * DP["poll"]
+        check(t["b"]["steps"][-1:] == [save_at], (f"dp HSTU trainer rank {r} saved at",
+                                                  t["b"]["steps"], "want", save_at))
+        check(t["parity"]["bit_equal"], (f"dp HSTU trainer rank {r} resume", t["parity"]))
+        check(t["a"]["out"] == two[0]["hstu_trainer"]["a"]["out"],
+              "dp HSTU trainer: the ranks report other metrics")
+        trainer.append(dict(parity=t["parity"], saved_at=t["b"]["steps"],
+                            run_s={k: t[k]["wall_s"] for k in ("a", "b", "resumed")},
+                            launches=t["a"]["launches"]))
+    losses = [two[0]["hstu_trainer"]["losses"][g]
+              for g in sorted(two[0]["hstu_trainer"]["losses"])]
+    check(np.isfinite(losses).all() and np.mean(losses[-3:]) < np.mean(losses[:3]),
+          ("dp HSTU trainer: the loss did not fall", losses))
+
+    r0 = four[0]
+    for r, rank in enumerate(four):
+        check(rank["tp_dp_losses"] == r0["tp_dp_losses"], f"dp LCRec rank {r}: losses differ")
+        check(rank["tp_ep_losses"] == r0["tp_ep_losses"], f"dp MoE rank {r}: losses differ")
+        check(rank["tiger_losses"] == r0["tiger_losses"], f"dp TIGER rank {r}: losses differ")
+        check(rank["moe_dp"] == r0["moe_dp"], f"dp MoE router rank {r} differs")
+        s = rank["bf16"]
+        check(s["nonfinite"] == 0 and all(np.isfinite(s["losses"])), s)
+        for name, count in s["launches"].items():
+            want = s["steps"] if name in LCREC_LAUNCHES_PER_STEP else 0
+            if name == "sharded_fused_linear_ce":
+                want = s["steps"]
+            check(count == want, f"dp LCRec rank {r}: {name} launched {count}, want {want}")
+        check(s["b8_calls"] == s["steps"], ("dp B8 calls", s["b8_calls"]))
+        check(rank["tp_dp_launches"]["sharded_fused_linear_ce"] == DP["lcrec_parity_steps"],
+              rank["tp_dp_launches"])
+    rel["lcrec_tp_dp"] = dp_rel(r0["tp_dp_losses"], r0["tp_losses"])
+    check(rel["lcrec_tp_dp"] <= DP_RTOL,
+          f"dp LCRec: tp=2 x dp=2 vs tp=2 losses {rel['lcrec_tp_dp']} > {DP_RTOL}")
+    rel["moe_tp_ep"] = dp_rel(r0["tp_ep_losses"], moe_ep1)
+    check(rel["moe_tp_ep"] <= DP_MOE_RTOL,
+          f"dp MoE: tp=2 x ep=2 vs ep=1 losses {rel['moe_tp_ep']} > {DP_MOE_RTOL}")
+    (aux2, dropped2), (aux1, dropped1) = r0["moe_dp"], moe_dp1
+    check(dropped2 == dropped1, ("dp MoE: dropped shares at dp=2 and 1", dropped2, dropped1))
+    rel["moe_router"] = dp_rel([aux2], [aux1])
+    check(rel["moe_router"] <= DP_MOE_RTOL, ("dp MoE router loss", aux2, aux1))
+    rel["tiger_tp_dp"] = dp_rel(r0["tiger_losses"], tiger_tp1)
+    check(rel["tiger_tp_dp"] <= DP_RTOL,
+          f"dp TIGER: tp=2 x dp=2 vs tp=1 losses {rel['tiger_tp_dp']} > {DP_RTOL}")
+    layers = TIGER_AMAZON["n_layers"]
+    for r, rank in enumerate(four):
+        for name, count in rank["tiger_launches"].items():
+            want = layers * len(tiger_batches) if name == "table_grad" else 0
+            check(count == want, f"dp TIGER rank {r}: {name} launched {count}, want {want}")
+    a = two[0]["hstu_trainer"]["a"]
+    return emit(
+        "dp", backend="gloo (two and four ranks on one card)",
+        config=("HSTU / SASRec at config/{hstu,sasrec}/amazon.gin widths on the Beauty set, "
+                "RQ-VAE at rqvae.gin widths (Sinkhorn last layer), COBRA at "
+                "config/cobra/amazon.gin widths, NoteLLM and LCRec at the Qwen2.5-1.5B widths, "
+                "TIGER at tiger.gin widths; fp32 parity steps from one init"),
+        reduced=dict(steps=f"{n} fp32 steps ({DP['ce_steps']} for COBRA / NoteLLM)",
+                     hstu_trainer=(f"1 epoch of the trainer's synthetic set at batch "
+                                   f"{DP['hstu_trainer_batch']} (amazon.gin: 128 over Beauty)"),
+                     notellm=f"{DP['notellm_layers']} of 28 layers, batch "
+                             f"{DP['notellm_batch_pairs']} pairs",
+                     lcrec=(f"{LCREC['parity_layers']} of 28 layers ({MOE['layers']} for the "
+                            f"MoE); the fp32 tp x dp parity {DP['lcrec_parity_steps']} steps "
+                            f"(of 5) at {LCREC['batch']} x {LCREC['seq']}; the MoE's at the "
+                            f"moe phase's {LCREC['parity_batch']} x {LCREC['parity_seq']}")),
+        max_rel_diff=rel, rtol=DP_RTOL, moe_rtol=DP_MOE_RTOL,
+        launches_per_rank=dict(hstu=two[0]["hstu"][1], sasrec=two[0]["sasrec"][1],
+                               rq_cascade_export=rq_b7,
+                               lcrec_bf16=r0["bf16"]["launches"],
+                               tiger=r0["tiger_launches"]),
+        hstu_trainer=dict(ranks=trainer, losses=losses, valid=a["out"][0], test=a["out"][1]),
+        lcrec_bf16=dict(r0["bf16"], batch=[LCREC["batch"], LCREC["seq"]], layout="tp=2 x dp=2",
+                        timed="the four ranks alone on the card"),
+        moe=dict(router_loss=[aux2, aux1], dropped_share=[dropped2, dropped1],
+                 tp_ep_losses=r0["tp_ep_losses"], ep1_losses=moe_ep1),
+        coords=[r["coords"] for r in four], batch_s=batch_s, one_rank_s=one_s, spawn2_s=two_s,
+        spawn4_s=four_s,
+        rank_s=dict(two=two[0]["s"], four=four[0]["s"]),
+        spawn_edges_s=dict(two=two_edges, four=four_edges),  # (start to fn, fn's end to join)
+    )
+
+
 def build_all() -> dict:
     """Every kernel library, one nvcc per source, all started together."""
     from genrec_tpu_torch.kernels.build import LIBRARIES, NVCC_FLAGS, build_library
@@ -7510,7 +8149,7 @@ def build_all() -> dict:
 PHASES = ("kernels", "train", "parity", "sasrec", "rqvae", "serve", "cobra_serve",
           "tiger_spec_serve", "cobra_spec_serve", "serve_live", "tiger_train", "cobra_train",
           "retrieve", "lcrec_tp", "resume", "amazon", "notellm", "qwen_serve", "lcrec_lora",
-          "pipeline", "tiger_tp", "qwen_tp4", "moe")
+          "pipeline", "tiger_tp", "qwen_tp4", "moe", "dp")
 
 
 def main(argv=None) -> int:
@@ -7563,7 +8202,14 @@ def main(argv=None) -> int:
         device_count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda, python=sys.version.split()[0], phases=chosen,
     )}
-    phases["build"] = emit("build", **build_all())
+    # The synthetic Beauty set (~20 s on the host, read by most phases) is
+    # drawn while nvcc builds the kernels.
+    with ThreadPoolExecutor(1) as pool:
+        beauty = pool.submit(tiger_beauty_data, args.seed)
+        phases["build"] = emit("build", **build_all())
+        t0 = time.perf_counter()
+        beauty.result()
+        phases["build"]["beauty_wait_s"] = time.perf_counter() - t0
     libraries = phases["build"]["libraries"]
     paged_ptx = libraries["paged_attention"]["ptxas"]
     ptxas = libraries["fused_ce"]["ptxas"]
@@ -7679,6 +8325,13 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phases["moe"] = moe_phase(dev, args.seed)
+    if want("dp"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        tiger, moe = phases.get("tiger_tp"), phases.get("moe")
+        phases["dp"] = dp_phase(dev, args.seed,
+                                tiger_tp1=tiger["parity"]["tp1_losses"] if tiger else None,
+                                moe_ep1=moe["parity"]["ep1_losses"] if moe else None)
     phases["wall_s"] = time.perf_counter() - t_start
 
     line = kernels_line(phases, kernels) if full_run else None
@@ -7699,10 +8352,12 @@ def kernels_line(phases, kernels) -> dict:
     """The kernels line of a full run: every kernel's row, its launches on
     the main paths that ran it (each read just after that path)."""
     amazon = phases["amazon"]["launches"]
+    dp = phases["dp"]["launches_per_rank"]  # rank 0's counts of the dp phase's paths
     tiger_steps = (phases["tiger_train"]["trainer"]["launches"]["table_grad"]
                    + phases["tiger_train"]["launches"]["table_grad"]
                    + amazon["tiger"]["table_grad"]
-                   + sum(r["launches"]["table_grad"] for r in (phases["tiger_tp"]["trainer"],)))
+                   + sum(r["launches"]["table_grad"] for r in (phases["tiger_tp"]["trainer"],))
+                   + dp["tiger"]["table_grad"])
     launches = {"paged_attention_stats": (phases["serve"]["paged_attention_launches"]
                                           + phases["tiger_decode"]["paged_attention_launches"]
                                           + phases["serve_live"]["paged_attention_launches"]
@@ -7712,8 +8367,9 @@ def kernels_line(phases, kernels) -> dict:
                 # The amazon phase's launches join those of each kernel's
                 # synthetic main path: HSTU's rows, SASRec's, LCRec's, B7's.
                 "rq_cascade": (phases["rqvae"]["export"]["rq_cascade_launches"]
-                               + sum(amazon[k]["rq_cascade"] for k in ("tiger", "lcrec", "p5"))),
-                **{k: phases["train"]["launches"][k] + amazon["hstu"][k]
+                               + sum(amazon[k]["rq_cascade"] for k in ("tiger", "lcrec", "p5"))
+                               + dp["rq_cascade_export"]),
+                **{k: phases["train"]["launches"][k] + amazon["hstu"][k] + dp["hstu"][k]
                    for k in LAUNCHES_PER_STEP},
                 # The LoRA phase's: B3 and B4 dx once a step, B4 dW never.
                 # qwen_tp4's and moe's: B3, B4 dx, B4 dW once a step a rank
@@ -7721,9 +8377,11 @@ def kernels_line(phases, kernels) -> dict:
                 **{k + "_lcrec": (phases["lcrec_tp"]["steps"]["launches"][k] + amazon["lcrec"][k]
                                   + phases["lcrec_lora"]["launches"][k]
                                   + phases["qwen_tp4"]["steps"]["launches"][k]
-                                  + phases["moe"]["steps"]["launches"][k])
+                                  + phases["moe"]["steps"]["launches"][k]
+                                  + dp["lcrec_bf16"][k])
                    for k in LCREC_LAUNCHES_PER_STEP},
-                **{k + "_sasrec": phases["sasrec"]["launches"][k] + amazon["sasrec"][k]
+                **{k + "_sasrec": (phases["sasrec"]["launches"][k] + amazon["sasrec"][k]
+                                   + dp["sasrec"][k])
                    for k in SASREC_LAUNCHES_PER_STEP},
                 "paged_attention_stats_cobra": (
                     phases["cobra_serve"]["paged_attention_launches"]
@@ -7746,7 +8404,8 @@ def kernels_line(phases, kernels) -> dict:
                     phases["serve_bf16_int8"]["paged_attention_launches"],
                 "paged_attention_stats_quantized_bf16q_cobra":
                     phases["cobra_serve_bf16_int8"]["paged_attention_launches"],
-                "sharded_fused_linear_ce": phases["lcrec_tp"]["steps"]["b8_calls"],
+                "sharded_fused_linear_ce": (phases["lcrec_tp"]["steps"]["b8_calls"]
+                                            + dp["lcrec_bf16"]["sharded_fused_linear_ce"]),
                 "sharded_fused_linear_ce_4": phases["qwen_tp4"]["b8"]["launches"],
                 "table_grad": tiger_steps}
     return {"kernels": [{

@@ -47,7 +47,11 @@ metadata as a mismatch and leaves them in discovery (ROADMAP C3).
 Ranks of a tensor-parallel group each hold a shard: ``per_host=True``
 gives each rank its own record tree ``<directory>/p<rank>/`` (the JAX
 per-host layout), and `restore_latest_valid_consensus` makes every rank
-restore the same step or abort with a per-rank report.
+restore the same step or abort with a per-rank report. Under a process
+mesh with a data axis (``parallel.mesh.joined_mesh``) the tree is the
+model shard's (``p<shard>``), and only data rank 0 of each shard writes
+it, as orbax writes a replicated array once: the other data ranks read
+the same records and restore the same bytes.
 """
 
 from __future__ import annotations
@@ -65,6 +69,7 @@ import torch
 
 from genrec_tpu_torch.core import chaos
 from genrec_tpu_torch.obs.flight_recorder import get_flight_recorder, process_rank
+from genrec_tpu_torch.parallel.mesh import allgather_host_ints, barrier, joined_mesh
 
 logger = logging.getLogger("genrec_tpu_torch")
 
@@ -228,9 +233,12 @@ def read_record(path: str, like: Mapping | None = None) -> dict:
 def save_params(path: str, params: Mapping, wait: bool = True) -> None:
     """Save a params tree (a state dict, or a nested mapping of them) as
     one record. Writes are synchronous: ``wait`` is accepted for the JAX
-    signature."""
+    signature. Under a data axis only data rank 0 writes (the state is
+    replicated over it); the other ranks return."""
     del wait
-    write_record(os.path.abspath(path), params)
+    mesh = joined_mesh()
+    if mesh is None or mesh.writer:
+        write_record(os.path.abspath(path), params)
 
 
 def load_params(path: str, like: Mapping | None = None) -> dict:
@@ -262,9 +270,14 @@ class CheckpointManager:
         if max_to_keep < 1:
             raise ValueError(f"max_to_keep must be >= 1, got {max_to_keep}")
         rank, world = process_rank()
-        self.per_host = bool(per_host and world > 1)
+        mesh = joined_mesh()
+        shard, n_shards = (rank, world) if mesh is None else (mesh.shard, mesh.n_shards)
+        # Data ranks past 0 read their shard's records and write none.
+        self.writer = mesh is None or mesh.writer
+        self._readers = mesh is not None and mesh.size("data") > 1
+        self.per_host = bool(per_host and n_shards > 1)
         root = os.path.abspath(directory)
-        self.directory = os.path.join(root, f"p{rank}") if self.per_host else root
+        self.directory = os.path.join(root, f"p{shard}") if self.per_host else root
         self.max_to_keep = int(max_to_keep)
         self._writer: threading.Thread | None = None
         self._write_error: BaseException | None = None
@@ -314,6 +327,8 @@ class CheckpointManager:
         marker (the streaming trainer's publish kill point).
         Re-saving the latest step is a no-op and a step below it is
         refused (as orbax's ``should_save`` refuses it; here loudly)."""
+        if not self.writer:
+            return
         step = int(step)
         latest = self.latest_step()  # joins the previous save
         if latest is not None and step <= latest:
@@ -372,6 +387,8 @@ class CheckpointManager:
         ``quarantine/p<rank>/`` of a shared directory, ``quarantine/`` of a
         per-rank one (``<step>.<n>`` if that name is taken). A step another
         process moved first is out of discovery already."""
+        if not self.writer:  # the shard's writer moves its own records
+            return
         _flight().record("checkpoint_quarantine", step=step, directory=self.directory)
         qdir = os.path.join(self.directory, "quarantine",
                             *(() if self.per_host else (f"p{process_rank()[0]}",)))
@@ -430,11 +447,17 @@ class CheckpointManager:
            holds it, and any failure aborts with the report.
 
         A final `barrier` pins the agreement. A single process: identical
-        to `restore_latest_valid`."""
-        restored, step = self.restore_latest_valid(state_like, extra_validate)
+        to `restore_latest_valid`. Under a data axis the writers walk
+        their ladders first; the reading data ranks walk theirs after a
+        barrier, over records their writer has settled."""
         if process_rank()[1] == 1:
-            return restored, step
-        from genrec_tpu_torch.parallel.mesh import allgather_host_ints, barrier
+            return self.restore_latest_valid(state_like, extra_validate)
+        if self.writer:
+            restored, step = self.restore_latest_valid(state_like, extra_validate)
+        if self._readers:
+            barrier("ckpt-ladder")
+        if not self.writer:
+            restored, step = self.restore_latest_valid(state_like, extra_validate)
 
         steps = allgather_host_ints([-1 if step is None else step])[:, 0]
         report = ", ".join(f"p{i}={'none' if s < 0 else int(s)}" for i, s in enumerate(steps))
@@ -559,7 +582,8 @@ class BestTracker:
         if value <= self.value:
             return False
         self.value = value
-        if self.dir:
+        mesh = joined_mesh()  # under a data axis, data rank 0 writes
+        if self.dir and (mesh is None or mesh.writer):
             # Synchronous on purpose: the sidecar must only ever describe a
             # durable record (an asynchronous write could leave value=X on
             # disk with no params after a crash, and nothing below X would
@@ -571,6 +595,8 @@ class BestTracker:
                 f.flush()
                 os.fsync(f.fileno())
             os.replace(tmp, self.meta)
+        if self.dir and mesh is not None and mesh.size("data") > 1:
+            barrier("best-model")  # the readers load what the writer wrote
         return True
 
     def best_params(self, like: Mapping):

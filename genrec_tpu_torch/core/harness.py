@@ -13,7 +13,22 @@ the norm of the whole model's gradient and the non-finite guard decides
 the same on every rank. A sharded parameter whose rows other ranks hold
 too (KV heads that tp does not divide) carries ``tp_row_weight``, 1 /
 holders a row: its rows' square sums are weighted so that each counts
-once over the group.
+once over the group. A parameter sharded over another group than the
+step's (the expert stacks of tensor x expert parallelism) names it in
+``tp_group``.
+
+Under data parallelism (``data_group``) each rank holds the replicated
+state and its rows of the global batch. Every microbatch's forward runs
+inside ``parallel.mesh.data_parallel``, so that the losses divide by the
+global batch's counts (``parallel.mesh.global_count``) and random draws
+cover the global batch: each rank's loss is its share of the global
+mean, and each aux metric its share of the metric's global value (a
+count over its rows, a ``global_mean``, or ``data_share`` of a value that
+every rank computes alike). After accumulation the gradients, the loss
+and the metrics are summed over the data group in one flattened
+all-reduce per dtype, so that the clip's norm and the non-finite guard
+read the same values on every rank, and the step equals the one-rank
+step on the global batch up to the sums' order.
 """
 
 from __future__ import annotations
@@ -24,30 +39,51 @@ import torch
 
 from genrec_tpu_torch.core.optim import Adam
 from genrec_tpu_torch.core.state import TrainState
+from genrec_tpu_torch.parallel.mesh import data_parallel
 
 # loss_fn(model, batch, generator) -> (loss, aux_metrics_dict)
 LossFn = Callable[[Any, dict, torch.Generator], tuple[torch.Tensor, dict]]
 
 
-def global_norm(grads: list[torch.Tensor], sharded: list[bool] | None = None,
+def global_norm(grads: list[torch.Tensor], sharded: list | None = None,
                 group=None, row_weights: list | None = None) -> torch.Tensor:
     """sqrt of the sum of squares of every gradient (optax.global_norm).
     With ``group``, the gradients flagged in ``sharded`` are this rank's
-    shards: their square sum is summed over the group (one all-reduce).
-    ``row_weights[i]`` (None or a tensor over gradient i's rows) weights
-    each row's square sum."""
+    shards: their square sum is summed over the group (one all-reduce);
+    a flag may instead be the group that a gradient is sharded over (one
+    all-reduce per distinct group). ``row_weights[i]`` (None or a tensor
+    over gradient i's rows) weights each row's square sum."""
     norms = torch.stack(torch._foreach_norm(grads))
-    if group is None or not any(sharded):
+    owner = [None if f is None or f is False else (group if f is True else f)
+             for f in (sharded or [None] * len(grads))]
+    if all(o is None for o in owner):
         return torch.linalg.vector_norm(norms)
-    flag = torch.tensor(sharded, device=norms.device)
     sq = norms.square()
     if row_weights is not None and any(w is not None for w in row_weights):
         sq = torch.stack([
             s if w is None else (g.to(torch.float32).reshape(g.shape[0], -1).square().sum(1)
                                  * w).sum()
             for s, g, w in zip(sq, grads, row_weights)])
-    whole = torch.where(flag, 0.0, sq).sum() + group.all_reduce(torch.where(flag, sq, 0.0).sum())
+    whole = torch.where(torch.tensor([o is None for o in owner], device=sq.device),
+                        sq, 0.0).sum()
+    for g in {id(o): o for o in owner if o is not None}.values():
+        mine = torch.tensor([o is g for o in owner], device=sq.device)
+        whole = whole + g.all_reduce(torch.where(mine, sq, 0.0).sum())
     return whole.sqrt()
+
+
+def allreduce_flat(tensors: list[torch.Tensor], group) -> list[torch.Tensor]:
+    """Sum ``tensors`` over ``group``: one flattened all-reduce per dtype,
+    in the order of first appearance."""
+    out: list = [None] * len(tensors)
+    by_dtype: dict = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = group.all_reduce(torch.cat([tensors[i].reshape(-1) for i in idx]))
+        for i, part in zip(idx, flat.split([tensors[i].numel() for i in idx])):
+            out[i] = part.view_as(tensors[i])
+    return out
 
 
 def make_train_step(
@@ -56,6 +92,7 @@ def make_train_step(
     accum_steps: int = 1,
     clip_norm: float | None = 1.0,
     group=None,
+    data_group=None,
 ):
     """Build ``step(state, batch) -> (state, metrics)``.
 
@@ -74,7 +111,8 @@ def make_train_step(
     """
 
     def grads_of(model, params, batch, gen):
-        loss, aux = loss_fn(model, batch, gen)
+        with data_parallel(data_group, next(iter(batch.values())).shape[0]):
+            loss, aux = loss_fn(model, batch, gen)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
@@ -98,7 +136,15 @@ def make_train_step(
             grads = torch._foreach_div(grads, accum_steps)
             aux = {k: v / accum_steps for k, v in aux.items()}
 
-        gnorm = global_norm(grads, [getattr(p, "tp_sharded", False) for p in params], group,
+        if data_group is not None and data_group.size > 1:
+            keys = sorted(aux)
+            summed = allreduce_flat([*grads, loss.reshape(1).to(torch.float32),
+                                     *(aux[k].reshape(1).to(torch.float32) for k in keys)],
+                                    data_group)
+            grads, loss = summed[:len(grads)], summed[len(grads)][0].to(loss.dtype)
+            aux = {k: v[0] for k, v in zip(keys, summed[len(grads) + 1:])}
+        gnorm = global_norm(grads, [getattr(p, "tp_group", None) or getattr(p, "tp_sharded", False)
+                                    for p in params], group,
                             [getattr(p, "tp_row_weight", None) for p in params])
         if clip_norm is not None:
             scale = torch.clamp(clip_norm / gnorm.clamp_min(1e-6), max=1.0)

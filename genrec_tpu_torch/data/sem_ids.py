@@ -1,6 +1,6 @@
 """Portable semantic-ID artifact: the RQ-VAE -> downstream interface
-(copy of genrec_tpu/data/sem_ids.py, numpy only; a file written by either
-package loads in the other).
+(copy of genrec_tpu/data/sem_ids.py, numpy arrays on disk; a file written by
+either package loads in the other).
 
 The reference couples stages by loading a full RQ-VAE torch checkpoint
 inside every downstream Dataset constructor (amazon.py:296-313,
@@ -15,9 +15,16 @@ import os
 
 import numpy as np
 
+from genrec_tpu_torch.parallel.mesh import joined_mesh
+
 
 def save_sem_ids(path: str, sem_ids: np.ndarray, codebook_size: int) -> None:
-    """sem_ids: (num_items, sem_id_dim) int array, row i = item id i+1."""
+    """sem_ids: (num_items, sem_id_dim) int array, row i = item id i+1.
+    Under a data axis only data rank 0 writes (every rank holds the same
+    ids); the other ranks return."""
+    mesh = joined_mesh()
+    if mesh is not None and not mesh.writer:
+        return
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     np.savez_compressed(
         path,

@@ -68,6 +68,7 @@ from genrec_tpu_torch.kernels.build import (
     load_library,
     raise_on_error,
 )
+from genrec_tpu_torch.parallel.mesh import global_count
 
 MAX_DIM = 2048
 FUSED_DIM = 64  # the bf16 backward's fused kernels take d up to here (kFusedDim)
@@ -322,12 +323,14 @@ def fused_linear_ce(x, w, targets, ignore_index: int = 0):
 def fused_ce_mean_loss(x, head_weights, targets, ignore_index: int = 0):
     """Mean fused CE over valid (non-ignored) positions, the reference
     trainers' ``sum / max(valid, 1)``. x (..., d); targets (...) matching
-    x's leading shape; head logits = x @ head_weights.T."""
+    x's leading shape; head logits = x @ head_weights.T. In a
+    data-parallel step the count is the global batch's
+    (``parallel.mesh.global_count``): B3/B4's ``g`` is 1 / global count."""
     d = x.shape[-1]
     per_row = fused_linear_ce(x.reshape(-1, d), head_weights, targets.reshape(-1),
                               ignore_index)
     valid = (targets.reshape(-1) != ignore_index).to(torch.float32)
-    return per_row.sum() / valid.sum().clamp_min(1.0)
+    return per_row.sum() / global_count(valid.sum()).clamp_min(1.0)
 
 
 # ---- B8: the vocab-sharded composition --------------------------------------

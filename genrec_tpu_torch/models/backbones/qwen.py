@@ -43,6 +43,7 @@ from torch import nn
 
 from genrec_tpu_torch.device import resolve_device
 from genrec_tpu_torch.models.layers import RMSNorm
+from genrec_tpu_torch.parallel.mesh import data_share, data_sum, global_rows, step_data_group
 from genrec_tpu_torch.parallel.shardings import (
     ColumnParallelLinear,
     RowParallelLinear,
@@ -277,6 +278,8 @@ class QwenMoEMLP(nn.Module):
         self.down_proj = nn.Parameter(torch.zeros((self.local, F_, D), device=device))
         for p in (self.gate_proj, self.up_proj, self.down_proj):
             p.tp_sharded = ep > 1
+            if ep > 1:
+                p.tp_group = expert_group  # beside a model axis, for the clip's norm
         self.dropped = None
 
     def forward(self, x, token_mask=None):
@@ -294,14 +297,28 @@ class QwenMoEMLP(nn.Module):
         valid = (torch.ones(S, dtype=torch.int64, device=x.device) if token_mask is None
                  else token_mask.reshape(S).to(torch.int64))
 
-        C = max(1, int(-(-S // E) * cfg.moe_capacity_factor))
+        dgroup = step_data_group()
+        S_all = S if dgroup is None else global_rows() * L
+        C = max(1, int(-(-S_all // E) * cfg.moe_capacity_factor))
         onehot = F.one_hot(eidx, E) * valid[:, None, None]  # (S, K, E)
         flat = onehot.transpose(0, 1).reshape(K * S, E)
         pos = (torch.cumsum(flat, dim=0) * flat - 1).reshape(K, S, E).transpose(0, 1)
+        # The global batch's slot order: a rank-k choice follows every rank-k'
+        # < k choice of all data ranks and the rank-k choices of the data
+        # ranks before this one (one all-gather of K x E ints under data
+        # parallelism; the shift is 0 on one rank).
+        mine_ke = onehot.sum(0)  # (K, E)
+        every = (mine_ke[None] if dgroup is None
+                 else dgroup.all_gather(mine_ke.reshape(1, K * E), dim=0).reshape(-1, K, E))
+        tot = every.sum(0)
+        below = torch.cumsum(tot, 0) - tot  # all ranks' lower levels
+        rank = 0 if dgroup is None else dgroup.rank
+        shift = below + every[:rank].sum(0) - (torch.cumsum(mine_ke, 0) - mine_ke)
+        pos = pos + shift[None] * onehot
         slot = (pos * onehot).sum(-1)  # (S, K)
         keep = (slot >= 0) & (slot < C) & (valid[:, None] > 0)
-        n_valid = (valid.sum() * K).clamp_min(1)
-        self.dropped = (((valid[:, None] > 0) & ~keep).sum() / n_valid).detach()
+        kept = torch.minimum((C - below).clamp_min(0), tot).sum()
+        self.dropped = ((tot.sum() - kept) / tot.sum().clamp_min(1)).detach()
 
         # This rank's experts: flat local slot ids (e - e0) C + slot, -1 where
         # the choice was dropped or lands on another rank's expert.
@@ -323,10 +340,13 @@ class QwenMoEMLP(nn.Module):
         y = reduce_from_tp(_Combine.apply(out, g_in, slot_of, owner), self.group)
 
         vf = valid.to(torch.float32)
-        nv = vf.sum().clamp_min(1.0)
         top1 = F.one_hot(eidx[:, 0], E).to(torch.float32) * vf[:, None]
-        aux = E * torch.sum((probs * vf[:, None]).sum(0) / nv * (top1.sum(0) / nv))
-        return y.reshape(B, L, D), cfg.router_aux_coef * aux
+        # Both means over the global batch's valid tokens (their sums in one
+        # all-reduce under data parallelism).
+        sums = data_sum(torch.cat([(probs * vf[:, None]).sum(0), top1.sum(0), vf.sum()[None]]))
+        nv = sums[-1].clamp_min(1.0)
+        aux = E * torch.sum(sums[:E] / nv * (sums[E:2 * E] / nv))
+        return y.reshape(B, L, D), cfg.router_aux_coef * data_share(aux)
 
 
 def collect_moe_aux(moe_aux: list) -> torch.Tensor | float:
@@ -354,11 +374,13 @@ class QwenBlock(nn.Module):
         h = copy_to_tp(self.input_layernorm(x).to(self.dtype), self.group)
         h, new_cache = self.self_attn(h, positions, attn_bias, cache)
         x = x + h
-        h = copy_to_tp(self.post_attention_layernorm(x).to(self.dtype), self.group)
+        h = self.post_attention_layernorm(x).to(self.dtype)
         if hasattr(self, "moe"):
+            # The MoE is replicated over the model axis (its experts split
+            # over the expert axis): its input gradient is not summed there.
             y, aux = self.moe(h, token_mask)
             return x + y, new_cache, aux
-        return x + self.mlp(h), new_cache, None
+        return x + self.mlp(copy_to_tp(h, self.group)), new_cache, None
 
 
 class QwenLM(nn.Module):

@@ -71,6 +71,8 @@ from genrec_tpu_torch.ops.spec_tree import (
     tree_virtual_cache,
 )
 from genrec_tpu_torch.ops.trie import advance_ragged, legal_mask_ragged, legal_topk_ragged
+from genrec_tpu_torch.parallel.mesh import (data_gather, data_share, data_sum, global_count,
+                                             step_row_offset)
 
 NEG = -1e9
 _NEG_SIM = -1e4
@@ -580,7 +582,7 @@ class Cobra(nn.Module):
             if all_valid is None:
                 all_valid = valid
             ce, _ = cross_entropy_with_ignore(logits, target, ignore_index=self.pad_id)
-            loss_sparse = loss_sparse + ce.sum() / valid.sum().clamp_min(1)
+            loss_sparse = loss_sparse + ce.sum() / global_count(valid.sum()).clamp_min(1)
             hit = logits.argmax(dim=-1) == target
             total_correct = total_correct + (hit & valid).sum()
             total_tokens = total_tokens + valid.sum()
@@ -590,35 +592,44 @@ class Cobra(nn.Module):
         recall_total = all_valid.sum()
 
         # Dense in-batch InfoNCE, where-masked: a row's other positions in
-        # the same sequence and invalid columns are not negatives.
+        # the same sequence and invalid columns are not negatives. In a
+        # data-parallel step the columns are the global batch's (vg is
+        # stop-gradient: gathered without a backward) and this rank's rows
+        # score against all of them.
         vec_pred = h[:, items * (C + 1) + (C - 1), :]
         vec_gt = vecs[:, 1:, :].detach()
         Q = B * (T - 1)
         valid_dense = seq_mask[:, (C + 1)::(C + 1)].reshape(Q)
         vp = l2norm(vec_pred.reshape(Q, -1).to(torch.float32))
-        vg = l2norm(vec_gt.reshape(Q, -1).to(torch.float32))
-        seq_ids = torch.arange(B, device=dev).repeat_interleave(T - 1)
-        eye = torch.eye(Q, dtype=torch.bool, device=dev)
-        same_seq = (seq_ids[None, :] == seq_ids[:, None]) & ~eye
+        vg = data_gather(l2norm(vec_gt.reshape(Q, -1).to(torch.float32)))
+        first = step_row_offset()  # this rank's first sequence of the global batch
+        seq_ids = first + torch.arange(B, device=dev).repeat_interleave(T - 1)
+        col_seq, col_valid = data_gather(seq_ids), data_gather(valid_dense.to(torch.int32)) > 0
+        rows = torch.arange(Q, device=dev)
+        diag = first * (T - 1) + rows  # each row's own column
+        eye = torch.zeros((Q, vg.shape[0]), dtype=torch.bool, device=dev)
+        eye[rows, diag] = True
+        same_seq = (col_seq[None, :] == seq_ids[:, None]) & ~eye
         sim = (vp @ vg.T) / self.temperature
         sim = sim.masked_fill(same_seq, _NEG_SIM)
-        sim = sim.masked_fill(~valid_dense[None, :] & ~eye, _NEG_SIM)
+        sim = sim.masked_fill(~col_valid[None, :] & ~eye, _NEG_SIM)
         vd = valid_dense.to(torch.float32)
-        dense_ce = (torch.logsumexp(sim, dim=-1) - torch.diagonal(sim)) * vd
-        loss_dense = dense_ce.sum() / vd.sum().clamp_min(1)
-        vec_cos_sim = ((vp * vg).sum(dim=-1) * vd).sum() / vd.sum().clamp_min(1)
+        dense_ce = (torch.logsumexp(sim, dim=-1) - sim[rows, diag]) * vd
+        loss_dense = dense_ce.sum() / global_count(vd.sum()).clamp_min(1)
+        vec_cos_sim = ((vp * vg[diag]).sum(dim=-1) * vd).sum() / vd.sum().clamp_min(1)
 
-        entropies = []
-        for c in range(C):
-            usage = torch.bincount(input_ids[:, c::C].reshape(-1).long(),
-                                   minlength=self.pad_id + 1).to(torch.float32)
-            prob = usage / usage.sum().clamp_min(1)
-            entropies.append(-(prob * torch.log(prob + 1e-12)).sum())
+        # Code usage over the global batch (one all-reduce in a data-parallel
+        # step): the entropy is the global batch's, each rank's its share.
+        usage = data_sum(torch.stack([
+            torch.bincount(input_ids[:, c::C].reshape(-1).long(),
+                           minlength=self.pad_id + 1).to(torch.float32) for c in range(C)]))
+        prob = usage / usage.sum(-1, keepdim=True).clamp_min(1)
+        entropies = -(prob * torch.log(prob + 1e-12)).sum(-1)
         return CobraOutput(
             loss=loss_sparse + loss_dense, loss_sparse=loss_sparse, loss_dense=loss_dense,
             acc_correct=total_correct, acc_total=total_tokens,
             recall_correct=recall_correct, recall_total=recall_total,
-            vec_cos_sim=vec_cos_sim, codebook_entropy=torch.stack(entropies).mean(),
+            vec_cos_sim=vec_cos_sim, codebook_entropy=data_share(entropies.mean()),
         )
 
     # ---- generation -------------------------------------------------------

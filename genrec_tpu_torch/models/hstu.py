@@ -31,6 +31,7 @@ from genrec_tpu_torch.kernels.fused_ce import fused_ce_mean_loss
 from genrec_tpu_torch.kernels.hstu_attention import hstu_attention, hstu_attention_ref
 from genrec_tpu_torch.models.layers import Dense, LayerNorm, dropout, truncated_normal
 from genrec_tpu_torch.ops.losses import cross_entropy_with_ignore
+from genrec_tpu_torch.parallel.mesh import global_count
 from genrec_tpu_torch.parallel.shardings import item_topk
 
 
@@ -184,7 +185,7 @@ class HSTU(nn.Module):
         loss = None
         if targets is not None:
             per_tok, valid = cross_entropy_with_ignore(logits, targets, ignore_index=0)
-            loss = per_tok.sum() / valid.sum().clamp_min(1.0)
+            loss = per_tok.sum() / global_count(valid.sum()).clamp_min(1.0)
         return logits, loss
 
     def last_hidden(self, input_ids, timestamps=None):

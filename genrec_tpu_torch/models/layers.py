@@ -12,6 +12,7 @@ from torch import nn
 
 from genrec_tpu_torch.device import resolve_device
 from genrec_tpu_torch.ops.normalize import l2norm
+from genrec_tpu_torch.parallel.mesh import draw_rows
 
 
 def truncated_normal(shape, stddev: float, gen: torch.Generator) -> torch.Tensor:
@@ -79,16 +80,20 @@ def dropout(x, rate: float, deterministic: bool, generator=None, shard=None):
     ``shard`` = (rank, tp): ``x`` is rank's block of a last axis tp times
     wider (a tensor-parallel hidden layer). The mask is drawn at the full
     width and this rank's block kept, so the generator advances and every
-    unit draws as it would at tp = 1."""
+    unit draws as it would at tp = 1. In a data-parallel step the mask is
+    drawn for the global batch and this rank's rows kept
+    (``parallel.mesh.draw_rows``): x's leading axis is its batch rows (or
+    a whole multiple of them)."""
     if deterministic or rate == 0.0:
         return x
     keep_prob = 1.0 - rate
     if shard is None:
-        keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+        keep = draw_rows(torch.rand, x.shape, generator=generator, device=x.device) < keep_prob
     else:
         rank, tp = shard
         n = x.shape[-1]
-        full = torch.rand((*x.shape[:-1], n * tp), generator=generator, device=x.device)
+        full = draw_rows(torch.rand, (*x.shape[:-1], n * tp), generator=generator,
+                         device=x.device)
         keep = full[..., rank * n:(rank + 1) * n] < keep_prob
     return torch.where(keep, x / keep_prob, 0.0)
 

@@ -37,6 +37,7 @@ import torch
 from genrec_tpu_torch.kernels.fused_ce import fused_ce_mean_loss, sharded_fused_linear_ce
 from genrec_tpu_torch.models.backbones.qwen import QwenConfig, QwenLM, collect_moe_aux
 from genrec_tpu_torch.ops.losses import cross_entropy_with_ignore, mask_vocab_logits
+from genrec_tpu_torch.parallel.mesh import global_count
 
 
 class LCRecGenerationOutput(NamedTuple):
@@ -101,7 +102,7 @@ def sft_loss(model: QwenLM, input_ids, attention_mask, labels, valid_vocab: int 
                                valid_vocab)
     per_tok, valid = cross_entropy_with_ignore(logits[:, :-1, :], labels[:, 1:],
                                                ignore_index=-100)
-    return per_tok.sum() / valid.sum().clamp_min(1.0) + collect_moe_aux(aux)
+    return per_tok.sum() / global_count(valid.sum()).clamp_min(1.0) + collect_moe_aux(aux)
 
 
 def make_tp_sharded_fused_sft_loss(model: QwenLM, valid_vocab: int):
@@ -127,7 +128,8 @@ def make_tp_sharded_fused_sft_loss(model: QwenLM, valid_vocab: int):
             h[:, :-1, :].reshape(-1, d), model.head_weight.to(model.dtype), t.reshape(-1),
             model.group, -100, valid_vocab)
         valid = (t.reshape(-1) != -100).to(torch.float32)
-        return per_row.sum() / valid.sum().clamp_min(1.0) + collect_moe_aux(aux)
+        return (per_row.sum() / global_count(valid.sum()).clamp_min(1.0)
+                + collect_moe_aux(aux))
 
     return loss_fn
 

@@ -25,6 +25,12 @@ from genrec_tpu_torch.models.backbones.qwen import QwenConfig, QwenLM
 from genrec_tpu_torch.models.lcrec import _positions, _top_k, extend_vocab
 from genrec_tpu_torch.ops.losses import cross_entropy_with_ignore
 from genrec_tpu_torch.ops.normalize import l2norm
+from genrec_tpu_torch.parallel.mesh import (
+    data_gather,
+    global_count,
+    global_mean,
+    step_row_offset,
+)
 
 
 class Query2EmbeddingOutput(NamedTuple):
@@ -73,29 +79,36 @@ def query2embedding_forward(model: QwenLM, input_ids, attention_mask, emb_token_
     if not return_loss:
         return Query2EmbeddingOutput(sent, None, None, None)
 
-    q, p = sent[::2], sent[1::2]
-    sim = q @ p.T  # (B/2, B/2), already normalised
+    # In a data-parallel step this rank's queries score against every
+    # rank's positives (gathered with a backward that sums their gradient
+    # over the data group): the InfoNCE of the global batch, whose pairs
+    # lie whole on one rank.
+    q, p = sent[::2], data_gather(sent[1::2], grad=True)
+    n = q.shape[0]
+    rows = torch.arange(n, device=sent.device)
+    diag = step_row_offset() + rows  # each query's own positive
+    sim = q @ p.T  # (B/2, global pairs), already normalised
     scaled = sim * torch.exp(tau)
     if pair_groups is not None:
-        n = pair_groups.shape[0]
-        dup = ((pair_groups[:, None] == pair_groups[None, :])
-               & ~torch.eye(n, dtype=torch.bool, device=sim.device))
+        eye = torch.zeros(sim.shape, dtype=torch.bool, device=sim.device)
+        eye[rows, diag] = True
+        dup = (pair_groups[:, None] == data_gather(pair_groups)[None, :]) & ~eye
         scaled = torch.where(dup, -1e9, scaled)
-    neg_logp = torch.logsumexp(scaled, dim=1) - torch.diagonal(scaled)
+    neg_logp = torch.logsumexp(scaled, dim=1) - scaled[rows, diag]
     if hardneg is not None:
         # Hard negatives: their CE term becomes the down-weighted
         # mean-similarity penalty log(mean sim + 1) r.
         hard_term = torch.log(sim.mean(dim=1) + 1.0) * hardneg_r
-        cl_loss = torch.where(hardneg, hard_term, neg_logp).mean()
+        cl_loss = global_mean(torch.where(hardneg, hard_term, neg_logp))
     else:
-        cl_loss = neg_logp.mean()
+        cl_loss = global_mean(neg_logp)
 
     gen_loss = None
     loss = cl_loss
     if labels is not None:
         per_tok, valid = cross_entropy_with_ignore(logits[:, :-1, :], labels[:, 1:],
                                                    ignore_index=-100)
-        n_valid = valid.sum()
+        n_valid = global_count(valid.sum())
         gen_loss = per_tok.sum() / n_valid.clamp_min(1.0)
         # Fully-masked labels fall back to the pure contrastive loss, not
         # cl_loss / (1 + alpha).

@@ -37,6 +37,8 @@ from genrec_tpu_torch.ops.losses import (
     reconstruction_loss,
 )
 from genrec_tpu_torch.ops.normalize import l2norm
+from genrec_tpu_torch.parallel.mesh import (data_gather, data_share, global_mean,
+                                             step_row_offset)
 
 
 @configlib.register_enum
@@ -181,10 +183,16 @@ class Quantize(nn.Module):
             )
         elif mode == QuantizeForwardMode.SINKHORN:
             # Cost normalised to [-1, 1] by the batch's global max and min.
-            max_d, min_d = dist.max(), dist.min()
+            # In a data-parallel step the plan balances the global batch:
+            # every rank gathers the cost's rows (one all-gather; the plan is
+            # stop-gradient), runs the transport on all of them, as one rank
+            # does, and keeps its own rows' plan.
+            cost = data_gather(dist.detach())
+            max_d, min_d = cost.max(), cost.min()
             mid = (max_d + min_d) / 2
             amp = max_d - mid + 1e-5
-            P = sinkhorn_knopp((dist - mid) / amp).detach()
+            first = step_row_offset()
+            P = sinkhorn_knopp((cost - mid) / amp)[first:first + dist.shape[0]].detach()
             ids = torch.argmax(P, dim=-1)  # first occurrence, as jnp.argmax
             emb = codebook[ids]
             emb_out = x + (emb - x).detach()
@@ -287,11 +295,12 @@ class RqVae(nn.Module):
             recon = reconstruction_loss(x_hat, x)
         rqvae_l = quantized.quantize_loss
         return RqVaeComputedLosses(
-            loss=(recon + rqvae_l).mean(),
-            reconstruction_loss=recon.mean(),
-            rqvae_loss=rqvae_l.mean(),
+            loss=global_mean(recon + rqvae_l),
+            reconstruction_loss=global_mean(recon),
+            rqvae_loss=global_mean(rqvae_l),
             embs_norm=torch.linalg.vector_norm(quantized.embeddings, dim=-1).T.detach(),
-            p_unique_ids=count_distinct_fraction(quantized.sem_ids).detach(),
+            p_unique_ids=data_share(count_distinct_fraction(
+                data_gather(quantized.sem_ids)).detach()),
         )
 
 

@@ -59,6 +59,7 @@ from genrec_tpu_torch.ops.paged import write_pages
 from genrec_tpu_torch.ops.quant import KV_DTYPES, QuantizedKVPool
 from genrec_tpu_torch.ops.spec_tree import commit_level_kv, match_drafted, tree_topology
 from genrec_tpu_torch.ops.trie import advance_ragged, legal_mask_ragged, legal_topk_ragged
+from genrec_tpu_torch.parallel.mesh import global_count, global_mean
 from genrec_tpu_torch.parallel.shardings import (
     copy_to_tp,
     gather_from_tp,
@@ -262,7 +263,7 @@ class Tiger(nn.Module):
         loss = None
         if target_input_ids is not None and target_input_ids.shape[1] == self.sem_id_dim:
             per_tok = self._token_loss(logits, target_input_ids, target_token_type_ids)
-            loss = per_tok.sum(dim=1).mean()
+            loss = global_mean(per_tok.sum(dim=1))
         return TigerOutput(logits=logits, loss=loss)
 
     def forward_packed(self, item_input_ids, token_type_ids, user_token_ids, user_mask,
@@ -308,7 +309,7 @@ class Tiger(nn.Module):
         logits = self._mask_pad_logits(self._head(out))
         seq_loss = self._token_loss(logits, tgt_flat, tgt_types).sum(dim=1).reshape(R, S)
         valid = segment_valid.to(torch.float32)
-        loss = (seq_loss * valid).sum() / valid.sum().clamp_min(1.0)
+        loss = (seq_loss * valid).sum() / global_count(valid.sum()).clamp_min(1.0)
         return TigerPackedOutput(per_example_loss=seq_loss, loss=loss,
                                  real_tokens=(segment_ids != 0).sum())
 

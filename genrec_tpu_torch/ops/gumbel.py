@@ -10,13 +10,17 @@ from __future__ import annotations
 
 import torch
 
+from genrec_tpu_torch.parallel.mesh import draw_rows
+
 
 def sample_gumbel(shape, generator: torch.Generator | None = None, eps: float = 1e-20,
                   dtype=torch.float32, device=None, uniform: torch.Tensor | None = None):
     """-log(-log(u + eps) + eps) for u ~ U[0, 1) drawn from ``generator``
-    (or the given ``uniform``)."""
+    (or the given ``uniform``); in a data-parallel step drawn for the
+    global batch, this rank's rows kept (``parallel.mesh.draw_rows``)."""
     if uniform is None:
-        uniform = torch.rand(shape, generator=generator, dtype=dtype, device=device)
+        uniform = draw_rows(torch.rand, shape, generator=generator, dtype=dtype,
+                            device=device)
     return -torch.log(-torch.log(uniform + eps) + eps)
 
 

@@ -814,6 +814,9 @@ class ServingEngine:
         self._queues = {name: collections.deque() for name in self._heads}
         self._pending_params = None  # (tree, step), applied by the batcher
         self._pending_catalog: dict = {}  # head name -> staged CatalogSnapshot
+        # Head name -> the snapshot the batcher is swapping in: staged until
+        # its set_catalog has returned.
+        self._swapping: dict = {}
         # Serialises stage_catalog callers; the batcher never takes it.
         self._stage_lock = threading.Lock()
         # Held while the models' weights are read off the batcher (a
@@ -1380,11 +1383,13 @@ class ServingEngine:
             raise ValueError(f"head {head_name!r} has no swappable catalog")
         head.validate_snapshot(snapshot)
         with self._stage_lock:
-            if snapshot.version == head.catalog_version:
-                return False
             with self._lock:
-                staged = self._pending_catalog.get(head_name)
-            if staged is not None and staged.version == snapshot.version:
+                busy = (self._pending_catalog.get(head_name), self._swapping.get(head_name))
+            # The live version is read after the staged ones: the batcher
+            # sets it before a swap leaves ``_swapping``, so one of the two
+            # reads sees the snapshot while its swap is in flight.
+            if (any(s is not None and s.version == snapshot.version for s in busy)
+                    or snapshot.version == head.catalog_version):
                 return False
             t0 = time.monotonic()
             with self._params_lock, torch.no_grad():
@@ -1417,12 +1422,17 @@ class ServingEngine:
             return True  # the barrier: drain the decode slots first
         with self._lock:
             pending, self._pending_catalog = self._pending_catalog, {}
+            self._swapping.update(pending)
         for name, snapshot in pending.items():
             head = self._heads[name]
             runner = self._runners.get(name)
             if runner is not None:
                 runner.clear_prefix_cache("catalog_swap")
-            head.set_catalog(snapshot)
+            try:
+                head.set_catalog(snapshot)
+            finally:
+                with self._lock:
+                    self._swapping.pop(name, None)
             self.metrics.record_catalog_swap()
             self._ledger_head(head)
             self._flight.record("catalog_swapped", head=name, version=snapshot.version)

@@ -30,7 +30,11 @@ text takes the sentence-T5 tokenizer by its hub name: it loads where that
 tokenizer is cached locally (``transformers`` is imported only there).
 
 Runs on one device, ``device="cuda"`` by default (it raises without a
-card unless given ``device="cpu"``). Not ported yet: wandb forwarding.
+card unless given ``device="cpu"``), or data-parallel over the ranks of
+``torchrun --nproc_per_node N``: each rank keeps its rows of the global
+``batch_size``, and the dense InfoNCE scores them against the whole
+batch's item vectors (``models.cobra``). Not ported yet: wandb
+forwarding.
 """
 
 from __future__ import annotations
@@ -48,12 +52,13 @@ from genrec_tpu_torch.core.optim import Adam
 from genrec_tpu_torch.core.preemption import PreemptionGuard
 from genrec_tpu_torch.core.profiling import ProfileWindow
 from genrec_tpu_torch.core.state import TrainState
-from genrec_tpu_torch.data.batching import batch_iterator, prefetch_to_device
 from genrec_tpu_torch.data.cobra_seq import amazon_cobra_data, synthetic_cobra_data
 from genrec_tpu_torch.device import resolve_device
 from genrec_tpu_torch.models.cobra import Cobra, beam_fusion
 from genrec_tpu_torch.ops.metrics import TopKAccumulator
 from genrec_tpu_torch.ops.schedules import cosine_schedule_with_warmup
+from genrec_tpu_torch.parallel.mesh import distributed_init, global_count, metric_allreduce
+from genrec_tpu_torch.trainers.evaluation import eval_batches
 from genrec_tpu_torch.trainers.packed_loop import PackedTrainLoop
 
 
@@ -80,23 +85,27 @@ def make_fusion_fn(model, item_sem_ids, n_candidates, n_beam, alpha):
     return fuse
 
 
-def evaluate(fusion_fn, arrays, item_vecs, batch_size, device, C: int) -> dict:
+def evaluate(fusion_fn, arrays, item_vecs, batch_size, device, C: int,
+             data_group=None) -> dict:
     """Recall/NDCG@1/5/10 of the fused candidates' sem-ids against the
     targets, and ``codebook_acc_<c>``: the top candidate's code c equal to
-    the target's (the padded last batch's rows left out)."""
+    the target's (the padded last batch's rows left out). With a
+    ``data_group`` each rank takes its rows of every batch and the sums
+    are added over the group (JAX ``metric_allreduce``)."""
     acc = TopKAccumulator(ks=(1, 5, 10))
     cb_correct = np.zeros(C)
     cb_total = 0
-    for batch, valid in prefetch_to_device(batch_iterator(arrays, batch_size), device):
+    for batch, valid, _ in eval_batches(arrays, batch_size, data_group, device):
         out = fusion_fn(batch, item_vecs)
-        n = int(valid.sum())
-        topk = out.sem_ids[:n]
-        target = batch["target_sem_ids"][:n]
+        topk = out.sem_ids[valid]
+        target = batch["target_sem_ids"][valid]
         acc.accumulate(target, topk)
         cb_correct += (topk[:, 0, :] == target).sum(dim=0).cpu().numpy()
-        cb_total += n
-    metrics = acc.reduce()
-    metrics.update({f"codebook_acc_{c}": cb_correct[c] / max(cb_total, 1) for c in range(C)})
+        cb_total += int(valid.sum())
+    metrics = acc.reduce(data_group)
+    cb = metric_allreduce({"correct": list(cb_correct), "total": float(cb_total)}, data_group)
+    metrics.update({f"codebook_acc_{c}": cb["correct"][c] / max(cb["total"], 1)
+                    for c in range(C)})
     return metrics
 
 
@@ -113,7 +122,7 @@ def make_loss_fn(sparse_loss_weight: float = 1.0, dense_loss_weight: float = 1.0
         return loss, {
             "loss_sparse": out.loss_sparse,
             "loss_dense": out.loss_dense,
-            "acc": out.acc_correct / out.acc_total.clamp_min(1),
+            "acc": out.acc_correct / global_count(out.acc_total).clamp_min(1),
             "codebook_entropy": out.codebook_entropy,
         }
 
@@ -177,9 +186,12 @@ def train(
 ):
     """Train COBRA; returns (valid metrics, test metrics) of the best
     parameters by valid Recall@10 (``test_on_best``) or of the last."""
-    dev = resolve_device(device)
-    logger = setup_logger(save_dir_root)
-    tracker = Tracker(wandb_logging, wandb_project, save_dir=save_dir_root, logger=logger)
+    mesh = distributed_init(device)  # data-parallel over torchrun's ranks, if any
+    dev = mesh.device or resolve_device(device)
+    # Rank 0 writes the run's files; every rank logs to its own stdout.
+    logger = setup_logger(save_dir_root if mesh.lead else None)
+    tracker = Tracker(wandb_logging and mesh.lead, wandb_project,
+                      save_dir=save_dir_root if mesh.lead else None, logger=logger)
 
     if callable(dataset):
         data = dataset()
@@ -214,7 +226,7 @@ def train(
     optimizer = Adam(cosine_schedule_with_warmup(learning_rate, num_warmup_steps, total_steps),
                      weight_decay=weight_decay)
     step_fn = make_train_step(make_loss_fn(sparse_loss_weight, dense_loss_weight), optimizer,
-                              clip_norm=1.0)
+                              clip_norm=1.0, data_group=mesh.data)
     state = TrainState.create(model, optimizer, seed)
     # The reference's eval: 10 candidates of n_beam beams, clamped for
     # small-beam runs.
@@ -227,11 +239,12 @@ def train(
         logger=logger, tracker=tracker, device=dev, prof=prof, guard=PreemptionGuard(logger),
         ckpt=ckpt, rows_per_step=batch_size, row_len=(max_items + 1) * n_codebooks, seed=seed,
         pack_sequences=False, train_arrays=train_arrays, wandb_log_interval=wandb_log_interval,
-        save_dir_root=save_dir_root, step_log=step_log,
+        save_dir_root=save_dir_root, step_log=step_log, data_group=mesh.data,
     )
 
     def run_eval(arrays, item_vecs):
-        return evaluate(fusion_fn, arrays, item_vecs, eval_batch_size, dev, n_codebooks)
+        return evaluate(fusion_fn, arrays, item_vecs, eval_batch_size, dev, n_codebooks,
+                        mesh.data)
 
     start_epoch, start_batch, global_step = 0, 0, 0
     if resume_from_checkpoint:
@@ -268,7 +281,7 @@ def train(
     test_metrics = run_eval(test_arrays, item_vecs)
     logger.info("test " + ", ".join(f"{k}={v:.4f}" for k, v in test_metrics.items()))
     tracker.log({f"test/{k}": v for k, v in test_metrics.items()})
-    if save_dir_root and best.value < 0:  # no eval ran: snapshot the final params
+    if save_dir_root and best.value < 0:  # no eval ran: the final params
         save_params(os.path.join(save_dir_root, "best_model"), model.state_dict())
     loop.shutdown()
     return valid_metrics, test_metrics

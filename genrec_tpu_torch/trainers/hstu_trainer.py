@@ -22,7 +22,10 @@ under torch.profiler in ``<save_dir_root>/profile``.
 timestamps; the ``num_items`` binding is then ignored, as in JAX).
 
 Runs on one device, ``device="cuda"`` by default (it raises without a
-card unless given ``device="cpu"``). Not ported yet: wandb forwarding.
+card unless given ``device="cpu"``), or data-parallel over the ranks of
+``torchrun --nproc_per_node N`` (`parallel.mesh.distributed_init`): each
+rank keeps its rows of the global ``batch_size`` and the step equals the
+one-rank step on the global batch. Not ported yet: wandb forwarding.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from genrec_tpu_torch.data.batching import pack_examples
 from genrec_tpu_torch.data.synthetic import SyntheticSeqDataset
 from genrec_tpu_torch.device import resolve_device
 from genrec_tpu_torch.models.hstu import HSTU
+from genrec_tpu_torch.parallel.mesh import distributed_init
 from genrec_tpu_torch.trainers.evaluation import evaluate, topk_sums
 from genrec_tpu_torch.trainers.packed_loop import PackedTrainLoop
 
@@ -118,9 +122,12 @@ def train(
 ):
     """Train HSTU; returns (valid metrics, test metrics) of the best
     parameters (by valid Recall@10), as the JAX trainer does."""
-    dev = resolve_device(device)
-    logger = setup_logger(save_dir_root)
-    tracker = Tracker(wandb_logging, wandb_project, save_dir=save_dir_root, logger=logger)
+    mesh = distributed_init(device)
+    dev = mesh.device or resolve_device(device)
+    # Rank 0 writes the run's files; every rank logs to its own stdout.
+    logger = setup_logger(save_dir_root if mesh.lead else None)
+    tracker = Tracker(wandb_logging and mesh.lead, wandb_project,
+                      save_dir=save_dir_root if mesh.lead else None, logger=logger)
 
     if dataset == "synthetic":
         ds = SyntheticSeqDataset(max_seq_len=max_seq_len, seed=seed)
@@ -164,7 +171,7 @@ def train(
         dtype=compute_dtype, device=dev, seed=seed,
     )
     optimizer = Adam(learning_rate, b2=0.98, weight_decay=weight_decay)
-    step_fn = make_train_step(make_loss_fn(), optimizer, clip_norm=None)
+    step_fn = make_train_step(make_loss_fn(), optimizer, clip_norm=None, data_group=mesh.data)
     state = TrainState.create(model, optimizer, seed)
     eval_step = make_eval_step(model)
     ckpt = CheckpointManager(os.path.join(save_dir_root, "checkpoints")) if save_dir_root else None
@@ -176,6 +183,7 @@ def train(
         ckpt=ckpt, rows_per_step=batch_size, row_len=max_seq_len, seed=seed,
         pack_sequences=pack_sequences, repack=repack, train_arrays=train_arrays,
         wandb_log_interval=wandb_log_interval, save_dir_root=save_dir_root,
+        data_group=mesh.data,
     )
     start_epoch, start_batch, global_step = 0, 0, 0
     if resume_from_checkpoint:
@@ -194,7 +202,7 @@ def train(
             # Epoch-boundary resume point: cursor = (next epoch, batch 0).
             loop.save(state, epoch=epoch + 1, next_batch=0, global_step=global_step)
         if do_eval and (epoch + 1) % eval_every_epoch == 0:
-            m = evaluate(eval_step, valid_arrays, eval_batch_size, dev)
+            m = evaluate(eval_step, valid_arrays, eval_batch_size, dev, mesh.data)
             logger.info(f"epoch {epoch} valid " + ", ".join(f"{k}={v:.4f}" for k, v in m.items()))
             tracker.log({"epoch": epoch, **{f"eval/{k}": v for k, v in m.items()}})
             best.update(m["Recall@10"], model.state_dict())
@@ -202,11 +210,11 @@ def train(
     best_params = best.best_params(like=model.state_dict())
     if best_params is not None:
         model.load_state_dict(best_params)
-    valid_metrics = evaluate(eval_step, valid_arrays, eval_batch_size, dev)
-    test_metrics = evaluate(eval_step, test_arrays, eval_batch_size, dev)
+    valid_metrics = evaluate(eval_step, valid_arrays, eval_batch_size, dev, mesh.data)
+    test_metrics = evaluate(eval_step, test_arrays, eval_batch_size, dev, mesh.data)
     logger.info("test " + ", ".join(f"{k}={v:.4f}" for k, v in test_metrics.items()))
     tracker.log({f"test/{k}": v for k, v in test_metrics.items()})
-    if save_dir_root and best.value < 0:  # no eval ran: snapshot the final params
+    if save_dir_root and best.value < 0:  # no eval ran: the final params
         save_params(os.path.join(save_dir_root, "best_model"), model.state_dict())
     loop.shutdown()
     return valid_metrics, test_metrics

@@ -4,6 +4,7 @@
         [--gin 'train.device="cpu"']
     torchrun --standalone --nproc_per_node=2 -m genrec_tpu_torch.trainers.lcrec_trainer \
         config/lcrec/synthetic.gin --gin 'train.tensor_parallel=2'
+    torchrun --standalone --nproc_per_node=4 ... --gin 'train.tensor_parallel=2'  # tp x dp
 
 The same config files drive both packages. Epoch loop, AdamW with a
 cosine schedule after a linear warm-up, global-norm clip 1.0, SFT with
@@ -12,11 +13,15 @@ accuracy, Recall/NDCG@{1,5,10}), plus the item2index and index2item
 evals. ``use_fused_ce`` keeps its JAX name; ``"auto"`` means True: the
 CUDA kernels on the card, their plain versions on the CPU.
 
-``tensor_parallel`` is 1 or the number of processes: one process per
-rank, launched by torchrun (or ``parallel.mesh.spawn``), each holding its
-shard of the backbone; the head's cross-entropy is then the vocab-sharded
-fused CE (B8). Every rank starts from the same full parameters, made
-from ``seed`` and sliced. Runs on ``device="cuda"`` by default (it raises
+The ranks of torchrun (or ``parallel.mesh.spawn``) form JAX's mesh
+``{"data": -1, "model": tensor_parallel, "expert": expert_parallel}``
+(the model axes present only above 1; row-major, so a model group is a
+run of consecutive ranks). Along ``model`` each rank holds its shard of
+the backbone and the head's cross-entropy is the vocab-sharded fused CE
+(B8) over the model group; along ``data`` each rank keeps its block of
+every global batch and the gradients are summed over the data group (the
+MoE's slot order and router loss over the global batch). Every rank
+starts from the same full parameters, made from ``seed`` and sliced. Runs on ``device="cuda"`` by default (it raises
 without a card unless given ``device="cpu"``); the ranks share ``cuda:0``
 when the host has fewer cards than ranks.
 
@@ -26,11 +31,12 @@ Fault tolerance as the JAX trainer's: resume points every
 with ``resume_from_checkpoint=True``; ``eval_only`` evaluates the newest
 valid checkpoint (`core.fault_tolerance.restore_for_eval`);
 ``profile_steps`` steps under torch.profiler in ``<save_dir_root>/profile``.
-Each rank keeps its own shard: its records under
-``<save_dir_root>/checkpoints/p<rank>`` (the ranks agree on the step they
-restore and, through the OR of their guards, on the step they save at
-when one is signalled), ``best_model.rank<r>`` and ``final_model.rank<r>``
-(``best_model`` and ``final_model`` at tensor_parallel=1).
+Each model shard keeps its own records under
+``<save_dir_root>/checkpoints/p<shard>``, written by its data rank 0 (the
+ranks agree on the step they restore and, through the OR of their guards,
+on the step they save at when one is signalled), ``best_model.rank<s>``
+and ``final_model.rank<s>`` (``best_model`` and ``final_model`` with one
+shard).
 
 ``dataset="amazon"`` reads the review and meta dumps under
 ``<dataset_folder>/raw/<split>/`` and the RQ-VAE's sem-id artifact
@@ -46,10 +52,12 @@ imported only when a ``pretrained_path`` is given.
 
 ``num_experts > 0`` makes the backbone's MLPs a routed mixture of
 experts (``models.backbones.qwen.QwenMoEMLP``; the SFT loss adds the
-router losses); ``expert_parallel`` is then 1 or the number of processes,
-each rank holding num_experts / expert_parallel experts of every layer and
-the rest of the model whole (tokens replicated; the head's fused CE runs
-whole on every rank).
+router losses); along an ``expert`` axis each rank holds
+num_experts / expert_parallel experts of every layer (tokens replicated
+over the axis); beside a ``model`` axis (tensor x expert parallelism, JAX
+``tp_ep_combo``) attention and the head are Megatron-sharded over the
+model group and the experts over the expert group, and without one the
+head's fused CE runs whole on every rank.
 
 ``use_lora`` trains rank-``lora_rank`` adapters on ``lora_targets``
 (`core.lora`) at tensor_parallel=1: the base stays frozen and is never
@@ -58,12 +66,10 @@ written (the step runs the loss under merged weights through
 ``best_model`` hold the adapters, ``final_model`` the merged parameters;
 the frozen head's fused CE launches no dW kernel. LoRA with
 ``tensor_parallel`` or ``expert_parallel`` > 1 raises ValueError, as in
-JAX.
+JAX ("run LoRA data-parallel", which it does).
 
 Not ported yet, each raising with its ROADMAP item: ``sequence_parallel``
-(A15), ``pipeline_parallel`` (A16), data parallelism beside tensor or
-expert parallelism and tensor x expert parallelism (A17). wandb forwarding
-logs a warning.
+(A15), ``pipeline_parallel`` (A16). wandb forwarding logs a warning.
 """
 
 from __future__ import annotations
@@ -90,7 +96,6 @@ from genrec_tpu_torch.core.optim import Adam
 from genrec_tpu_torch.core.preemption import PreemptionGuard
 from genrec_tpu_torch.core.profiling import ProfileWindow
 from genrec_tpu_torch.core.state import TrainState
-from genrec_tpu_torch.data.batching import batch_iterator
 from genrec_tpu_torch.data.lcrec_tasks import amazon_lcrec_data, synthetic_lcrec_data
 from genrec_tpu_torch.device import resolve_device
 from genrec_tpu_torch.models.backbones.qwen import (
@@ -108,8 +113,9 @@ from genrec_tpu_torch.models.lcrec import (
 )
 from genrec_tpu_torch.ops.metrics import TopKAccumulator
 from genrec_tpu_torch.ops.schedules import cosine_schedule_with_warmup
-from genrec_tpu_torch.parallel.mesh import distributed_init
+from genrec_tpu_torch.parallel.mesh import distributed_init, metric_allreduce
 from genrec_tpu_torch.parallel.shardings import shard_expert_params, shard_qwen_params
+from genrec_tpu_torch.trainers.evaluation import eval_batches
 from genrec_tpu_torch.trainers.packed_loop import PackedTrainLoop
 
 TORCHRUN = ("torchrun --standalone --nproc_per_node=2 -m genrec_tpu_torch.trainers."
@@ -131,56 +137,57 @@ def make_generate_fn(model, base_vocab, num_codebooks, codebook_size, beam_width
     return gen
 
 
-def evaluate_item2index(gen_fn, arrays, batch_size, device, num_codebooks):
+def evaluate_item2index(gen_fn, arrays, batch_size, device, num_codebooks, data_group=None):
     """Greedy constrained item -> index over the item set: exact-match and
-    per-codebook accuracy. Every tensor-parallel rank sees every batch, so
-    nothing is summed over ranks (JAX sums over data-parallel hosts)."""
+    per-codebook accuracy."""
     correct = np.zeros(num_codebooks)
     exact = total = 0
-    for host, valid in batch_iterator(arrays, batch_size):
+    for host, valid, _ in eval_batches(arrays, batch_size, data_group):
         top = gen_fn(_on(host, device)).cpu().numpy()
-        n = int(valid.sum())
-        pred, target = top[:n, 0, :], host["target_ids"][:n]
+        pred, target = top[valid, 0, :], host["target_ids"][valid]
         correct += (pred == target).sum(axis=0)
         exact += int((pred == target).all(axis=1).sum())
-        total += n
-    out = {"item2index_exact": exact / max(total, 1)}
-    out.update({f"item2index_c{c}": correct[c] / max(total, 1) for c in range(num_codebooks)})
+        total += int(valid.sum())
+    s = metric_allreduce({"correct": list(correct), "exact": float(exact),
+                          "total": float(total)}, data_group)
+    out = {"item2index_exact": s["exact"] / max(s["total"], 1)}
+    out.update({f"item2index_c{c}": s["correct"][c] / max(s["total"], 1)
+                for c in range(num_codebooks)})
     return out
 
 
-def evaluate_index2item(free_fn, arrays, target_texts, batch_size, device, tok):
+def evaluate_index2item(free_fn, arrays, target_texts, batch_size, device, tok,
+                        data_group=None):
     """Unconstrained index -> item: the generated text must contain the
     target title."""
-    match = total = offset = 0
-    for host, valid in batch_iterator(arrays, batch_size):
+    match = total = 0
+    for host, valid, first in eval_batches(arrays, batch_size, data_group):
         toks = free_fn(_on(host, device)).cpu().numpy()
-        n = int(valid.sum())
-        for i in range(n):
-            tgt = target_texts[offset + i].strip().lower()
+        for i in np.flatnonzero(valid):
+            tgt = target_texts[first + i].strip().lower()
             gen = tok.decode(toks[i]).strip().lower()
             if tgt and gen and tgt in gen:
                 match += 1
-        total += n
-        offset += n
-    return {"index2item_match": match / max(total, 1)}
+        total += int(valid.sum())
+    s = metric_allreduce({"match": float(match), "total": float(total)}, data_group)
+    return {"index2item_match": s["match"] / max(s["total"], 1)}
 
 
-def evaluate(gen_fn, arrays, batch_size, device, num_codebooks):
+def evaluate(gen_fn, arrays, batch_size, device, num_codebooks, data_group=None):
     """Recall/NDCG@{1,5,10} of the beams and per-codebook accuracy of the
     top beam."""
     acc = TopKAccumulator(ks=(1, 5, 10))
     cb_correct = np.zeros(num_codebooks)
     cb_total = 0
-    for host, valid in batch_iterator(arrays, batch_size):
-        top = gen_fn(_on(host, device)).cpu()
-        n = int(valid.sum())
-        target = torch.as_tensor(host["target_ids"][:n])
-        acc.accumulate(target, top[:n])
-        cb_correct += (top[:n, 0, :] == target).sum(dim=0).numpy()
-        cb_total += n
-    m = acc.reduce()
-    m.update({f"codebook_acc_{c}": cb_correct[c] / max(cb_total, 1)
+    for host, valid, _ in eval_batches(arrays, batch_size, data_group):
+        top = gen_fn(_on(host, device)).cpu()[torch.as_tensor(valid)]
+        target = torch.as_tensor(host["target_ids"][valid])
+        acc.accumulate(target, top)
+        cb_correct += (top[:, 0, :] == target).sum(dim=0).numpy()
+        cb_total += int(valid.sum())
+    m = acc.reduce(data_group)
+    cb = metric_allreduce({"correct": list(cb_correct), "total": float(cb_total)}, data_group)
+    m.update({f"codebook_acc_{c}": cb["correct"][c] / max(cb["total"], 1)
               for c in range(num_codebooks)})
     return m
 
@@ -240,9 +247,25 @@ def lora_loss_fn(model, base_loss, alpha: float, rank: int):
 def _refuse(tensor_parallel, world, *, use_lora, num_experts, expert_parallel,
             sequence_parallel, pipeline_parallel):
     """Raise on what the port does not run yet, naming the ROADMAP item,
-    and on the layouts the JAX trainer refuses (LoRA beside model
-    parallelism, MoE beside sequence or pipeline parallelism, an expert
-    count the expert axis does not divide)."""
+    and on the layouts the JAX trainer refuses (JAX
+    ``trainers/lcrec_trainer.py:237-295``: one model-parallel axis a run
+    except tensor x expert parallelism for MoE and tensor x pipeline for
+    the dense stack, LoRA beside model parallelism, MoE beside sequence or
+    pipeline parallelism, an expert count the expert axis does not
+    divide). The ranks that the model axes leave over train
+    data-parallel."""
+    chosen = [n for n in (sequence_parallel, pipeline_parallel, tensor_parallel,
+                          expert_parallel) if n > 1]
+    tp_ep = (tensor_parallel > 1 and expert_parallel > 1 and num_experts > 0
+             and sequence_parallel == 1 and pipeline_parallel == 1)
+    tp_pp = (tensor_parallel > 1 and pipeline_parallel > 1 and sequence_parallel == 1
+             and expert_parallel == 1 and num_experts == 0)
+    if len(chosen) > 1 and not (tp_ep or tp_pp):
+        raise ValueError("pick ONE of sequence_parallel / pipeline_parallel / "
+                         "tensor_parallel / expert_parallel per run (wired "
+                         "compositions: tensor_parallel x expert_parallel "
+                         "with num_experts>0, and tensor_parallel x "
+                         "pipeline_parallel for the dense stack)")
     if num_experts > 0 and (sequence_parallel > 1 or pipeline_parallel > 1):
         # JAX's sp/pp run the blocks inside shard_map and do not collect
         # the router loss.
@@ -264,19 +287,6 @@ def _refuse(tensor_parallel, world, *, use_lora, num_experts, expert_parallel,
         # parallelism would shard nothing.
         raise ValueError("tensor_parallel with use_lora is not wired; run LoRA "
                          "data-parallel (it is already memory-light)")
-    if tensor_parallel > 1 and expert_parallel > 1:
-        raise NotImplementedError(
-            f"tensor_parallel={tensor_parallel} x expert_parallel={expert_parallel} needs a "
-            "2-D group layout, not ported; ROADMAP A17")
-    model_parallel = max(tensor_parallel, expert_parallel)
-    if model_parallel > 1 and world == 1:
-        raise RuntimeError(f"tensor_parallel={tensor_parallel} / expert_parallel="
-                           f"{expert_parallel} runs one process per rank: {TORCHRUN}")
-    if world > 1 and model_parallel != world:
-        raise NotImplementedError(
-            f"{world} processes with tensor_parallel={tensor_parallel}, expert_parallel="
-            f"{expert_parallel}: data parallelism beside tensor parallelism (or expert "
-            "parallelism) is not ported; ROADMAP A17")
     refused = [
         (sequence_parallel > 1, "sequence_parallel (ring attention)", "A15"),
         (pipeline_parallel > 1, "pipeline_parallel", "A16"),
@@ -284,6 +294,14 @@ def _refuse(tensor_parallel, world, *, use_lora, num_experts, expert_parallel,
     for bad, what, item in refused:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet; ROADMAP {item}")
+    model_parallel = tensor_parallel * expert_parallel
+    if model_parallel > 1 and world == 1:
+        raise RuntimeError(f"tensor_parallel={tensor_parallel} / expert_parallel="
+                           f"{expert_parallel} runs one process per rank: {TORCHRUN}")
+    if world % model_parallel:
+        raise ValueError(f"{world} processes do not split into tensor_parallel="
+                         f"{tensor_parallel} x expert_parallel={expert_parallel} model "
+                         "shards and a data axis")
 
 
 @configlib.configurable
@@ -347,19 +365,21 @@ def train(
 ):
     """Train LCRec; returns (valid metrics, test metrics) of the best
     parameters by valid Recall@10 (``test_on_best``) or the last ones."""
-    group = distributed_init(device)
-    world = 1 if group is None else group.size
+    world = (torch.distributed.get_world_size() if torch.distributed.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
     _refuse(tensor_parallel, world, use_lora=use_lora, num_experts=num_experts,
             expert_parallel=expert_parallel, sequence_parallel=sequence_parallel,
             pipeline_parallel=pipeline_parallel)
-    rank = 0 if group is None else group.rank
-    tp_group = group if tensor_parallel > 1 else None
-    ep_group = group if expert_parallel > 1 else None
-    dev = group.device if group is not None else resolve_device(device)
+    # JAX's mesh: {"data": -1} plus "model" (tp) and "expert" (ep) axes.
+    shape = {"data": -1, **({"model": tensor_parallel} if tensor_parallel > 1 else {}),
+             **({"expert": expert_parallel} if expert_parallel > 1 else {})}
+    mesh = distributed_init(device, shape)
+    tp_group, ep_group, dgroup = mesh.group("model"), mesh.group("expert"), mesh.data
+    dev = mesh.device or resolve_device(device)
     # Rank 0 writes the run's files; every rank logs to its own stdout.
-    logger = setup_logger(save_dir_root if rank == 0 else None)
-    tracker = Tracker(wandb_logging and rank == 0, wandb_project,
-                      save_dir=save_dir_root if rank == 0 else None, logger=logger)
+    logger = setup_logger(save_dir_root if mesh.lead else None)
+    tracker = Tracker(wandb_logging and mesh.lead, wandb_project,
+                      save_dir=save_dir_root if mesh.lead else None, logger=logger)
     compute_dtype = (torch.bfloat16 if (amp and mixed_precision_type == "bf16")
                      else torch.float32)
 
@@ -401,15 +421,17 @@ def train(
         pad_to=math.lcm(8, tensor_parallel))
     model = QwenLM(cfg, dtype=compute_dtype, group=tp_group, device=dev,
                    remat=gradient_checkpointing, expert_group=ep_group)
-    model.load_state_dict(shard_expert_params(shard_qwen_params(full, rank, tensor_parallel, cfg),
-                                              rank, expert_parallel))
+    model.load_state_dict(shard_expert_params(
+        shard_qwen_params(full, mesh.rank("model"), tensor_parallel, cfg),
+        mesh.rank("expert"), expert_parallel))
     del full
     live_vocab = base_vocab + num_codebooks * codebook_size
     logger.info(f"vocab {base_vocab} + {num_codebooks * codebook_size} codebook tokens"
                 + (f" (+{cfg.vocab_size - live_vocab} pad)" if cfg.vocab_size > live_vocab
                    else "")
-                + (f"; tensor_parallel={tensor_parallel} over {group.backend}"
+                + (f"; tensor_parallel={tensor_parallel} over {tp_group.backend}"
                    if tp_group is not None else "")
+                + (f"; data_parallel={mesh.size('data')}" if dgroup is not None else "")
                 + (f"; {num_experts} experts, expert_parallel={expert_parallel}"
                    if num_experts > 0 else ""))
 
@@ -463,11 +485,12 @@ def train(
             return fn
         return lambda batch: call_merged(model, params_of(), lambda _m: fn(batch))
 
-    step_fn = make_train_step(loss_fn, optimizer, clip_norm=1.0, group=tp_group or ep_group)
+    step_fn = make_train_step(loss_fn, optimizer, clip_norm=1.0, group=tp_group or ep_group,
+                              data_group=dgroup)
     state = TrainState.create(trainable, optimizer, seed)
     gen_fn = _merged(make_generate_fn(model, base_vocab, num_codebooks, codebook_size,
                                       beam_width, max_cache=max_text_len + num_codebooks + 1))
-    # Each rank keeps (and writes) its own shard.
+    # Each model shard keeps its own records, written by its data rank 0.
     ckpt = (CheckpointManager(os.path.join(save_dir_root, "checkpoints"), per_host=True)
             if save_dir_root else None)
     prof = ProfileWindow(os.path.join(save_dir_root, "profile") if save_dir_root else "",
@@ -477,8 +500,9 @@ def train(
         ckpt=ckpt, rows_per_step=batch_size, row_len=max_text_len, seed=seed,
         pack_sequences=False, train_arrays=train_arrays,
         wandb_log_interval=wandb_log_interval, save_dir_root=save_dir_root,
+        data_group=dgroup,
     )
-    suffix = "" if group is None else f".rank{rank}"
+    suffix = "" if mesh.n_shards == 1 else f".rank{mesh.shard}"
 
     # eval_only restores the newest checkpoint WITHOUT the exact-resume
     # preconditions: a pure evaluation consumes no training data, so another
@@ -488,7 +512,7 @@ def train(
         state, ckpt_step = restore_for_eval(ckpt, state, logger=logger)
         if ckpt_step is None:
             logger.warning("eval_only without a checkpoint: evaluating the INITIAL model")
-        m = evaluate(gen_fn, valid_arrays, eval_batch_size, dev, num_codebooks)
+        m = evaluate(gen_fn, valid_arrays, eval_batch_size, dev, num_codebooks, dgroup)
         logger.info("eval_only " + ", ".join(f"{k}={v:.4f}" for k, v in m.items()))
         loop.shutdown()
         return m, m
@@ -510,7 +534,7 @@ def train(
             # Epoch-boundary resume point: cursor = (next epoch, batch 0).
             loop.save(state, epoch=epoch + 1, next_batch=0, global_step=global_step)
         if do_eval and (epoch + 1) % eval_every_epoch == 0:
-            m = evaluate(gen_fn, valid_arrays, eval_batch_size, dev, num_codebooks)
+            m = evaluate(gen_fn, valid_arrays, eval_batch_size, dev, num_codebooks, dgroup)
             logger.info(f"epoch {epoch} valid "
                         + ", ".join(f"{k}={v:.4f}" for k, v in m.items()))
             tracker.log({"epoch": epoch, **{f"eval/{k}": v for k, v in m.items()}})
@@ -522,14 +546,14 @@ def train(
     best_params = best.best_params(like=trainable.state_dict()) if test_on_best else None
     if best_params is not None:
         trainable.load_state_dict(best_params)
-    valid_metrics = evaluate(gen_fn, valid_arrays, eval_batch_size, dev, num_codebooks)
-    test_metrics = evaluate(gen_fn, test_arrays, eval_batch_size, dev, num_codebooks)
+    valid_metrics = evaluate(gen_fn, valid_arrays, eval_batch_size, dev, num_codebooks, dgroup)
+    test_metrics = evaluate(gen_fn, test_arrays, eval_batch_size, dev, num_codebooks, dgroup)
     if eval_item_tasks:
         greedy_fn = _merged(make_generate_fn(model, base_vocab, num_codebooks, codebook_size,
                                              1, max_cache=max_text_len + num_codebooks + 1))
         i2i_arrays = data.item2index_eval_arrays(eval_items_limit)
         test_metrics.update(evaluate_item2index(greedy_fn, i2i_arrays, eval_batch_size, dev,
-                                                num_codebooks))
+                                                num_codebooks, dgroup))
         idx2i_arrays, idx2i_texts = data.index2item_eval_arrays(eval_items_limit)
 
         @_merged
@@ -541,7 +565,7 @@ def train(
                                    valid_vocab=tok.vocab_size)
 
         test_metrics.update(evaluate_index2item(free_fn, idx2i_arrays, idx2i_texts,
-                                                eval_batch_size, dev, tok))
+                                                eval_batch_size, dev, tok, dgroup))
     logger.info("test " + ", ".join(f"{k}={v:.4f}" for k, v in test_metrics.items()))
     tracker.log({f"test/{k}": v for k, v in test_metrics.items()})
     if save_dir_root:

@@ -20,7 +20,10 @@ The model, the loss and the optimizer are module-level functions
 (``notellm_model``, ``notellm_loss``, ``make_optimizer``), so a caller can
 drive the trainer's own step outside ``train``. Runs on
 ``device="cuda"`` by default (it raises without a card unless given
-``device="cpu"``).
+``device="cpu"``), or data-parallel over the ranks of ``torchrun
+--nproc_per_node N``: each rank keeps its pairs of the global
+``batch_pairs`` and the InfoNCE spans the global batch
+(``models.notellm``); the eval gathers every rank's embeddings.
 """
 
 from __future__ import annotations
@@ -37,7 +40,6 @@ from genrec_tpu_torch.core.optim import Adam
 from genrec_tpu_torch.core.preemption import PreemptionGuard
 from genrec_tpu_torch.core.profiling import ProfileWindow
 from genrec_tpu_torch.core.state import TrainState
-from genrec_tpu_torch.data.batching import batch_iterator
 from genrec_tpu_torch.data.notellm_pairs import NoteLLMPairData
 from genrec_tpu_torch.device import resolve_device
 from genrec_tpu_torch.models.backbones.qwen import QwenConfig, QwenLM, qwen_init_params
@@ -47,6 +49,8 @@ from genrec_tpu_torch.models.notellm import (
     query2embedding_forward,
 )
 from genrec_tpu_torch.ops.schedules import cosine_schedule_with_warmup
+from genrec_tpu_torch.parallel.mesh import distributed_init, to_host
+from genrec_tpu_torch.trainers.evaluation import eval_batches
 from genrec_tpu_torch.trainers.packed_loop import PackedTrainLoop
 
 
@@ -70,7 +74,7 @@ def notellm_loss(model: NoteLLM, batch: dict, generator=None):
     flat = flatten_pairs(batch)
     out = query2embedding_forward(model.backbone, flat["input_ids"], flat["attention_mask"],
                                   flat["emb_idx"], model.tau, pair_groups=batch["topic_id"])
-    return out.loss, {"cl_loss": out.cl_loss}
+    return out.loss, {"cl_loss": out.cl_loss}  # both this rank's share of the global mean
 
 
 def make_optimizer(learning_rate: float, num_warmup_steps: int, total_steps: int,
@@ -89,19 +93,21 @@ def embed(model: NoteLLM, batch: dict) -> torch.Tensor:
 
 
 def evaluate_retrieval(model: NoteLLM, arrays: dict, batch_pairs: int, device,
-                       topk: int = 5) -> dict:
+                       topk: int = 5, data_group=None) -> dict:
     """Paired top-k accuracy over the whole eval set (the similarity matrix
-    spans every eval pair, not one batch)."""
+    spans every eval pair, not one batch). With a ``data_group`` each rank
+    embeds its pairs of every batch and the embeddings are gathered."""
     was_training = model.training
     model.eval()
     embs = []
-    for host, valid in batch_iterator(arrays, batch_pairs):
-        dev_batch = {k: torch.as_tensor(host[k], device=device)
+    for mine, _, _ in eval_batches(arrays, batch_pairs, data_group):
+        dev_batch = {k: torch.as_tensor(mine[k], device=device)
                      for k in ("input_ids", "attention_mask", "emb_idx")}
-        e = embed(model, flatten_pairs(dev_batch)).cpu()
-        embs.append(e.reshape(-1, 2, e.shape[-1])[:int(valid.sum())])
+        e = embed(model, flatten_pairs(dev_batch))
+        embs.append(torch.as_tensor(to_host(e.reshape(-1, 2, e.shape[-1]), data_group)))
     model.train(was_training)
-    flat = torch.cat(embs).reshape(-1, embs[0].shape[-1])
+    n_pairs = next(iter(arrays.values())).shape[0]  # the padding ends the last batch
+    flat = torch.cat(embs)[:n_pairs].reshape(-1, embs[0].shape[-1])
     return {f"top{topk}_acc": paired_topk_accuracy(flat, topk=topk)}
 
 
@@ -140,9 +146,12 @@ def train(
 ):
     """Train NoteLLM; returns the paired top-k accuracy of the best
     parameters on the eval topics ({} when preempted)."""
-    dev = resolve_device(device)
-    logger = setup_logger(save_dir_root)
-    tracker = Tracker(wandb_logging, wandb_project, save_dir=save_dir_root, logger=logger)
+    mesh = distributed_init(device)  # data-parallel over torchrun's ranks, if any
+    dev = mesh.device or resolve_device(device)
+    # Rank 0 writes the run's files; every rank logs to its own stdout.
+    logger = setup_logger(save_dir_root if mesh.lead else None)
+    tracker = Tracker(wandb_logging and mesh.lead, wandb_project,
+                      save_dir=save_dir_root if mesh.lead else None, logger=logger)
     compute_dtype = (torch.bfloat16 if (amp and mixed_precision_type == "bf16")
                      else torch.float32)
 
@@ -164,7 +173,7 @@ def train(
     steps_per_epoch = max(1, len(train_arrays["input_ids"]) // batch_pairs)
     optimizer = make_optimizer(learning_rate, num_warmup_steps, epochs * steps_per_epoch,
                                weight_decay)
-    step_fn = make_train_step(notellm_loss, optimizer, clip_norm=1.0)
+    step_fn = make_train_step(notellm_loss, optimizer, clip_norm=1.0, data_group=mesh.data)
     state = TrainState.create(model, optimizer, seed)
 
     ckpt = CheckpointManager(os.path.join(save_dir_root, "checkpoints")) if save_dir_root else None
@@ -177,6 +186,7 @@ def train(
         ckpt=ckpt, rows_per_step=batch_pairs, row_len=max_text_len, seed=seed,
         pack_sequences=False, train_arrays=train_arrays,
         wandb_log_interval=wandb_log_interval, save_dir_root=save_dir_root,
+        data_group=mesh.data,
     )
     start_epoch, start_batch, global_step = 0, 0, 0
     if resume_from_checkpoint:
@@ -196,7 +206,8 @@ def train(
             # Epoch-boundary resume point: cursor = (next epoch, batch 0).
             loop.save(state, epoch=epoch + 1, next_batch=0, global_step=global_step)
         if do_eval and (epoch + 1) % eval_every_epoch == 0:
-            m = evaluate_retrieval(model, eval_arrays, eval_batch_pairs, dev, topk=eval_topk)
+            m = evaluate_retrieval(model, eval_arrays, eval_batch_pairs, dev, topk=eval_topk,
+                                   data_group=mesh.data)
             logger.info(f"epoch {epoch} eval " + ", ".join(f"{k}={v:.4f}" for k, v in m.items()))
             tracker.log({"epoch": epoch, **{f"eval/{k}": v for k, v in m.items()}})
             best.update(m[metric], model.state_dict())
@@ -207,7 +218,8 @@ def train(
     best_params = best.best_params(like=model.state_dict())
     if best_params is not None:
         model.load_state_dict(best_params)
-    test_m = evaluate_retrieval(model, eval_arrays, eval_batch_pairs, dev, topk=eval_topk)
+    test_m = evaluate_retrieval(model, eval_arrays, eval_batch_pairs, dev, topk=eval_topk,
+                                data_group=mesh.data)
     logger.info("test " + ", ".join(f"{k}={v:.4f}" for k, v in test_m.items()))
     tracker.log({f"test/{k}": v for k, v in test_m.items()})
     loop.shutdown()

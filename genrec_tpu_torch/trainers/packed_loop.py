@@ -40,6 +40,14 @@ Epoch-granularity trainers plug in through three knobs:
 ``run_epoch(max_steps=...)`` (the RQ-VAE's iteration-gated eval/save
 cadence and iteration-count stop).
 
+Data parallelism (``data_group``, the mesh's data axis): every rank
+builds the same global batch from the ``(seed, epoch)`` shuffle and keeps
+its contiguous block of rows (``parallel.mesh.shard_batch``; with
+``accum_steps`` microbatches, its block of each), so the cursor, the
+resume point and the chaos hooks are the global batch's on every rank.
+The harness sums the step's metrics over the data group; the preemption
+OR and the goodput sums run over the whole world.
+
 Observability (genrec_tpu_torch/obs): every epoch's wall time is
 classified into goodput buckets (compute / compile / checkpoint-save /
 restore / data-wait / nonfinite-skipped / preemption-drain / other) and
@@ -73,6 +81,7 @@ from genrec_tpu_torch.data.batching import batch_iterator, prefetch_to_device
 from genrec_tpu_torch.obs.flight_recorder import get_flight_recorder, process_rank
 from genrec_tpu_torch.obs.goodput import GoodputMeter, fleet_goodput
 from genrec_tpu_torch.obs.memory import device_memory_stats
+from genrec_tpu_torch.parallel.mesh import allgather_host_ints, any_across_processes, shard_batch
 
 # Consecutive guard-skipped steps after which the run aborts.
 MAX_CONSECUTIVE_NONFINITE = 3
@@ -111,7 +120,7 @@ class PackedTrainLoop:
                  wandb_log_interval: int = 100, save_dir_root: str | None = None,
                  step_log: Callable[[dict, int], dict] | None = None,
                  step_hook: Callable[[Any, dict, int, int, int], None] | None = None,
-                 preempt_poll_interval: int = 8):
+                 preempt_poll_interval: int = 8, data_group=None, accum_steps: int = 1):
         if pack_sequences and repack is None:
             raise ValueError("pack_sequences=True needs a repack closure")
         if not pack_sequences and train_arrays is None:
@@ -132,6 +141,8 @@ class PackedTrainLoop:
         self.step_log = step_log
         self.step_hook = step_hook
         self.preempt_poll_interval = max(1, int(preempt_poll_interval))
+        self.data_group = data_group
+        self.accum_steps = int(accum_steps)
         self.monitor = NonFiniteMonitor.for_run(save_dir_root, logger,
                                                 MAX_CONSECUTIVE_NONFINITE)
         self.goodput = GoodputMeter()
@@ -192,8 +203,6 @@ class PackedTrainLoop:
             return bool(self.guard.fired)
         if global_step is not None and global_step % self.preempt_poll_interval != 0:
             return False
-        from genrec_tpu_torch.parallel.mesh import any_across_processes
-
         return any_across_processes(self.guard.fired)
 
     # -- resume + checkpoint -----------------------------------------------
@@ -288,10 +297,11 @@ class PackedTrainLoop:
         epoch_loss, epoch_tokens, n_batches = None, None, 0
         consumed = start_batch
         batches = prefetch_to_device(
-            chaos.poison_batches(
-                batch_iterator(arrays, self.rows_per_step, shuffle=True, seed=self.seed,
-                               epoch=epoch, drop_last=True, start_batch=start_batch),
-                start_step=global_step),
+            ((shard_batch(b, self.data_group, self.accum_steps), v)
+             for b, v in chaos.poison_batches(
+                 batch_iterator(arrays, self.rows_per_step, shuffle=True, seed=self.seed,
+                                epoch=epoch, drop_last=True, start_batch=start_batch),
+                 start_step=global_step)),
             self.device)
         try:
             while True:
@@ -366,8 +376,6 @@ class PackedTrainLoop:
             log_goodput(self.logger, self.tracker, epoch, report)
             if process_rank()[1] > 1:
                 # Collective: epochs end in lockstep, so every rank is here.
-                from genrec_tpu_torch.parallel.mesh import allgather_host_ints
-
                 log_goodput(self.logger, self.tracker, epoch,
                             fleet_goodput(report, allgather_host_ints), fleet=True)
         self._flight.record("epoch_end", epoch=epoch, global_step=global_step,

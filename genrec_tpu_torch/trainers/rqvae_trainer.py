@@ -23,7 +23,12 @@ fusion on a TPU v5e; on the H100 the card's numbers decide, and there
 the kernel takes about half the plain cascade's time (PERF.md, B7).
 
 Runs on one device, ``device="cuda"`` by default (it raises without a
-card unless given ``device="cpu"``). ``dataset="synthetic"`` makes
+card unless given ``device="cpu"``), or data-parallel over the ranks of
+``torchrun --nproc_per_node N``: each rank keeps its rows of the global
+``batch_size``; the Sinkhorn level and the Gumbel noise see the global
+batch (``models.rqvae``), and the export runs B7 on each rank's rows of
+every chunk and gathers the ids (B7 is row-wise, so they are the
+one-rank ids bit for bit). ``dataset="synthetic"`` makes
 clustered item embeddings; ``"amazon"`` reads the cached
 ``<dataset_folder>/processed/<split>_item_emb.npy`` (95/5 split by a seeded
 permutation); ``"p5"`` reads the same file beside a P5 directory
@@ -67,16 +72,19 @@ from genrec_tpu_torch.models.rqvae import (
     kmeans_init_params,
 )
 from genrec_tpu_torch.ops.schedules import linear_schedule_with_warmup
+from genrec_tpu_torch.parallel.mesh import distributed_init, shard_batch, to_host
 from genrec_tpu_torch.trainers.packed_loop import PackedTrainLoop
 
 
 @torch.no_grad()
 def compute_sem_ids(model: RqVae, embeddings: np.ndarray, batch_size: int = 4096,
-                    use_pallas: bool = False) -> np.ndarray:
+                    use_pallas: bool = False, data_group=None) -> np.ndarray:
     """Semantic ids for every item (row i -> item id i+1), (N, L) int32,
     in chunks padded to ``batch_size`` rows. With ``use_pallas`` and raw
     codebooks each chunk is one residual-cascade call (one launch of
-    kernel B7 on the card: ceil(N / batch_size) for the whole set)."""
+    kernel B7 on the card: ceil(N / batch_size) for the whole set). With a
+    ``data_group`` each rank encodes its rows of every chunk and the ids
+    are gathered over the group (``parallel.mesh.to_host``)."""
     fused_ok = use_pallas and not (model.codebook_sim_vq or model.codebook_normalize)
     codebooks = model.codebooks().detach() if fused_ok else None
     chunks = []
@@ -84,18 +92,19 @@ def compute_sem_ids(model: RqVae, embeddings: np.ndarray, batch_size: int = 4096
         chunk = {"x": embeddings[s:s + batch_size]}
         n_real = len(chunk["x"])
         padded, _ = pad_to_batch(chunk, batch_size)
-        x = torch.as_tensor(padded["x"], device=model.device)
+        x = torch.as_tensor(shard_batch(padded, data_group)["x"], device=model.device)
         if fused_ok:
             ids, _ = rq_cascade(model.encode(x), codebooks)
         else:
             ids = model.get_semantic_ids(x, 0.001).sem_ids
-        chunks.append(ids[:n_real].to(torch.int32).cpu().numpy())
+        chunks.append(to_host(ids.to(torch.int32), data_group)[:n_real])
     return np.concatenate(chunks)
 
 
-def compute_collision_rate(model: RqVae, embeddings: np.ndarray, use_pallas: bool = False):
+def compute_collision_rate(model: RqVae, embeddings: np.ndarray, use_pallas: bool = False,
+                           data_group=None):
     """(collision rate, items, distinct sem-id tuples) over ``embeddings``."""
-    sem_ids = compute_sem_ids(model, embeddings, use_pallas=use_pallas)
+    sem_ids = compute_sem_ids(model, embeddings, use_pallas=use_pallas, data_group=data_group)
     n = len(sem_ids)
     unique = int(count_distinct(torch.as_tensor(sem_ids)))
     return (n - unique) / n, n, unique
@@ -158,9 +167,12 @@ def train(
     if (epochs is None) == (iterations is None):
         raise ValueError("specify exactly one of 'epochs' or 'iterations'")
     use_epochs = epochs is not None
-    dev = resolve_device(device)
-    logger = setup_logger(save_dir_root)
-    tracker = Tracker(wandb_logging, wandb_project, save_dir=save_dir_root, logger=logger)
+    mesh = distributed_init(device)  # data-parallel over torchrun's ranks, if any
+    dev = mesh.device or resolve_device(device)
+    # Rank 0 writes the run's files; every rank logs to its own stdout.
+    logger = setup_logger(save_dir_root if mesh.lead else None)
+    tracker = Tracker(wandb_logging and mesh.lead, wandb_project,
+                      save_dir=save_dir_root if mesh.lead else None, logger=logger)
 
     if dataset == "p5":
         # The reference's default source (P5AmazonReviewsItemDataset): items
@@ -200,14 +212,16 @@ def train(
 
     schedule = linear_schedule_with_warmup(learning_rate, warmup_steps, total_steps)
     optimizer = Adam(schedule, weight_decay=weight_decay)
-    step_fn = make_train_step(make_loss_fn(gumbel_temperature), optimizer, clip_norm=1.0)
+    step_fn = make_train_step(make_loss_fn(gumbel_temperature), optimizer, clip_norm=1.0,
+                              data_group=mesh.data)
     state = TrainState.create(model, optimizer, seed)
     eval_t = torch.as_tensor(eval_x, device=dev)
 
     def evaluate(label: str) -> None:
         with torch.no_grad():
             le = model(eval_t, gumbel_temperature, training=False)
-        cr, n, uniq = compute_collision_rate(model, all_x, use_pallas=True)
+        cr, n, uniq = compute_collision_rate(model, all_x, use_pallas=True,
+                                             data_group=mesh.data)
         logger.info(f"{label} eval loss {float(le.loss):.4f} rec "
                     f"{float(le.reconstruction_loss):.4f} vq {float(le.rqvae_loss):.4f} "
                     f"collision {cr:.4f} ({uniq}/{n})")
@@ -234,7 +248,7 @@ def train(
         logger=logger, tracker=tracker, device=dev, prof=prof, guard=PreemptionGuard(logger),
         ckpt=ckpt, rows_per_step=batch_size, row_len=1, seed=seed, pack_sequences=False,
         train_arrays={"x": train_x}, wandb_log_interval=wandb_log_interval,
-        save_dir_root=save_dir_root, step_hook=step_hook,
+        save_dir_root=save_dir_root, step_hook=step_hook, data_group=mesh.data,
     )
     start_epoch, start_batch, global_step = 0, 0, 0
     if resume_from_checkpoint:
@@ -261,10 +275,10 @@ def train(
             # leaves a resumable record.
             loop.save(state, epoch=epoch + 1, next_batch=0, global_step=global_step)
 
-    if save_dir_root:
+    if save_dir_root and mesh.writer:
         torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
                    os.path.join(save_dir_root, "final_params.pt"))
-    sem_ids = compute_sem_ids(model, all_x, use_pallas=True)
+    sem_ids = compute_sem_ids(model, all_x, use_pallas=True, data_group=mesh.data)
     out_path = sem_ids_path or os.path.join(save_dir_root, "sem_ids.npz")
     save_sem_ids(out_path, sem_ids, vae_codebook_size)
     logger.info(f"exported semantic ids -> {out_path}")

@@ -24,7 +24,9 @@ under torch.profiler in ``<save_dir_root>/profile``.
 ``num_items`` binding is then ignored, as in JAX).
 
 Runs on one device, ``device="cuda"`` by default (it raises without a
-card unless given ``device="cpu"``). Not ported yet: wandb forwarding.
+card unless given ``device="cpu"``), or data-parallel over the ranks of
+``torchrun --nproc_per_node N``: each rank keeps its rows of the global
+``batch_size``. Not ported yet: wandb forwarding.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from genrec_tpu_torch.data.batching import pack_examples, right_align
 from genrec_tpu_torch.data.synthetic import SyntheticSeqDataset
 from genrec_tpu_torch.device import resolve_device
 from genrec_tpu_torch.models.sasrec import SASRec
+from genrec_tpu_torch.parallel.mesh import distributed_init
 from genrec_tpu_torch.trainers.evaluation import evaluate, topk_sums
 from genrec_tpu_torch.trainers.packed_loop import PackedTrainLoop
 
@@ -123,9 +126,12 @@ def train(
 ):
     """Train SASRec; returns (valid metrics, test metrics) of the best
     parameters (by valid Recall@10), as the JAX trainer does."""
-    dev = resolve_device(device)
-    logger = setup_logger(save_dir_root)
-    tracker = Tracker(wandb_logging, wandb_project, save_dir=save_dir_root, logger=logger)
+    mesh = distributed_init(device)  # data-parallel over torchrun's ranks, if any
+    dev = mesh.device or resolve_device(device)
+    # Rank 0 writes the run's files; every rank logs to its own stdout.
+    logger = setup_logger(save_dir_root if mesh.lead else None)
+    tracker = Tracker(wandb_logging and mesh.lead, wandb_project,
+                      save_dir=save_dir_root if mesh.lead else None, logger=logger)
 
     if dataset == "synthetic":
         ds = SyntheticSeqDataset(max_seq_len=max_seq_len, seed=seed)
@@ -161,7 +167,7 @@ def train(
         device=dev, seed=seed,
     )
     optimizer = Adam(learning_rate, b2=0.98, weight_decay=weight_decay)
-    step_fn = make_train_step(make_loss_fn(), optimizer, clip_norm=None)
+    step_fn = make_train_step(make_loss_fn(), optimizer, clip_norm=None, data_group=mesh.data)
     state = TrainState.create(model, optimizer, seed)
     eval_step = make_eval_step(model, last_from_length=pack_sequences)
     ckpt = CheckpointManager(os.path.join(save_dir_root, "checkpoints")) if save_dir_root else None
@@ -173,6 +179,7 @@ def train(
         ckpt=ckpt, rows_per_step=batch_size, row_len=max_seq_len, seed=seed,
         pack_sequences=pack_sequences, repack=repack, train_arrays=train_arrays,
         wandb_log_interval=wandb_log_interval, save_dir_root=save_dir_root,
+        data_group=mesh.data,
     )
     start_epoch, start_batch, global_step = 0, 0, 0
     if resume_from_checkpoint:
@@ -193,7 +200,7 @@ def train(
             # Epoch-boundary resume point: cursor = (next epoch, batch 0).
             loop.save(state, epoch=epoch + 1, next_batch=0, global_step=global_step)
         if do_eval and (epoch + 1) % eval_every_epoch == 0:
-            m = evaluate(eval_step, valid_arrays, eval_batch_size, dev)
+            m = evaluate(eval_step, valid_arrays, eval_batch_size, dev, mesh.data)
             logger.info(f"epoch {epoch} valid " + ", ".join(f"{k}={v:.4f}" for k, v in m.items()))
             tracker.log({"epoch": epoch, **{f"eval/{k}": v for k, v in m.items()}})
             best.update(m["Recall@10"], model.state_dict())
@@ -201,11 +208,11 @@ def train(
     best_params = best.best_params(like=model.state_dict())
     if best_params is not None:
         model.load_state_dict(best_params)
-    valid_metrics = evaluate(eval_step, valid_arrays, eval_batch_size, dev)
-    test_metrics = evaluate(eval_step, test_arrays, eval_batch_size, dev)
+    valid_metrics = evaluate(eval_step, valid_arrays, eval_batch_size, dev, mesh.data)
+    test_metrics = evaluate(eval_step, test_arrays, eval_batch_size, dev, mesh.data)
     logger.info("test " + ", ".join(f"{k}={v:.4f}" for k, v in test_metrics.items()))
     tracker.log({f"test/{k}": v for k, v in test_metrics.items()})
-    if save_dir_root and best.value < 0:  # no eval ran: snapshot the final params
+    if save_dir_root and best.value < 0:  # no eval ran: the final params
         save_params(os.path.join(save_dir_root, "best_model"), model.state_dict())
     loop.shutdown()
     return valid_metrics, test_metrics

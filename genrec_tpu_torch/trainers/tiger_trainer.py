@@ -4,6 +4,7 @@
         [--gin 'train.device="cpu"']
     torchrun --standalone --nproc_per_node=2 -m genrec_tpu_torch.trainers.tiger_trainer \
         config/tiger/synthetic.gin --gin 'train.tensor_parallel=2'
+    torchrun --standalone --nproc_per_node=4 ... --gin 'train.tensor_parallel=2'  # tp x dp
 
 The same config files drive both packages. Epoch loop, AdamW on the
 cosine warm-up schedule, gradient accumulation and a global-norm clip of
@@ -27,16 +28,21 @@ card unless given ``device="cpu"``). The step's dropout bits come from the
 train state's generator, the eval's Gumbel noise from a generator seeded
 ``seed + 1``.
 
-``tensor_parallel`` is 1 or the number of processes: one process per
-rank, launched by torchrun (or ``parallel.mesh.spawn``), each holding its
-shard of the model under JAX ``tiger_rules`` (the vocab head, the sem-id
-rows and the FFNs; the vocabulary padded to a multiple of tp, as JAX's
-``pad_vocab_to=tensor_parallel``). Every rank starts from the same full
-parameters, made from ``seed`` and sliced, sees every batch and draws the
-same dropout bits, so the run computes what tensor_parallel=1 computes;
-the ranks report the same metrics. Each rank keeps its own resume points
-(``checkpoints/p<rank>``) and writes ``best_model.rank<r>`` and
-``final_model.rank<r>``. Data parallelism beside it raises (ROADMAP A17).
+The ranks of torchrun (or ``parallel.mesh.spawn``) form JAX's mesh
+``{"data": -1, "model": tensor_parallel}`` (row-major: the model groups
+are runs of tp consecutive ranks; a world that tp does not divide
+raises). Along the model axis each rank holds its shard of the model
+under JAX ``tiger_rules`` (the vocab head, the sem-id rows and the FFNs;
+the vocabulary padded to a multiple of tp, as JAX's
+``pad_vocab_to=tensor_parallel``); every rank starts from the same full
+parameters, made from ``seed`` and sliced. Along the data axis each rank
+keeps its block of every global batch (of each accumulation microbatch),
+its dropout bits drawn for the whole batch, and the gradients are summed
+over the data group, so the run computes what one process computes on
+the global batch; the ranks report the same metrics. Each model shard
+keeps its resume points (``checkpoints/p<model rank>`` under tp > 1),
+written by its data rank 0, and writes ``best_model.rank<r>`` and
+``final_model.rank<r>``.
 
 ``dataset="amazon"`` reads the review dump under
 ``<dataset_folder>/raw/<split>/`` and the RQ-VAE's sem-id artifact
@@ -59,7 +65,7 @@ from genrec_tpu_torch.core.preemption import PreemptionGuard
 from genrec_tpu_torch.core.profiling import ProfileWindow
 from genrec_tpu_torch.core.state import TrainState
 from genrec_tpu_torch.data.amazon import load_sequences
-from genrec_tpu_torch.data.batching import batch_iterator, pack_examples, prefetch_to_device
+from genrec_tpu_torch.data.batching import pack_examples
 from genrec_tpu_torch.data.sem_ids import dedup_sem_ids, load_sem_ids
 from genrec_tpu_torch.data.tiger_seq import TigerSeqData, synthetic_tiger_data
 from genrec_tpu_torch.device import resolve_device
@@ -67,7 +73,12 @@ from genrec_tpu_torch.models.tiger import Tiger, tiger_generate
 from genrec_tpu_torch.ops.metrics import TopKAccumulator
 from genrec_tpu_torch.ops.schedules import cosine_schedule_with_warmup
 from genrec_tpu_torch.ops.trie import build_trie
-from genrec_tpu_torch.parallel.mesh import distributed_init
+from genrec_tpu_torch.parallel.mesh import (
+    data_parallel,
+    distributed_init,
+    global_count,
+)
+from genrec_tpu_torch.trainers.evaluation import eval_batches
 from genrec_tpu_torch.trainers.packed_loop import PackedTrainLoop
 
 TORCHRUN = ("torchrun --standalone --nproc_per_node=2 -m genrec_tpu_torch.trainers."
@@ -89,15 +100,18 @@ def make_generate_fn(model, trie, temperature, n_candidates):
     return gen
 
 
-def evaluate(gen_fn, arrays, batch_size, device, generator) -> dict:
+def evaluate(gen_fn, arrays, batch_size, device, generator, data_group=None) -> dict:
     """Recall@5/10 and NDCG@5/10 of the generated beams against the
-    targets (the padded last batch's rows left out)."""
+    targets (the padded last batch's rows left out). With a
+    ``data_group`` each rank generates for its rows of every batch, its
+    sampling noise drawn for the whole batch (``parallel.mesh.draw_rows``),
+    and the sums are added over the group."""
     acc = TopKAccumulator(ks=(5, 10))
-    for batch, valid in prefetch_to_device(batch_iterator(arrays, batch_size), device):
-        top = gen_fn(batch, generator)
-        n = int(valid.sum())
-        acc.accumulate(batch["target_ids"][:n], top[:n])
-    return acc.reduce()
+    for batch, valid, _ in eval_batches(arrays, batch_size, data_group, device):
+        with data_parallel(data_group, valid.shape[0]):
+            top = gen_fn(batch, generator)
+        acc.accumulate(batch["target_ids"][valid], top[valid])
+    return acc.reduce(data_group)
 
 
 def make_loss_fn(sem_id_dim: int, pack_sequences: bool, accum_steps: int = 1,
@@ -118,7 +132,7 @@ def make_loss_fn(sem_id_dim: int, pack_sequences: bool, accum_steps: int = 1,
             )
             loss = out.loss
             if accum_steps > 1:
-                count = batch["segment_valid"].sum().to(torch.float32)
+                count = global_count(batch["segment_valid"].sum().to(torch.float32))
                 loss = loss * count / expected_per_micro
             return loss, {"real_tokens": out.real_tokens.to(torch.float32)}
     else:
@@ -178,22 +192,20 @@ def train(
 ):
     """Train TIGER; returns (valid metrics, test metrics) of the best
     parameters by valid Recall@10 (``test_on_best``) or of the last."""
-    group = distributed_init(device)
-    world = 1 if group is None else group.size
-    if tensor_parallel > 1 and world == 1:
+    if tensor_parallel > 1 and int(os.environ.get("WORLD_SIZE", "1")) == 1 \
+            and not torch.distributed.is_initialized():
         raise RuntimeError(f"tensor_parallel={tensor_parallel} runs one process per rank: "
                            f"{TORCHRUN}")
-    if world > 1 and tensor_parallel != world:
-        raise NotImplementedError(
-            f"{world} processes with tensor_parallel={tensor_parallel}: data parallelism "
-            "beside tensor parallelism is not ported; ROADMAP A17")
-    rank = 0 if group is None else group.rank
-    tp_group = group if tensor_parallel > 1 else None
-    dev = group.device if group is not None else resolve_device(device)
+    # JAX's {"data": -1, "model": tp}: the world's ranks that tp leaves over
+    # train data-parallel (a world that tp does not divide raises).
+    mesh = distributed_init(device, {"data": -1, "model": tensor_parallel})
+    rank = mesh.rank("model")
+    tp_group, dgroup = mesh.group("model"), mesh.data
+    dev = mesh.device or resolve_device(device)
     # Rank 0 writes the run's files; every rank logs to its own stdout.
-    logger = setup_logger(save_dir_root if rank == 0 else None)
-    tracker = Tracker(wandb_logging and rank == 0, wandb_project,
-                      save_dir=save_dir_root if rank == 0 else None, logger=logger)
+    logger = setup_logger(save_dir_root if mesh.lead else None)
+    tracker = Tracker(wandb_logging and mesh.lead, wandb_project,
+                      save_dir=save_dir_root if mesh.lead else None, logger=logger)
 
     if dataset == "synthetic":
         data = synthetic_tiger_data(codebook_size=codebook_size, sem_id_dim=sem_id_dim,
@@ -225,7 +237,7 @@ def train(
     else:
         train_arrays = data.train_arrays()
 
-    # Each rank keeps (and writes) its own shard.
+    # Each model shard keeps its own records, written by its data rank 0.
     ckpt = (CheckpointManager(os.path.join(save_dir_root, "checkpoints"),
                               per_host=tp_group is not None) if save_dir_root else None)
     prof = ProfileWindow(os.path.join(save_dir_root, "profile") if save_dir_root else "",
@@ -236,7 +248,7 @@ def train(
         ckpt=ckpt, rows_per_step=rows_per_step, row_len=pack_row_len, seed=seed,
         pack_sequences=pack_sequences, repack=repack, train_arrays=train_arrays,
         tokens_scale=float(gradient_accumulate_every), wandb_log_interval=wandb_log_interval,
-        save_dir_root=save_dir_root,
+        save_dir_root=save_dir_root, data_group=dgroup, accum_steps=gradient_accumulate_every,
     )
     pack_report = loop.pack_report
 
@@ -260,6 +272,7 @@ def train(
         make_loss_fn(sem_id_dim, pack_sequences, gradient_accumulate_every,
                      expected_per_micro),
         optimizer, accum_steps=gradient_accumulate_every, clip_norm=1.0, group=tp_group,
+        data_group=dgroup,
     )
     state = TrainState.create(model, optimizer, seed)
     gen_fn = make_generate_fn(model, trie, generate_temperature, 10)
@@ -280,7 +293,7 @@ def train(
             loop.shutdown(preempted_epoch=epoch)
             return {}, {}
         if do_eval and (epoch + 1) % eval_every_epoch == 0:
-            m = evaluate(gen_fn, valid_arrays, eval_batch_size, dev, eval_gen)
+            m = evaluate(gen_fn, valid_arrays, eval_batch_size, dev, eval_gen, dgroup)
             logger.info(f"epoch {epoch} valid " + ", ".join(f"{k}={v:.4f}" for k, v in m.items()))
             tracker.log({"epoch": epoch, **{f"eval/{k}": v for k, v in m.items()}})
             best.update(m["Recall@10"], model.state_dict())
@@ -291,11 +304,11 @@ def train(
     best_params = best.best_params(like=model.state_dict()) if test_on_best else None
     if best_params is not None:
         model.load_state_dict(best_params)
-    valid_metrics = evaluate(gen_fn, valid_arrays, eval_batch_size, dev, eval_gen)
-    test_metrics = evaluate(gen_fn, test_arrays, eval_batch_size, dev, eval_gen)
+    valid_metrics = evaluate(gen_fn, valid_arrays, eval_batch_size, dev, eval_gen, dgroup)
+    test_metrics = evaluate(gen_fn, test_arrays, eval_batch_size, dev, eval_gen, dgroup)
     logger.info("test " + ", ".join(f"{k}={v:.4f}" for k, v in test_metrics.items()))
     tracker.log({f"test/{k}": v for k, v in test_metrics.items()})
-    if save_dir_root and best.value < 0:  # no eval ran: snapshot the final params
+    if save_dir_root and best.value < 0:  # no eval ran: the final params
         save_params(os.path.join(save_dir_root, f"best_model{suffix}"), model.state_dict())
     if save_dir_root and tp_group is not None:
         save_params(os.path.join(save_dir_root, f"final_model{suffix}"), model.state_dict())

@@ -35,7 +35,9 @@ table-lookup gradient (TIGER's bias grid) is held to fp64 sums within
 1e-6 of their largest entry (fp32 sums of ~3e4 terms in another order),
 to its plain version's fp32 atomics within 4e-6 (their order varies run
 to run) and to its own bits over two calls; the MoE step and the KV-split step
-(4 gloo ranks on the card) give equal bits over two runs.
+(4 gloo ranks on the card) give equal bits over two runs. The data-parallel
+gather with its backward and the Sinkhorn level's ids (2 gloo ranks on the
+card) equal the CPU's exactly.
 """
 
 import numpy as np
@@ -1471,3 +1473,43 @@ def test_kv_split_step_gives_equal_bits_over_two_runs(card, tmp_path):
     for differ in spawn(_kv_split_ranks, 4, (), device="cuda", timeout_s=300,
                         store_dir=tmp_path):
         assert differ == []
+
+
+def _dp_card_ranks(group):
+    """Two gloo ranks on the card and the same on the CPU: the autograd
+    all-gather (NoteLLM's positives) and the Sinkhorn level under a data
+    step, rows split 3 / 5."""
+    from genrec_tpu_torch.models import rqvae as trq
+    from genrec_tpu_torch.parallel import mesh as pm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    lo, hi = (0, 3) if group.rank == 0 else (3, 8)
+    for dev in ("cpu", "cuda"):
+        x = torch.linspace(-1, 1, 8 * 5).reshape(8, 5)[lo:hi].to(dev).requires_grad_()
+        w = torch.linspace(0, 2, 8 * 5).reshape(8, 5).to(dev)
+        q = trq.Quantize(16, 64, forward_mode=trq.QuantizeForwardMode.SINKHORN, device=dev)
+        gen = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            q.codebook.copy_(torch.randn(64, 16, generator=gen).to(dev))
+        e = torch.randn(8, 16, generator=gen).to(dev)
+        with pm.data_parallel(group, hi - lo):
+            gathered = pm.data_gather(x * 1.0, grad=True)
+            (gathered * w).sum().backward()
+            ids = pm.data_gather(q(e[lo:hi], 0.2, training=True).ids)
+        alone = q(e, 0.2, training=True).ids  # one rank, every row
+        out[dev] = (gathered.detach().cpu(), x.grad.cpu(), ids.cpu(), alone.cpu())
+    return out
+
+
+def test_data_parallel_gather_and_sinkhorn_on_the_card_match_the_cpu(card, tmp_path):
+    """The gather and its backward (the gradient summed over the ranks,
+    this rank's rows kept) on the card equal the CPU's exactly; the
+    Sinkhorn level under the data step (its plan run on the gathered
+    cost) gives one rank's ids of the whole batch, on the card as on the
+    CPU."""
+    for r in spawn(_dp_card_ranks, 2, (), device="cuda", timeout_s=300, store_dir=tmp_path):
+        g_cpu, grad_cpu, ids_cpu, alone_cpu = r["cpu"]
+        g_card, grad_card, ids_card, alone_card = r["cuda"]
+        assert torch.equal(g_card, g_cpu) and torch.equal(grad_card, grad_cpu)
+        assert torch.equal(ids_card, alone_card) and torch.equal(ids_cpu, alone_cpu)

@@ -111,11 +111,12 @@ def _port_steps(group, params, batches):
 
 def _ranks(group, params, batches, save_dir):
     """Rank side: the five steps, train() at tensor_parallel=2, and the
-    refusal of data parallelism beside tensor parallelism."""
+    refusal of sequence parallelism on a group (data parallelism beside it
+    is ported: ROADMAP A17)."""
     steps = _port_steps(group, params, batches)
     metrics = lcrec_trainer.train(tensor_parallel=2, save_dir_root=save_dir, **TRAIN)
     try:
-        lcrec_trainer.train(tensor_parallel=1, save_dir_root=None, **TRAIN)
+        lcrec_trainer.train(sequence_parallel=2, save_dir_root=None, **TRAIN)
         refused = None
     except NotImplementedError as e:
         refused = str(e)
@@ -170,8 +171,8 @@ def test_train_end_to_end_at_tp1_and_tp2(ranks, tmp_path):
 
 def test_unported_options_name_their_roadmap_items(ranks, tmp_path):
     (_, _, refused), _ = ranks[0]
-    assert "data parallelism beside tensor parallelism" in refused
-    assert "ROADMAP A17" in refused
+    assert "sequence_parallel (ring attention)" in refused
+    assert "ROADMAP A15" in refused
     with pytest.raises(RuntimeError, match="torchrun --standalone --nproc_per_node=2"):
         lcrec_trainer.train(tensor_parallel=2, **TRAIN)
     # LoRA is ported (A13): it runs at tensor_parallel=1 (tests/test_torch_lora.py

@@ -15,6 +15,7 @@ the JAX fixtures' weights (``convert.qwen_params_from_flax``):
 - both heads' validation errors are JAX's, message for message.
 """
 
+import threading
 import time
 
 import jax
@@ -269,3 +270,38 @@ def test_notellm_head_validation(qwen, corpus):
         out = tuple(o.numpy() for o in wide.make_fn(2, 4)(*wide.runtime_operands(), *batch))
     items = wide.finalize(out, [None])[0]["items"]
     assert sorted(items[:3].tolist()) == [0, 1, 2] and items[3:].tolist() == [-1, -1]
+
+
+def test_snapshot_in_its_swap_counts_as_staged(served):
+    """A snapshot whose ``set_catalog`` is still running is staged: staging
+    it again returns False and the batcher swaps it in once."""
+    eng, _, nl_head = served
+    rng = np.random.default_rng(9)
+    snap = CatalogSnapshot.build(nl_head.catalog.item_sem_ids, 8,
+                                 item_vecs=rng.standard_normal((N_ITEMS, 32)).astype(np.float32))
+    entered, release = threading.Event(), threading.Event()
+    real = nl_head.set_catalog
+
+    def blocking_set_catalog(s):
+        entered.set()
+        assert release.wait(30)
+        real(s)
+
+    swaps = eng.stats()["catalog_swaps"]
+    nl_head.set_catalog = blocking_set_catalog
+    try:
+        assert eng.stage_catalog("notellm", snap)
+        assert entered.wait(30), "the batcher never began the swap"
+        assert eng.catalog_version("notellm") != snap.version  # mid-swap
+        assert not eng.stage_catalog("notellm", snap)  # being swapped in: staged
+    finally:
+        release.set()
+        _wait_version(eng, "notellm", snap.version)
+        del nl_head.set_catalog
+    assert not eng.stage_catalog("notellm", snap)  # live
+    deadline = time.monotonic() + 30
+    while eng.stats()["catalog_swaps"] != swaps + 1:  # counted after set_catalog returns
+        assert time.monotonic() < deadline, "the swap was never counted"
+        time.sleep(0.02)
+    assert eng.staged_catalog_version("notellm") is None
+    assert eng.stats()["catalog_swaps"] == swaps + 1

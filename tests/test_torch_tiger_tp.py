@@ -14,7 +14,9 @@ port against the JAX package, on gloo CPU ranks.
   against tensor_parallel=1 from the same seed (each rank draws the
   full-width FFN dropout mask and keeps its block), the ranks reporting
   the same metrics; a run killed on rank 1 and resumed against an
-  uninterrupted one, bit for bit; data parallelism beside it raises.
+  uninterrupted one, bit for bit; the two ranks at tensor_parallel=1
+  train data-parallel (tests/test_torch_dp_2d.py holds tp x dp), and a
+  tensor_parallel the world does not divide raises.
 
 Tolerances: 1e-5 relative, fp32 on both sides (sums in other orders:
 the FFN's partial outputs are summed over the ranks).
@@ -147,7 +149,7 @@ def _final_point(save_dir, rank):
 
 def _ranks(group, grad_params, step_params, batches, root):
     """Rank side: loss and gradients, five steps, train() at tp=2, a
-    killed-and-resumed tp=2 run, and the refusal of data parallelism."""
+    killed-and-resumed tp=2 run, a data-parallel run and a refused layout."""
     torch.set_num_threads(1)
     loss = _port_loss_and_grads(group, grad_params)
     steps = _port_steps(group, step_params, batches)
@@ -163,13 +165,18 @@ def _ranks(group, grad_params, step_params, batches, root):
     fa, fb = _final_point(dir_a, group.rank), _final_point(dir_b, group.rank)
     resumed_equal = fa[0] == fb[0] and fa[1].keys() == fb[1].keys() and all(
         torch.equal(fa[1][k], fb[1][k]) for k in fa[1])
+    # Data parallelism is ported (A17): tensor_parallel=1 on two ranks
+    # trains data-parallel; a tensor_parallel the world does not divide
+    # raises.
+    dp_metrics = tiger_trainer.train(**dict(TRAIN, epochs=1), save_dir_root=None)
     try:
-        tiger_trainer.train(**dict(TRAIN, epochs=1), save_dir_root=None)
+        tiger_trainer.train(**dict(TRAIN, epochs=1, tensor_parallel=3), save_dir_root=None)
         refused = None
-    except NotImplementedError as e:
+    except ValueError as e:
         refused = str(e)
     return dict(loss=loss, steps=steps, metrics=metrics, n=n, kill=kill, killed=killed,
-                killed_steps=killed_steps, resumed_equal=resumed_equal, refused=refused)
+                killed_steps=killed_steps, resumed_equal=resumed_equal, refused=refused,
+                dp_metrics=dp_metrics)
 
 
 def _step_batches():
@@ -297,6 +304,10 @@ def test_tp2_kill_on_one_rank_resumes_bit_for_bit(ranks):
 
 
 def test_data_parallelism_beside_tp_names_a17(ranks):
-    (r0, _), _ = ranks
-    assert "data parallelism beside tensor parallelism" in r0["refused"]
-    assert "ROADMAP A17" in r0["refused"]
+    """A17 is done: two ranks at tensor_parallel=1 train data-parallel and
+    report the same metrics; a tensor_parallel that the world does not
+    divide is refused as JAX's mesh refuses it."""
+    (r0, r1), _ = ranks
+    assert r0["dp_metrics"] == r1["dp_metrics"]
+    assert all(np.isfinite(v) for m in r0["dp_metrics"] for v in m.values())
+    assert "does not divide 2 ranks" in r0["refused"]
